@@ -6,12 +6,14 @@ CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds the ``sim_step`` kernel from the sources in the checkout,
-holds it against its plain PyTorch version, drives the port's main path
-(``repro_torch.core.simulator.sweep``) at full size, checks the results
-bit for bit against the JAX package's recorded golden numbers
-(``src/repro_torch/data/golden_fullwidth.json``), and times the kernel.
-It imports nothing of JAX or of the ``repro`` package.  Phases:
+It builds the ``sim_step`` kernel (both entries: over a trace, and
+synthesising its own streams) from the sources in the checkout, holds
+each entry against its plain PyTorch version, drives the port's two
+paths at full size (``repro_torch.core.simulator.sweep`` and
+``sweep_synth``), checks the results against the JAX package's recorded
+golden numbers (``src/repro_torch/data/golden_fullwidth.json`` and
+``golden_synth.json``), and times the kernel.  It imports nothing of JAX
+or of the ``repro`` package.  Phases:
 
 1. the card's name and power limit, and the kernel's build time;
 2. kernel against plain version (both on the card) at <= 2 000
@@ -28,8 +30,28 @@ It imports nothing of JAX or of the ``repro`` package.  Phases:
    at 150 000 requests over the 8 kinds, both with the RLTL post-pass;
    the 8-kind results must equal the golden file and order base <
    chargecache < cc_nuat < lldram by weighted speedup;
-4. one JSON line of kernel numbers;
-5. the last line: ``{"ok": true, "device": {...}}``.
+4. the synthesis entry against its plain version at a cut depth (1 500
+   requests a core): on a 4-core mix, every kind x the 4 interleaves x
+   ``ddr3_1ch`` / ``ddr3_2ch`` / a 32-bank geometry (the others padded
+   into its envelope) x open and closed policy x stateful and legacy
+   refresh, a phased spec on part of the points; then phase 5's 32
+   points (8 cores, 1 024 HCRAC entries) cut to that depth.  The
+   generated streams, every output as in phase 2, and the
+   ``reduce_keys`` launch must agree exactly;
+5. the synthesis path at full size: the 32-point grid of
+   ``benchmarks/workloads.py::synth_grid`` (``repro_torch.golden.SYNTH``:
+   two 8-core mixes at 40 000 requests a core x 4 interleaves x 2
+   geometries x {base, chargecache}) through ``sweep_synth``; the
+   kernel's full-size streams must equal the plain generator's on the
+   card bit for bit; each stream is held to the golden digest of
+   ``repro``'s stream, and where the digests match the stats must equal
+   the golden numbers bit for bit, elsewhere at most
+   ``MAX_DIFF_BLOCK_SHARE`` of the stream's blocks may differ and the
+   stats are held to the generator's statistical tolerance
+   (``repro_torch.golden.STAT_TOLERANCE``); kernel time, ns per step,
+   the pre-pass share (a launch of 0 scan steps) and the bytes bound;
+6. one JSON line of kernel numbers;
+7. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line is printed.  Exits
 non-zero at once when no CUDA device is available.
@@ -53,6 +75,15 @@ HEAT_CAPS = (32, 64, 128, 256, 512, 1024)
 HEAT_DURATIONS_MS = (0.5, 1.0, 2.0, 4.0, 16.0)
 #: cut depth of the full-shape kernel-vs-plain comparison
 CUT_STEPS = 1000
+#: requests a core of the synthesis entry's kernel-vs-plain comparison
+SYNTH_CUT_REQ = 1500
+#: the largest share of a full-size stream's 1 000-position blocks that
+#: may differ from ``repro``'s (float32 draws an ulp apart; at most 7 of
+#: 320 differed on the H100)
+MAX_DIFF_BLOCK_SHARE = 0.05
+#: the metric ingredients of the reduced launches
+REDUCE_KEYS = ("n_req", "acts", "hcrac_hits", "row_hits", "row_conflicts",
+               "lat_sum", "total_cycles")
 
 
 class SmokeFailure(Exception):
@@ -228,6 +259,147 @@ def bytes_moved(batch, n_points, n_geom, n_steps, params_row, nb, n_segs):
     return inputs + outputs
 
 
+# --------------------------------------------------------------------------
+# phases 4-5: the synthesis entry
+# --------------------------------------------------------------------------
+
+def compare_streams(got: dict, want: dict) -> int:
+    """Mismatching elements between two generated ``[G, C, L]`` streams."""
+    return sum(int((got[k] != want[k].to(got[k].device)).sum())
+               for k in ("gap", "bank", "row", "is_write", "dep",
+                         "next_same"))
+
+
+def synth_cut_grid(sim, traces):
+    """Phase 4's grid: every kind x interleave x 3 geometries x policy x
+    refresh tier on a 4-core mix, half of the (kind, interleave) cells on
+    a two-phase spec."""
+    from repro_torch.core import mechanisms as registry
+    from repro_torch.core.dram import DRAMConfig, INTERLEAVE_KINDS
+    from repro_torch.core.dram import InterleaveConfig
+    names = ("mcf_like", "hmmer_like", "lbm_like", "milc_like")
+    flat = traces.WorkloadSpec(names=names, n_req=SYNTH_CUT_REQ, seed=-3)
+    phased = traces.WorkloadSpec(
+        names=names, n_req=SYNTH_CUT_REQ, seed=11,
+        phases=((0.3, ("stream_copy_like",) * 4),
+                (0.7, ("omnetpp_like", "gcc_like", "lbm_like", "mcf_like"))))
+    geoms = (DRAMConfig(n_channels=1), DRAMConfig(n_channels=2),
+             DRAMConfig(n_channels=2, n_banks=16))
+    return [sim.SimConfig(dram=g, mech=sim.MechanismConfig(kind=k),
+                          policy=pol, refresh_mode=rm,
+                          interleave=InterleaveConfig(il),
+                          workload=phased if (ki + ii) % 2 else flat)
+            for g in geoms for ki, k in enumerate(registry.names())
+            for ii, il in enumerate(INTERLEAVE_KINDS)
+            for pol in ("open", "closed") for rm in ("stateful", "legacy")]
+
+
+def synth_vs_plain(sim, ops, ref, name, grid, device="cuda"):
+    """Hold the synthesis entry against the plain version on ``grid``;
+    returns ``(mismatches, max abs err, kernel ms, plain ms, points,
+    steps)`` (it raises on any mismatch)."""
+    import torch
+    args = sim._stage_synth(grid, None, torch.device(device))
+    got = ops.run_synth(*args, True, True)
+    torch.cuda.synchronize()
+    kernel_ms = median_ms(lambda: ops.run_synth(*args, True))
+    plain_ms, want = cuda_ms(lambda: ref.run_synth_ref(*args, True, True),
+                             torch.cuda.synchronize)
+    bad, err = compare_outputs(got[:3], want[:3])
+    s_bad = compare_streams(got[3], want[3])
+    # the reduced launch (no events) against the plain version's columns
+    red = sim.sweep_synth(grid, reduce_keys=REDUCE_KEYS, device=device)
+    want_red = sim._reduce_device(want[0], want[1], REDUCE_KEYS).cpu()
+    r_bad = int((torch.as_tensor(red) != want_red).sum())
+    print(f"  {name}: {len(grid)} points x {args[5]} cores x {args[7]} "
+          f"steps ({SYNTH_CUT_REQ} requests a core): kernel "
+          f"{kernel_ms:.3f} ms, plain {plain_ms:.1f} ms; mismatches: "
+          f"outputs {bad}, streams {s_bad}, reduce_keys {r_bad}",
+          flush=True)
+    check(bad + s_bad + r_bad == 0,
+          f"synthesis entry disagrees with its plain version on {name}")
+    return bad + s_bad + r_bad, err, kernel_ms, plain_ms, len(grid), args[7]
+
+
+def synth_full_grid(sim, golden_mod, timing, n_req=None):
+    """Phase 5's 32 full-size points, in ``golden.synth_points()`` order
+    (at ``n_req`` requests a core where given)."""
+    from repro_torch.core.dram import DRAMConfig, InterleaveConfig
+    from repro_torch.core.hcrac import HCRACConfig
+    from repro_torch.core.traces import WorkloadSpec
+    S = golden_mod.SYNTH
+    ms = S["caching_ms"]
+    return [sim.SimConfig(
+        dram=DRAMConfig(n_channels=S["geometries"][p["geometry"]]),
+        mech=sim.MechanismConfig(
+            kind=p["mechanism"],
+            hcrac=HCRACConfig(n_entries=S["hcrac_entries"],
+                              caching_cycles=timing.ms_to_cycles(ms)),
+            lowered=timing.lowered_for_duration(ms)),
+        policy=S["policy"], interleave=InterleaveConfig(p["interleave"]),
+        workload=WorkloadSpec(names=tuple(S["mixes"][p["mix"]]),
+                              n_req=n_req or S["n_req"], seed=S["seed"]))
+        for p in golden_mod.synth_points()]
+
+
+def point_batch(traces, stream: dict, i: int):
+    """Point ``i``'s generated stream as a ``TraceBatch`` (host)."""
+    f = {k: stream[k][i].cpu().numpy() for k in
+         ("gap", "bank", "row", "is_write", "dep", "next_same")}
+    return traces.TraceBatch(length=stream["length"][i].cpu().numpy(), **f)
+
+
+def check_synth_golden(golden_mod, traces, gold: dict, results, stream
+                       ) -> tuple[int, int, int]:
+    """Hold phase 5's streams and stats to the golden record; returns
+    ``(streams equal, streams differing, stat values differing where the
+    streams are equal)``."""
+    same = differ = bad = 0
+    for i, (p, r, g) in enumerate(zip(golden_mod.synth_points(), results,
+                                      gold["points"])):
+        ref_s = gold["streams"][golden_mod.stream_key(p)]
+        batch = point_batch(traces, stream, i)
+        label = f"{golden_mod.stream_key(p)}/{p['mechanism']}"
+        if golden_mod.trace_sha256(batch) == ref_s["sha256"]:
+            same += 1
+            for key in gold["bitwise_keys"] + ["core_end", "rltl_hist",
+                                               "rltl_total"]:
+                got = r[key]
+                got = ([int(x) for x in got] if isinstance(g[key], list)
+                       else int(got))
+                if got != g[key]:
+                    bad += 1
+                    print(f"  MISMATCH {label}.{key}: got {got} want "
+                          f"{g[key]}")
+            continue
+        differ += 1
+        blocks = golden_mod.stream_block_digests(batch)
+        diff = [(c, b) for c, row in enumerate(ref_s["blocks"])
+                for b, d in enumerate(row) if blocks[c][b] != d]
+        n_blocks = sum(len(row) for row in ref_s["blocks"])
+        off = golden_mod.tolerance_violations(r, g)
+        print(f"  stream {label} differs from repro's in {len(diff)} of "
+              f"{n_blocks} blocks of {golden_mod.STREAM_BLOCK} positions "
+              f"(core, block): {diff[:8]}; stats outside the tolerance: "
+              f"{off or 'none'} (total_cycles {r['total_cycles']} vs "
+              f"{g['total_cycles']})")
+        check(len(diff) <= MAX_DIFF_BLOCK_SHARE * n_blocks,
+              f"{label}: {len(diff)} of {n_blocks} blocks differ from "
+              f"repro's (at most {MAX_DIFF_BLOCK_SHARE:.0%} may)")
+        check(not off, f"{label}: stats outside the statistical tolerance")
+    return same, differ, bad
+
+
+def synth_bytes_moved(G, C, L, n_steps, params_row, nb, n_segs, wrow):
+    """Bytes the synthesis launch must move: packed params and workload
+    rows read once, stats, bank stats, core_end and event lanes written
+    once, and the stream scratch (15 B a position: gap, bank, row and
+    three flags) written by the pre-pass and read by the scan."""
+    inputs = G * (params_row + n_segs + wrow) * 4
+    outputs = G * (4 * (16 + 2 * nb + C) + n_steps * (8 * 4 + 1))
+    return inputs + outputs + 2 * G * C * L * 15
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -240,6 +412,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import aldram, mechanisms, simulator as sim
     from repro_torch.core import timing, traces
+    from repro_torch import golden as golden_mod
     from repro_torch.golden import build_batch, load, load_batch, trace_sha256
     from repro_torch.kernels.sim_step import kernel, ops, ref
 
@@ -302,7 +475,7 @@ def main() -> int:
 
     # --- phase 3: the main path at full size -----------------------------
     print("\nphase 3: main path at full size", flush=True)
-    ops.launches = 0
+    ops.launches = ops.synth_launches = 0
     t0 = time.time()
     res8 = sim.sweep(batch8, grid38, rltl=True)
     res1 = sim.sweep(batch1, [sim.SimConfig(
@@ -312,8 +485,10 @@ def main() -> int:
     launches = ops.launches
     print(f"  sweeps: {len(grid38)} points x {w8['n_steps']} steps, "
           f"{len(kinds)} points x {w1['n_steps']} steps, {wall:.1f} s "
-          f"wall (host included), sim_step launches {launches}")
-    check(launches == 2, f"expected 2 sim_step launches, saw {launches}")
+          f"wall (host included), sim_step launches {launches}, "
+          f"sim_step_synth launches {ops.synth_launches}")
+    check(launches == 2 and ops.synth_launches == 0,
+          f"expected 2 sim_step launches, saw {launches}")
 
     bad = check_golden(w8, kinds, res8[:len(kinds)])
     bad += check_golden(w1, kinds, res1)
@@ -354,9 +529,85 @@ def main() -> int:
           f"({ms8 * 1e6 / w8['n_steps']:.0f} ns/step), 8-point single-core "
           f"sweep {ms1:.2f} ms ({ms1 * 1e6 / w1['n_steps']:.0f} ns/step); "
           f"bytes bound {bound_ms:.4f} ms ({nbytes} B)")
+
+    # --- phase 4: the synthesis entry against its plain version ---------
+    print("\nphase 4: sim_step synthesis entry vs plain version (on the "
+          "card)", flush=True)
+    m_bad, m_err = synth_vs_plain(sim, ops, ref, "matrix",
+                                  synth_cut_grid(sim, traces))[:2]
+    # the full-size grid's points (8 cores, 1 024 HCRAC entries) cut
+    (s_bad, s_err, s_cut_ms, s_plain_ms, s_cut_points,
+     s_cut_steps) = synth_vs_plain(
+        sim, ops, ref, "full-size grid cut",
+        synth_full_grid(sim, golden_mod, timing, n_req=SYNTH_CUT_REQ))
+    s_bad += m_bad
+    s_err = max(s_err, m_err)
+    max_err = max(max_err, s_err)
+
+    # --- phase 5: the synthesis path at full size -------------------------
+    print("\nphase 5: synthesis path at full size", flush=True)
+    gold = golden_mod.load_synth()
+    points = golden_mod.synth_points()
+    grid32 = synth_full_grid(sim, golden_mod, timing)
+    ops.launches = ops.synth_launches = 0
+    t0 = time.time()
+    res32 = sim.sweep_synth(grid32, rltl=True)
+    wall32 = time.time() - t0
+    synth_launches = ops.synth_launches
+    print(f"  sweep_synth: {len(grid32)} points x {gold['n_steps']} steps, "
+          f"{wall32:.1f} s wall (host included), sim_step_synth launches "
+          f"{synth_launches}, sim_step launches {ops.launches}")
+    check(synth_launches == 1 and ops.launches == 0,
+          f"expected 1 sim_step_synth launch, saw {synth_launches}")
+    for r in res32:
+        check(r["rltl_hist"].shape == (len(sim.RLTL_EDGES_MS) + 1,)
+              and r["core_end"].min() > 0 and r["n_req"] > 0,
+              "malformed synth stats")
+    # the kernel's full-size streams (a launch of 0 scan steps generates
+    # them all) against the plain generator's, on the card
+    args32 = sim._stage_synth(grid32, None, torch.device("cuda"))
+    gen_args = args32[:7] + (0, False)
+    stream = kernel.sim_synth(*gen_args, True)[3]
+    t0 = time.time()
+    plain_stream = ref.run_synth_ref(*gen_args, True)[3]
+    torch.cuda.synchronize()
+    fs_bad = compare_streams(stream, plain_stream)
+    print(f"  full-size streams, kernel vs plain generator "
+          f"({time.time() - t0:.1f} s): {fs_bad} mismatching elements",
+          flush=True)
+    check(fs_bad == 0, "full-size streams differ from the plain generator")
+    del plain_stream
+    same, differ, g_bad = check_synth_golden(golden_mod, traces, gold, res32,
+                                             stream)
+    print(f"  golden comparison: {same} streams equal to repro's (their "
+          f"stats: {g_bad} mismatching values), {differ} streams differ "
+          f"(stats within tolerance)")
+    check(g_bad == 0, "synthesis path disagrees with the JAX golden numbers")
+    print("\n  ChargeCache weighted speedup over base, per (mix, "
+          "interleave, geometry):")
+    for i in range(0, len(points), 2):
+        p = points[i]
+        ws = sim.weighted_speedup(res32[i]["core_end"],
+                                  res32[i + 1]["core_end"])
+        print(f"    {golden_mod.stream_key(p):<28} {ws:.4f} "
+              f"(hcrac hit rate {res32[i + 1]['hcrac_hit_rate']:.4f})")
+    ms32 = median_ms(lambda: ops.run_synth(*args32, True))
+    gen_ms = median_ms(lambda: kernel.sim_synth(*gen_args))
+    n32 = gold["n_steps"]
+    wi, wf, _ = kernel.pack_synth(*args32[1:5])
+    prow32 = kernel.pack(args32[1], torch.zeros_like(args32[4]))[0].shape[1]
+    nbytes32 = synth_bytes_moved(
+        len(grid32), args32[5], args32[6], args32[7], prow32,
+        args32[0].envelope.max_banks_total,
+        args32[1].thermal.seg_edge.shape[-1], wi.shape[1] + wf.shape[1])
+    bound32 = nbytes32 / HBM_BYTES_PER_S * 1e3
+    print(f"\n  kernel: {len(grid32)}-point synth sweep {ms32:.2f} ms "
+          f"({ms32 * 1e6 / n32:.0f} ns/step); generation pre-pass alone "
+          f"{gen_ms:.2f} ms ({100 * gen_ms / ms32:.1f} %); bytes bound "
+          f"{bound32:.4f} ms ({nbytes32} B)")
     print(smi)
 
-    # --- phase 4: kernel numbers -----------------------------------------
+    # --- phase 6: kernel numbers -----------------------------------------
     print(json.dumps({"kernels": [{
         "name": "sim_step", "route": "cuda",
         "source": "src/repro_torch/kernels/sim_step/csrc/sim_step.cu",
@@ -366,7 +617,17 @@ def main() -> int:
         "ms": ms8, "plain_ms": plain_t, "plain_steps": CUT_STEPS,
         "ms_at_plain_steps": cut_ms, "steps": w8["n_steps"],
         "points": len(grid38), "single_core_ms": ms1,
-        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}]}))
+        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}, {
+        "name": "sim_step_synth", "route": "cuda",
+        "source": "src/repro_torch/kernels/sim_step/csrc/sim_step.cu",
+        "replaces": "src/repro/kernels/sim_step/ops.py:65",
+        "launches": synth_launches, "max_abs_err": s_err,
+        "mismatches": s_bad + fs_bad, "ms": ms32, "plain_ms": s_plain_ms,
+        "plain_points": s_cut_points, "plain_steps": s_cut_steps,
+        "ms_at_plain_steps": s_cut_ms, "steps": n32,
+        "points": len(grid32), "prepass_ms": gen_ms,
+        "streams_equal_to_golden": same, "streams_differing": differ,
+        "bound_ms": bound32, "bound_by": "bytes", "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

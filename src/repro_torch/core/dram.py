@@ -125,20 +125,63 @@ def fold_address(geom: GeomParams, bank, row):
             torch.remainder(row, geom.n_rows))
 
 
+#: registered interleave policies, index = the ``kind_id`` leaf
+INTERLEAVE_KINDS = ("bank", "row", "block", "xor")
+
+
 @dataclasses.dataclass(frozen=True)
 class InterleaveConfig:
-    """Host-side channel-interleave policy selection (see
-    ``repro.core.dram.InterleaveConfig``).  Only the dataclass is carried:
-    address composition belongs to the on-device synthesis path, which
-    this package does not have yet."""
+    """Host-side channel-interleave policy selection: which channel owns
+    a generated request's logical bank (see ``compose_address``).
+
+    * ``bank``: identity, ``channel = lb // banks_per_channel``;
+    * ``row``: ``channel = row mod n_channels``;
+    * ``block``: ``channel = (row // block_rows) mod n_channels``;
+    * ``xor``: ``channel = (row XOR lb) mod n_channels``.
+    """
     kind: str = "bank"
     block_rows: int = 32
 
     def __post_init__(self):
-        if self.kind not in ("bank", "row", "block", "xor"):
-            raise ValueError(f"unknown interleave kind {self.kind!r}")
+        if self.kind not in INTERLEAVE_KINDS:
+            raise ValueError(f"unknown interleave kind {self.kind!r}; "
+                             f"known: {INTERLEAVE_KINDS}")
         if self.block_rows < 1:
             raise ValueError("block_rows must be >= 1")
+
+
+class InterleaveParams(NamedTuple):
+    """The interleave policy as int32 tensors (0-d, or ``[G]`` stacked):
+    the kind is data, so mixed-policy grids share one launch."""
+    kind_id: torch.Tensor     # index into INTERLEAVE_KINDS
+    block_rows: torch.Tensor
+
+
+def interleave_params(cfg: InterleaveConfig) -> InterleaveParams:
+    """The tensor view of a concrete ``InterleaveConfig``."""
+    return InterleaveParams(
+        kind_id=torch.tensor(INTERLEAVE_KINDS.index(cfg.kind),
+                             dtype=torch.int32),
+        block_rows=torch.tensor(cfg.block_rows, dtype=torch.int32))
+
+
+def compose_address(geom: GeomParams, il: InterleaveParams, lb, row):
+    """Compose a logical bank ``lb`` in ``[0, banks_total)`` and a row into
+    a physical global bank id.  The policy picks only the channel; all
+    four are evaluated and selected by ``kind_id``.  ``bank`` is the
+    identity, and with one channel every policy is."""
+    bpc = geom.banks_per_channel
+    nch = geom.n_channels
+    ch_home = floordiv(lb, bpc)
+    ch_row = torch.remainder(row, nch)
+    ch_blk = torch.remainder(
+        floordiv(row, torch.clamp(il.block_rows, min=1)), nch)
+    ch_xor = torch.remainder(torch.bitwise_xor(row, lb), nch)
+    ch = torch.where(il.kind_id == 1, ch_row,
+                     torch.where(il.kind_id == 2, ch_blk,
+                                 torch.where(il.kind_id == 3, ch_xor,
+                                             ch_home)))
+    return ch * bpc + torch.remainder(lb, bpc)
 
 
 def time_since_refresh(geom, timing, row, t):

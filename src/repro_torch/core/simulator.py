@@ -1,7 +1,10 @@
-"""Trace-driven DRAM system simulator (the Ramulator stand-in), in PyTorch.
+"""DRAM system simulator (the Ramulator stand-in), in PyTorch.
 
-Port of the trace-driven main path of ``repro.core.simulator``: one step
-of the scan = one memory request, end to end —
+Port of ``repro.core.simulator``'s in-order engine, over a trace
+(``simulate`` / ``sweep``) or over streams each grid point generates
+for itself (``simulate_synth`` / ``sweep_synth``, the generator in
+``repro_torch.workloads``).  One step of the scan = one memory request,
+end to end —
 
 1. **CPU issue model**: each core issues its next request after its
    front-end gap, subject to an MSHR window and (for dependent requests)
@@ -31,6 +34,7 @@ equal to ``repro`` (tests/test_torch_simulator.py).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -43,13 +47,15 @@ from repro_torch.core import mechanisms as registry
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import timing as timing_lib
 from repro_torch.core.dram import (DRAMConfig, DDR3_SYSTEM, DRAMEnvelope,
-                                   GeomParams, NO_ROW, envelope_of,
-                                   floordiv, fold_address, geom_params,
+                                   GeomParams, InterleaveConfig, NO_ROW,
+                                   envelope_of, floordiv, fold_address,
+                                   geom_params,
                                    refresh_adjust, time_since_refresh)
 from repro_torch.core.mechanisms import default_nuat_bins
 from repro_torch.core.timing import (TimingParams, TimingVec, DDR3_1600,
                                      ms_to_cycles)
-from repro_torch.core.traces import TraceBatch
+from repro_torch.core.traces import (WORKLOAD_BY_NAME, TraceBatch,
+                                     WorkloadSpec)
 
 #: issue time of an exhausted core; a step whose earliest issue is INF is
 #: a dead (padded) step that writes nothing
@@ -87,10 +93,11 @@ class MechanismConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
-    """One simulated system.  The trace-driven in-order engine is the only
-    tier of this package so far; the fields that select the other tiers
-    of ``repro`` are kept so that a configuration naming them fails
-    loudly instead of running something else."""
+    """One simulated system.  The in-order engine, trace-driven or over an
+    on-device synthetic stream (``workload``), is the only tier of this
+    package so far; the fields that select the other tiers of ``repro``
+    are kept so that a configuration naming them fails loudly instead of
+    running something else."""
     dram: DRAMConfig = DDR3_SYSTEM
     timing: TimingParams = DDR3_1600
     mech: MechanismConfig = MechanismConfig()
@@ -100,14 +107,22 @@ class SimConfig:
     #: "stateful" REF counters (default) or the "legacy" closed-form
     #: blackout tier; per-point data, so both mix in one grid
     refresh_mode: str = "stateful"
-    #: on-device workload synthesis (``repro``'s ``sweep_synth``)
-    workload: object | None = None
+    #: synthetic workload (a ``traces.WorkloadSpec``) for the streamed
+    #: path (``simulate_synth`` / ``sweep_synth``); ``None`` means
+    #: trace-driven (the caller supplies a ``TraceBatch``)
+    workload: WorkloadSpec | None = None
+    #: channel-interleave policy of the streamed path's address
+    #: composition (``dram.compose_address``); unused by traces
+    interleave: InterleaveConfig = InterleaveConfig()
     #: the serving loop (``repro``'s ``sweep_serving``)
     serving: object | None = None
     #: "inorder" (this engine) or "frfcfs" (``repro.controller``)
     controller: str = "inorder"
 
     def __post_init__(self):
+        if self.workload is not None and not isinstance(self.workload,
+                                                        WorkloadSpec):
+            raise TypeError("SimConfig.workload must be a WorkloadSpec")
         if self.policy not in ("open", "closed"):
             raise ValueError(f"unknown row policy {self.policy!r}")
         if self.refresh_mode not in ("legacy", "stateful"):
@@ -122,10 +137,6 @@ class SimConfig:
             raise NotImplementedError(
                 "the serving loop is not ported yet "
                 "(ROADMAP.md, Queue 1: Serving)")
-        if self.workload is not None:
-            raise NotImplementedError(
-                "on-device workload synthesis is not ported yet "
-                "(ROADMAP.md, Queue 1: On-device workload synthesis)")
 
 
 # --------------------------------------------------------------------------
@@ -312,6 +323,21 @@ STAT_KEYS = ("n_req", "lat_sum", "acts", "acts_lowered", "hcrac_hits",
 #: per-bank accumulators, sized to the padded envelope (entries past a
 #: point's active banks stay zero)
 BANK_STAT_KEYS = ("bank_acts", "bank_act_ras_sum")
+
+#: the integer metric ingredients a launch can reduce to an int32
+#: ``[G, n_deps]`` array on the device: the scalar counters plus
+#: ``total_cycles`` (the max over the per-core end times)
+REDUCE_KEYS = STAT_KEYS + ("total_cycles",)
+
+
+def _reduce_device(raw_stats: dict, core_end, reduce_keys: tuple):
+    """Stack the requested scalar counters into an int32 ``[G, n_deps]``
+    array on the device that holds them."""
+    bad = [k for k in reduce_keys if k not in REDUCE_KEYS]
+    if bad:
+        raise ValueError(f"unknown reduce keys {bad}; known: {REDUCE_KEYS}")
+    return torch.stack([core_end.max(dim=-1).values if k == "total_cycles"
+                        else raw_stats[k] for k in reduce_keys], dim=-1)
 
 
 class Events(NamedTuple):
@@ -552,26 +578,36 @@ def _service(shape: SimShape, p: MechParams, st: SimState, t_arr, bank,
 
 
 def _make_step(shape: SimShape, p: MechParams, trace: dict, ns, ns_idx,
-               warmup_steps: int):
+               warmup_steps):
     """The per-request step over ``[G]`` points: ``step(st, step_idx)``
     updates ``st`` in place and returns the step's ``Events``.
 
-    ``ns [n_geom, C, L]`` holds one queue-hit lookahead per distinct
-    geometry and ``ns_idx [G]`` each point's row of it."""
-    gap, bank, row = trace["gap"], trace["bank"], trace["row"]
-    is_write, dep, length = trace["is_write"], trace["dep"], trace["length"]
-    n_cores, L = gap.shape
+    The trace is one ``[C, L]`` stream shared by every point, or one
+    ``[G, C, L]`` stream per point (the synthetic path).  ``ns [n, C,
+    L]`` holds the queue-hit lookaheads and ``ns_idx [G]`` each point's
+    row of it.  ``warmup_steps`` is an int or a ``[G]`` tensor."""
+    g = torch.arange(ns_idx.shape[0], device=trace["gap"].device)
+    fields = ("gap", "bank", "row", "is_write", "dep", "length")
+    if trace["gap"].dim() == 2:     # one stream shared by every point
+        gap, bank, row, is_write, dep, length = (trace[k][None]
+                                                 for k in fields)
+        tix = torch.zeros_like(g)
+    else:
+        gap, bank, row, is_write, dep, length = (trace[k] for k in fields)
+        tix = g
+    n_cores, L = gap.shape[1:]
     cores = torch.arange(n_cores, device=gap.device)
-    g = torch.arange(ns_idx.shape[0], device=gap.device)
+    length = length[tix]
 
     def step(st: SimState, step_idx: int):
         # 1. earliest-issue core selection (ties to the lowest core index)
         ptr_c = torch.clamp(st.ptr, 0, L - 1)
         issue = torch.maximum(
-            st.last_issue + gap[cores, ptr_c],
+            st.last_issue + gap[tix[:, None], cores, ptr_c],
             st.mshr_ring[g[:, None], cores, st.ring_idx])
         issue = torch.maximum(
-            issue, torch.where(dep[cores, ptr_c], st.last_complete, 0))
+            issue, torch.where(dep[tix[:, None], cores, ptr_c],
+                               st.last_complete, 0))
         issue = torch.where(st.ptr >= length, INF, issue)
         c = torch.argmin(issue, dim=1)
         t_arr = issue[g, c]
@@ -580,9 +616,10 @@ def _make_step(shape: SimShape, p: MechParams, trace: dict, ns, ns_idx,
         alive = t_arr < INF
         measure = alive & (step_idx >= warmup_steps)
         pc = ptr_c[g, c]
-        b_act, r_act = fold_address(p.geom, bank[c, pc], row[c, pc])
+        b_act, r_act = fold_address(p.geom, bank[tix, c, pc],
+                                    row[tix, c, pc])
         done, events = _service(shape, p, st, t_arr, b_act, r_act,
-                                is_write[c, pc], ns[ns_idx, c, pc],
+                                is_write[tix, c, pc], ns[ns_idx, c, pc],
                                 measure, alive)
 
         # 2. core bookkeeping (masked: a dead step must not advance cores)
@@ -612,7 +649,7 @@ def _next_same_folded(nb: int, bank, row, length):
     """
     L = bank.shape[-1]
     bank, row = torch.broadcast_tensors(bank, row)
-    live = torch.arange(L, device=bank.device) < length[:, None]
+    live = torch.arange(L, device=bank.device) < length[..., None]
     key = torch.where(live, bank, nb)      # dead entries sort after all banks
     order = torch.sort(key, dim=-1, stable=True).indices
     kb = key.gather(-1, order)
@@ -665,14 +702,14 @@ def _retire_trailing_refs(stats: dict, core_end, p: MechParams) -> dict:
 
 
 def _run_impl(shape: SimShape, params: MechParams, trace: dict, ns, ns_idx,
-              warmup_steps: int, n_steps: int, collect_events: bool = True):
+              warmup_steps, n_steps: int, collect_events: bool = True):
     """Run ``n_steps`` requests at every point of the ``[G]``-stacked
     ``params``; returns ``(stats, core_end [G, C], events or None)``.
 
     ``n_steps`` may exceed the trace's request count: once every core is
     exhausted the remaining steps are dead no-ops.
     """
-    n_cores = trace["gap"].shape[0]
+    n_cores = trace["gap"].shape[-2]
     n_points = ns_idx.shape[0]
     device = trace["gap"].device
     st = _init_state(shape, n_points, n_cores, device)
@@ -851,9 +888,30 @@ def _stage(batch: TraceBatch, grid: Sequence[SimConfig], device,
             int(grid[0].warmup_frac * n_req), n_steps)
 
 
+def _drain(out, grid, lengths_of, reduce_keys):
+    """The host view of a launch's ``(stats, core_end, events or None)``:
+    the reduced ``[G, n_deps]`` int32 array, or one finished stats dict
+    per point (``lengths_of(i)`` gives point ``i``'s request counts)."""
+    stats, core_end, events = out
+    if reduce_keys is not None:
+        return _reduce_device(stats, core_end, reduce_keys).cpu().numpy()
+    hist = total = None
+    if events is not None:
+        hist, total = (x.cpu().numpy() for x in _rltl_device(events))
+    stats_np = {k: v.cpu().numpy() for k, v in stats.items()}
+    core_np = core_end.cpu().numpy()
+    return [
+        _finalize({k: v[i] for k, v in stats_np.items()}, core_np[i],
+                  (None, None) if hist is None else (hist[i], total[i]),
+                  lengths_of(i), cfg)
+        for i, cfg in enumerate(grid)
+    ]
+
+
 def sweep(batch: TraceBatch, grid: Sequence[SimConfig],
           pad_steps: bool = False, rltl: bool = True,
-          shape_grid: Sequence[SimConfig] | None = None, device=None):
+          shape_grid: Sequence[SimConfig] | None = None,
+          reduce_keys: tuple | None = None, device=None):
     """Evaluate every configuration in ``grid`` on ``batch`` in one launch.
 
     The grid (any mix of registered mechanism kinds, HCRAC capacities,
@@ -866,25 +924,18 @@ def sweep(batch: TraceBatch, grid: Sequence[SimConfig],
     ``pad_steps=True`` runs ``cores x padded length`` steps instead of the
     exact request count (padded steps are no-ops).  ``rltl=False`` skips
     the event record (``rltl_hist=None``).  ``shape_grid`` pads shapes for
-    a larger grid than the one launched.  ``device`` defaults to CUDA.
+    a larger grid than the one launched.  ``reduce_keys`` (entries of
+    ``REDUCE_KEYS``) returns an int32 ``[G, len(reduce_keys)]`` numpy
+    array reduced on the device instead, without events.  ``device``
+    defaults to CUDA.
     """
     from repro_torch.kernels.sim_step import ops as sim_step_ops
 
     grid = list(grid)
     launch = _stage(batch, grid, _resolve_device(device), pad_steps,
                     shape_grid)
-    stats, core_end, events = sim_step_ops.run_sweep(*launch, rltl)
-    hist = total = None
-    if events is not None:
-        hist, total = (x.cpu().numpy() for x in _rltl_device(events))
-    stats_np = {k: v.cpu().numpy() for k, v in stats.items()}
-    core_np = core_end.cpu().numpy()
-    return [
-        _finalize({k: v[i] for k, v in stats_np.items()}, core_np[i],
-                  (None, None) if hist is None else (hist[i], total[i]),
-                  batch.length, cfg)
-        for i, cfg in enumerate(grid)
-    ]
+    out = sim_step_ops.run_sweep(*launch, rltl and reduce_keys is None)
+    return _drain(out, grid, lambda i: batch.length, reduce_keys)
 
 
 def simulate(batch: TraceBatch, cfg: SimConfig = SimConfig(),
@@ -892,6 +943,136 @@ def simulate(batch: TraceBatch, cfg: SimConfig = SimConfig(),
     """Run one configuration on a trace batch; returns its stats dict
     (a one-point ``sweep``)."""
     return sweep(batch, [cfg], device=device)[0]
+
+
+# --------------------------------------------------------------------------
+# On-device workload synthesis: every point generates its own stream
+# --------------------------------------------------------------------------
+
+def _run_synth_impl(shape: SimShape, params: MechParams, wparams, ilparams,
+                    warmups, n_cores: int, max_len: int, n_steps: int,
+                    collect_events: bool = True, stream: bool = False):
+    """The plain synthetic engine over ``[G]`` points: generate every
+    point's stream (``workloads.generate``), recompute its queue-hit
+    lookahead over the folded stream, and run the scan with one stream
+    per point.  Returns ``(stats, core_end, events or None)``, plus the
+    streams (``gap``/``bank``/``row``/``is_write``/``dep``/``next_same``
+    ``[G, C, L]``, ``length [G, C]``) when ``stream`` is set."""
+    from repro_torch.workloads.generator import generate
+    trace = generate(n_cores, max_len, wparams, params.geom, ilparams)
+    geom = GeomParams(*(x[:, None, None] for x in params.geom))
+    fb, fr = fold_address(geom, trace["bank"], trace["row"])
+    ns = _next_same_folded(shape.envelope.max_banks_total, fb, fr,
+                           trace["length"])
+    ns_idx = torch.arange(ns.shape[0], dtype=_I32, device=ns.device)
+    out = _run_impl(shape, params, trace, ns, ns_idx, warmups, n_steps,
+                    collect_events)
+    if stream:
+        return out + ({**trace, "next_same": ns},)
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _wparams(names: tuple, n_req: int, phases: tuple, n_segs: int):
+    """One spec's ``WorkloadParams``, cached by what determines every leaf
+    but the seed (staged as 0; the caller writes the seed column)."""
+    from repro_torch.workloads.profiles import spec_params
+    return spec_params(WorkloadSpec(names=names, n_req=n_req, seed=0,
+                                    phases=phases), n_segs=n_segs)
+
+
+def _check_synth_horizon(spec: WorkloadSpec) -> None:
+    """A-priori int32 overflow guard: each core's expected arrival clock
+    (``length x mean_gap``, maximised over the phase schedule, times 4
+    for the geometric gap tail) must stay below ``INF``."""
+    lengths = spec.lengths()
+    for c, n in enumerate(spec.names):
+        gaps = [WORKLOAD_BY_NAME[n].mean_gap] + [
+            WORKLOAD_BY_NAME[nm[c]].mean_gap for _, nm in spec.phases]
+        worst = 4.0 * float(lengths[c]) * max(max(gaps), 1.0)
+        if worst >= float(INF):
+            raise ValueError(
+                f"core {c} ({n!r}, n_req={spec.n_req}) risks int32 cycle "
+                f"overflow (~{worst:.3g} expected arrival cycles vs the "
+                f"{INF} horizon); split the stream into shorter chunks")
+
+
+def _stage_synth(grid: Sequence[SimConfig],
+                 shape_grid: Sequence[SimConfig] | None, device) -> tuple:
+    """Everything one synthetic launch reads, on ``device``: ``(shape,
+    stacked params, workload params, interleave params, warm-ups [G],
+    n_cores, max_len, n_steps)`` — the leading arguments of
+    ``ops.run_synth``.  Each point's warm-up is ``int(warmup_frac x
+    its request count)``, as the materialized path computes it."""
+    from repro_torch.workloads.profiles import max_len_of, n_segs_of
+    grid = list(grid)
+    if not grid:
+        raise ValueError("empty synthetic sweep grid")
+    shape_l = list(shape_grid) if shape_grid is not None else grid
+    for cfg in grid + shape_l:
+        if cfg.workload is None or not cfg.workload.names:
+            raise ValueError("sweep_synth needs cfg.workload set on every "
+                             "grid point")
+    n_cores = grid[0].workload.n_cores
+    if any(cfg.workload.n_cores != n_cores for cfg in grid + shape_l):
+        raise ValueError("synthetic grids must share the core count")
+    shape, stacked = _grid_shape_and_params(grid, shape_grid, device)
+    specs = [cfg.workload for cfg in grid + shape_l]
+    max_len = max_len_of(specs)
+    n_steps = n_cores * max_len
+    if n_steps >= 2**24:
+        raise ValueError("workload too long for the int32 cycle horizon")
+    n_segs = n_segs_of(specs)
+    for cfg in grid:
+        _check_synth_horizon(cfg.workload)
+    stack = lambda trees: _tree_map(lambda *xs: torch.stack(xs).to(device),
+                                    *trees)
+    wstack = stack([_wparams(cfg.workload.names, cfg.workload.n_req,
+                             cfg.workload.phases, n_segs) for cfg in grid])
+    seeds = torch.tensor([cfg.workload.seed for cfg in grid], dtype=_I32,
+                         device=device)
+    wstack = wstack._replace(
+        seed=seeds[:, None].expand_as(wstack.seed).contiguous())
+    ilstack = stack([dram_lib.interleave_params(cfg.interleave)
+                     for cfg in grid])
+    warmups = torch.tensor(
+        [int(cfg.warmup_frac * int(cfg.workload.lengths().sum()))
+         for cfg in grid], dtype=_I32, device=device)
+    return (shape, stacked, wstack, ilstack, warmups, n_cores, max_len,
+            n_steps)
+
+
+def sweep_synth(grid: Sequence[SimConfig], rltl: bool = True,
+                shape_grid: Sequence[SimConfig] | None = None,
+                reduce_keys: tuple | None = None, device=None):
+    """Evaluate a synthetic grid (``cfg.workload`` set on every point):
+    each point generates its own stream for its geometry and interleave
+    policy and scans it, all in one launch — on a CUDA device one launch
+    of the ``sim_step`` kernel's synthesis entry, on the CPU the plain
+    engine.  Returns one stats dict per point (or, with ``reduce_keys``,
+    an int32 ``[G, n_deps]`` array), bitwise equal to simulating the
+    materialized stream (``workloads.materialize``) with ``sweep``.
+
+    The specs must share the core count; per-core arrays pad to the
+    longest spec over ``shape_grid`` (padded steps are no-ops).
+    ``device`` defaults to CUDA.
+    """
+    from repro_torch.kernels.sim_step import ops as sim_step_ops
+
+    grid = list(grid)
+    launch = _stage_synth(grid, shape_grid, _resolve_device(device))
+    out = sim_step_ops.run_synth(*launch, rltl and reduce_keys is None)
+    return _drain(out, grid, lambda i: grid[i].workload.lengths(),
+                  reduce_keys)
+
+
+def simulate_synth(cfg: SimConfig, device=None) -> dict:
+    """One synthetic point, streamed end to end (a one-point
+    ``sweep_synth`` with the RLTL post-pass); bitwise ``simulate(
+    materialize(cfg.workload, cfg.dram, cfg.interleave), cfg)``."""
+    if cfg.workload is None:
+        raise ValueError("simulate_synth needs cfg.workload")
+    return sweep_synth([cfg], rltl=True, device=device)[0]
 
 
 def weighted_speedup(core_end_base: np.ndarray, core_end_mech: np.ndarray,

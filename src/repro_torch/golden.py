@@ -1,6 +1,8 @@
 """The golden full-size reference: what the JAX package computes for the
 thesis experiment's two full-size workloads, recorded in
-``data/golden_fullwidth.json`` (written by ``tests/_torch_golden.py``).
+``data/golden_fullwidth.json``, and for the full-size synthetic grid
+(``SYNTH``), recorded in ``data/golden_synth.json`` with a digest of
+every generated stream (both written by ``tests/_torch_golden.py``).
 
 This module names the workloads, rebuilds their traces with either
 package's ``traces`` module (``build_batch``), and loads the traces the
@@ -57,6 +59,104 @@ def build_batch(traces_mod, spec: dict):
     names = traces_mod.random_mixes(20, spec["n_cores"],
                                     seed=spec["mix_seed"])[spec["mix_index"]]
     return traces_mod.multicore_batch(names, spec["n_req"], seed=spec["seed"])
+
+
+SYNTH_PATH = DATA / "golden_synth.json"
+
+#: the full-size synthetic grid (benchmarks/workloads.py::synth_grid): two
+#: 8-core mixes x 4 interleaves x 2 geometries x {base, chargecache},
+#: each point as benchmarks/common.py::sim_cfg(kind, 8) builds it (closed
+#: policy; 128 HCRAC entries per core, 1 ms caching duration)
+SYNTH = {
+    "mixes": {
+        "mix_hot": ["mcf_like", "omnetpp_like", "tpcc64_like", "milc_like",
+                    "soplex_like", "sphinx3_like", "gcc_like", "astar_like"],
+        "mix_stream": ["stream_copy_like", "lbm_like", "libquantum_like",
+                       "bwaves_like", "stream_triad_like", "leslie3d_like",
+                       "GemsFDTD_like", "wrf_like"],
+    },
+    "interleaves": ["bank", "row", "block", "xor"],
+    "geometries": {"ddr3_2ch": 2, "ddr3_1ch": 1},   # channels, 8 banks each
+    "mechanisms": ["base", "chargecache"],
+    "n_req": 40_000, "seed": 3, "policy": "closed",
+    "hcrac_entries": 128 * 8, "caching_ms": 1.0,
+}
+
+#: positions per block digest of a stored stream
+STREAM_BLOCK = 1000
+
+
+def synth_points() -> list[dict]:
+    """The synthetic grid's points, in launch order, as plain labels."""
+    return [{"mix": m, "interleave": il, "geometry": g, "mechanism": k}
+            for m in SYNTH["mixes"] for il in SYNTH["interleaves"]
+            for g in SYNTH["geometries"] for k in SYNTH["mechanisms"]]
+
+
+def stream_key(point: dict) -> str:
+    return f"{point['mix']}/{point['interleave']}/{point['geometry']}"
+
+
+def stream_block_digests(batch, block: int = STREAM_BLOCK) -> list:
+    """Per core, one short digest of every ``block`` positions of a
+    ``TraceBatch``'s request arrays (``TRACE_FIELDS`` but ``length``), so
+    that two streams whose ``trace_sha256`` differ can be told apart
+    block by block."""
+    fields = [np.ascontiguousarray(getattr(batch, f))
+              for f in TRACE_FIELDS if f != "length"]
+    C, L = fields[0].shape
+    out = []
+    for c in range(C):
+        row = []
+        for b0 in range(0, L, block):
+            h = hashlib.sha256()
+            for a in fields:
+                h.update(np.ascontiguousarray(a[c, b0:b0 + block]).tobytes())
+            row.append(h.hexdigest()[:12])
+        out.append(row)
+    return out
+
+
+#: the generator's statistical tolerance (``tests/test_workloads.py``),
+#: which holds two streams that differ in a few draws: row-hit rate and
+#: RLTL 0.125 ms CDF point within 0.08, total cycles within 7 %, HCRAC
+#: hit rate within 0.08 where both sides made enough lookups
+STAT_TOLERANCE = {"row_hit_rate": 0.08, "total_cycles_rel": 0.07,
+                  "hcrac_hit_rate": 0.08, "hcrac_min_lookups": 500,
+                  "rltl_cdf": 0.08}
+
+
+def tolerance_violations(got: dict, want: dict) -> list[str]:
+    """The limits of ``STAT_TOLERANCE`` that ``got``'s stats break
+    against ``want``'s (empty when they agree); the RLTL limit applies
+    where both carry a histogram."""
+    tol = STAT_TOLERANCE
+    rate = lambda s, num, den: int(s[num]) / max(int(s[den]), 1)
+    bad = []
+    d = abs(rate(got, "row_hits", "n_req") - rate(want, "row_hits", "n_req"))
+    if d > tol["row_hit_rate"]:
+        bad.append(f"row_hit_rate off by {d:.4f}")
+    d = abs(int(got["total_cycles"]) / max(int(want["total_cycles"]), 1) - 1)
+    if d > tol["total_cycles_rel"]:
+        bad.append(f"total_cycles off by {100 * d:.2f} %")
+    if min(int(got["hcrac_lookups"]),
+           int(want["hcrac_lookups"])) >= tol["hcrac_min_lookups"]:
+        d = abs(rate(got, "hcrac_hits", "hcrac_lookups")
+                - rate(want, "hcrac_hits", "hcrac_lookups"))
+        if d > tol["hcrac_hit_rate"]:
+            bad.append(f"hcrac_hit_rate off by {d:.4f}")
+    if got.get("rltl_hist") is not None and want.get("rltl_hist") is not None:
+        cdf = lambda s: (int(s["rltl_hist"][0])
+                         / max(int(np.asarray(s["rltl_hist"]).sum()), 1))
+        d = abs(cdf(got) - cdf(want))
+        if d > tol["rltl_cdf"]:
+            bad.append(f"RLTL 0.125 ms CDF point off by {d:.4f}")
+    return bad
+
+
+def load_synth() -> dict:
+    with open(SYNTH_PATH) as f:
+        return json.load(f)
 
 
 def load() -> dict:

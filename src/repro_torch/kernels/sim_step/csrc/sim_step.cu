@@ -1,4 +1,5 @@
-// sim_step.cu — the trace-driven DRAM simulator scan as a CUDA kernel.
+// sim_step.cu — the DRAM simulator scan as a CUDA kernel, over a trace or
+// over streams it synthesises itself.
 //
 // Replaces repro/kernels/sim_step/kernel.py::grid_step_call (the Pallas
 // grid launcher, reached from ops.py::_sweep_pallas), which runs one
@@ -18,6 +19,16 @@
 // chain, whatever G is up to 132 (more points than SMs queue in waves).
 // A faster design (several lanes per step, prefetching the next
 // requests, more points per SM) is later work.
+//
+// The synthesis entry (sim_synth_kernel) replaces the same launcher
+// reached from ops.py::_synth_pallas, which generates each point's
+// request stream in-kernel (simulator._run_synth_impl) and scans it.
+// Here lane c of the point's warp first generates core c's stream
+// (workloads/generator.py::_gen_core: counter-based hashes, the recency
+// ring in shared memory) into a [G, C, L] global scratch together with
+// its next_same lookahead, then lane 0 scans it as above.  The pre-pass
+// is parallel over cores and adds ~15 B per request of scratch traffic;
+// the scan's serial chain still bounds the launch.
 //
 // Semantics follow repro.core.simulator bit for bit: int32 arithmetic
 // wraps (done in uint32, since signed overflow is undefined in C++),
@@ -68,22 +79,57 @@ const char* const kAbi =
     "cc_enable,cc_tRCD,cc_tRAS,nuat_enable,nuat_edge,nuat_rcd,nuat_ras,"
     "rltl_enable,rltl_window,rltl_tRCD,rltl_tRAS,al_enable,al_drift,al_rcd,"
     "al_ras,al_seg_rcd,al_seg_ras,th_enable,th_seg_edge;"
-    "dims:G,C,L,NB,NCH,HS,W,M,NBINS,S,P,n_steps,warmup,collect,exact";
+    "dims:G,C,L,NB,NCH,HS,W,M,NBINS,S,P,n_steps,warmup,collect,exact,"
+    "SW,PI,PF;"
+    "synth_int:seed,core_idx,n_cores,length,hot_rows,n_hot_banks,seg_edge,"
+    "il_kind_id,il_block_rows,n_channels,warmup;"
+    "synth_float:mean_gap,p_rowhit,p_hot,p_seq,p_dep,p_write,stack_zipf,"
+    "stack_geo";
 
-// Static sizes of one launch, in the order of kAbi's "dims".
+// Static sizes of one launch, in the order of kAbi's "dims".  SW, PI and
+// PF (workload segments, int and float synth row widths) are 0 for a
+// trace launch.
 struct Dims {
   int G, C, L, NB, NCH, HS, W, M, NBINS, S, P, n_steps, warmup, collect,
-      exact;
+      exact, SW, PI, PF;
 };
 
 struct Layout {
   int off[N_FIELDS];
 };
 
-// Shared-memory words of one block; must match the carve in the kernel.
-__host__ __device__ inline int smem_words(const Dims& d) {
+// Field indices of the packed per-point synthesis rows: int32 [G, PI]
+// and float32 [G, PF] (per-core leaves [C], per-segment leaves [C, SW]).
+// Offsets come from kernel.py (SynthLayout), names as kAbi's synth_*.
+enum SynthInt {
+  W_SEED, W_CORE, W_NCORES, W_LENGTH, W_HOT_ROWS, W_NHB, W_SEG_EDGE,
+  W_IL_KIND, W_IL_BLOCK, W_NCH, W_WARMUP, N_SYNTH_INT
+};
+enum SynthFloat {
+  W_MEAN_GAP, W_P_ROWHIT, W_P_HOT, W_P_SEQ, W_P_DEP, W_P_WRITE, W_ZIPF,
+  W_GEO, N_SYNTH_FLOAT
+};
+
+struct SynthLayout {
+  int ioff[N_SYNTH_INT];
+  int foff[N_SYNTH_FLOAT];
+};
+
+constexpr int RING = 128;  // generator.RECENT_RING
+
+// Shared-memory words of the scan state; must match run_point's carve.
+__host__ __device__ inline int scan_words(const Dims& d) {
   return d.P + 5 * d.C + d.C * d.M + 10 * d.NB + 2 * d.NCH +
          3 * d.HS * d.W + N_STATS + 1 + d.S;
+}
+
+// Shared-memory words of one block: the scan state, then (synthesis
+// launches) the point's workload rows, each core's recency ring and its
+// next_same last-row file.
+__host__ __device__ inline int smem_words(const Dims& d) {
+  int w = scan_words(d);
+  if (d.SW > 0) w += d.PI + d.PF + d.C * (2 * RING + d.NB);
+  return w;
 }
 
 __device__ __forceinline__ int wadd(int a, int b) {
@@ -207,10 +253,16 @@ struct Out {
   uint8_t* act_ref8; // [G, n_steps]
 };
 
-__global__ void __launch_bounds__(32)
-sim_step_kernel(Dims d, Layout lay, const int* __restrict__ params,
-                const float* __restrict__ seg_leak, Trace tr, Out out) {
-  extern __shared__ int sm[];
+// One sweep point on one warp: every lane initialises the state, then
+// ``pre(prm)`` runs on every lane (the synthesis pre-pass; nothing for a
+// trace launch), then lane 0 runs the scan over ``tr`` and all lanes
+// write the results out.  ``tr`` is the point's view of its stream.
+template <class Pre>
+__device__ __forceinline__ void run_point(const Dims& d, const Layout& lay,
+                                          const int* __restrict__ params,
+                                          const float* __restrict__ seg_leak,
+                                          const Trace& tr, int warmup,
+                                          const Out& out, int* sm, Pre pre) {
   const int gp = blockIdx.x;
   const int lane = threadIdx.x;
   const int C = d.C, L = d.L, NB = d.NB, NCH = d.NCH, M = d.M;
@@ -265,6 +317,8 @@ sim_step_kernel(Dims d, Layout lay, const int* __restrict__ params,
   for (int i = lane; i < N_STATS; i += 32) stats[i] = 0;
   for (int i = lane; i < d.S; i += 32) leak[i] = seg_leak[(size_t)gp * d.S + i];
   if (lane == 0) *s_end = d.n_steps;
+  __syncwarp();
+  pre(prm);
   __syncwarp();
 
   const size_t ev_plane = (size_t)d.G * d.n_steps;
@@ -339,7 +393,7 @@ sim_step_kernel(Dims d, Layout lay, const int* __restrict__ params,
       }
       // a dead step changes nothing, so neither does any later one
       if (t_arr >= INF) break;
-      const bool measure = s >= d.warmup;
+      const bool measure = s >= warmup;
       const unsigned m = measure ? 1u : 0u;
       const int pc = imin(imax(ptr[c], 0), L - 1);
       const int tix = c * L + pc;
@@ -569,6 +623,266 @@ sim_step_kernel(Dims d, Layout lay, const int* __restrict__ params,
   }
 }
 
+__global__ void __launch_bounds__(32)
+sim_step_kernel(Dims d, Layout lay, const int* __restrict__ params,
+                const float* __restrict__ seg_leak, Trace tr, Out out) {
+  extern __shared__ int sm[];
+  run_point(d, lay, params, seg_leak, tr, d.warmup, out, sm,
+            [](const int*) {});
+}
+
+// ---------------------------------------------------------------------------
+// The synthesis entry: repro/workloads/generator.py::_gen_core per core,
+// then the scan.  Replaces repro/kernels/sim_step/ops.py::_synth_pallas.
+// ---------------------------------------------------------------------------
+
+constexpr unsigned kM1 = 0x85EBCA6Bu, kM2 = 0xC2B2AE35u, kGold = 0x9E3779B9u;
+constexpr int MAX_GAP = 1 << 20;
+
+// prng.lanes(14), in generator.py's order
+__host__ __device__ constexpr unsigned lane_const(int i) {
+  return kGold * (unsigned)(i + 1);
+}
+enum {
+  L_HIT, L_SEQ, L_HOT, L_PICK, L_GAP, L_WRITE, L_DEP, L_RBANK, L_RROW,
+  L_HOTBANK, L_HOTROW, L_B0, L_STRIDE, L_PICK2
+};
+
+__device__ __forceinline__ unsigned mix(unsigned h, unsigned w) {
+  h = (h ^ w) * kM1;
+  return (h ^ (h >> 15)) * kM2;
+}
+__device__ __forceinline__ unsigned fmix(unsigned h) {
+  h ^= h >> 16;
+  h *= kM1;
+  h ^= h >> 13;
+  h *= kM2;
+  return h ^ (h >> 16);
+}
+// prng.hash_u32 over (seed, core, lane) and (seed, core, lane, x)
+__device__ __forceinline__ unsigned hash3(unsigned a, unsigned b, int ln) {
+  return fmix(mix(mix(mix(kGold * 4u, a), b), lane_const(ln)));
+}
+__device__ __forceinline__ unsigned hash4(unsigned a, unsigned b, int ln,
+                                          int x) {
+  return fmix(mix(mix(mix(mix(kGold * 5u, a), b), lane_const(ln)),
+                  (unsigned)x));
+}
+// prng.uniform: the top 24 bits times 2**-24 (exact)
+__device__ __forceinline__ float uniform4(unsigned a, unsigned b, int ln,
+                                          int x) {
+  return __fmul_rn((float)(hash4(a, b, ln, x) >> 8), 5.9604645e-08f);
+}
+// generator._umod: uint32 hash mod a positive count
+__device__ __forceinline__ int umod(unsigned h, int n) {
+  return (int)(h % (unsigned)imax(n, 1));
+}
+// jnp.maximum / jnp.minimum on float32: NaN propagates
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+__device__ __forceinline__ float fmin_nan(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+
+// generator._rank_pick.  The same CUDA math functions (log1pf, expf) and
+// correctly rounded operations as PyTorch's eager kernels on the card,
+// no fast-math: bitwise the plain generator on CUDA tensors.  An expf
+// that overflows to inf is past the table and redraws uniformly.
+__device__ __forceinline__ int rank_pick(float u, float u_tail, float zipf_s,
+                                         float geo_s, int hot_rows) {
+  const float cap = (float)imax(hot_rows - 1, 0);
+  const float a1 = fmax_nan(__fsub_rn(zipf_s, 1.0f), 1e-3f);
+  const float lu = log1pf(-u);
+  const float zipf = __fsub_rn(floorf(expf(__fdiv_rn(-lu, a1))), 1.0f);
+  const float geo =
+      floorf(__fdiv_rn(lu, log1pf(-fmin_nan(geo_s, 0.9999f))));
+  float j = fmax_nan(zipf_s > 0.0f ? zipf : geo, 0.0f);
+  const float uni = floorf(__fmul_rn(u_tail, (float)hot_rows));
+  j = j > cap ? uni : j;
+  return (int)fmin_nan(j, cap);
+}
+
+// Device pointers of a synthesis launch's stream scratch, [G, C, L] each.
+struct Stream {
+  int* gap;
+  int* bank;
+  int* row;
+  uint8_t* is_write;
+  uint8_t* dep;
+  uint8_t* next_same;
+};
+
+// One core's stream (generator._gen_core) into the point's scratch, then
+// its queue-hit lookahead over the folded stream (a reverse pass with
+// one [NB] last-row file, as simulator._next_same_folded).  Runs on lane
+// ``c``; ``wi``/``wf`` are the point's workload rows in shared memory.
+__device__ void gen_core(const Dims& d, const SynthLayout& sl, int c,
+                         const int* wi, const float* wf, int banks_total,
+                         int bpc, int n_rows, int* ring_lb, int* ring_row,
+                         int* last_row, const Stream& st) {
+  const int L = d.L, SW = d.SW;
+  const int* io = sl.ioff;
+  const int* fo = sl.foff;
+  const unsigned seed = (unsigned)wi[io[W_SEED] + c];
+  const int core = wi[io[W_CORE] + c];
+  const unsigned ucore = (unsigned)core;
+  const int length = wi[io[W_LENGTH] + c];
+  const int nch = wi[io[W_NCH]];
+  const int il_kind = wi[io[W_IL_KIND]];
+  const int il_block = imax(wi[io[W_IL_BLOCK]], 1);
+  const int* seg_edge = wi + io[W_SEG_EDGE] + c * SW;
+  const int* hot_rows = wi + io[W_HOT_ROWS] + c * SW;
+  const int* n_hot_banks = wi + io[W_NHB] + c * SW;
+  const int cs = c * SW;
+
+  const int span =
+      imax(floordiv(n_rows, imax(wi[io[W_NCORES] + c], 1)), 1);
+  const int base = wmul(core, span);
+  const int b0 = umod(hash3(seed, ucore, L_B0), banks_total);
+  const int stride =
+      1 + 2 * umod(hash3(seed, ucore, L_STRIDE),
+                   imax(floordiv(banks_total, 2), 1));
+  auto hot_lb = [&](int k) {
+    return floormod(wadd(b0, wmul(k, stride)), banks_total);
+  };
+  auto hot_lb_of = [&](int j, int nhb) {
+    return hot_lb(umod(hash4(seed, ucore, L_HOTBANK, j), nhb));
+  };
+  auto hot_row_of = [&](int j) {
+    return wadd(base, umod(hash4(seed, ucore, L_HOTROW, j), span));
+  };
+
+  // the walk starts at the phase-0 hot set's entry 0; the ring holds
+  // entries 1..RING
+  const int nhb0 = imax(n_hot_banks[0], 1);
+  int lb = hot_lb_of(0, nhb0);
+  int row = hot_row_of(0);
+  for (int i = 0; i < RING; ++i) {
+    ring_lb[i] = hot_lb_of(1 + i, nhb0);
+    ring_row[i] = hot_row_of(1 + i);
+  }
+  int head = 0;
+
+  const size_t at0 = ((size_t)blockIdx.x * d.C + c) * L;
+  for (int t = 0; t < L; ++t) {
+    const size_t at = at0 + t;
+    if (t >= length) {
+      st.gap[at] = 0;
+      st.bank[at] = 0;
+      st.row[at] = 0;
+      st.is_write[at] = 0;
+      st.dep[at] = 0;
+      continue;
+    }
+    int cnt = 0;
+    for (int s = 0; s < SW; ++s) cnt += t >= seg_edge[s];
+    const int seg = imax(cnt - 1, 0);
+    const float* f = wf + cs + seg;
+    const int nhb = imax(n_hot_banks[seg], 1);
+
+    const bool hit = uniform4(seed, ucore, L_HIT, t) < f[fo[W_P_ROWHIT]];
+    const bool seq =
+        !hit && uniform4(seed, ucore, L_SEQ, t) < f[fo[W_P_SEQ]];
+    const bool hot = !hit && !seq &&
+                     uniform4(seed, ucore, L_HOT, t) < f[fo[W_P_HOT]];
+    int new_lb = lb, new_row = row;
+    if (seq) {
+      new_row = wadd(base, floormod(wadd(wsub(row, base), 1), span));
+    } else if (hot) {
+      const int jp = rank_pick(uniform4(seed, ucore, L_PICK, t),
+                               uniform4(seed, ucore, L_PICK2, t),
+                               f[fo[W_ZIPF]], f[fo[W_GEO]], hot_rows[seg]);
+      if (jp >= 1 && jp <= RING) {
+        const int ridx = floormod(head - (jp - 1), RING);
+        new_lb = ring_lb[ridx];
+        new_row = ring_row[ridx];
+      } else if (jp > RING) {
+        new_lb = hot_lb_of(jp, nhb);
+        new_row = hot_row_of(jp);
+      }
+    } else if (!hit) {
+      new_lb = hot_lb(umod(hash4(seed, ucore, L_RBANK, t), nhb));
+      new_row = wadd(base, umod(hash4(seed, ucore, L_RROW, t), span));
+    }
+    if (new_row != row) {  // distinct-row transition: push recency
+      head = (head + 1) % RING;
+      ring_lb[head] = lb;
+      ring_row[head] = row;
+    }
+    lb = new_lb;
+    row = new_row;
+
+    // intensity and mix
+    const float p_gap = __fdiv_rn(1.0f, f[fo[W_MEAN_GAP]]);
+    const float q = __fdiv_rn(log1pf(-uniform4(seed, ucore, L_GAP, t)),
+                              log1pf(-p_gap));
+    const int gap = wadd(1, (int)floorf(q));
+    // physical bank: dram.compose_address
+    const int ch_home = floordiv(lb, bpc);
+    const int ch_row = floormod(row, nch);
+    const int ch_blk = floormod(floordiv(row, il_block), nch);
+    const int ch_xor = floormod(row ^ lb, nch);
+    const int ch = il_kind == 1 ? ch_row
+                 : il_kind == 2 ? ch_blk
+                 : il_kind == 3 ? ch_xor : ch_home;
+    st.gap[at] = imin(imax(gap, 1), MAX_GAP);
+    st.bank[at] = wadd(wmul(ch, bpc), floormod(lb, bpc));
+    st.row[at] = row;
+    st.is_write[at] =
+        uniform4(seed, ucore, L_WRITE, t) < f[fo[W_P_WRITE]] ? 1 : 0;
+    st.dep[at] = uniform4(seed, ucore, L_DEP, t) < f[fo[W_P_DEP]] ? 1 : 0;
+  }
+
+  // queue-hit lookahead over the folded stream, as the scan folds it
+  for (int b = 0; b < d.NB; ++b) last_row[b] = NO_ROW;
+  for (int t = L - 1; t >= 0; --t) {
+    const size_t at = at0 + t;
+    uint8_t ns = 0;
+    if (t < length) {
+      const int b = floormod(st.bank[at], banks_total);
+      const int r = floormod(st.row[at], n_rows);
+      ns = last_row[b] == r ? 1 : 0;
+      last_row[b] = r;
+    }
+    st.next_same[at] = ns;
+  }
+}
+
+__global__ void __launch_bounds__(32)
+sim_synth_kernel(Dims d, Layout lay, SynthLayout sl,
+                 const int* __restrict__ params,
+                 const float* __restrict__ seg_leak,
+                 const int* __restrict__ wparams_i,
+                 const float* __restrict__ wparams_f, Stream st, Out out) {
+  extern __shared__ int sm[];
+  const int gp = blockIdx.x;
+  const int lane = threadIdx.x;
+  int* wi = sm + scan_words(d);
+  float* wf = reinterpret_cast<float*>(wi + d.PI);
+  int* rings = reinterpret_cast<int*>(wf + d.PF);
+  int* last_rows = rings + 2 * RING * d.C;
+  for (int i = lane; i < d.PI; i += 32)
+    wi[i] = wparams_i[(size_t)gp * d.PI + i];
+  for (int i = lane; i < d.PF; i += 32)
+    wf[i] = wparams_f[(size_t)gp * d.PF + i];
+  __syncwarp();
+
+  const size_t pt = (size_t)gp * d.C * d.L;
+  Trace tr{st.gap + pt, st.bank + pt, st.row + pt, st.is_write + pt,
+           st.dep + pt, wi + sl.ioff[W_LENGTH], st.next_same + pt};
+  auto pre = [&](const int* prm) {
+    const int c = lane;
+    if (c < d.C)
+      gen_core(d, sl, c, wi, wf, prm[lay.off[F_BANKS_TOTAL]],
+               prm[lay.off[F_BANKS_PER_CH]], prm[lay.off[F_N_ROWS]],
+               rings + 2 * RING * c, rings + 2 * RING * c + RING,
+               last_rows + d.NB * c, st);
+  };
+  run_point(d, lay, params, seg_leak, tr, wi[sl.ioff[W_WARMUP]], out, sm,
+            pre);
+}
+
 }  // namespace
 
 extern "C" {
@@ -577,7 +891,7 @@ const char* sim_step_abi() { return kAbi; }
 
 int sim_step_smem_bytes(const int* dims) {
   Dims d;
-  static_assert(sizeof(Dims) == 15 * sizeof(int), "Dims layout");
+  static_assert(sizeof(Dims) == 18 * sizeof(int), "Dims layout");
   memcpy(&d, dims, sizeof(Dims));
   return 4 * smem_words(d);
 }
@@ -608,6 +922,36 @@ int sim_step_launch(const int* dims, const int* layout, const int* params,
   Out out{stats, bank_stats, core_end, events, act_ref8};
   sim_step_kernel<<<d.G, 32, smem, (cudaStream_t)stream>>>(d, lay, params,
                                                            seg_leak, tr, out);
+  return (int)cudaGetLastError();
+}
+
+// Launch the synthesis entry: one block per sweep point generates its
+// cores' streams into the [G, C, L] scratch (gap .. next_same), then
+// scans them.  ``synth_layout`` holds the int then the float field
+// offsets of the workload rows.  Returns the launch's CUDA error code.
+int sim_synth_launch(const int* dims, const int* layout,
+                     const int* synth_layout, const int* params,
+                     const float* seg_leak, const int* wparams_i,
+                     const float* wparams_f, int* gap, int* bank, int* row,
+                     uint8_t* is_write, uint8_t* dep, uint8_t* next_same,
+                     int* stats, int* bank_stats, int* core_end,
+                     int* events, uint8_t* act_ref8, void* stream) {
+  Dims d;
+  memcpy(&d, dims, sizeof(Dims));
+  if (d.C > 32 || d.SW < 1) return (int)cudaErrorInvalidValue;
+  Layout lay;
+  memcpy(lay.off, layout, sizeof(lay.off));
+  SynthLayout sl;
+  memcpy(sl.ioff, synth_layout, sizeof(sl.ioff));
+  memcpy(sl.foff, synth_layout + N_SYNTH_INT, sizeof(sl.foff));
+  const int smem = 4 * smem_words(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      sim_synth_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  Stream st{gap, bank, row, is_write, dep, next_same};
+  Out out{stats, bank_stats, core_end, events, act_ref8};
+  sim_synth_kernel<<<d.G, 32, smem, (cudaStream_t)stream>>>(
+      d, lay, sl, params, seg_leak, wparams_i, wparams_f, st, out);
   return (int)cudaGetLastError();
 }
 

@@ -7,12 +7,20 @@ row per point (plus the float32 ``[G, S]`` thermal leak scales), builds
 the kernel on first use (``repro_torch._build``), and launches it
 through ``ctypes`` on PyTorch's current stream.
 
-The packed row's fields are defined once, here (``FIELDS``): their
-offsets are computed from the grid's sizes and passed to the kernel,
-which addresses every field through them.  The kernel exports its own
-field and size lists (``sim_step_abi``); they are checked against
-``FIELDS`` and ``DIMS`` when the library is loaded, so the two sides
-cannot drift apart silently.
+The kernel has two entries.  ``sim_step`` scans one trace shared by
+every point.  ``sim_synth`` (replacing the same launcher reached from
+``repro/kernels/sim_step/ops.py::_synth_pallas``) first generates each
+point's streams in the block, into a ``[G, C, L]`` scratch this module
+allocates (and returns on request), then scans them; its workload and
+interleave params travel as one int32 and one float32 row per point.
+
+The packed rows' fields are defined once, here (``FIELDS``,
+``SYNTH_INT_FIELDS``, ``SYNTH_FLOAT_FIELDS``): their offsets are
+computed from the grid's sizes and passed to the kernel, which
+addresses every field through them.  The kernel exports its own field
+and size lists (``sim_step_abi``); they are checked against these and
+``DIMS`` when the library is loaded, so the two sides cannot drift
+apart silently.
 """
 
 from __future__ import annotations
@@ -44,7 +52,25 @@ FIELDS = (
 
 #: the launch sizes, in the kernel's ``Dims`` order
 DIMS = ("G", "C", "L", "NB", "NCH", "HS", "W", "M", "NBINS", "S", "P",
-        "n_steps", "warmup", "collect", "exact")
+        "n_steps", "warmup", "collect", "exact", "SW", "PI", "PF")
+
+#: int32 fields of the synthesis entry's packed workload row, in the
+#: kernel's ``SynthInt`` order: ``WorkloadParams`` identity leaves
+#: ``[C]`` and int leaves ``[C, SW]``, the interleave policy, the
+#: point's channel count and warm-up
+SYNTH_INT_FIELDS = ("seed", "core_idx", "n_cores", "length", "hot_rows",
+                    "n_hot_banks", "seg_edge", "il_kind_id",
+                    "il_block_rows", "n_channels", "warmup")
+
+#: float32 fields of the packed workload row (``[C, SW]`` each), in the
+#: kernel's ``SynthFloat`` order
+SYNTH_FLOAT_FIELDS = ("mean_gap", "p_rowhit", "p_hot", "p_seq", "p_dep",
+                      "p_write", "stack_zipf", "stack_geo")
+
+#: the synthesis entry's stream scratch, ``[G, C, L]`` each, in order
+STREAM_FIELDS = (("gap", torch.int32), ("bank", torch.int32),
+                 ("row", torch.int32), ("is_write", torch.bool),
+                 ("dep", torch.bool), ("next_same", torch.bool))
 
 #: shared memory one block may use on Hopper (227 KB)
 MAX_SMEM_BYTES = 232_448
@@ -68,12 +94,30 @@ def library() -> ctypes.CDLL:
     lib.sim_step_error_string.argtypes = [ctypes.c_int]
     lib.sim_step_launch.restype = ctypes.c_int
     lib.sim_step_launch.argtypes = [_P] * 17
+    lib.sim_synth_launch.restype = ctypes.c_int
+    lib.sim_synth_launch.argtypes = [_P] * 19
     abi = lib.sim_step_abi().decode()
-    want = f"fields:{','.join(FIELDS)};dims:{','.join(DIMS)}"
+    want = abi_string()
     if abi != want:
         raise RuntimeError(f"sim_step ABI mismatch: kernel has {abi!r}, "
                            f"kernel.py expects {want!r}")
     return lib
+
+
+def abi_string() -> str:
+    """The field and size lists the kernel must export."""
+    return (f"fields:{','.join(FIELDS)};dims:{','.join(DIMS)};"
+            f"synth_int:{','.join(SYNTH_INT_FIELDS)};"
+            f"synth_float:{','.join(SYNTH_FLOAT_FIELDS)}")
+
+
+def _concat(cols: list) -> tuple[torch.Tensor, list[int]]:
+    """``[G, k_i]`` columns side by side, and where each starts."""
+    offsets, at = [], 0
+    for c in cols:
+        offsets.append(at)
+        at += c.shape[1]
+    return torch.cat(cols, dim=1).contiguous(), offsets
 
 
 def pack(stacked, ns_idx) -> tuple[torch.Tensor, torch.Tensor, list[int]]:
@@ -110,12 +154,8 @@ def pack(stacked, ns_idx) -> tuple[torch.Tensor, torch.Tensor, list[int]]:
         "al_seg_rcd": al["seg_rcd"], "al_seg_ras": al["seg_ras"],
         "th_enable": th.enable, "th_seg_edge": th.seg_edge,
     }
-    cols = [values[f].reshape(G, -1).to(torch.int32) for f in FIELDS]
-    offsets, at = [], 0
-    for c in cols:
-        offsets.append(at)
-        at += c.shape[1]
-    params = torch.cat(cols, dim=1).contiguous()
+    params, offsets = _concat([values[f].reshape(G, -1).to(torch.int32)
+                               for f in FIELDS])
     leak = th.seg_leak.reshape(G, -1).to(torch.float32).contiguous()
     return params, leak, offsets
 
@@ -124,12 +164,66 @@ def _c_ints(xs) -> ctypes.Array:
     return (ctypes.c_int * len(xs))(*(int(x) for x in xs))
 
 
+def _dims(lib, shape, stacked, G, P, C, L, n_steps, warmup,
+          collect_events, SW=0, PI=0, PF=0):
+    """The launch sizes as a C int array, after the shared-memory check."""
+    NB = shape.envelope.max_banks_total
+    if stacked.mech["aldram"]["rcd"].shape[-1] != NB:
+        raise ValueError("aldram tables are not sized to the envelope")
+    dims = {"G": G, "C": C, "L": L, "NB": NB,
+            "NCH": shape.envelope.max_channels,
+            "HS": shape.hcrac.n_sets, "W": shape.hcrac.n_ways,
+            "M": shape.mshr,
+            "NBINS": stacked.mech["nuat"]["edge"].shape[-1],
+            "S": stacked.thermal.seg_edge.shape[-1], "P": P,
+            "n_steps": n_steps, "warmup": warmup,
+            "collect": int(collect_events),
+            "exact": int(shape.hcrac.exact_expiry),
+            "SW": SW, "PI": PI, "PF": PF}
+    c_dims = _c_ints([dims[k] for k in DIMS])
+    smem = lib.sim_step_smem_bytes(ctypes.cast(c_dims, _P))
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"sim_step needs {smem} B of shared memory per "
+                         f"block; Hopper allows {MAX_SMEM_BYTES}")
+    return c_dims
+
+
+def _outputs(G, C, NB, n_steps, collect_events, dev):
+    """``(stats, bank_stats, core_end, event lanes, act_ref8)``."""
+    ev_shape = (G, n_steps) if collect_events else (1, 1)
+    return (torch.empty((G, len(STAT_KEYS)), dtype=torch.int32, device=dev),
+            torch.empty((G, 2, NB), dtype=torch.int32, device=dev),
+            torch.empty((G, C), dtype=torch.int32, device=dev),
+            torch.empty((len(INT_EVENT_LANES),) + ev_shape,
+                        dtype=torch.int32, device=dev),
+            torch.empty(ev_shape, dtype=torch.bool, device=dev))
+
+
+def _check(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.sim_step_error_string(err).decode())
+
+
+def _results(outs, collect_events):
+    """The launch's outputs laid out as ``ref.run_sweep_ref`` returns
+    them: ``(stats, core_end, events or None)``."""
+    stats, bank_stats, core_end, ev, ref8 = outs
+    out = {k: stats[:, i] for i, k in enumerate(STAT_KEYS)}
+    for i, k in enumerate(BANK_STAT_KEYS):
+        out[k] = bank_stats[:, i]
+    events = None
+    if collect_events:
+        events = Events(act_ref8=ref8, **dict(zip(INT_EVENT_LANES, ev)))
+    return out, core_end, events
+
+
 def sim_step(shape, stacked, trace: dict, ns, ns_idx, warmup: int,
              n_steps: int, collect_events: bool = True):
-    """Launch the kernel over a ``[G]`` grid; returns ``(stats, core_end,
-    events or None)`` laid out as ``ref.run_sweep_ref`` returns them.
-    The launch is asynchronous on the current stream; a refused launch
-    raises."""
+    """Launch the trace entry over a ``[G]`` grid; returns ``(stats,
+    core_end, events or None)`` laid out as ``ref.run_sweep_ref`` returns
+    them.  The launch is asynchronous on the current stream; a refused
+    launch raises."""
     dev = trace["gap"].device
     if dev.type != "cuda":
         raise ValueError(f"sim_step launches on CUDA tensors, not {dev}")
@@ -137,23 +231,8 @@ def sim_step(shape, stacked, trace: dict, ns, ns_idx, warmup: int,
     params, leak, offsets = pack(stacked, ns_idx)
     G, P = params.shape
     C, L = trace["gap"].shape
-    NB = shape.envelope.max_banks_total
-    S = stacked.thermal.seg_edge.shape[-1]
-    nbins = stacked.mech["nuat"]["edge"].shape[-1]
-    if stacked.mech["aldram"]["rcd"].shape[-1] != NB:
-        raise ValueError("aldram tables are not sized to the envelope")
-    dims = {"G": G, "C": C, "L": L, "NB": NB,
-            "NCH": shape.envelope.max_channels,
-            "HS": shape.hcrac.n_sets, "W": shape.hcrac.n_ways,
-            "M": shape.mshr, "NBINS": nbins, "S": S, "P": P,
-            "n_steps": n_steps, "warmup": warmup,
-            "collect": int(collect_events),
-            "exact": int(shape.hcrac.exact_expiry)}
-    c_dims = _c_ints([dims[k] for k in DIMS])
-    smem = lib.sim_step_smem_bytes(ctypes.cast(c_dims, _P))
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"sim_step needs {smem} B of shared memory per "
-                         f"block; Hopper allows {MAX_SMEM_BYTES}")
+    c_dims = _dims(lib, shape, stacked, G, P, C, L, n_steps, warmup,
+                   collect_events)
     expect = {"gap": torch.int32, "bank": torch.int32, "row": torch.int32,
               "is_write": torch.bool, "dep": torch.bool,
               "length": torch.int32}
@@ -166,14 +245,8 @@ def sim_step(shape, stacked, trace: dict, ns, ns_idx, warmup: int,
             or tuple(ns.shape[1:]) != (C, L)):
         raise ValueError("next_same must be a contiguous bool [n_geom, C, L]"
                          f" tensor on {dev}")
-
-    stats = torch.empty((G, len(STAT_KEYS)), dtype=torch.int32, device=dev)
-    bank_stats = torch.empty((G, 2, NB), dtype=torch.int32, device=dev)
-    core_end = torch.empty((G, C), dtype=torch.int32, device=dev)
-    ev_shape = (G, n_steps) if collect_events else (1, 1)
-    ev = torch.empty((len(INT_EVENT_LANES),) + ev_shape, dtype=torch.int32,
-                     device=dev)
-    ref8 = torch.empty(ev_shape, dtype=torch.bool, device=dev)
+    outs = _outputs(G, C, shape.envelope.max_banks_total, n_steps,
+                    collect_events, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sim_step_launch(
@@ -181,17 +254,70 @@ def sim_step(shape, stacked, trace: dict, ns, ns_idx, warmup: int,
             params.data_ptr(), leak.data_ptr(), trace["gap"].data_ptr(),
             trace["bank"].data_ptr(), trace["row"].data_ptr(),
             trace["is_write"].data_ptr(), trace["dep"].data_ptr(),
-            trace["length"].data_ptr(), ns.data_ptr(), stats.data_ptr(),
-            bank_stats.data_ptr(), core_end.data_ptr(), ev.data_ptr(),
-            ref8.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("sim_step launch failed: "
-                           + lib.sim_step_error_string(err).decode())
-    out = {k: stats[:, i] for i, k in enumerate(STAT_KEYS)}
-    for i, k in enumerate(BANK_STAT_KEYS):
-        out[k] = bank_stats[:, i]
-    events = None
-    if collect_events:
-        lanes = dict(zip(INT_EVENT_LANES, ev))
-        events = Events(act_ref8=ref8, **lanes)
-    return out, core_end, events
+            trace["length"].data_ptr(), ns.data_ptr(),
+            *(x.data_ptr() for x in outs), stream)
+    _check(lib, err, "sim_step")
+    return _results(outs, collect_events)
+
+
+def pack_synth(stacked, wparams, ilparams, warmups
+               ) -> tuple[torch.Tensor, torch.Tensor, list[int]]:
+    """A synthetic grid's workload rows as ``(int32 [G, PI], float32
+    [G, PF], offsets)``: ``offsets`` holds where each of
+    ``SYNTH_INT_FIELDS`` starts in the int row, then where each of
+    ``SYNTH_FLOAT_FIELDS`` starts in the float row."""
+    G = warmups.shape[0]
+    values = {**{f: getattr(wparams, f) for f in SYNTH_INT_FIELDS[:7]},
+              "il_kind_id": ilparams.kind_id,
+              "il_block_rows": ilparams.block_rows,
+              "n_channels": stacked.geom.n_channels, "warmup": warmups}
+    wi, ioff = _concat([values[f].reshape(G, -1).to(torch.int32)
+                        for f in SYNTH_INT_FIELDS])
+    wf, foff = _concat([getattr(wparams, f).reshape(G, -1)
+                        .to(torch.float32) for f in SYNTH_FLOAT_FIELDS])
+    return wi, wf, ioff + foff
+
+
+def sim_synth(shape, stacked, wparams, ilparams, warmups, n_cores: int,
+              max_len: int, n_steps: int, collect_events: bool = True,
+              stream: bool = False):
+    """Launch the synthesis entry over a ``[G]`` grid: each block
+    generates its point's streams into a ``[G, C, max_len]`` scratch and
+    scans them.  Returns ``(stats, core_end, events or None)`` as
+    ``ref.run_synth_ref`` does, plus the scratch streams (and ``length
+    [G, C]``) when ``stream`` is set.  The pre-pass generates all
+    ``max_len`` positions whatever ``n_steps`` is, so ``n_steps=0``
+    generates the streams and skips the scan.  Asynchronous on the
+    current stream; a refused launch raises."""
+    dev = warmups.device
+    if dev.type != "cuda":
+        raise ValueError(f"sim_synth launches on CUDA tensors, not {dev}")
+    if not 1 <= n_cores <= 32:
+        raise ValueError("the synthesis entry runs one lane per core: "
+                         f"1..32 cores, not {n_cores}")
+    lib = library()
+    G = warmups.shape[0]
+    params, leak, offsets = pack(
+        stacked, torch.zeros(G, dtype=torch.int32, device=dev))
+    wi, wf, soff = pack_synth(stacked, wparams, ilparams, warmups)
+    SW = wparams.seg_edge.shape[-1]
+    c_dims = _dims(lib, shape, stacked, G, params.shape[1], n_cores,
+                   max_len, n_steps, 0, collect_events, SW=SW,
+                   PI=wi.shape[1], PF=wf.shape[1])
+    scratch = {k: torch.empty((G, n_cores, max_len), dtype=dt, device=dev)
+               for k, dt in STREAM_FIELDS}
+    outs = _outputs(G, n_cores, shape.envelope.max_banks_total, n_steps,
+                    collect_events, dev)
+    with torch.cuda.device(dev):
+        cuda_stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.sim_synth_launch(
+            ctypes.cast(c_dims, _P), ctypes.cast(_c_ints(offsets), _P),
+            ctypes.cast(_c_ints(soff), _P), params.data_ptr(),
+            leak.data_ptr(), wi.data_ptr(), wf.data_ptr(),
+            *(scratch[k].data_ptr() for k, _ in STREAM_FIELDS),
+            *(x.data_ptr() for x in outs), cuda_stream)
+    _check(lib, err, "sim_synth")
+    out = _results(outs, collect_events)
+    if stream:
+        return out + ({**scratch, "length": wparams.length},)
+    return out

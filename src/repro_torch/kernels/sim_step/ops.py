@@ -1,17 +1,19 @@
 """Dispatch of the ``sim_step`` kernel tier.
 
-``run_sweep`` is what ``repro_torch.core.simulator.sweep`` calls.  The
-device of the trace tensors decides the path: CPU tensors run the plain
-engine (``ref.run_sweep_ref``), CUDA tensors launch the CUDA kernel
-(``kernel.sim_step``), and a failed build or launch raises.  Nothing on
+``run_sweep`` is what ``repro_torch.core.simulator.sweep`` calls, and
+``run_synth`` what ``sweep_synth`` calls.  The device of the input
+tensors decides the path: CPU tensors run the plain engine
+(``ref.run_sweep_ref`` / ``ref.run_synth_ref``), CUDA tensors launch the
+CUDA kernel's trace or synthesis entry (``kernel.sim_step`` /
+``kernel.sim_synth``), and a failed build or launch raises.  Nothing on
 the CUDA path calls the plain engine.
 
 The kernel carries the bodies of the five builtin block-bearing policies
 (``lldram``, ``chargecache``, ``nuat``, ``rltl``, ``aldram``, in that
 fold order).  A registry holding any other block-bearing policy (a
 ``mechanisms.temporary()`` test policy, say) has no kernel body, so
-``run_sweep`` refuses it on either device rather than let the two
-devices disagree on what a grid can run.
+``run_sweep`` and ``run_synth`` refuse it on either device rather than
+let the two devices disagree on what a grid can run.
 """
 
 from __future__ import annotations
@@ -19,10 +21,12 @@ from __future__ import annotations
 from repro_torch.core import mechanisms as registry
 from repro_torch.kernels.sim_step import ref
 
-__all__ = ["run_sweep", "launches"]
+__all__ = ["run_sweep", "run_synth", "launches", "synth_launches"]
 
-#: CUDA kernel launches made through ``run_sweep`` in this process
+#: CUDA launches of the trace entry made through ``run_sweep``
 launches = 0
+#: CUDA launches of the synthesis entry made through ``run_synth``
+synth_launches = 0
 
 #: the block-bearing policies the kernel carries, in fold order
 KERNEL_POLICIES = (("lldram", registry.LLDRAM),
@@ -59,4 +63,27 @@ def run_sweep(shape, stacked, trace: dict, ns, ns_idx, warmup: int,
     out = kernel.sim_step(shape, stacked, trace, ns, ns_idx, warmup,
                           n_steps, collect_events)
     launches += 1
+    return out
+
+
+def run_synth(shape, stacked, wparams, ilparams, warmups, n_cores: int,
+              max_len: int, n_steps: int, collect_events: bool = True,
+              stream: bool = False):
+    """Generate and scan every point of a stacked ``[G]`` synthetic grid;
+    returns ``(stats, core_end, events or None)`` as
+    ``ref.run_synth_ref`` does, plus the generated streams when
+    ``stream`` is set."""
+    global synth_launches
+    check_registry()
+    device = warmups.device
+    if device.type == "cpu":
+        return ref.run_synth_ref(shape, stacked, wparams, ilparams, warmups,
+                                 n_cores, max_len, n_steps, collect_events,
+                                 stream)
+    if device.type != "cuda":
+        raise ValueError(f"sim_step runs on CPU or CUDA, not {device}")
+    from repro_torch.kernels.sim_step import kernel
+    out = kernel.sim_synth(shape, stacked, wparams, ilparams, warmups,
+                           n_cores, max_len, n_steps, collect_events, stream)
+    synth_launches += 1
     return out

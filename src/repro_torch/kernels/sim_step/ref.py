@@ -2,13 +2,17 @@
 
 As in ``repro.kernels.sim_step.ref``, the oracle *is* the engine: the
 ``[G]``-batched eager scan of ``repro_torch.core.simulator``
-(``_run_impl`` over ``_make_step`` / ``_service``).  There is one
-definition of the step semantics in Python; the CUDA kernel is held
-against it.
+(``_run_impl`` over ``_make_step`` / ``_service``), and for the
+synthesis entry the eager generator in front of it (``_run_synth_impl``:
+``workloads.generate``, the folded lookahead, then ``_run_impl`` with
+one stream per point).  There is one definition of the semantics in
+Python; the CUDA kernel's two entries are held against it.
 """
 
 from __future__ import annotations
 
 from repro_torch.core.simulator import _run_impl as run_sweep_ref  # noqa: F401
+from repro_torch.core.simulator import (  # noqa: F401
+    _run_synth_impl as run_synth_ref)
 
-__all__ = ["run_sweep_ref"]
+__all__ = ["run_sweep_ref", "run_synth_ref"]

@@ -6,12 +6,25 @@ kind (default ``MechanismConfig``, ``rltl=True``), the exact-int stats
 the port must reproduce bit for bit: ``BITWISE_KEYS``, ``core_end`` and
 the RLTL histogram, plus a sha256 of each trace's arrays.
 It also stores the traces themselves (``golden_traces.npz``), since numpy's
-random streams differ between numpy versions.  ``chip_smoke.py`` reads
-only these two files (``src/repro_torch/data/``).
+random streams differ between numpy versions.
 
-Run from the repo root (about a minute on two CPU cores):
+For the full-size synthetic grid (``repro_torch.golden.SYNTH``, 32 points)
+it runs ``repro.core.sweep_synth`` and records the same values per point
+in ``golden_synth.json``, plus, per (mix, interleave, geometry), the
+sha256 of the stream ``repro.workloads.materialize`` generates and one
+short digest per 1 000 positions of each core.  No stream is stored:
+this generator is counter-based, so numpy's version does not change it.
+``chip_smoke.py`` reads only these files (``src/repro_torch/data/``).
+
+Run from the repo root (a few minutes on two CPU cores); the argument
+``synth`` or ``traces`` writes only that part:
 
     JAX_PLATFORMS=cpu PYTHONPATH=src:tests python tests/_torch_golden.py
+
+The argument ``streams`` writes nothing: it generates each distinct
+stream of the synthetic grid with the port on the CPU and prints, per
+stream, the positions (and 1 000-position blocks) where it differs from
+``repro``'s.
 """
 
 from __future__ import annotations
@@ -19,8 +32,10 @@ from __future__ import annotations
 import json
 import sys
 
-from repro_torch.golden import (GOLDEN_PATH, WORKLOADS, build_batch,
-                                save_batches, trace_sha256)
+from repro_torch.golden import (GOLDEN_PATH, SYNTH, SYNTH_PATH, WORKLOADS,
+                                build_batch, save_batches,
+                                stream_block_digests, stream_key,
+                                synth_points, trace_sha256)
 
 
 def cell_record(stats: dict, keys) -> dict:
@@ -59,18 +74,98 @@ def compute(trace_batches: dict) -> dict:
     return out
 
 
-def main() -> int:
-    tb = batches()
-    data = compute(tb)
-    GOLDEN_PATH.parent.mkdir(parents=True, exist_ok=True)
-    with open(GOLDEN_PATH, "w") as f:
-        json.dump(data, f, indent=1)
-        f.write("\n")
-    save_batches(tb)
-    for wname, w in data["workloads"].items():
-        print(wname, {k: r["total_cycles"] for k, r in w["results"].items()})
+def synth_configs() -> list:
+    """The synthetic grid's ``repro`` configurations, in launch order."""
+    from repro.core import (DRAMConfig, HCRACConfig, InterleaveConfig,
+                            MechanismConfig, SimConfig, WorkloadSpec,
+                            lowered_for_duration, ms_to_cycles)
+    ms = SYNTH["caching_ms"]
+    return [SimConfig(
+        dram=DRAMConfig(n_channels=SYNTH["geometries"][p["geometry"]]),
+        mech=MechanismConfig(
+            kind=p["mechanism"],
+            hcrac=HCRACConfig(n_entries=SYNTH["hcrac_entries"],
+                              caching_cycles=ms_to_cycles(ms)),
+            lowered=lowered_for_duration(ms)),
+        policy=SYNTH["policy"], interleave=InterleaveConfig(p["interleave"]),
+        workload=WorkloadSpec(names=tuple(SYNTH["mixes"][p["mix"]]),
+                              n_req=SYNTH["n_req"], seed=SYNTH["seed"]))
+        for p in synth_points()]
+
+
+def compute_synth() -> dict:
+    from _parity import BITWISE_KEYS
+    from repro.core import sweep_synth
+    from repro.workloads import materialize
+
+    grid = synth_configs()
+    res = sweep_synth(grid, rltl=True)
+    points = [{**p, **cell_record(r, BITWISE_KEYS)}
+              for p, r in zip(synth_points(), res)]
+    streams = {}
+    for p, cfg in zip(synth_points(), grid):
+        key = stream_key(p)
+        if key not in streams:
+            batch = materialize(cfg.workload, cfg.dram, cfg.interleave)
+            streams[key] = {"sha256": trace_sha256(batch),
+                            "blocks": stream_block_digests(batch)}
+    return {"grid": SYNTH, "bitwise_keys": list(BITWISE_KEYS),
+            "n_steps": 8 * grid[0].workload.max_len,
+            "points": points, "streams": streams}
+
+
+def compare_streams() -> None:
+    """Print where the port's CPU streams differ from ``repro``'s."""
+    import numpy as np
+    from repro.workloads import materialize
+    from repro_torch.core import dram, traces
+    from repro_torch.workloads import materialize as t_materialize
+    seen = set()
+    for p, cfg in zip(synth_points(), synth_configs()):
+        key = stream_key(p)
+        if key in seen:
+            continue
+        seen.add(key)
+        want = materialize(cfg.workload, cfg.dram, cfg.interleave)
+        got = t_materialize(
+            traces.WorkloadSpec(names=cfg.workload.names,
+                                n_req=cfg.workload.n_req,
+                                seed=cfg.workload.seed),
+            dram.DRAMConfig(n_channels=cfg.dram.n_channels),
+            dram.InterleaveConfig(cfg.interleave.kind))
+        differ = np.zeros(got.gap.shape, bool)
+        for f in ("gap", "bank", "row", "is_write", "dep", "next_same"):
+            differ |= np.asarray(getattr(want, f)) != getattr(got, f)
+        blocks = {(c, i // 1000) for c, i in zip(*np.nonzero(differ))}
+        print(f"{key}: {int(differ.sum())} of {int(got.length.sum())} "
+              f"positions differ, in {len(blocks)} blocks of 1000")
+
+
+def main(argv) -> int:
+    what = argv[1] if len(argv) > 1 else "all"
+    if what == "streams":
+        compare_streams()
+        return 0
+    if what in ("all", "traces"):
+        tb = batches()
+        data = compute(tb)
+        GOLDEN_PATH.parent.mkdir(parents=True, exist_ok=True)
+        with open(GOLDEN_PATH, "w") as f:
+            json.dump(data, f, indent=1)
+            f.write("\n")
+        save_batches(tb)
+        for wname, w in data["workloads"].items():
+            print(wname, {k: r["total_cycles"]
+                          for k, r in w["results"].items()})
+    if what in ("all", "synth"):
+        data = compute_synth()
+        with open(SYNTH_PATH, "w") as f:
+            json.dump(data, f, indent=None, separators=(",", ":"))
+            f.write("\n")
+        for p in data["points"]:
+            print(stream_key(p), p["mechanism"], p["total_cycles"])
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv))

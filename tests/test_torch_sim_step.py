@@ -148,7 +148,10 @@ def test_abi_and_packed_layout_match_the_cuda_source():
     abi = "".join(re.findall(r'"([^"]*)"', src.split("kAbi =")[1]
                              .split(";\n")[0]))
     assert abi == f"fields:{','.join(kernel.FIELDS)};dims:" \
-        f"{','.join(kernel.DIMS)}"
+        f"{','.join(kernel.DIMS)};synth_int:" \
+        f"{','.join(kernel.SYNTH_INT_FIELDS)};synth_float:" \
+        f"{','.join(kernel.SYNTH_FLOAT_FIELDS)}"
+    assert abi == kernel.abi_string()
     enum = src.split("enum Field {")[1].split("};")[0]
     assert len(re.findall(r"\bF_\w+", enum)) == len(kernel.FIELDS)
     assert enum.strip().endswith("N_FIELDS")

@@ -269,8 +269,11 @@ def test_sim_config_rejects_unported_tiers():
         t_sim.SimConfig(controller="frfcfs")
     with pytest.raises(NotImplementedError, match="serving"):
         t_sim.SimConfig(serving=object())
-    with pytest.raises(NotImplementedError, match="synthesis"):
+    # on-device synthesis is ported: a WorkloadSpec is taken, else raises
+    with pytest.raises(TypeError, match="WorkloadSpec"):
         t_sim.SimConfig(workload=object())
+    spec = t_traces.WorkloadSpec(names=("mcf_like",), n_req=64)
+    assert t_sim.SimConfig(workload=spec).workload is spec
     with pytest.raises(ValueError):
         t_sim.SimConfig(policy="lifo")
     assert not hasattr(t_sim.SimConfig(), "backend")
