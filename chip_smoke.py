@@ -6,14 +6,16 @@ CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds the ``sim_step`` kernel (both entries: over a trace, and
-synthesising its own streams) from the sources in the checkout, holds
-each entry against its plain PyTorch version, drives the port's two
-paths at full size (``repro_torch.core.simulator.sweep`` and
-``sweep_synth``), checks the results against the JAX package's recorded
-golden numbers (``src/repro_torch/data/golden_fullwidth.json`` and
-``golden_synth.json``), and times the kernel.  It imports nothing of JAX
-or of the ``repro`` package.  Phases:
+It builds the ``sim_step`` kernel (three entries: over a trace,
+synthesising its own streams, and the serving closed loop) and the HCRAC
+probe kernel from the sources in the checkout, holds each against its
+plain PyTorch version, drives the port's three paths at full size
+(``repro_torch.core.simulator.sweep``, ``sweep_synth`` and the serving
+loop: ``sweep_serving`` and the host scheduler's ``run_host``), checks
+the results against the JAX package's recorded golden numbers
+(``src/repro_torch/data/golden_fullwidth.json``, ``golden_synth.json``
+and ``golden_serving.json``), and times the kernels.  It imports nothing
+of JAX or of the ``repro`` package.  Phases:
 
 1. the card's name and power limit, and the kernel's build time;
 2. kernel against plain version (both on the card) at <= 2 000
@@ -50,8 +52,31 @@ or of the ``repro`` package.  Phases:
    stats are held to the generator's statistical tolerance
    (``repro_torch.golden.STAT_TOLERANCE``); kernel time, ns per step,
    the pre-pass share (a launch of 0 scan steps) and the bytes bound;
-6. one JSON line of kernel numbers;
-7. the last line: ``{"ok": true, "device": {...}}``.
+6. the HCRAC probe kernel against its plain version: tables of 128 and
+   1 024 entries (2 ways) and 65 536 (16 ways), both expiry modes, 10**6
+   queries with negative gids (Q not a multiple of the 256-thread
+   block), then the host scheduler's own table at the few queries of one
+   probe; zero mismatches; kernel times against the bytes bound;
+7. the serving entry against the plain serving engine (both on the
+   card) on the 24 points of ``repro_torch.golden.SERVING`` cut to
+   ``SERVE_CUT_STEPS`` steps, then on the scale streams' geometry (32
+   slots, a 128-entry queue) under every policy and mechanism cut to
+   ``SCALE_CUT_STEPS``: arrivals drawn in the kernel, pinned, and a
+   ``reduce_keys`` launch; every output equal, per-step arrays included;
+8. the serving path at full size: (a) host parity — the host scheduler
+   (``run_host``, its probes through the probe kernel) and
+   ``simulate_serving`` (the serving entry) on a pinned 320-step
+   schedule of 96 requests agree in per-step occupancy, retirement and
+   hot-probe stats; (b) the 24-point grid at 528 steps: with the golden
+   (``repro``-drawn) counts pinned every stat equals the golden file;
+   with counts drawn on the card, they are compared first, and where
+   equal the stats must be too, elsewhere at most ``MAX_COUNT_DIFF`` of
+   them may differ and every request must retire; (c) the 10**4- and
+   10**5-request scale points, timed, every request retired, 10**4 held
+   to the golden file as in (b), with the golden counts pinned and with
+   counts drawn on the card;
+9. one JSON line of kernel numbers;
+10. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line is printed.  Exits
 non-zero at once when no CUDA device is available.
@@ -64,6 +89,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -81,6 +107,17 @@ SYNTH_CUT_REQ = 1500
 #: may differ from ``repro``'s (float32 draws an ulp apart; at most 7 of
 #: 320 differed on the H100)
 MAX_DIFF_BLOCK_SHARE = 0.05
+#: cut depth of the serving entry's kernel-vs-plain comparison
+SERVE_CUT_STEPS = 60
+#: cut depth of the same comparison at the scale streams' geometry (the
+#: queue fills and drops within 20 steps of pinned counts)
+SCALE_CUT_STEPS = 40
+#: the largest share of a serving point's drawn arrival counts that may
+#: differ from ``repro``'s (its own mirror rule: float32 ``log1p`` / ``log``
+#: an ulp apart)
+MAX_COUNT_DIFF = 1e-3
+#: queries of the probe kernel's comparison (not a multiple of 256)
+PROBE_Q = 1_000_003
 #: the metric ingredients of the reduced launches
 REDUCE_KEYS = ("n_req", "acts", "hcrac_hits", "row_hits", "row_conflicts",
                "lat_sum", "total_cycles")
@@ -400,6 +437,472 @@ def synth_bytes_moved(G, C, L, n_steps, params_row, nb, n_segs, wrow):
     return inputs + outputs + 2 * G * C * L * 15
 
 
+# --------------------------------------------------------------------------
+# phases 6-8: the HCRAC probe kernel and the serving path
+# --------------------------------------------------------------------------
+
+def probe_case(hcl, cfg, rng, Q, device):
+    """A random ``[sets, ways]`` table and ``Q`` queries against it: each
+    way holds a gid of its own set (``set + k * sets``, k in [-3, 3), so
+    a third are negative) or is empty (a fifth), inserted at a cycle in
+    [0, 100 000); the queries draw gids the same way and times in
+    [50 000, 150 000), so a good share hits."""
+    import numpy as np
+    import torch
+    S, W = cfg.n_sets, cfg.n_ways
+    own = lambda sets: sets + S * rng.integers(-3, 3, sets.shape)
+    tags = own(np.repeat(np.arange(S)[:, None], W, axis=1))
+    tags[rng.random((S, W)) < 0.2] = -1
+    itime = rng.integers(0, 100_000, (S, W))
+    st = hcl.state_from_numpy(tags, itime, itime, device=device)
+    i32 = lambda x: torch.from_numpy(x.astype(np.int32)).to(device)
+    return (st, i32(own(rng.integers(0, S, Q))),
+            i32(rng.integers(50_000, 150_000, Q)))
+
+
+def device_ms(fn, name: str, reps: int = 20):
+    """Mean device time of the kernels whose name holds ``name`` over
+    ``reps`` calls of ``fn``, from ``torch.profiler`` (the launch's host
+    time excluded), in ms; None where the profiler saw no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.device_time for e in prof.key_averages() if name in e.key]
+    return us[0] / 1e3 if us else None
+
+
+def probe_bound_ms(Q, cfg) -> float:
+    """Bytes bound of one probe launch: each query's gid, time and hit
+    (12 B) once, the table's tags and insertion times once."""
+    return (Q * 12 + 2 * cfg.n_sets * cfg.n_ways * 4) / HBM_BYTES_PER_S * 1e3
+
+
+def probe_diff(got, want) -> tuple[int, int]:
+    """``(queries whose hit differs, max |got - want|)`` of two probe
+    results."""
+    d = (got.long() - want.long()).abs()
+    return int((d != 0).sum()), int(d.max()) if d.numel() else 0
+
+
+def phase_probe(hcl, hk, hops, href, host_cfg, device="cuda"):
+    """Hold the probe kernel against its plain version; returns the row
+    of kernel numbers (the 1 024-entry exact table at 10**6 queries, the
+    serving grid's geometry, is the headline)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(13)
+    out = {"max_abs_err": 0, "mismatches": 0, "cases": []}
+    for entries, ways in ((128, 2), (1024, 2), (65536, 16)):
+        for exact in (False, True):
+            cfg = hcl.HCRACConfig(n_entries=entries, n_ways=ways,
+                                  caching_cycles=40_000, exact_expiry=exact)
+            st, gids, times = probe_case(hcl, cfg, rng, PROBE_Q, device)
+            got = hops.hcrac_lookup(cfg, st, gids, times)
+            plain_ms, want = cuda_ms(
+                lambda: href.hcrac_lookup_ref(cfg, st, gids, times),
+                torch.cuda.synchronize)
+            bad, err = probe_diff(got, want)
+            out["mismatches"] += bad
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            launch = lambda: hk.hcrac_lookup(cfg, st.tags, st.itime, gids,
+                                             times)
+            ms = median_ms(launch)
+            dev_ms = device_ms(launch, "hcrac_lookup")
+            bound = probe_bound_ms(PROBE_Q, cfg)
+            print(f"  {entries:6d} entries x {ways:2d} ways, "
+                  f"{'exact' if exact else 'sweep'}: {PROBE_Q} queries, "
+                  f"hits {int(want.sum())}, mismatches {bad}; kernel "
+                  f"{ms:.4f} ms a launch, {dev_ms} ms device time "
+                  f"(torch.profiler), plain {plain_ms:.3f} ms, bytes bound "
+                  f"{bound:.4f} ms", flush=True)
+            check(bad == 0, f"probe kernel disagrees with its plain version "
+                            f"({entries} entries, exact={exact})")
+            case = {"entries": entries, "ways": ways, "exact": exact,
+                    "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound}
+            out["cases"].append(case)
+            if (entries, exact) == (1024, True):
+                out.update({k: case[k] for k in ("ms", "device_ms",
+                                                 "plain_ms", "bound_ms")})
+    # the host scheduler's table (phase 8a) at one probe's few queries
+    st, q_gids, q_times = probe_case(hcl, host_cfg, rng, 2, device)
+    bad, err = probe_diff(hops.hcrac_lookup(host_cfg, st, q_gids, q_times),
+                          href.hcrac_lookup_ref(host_cfg, st, q_gids, q_times))
+    out["mismatches"] += bad
+    out["max_abs_err"] = max(out["max_abs_err"], err)
+    check(bad == 0, "probe kernel disagrees at the host scheduler's shape")
+    out["main_path_probe_ms"] = median_ms(
+        lambda: hk.hcrac_lookup(host_cfg, st.tags, st.itime, q_gids, q_times))
+    out["main_path_probe_bound_ms"] = probe_bound_ms(2, host_cfg)
+    out["main_path_probe_device_ms"] = device_ms(
+        lambda: hk.hcrac_lookup(host_cfg, st.tags, st.itime, q_gids,
+                                q_times), "hcrac_lookup")
+    print(f"  the host scheduler's table ({host_cfg.n_entries} entries), "
+          f"2 queries: mismatches {bad}, kernel "
+          f"{out['main_path_probe_ms']:.4f} ms a probe (launch included; "
+          f"device time alone {out['main_path_probe_device_ms']} ms), "
+          f"bytes bound {out['main_path_probe_bound_ms']:.6f} ms",
+          flush=True)
+    return out
+
+
+def serving_config(sim, golden_mod, timing, arr: dict, spec: dict,
+                   mechanism: str, n_steps: int = 0):
+    """A serving point of ``golden.SERVING`` from its arrival and spec
+    kwargs, under ``mechanism`` as the grid builds it."""
+    from repro_torch.core.hcrac import HCRACConfig
+    from repro_torch.serving.loop.spec import ServingSpec
+    from repro_torch.workloads.arrivals import ArrivalConfig
+    S = golden_mod.SERVING
+    ms = S["mech_caching_ms"]
+    return sim.SimConfig(
+        mech=sim.MechanismConfig(
+            kind=mechanism,
+            hcrac=HCRACConfig(n_entries=S["mech_entries"],
+                              caching_cycles=timing.ms_to_cycles(ms)),
+            lowered=timing.lowered_for_duration(ms)),
+        serving=ServingSpec(arrival=ArrivalConfig(**arr), n_steps=n_steps,
+                            **spec))
+
+
+def serving_grid(sim, golden_mod, timing, n_steps=0):
+    """The 24 serving points of ``golden.SERVING`` in launch order (cut
+    to ``n_steps`` scheduler steps where given)."""
+    S = golden_mod.SERVING
+    return [serving_config(sim, golden_mod, timing,
+                           *golden_mod.serving_spec_kwargs(
+                               S["grid_reqs"], p["rate"], p["burstiness"],
+                               S["grid_batch"], p["policy"]),
+                           p["mechanism"], n_steps)
+            for p in golden_mod.serving_points()]
+
+
+def scale_grid(sim, golden_mod, timing, n_steps):
+    """The scale streams' geometry (``SERVING["scale"]``: 32 slots, a
+    128-entry queue, up to 32 arrivals a step) under every policy and
+    mechanism of the grid, cut to ``n_steps`` scheduler steps."""
+    S = golden_mod.SERVING
+    sc = S["scale"]
+    return [serving_config(sim, golden_mod, timing,
+                           *golden_mod.serving_spec_kwargs(
+                               sc["n_reqs"], sc["rate"], sc["burstiness"],
+                               sc["max_batch"], pol), mech, n_steps)
+            for pol in S["policies"] for mech in S["mechanisms"]]
+
+
+def scale_config(sim, golden_mod, n_reqs):
+    """A ``benchmarks/serving_loop.py::scale_points`` point."""
+    from repro_torch.serving.loop.spec import ServingSpec
+    from repro_torch.workloads.arrivals import ArrivalConfig
+    sc = golden_mod.SERVING["scale"]
+    arr, spec = golden_mod.serving_spec_kwargs(
+        n_reqs, sc["rate"], sc["burstiness"], sc["max_batch"], sc["policy"])
+    return sim.SimConfig(serving=ServingSpec(arrival=ArrivalConfig(**arr),
+                                             **spec))
+
+
+def compare_serve(got, want) -> tuple[int, int]:
+    """``(mismatching elements, max abs difference)`` between two
+    ``run_serve`` outputs, per-step arrays included."""
+    pairs = ([(got[0][k], want[0][k]) for k in want[0]]
+             + [(got[1][k], want[1][k]) for k in want[1]]
+             + [(got[2], want[2])])
+    if want[3] is not None:
+        pairs += list(zip(got[3], want[3]))
+    bad = err = 0
+    for a, b in pairs:
+        d = (a.to(b.device).long() - b.long()).abs()
+        bad += int((d != 0).sum())
+        err = max(err, int(d.max()) if d.numel() else 0)
+    return bad, err
+
+
+def phase_serve_vs_plain(sim, engine, ops, ref, grid, device="cuda"):
+    """The serving entry against the plain engine on ``grid``: drawn,
+    pinned and reduced launches; returns ``(mismatches, max abs err,
+    kernel ms, plain ms, steps)``."""
+    import numpy as np
+    import torch
+    dev = torch.device(device)
+    shape, params, warm = engine.stage_serving(grid, None, True, dev)
+    n = shape.n_steps
+    counts = torch.from_numpy(np.random.default_rng(3).integers(
+        0, shape.arrivals_max + 1, (len(grid), n)).astype(np.int32)).to(dev)
+    bad = err = 0
+    plain_ms = None
+    for name, c in (("drawn", None), ("pinned", counts)):
+        got = ops.run_serve(shape, params, warm, c)
+        torch.cuda.synchronize()
+        t_ms, want = cuda_ms(lambda: ref.run_serve_ref(shape, params, warm,
+                                                       c),
+                             torch.cuda.synchronize)
+        plain_ms = plain_ms or t_ms
+        b, e = compare_serve(got, want)
+        bad, err = bad + b, max(err, e)
+        print(f"  {name} arrivals: {len(grid)} points x {n} steps, "
+              f"mismatches {b} (plain {t_ms:.0f} ms; arrived "
+              f"{int(want[1]['arrived'].sum())}, preempted "
+              f"{int(want[1]['preempted'].sum())}, dropped "
+              f"{int(want[1]['dropped'].sum())})", flush=True)
+        if c is None:
+            keys = engine.SERVE_REDUCE_KEYS
+            red = sim.sweep_serving(grid, reduce_keys=keys, device=dev)
+            want_red = engine._serve_reduce(shape, *want[:3], keys).cpu()
+            r_bad = int((torch.as_tensor(red) != want_red).sum())
+            print(f"  reduce_keys launch ({len(keys)} keys): mismatches "
+                  f"{r_bad}", flush=True)
+            bad += r_bad
+    kernel_ms = median_ms(lambda: ops.run_serve(shape, params, warm, None))
+    print(f"  kernel {kernel_ms:.3f} ms for {len(grid)} points x {n} steps",
+          flush=True)
+    check(bad == 0, "serving entry disagrees with the plain serving engine")
+    return bad, err, kernel_ms, plain_ms, n
+
+
+SERVE_KEYS_SKIP = ("counts", "arrivals", "occ", "qlen", "policy", "rate",
+                   "burstiness", "mechanism")
+
+
+def serving_mismatches(label, res: dict, gold: dict) -> int:
+    """Values of a serving result that differ from a golden record."""
+    bad = 0
+    for key, want in gold.items():
+        if key in SERVE_KEYS_SKIP:
+            continue
+        got = res[key]
+        got = [int(x) for x in got] if isinstance(want, list) else int(got)
+        if got != want:
+            bad += 1
+            print(f"  MISMATCH {label}.{key}: got {got} want {want}")
+    for key in ("arrivals", "occ", "qlen"):
+        if [int(x) for x in res["steps"][key]] != gold[key]:
+            bad += 1
+            print(f"  MISMATCH {label}.steps.{key}")
+    return bad
+
+
+def drawn_counts(cfg, n_steps: int, device):
+    """The arrival counts a point draws on ``device``
+    (``arrivals.step_counts``, the plain version of the kernel's draw,
+    which phase 7 holds the kernel to)."""
+    import torch
+    from repro_torch.workloads import arrivals
+    p = arrivals.arrival_params(cfg.serving.arrival, cfg.serving.n_reqs,
+                                device)
+    return arrivals.step_counts(p, torch.arange(
+        n_steps, dtype=torch.int32, device=device)).cpu().numpy()
+
+
+def check_drawn(label, res: dict, gold: dict, n_reqs: int,
+                got_c) -> tuple[int, int]:
+    """Hold a point run with counts drawn on the card (``got_c``) to its
+    golden record: returns ``(counts differing, stat values differing
+    where the counts are equal)``."""
+    import numpy as np
+    diff = int((np.asarray(got_c) != np.asarray(gold["counts"])).sum())
+    if diff == 0:
+        return 0, serving_mismatches(label, res, gold)
+    print(f"  {label}: {diff} of {got_c.size} drawn counts differ from "
+          f"repro's; retired {res['retired']} of {n_reqs}")
+    check(diff <= MAX_COUNT_DIFF * got_c.size,
+          f"{label}: {diff} drawn counts differ (at most "
+          f"{MAX_COUNT_DIFF:.0e} of them may)")
+    check(res["retired"] == n_reqs, f"{label}: not every request retired")
+    return diff, 0
+
+
+def serving_phases(sim, timing, golden_mod, device="cuda") -> tuple:
+    """Phases 6-8 (the probe kernel, the serving entry, the serving path
+    at full size) on ``device``; returns the kernel line's entries for
+    ``hcrac_lookup`` and ``sim_step_serve``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import hcrac as hcl
+    from repro_torch.kernels.hcrac import kernel as hk, ops as hops
+    from repro_torch.kernels.hcrac import ref as href
+    from repro_torch.kernels.sim_step import kernel, ops, ref
+    from repro_torch.serving.loop import engine
+    from repro_torch.serving.loop.oracle import run_host
+    from repro_torch.serving.loop.spec import ServingSpec
+    from repro_torch.workloads.arrivals import ArrivalConfig
+
+    # --- phase 6: the probe kernel against its plain version -------------
+    print("\nphase 6: HCRAC probe kernel vs plain version (on the card)",
+          flush=True)
+    host_spec = ServingSpec(
+        policy="fifo", arrival=ArrivalConfig(
+            rate=1.5, burstiness=1.0, prompt_pages_min=1, prompt_pages_max=2,
+            decode_min=4, decode_max=12, seed=7),
+        n_reqs=96, max_batch=8, queue_cap=128, arrivals_max=4, n_steps=320,
+        cycles_per_step=4000, hot_entries=1018, hot_ways=2,
+        hot_caching_ms=0.05, hot_exact=True)
+    probe = phase_probe(hcl, hk, hops, href, host_spec.hot_cfg(), device)
+
+    # --- phase 7: the serving entry against the plain engine -------------
+    print("\nphase 7: sim_step serving entry vs plain serving engine (on "
+          "the card)", flush=True)
+    (v_bad, v_err, v_cut_ms, v_plain_ms, v_cut_steps) = phase_serve_vs_plain(
+        sim, engine, ops, ref,
+        serving_grid(sim, golden_mod, timing, n_steps=SERVE_CUT_STEPS),
+        device)
+    print("  the scale streams' geometry, every policy x mechanism:",
+          flush=True)
+    sc_bad, sc_err, *_ = phase_serve_vs_plain(
+        sim, engine, ops, ref,
+        scale_grid(sim, golden_mod, timing, n_steps=SCALE_CUT_STEPS), device)
+    v_bad, v_err = v_bad + sc_bad, max(v_err, sc_err)
+
+    # --- phase 8: the serving path at full size ---------------------------
+    print("\nphase 8: serving path at full size", flush=True)
+    gold_v = golden_mod.load_serving()
+    hops.launches = ops.serve_launches = 0
+    # (a) host parity on a pinned schedule (benchmarks/serving_trace.py)
+    host_counts = np.random.default_rng(42).integers(
+        0, 4, size=host_spec.n_steps).astype(np.int32)
+    t0 = time.time()
+    sched, occ_host = run_host(host_spec, host_counts, device)
+    host_s = time.time() - t0
+    host_probe_launches = hops.launches
+    res_h = sim.simulate_serving(sim.SimConfig(serving=host_spec),
+                                 counts=host_counts, device=device)
+    parity = (np.array_equal(res_h["steps"]["occ"], occ_host)
+              and res_h["retired"] == sched.stats["retired"]
+              and res_h["admit_probes"] == sched.stats["admit_probes"]
+              and res_h["admit_hot"] == sched.stats["admit_hot"])
+    print(f"  (a) host scheduler {host_s:.1f} s ({host_probe_launches} probe "
+          f"launches) vs simulate_serving: retired {sched.stats['retired']} "
+          f"/ {res_h['retired']}, admit_probes "
+          f"{sched.stats['admit_probes']} / {res_h['admit_probes']}, "
+          f"admit_hot {sched.stats['admit_hot']} / {res_h['admit_hot']}, "
+          f"per-step occupancy equal: "
+          f"{np.array_equal(res_h['steps']['occ'], occ_host)}", flush=True)
+    check(host_probe_launches > 0, "the host scheduler launched no probe")
+    check(parity, "host scheduler and serving entry disagree")
+    check(0 < res_h["admit_hot"] < res_h["admit_probes"],
+          "host parity schedule is not discriminative")
+    # (b) the 24-point grid at full depth against the golden file
+    grid24 = serving_grid(sim, golden_mod, timing)
+    pts = gold_v["points"]
+    pinned24 = np.asarray([p["counts"] for p in pts], np.int32)
+    res_p = sim.sweep_serving(grid24, counts=pinned24, collect_steps=True,
+                              device=device)
+    p_bad = sum(serving_mismatches(f"pinned/{i}", r, g)
+                for i, (r, g) in enumerate(zip(res_p, pts)))
+    print(f"  (b) 24 points x {gold_v['n_steps']} steps, repro's counts "
+          f"pinned: {p_bad} values differ from the golden file", flush=True)
+    check(p_bad == 0, "serving grid disagrees with the JAX golden numbers")
+    t0 = time.time()
+    res_d = sim.sweep_serving(grid24, collect_steps=True, device=device)
+    grid_wall = time.time() - t0
+    d_counts = d_bad = 0
+    for p, r, g, cfg in zip(golden_mod.serving_points(), res_d, pts,
+                            grid24):
+        label = (f"{p['policy']}/r{p['rate']:g}/b{p['burstiness']:g}/"
+                 f"{p['mechanism']}")
+        c, b = check_drawn(label, r, g, golden_mod.SERVING["grid_reqs"],
+                           drawn_counts(cfg, r["n_steps"], device))
+        d_counts, d_bad = d_counts + c, d_bad + b
+    print(f"      counts drawn on the card: {d_counts} of "
+          f"{pinned24.size} differ from repro's; stats of the points with "
+          f"equal counts: {d_bad} values differ ({grid_wall:.2f} s wall)",
+          flush=True)
+    check(d_bad == 0, "serving grid disagrees with the JAX golden numbers")
+    print("      policy: admit_hot_rate (chargecache points, mean over "
+          "rate x burstiness)")
+    for pol in golden_mod.SERVING["policies"]:
+        rates = [r["admit_hot_rate"] for p, r in
+                 zip(golden_mod.serving_points(), res_d)
+                 if p["policy"] == pol and p["mechanism"] == "chargecache"]
+        print(f"        {pol:<13} {sum(rates) / len(rates):.4f}")
+    # (c) the scale points
+    scale = {}
+    for n_req in (10_000, 100_000):
+        cfg = scale_config(sim, golden_mod, n_req)
+        t0 = time.time()
+        r = sim.simulate_serving(cfg, device=device)
+        wall = time.time() - t0
+        check(r["retired"] == n_req, f"{n_req}-request stream did not drain")
+        if n_req == golden_mod.SERVING["scale"]["n_reqs"]:
+            gold_c = np.asarray(gold_v["scale"]["counts"], np.int32)
+            p_bad = serving_mismatches(
+                f"scale/{n_req}/pinned", sim.simulate_serving(
+                    cfg, counts=gold_c, device=device), gold_v["scale"])
+            print(f"  (c) {n_req} requests, repro's counts pinned: {p_bad} "
+                  f"values differ from the golden file", flush=True)
+            check(p_bad == 0, "10**4-request point with repro's counts "
+                              "disagrees with the golden numbers")
+            c, b = check_drawn(f"scale/{n_req}", r, gold_v["scale"], n_req,
+                               drawn_counts(cfg, r["n_steps"], device))
+            check(b == 0, "10**4-request point disagrees with the golden "
+                          "numbers")
+            print(f"      counts drawn on the card: {c} differ from "
+                  f"repro's; stats differing {b}", flush=True)
+        scale[n_req] = {"steps": r["n_steps"], "wall_s": wall,
+                        "retired": r["retired"],
+                        "admit_hot_rate": r["admit_hot_rate"],
+                        "accesses": int(r["n_req"])}
+    serve_launches, probe_launches = ops.serve_launches, hops.launches
+    check(serve_launches > 0 and probe_launches > 0,
+          f"serving path launches: sim_serve {serve_launches}, probe "
+          f"{probe_launches}")
+    # kernel times at the main path's shapes
+    sh24, pa24, wa24 = engine.stage_serving(grid24, None, True,
+                                            torch.device(device))
+    ms24 = median_ms(lambda: ops.run_serve(sh24, pa24, wa24, None))
+    for n_req, row in scale.items():
+        sh, pa, wa = engine.stage_serving(
+            [scale_config(sim, golden_mod, n_req)], None, False,
+            torch.device(device))
+        row["ms"] = median_ms(lambda: ops.run_serve(sh, pa, wa, None),
+                              reps=1 if n_req > 10_000 else 3)
+        print(f"      {n_req} requests: {row['steps']} steps, "
+              f"{row['accesses']} measured page accesses, kernel "
+              f"{row['ms']:.1f} ms ({row['ms'] * 1e6 / max(row['accesses'], 1):.0f}"
+              f" ns an access), {row['wall_s']:.2f} s wall, admit_hot_rate "
+              f"{row['admit_hot_rate']:.4f}", flush=True)
+    nb = sh24.sim.envelope.max_banks_total
+    prow = kernel.pack(pa24.mech, wa24)[0].shape[1]
+    v_bytes = len(grid24) * 4 * (prow + len(kernel.SERVE_FIELDS) + 16
+                                 + 2 * nb + len(engine.SERVE_STAT_KEYS) + 1
+                                 + 3 * sh24.n_steps)
+    v_bound = v_bytes / HBM_BYTES_PER_S * 1e3
+    n_access = sum(int(r["n_req"]) for r in res_d)
+    print(f"\n  serving kernel: 24-point grid x {sh24.n_steps} steps "
+          f"{ms24:.3f} ms ({n_access} measured page accesses); bytes bound "
+          f"{v_bound:.5f} ms ({v_bytes} B); launches on the serving path: "
+          f"sim_serve {serve_launches}, hcrac probe {probe_launches}")
+
+    return ({
+        "name": "hcrac_lookup", "route": "cuda",
+        "source": "src/repro_torch/kernels/hcrac/csrc/hcrac.cu",
+        "replaces": "src/repro/kernels/hcrac/kernel.py:49",
+        "launches": probe_launches, "max_abs_err": probe["max_abs_err"],
+        "mismatches": probe["mismatches"], "ms": probe["ms"],
+        "plain_ms": probe["plain_ms"], "queries": PROBE_Q,
+        "main_path_probe_ms": probe["main_path_probe_ms"],
+        "main_path_probe_bound_ms": probe["main_path_probe_bound_ms"],
+        "device_ms": probe["device_ms"],
+        "main_path_probe_device_ms": probe["main_path_probe_device_ms"],
+        "cases": probe["cases"],
+        "bound_ms": probe["bound_ms"], "bound_by": "bytes",
+        "library_ms": None}, {
+        "name": "sim_step_serve", "route": "cuda",
+        "source": "src/repro_torch/kernels/sim_step/csrc/sim_step.cu",
+        "replaces": "none (XLA scan, src/repro/serving/loop/engine.py:342)",
+        "launches": serve_launches, "max_abs_err": v_err,
+        "mismatches": v_bad, "ms": ms24, "plain_ms": v_plain_ms,
+        "plain_steps": v_cut_steps, "ms_at_plain_steps": v_cut_ms,
+        "steps": sh24.n_steps, "points": len(grid24),
+        "counts_differing": d_counts,
+        "scale": {str(k): v for k, v in scale.items()},
+        "bound_ms": v_bound, "bound_by": "bytes", "library_ms": None})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -415,6 +918,7 @@ def main() -> int:
     from repro_torch import golden as golden_mod
     from repro_torch.golden import build_batch, load, load_batch, trace_sha256
     from repro_torch.kernels.sim_step import kernel, ops, ref
+    from repro_torch.kernels.hcrac import kernel as hk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -427,14 +931,19 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
+    # both libraries build at once, one nvcc each
     t0 = time.time()
-    lib = kernel.library()
-    print(f"sim_step build+load: {time.time() - t0:.1f} s ({lib._name})")
-    log = Path(lib._name).with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:
+        lib, hlib = pool.map(lambda f: f(), (kernel.library, hk.library))
+    print(f"sim_step + hcrac build+load: {time.time() - t0:.1f} s "
+          f"({lib._name}, {hlib._name})")
+    for built in (lib, hlib):
+        log = Path(built._name).with_suffix(".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if ("registers" in line or "spill" in line or "smem" in line
+                        or "entry function" in line):
+                    print(f"  ptxas: {line.strip()}")
 
     # --- phase 2: kernel against plain version --------------------------
     print("\nphase 2: sim_step kernel vs plain version (on the card)",
@@ -525,10 +1034,18 @@ def main() -> int:
                          shape8.envelope.max_banks_total,
                          stacked8.thermal.seg_edge.shape[-1])
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    shape1, stacked1 = args1[0], args1[1]
+    nbytes1 = bytes_moved(batch1, len(kinds), args1[3].shape[0],
+                          w1["n_steps"],
+                          kernel.pack(stacked1, args1[4])[0].shape[1],
+                          shape1.envelope.max_banks_total,
+                          stacked1.thermal.seg_edge.shape[-1])
+    bound1_ms = nbytes1 / HBM_BYTES_PER_S * 1e3
     print(f"\n  kernel: {len(grid38)}-point eight-core sweep {ms8:.2f} ms "
-          f"({ms8 * 1e6 / w8['n_steps']:.0f} ns/step), 8-point single-core "
-          f"sweep {ms1:.2f} ms ({ms1 * 1e6 / w1['n_steps']:.0f} ns/step); "
-          f"bytes bound {bound_ms:.4f} ms ({nbytes} B)")
+          f"({ms8 * 1e6 / w8['n_steps']:.0f} ns/step), bytes bound "
+          f"{bound_ms:.4f} ms ({nbytes} B); 8-point single-core sweep "
+          f"{ms1:.2f} ms ({ms1 * 1e6 / w1['n_steps']:.0f} ns/step), bytes "
+          f"bound {bound1_ms:.4f} ms ({nbytes1} B)")
 
     # --- phase 4: the synthesis entry against its plain version ---------
     print("\nphase 4: sim_step synthesis entry vs plain version (on the "
@@ -605,9 +1122,12 @@ def main() -> int:
           f"({ms32 * 1e6 / n32:.0f} ns/step); generation pre-pass alone "
           f"{gen_ms:.2f} ms ({100 * gen_ms / ms32:.1f} %); bytes bound "
           f"{bound32:.4f} ms ({nbytes32} B)")
+
+    serve_rows = serving_phases(sim, timing, golden_mod)
+    max_err = max(max_err, serve_rows[1]["max_abs_err"])
     print(smi)
 
-    # --- phase 6: kernel numbers -----------------------------------------
+    # --- phase 9: kernel numbers -----------------------------------------
     print(json.dumps({"kernels": [{
         "name": "sim_step", "route": "cuda",
         "source": "src/repro_torch/kernels/sim_step/csrc/sim_step.cu",
@@ -617,6 +1137,7 @@ def main() -> int:
         "ms": ms8, "plain_ms": plain_t, "plain_steps": CUT_STEPS,
         "ms_at_plain_steps": cut_ms, "steps": w8["n_steps"],
         "points": len(grid38), "single_core_ms": ms1,
+        "single_core_bound_ms": bound1_ms,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}, {
         "name": "sim_step_synth", "route": "cuda",
         "source": "src/repro_torch/kernels/sim_step/csrc/sim_step.cu",
@@ -627,7 +1148,8 @@ def main() -> int:
         "ms_at_plain_steps": s_cut_ms, "steps": n32,
         "points": len(grid32), "prepass_ms": gen_ms,
         "streams_equal_to_golden": same, "streams_differing": differ,
-        "bound_ms": bound32, "bound_by": "bytes", "library_ms": None}]}))
+        "bound_ms": bound32, "bound_by": "bytes", "library_ms": None},
+        *serve_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,7 +5,8 @@ into a shared library with a plain C interface, under ``build/kernels/``
 at the root of the checkout, named by a hash of the sources and flags, so
 an edited source rebuilds and an unchanged one loads the cached library.
 The library is bound with ``ctypes``.  Nothing here runs at import time,
-and a missing ``nvcc`` or a failed compile raises.
+and a missing ``nvcc`` or a failed compile raises.  ``require_cuda`` and
+``launch`` are the launchers' shared checks and stream plumbing.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 #: build outputs, at the root of the checkout (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -71,3 +74,16 @@ def load(name: str, csrc: Path) -> ctypes.CDLL:
     if not sources:
         raise RuntimeError(f"no CUDA sources under {csrc}")
     return ctypes.CDLL(str(build(name, sources)))
+
+
+def require_cuda(dev: torch.device, what: str) -> None:
+    """Raise unless ``dev`` is a CUDA device (a launcher's input check)."""
+    if dev.type != "cuda":
+        raise ValueError(f"{what} launches on CUDA tensors, not {dev}")
+
+
+def launch(fn, dev: torch.device, *args) -> int:
+    """Call the C launcher ``fn`` with ``args`` and PyTorch's current
+    stream on ``dev`` (as a pointer); returns its CUDA error code."""
+    with torch.cuda.device(dev):
+        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)

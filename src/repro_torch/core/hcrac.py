@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.dram import floordiv
@@ -80,6 +81,15 @@ def init(cfg: HCRACConfig, n_points: int, device=None) -> HCRACState:
     shape = (n_points, cfg.n_sets, cfg.n_ways)
     full = lambda v: torch.full(shape, v, dtype=torch.int32, device=device)
     return HCRACState(tags=full(NO_TAG), itime=full(0), lru=full(-1))
+
+
+def state_from_numpy(tags, itime, lru, device=None) -> HCRACState:
+    """An ``HCRACState`` of int32 tensors on ``device`` from array-likes
+    of any leading shape (``[sets, ways]`` for one table, ``[G, sets,
+    ways]`` for a grid): how a table built elsewhere (``repro``'s
+    ``HCRACState``, via ``np.asarray``) enters the port."""
+    t = lambda x: torch.as_tensor(np.array(x, np.int32), device=device)
+    return HCRACState(tags=t(tags), itime=t(itime), lru=t(lru))
 
 
 def _alive(cfg: HCRACConfig, set_idx, itime, t, params: HCRACParams):

@@ -3,11 +3,12 @@
 One source of truth for every derived scalar the engine reports: a
 *metric* is a named host-side formula over integer *ingredient* counters
 (``deps`` — stat keys like ``lat_sum``/``n_req``, or the engine-derived
-``total_cycles``).  ``simulator._finalize`` calls ``finalize_scalars``,
-which fills in every registered metric whose deps are present.  The
-formulas are dtype-explicit numpy, so they give the same float64 values
-as ``repro``'s.  The reduce path and the streaming aggregations of
-``repro.core.metrics`` belong to the Experiment layer, not ported yet.
+``total_cycles``).  ``simulator._finalize`` and the serving engine's
+``run_sweep`` call ``finalize_scalars``, which fills in every registered
+metric whose deps are present.  The formulas are dtype-explicit numpy,
+so they give the same float64 values as ``repro``'s.  The reduce path
+and the streaming aggregations of ``repro.core.metrics`` belong to the
+Experiment layer, not ported yet.
 """
 
 from __future__ import annotations
@@ -110,3 +111,21 @@ def _ref_blocked_frac(ref_blocked_cycles, total_cycles):
     stateful refresh engine's headline cost stat (DESIGN.md §14; zero
     under the legacy closed-form tier, which never issues REF)."""
     return ref_blocked_cycles / np.maximum(total_cycles, 1)
+
+
+# --- serving-loop derived scalars (deps present only in serving mode) ---
+
+@register_metric("admit_hot_rate", deps=("admit_hot", "admit_probes"),
+                 best="max")
+def _admit_hot_rate(admit_hot, admit_probes):
+    return admit_hot / np.maximum(admit_probes, 1)
+
+
+@register_metric("occ_mean", deps=("occ_sum", "n_steps"), best="max")
+def _occ_mean(occ_sum, n_steps):
+    return occ_sum / np.maximum(n_steps, 1)
+
+
+@register_metric("qlen_mean", deps=("qlen_sum", "n_steps"), best="min")
+def _qlen_mean(qlen_sum, n_steps):
+    return qlen_sum / np.maximum(n_steps, 1)

@@ -3,7 +3,9 @@
 Port of ``repro.core.simulator``'s in-order engine, over a trace
 (``simulate`` / ``sweep``) or over streams each grid point generates
 for itself (``simulate_synth`` / ``sweep_synth``, the generator in
-``repro_torch.workloads``).  One step of the scan = one memory request,
+``repro_torch.workloads``); the serving closed loop's entry points
+(``simulate_serving`` / ``sweep_serving``) lead to
+``repro_torch.serving.loop``, whose engine calls ``_service`` here.  One step of the scan = one memory request,
 end to end —
 
 1. **CPU issue model**: each core issues its next request after its
@@ -114,7 +116,9 @@ class SimConfig:
     #: channel-interleave policy of the streamed path's address
     #: composition (``dram.compose_address``); unused by traces
     interleave: InterleaveConfig = InterleaveConfig()
-    #: the serving loop (``repro``'s ``sweep_serving``)
+    #: the serving closed loop (a ``serving.loop.ServingSpec``) for
+    #: ``simulate_serving`` / ``sweep_serving``; ``None`` means trace- or
+    #: workload-driven as above
     serving: object | None = None
     #: "inorder" (this engine) or "frfcfs" (``repro.controller``)
     controller: str = "inorder"
@@ -134,9 +138,9 @@ class SimConfig:
                 "the FR-FCFS controller tier is not ported yet "
                 "(ROADMAP.md, Queue 1: FR-FCFS controller tier)")
         if self.serving is not None:
-            raise NotImplementedError(
-                "the serving loop is not ported yet "
-                "(ROADMAP.md, Queue 1: Serving)")
+            from repro_torch.serving.loop.spec import ServingSpec
+            if not isinstance(self.serving, ServingSpec):
+                raise TypeError("SimConfig.serving must be a ServingSpec")
 
 
 # --------------------------------------------------------------------------
@@ -1073,6 +1077,38 @@ def simulate_synth(cfg: SimConfig, device=None) -> dict:
     if cfg.workload is None:
         raise ValueError("simulate_synth needs cfg.workload")
     return sweep_synth([cfg], rltl=True, device=device)[0]
+
+
+# --------------------------------------------------------------------------
+# The serving closed loop (engine in repro_torch.serving.loop)
+# --------------------------------------------------------------------------
+
+def sweep_serving(grid: Sequence[SimConfig],
+                  shape_grid: Sequence[SimConfig] | None = None,
+                  counts=None, collect_steps: bool = False,
+                  reduce_keys: tuple | None = None, device=None):
+    """Evaluate a serving grid (``cfg.serving`` set on every point): one
+    continuous-batching closed loop per point, all in one launch — on a
+    CUDA device one launch of the ``sim_step`` kernel's serving entry, on
+    the CPU the plain engine.  ``counts`` pins the per-step arrivals;
+    with ``reduce_keys`` (``engine.SERVE_REDUCE_KEYS``) the result is an
+    int32 ``[G, n_keys]`` array.  ``device`` defaults to CUDA.  The
+    engine lives in ``repro_torch.serving.loop.engine``, imported here
+    lazily (it imports this module)."""
+    from repro_torch.serving.loop import engine
+    return engine.run_sweep(grid, shape_grid=shape_grid, counts=counts,
+                            collect_steps=collect_steps,
+                            reduce_keys=reduce_keys, device=device)
+
+
+def simulate_serving(cfg: SimConfig, counts=None,
+                     collect_steps: bool = True, device=None) -> dict:
+    """One serving point end to end (a one-point ``sweep_serving`` with
+    the per-step occupancy / queue arrays)."""
+    from repro_torch.serving.loop import engine
+    return engine.simulate_serving(cfg, counts=counts,
+                                   collect_steps=collect_steps,
+                                   device=device)
 
 
 def weighted_speedup(core_end_base: np.ndarray, core_end_mech: np.ndarray,

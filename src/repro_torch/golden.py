@@ -1,8 +1,10 @@
 """The golden full-size reference: what the JAX package computes for the
 thesis experiment's two full-size workloads, recorded in
-``data/golden_fullwidth.json``, and for the full-size synthetic grid
+``data/golden_fullwidth.json``, for the full-size synthetic grid
 (``SYNTH``), recorded in ``data/golden_synth.json`` with a digest of
-every generated stream (both written by ``tests/_torch_golden.py``).
+every generated stream, and for the serving loop's full-size cells
+(``SERVING``), recorded in ``data/golden_serving.json`` with each
+point's drawn arrival counts (all written by ``tests/_torch_golden.py``).
 
 This module names the workloads, rebuilds their traces with either
 package's ``traces`` module (``build_batch``), and loads the traces the
@@ -152,6 +154,56 @@ def tolerance_violations(got: dict, want: dict) -> list[str]:
         if d > tol["rltl_cdf"]:
             bad.append(f"RLTL 0.125 ms CDF point off by {d:.4f}")
     return bad
+
+
+SERVING_PATH = DATA / "golden_serving.json"
+
+#: the serving loop's full-size cells (benchmarks/serving_loop.py): the
+#: 24-point policy x arrival rate x burstiness x mechanism grid, each point
+#: 256 requests (``grid``), and the 10**4-request scale point
+#: (``scale_points``); the ``_spec`` there gives every other field
+SERVING = {
+    "policies": ["fifo", "charge_aware", "preempting"],
+    "rates": [1.0, 3.0],
+    "bursts": [1.0, 4.0],
+    "mechanisms": ["base", "chargecache"],
+    "grid_reqs": 256,
+    "arrival": {"prompt_pages_min": 1, "prompt_pages_max": 2,
+                "decode_min": 4, "decode_max": 8, "seed": 11},
+    "spec": {"cycles_per_step": 4000, "hot_entries": 1024, "hot_ways": 2,
+             "hot_caching_ms": 0.05, "hot_exact": True},
+    "grid_batch": 8,
+    #: the grid's mechanisms as ``benchmarks/common.py::mech_config``
+    #: builds them: 128 HCRAC entries, 1 ms caching duration
+    "mech_entries": 128, "mech_caching_ms": 1.0,
+    "scale": {"n_reqs": 10_000, "rate": 8.0, "burstiness": 2.0,
+              "max_batch": 32, "policy": "charge_aware"},
+}
+
+
+def serving_points() -> list[dict]:
+    """The serving grid's points, in launch order, as plain labels."""
+    S = SERVING
+    return [{"policy": p, "rate": r, "burstiness": b, "mechanism": k}
+            for p in S["policies"] for r in S["rates"] for b in S["bursts"]
+            for k in S["mechanisms"]]
+
+
+def serving_spec_kwargs(n_reqs: int, rate: float, burstiness: float,
+                        max_batch: int, policy: str) -> tuple[dict, dict]:
+    """``(ArrivalConfig kwargs, ServingSpec kwargs but arrival)`` of a
+    ``benchmarks/serving_loop.py::_spec`` point, for either package."""
+    S = SERVING
+    arrival = {"rate": rate, "burstiness": burstiness, **S["arrival"]}
+    spec = {"policy": policy, "n_reqs": n_reqs, "max_batch": max_batch,
+            "queue_cap": 4 * max_batch, "arrivals_max": max_batch,
+            **S["spec"]}
+    return arrival, spec
+
+
+def load_serving() -> dict:
+    with open(SERVING_PATH) as f:
+        return json.load(f)
 
 
 def load_synth() -> dict:

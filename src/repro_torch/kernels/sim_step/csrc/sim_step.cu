@@ -1,5 +1,5 @@
-// sim_step.cu — the DRAM simulator scan as a CUDA kernel, over a trace or
-// over streams it synthesises itself.
+// sim_step.cu — the DRAM simulator scan as a CUDA kernel, over a trace,
+// over streams it synthesises itself, or driven by the serving closed loop.
 //
 // Replaces repro/kernels/sim_step/kernel.py::grid_step_call (the Pallas
 // grid launcher, reached from ops.py::_sweep_pallas), which runs one
@@ -29,6 +29,10 @@
 // its next_same lookahead, then lane 0 scans it as above.  The pre-pass
 // is parallel over cores and adds ~15 B per request of scratch traffic;
 // the scan's serial chain still bounds the launch.
+//
+// The serving entry (sim_serve_kernel, below) has no Pallas counterpart:
+// repro's serving loop is an XLA scan.  It runs the same per-request
+// service (Dram::service) once per page access of the loop.
 //
 // Semantics follow repro.core.simulator bit for bit: int32 arithmetic
 // wraps (done in uint32, since signed overflow is undefined in C++),
@@ -195,6 +199,19 @@ struct Hcrac {
     lru[base + way] = t;
   }
 
+  // The read-only probe (kernels/hcrac, serving/loop/engine._probe_many):
+  // a live way holds the gid; no LRU side effect.
+  __device__ bool probe(int gid, int t) const {
+    int set = floormod(gid, n_sets);
+    int base = set * W;
+    for (int w = 0; w < W; ++w) {
+      int tag = tags[base + w];
+      if (tag != NO_TAG && tag == gid && alive(set, w, itime[base + w], t))
+        return true;
+    }
+    return false;
+  }
+
   // hcrac.lookup: a hit refreshes the matching ways' LRU stamps only.
   __device__ bool lookup(int gid, int t) {
     int set = floormod(gid, n_sets);
@@ -253,6 +270,360 @@ struct Out {
   uint8_t* act_ref8; // [G, n_steps]
 };
 
+// The scan state of one point in shared memory (order must match
+// scan_words).  The serving entry uses it with one idle core.
+struct Carve {
+  int* prm;
+  int *ptr, *last_issue, *last_complete, *ring_idx, *core_end, *ring;
+  int *open_row, *ready_act, *ready_rdwr, *ready_pre, *last_pre_gid,
+      *last_pre_t, *ref_k, *last_ref_t, *bank_acts, *bank_ras;
+  int *cmd_free, *data_free;
+  int *tags, *itime, *lru;
+  int* stats;
+  int* s_end;
+  float* leak;
+};
+
+__device__ __forceinline__ Carve carve(const Dims& d, int* sm) {
+  const int C = d.C, NB = d.NB, NCH = d.NCH;
+  Carve c;
+  c.prm = sm;
+  c.ptr = c.prm + d.P;
+  c.last_issue = c.ptr + C;
+  c.last_complete = c.last_issue + C;
+  c.ring_idx = c.last_complete + C;
+  c.core_end = c.ring_idx + C;
+  c.ring = c.core_end + C;
+  c.open_row = c.ring + C * d.M;
+  c.ready_act = c.open_row + NB;
+  c.ready_rdwr = c.ready_act + NB;
+  c.ready_pre = c.ready_rdwr + NB;
+  c.last_pre_gid = c.ready_pre + NB;
+  c.last_pre_t = c.last_pre_gid + NB;
+  c.ref_k = c.last_pre_t + NB;
+  c.last_ref_t = c.ref_k + NB;
+  c.bank_acts = c.last_ref_t + NB;
+  c.bank_ras = c.bank_acts + NB;
+  c.cmd_free = c.bank_ras + NB;
+  c.data_free = c.cmd_free + NCH;
+  c.tags = c.data_free + NCH;
+  c.itime = c.tags + d.HS * d.W;
+  c.lru = c.itime + d.HS * d.W;
+  c.stats = c.lru + d.HS * d.W;
+  c.s_end = c.stats + N_STATS;
+  c.leak = reinterpret_cast<float*>(c.s_end + 1);
+  return c;
+}
+
+// Every lane: copy the point's params and leak scales in and reset the
+// scan state (simulator._init_state).
+__device__ __forceinline__ void init_scan(const Dims& d, const Carve& c,
+                                          const int* __restrict__ params,
+                                          const float* __restrict__ seg_leak,
+                                          int gp, int lane) {
+  const int C = d.C, NB = d.NB, NCH = d.NCH, M = d.M;
+  for (int i = lane; i < d.P; i += 32) c.prm[i] = params[(size_t)gp * d.P + i];
+  for (int i = lane; i < 5 * C + C * M; i += 32) c.ptr[i] = 0;
+  for (int i = lane; i < NB; i += 32) {
+    c.open_row[i] = NO_ROW;
+    c.ready_act[i] = 0;
+    c.ready_rdwr[i] = 0;
+    c.ready_pre[i] = 0;
+    c.last_pre_gid[i] = -1;
+    c.last_pre_t[i] = 0;
+    c.ref_k[i] = 0;
+    c.last_ref_t[i] = 0;
+    c.bank_acts[i] = 0;
+    c.bank_ras[i] = 0;
+  }
+  for (int i = lane; i < 2 * NCH; i += 32) c.cmd_free[i] = 0;
+  for (int i = lane; i < d.HS * d.W; i += 32) {
+    c.tags[i] = NO_TAG;
+    c.itime[i] = 0;
+    c.lru[i] = -1;
+  }
+  for (int i = lane; i < N_STATS; i += 32) c.stats[i] = 0;
+  for (int i = lane; i < d.S; i += 32) c.leak[i] = seg_leak[(size_t)gp * d.S + i];
+  if (lane == 0) *c.s_end = d.n_steps;
+}
+
+// Every lane: write the point's stats and bank arrays.
+__device__ __forceinline__ void write_scan(const Dims& d, const Carve& c,
+                                           int* stats, int* bank_stats,
+                                           int gp, int lane) {
+  for (int i = lane; i < N_STATS; i += 32)
+    stats[(size_t)gp * N_STATS + i] = c.stats[i];
+  for (int i = lane; i < d.NB; i += 32) {
+    bank_stats[((size_t)gp * 2 + 0) * d.NB + i] = c.bank_acts[i];
+    bank_stats[((size_t)gp * 2 + 1) * d.NB + i] = c.bank_ras[i];
+  }
+}
+
+// simulator.STAT_KEYS, in order: lane 0's accumulators
+enum { N_REQ, LAT_SUM, ACTS, ACTS_LOWERED, HC_HITS, HC_LOOKUPS, ROW_HITS,
+       ROW_CLOSED, ROW_CONFLICTS, READS, WRITES, PRES, ACT_RAS_SUM,
+       REF8_ACTS, REFS_ISSUED, REF_BLOCKED };
+
+// One request's event record (simulator.Events): a gid of -1 means none.
+struct Ev {
+  int act_gid, act_t, pre1_gid, pre1_t, pre2_gid, pre2_t, pre3_gid, pre3_t;
+  bool ref8;
+};
+
+// A point's DRAM system on lane 0: its params, read once from the packed
+// row, and its bank, bus and HCRAC state in shared memory.  ``service``
+// is simulator._service for one live request.
+struct Dram {
+  int tRCD, tRAS, tRP, tCL, tCWL, tBL, tRTP, tWR, tREFI, tRFC, groups;
+  int retention, banks_total, bpc, n_rows;
+  bool closed, stateful, hc_gate;
+  bool ll_en, cc_en, nuat_en, rltl_en, al_en, al_drift, th_en;
+  int ll_rcd, ll_ras, cc_rcd, cc_ras, rltl_window, rltl_rcd, rltl_ras;
+  const int *nuat_edge, *nuat_rcd, *nuat_ras;
+  const int *al_rcd, *al_ras, *al_seg_rcd, *al_seg_ras, *th_edge;
+  int NB, NBINS, S;
+  Carve c;
+  Hcrac hc;
+
+  __device__ __forceinline__ Dram(const Dims& d, const Layout& lay,
+                                  const Carve& cv)
+      : c(cv) {
+    const int* prm = cv.prm;
+    const int* off = lay.off;
+    tRCD = prm[off[F_tRCD]];
+    tRAS = prm[off[F_tRAS]];
+    tRP = prm[off[F_tRP]];
+    tCL = prm[off[F_tCL]];
+    tCWL = prm[off[F_tCWL]];
+    tBL = prm[off[F_tBL]];
+    tRTP = prm[off[F_tRTP]];
+    tWR = prm[off[F_tWR]];
+    tREFI = prm[off[F_tREFI]];
+    tRFC = prm[off[F_tRFC]];
+    groups = prm[off[F_GROUPS]];
+    retention = prm[off[F_RETENTION]];
+    banks_total = prm[off[F_BANKS_TOTAL]];
+    bpc = prm[off[F_BANKS_PER_CH]];
+    n_rows = prm[off[F_N_ROWS]];
+    closed = prm[off[F_CLOSED]] != 0;
+    stateful = prm[off[F_STATEFUL]] != 0;
+    hc_gate = prm[off[F_HC_GATE]] != 0;
+    ll_en = prm[off[F_LL_EN]] != 0;
+    ll_rcd = prm[off[F_LL_RCD]];
+    ll_ras = prm[off[F_LL_RAS]];
+    cc_en = prm[off[F_CC_EN]] != 0;
+    cc_rcd = prm[off[F_CC_RCD]];
+    cc_ras = prm[off[F_CC_RAS]];
+    nuat_en = prm[off[F_NUAT_EN]] != 0;
+    nuat_edge = prm + off[F_NUAT_EDGE];
+    nuat_rcd = prm + off[F_NUAT_RCD];
+    nuat_ras = prm + off[F_NUAT_RAS];
+    rltl_en = prm[off[F_RLTL_EN]] != 0;
+    rltl_window = prm[off[F_RLTL_WINDOW]];
+    rltl_rcd = prm[off[F_RLTL_RCD]];
+    rltl_ras = prm[off[F_RLTL_RAS]];
+    al_en = prm[off[F_AL_EN]] != 0;
+    al_drift = prm[off[F_AL_DRIFT]] != 0;
+    al_rcd = prm + off[F_AL_RCD];
+    al_ras = prm + off[F_AL_RAS];
+    al_seg_rcd = prm + off[F_AL_SEG_RCD];
+    al_seg_ras = prm + off[F_AL_SEG_RAS];
+    th_en = prm[off[F_TH_EN]] != 0;
+    th_edge = prm + off[F_TH_EDGE];
+    NB = d.NB;
+    NBINS = d.NBINS;
+    S = d.S;
+    hc = Hcrac{cv.tags, cv.itime, cv.lru, d.W, prm[off[F_HC_SETS]],
+               prm[off[F_HC_CACHING]], prm[off[F_HC_PERIOD]], d.exact != 0};
+  }
+
+  // Serve one live request arriving at ``t_arr`` (the bank and row
+  // already folded); updates the state, adds to ``acc`` and ``ev`` and
+  // returns its completion time.
+  __device__ __forceinline__ int service(int t_arr, int bank, int row,
+                                         bool is_write, bool ns, bool measure,
+                                         unsigned* acc, Ev& ev) {
+    const unsigned m = measure ? 1u : 0u;
+    const bool legacy = !stateful;
+    const int ch = floordiv(bank, bpc);
+    const int t0 = imax(t_arr, c.cmd_free[ch]);
+
+    // rolling refresh: catch the bank's REF counter up (stateful tier)
+    const int ref_due = wadd(floordiv(t0, tREFI), 1);
+    const int n_pend = imax(wsub(ref_due, c.ref_k[bank]), 0);
+    const bool do_ref = stateful && n_pend > 0;
+    const int busy0 =
+        imax(imax(c.ready_act[bank], c.ready_pre[bank]), c.ready_rdwr[bank]);
+    const int ref_t = imax(wmul(wsub(ref_due, 1), tREFI), c.ready_pre[bank]);
+    const int ref_done = wadd(ref_t, tRFC);
+    const int openr0 = c.open_row[bank];
+    const bool ref_pre = do_ref && openr0 != NO_ROW;
+    const int openr = do_ref ? NO_ROW : openr0;
+    const int r_act_b = do_ref ? imax(c.ready_act[bank], ref_done)
+                               : c.ready_act[bank];
+    const int r_pre_b = do_ref ? imax(c.ready_pre[bank], ref_done)
+                               : c.ready_pre[bank];
+    const int r_rdwr_b = do_ref ? imax(c.ready_rdwr[bank], ref_done)
+                                : c.ready_rdwr[bank];
+    const int gid_ref = wadd(wmul(bank, n_rows), ref_pre ? openr0 : 0);
+    if (ref_pre && hc_gate) hc.insert(gid_ref, ref_t);
+
+    const bool is_hit = openr == row;
+    const bool is_closed = openr == NO_ROW;
+    const bool is_conflict = !is_hit && !is_closed;
+
+    // conflict path: PRE the open row (insert it into the HCRAC)
+    int t_pre = imax(t0, r_pre_b);
+    if (legacy) t_pre = refresh_adjust(t_pre, row, tREFI, tRFC, groups);
+    const int gid_old = wadd(wmul(bank, n_rows), is_conflict ? openr : 0);
+    if (is_conflict && hc_gate) hc.insert(gid_old, t_pre);
+
+    // ACT
+    int t_act = is_conflict ? wadd(t_pre, tRP) : imax(t0, r_act_b);
+    if (legacy) t_act = refresh_adjust(t_act, row, tREFI, tRFC, groups);
+    const bool needs_act = !is_hit;
+    const int gid = wadd(wmul(bank, n_rows), row);
+    // the lookup runs on row hits too (LRU refresh); with the gate off
+    // the table stays empty, so skipping it changes nothing
+    bool cc_hit = hc_gate ? hc.lookup(gid, t_act) : false;
+    cc_hit = cc_hit && needs_act && hc_gate;
+
+    const int tslp =
+        c.last_pre_gid[bank] == gid ? wsub(t_act, c.last_pre_t[bank]) : INF;
+
+    // leak clock (dram.time_since_refresh / the stateful REF registers)
+    const int tsr_closed = floormod(
+        wsub(t_act, wmul(floormod(row, groups), tREFI)), retention);
+    const int kw = wsub(ref_due, 1);
+    const int j_g = wsub(kw, floormod(wsub(kw, floormod(row, groups)),
+                                      groups));
+    const int new_last_ref_t = do_ref ? ref_t : c.last_ref_t[bank];
+    const int t_ref = j_g == kw ? new_last_ref_t : wmul(j_g, tREFI);
+    const int tsr = (stateful && j_g >= 0) ? imax(wsub(t_act, t_ref), 0)
+                                           : tsr_closed;
+    int seg = 0;
+    int tsr_eff = tsr;
+    if (S > 0) {
+      int cnt = 0;
+      for (int i = 0; i < S; ++i) cnt += t_act >= th_edge[i];
+      seg = imin(imax(cnt - 1, 0), S - 1);
+      if (th_en) tsr_eff = __float2int_rn(__fmul_rn((float)tsr, c.leak[seg]));
+    }
+
+    // mechanism fold, registration order: lldram, chargecache, nuat,
+    // rltl, aldram
+    int rcd = tRCD, ras = tRAS;
+    if (ll_en) {
+      rcd = ll_rcd;
+      ras = ll_ras;
+    }
+    if (cc_hit && cc_en) {
+      rcd = cc_rcd;
+      ras = cc_ras;
+    }
+    if (nuat_en) {
+      int n_rcd = tRCD, n_ras = tRAS;
+      for (int i = NBINS - 1; i >= 0; --i) {
+        if (tsr_eff < nuat_edge[i]) {
+          n_rcd = nuat_rcd[i];
+          n_ras = nuat_ras[i];
+        }
+      }
+      rcd = imin(rcd, n_rcd);
+      ras = imin(ras, n_ras);
+    }
+    if (rltl_en && needs_act && tslp < rltl_window) {
+      rcd = imin(rcd, rltl_rcd);
+      ras = imin(ras, rltl_ras);
+    }
+    if (al_en) {
+      int b_rcd = al_rcd[bank], b_ras = al_ras[bank];
+      if (S > 0 && al_drift) {
+        b_rcd = al_seg_rcd[seg * NB + bank];
+        b_ras = al_seg_ras[seg * NB + bank];
+      }
+      rcd = imin(rcd, b_rcd);
+      ras = imin(ras, b_ras);
+    }
+    const bool lowered_used = needs_act && (rcd < tRCD || ras < tRAS);
+
+    // READ / WRITE
+    int t_rdwr = is_hit ? imax(t0, r_rdwr_b) : wadd(t_act, rcd);
+    const int cas = is_write ? tCWL : tCL;
+    t_rdwr = imax(t_rdwr, wsub(c.data_free[ch], cas));
+    if (legacy)
+      t_rdwr = refresh_clamp_span(t_rdwr, wadd(cas, tBL), row, tREFI, tRFC,
+                                  groups);
+    const int done = wadd(wadd(t_rdwr, cas), tBL);
+
+    // bank state updates
+    const int new_ready_rdwr = needs_act ? wadd(t_act, rcd) : r_rdwr_b;
+    const int after_rw = is_write ? wadd(done, tWR) : wadd(t_rdwr, tRTP);
+    const int new_ready_pre =
+        imax(needs_act ? wadd(t_act, ras) : r_pre_b, after_rw);
+    const bool auto_pre = closed && !ns;
+    const int t_autopre = new_ready_pre;
+    if (auto_pre && hc_gate) hc.insert(gid, t_autopre);
+    const int new_open = auto_pre ? NO_ROW : row;
+    const int new_ready_act =
+        auto_pre ? wadd(t_autopre, tRP)
+                 : (is_conflict ? wadd(t_pre, tRP) : r_act_b);
+    const int n_cmds = 1 + (int)needs_act + (int)is_conflict + (int)auto_pre;
+    const int new_cmd_free = wadd(imax(c.cmd_free[ch], t_arr), n_cmds);
+
+    const int lp_gid0 = ref_pre ? gid_ref : c.last_pre_gid[bank];
+    const int lp_t0 = ref_pre ? ref_t : c.last_pre_t[bank];
+    const int new_lp_gid = auto_pre ? gid : (is_conflict ? gid_old : lp_gid0);
+    const int new_lp_t = auto_pre ? t_autopre : (is_conflict ? t_pre : lp_t0);
+
+    // stats
+    const unsigned a = m * (unsigned)needs_act;
+    const bool ref8 = needs_act && measure && tsr < MS8_CYCLES;
+    acc[N_REQ] += m;
+    acc[LAT_SUM] += m * (unsigned)wsub(done, t_arr);
+    acc[ACTS] += a;
+    acc[ACTS_LOWERED] += m * (unsigned)lowered_used;
+    acc[HC_LOOKUPS] += m * (unsigned)(needs_act && hc_gate);
+    acc[HC_HITS] += m * (unsigned)cc_hit;
+    acc[ROW_HITS] += m * (unsigned)is_hit;
+    acc[ROW_CLOSED] += m * (unsigned)is_closed;
+    acc[ROW_CONFLICTS] += m * (unsigned)is_conflict;
+    acc[READS] += m * (unsigned)!is_write;
+    acc[WRITES] += m * (unsigned)is_write;
+    acc[PRES] += m * ((unsigned)is_conflict + (unsigned)auto_pre);
+    acc[ACT_RAS_SUM] += a * (unsigned)ras;
+    acc[REF8_ACTS] += (unsigned)ref8;
+    acc[REFS_ISSUED] += m * (unsigned)stateful * (unsigned)n_pend;
+    if (do_ref && measure)
+      acc[REF_BLOCKED] += (unsigned)imax(wsub(ref_done, imax(t0, busy0)), 0);
+    c.bank_acts[bank] = (int)((unsigned)c.bank_acts[bank] + a);
+    c.bank_ras[bank] = (int)((unsigned)c.bank_ras[bank] + a * (unsigned)ras);
+
+    ev.act_gid = (needs_act && measure) ? gid : -1;
+    ev.act_t = t_act;
+    ev.pre1_gid = is_conflict ? gid_old : -1;
+    ev.pre1_t = t_pre;
+    ev.pre2_gid = auto_pre ? gid : -1;
+    ev.pre2_t = t_autopre;
+    ev.pre3_gid = ref_pre ? gid_ref : -1;
+    ev.pre3_t = ref_t;
+    ev.ref8 = ref8;
+
+    // state writes
+    c.open_row[bank] = new_open;
+    c.ready_act[bank] = new_ready_act;
+    c.ready_rdwr[bank] = new_ready_rdwr;
+    c.ready_pre[bank] = new_ready_pre;
+    c.last_pre_gid[bank] = new_lp_gid;
+    c.last_pre_t[bank] = new_lp_t;
+    if (do_ref) c.ref_k[bank] = ref_due;
+    c.last_ref_t[bank] = new_last_ref_t;
+    c.cmd_free[ch] = new_cmd_free;
+    c.data_free[ch] = done;
+    return done;
+  }
+};
+
 // One sweep point on one warp: every lane initialises the state, then
 // ``pre(prm)`` runs on every lane (the synthesis pre-pass; nothing for a
 // trace launch), then lane 0 runs the scan over ``tr`` and all lanes
@@ -265,60 +636,11 @@ __device__ __forceinline__ void run_point(const Dims& d, const Layout& lay,
                                           const Out& out, int* sm, Pre pre) {
   const int gp = blockIdx.x;
   const int lane = threadIdx.x;
-  const int C = d.C, L = d.L, NB = d.NB, NCH = d.NCH, M = d.M;
-
-  // carve (order must match smem_words)
-  int* prm = sm;
-  int* ptr = prm + d.P;
-  int* last_issue = ptr + C;
-  int* last_complete = last_issue + C;
-  int* ring_idx = last_complete + C;
-  int* core_end = ring_idx + C;
-  int* ring = core_end + C;
-  int* open_row = ring + C * M;
-  int* ready_act = open_row + NB;
-  int* ready_rdwr = ready_act + NB;
-  int* ready_pre = ready_rdwr + NB;
-  int* last_pre_gid = ready_pre + NB;
-  int* last_pre_t = last_pre_gid + NB;
-  int* ref_k = last_pre_t + NB;
-  int* last_ref_t = ref_k + NB;
-  int* bank_acts = last_ref_t + NB;
-  int* bank_ras = bank_acts + NB;
-  int* cmd_free = bank_ras + NB;
-  int* data_free = cmd_free + NCH;
-  int* tags = data_free + NCH;
-  int* itime = tags + d.HS * d.W;
-  int* lru = itime + d.HS * d.W;
-  int* stats = lru + d.HS * d.W;
-  int* s_end = stats + N_STATS;
-  float* leak = reinterpret_cast<float*>(s_end + 1);
-
-  for (int i = lane; i < d.P; i += 32) prm[i] = params[(size_t)gp * d.P + i];
-  for (int i = lane; i < 5 * C + C * M; i += 32) ptr[i] = 0;
-  for (int i = lane; i < NB; i += 32) {
-    open_row[i] = NO_ROW;
-    ready_act[i] = 0;
-    ready_rdwr[i] = 0;
-    ready_pre[i] = 0;
-    last_pre_gid[i] = -1;
-    last_pre_t[i] = 0;
-    ref_k[i] = 0;
-    last_ref_t[i] = 0;
-    bank_acts[i] = 0;
-    bank_ras[i] = 0;
-  }
-  for (int i = lane; i < 2 * NCH; i += 32) cmd_free[i] = 0;
-  for (int i = lane; i < d.HS * d.W; i += 32) {
-    tags[i] = NO_TAG;
-    itime[i] = 0;
-    lru[i] = -1;
-  }
-  for (int i = lane; i < N_STATS; i += 32) stats[i] = 0;
-  for (int i = lane; i < d.S; i += 32) leak[i] = seg_leak[(size_t)gp * d.S + i];
-  if (lane == 0) *s_end = d.n_steps;
+  const int C = d.C, L = d.L, M = d.M;
+  const Carve cv = carve(d, sm);
+  init_scan(d, cv, params, seg_leak, gp, lane);
   __syncwarp();
-  pre(prm);
+  pre(cv.prm);
   __syncwarp();
 
   const size_t ev_plane = (size_t)d.G * d.n_steps;
@@ -326,65 +648,24 @@ __device__ __forceinline__ void run_point(const Dims& d, const Layout& lay,
   uint8_t* ev_ref8 = out.act_ref8 + (size_t)gp * d.n_steps;
 
   if (lane == 0) {
-    const int* off = lay.off;
-    const int tRCD = prm[off[F_tRCD]], tRAS = prm[off[F_tRAS]];
-    const int tRP = prm[off[F_tRP]], tCL = prm[off[F_tCL]];
-    const int tCWL = prm[off[F_tCWL]], tBL = prm[off[F_tBL]];
-    const int tRTP = prm[off[F_tRTP]], tWR = prm[off[F_tWR]];
-    const int tREFI = prm[off[F_tREFI]], tRFC = prm[off[F_tRFC]];
-    const int groups = prm[off[F_GROUPS]];
-    const int retention = prm[off[F_RETENTION]];
-    const int banks_total = prm[off[F_BANKS_TOTAL]];
-    const int bpc = prm[off[F_BANKS_PER_CH]];
-    const int n_rows = prm[off[F_N_ROWS]];
-    const bool closed = prm[off[F_CLOSED]] != 0;
-    const bool stateful = prm[off[F_STATEFUL]] != 0;
-    const bool legacy = !stateful;
-    const bool hc_gate = prm[off[F_HC_GATE]] != 0;
-    const bool ll_en = prm[off[F_LL_EN]] != 0;
-    const int ll_rcd = prm[off[F_LL_RCD]], ll_ras = prm[off[F_LL_RAS]];
-    const bool cc_en = prm[off[F_CC_EN]] != 0;
-    const int cc_rcd = prm[off[F_CC_RCD]], cc_ras = prm[off[F_CC_RAS]];
-    const bool nuat_en = prm[off[F_NUAT_EN]] != 0;
-    const int* nuat_edge = prm + off[F_NUAT_EDGE];
-    const int* nuat_rcd = prm + off[F_NUAT_RCD];
-    const int* nuat_ras = prm + off[F_NUAT_RAS];
-    const bool rltl_en = prm[off[F_RLTL_EN]] != 0;
-    const int rltl_window = prm[off[F_RLTL_WINDOW]];
-    const int rltl_rcd = prm[off[F_RLTL_RCD]];
-    const int rltl_ras = prm[off[F_RLTL_RAS]];
-    const bool al_en = prm[off[F_AL_EN]] != 0;
-    const bool al_drift = prm[off[F_AL_DRIFT]] != 0;
-    const int* al_rcd = prm + off[F_AL_RCD];
-    const int* al_ras = prm + off[F_AL_RAS];
-    const int* al_seg_rcd = prm + off[F_AL_SEG_RCD];
-    const int* al_seg_ras = prm + off[F_AL_SEG_RAS];
-    const bool th_en = prm[off[F_TH_EN]] != 0;
-    const int* th_edge = prm + off[F_TH_EDGE];
+    Dram dr(d, lay, cv);
     const uint8_t* next_same =
-        tr.next_same + (size_t)prm[off[F_NS_IDX]] * C * L;
-
-    Hcrac hc{tags, itime, lru, d.W, prm[off[F_HC_SETS]],
-             prm[off[F_HC_CACHING]], prm[off[F_HC_PERIOD]], d.exact != 0};
-
+        tr.next_same + (size_t)cv.prm[lay.off[F_NS_IDX]] * C * L;
     // every accumulator wraps like JAX's int32 adds
     unsigned acc[N_STATS] = {0};
-    enum { N_REQ, LAT_SUM, ACTS, ACTS_LOWERED, HC_HITS, HC_LOOKUPS,
-           ROW_HITS, ROW_CLOSED, ROW_CONFLICTS, READS, WRITES, PRES,
-           ACT_RAS_SUM, REF8_ACTS, REFS_ISSUED, REF_BLOCKED };
 
     int s = 0;
     for (; s < d.n_steps; ++s) {
       // 1. earliest-issue core selection (ties to the lowest index)
       int c = 0, t_arr = 0;
       for (int k = 0; k < C; ++k) {
-        int p = ptr[k];
+        int p = cv.ptr[k];
         int issue = INF;
         if (p < tr.length[k]) {
           int pc = imin(imax(p, 0), L - 1);
-          issue = imax(wadd(last_issue[k], tr.gap[k * L + pc]),
-                       ring[k * M + ring_idx[k]]);
-          issue = imax(issue, tr.dep[k * L + pc] ? last_complete[k] : 0);
+          issue = imax(wadd(cv.last_issue[k], tr.gap[k * L + pc]),
+                       cv.ring[k * M + cv.ring_idx[k]]);
+          issue = imax(issue, tr.dep[k * L + pc] ? cv.last_complete[k] : 0);
         }
         if (k == 0 || issue < t_arr) {
           t_arr = issue;
@@ -393,229 +674,55 @@ __device__ __forceinline__ void run_point(const Dims& d, const Layout& lay,
       }
       // a dead step changes nothing, so neither does any later one
       if (t_arr >= INF) break;
-      const bool measure = s >= warmup;
-      const unsigned m = measure ? 1u : 0u;
-      const int pc = imin(imax(ptr[c], 0), L - 1);
+      const int pc = imin(imax(cv.ptr[c], 0), L - 1);
       const int tix = c * L + pc;
-      const int bank = floormod(tr.bank[tix], banks_total);
-      const int row = floormod(tr.row[tix], n_rows);
-      const bool is_write = tr.is_write[tix] != 0;
-      const bool ns = next_same[tix] != 0;
 
       // 2. service (simulator._service)
-      const int ch = floordiv(bank, bpc);
-      const int t0 = imax(t_arr, cmd_free[ch]);
-
-      // rolling refresh: catch the bank's REF counter up (stateful tier)
-      const int ref_due = wadd(floordiv(t0, tREFI), 1);
-      const int n_pend = imax(wsub(ref_due, ref_k[bank]), 0);
-      const bool do_ref = stateful && n_pend > 0;
-      const int busy0 =
-          imax(imax(ready_act[bank], ready_pre[bank]), ready_rdwr[bank]);
-      const int ref_t = imax(wmul(wsub(ref_due, 1), tREFI), ready_pre[bank]);
-      const int ref_done = wadd(ref_t, tRFC);
-      const int openr0 = open_row[bank];
-      const bool ref_pre = do_ref && openr0 != NO_ROW;
-      const int openr = do_ref ? NO_ROW : openr0;
-      const int r_act_b = do_ref ? imax(ready_act[bank], ref_done)
-                                 : ready_act[bank];
-      const int r_pre_b = do_ref ? imax(ready_pre[bank], ref_done)
-                                 : ready_pre[bank];
-      const int r_rdwr_b = do_ref ? imax(ready_rdwr[bank], ref_done)
-                                  : ready_rdwr[bank];
-      const int gid_ref = wadd(wmul(bank, n_rows), ref_pre ? openr0 : 0);
-      if (ref_pre && hc_gate) hc.insert(gid_ref, ref_t);
-
-      const bool is_hit = openr == row;
-      const bool is_closed = openr == NO_ROW;
-      const bool is_conflict = !is_hit && !is_closed;
-
-      // conflict path: PRE the open row (insert it into the HCRAC)
-      int t_pre = imax(t0, r_pre_b);
-      if (legacy) t_pre = refresh_adjust(t_pre, row, tREFI, tRFC, groups);
-      const int gid_old = wadd(wmul(bank, n_rows), is_conflict ? openr : 0);
-      if (is_conflict && hc_gate) hc.insert(gid_old, t_pre);
-
-      // ACT
-      int t_act = is_conflict ? wadd(t_pre, tRP) : imax(t0, r_act_b);
-      if (legacy) t_act = refresh_adjust(t_act, row, tREFI, tRFC, groups);
-      const bool needs_act = !is_hit;
-      const int gid = wadd(wmul(bank, n_rows), row);
-      // the lookup runs on row hits too (LRU refresh); with the gate off
-      // the table stays empty, so skipping it changes nothing
-      bool cc_hit = hc_gate ? hc.lookup(gid, t_act) : false;
-      cc_hit = cc_hit && needs_act && hc_gate;
-
-      const int tslp =
-          last_pre_gid[bank] == gid ? wsub(t_act, last_pre_t[bank]) : INF;
-
-      // leak clock (dram.time_since_refresh / the stateful REF registers)
-      const int tsr_closed = floormod(
-          wsub(t_act, wmul(floormod(row, groups), tREFI)), retention);
-      const int kw = wsub(ref_due, 1);
-      const int j_g = wsub(kw, floormod(wsub(kw, floormod(row, groups)),
-                                        groups));
-      const int new_last_ref_t = do_ref ? ref_t : last_ref_t[bank];
-      const int t_ref = j_g == kw ? new_last_ref_t : wmul(j_g, tREFI);
-      const int tsr = (stateful && j_g >= 0) ? imax(wsub(t_act, t_ref), 0)
-                                             : tsr_closed;
-      int seg = 0;
-      int tsr_eff = tsr;
-      if (d.S > 0) {
-        int cnt = 0;
-        for (int i = 0; i < d.S; ++i) cnt += t_act >= th_edge[i];
-        seg = imin(imax(cnt - 1, 0), d.S - 1);
-        if (th_en) tsr_eff = __float2int_rn(__fmul_rn((float)tsr, leak[seg]));
-      }
-
-      // mechanism fold, registration order: lldram, chargecache, nuat,
-      // rltl, aldram
-      int rcd = tRCD, ras = tRAS;
-      if (ll_en) {
-        rcd = ll_rcd;
-        ras = ll_ras;
-      }
-      if (cc_hit && cc_en) {
-        rcd = cc_rcd;
-        ras = cc_ras;
-      }
-      if (nuat_en) {
-        int n_rcd = tRCD, n_ras = tRAS;
-        for (int i = d.NBINS - 1; i >= 0; --i) {
-          if (tsr_eff < nuat_edge[i]) {
-            n_rcd = nuat_rcd[i];
-            n_ras = nuat_ras[i];
-          }
-        }
-        rcd = imin(rcd, n_rcd);
-        ras = imin(ras, n_ras);
-      }
-      if (rltl_en && needs_act && tslp < rltl_window) {
-        rcd = imin(rcd, rltl_rcd);
-        ras = imin(ras, rltl_ras);
-      }
-      if (al_en) {
-        int b_rcd = al_rcd[bank], b_ras = al_ras[bank];
-        if (d.S > 0 && al_drift) {
-          b_rcd = al_seg_rcd[seg * NB + bank];
-          b_ras = al_seg_ras[seg * NB + bank];
-        }
-        rcd = imin(rcd, b_rcd);
-        ras = imin(ras, b_ras);
-      }
-      const bool lowered_used = needs_act && (rcd < tRCD || ras < tRAS);
-
-      // READ / WRITE
-      int t_rdwr = is_hit ? imax(t0, r_rdwr_b) : wadd(t_act, rcd);
-      const int cas = is_write ? tCWL : tCL;
-      t_rdwr = imax(t_rdwr, wsub(data_free[ch], cas));
-      if (legacy)
-        t_rdwr = refresh_clamp_span(t_rdwr, wadd(cas, tBL), row, tREFI, tRFC,
-                                    groups);
-      const int done = wadd(wadd(t_rdwr, cas), tBL);
-
-      // bank state updates
-      const int new_ready_rdwr = needs_act ? wadd(t_act, rcd) : r_rdwr_b;
-      const int after_rw =
-          is_write ? wadd(done, tWR) : wadd(t_rdwr, tRTP);
-      const int new_ready_pre =
-          imax(needs_act ? wadd(t_act, ras) : r_pre_b, after_rw);
-      const bool auto_pre = closed && !ns;
-      const int t_autopre = new_ready_pre;
-      if (auto_pre && hc_gate) hc.insert(gid, t_autopre);
-      const int new_open = auto_pre ? NO_ROW : row;
-      const int new_ready_act =
-          auto_pre ? wadd(t_autopre, tRP)
-                   : (is_conflict ? wadd(t_pre, tRP) : r_act_b);
-      const int n_cmds = 1 + (int)needs_act + (int)is_conflict + (int)auto_pre;
-      const int new_cmd_free = wadd(imax(cmd_free[ch], t_arr), n_cmds);
-
-      const int lp_gid0 = ref_pre ? gid_ref : last_pre_gid[bank];
-      const int lp_t0 = ref_pre ? ref_t : last_pre_t[bank];
-      const int new_lp_gid = auto_pre ? gid : (is_conflict ? gid_old : lp_gid0);
-      const int new_lp_t = auto_pre ? t_autopre : (is_conflict ? t_pre : lp_t0);
-
-      // stats
-      const unsigned a = m * (unsigned)needs_act;
-      const bool ref8 = needs_act && measure && tsr < MS8_CYCLES;
-      acc[N_REQ] += m;
-      acc[LAT_SUM] += m * (unsigned)wsub(done, t_arr);
-      acc[ACTS] += a;
-      acc[ACTS_LOWERED] += m * (unsigned)lowered_used;
-      acc[HC_LOOKUPS] += m * (unsigned)(needs_act && hc_gate);
-      acc[HC_HITS] += m * (unsigned)cc_hit;
-      acc[ROW_HITS] += m * (unsigned)is_hit;
-      acc[ROW_CLOSED] += m * (unsigned)is_closed;
-      acc[ROW_CONFLICTS] += m * (unsigned)is_conflict;
-      acc[READS] += m * (unsigned)!is_write;
-      acc[WRITES] += m * (unsigned)is_write;
-      acc[PRES] += m * ((unsigned)is_conflict + (unsigned)auto_pre);
-      acc[ACT_RAS_SUM] += a * (unsigned)ras;
-      acc[REF8_ACTS] += (unsigned)ref8;
-      acc[REFS_ISSUED] += m * (unsigned)stateful * (unsigned)n_pend;
-      if (do_ref && measure)
-        acc[REF_BLOCKED] +=
-            (unsigned)imax(wsub(ref_done, imax(t0, busy0)), 0);
-      bank_acts[bank] = (int)((unsigned)bank_acts[bank] + a);
-      bank_ras[bank] = (int)((unsigned)bank_ras[bank] + a * (unsigned)ras);
-
+      Ev e;
+      const int done =
+          dr.service(t_arr, floormod(tr.bank[tix], dr.banks_total),
+                     floormod(tr.row[tix], dr.n_rows), tr.is_write[tix] != 0,
+                     next_same[tix] != 0, s >= warmup, acc, e);
       if (d.collect) {
-        ev[0 * ev_plane + s] = (needs_act && measure) ? gid : -1;
-        ev[1 * ev_plane + s] = t_act;
-        ev[2 * ev_plane + s] = is_conflict ? gid_old : -1;
-        ev[3 * ev_plane + s] = t_pre;
-        ev[4 * ev_plane + s] = auto_pre ? gid : -1;
-        ev[5 * ev_plane + s] = t_autopre;
-        ev[6 * ev_plane + s] = ref_pre ? gid_ref : -1;
-        ev[7 * ev_plane + s] = ref_t;
-        ev_ref8[s] = ref8 ? 1 : 0;
+        ev[0 * ev_plane + s] = e.act_gid;
+        ev[1 * ev_plane + s] = e.act_t;
+        ev[2 * ev_plane + s] = e.pre1_gid;
+        ev[3 * ev_plane + s] = e.pre1_t;
+        ev[4 * ev_plane + s] = e.pre2_gid;
+        ev[5 * ev_plane + s] = e.pre2_t;
+        ev[6 * ev_plane + s] = e.pre3_gid;
+        ev[7 * ev_plane + s] = e.pre3_t;
+        ev_ref8[s] = e.ref8 ? 1 : 0;
       }
-
-      // state writes
-      open_row[bank] = new_open;
-      ready_act[bank] = new_ready_act;
-      ready_rdwr[bank] = new_ready_rdwr;
-      ready_pre[bank] = new_ready_pre;
-      last_pre_gid[bank] = new_lp_gid;
-      last_pre_t[bank] = new_lp_t;
-      if (do_ref) ref_k[bank] = ref_due;
-      last_ref_t[bank] = new_last_ref_t;
-      cmd_free[ch] = new_cmd_free;
-      data_free[ch] = done;
 
       // 3. core bookkeeping
-      const int ri = ring_idx[c];
-      ptr[c] = ptr[c] + 1;
-      last_issue[c] = t_arr;
-      last_complete[c] = done;
-      ring[c * M + ri] = done;
-      ring_idx[c] = floormod(ri + 1, M);
-      core_end[c] = imax(core_end[c], done);
+      const int ri = cv.ring_idx[c];
+      cv.ptr[c] = cv.ptr[c] + 1;
+      cv.last_issue[c] = t_arr;
+      cv.last_complete[c] = done;
+      cv.ring[c * M + ri] = done;
+      cv.ring_idx[c] = floormod(ri + 1, M);
+      cv.core_end[c] = imax(cv.core_end[c], done);
     }
-    *s_end = s;
+    *cv.s_end = s;
 
     // simulator._retire_trailing_refs (stateful tier)
-    if (stateful) {
-      int total = core_end[0];
-      for (int k = 1; k < C; ++k) total = imax(total, core_end[k]);
+    if (dr.stateful) {
+      int total = cv.core_end[0];
+      for (int k = 1; k < C; ++k) total = imax(total, cv.core_end[k]);
       acc[REFS_ISSUED] =
-          (unsigned)wmul(wadd(floordiv(total, tREFI), 1), banks_total);
+          (unsigned)wmul(wadd(floordiv(total, dr.tREFI), 1), dr.banks_total);
     }
-    for (int i = 0; i < N_STATS; ++i) stats[i] = (int)acc[i];
+    for (int i = 0; i < N_STATS; ++i) cv.stats[i] = (int)acc[i];
   }
   __syncwarp();
 
-  for (int i = lane; i < N_STATS; i += 32)
-    out.stats[(size_t)gp * N_STATS + i] = stats[i];
-  for (int i = lane; i < NB; i += 32) {
-    out.bank_stats[((size_t)gp * 2 + 0) * NB + i] = bank_acts[i];
-    out.bank_stats[((size_t)gp * 2 + 1) * NB + i] = bank_ras[i];
-  }
+  write_scan(d, cv, out.stats, out.bank_stats, gp, lane);
   for (int i = lane; i < C; i += 32)
-    out.core_end[(size_t)gp * C + i] = core_end[i];
+    out.core_end[(size_t)gp * C + i] = cv.core_end[i];
   // dead tail steps: no events (time lanes zeroed for determinism)
   if (d.collect) {
-    for (int s = *s_end + lane; s < d.n_steps; s += 32) {
+    for (int s = *cv.s_end + lane; s < d.n_steps; s += 32) {
       for (int lane_i = 0; lane_i < 8; ++lane_i)
         ev[lane_i * ev_plane + s] = (lane_i % 2 == 0) ? -1 : 0;
       ev_ref8[s] = 0;
@@ -623,7 +730,10 @@ __device__ __forceinline__ void run_point(const Dims& d, const Layout& lay,
   }
 }
 
-__global__ void __launch_bounds__(32)
+// __maxnreg__: left to itself ptxas stops at 128 registers and spills in
+// the shared Dram::service; 200 lets it keep the scan's state in
+// registers (135 used, no spills)
+__global__ void __maxnreg__(200)
 sim_step_kernel(Dims d, Layout lay, const int* __restrict__ params,
                 const float* __restrict__ seg_leak, Trace tr, Out out) {
   extern __shared__ int sm[];
@@ -849,7 +959,7 @@ __device__ void gen_core(const Dims& d, const SynthLayout& sl, int c,
   }
 }
 
-__global__ void __launch_bounds__(32)
+__global__ void __maxnreg__(200)
 sim_synth_kernel(Dims d, Layout lay, SynthLayout sl,
                  const int* __restrict__ params,
                  const float* __restrict__ seg_leak,
@@ -881,6 +991,341 @@ sim_synth_kernel(Dims d, Layout lay, SynthLayout sl,
   };
   run_point(d, lay, params, seg_leak, tr, wi[sl.ioff[W_WARMUP]], out, sm,
             pre);
+}
+
+// ---------------------------------------------------------------------------
+// The serving entry: the continuous-batching closed loop
+// (serving/loop/engine.py::_run_serving_impl; in repro an XLA scan,
+// serving/loop/engine.py:342, with no Pallas kernel).  One point a warp:
+// every lane initialises the DRAM state (one idle core), the hot-page
+// table, the decode slots and the admission queue in shared memory, then
+// lane 0 runs the scheduler steps.  Each page access is one hot-table
+// insert and one Dram::service, the code the trace and synthesis entries
+// run; a masked access of the plain engine changes no state, so only the
+// enabled ones run here.  Like the scan, it is bound by lane 0's serial
+// chain (~1 service a page access plus the O(slots x queue) admission
+// loop), not by bytes.
+// ---------------------------------------------------------------------------
+
+// Fields of the packed per-point serving row (int32 [G, PS]; rate and
+// burstiness are float32 bits), in kServeAbi's order.
+enum ServeField {
+  V_RATE, V_BURST, V_PROMPT_LO, V_PROMPT_HI, V_DECODE_LO, V_DECODE_HI,
+  V_SEED, V_NREQS, V_HOT_SETS, V_HOT_CACHING, V_HOT_PERIOD, V_CPS,
+  V_PAGE_TOKENS, V_CA_EN, V_PRE_EN, V_PRE_THRESH, V_WARMUP, N_SERVE_FIELDS
+};
+
+const char* const kServeAbi =
+    "serve:rate,burstiness,prompt_lo,prompt_hi,decode_lo,decode_hi,seed,"
+    "n_reqs,hot_n_sets,hot_caching_cycles,hot_sweep_period,cycles_per_step,"
+    "page_tokens,charge_aware_enable,preempting_enable,preempting_q_thresh,"
+    "warmup;"
+    "serve_dims:HHS,HW,hexact,SB,Q,A,Pp,Pt,n_steps,collect,pinned,PS";
+
+// Static sizes of a serving launch: the padded hot table (sets, ways,
+// expiry flavour), slots, queue, arrivals and page bounds a step, the
+// step count, per-step outputs, pinned counts, the serving row width.
+struct ServeDims {
+  int HHS, HW, hexact, SB, Q, A, Pp, Pt, n_steps, collect, pinned, PS;
+};
+
+// engine.SERVE_STAT_KEYS, in order
+enum { SV_ARRIVED, SV_DROPPED, SV_ADMITTED, SV_RETIRED, SV_PREEMPTED,
+       SV_PROBES, SV_HOT, SV_OCC, SV_QLEN, N_SERVE_STATS };
+
+// Shared-memory words of a serving block: the scan state (one core), the
+// serving row, the hot table, the slots (4 arrays), the queue (6 arrays)
+// and the queue's scores.
+__host__ __device__ inline int serve_words(const Dims& d,
+                                           const ServeDims& sd) {
+  return scan_words(d) + sd.PS + 3 * sd.HHS * sd.HW + 4 * sd.SB + 7 * sd.Q;
+}
+
+struct ServeOut {
+  int* stats;       // [G, N_STATS]
+  int* bank_stats;  // [G, 2, NB]
+  int* serve;       // [G, N_SERVE_STATS]
+  int* now;         // [G]
+  int* steps;       // [3, G, n_steps]: occ, qlen, arrivals
+};
+
+// prng.hash_u32 / prng.uniform over three words
+__device__ __forceinline__ unsigned hash_w3(unsigned a, unsigned b,
+                                            unsigned c) {
+  return fmix(mix(mix(mix(kGold * 4u, a), b), c));
+}
+__device__ __forceinline__ float uniform_w3(unsigned a, unsigned b,
+                                            unsigned c) {
+  return __fmul_rn((float)(hash_w3(a, b, c) >> 8), 5.9604645e-08f);
+}
+
+// arrivals.py lanes (on, count, prompt, decode) and engine.py lanes
+// (gid, bank, row): prng.lanes(4) and prng.lanes(3)
+enum { A_ON, A_COUNT, A_PROMPT, A_DECODE };
+enum { P_GID, P_BANK, P_ROW };
+
+// arrivals.step_counts at step s: the ON/OFF gate, then a geometric
+// count floor(log1p(-u) / log(q)) — log1pf/logf as PyTorch's eager CUDA
+// kernels call them, every other operation correctly rounded
+__device__ __forceinline__ int step_count(float rate, float burst,
+                                          unsigned seed, int s) {
+  const float b = fmax_nan(burst, 1.0f);
+  const bool on =
+      __fmul_rn(uniform_w3(seed, lane_const(A_ON), (unsigned)s), b) < 1.0f;
+  const float m = __fmul_rn(rate, b);
+  float q = __fdiv_rn(m, __fadd_rn(1.0f, m));
+  q = fmin_nan(fmax_nan(q, (float)1e-9), (float)(1.0 - 1e-6));
+  const float u = uniform_w3(seed, lane_const(A_COUNT), (unsigned)s);
+  const int n = (int)floorf(__fdiv_rn(log1pf(-u), logf(q)));
+  return on ? n : 0;
+}
+
+// arrivals.request_attrs: lo + uint32 hash mod the inclusive span
+__device__ __forceinline__ int request_attr(unsigned seed, int ln, int rid,
+                                            int lo, int hi) {
+  const unsigned span = (unsigned)wadd(wsub(hi, lo), 1);
+  return wadd(lo, (int)(hash_w3(seed, lane_const(ln), (unsigned)rid) % span));
+}
+
+// engine.page_gid: the 31-bit hot-table key of (request, page)
+__device__ __forceinline__ int page_gid(int rid, int k) {
+  return (int)(hash_w3((unsigned)rid, (unsigned)k, lane_const(P_GID)) &
+               0x7FFFFFFFu);
+}
+
+// policies._charge_score: clip(1 - age / C, 0, 1) in float32
+__device__ __forceinline__ float charge_score(int now, int touch, float c) {
+  const float age = __int2float_rn(wsub(now, touch));
+  return fmin_nan(fmax_nan(__fsub_rn(1.0f, __fdiv_rn(age, c)), 0.0f), 1.0f);
+}
+
+__global__ void __launch_bounds__(32)
+sim_serve_kernel(Dims d, Layout lay, ServeDims sd,
+                 const int* __restrict__ params,
+                 const float* __restrict__ seg_leak,
+                 const int* __restrict__ sparams,
+                 const int* __restrict__ counts, ServeOut out) {
+  extern __shared__ int sm[];
+  const int gp = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int SB = sd.SB, Q = sd.Q, HT = sd.HHS * sd.HW;
+  const Carve cv = carve(d, sm);
+  init_scan(d, cv, params, seg_leak, gp, lane);
+  int* sv = sm + scan_words(d);
+  int* htags = sv + sd.PS;
+  int* hitime = htags + HT;
+  int* hlru = hitime + HT;
+  int* slot_rid = hlru + HT;
+  int* slot_done = slot_rid + SB;
+  int* slot_max = slot_done + SB;
+  int* slot_pages = slot_max + SB;
+  int* q_rid = slot_pages + SB;
+  int* q_done = q_rid + Q;
+  int* q_max = q_done + Q;
+  int* q_pages = q_max + Q;
+  int* q_touch = q_pages + Q;
+  int* q_seq = q_touch + Q;
+  float* score = reinterpret_cast<float*>(q_seq + Q);
+  for (int i = lane; i < sd.PS; i += 32)
+    sv[i] = sparams[(size_t)gp * sd.PS + i];
+  for (int i = lane; i < HT; i += 32) {
+    htags[i] = NO_TAG;
+    hitime[i] = 0;
+    hlru[i] = -1;
+  }
+  for (int i = lane; i < SB; i += 32) {
+    slot_rid[i] = -1;
+    slot_done[i] = slot_max[i] = slot_pages[i] = 0;
+  }
+  for (int i = lane; i < Q; i += 32) {
+    q_rid[i] = -1;
+    q_done[i] = q_max[i] = q_pages[i] = q_touch[i] = q_seq[i] = 0;
+  }
+  __syncwarp();
+
+  if (lane == 0) {
+    Dram dr(d, lay, cv);
+    Hcrac hot{htags, hitime, hlru, sd.HW, sv[V_HOT_SETS], sv[V_HOT_CACHING],
+              sv[V_HOT_PERIOD], sd.hexact != 0};
+    const float rate = __int_as_float(sv[V_RATE]);
+    const float burst = __int_as_float(sv[V_BURST]);
+    const unsigned seed = (unsigned)sv[V_SEED];
+    const int p_lo = sv[V_PROMPT_LO], p_hi = sv[V_PROMPT_HI];
+    const int d_lo = sv[V_DECODE_LO], d_hi = sv[V_DECODE_HI];
+    const int n_reqs = sv[V_NREQS], cps = sv[V_CPS];
+    const int ptok = sv[V_PAGE_TOKENS], warmup = sv[V_WARMUP];
+    const bool pre_en = sv[V_PRE_EN] != 0;
+    // the registry fold: charge_aware and preempting both score by the
+    // predicted charge, fifo by arrival order alone
+    const bool use_charge = sv[V_CA_EN] != 0 || pre_en;
+    const int q_thresh = sv[V_PRE_THRESH];
+    const float cfl = fmax_nan(__int2float_rn(hot.caching), 1.0f);
+    const size_t plane = (size_t)d.G * sd.n_steps;
+    int* steps_out = out.steps + (size_t)gp * sd.n_steps;
+
+    unsigned acc[N_STATS] = {0};
+    unsigned sacc[N_SERVE_STATS] = {0};
+    int n_arrived = 0, next_seq = 0, now = 0;
+    Ev ev;
+    for (int s = 0; s < sd.n_steps; ++s) {
+      const int t = now;
+      const bool measure = s >= warmup;
+      const int n_drawn = sd.pinned ? counts[(size_t)gp * sd.n_steps + s]
+                                    : step_count(rate, burst, seed, s);
+      int cnt = 0;  // the step's accesses so far: _INTRA = 4 cycles apart
+      auto access = [&](int rid, int k, bool is_write) {
+        const unsigned r = (unsigned)rid, kk = (unsigned)k;
+        hot.insert(page_gid(rid, k), t);
+        const int bank =
+            (int)(hash_w3(r, kk, lane_const(P_BANK)) % (unsigned)dr.banks_total);
+        const int row =
+            (int)(hash_w3(r, kk, lane_const(P_ROW)) % (unsigned)dr.n_rows);
+        dr.service(wadd(t, wmul(4, cnt)), bank, row, is_write, false, measure,
+                   acc, ev);
+        ++cnt;
+      };
+
+      // 1. arrivals into free queue slots in position order, then their
+      //    prompt prefill (hot inserts + DRAM writes)
+      int free_q = 0;
+      for (int q = 0; q < Q; ++q) free_q += q_rid[q] < 0;
+      const int want = imin(n_drawn, wsub(n_reqs, n_arrived));
+      const int n_new = imin(imin(want, free_q), sd.A);
+      for (int q = 0, r = 0; q < Q && r < n_new; ++q) {
+        if (q_rid[q] >= 0) continue;
+        const int rid = wadd(n_arrived, r);
+        q_rid[q] = rid;
+        q_done[q] = 0;
+        q_pages[q] = request_attr(seed, A_PROMPT, rid, p_lo, p_hi);
+        q_max[q] = request_attr(seed, A_DECODE, rid, d_lo, d_hi);
+        q_touch[q] = t;
+        q_seq[q] = wadd(next_seq, r);
+        ++r;
+      }
+      for (int a = 0; a < n_new; ++a) {
+        const int rid = wadd(n_arrived, a);
+        const int pages =
+            imin(request_attr(seed, A_PROMPT, rid, p_lo, p_hi), sd.Pp);
+        for (int k = 0; k < pages; ++k) access(rid, k, true);
+      }
+      n_arrived = wadd(n_arrived, n_new);
+      next_seq = wadd(next_seq, n_new);
+
+      // 2. preemption: the first slot with the most remaining work (>= 2)
+      //    goes back to the first free queue slot
+      const int q_len = wadd(wsub(Q, free_q), n_new);
+      int victim = 0, v_key = 0;
+      bool any_cand = false;
+      for (int j = 0; j < SB; ++j) {
+        const int rem = wsub(slot_max[j], slot_done[j]);
+        const bool cand = slot_rid[j] >= 0 && rem >= 2;
+        const int key = cand ? rem : -1;
+        if (j == 0 || key > v_key) {
+          v_key = key;
+          victim = j;
+        }
+        any_cand = any_cand || cand;
+      }
+      const bool pe = pre_en && q_len > q_thresh &&
+                      wsub(free_q, n_new) > 0 && any_cand;
+      if (pe) {
+        int qd = 0;
+        while (q_rid[qd] >= 0) ++qd;
+        q_rid[qd] = slot_rid[victim];
+        q_done[qd] = slot_done[victim];
+        q_max[qd] = slot_max[victim];
+        q_pages[qd] = slot_pages[victim];
+        q_touch[qd] = wsub(t, cps);  // its last decode step
+        q_seq[qd] = next_seq;        // back of the line
+        next_seq = wadd(next_seq, 1);
+        slot_rid[victim] = -1;
+      }
+
+      // 3. admission: best score first, the smallest q_seq on ties, into
+      //    the first free slot, until no slot or no request is left
+      for (int q = 0; q < Q; ++q)
+        score[q] = use_charge ? charge_score(t, q_touch[q], cfl) : 0.0f;
+      int n_adm = 0;
+      for (int it = 0; it < SB; ++it) {
+        int dest = -1;
+        for (int j = 0; j < SB && dest < 0; ++j)
+          if (slot_rid[j] < 0) dest = j;
+        float best = -__int_as_float(0x7f800000);  // -inf
+        bool any_q = false;
+        for (int q = 0; q < Q; ++q) {
+          if (q_rid[q] < 0) continue;
+          any_q = true;
+          if (score[q] > best) best = score[q];
+        }
+        if (dest < 0 || !any_q) break;
+        int pick = 0, p_seq = INF;
+        for (int q = 0; q < Q; ++q) {
+          if (q_rid[q] >= 0 && score[q] >= best && q_seq[q] < p_seq) {
+            p_seq = q_seq[q];
+            pick = q;
+          }
+        }
+        slot_rid[dest] = q_rid[pick];
+        slot_done[dest] = q_done[pick];
+        slot_max[dest] = q_max[pick];
+        slot_pages[dest] = q_pages[pick];
+        q_rid[pick] = -1;
+        ++n_adm;
+      }
+
+      // 4. read-only probes of first-decode requests' prompt pages
+      for (int j = 0; j < SB; ++j) {
+        if (slot_rid[j] < 0 || slot_done[j] != 0) continue;
+        const int pages = imin(slot_pages[j], sd.Pt);
+        for (int k = 0; k < pages; ++k) {
+          sacc[SV_PROBES] += 1u;
+          sacc[SV_HOT] += hot.probe(page_gid(slot_rid[j], k), t) ? 1u : 0u;
+        }
+      }
+
+      // 5. decode: every active request streams all its KV pages
+      for (int j = 0; j < SB; ++j) {
+        if (slot_rid[j] < 0) continue;
+        const int npages = imin(
+            wadd(slot_pages[j],
+                 floordiv(wadd(slot_done[j], wsub(ptok, 1)), ptok)),
+            sd.Pt);
+        for (int k = 0; k < npages; ++k) access(slot_rid[j], k, false);
+      }
+
+      // 6. advance one token, retire the finished, count occupancy
+      int occ = 0, n_ret = 0, qlen = 0;
+      for (int j = 0; j < SB; ++j) {
+        if (slot_rid[j] < 0) continue;
+        ++occ;
+        slot_done[j] = wadd(slot_done[j], 1);
+        if (slot_done[j] >= slot_max[j]) {
+          slot_rid[j] = -1;
+          ++n_ret;
+        }
+      }
+      for (int q = 0; q < Q; ++q) qlen += q_rid[q] >= 0;
+      sacc[SV_ARRIVED] += (unsigned)n_new;
+      sacc[SV_DROPPED] += (unsigned)wsub(want, n_new);
+      sacc[SV_ADMITTED] += (unsigned)n_adm;
+      sacc[SV_RETIRED] += (unsigned)n_ret;
+      sacc[SV_PREEMPTED] += pe ? 1u : 0u;
+      sacc[SV_OCC] += (unsigned)occ;
+      sacc[SV_QLEN] += (unsigned)qlen;
+      if (sd.collect) {
+        steps_out[0 * plane + s] = occ;
+        steps_out[1 * plane + s] = qlen;
+        steps_out[2 * plane + s] = n_new;
+      }
+      now = wadd(now, cps);
+    }
+    for (int i = 0; i < N_STATS; ++i) cv.stats[i] = (int)acc[i];
+    for (int i = 0; i < N_SERVE_STATS; ++i)
+      out.serve[(size_t)gp * N_SERVE_STATS + i] = (int)sacc[i];
+    out.now[gp] = now;
+  }
+  __syncwarp();
+  write_scan(d, cv, out.stats, out.bank_stats, gp, lane);
 }
 
 }  // namespace
@@ -952,6 +1397,44 @@ int sim_synth_launch(const int* dims, const int* layout,
   Out out{stats, bank_stats, core_end, events, act_ref8};
   sim_synth_kernel<<<d.G, 32, smem, (cudaStream_t)stream>>>(
       d, lay, sl, params, seg_leak, wparams_i, wparams_f, st, out);
+  return (int)cudaGetLastError();
+}
+
+const char* sim_serve_abi() { return kServeAbi; }
+
+int sim_serve_smem_bytes(const int* dims, const int* serve_dims) {
+  Dims d;
+  memcpy(&d, dims, sizeof(Dims));
+  ServeDims sd;
+  static_assert(sizeof(ServeDims) == 12 * sizeof(int), "ServeDims layout");
+  memcpy(&sd, serve_dims, sizeof(ServeDims));
+  return 4 * serve_words(d, sd);
+}
+
+// Launch the serving entry: one block per grid point runs the serving
+// closed loop for ``serve_dims``' n_steps steps, its arrivals drawn in
+// the kernel or, with ``pinned``, read from ``counts`` [G, n_steps].
+// Returns the launch's CUDA error code.
+int sim_serve_launch(const int* dims, const int* layout,
+                     const int* serve_dims, const int* params,
+                     const float* seg_leak, const int* sparams,
+                     const int* counts, int* stats, int* bank_stats,
+                     int* serve, int* now, int* steps, void* stream) {
+  Dims d;
+  memcpy(&d, dims, sizeof(Dims));
+  ServeDims sd;
+  memcpy(&sd, serve_dims, sizeof(ServeDims));
+  if (d.C != 1 || sd.PS != N_SERVE_FIELDS || sd.SB < 1 || sd.Q < 1)
+    return (int)cudaErrorInvalidValue;
+  Layout lay;
+  memcpy(lay.off, layout, sizeof(lay.off));
+  const int smem = 4 * serve_words(d, sd);
+  cudaError_t err = cudaFuncSetAttribute(
+      sim_serve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  ServeOut out{stats, bank_stats, serve, now, steps};
+  sim_serve_kernel<<<d.G, 32, smem, (cudaStream_t)stream>>>(
+      d, lay, sd, params, seg_leak, sparams, counts, out);
   return (int)cudaGetLastError();
 }
 

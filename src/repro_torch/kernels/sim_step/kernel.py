@@ -14,13 +14,19 @@ point's streams in the block, into a ``[G, C, L]`` scratch this module
 allocates (and returns on request), then scans them; its workload and
 interleave params travel as one int32 and one float32 row per point.
 
+The serving entry ``sim_serve`` (no Pallas counterpart: ``repro``'s
+serving loop, ``serving/loop/engine.py::_run_serving_impl``, is an XLA
+scan) runs the continuous-batching closed loop per point, its DRAM
+state that of one idle core; its serving params travel as one int32 row
+per point (``SERVE_FIELDS``, the two float32 arrival knobs as bits).
+
 The packed rows' fields are defined once, here (``FIELDS``,
-``SYNTH_INT_FIELDS``, ``SYNTH_FLOAT_FIELDS``): their offsets are
-computed from the grid's sizes and passed to the kernel, which
-addresses every field through them.  The kernel exports its own field
-and size lists (``sim_step_abi``); they are checked against these and
-``DIMS`` when the library is loaded, so the two sides cannot drift
-apart silently.
+``SYNTH_INT_FIELDS``, ``SYNTH_FLOAT_FIELDS``, ``SERVE_FIELDS``): their
+offsets are computed from the grid's sizes and passed to the kernel,
+which addresses every field through them.  The kernel exports its own
+field and size lists (``sim_step_abi``, ``sim_serve_abi``); they are
+checked against these and ``DIMS`` / ``SERVE_DIMS`` when the library is
+loaded, so the two sides cannot drift apart silently.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 from repro_torch import _build
 from repro_torch.core import mechanisms as registry
 from repro_torch.core.simulator import BANK_STAT_KEYS, STAT_KEYS, Events
+from repro_torch.serving.loop.engine import SERVE_STAT_KEYS
 
 #: packed param fields, in the kernel's ``Field`` order
 FIELDS = (
@@ -72,6 +79,18 @@ STREAM_FIELDS = (("gap", torch.int32), ("bank", torch.int32),
                  ("row", torch.int32), ("is_write", torch.bool),
                  ("dep", torch.bool), ("next_same", torch.bool))
 
+#: int32 fields of the serving entry's packed row, in the kernel's
+#: ``ServeField`` order (``rate`` and ``burstiness`` as float32 bits)
+SERVE_FIELDS = ("rate", "burstiness", "prompt_lo", "prompt_hi",
+                "decode_lo", "decode_hi", "seed", "n_reqs", "hot_n_sets",
+                "hot_caching_cycles", "hot_sweep_period", "cycles_per_step",
+                "page_tokens", "charge_aware_enable", "preempting_enable",
+                "preempting_q_thresh", "warmup")
+
+#: the serving launch's sizes, in the kernel's ``ServeDims`` order
+SERVE_DIMS = ("HHS", "HW", "hexact", "SB", "Q", "A", "Pp", "Pt", "n_steps",
+              "collect", "pinned", "PS")
+
 #: shared memory one block may use on Hopper (227 KB)
 MAX_SMEM_BYTES = 232_448
 
@@ -85,22 +104,36 @@ _P = ctypes.c_void_p
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """Build (first use) and load the kernel library; check its ABI."""
-    lib = _build.load("sim_step", Path(__file__).parent / "csrc")
+    lib = bind_trace_entry(_build.load("sim_step",
+                                       Path(__file__).parent / "csrc"))
     lib.sim_step_abi.restype = ctypes.c_char_p
     lib.sim_step_abi.argtypes = []
+    lib.sim_synth_launch.restype = ctypes.c_int
+    lib.sim_synth_launch.argtypes = [_P] * 19
+    lib.sim_serve_abi.restype = ctypes.c_char_p
+    lib.sim_serve_abi.argtypes = []
+    lib.sim_serve_smem_bytes.restype = ctypes.c_int
+    lib.sim_serve_smem_bytes.argtypes = [_P, _P]
+    lib.sim_serve_launch.restype = ctypes.c_int
+    lib.sim_serve_launch.argtypes = [_P] * 13
+    for got, want in ((lib.sim_step_abi().decode(), abi_string()),
+                      (lib.sim_serve_abi().decode(), serve_abi_string())):
+        if got != want:
+            raise RuntimeError(f"sim_step ABI mismatch: kernel has {got!r}, "
+                               f"kernel.py expects {want!r}")
+    return lib
+
+
+def bind_trace_entry(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of the trace entry (``sim_step_launch``
+    and its helpers, unchanged since the entry was written, so a library
+    built from any version of the source binds); returns ``lib``."""
     lib.sim_step_smem_bytes.restype = ctypes.c_int
     lib.sim_step_smem_bytes.argtypes = [_P]
     lib.sim_step_error_string.restype = ctypes.c_char_p
     lib.sim_step_error_string.argtypes = [ctypes.c_int]
     lib.sim_step_launch.restype = ctypes.c_int
     lib.sim_step_launch.argtypes = [_P] * 17
-    lib.sim_synth_launch.restype = ctypes.c_int
-    lib.sim_synth_launch.argtypes = [_P] * 19
-    abi = lib.sim_step_abi().decode()
-    want = abi_string()
-    if abi != want:
-        raise RuntimeError(f"sim_step ABI mismatch: kernel has {abi!r}, "
-                           f"kernel.py expects {want!r}")
     return lib
 
 
@@ -109,6 +142,13 @@ def abi_string() -> str:
     return (f"fields:{','.join(FIELDS)};dims:{','.join(DIMS)};"
             f"synth_int:{','.join(SYNTH_INT_FIELDS)};"
             f"synth_float:{','.join(SYNTH_FLOAT_FIELDS)}")
+
+
+def serve_abi_string() -> str:
+    """The serving row's fields and the serving sizes the kernel must
+    export."""
+    return (f"serve:{','.join(SERVE_FIELDS)};"
+            f"serve_dims:{','.join(SERVE_DIMS)}")
 
 
 def _concat(cols: list) -> tuple[torch.Tensor, list[int]]:
@@ -225,8 +265,7 @@ def sim_step(shape, stacked, trace: dict, ns, ns_idx, warmup: int,
     them.  The launch is asynchronous on the current stream; a refused
     launch raises."""
     dev = trace["gap"].device
-    if dev.type != "cuda":
-        raise ValueError(f"sim_step launches on CUDA tensors, not {dev}")
+    _build.require_cuda(dev, "sim_step")
     lib = library()
     params, leak, offsets = pack(stacked, ns_idx)
     G, P = params.shape
@@ -247,15 +286,14 @@ def sim_step(shape, stacked, trace: dict, ns, ns_idx, warmup: int,
                          f" tensor on {dev}")
     outs = _outputs(G, C, shape.envelope.max_banks_total, n_steps,
                     collect_events, dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sim_step_launch(
-            ctypes.cast(c_dims, _P), ctypes.cast(_c_ints(offsets), _P),
-            params.data_ptr(), leak.data_ptr(), trace["gap"].data_ptr(),
-            trace["bank"].data_ptr(), trace["row"].data_ptr(),
-            trace["is_write"].data_ptr(), trace["dep"].data_ptr(),
-            trace["length"].data_ptr(), ns.data_ptr(),
-            *(x.data_ptr() for x in outs), stream)
+    err = _build.launch(
+        lib.sim_step_launch, dev,
+        ctypes.cast(c_dims, _P), ctypes.cast(_c_ints(offsets), _P),
+        params.data_ptr(), leak.data_ptr(), trace["gap"].data_ptr(),
+        trace["bank"].data_ptr(), trace["row"].data_ptr(),
+        trace["is_write"].data_ptr(), trace["dep"].data_ptr(),
+        trace["length"].data_ptr(), ns.data_ptr(),
+        *(x.data_ptr() for x in outs))
     _check(lib, err, "sim_step")
     return _results(outs, collect_events)
 
@@ -290,8 +328,7 @@ def sim_synth(shape, stacked, wparams, ilparams, warmups, n_cores: int,
     generates the streams and skips the scan.  Asynchronous on the
     current stream; a refused launch raises."""
     dev = warmups.device
-    if dev.type != "cuda":
-        raise ValueError(f"sim_synth launches on CUDA tensors, not {dev}")
+    _build.require_cuda(dev, "sim_synth")
     if not 1 <= n_cores <= 32:
         raise ValueError("the synthesis entry runs one lane per core: "
                          f"1..32 cores, not {n_cores}")
@@ -308,16 +345,95 @@ def sim_synth(shape, stacked, wparams, ilparams, warmups, n_cores: int,
                for k, dt in STREAM_FIELDS}
     outs = _outputs(G, n_cores, shape.envelope.max_banks_total, n_steps,
                     collect_events, dev)
-    with torch.cuda.device(dev):
-        cuda_stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sim_synth_launch(
-            ctypes.cast(c_dims, _P), ctypes.cast(_c_ints(offsets), _P),
-            ctypes.cast(_c_ints(soff), _P), params.data_ptr(),
-            leak.data_ptr(), wi.data_ptr(), wf.data_ptr(),
-            *(scratch[k].data_ptr() for k, _ in STREAM_FIELDS),
-            *(x.data_ptr() for x in outs), cuda_stream)
+    err = _build.launch(
+        lib.sim_synth_launch, dev,
+        ctypes.cast(c_dims, _P), ctypes.cast(_c_ints(offsets), _P),
+        ctypes.cast(_c_ints(soff), _P), params.data_ptr(),
+        leak.data_ptr(), wi.data_ptr(), wf.data_ptr(),
+        *(scratch[k].data_ptr() for k, _ in STREAM_FIELDS),
+        *(x.data_ptr() for x in outs))
     _check(lib, err, "sim_synth")
     out = _results(outs, collect_events)
     if stream:
         return out + ({**scratch, "length": wparams.length},)
     return out
+
+
+def pack_serve(params, warmups) -> torch.Tensor:
+    """A serving grid's non-DRAM params as one int32 ``[G, PS]`` row per
+    point, in ``SERVE_FIELDS`` order (every field a scalar; ``fifo`` has
+    no score and no preemption, so only the other two policies' blocks
+    travel)."""
+    a, h, pol = params.arrival, params.hot, params.policy
+    bits = lambda x: x.to(torch.float32).contiguous().view(torch.int32)
+    values = {
+        "rate": bits(a.rate), "burstiness": bits(a.burstiness),
+        "prompt_lo": a.prompt_lo, "prompt_hi": a.prompt_hi,
+        "decode_lo": a.decode_lo, "decode_hi": a.decode_hi,
+        "seed": a.seed, "n_reqs": a.n_reqs, "hot_n_sets": h.n_sets,
+        "hot_caching_cycles": h.caching_cycles,
+        "hot_sweep_period": h.sweep_period,
+        "cycles_per_step": params.cycles_per_step,
+        "page_tokens": params.page_tokens,
+        "charge_aware_enable": pol["charge_aware"]["enable"],
+        "preempting_enable": pol["preempting"]["enable"],
+        "preempting_q_thresh": pol["preempting"]["q_thresh"],
+        "warmup": warmups}
+    return torch.stack([values[f].to(torch.int32) for f in SERVE_FIELDS],
+                       dim=1).contiguous()
+
+
+def sim_serve(shape, params, warmups, counts=None):
+    """Launch the serving entry over a ``[G]`` grid (``shape`` a
+    ``serving.loop.engine.ServingShape``, ``params`` its
+    ``ServingParams``; ``counts`` int32 ``[G, n_steps]`` pins the
+    arrivals, else the kernel draws them).  Returns ``(sim stats, serve
+    stats, final clock [G], (occ, qlen, arrivals) [G, n_steps] or None)``
+    laid out as ``ref.run_serve_ref`` returns them.  Asynchronous on the
+    current stream; a refused launch raises."""
+    dev = warmups.device
+    _build.require_cuda(dev, "sim_serve")
+    lib = library()
+    G = warmups.shape[0]
+    n = shape.n_steps
+    params_i, leak, offsets = pack(
+        params.mech, torch.zeros(G, dtype=torch.int32, device=dev))
+    srow = pack_serve(params, warmups)
+    c_dims = _dims(lib, shape.sim, params.mech, G, params_i.shape[1], 1, 1,
+                   n, 0, False)
+    sdims = {"HHS": shape.hot.n_sets, "HW": shape.hot.n_ways,
+             "hexact": int(shape.hot.exact_expiry), "SB": shape.max_batch,
+             "Q": shape.queue_cap, "A": shape.arrivals_max,
+             "Pp": shape.prompt_pages_max, "Pt": shape.pages_max,
+             "n_steps": n, "collect": int(shape.collect_steps),
+             "pinned": int(counts is not None), "PS": srow.shape[1]}
+    c_sdims = _c_ints([sdims[k] for k in SERVE_DIMS])
+    smem = lib.sim_serve_smem_bytes(ctypes.cast(c_dims, _P),
+                                    ctypes.cast(c_sdims, _P))
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"sim_serve needs {smem} B of shared memory per "
+                         f"block; Hopper allows {MAX_SMEM_BYTES}")
+    if counts is not None and (
+            counts.device != dev or counts.dtype != torch.int32
+            or tuple(counts.shape) != (G, n) or not counts.is_contiguous()):
+        raise ValueError(f"counts must be a contiguous int32 [G={G}, "
+                         f"n_steps={n}] tensor on {dev}")
+    NB = shape.sim.envelope.max_banks_total
+    i32 = lambda *s: torch.empty(s, dtype=torch.int32, device=dev)
+    stats, bank_stats = i32(G, len(STAT_KEYS)), i32(G, 2, NB)
+    serve, now = i32(G, len(SERVE_STAT_KEYS)), i32(G)
+    steps = i32(3, G, n) if shape.collect_steps else i32(3, 1, 1)
+    err = _build.launch(
+        lib.sim_serve_launch, dev,
+        ctypes.cast(c_dims, _P), ctypes.cast(_c_ints(offsets), _P),
+        ctypes.cast(c_sdims, _P), params_i.data_ptr(), leak.data_ptr(),
+        srow.data_ptr(), None if counts is None else counts.data_ptr(),
+        stats.data_ptr(), bank_stats.data_ptr(), serve.data_ptr(),
+        now.data_ptr(), steps.data_ptr())
+    _check(lib, err, "sim_serve")
+    sim_stats = {k: stats[:, i] for i, k in enumerate(STAT_KEYS)}
+    for i, k in enumerate(BANK_STAT_KEYS):
+        sim_stats[k] = bank_stats[:, i]
+    serve_stats = {k: serve[:, i] for i, k in enumerate(SERVE_STAT_KEYS)}
+    ys = tuple(steps) if shape.collect_steps else None
+    return sim_stats, serve_stats, now, ys

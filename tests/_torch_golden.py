@@ -16,8 +16,16 @@ short digest per 1 000 positions of each core.  No stream is stored:
 this generator is counter-based, so numpy's version does not change it.
 ``chip_smoke.py`` reads only these files (``src/repro_torch/data/``).
 
+For the serving loop's full-size cells (``repro_torch.golden.SERVING``:
+the 24-point grid of ``benchmarks/serving_loop.py`` and its 10**4-request
+scale point) it runs ``repro.core.simulator.sweep_serving`` over an
+explicit list of configurations, arrivals drawn, and records every
+counter, the bank arrays, the per-step counts drawn and the per-step
+accepted arrivals, occupancy and queue length in
+``golden_serving.json``.
+
 Run from the repo root (a few minutes on two CPU cores); the argument
-``synth`` or ``traces`` writes only that part:
+``synth``, ``traces`` or ``serving`` writes only that part:
 
     JAX_PLATFORMS=cpu PYTHONPATH=src:tests python tests/_torch_golden.py
 
@@ -32,10 +40,11 @@ from __future__ import annotations
 import json
 import sys
 
-from repro_torch.golden import (GOLDEN_PATH, SYNTH, SYNTH_PATH, WORKLOADS,
-                                build_batch, save_batches,
-                                stream_block_digests, stream_key,
-                                synth_points, trace_sha256)
+from repro_torch.golden import (GOLDEN_PATH, SERVING, SERVING_PATH, SYNTH,
+                                SYNTH_PATH, WORKLOADS, build_batch,
+                                save_batches, serving_points,
+                                serving_spec_kwargs, stream_block_digests,
+                                stream_key, synth_points, trace_sha256)
 
 
 def cell_record(stats: dict, keys) -> dict:
@@ -141,6 +150,70 @@ def compare_streams() -> None:
               f"positions differ, in {len(blocks)} blocks of 1000")
 
 
+def serving_configs() -> tuple[list, object]:
+    """The serving grid's ``repro`` configurations in launch order, and
+    the 10**4-request scale point's."""
+    from repro.core import (HCRACConfig, MechanismConfig, SimConfig,
+                            lowered_for_duration, ms_to_cycles)
+    from repro.serving.loop import ServingSpec
+    from repro.workloads.arrivals import ArrivalConfig
+    S = SERVING
+
+    def cfg(n, rate, burst, batch, policy, mech):
+        arr, spec = serving_spec_kwargs(n, rate, burst, batch, policy)
+        return SimConfig(mech=mech, serving=ServingSpec(
+            arrival=ArrivalConfig(**arr), **spec))
+
+    ms = S["mech_caching_ms"]
+    grid = [cfg(S["grid_reqs"], p["rate"], p["burstiness"], S["grid_batch"],
+                p["policy"], MechanismConfig(
+                    kind=p["mechanism"],
+                    hcrac=HCRACConfig(n_entries=S["mech_entries"],
+                                      caching_cycles=ms_to_cycles(ms)),
+                    lowered=lowered_for_duration(ms)))
+            for p in serving_points()]
+    sc = S["scale"]
+    scale = cfg(sc["n_reqs"], sc["rate"], sc["burstiness"], sc["max_batch"],
+                sc["policy"], MechanismConfig())
+    return grid, scale
+
+
+def serving_record(cfg, res: dict) -> dict:
+    """A serving point's exact-int results: every scalar counter, the
+    bank arrays, the per-step arrival counts ``repro`` draws
+    (``counts``) and the per-step accepted arrivals / occupancy / queue
+    length."""
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.core.simulator import BANK_STAT_KEYS, STAT_KEYS
+    from repro.serving.loop.engine import SERVE_STAT_KEYS
+    from repro.workloads.arrivals import arrival_params, step_counts
+    counts = step_counts(jnp, arrival_params(cfg.serving.arrival,
+                                             cfg.serving.n_reqs),
+                         jnp.arange(int(res["n_steps"]), dtype=jnp.int32))
+    rec = {k: int(res[k]) for k in STAT_KEYS + SERVE_STAT_KEYS
+           + ("total_cycles", "n_steps")}
+    rec["counts"] = [int(x) for x in np.asarray(counts)]
+    for k in BANK_STAT_KEYS:
+        rec[k] = [int(x) for x in res[k]]
+    for k in ("arrivals", "occ", "qlen"):
+        rec[k] = [int(x) for x in res["steps"][k]]
+    return rec
+
+
+def compute_serving() -> dict:
+    """``repro.core.simulator.sweep_serving`` over the grid and the scale
+    point, arrivals drawn (``collect_steps`` records the counts drawn)."""
+    from repro.core.simulator import sweep_serving
+    grid, scale = serving_configs()
+    res = sweep_serving(grid, collect_steps=True)
+    big = sweep_serving([scale], collect_steps=True)[0]
+    return {"grid": SERVING, "n_steps": int(res[0]["n_steps"]),
+            "points": [{**p, **serving_record(c, r)}
+                       for p, c, r in zip(serving_points(), grid, res)],
+            "scale": serving_record(scale, big)}
+
+
 def main(argv) -> int:
     what = argv[1] if len(argv) > 1 else "all"
     if what == "streams":
@@ -164,6 +237,16 @@ def main(argv) -> int:
             f.write("\n")
         for p in data["points"]:
             print(stream_key(p), p["mechanism"], p["total_cycles"])
+    if what in ("all", "serving"):
+        data = compute_serving()
+        with open(SERVING_PATH, "w") as f:
+            json.dump(data, f, indent=None, separators=(",", ":"))
+            f.write("\n")
+        for p in data["points"]:
+            print(p["policy"], p["rate"], p["burstiness"], p["mechanism"],
+                  p["retired"], p["admit_hot"], p["lat_sum"])
+        s = data["scale"]
+        print("scale", s["n_steps"], s["retired"], s["lat_sum"])
     return 0
 
 

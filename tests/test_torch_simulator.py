@@ -267,7 +267,8 @@ def test_rltl_device_matches_host_post_pass(main_sweep):
 def test_sim_config_rejects_unported_tiers():
     with pytest.raises(NotImplementedError, match="FR-FCFS"):
         t_sim.SimConfig(controller="frfcfs")
-    with pytest.raises(NotImplementedError, match="serving"):
+    # the serving loop is ported: a ServingSpec is taken, else raises
+    with pytest.raises(TypeError, match="ServingSpec"):
         t_sim.SimConfig(serving=object())
     # on-device synthesis is ported: a WorkloadSpec is taken, else raises
     with pytest.raises(TypeError, match="WorkloadSpec"):
