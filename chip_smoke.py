@@ -7,14 +7,17 @@ CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the ``sim_step`` kernel (three entries: over a trace,
-synthesising its own streams, and the serving closed loop) and the HCRAC
-probe kernel from the sources in the checkout, holds each against its
-plain PyTorch version, drives the port's three paths at full size
-(``repro_torch.core.simulator.sweep``, ``sweep_synth`` and the serving
-loop: ``sweep_serving`` and the host scheduler's ``run_host``), checks
-the results against the JAX package's recorded golden numbers
-(``src/repro_torch/data/golden_fullwidth.json``, ``golden_synth.json``
-and ``golden_serving.json``), and times the kernels.  It imports nothing
+synthesising its own streams, and the serving closed loop), the HCRAC
+probe kernel and the flash- and decode-attention kernels from the
+sources in the checkout, holds each against its plain PyTorch version,
+drives the port's four paths at full size
+(``repro_torch.core.simulator.sweep``, ``sweep_synth``, the serving
+loop: ``sweep_serving`` and the host scheduler's ``run_host``, and
+dense-LM serving of tinyllama-1.1b: ``prefill_fn`` / ``decode_fn`` and
+``examples/serve_lm.py``'s run), checks the results against the JAX
+package's recorded golden numbers
+(``src/repro_torch/data/golden_fullwidth.json``, ``golden_synth.json``,
+``golden_serving.json`` and ``golden_lm.json``), and times the kernels.  It imports nothing
 of JAX or of the ``repro`` package.  Phases:
 
 1. the card's name and power limit, and the kernel's build time;
@@ -75,8 +78,37 @@ of JAX or of the ``repro`` package.  Phases:
    10**5-request scale points, timed, every request retired, 10**4 held
    to the golden file as in (b), with the golden counts pinned and with
    counts drawn on the card;
-9. one JSON line of kernel numbers;
-10. the last line: ``{"ok": true, "device": {...}}``.
+9. the flash-attention kernel against its plain version (both on the
+   card): ``tests/test_kernels.py``'s matrix (5 shapes x bf16 / f32: hd
+   32-128, S not a block multiple, MQA, non-causal, a sliding window)
+   and the full-width prefill shapes B 4 x S 500, B 1 x S 4 096 and
+   phase 12's B 4 x S 16 (H 32, K 4, hd 64, bf16): bf16 outputs element
+   by element within one bf16 ulp of the plain output plus 1e-5
+   (``BF16_RTOL`` / ``BF16_ATOL``) and within 0.02 overall, f32 within
+   2e-5; the full-width shapes timed beside the plain version and
+   ``scaled_dot_product_attention``;
+10. the decode-attention kernel likewise (element by element as bf16
+    flash, and within 0.03 overall): the matrix (nearly empty cache, W
+    not a multiple, a window, MHA) and the full-width caches B 4, W 520
+    (516 filled), W 4 100 (wrapped) and phase 12's W 28 (24 filled), K
+    4, G 8, hd 64;
+11. tinyllama-1.1b at its published widths, the golden weights and
+    tokens built on the card (digests equal to ``golden_lm.json``'s):
+    ``prefill_fn`` on 4 x 500 tokens (cache 520), then 16 teacher-forced
+    ``decode_fn`` steps, each step's top-8 logits and logsumexp within
+    ``LM_LOGIT_TOL`` of ``repro``'s and the argmax equal where
+    ``repro``'s margin exceeds twice that; 22 flash and 22 x 16 decode
+    launches; prefill and decode-step times and the kernels' share of
+    the device time (``torch.profiler``);
+12. ``examples/serve_lm.py``'s run on the port at full width (the
+    main path of this slice): ``make_serve_step`` greedy decode of 4 x 16
+    prompt tokens x 8 new tokens (tokens/s), the charge-aware
+    ``Scheduler`` on 12 requests through the probe kernel, then
+    ``simulate`` with ``base`` and ``chargecache`` (hit rate, speedup);
+    the launch counts are zeroed before it and must read 22 flash, 22 x 8
+    decode, at least one probe and 2 ``sim_step`` launches after it;
+13. one JSON line of kernel numbers;
+14. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line is printed.  Exits
 non-zero at once when no CUDA device is available.
@@ -903,6 +935,447 @@ def serving_phases(sim, timing, golden_mod, device="cuda") -> tuple:
         "bound_ms": v_bound, "bound_by": "bytes", "library_ms": None})
 
 
+# --------------------------------------------------------------------------
+# phases 9-12: dense-LM serving (tinyllama-1.1b at full width)
+# --------------------------------------------------------------------------
+
+#: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet), for the
+#: operations bound of a bf16 kernel; f32 inputs take the 67 TFLOP/s of
+#: the CUDA cores
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+#: tests/test_kernels.py's flash matrix (B, S, H, K, hd, causal, window),
+#: then the full-width prefill shapes (tinyllama-1.1b: H 32, K 4, hd 64)
+#: of phase 11, a longer prompt, and phase 12's
+FLASH_MATRIX = [(2, 128, 4, 2, 64, True, 0), (1, 256, 8, 2, 64, True, 64),
+                (2, 96, 4, 4, 32, True, 0), (1, 64, 4, 1, 128, False, 0),
+                (1, 160, 6, 2, 48, True, 32)]
+FLASH_FULL = [(4, 500, 32, 4, 64, True, 0), (1, 4096, 32, 4, 64, True, 0),
+              (4, 16, 32, 4, 64, True, 0)]
+FLASH_TOL = {"bf16": 0.02, "f32": 2e-5}
+#: tests/test_kernels.py's decode matrix (B, H, K, hd, W, window, filled
+#: slots), then the full-width caches: phase 11's (520 slots, 516 filled),
+#: a 4 100-slot ring that has wrapped (query at position 5 000) and
+#: phase 12's last step (28 slots, 24 filled)
+DECODE_MATRIX = [(2, 8, 2, 64, 128, 0, 100), (1, 4, 4, 32, 256, 64, 256),
+                 (2, 4, 1, 128, 64, 0, 10), (1, 8, 8, 64, 96, 0, 96)]
+DECODE_FULL = [(4, 32, 4, 64, 520, 0, 516), (4, 32, 4, 64, 4100, 0, 5001),
+               (4, 32, 4, 64, 28, 0, 24)]
+DECODE_TOL = 0.03
+#: a bf16 kernel output against its plain version, element by element:
+#: |kernel - plain| <= BF16_ATOL + BF16_RTOL * |plain|.  Both compute in
+#: f32 and round once to bf16, so a correct kernel differs where the two
+#: f32 sums (summed in another order, ~1e-6 apart at these shapes) round
+#: to neighbouring bf16 values: one ulp, at most 2^-7 of |plain|.  The
+#: absolute limits above stay as a second check; alone they are larger
+#: than the outputs at full width (~0.026 over 4 100 keys), where a
+#: dropped 32-key tile moves an output by ~1e-3.
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
+#: the card's logits against golden_lm.json: four bf16 ulps at the top
+#: logits' magnitude (4-8), twice the largest difference between the
+#: port on the CPU and repro (tests/_torch_golden.py lm)
+LM_LOGIT_TOL = 0.125
+
+
+def loop_ms(fn, n: int = 20) -> float:
+    """Mean time of ``n`` back-to-back calls of ``fn`` on the current
+    stream (CUDA events around the loop, after one warm-up), in ms."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def profile_kernels(fn, names) -> tuple[float, float | None, dict]:
+    """``fn()`` under ``torch.profiler``: ``(wall ms, device busy ms,
+    {name: device ms of the kernels whose name holds it})``; busy is
+    None when the profiler saw no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if getattr(e, "device_type", None)
+           == torch.autograd.DeviceType.CUDA]
+    ms = lambda evs: sum(e.time_range.elapsed_us() for e in evs) / 1e3
+    busy = ms(dev) if dev else None
+    return wall, busy, {n: ms([e for e in dev if n in e.name])
+                        for n in names}
+
+
+def seeded(shape, seed: int, dtype, device):
+    """Standard normal values from numpy's generator (seeded), as
+    ``dtype`` on ``device``."""
+    import numpy as np
+    import torch
+    a = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
+def flash_bound(B, S, H, K, hd, causal, window, dtype) -> tuple:
+    """``(bound ms, 'bytes' | 'operations')``: q, k, v read once and the
+    output written once, against 4 * hd operations per valid (query, key)
+    pair."""
+    import torch
+    q = torch.arange(S)[:, None]
+    k = torch.arange(S)[None, :]
+    ok = torch.ones(S, S, dtype=torch.bool)
+    if causal:
+        ok &= q >= k
+    if window:
+        ok &= (q - k) < window
+    pairs = int(ok.sum()) * B * H
+    size = 2 if dtype == "bf16" else 4
+    nbytes = size * hd * (2 * B * S * H + 2 * B * S * K)
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = 4 * hd * pairs / PEAK_OPS[dtype] * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def decode_bound(B, H, K, hd, valid: int, W: int, dtype) -> tuple:
+    """``(bound ms, 'bytes' | 'operations')``: the valid slots' keys and
+    values, the queries and ``kv_pos`` read once, the output written once,
+    against 4 * hd operations per query row and valid slot."""
+    size = 2 if dtype == "bf16" else 4
+    nbytes = size * hd * (2 * B * H + 2 * B * K * valid) + 4 * W
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = 4 * hd * B * H * valid / PEAK_OPS[dtype] * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def kernel_diff(got, want, dn: str) -> tuple[float, float, float]:
+    """``(max |got - want|, max |want|, worst share of the element-wise
+    limit)``: ``BF16_ATOL + BF16_RTOL * |want|`` for bf16, the absolute
+    ``FLASH_TOL['f32']`` for f32 (outputs of the small f32 shapes are
+    ~0.1, so it is already ~1e-4 of them)."""
+    w = want.float()
+    d = (got.float() - w).abs()
+    lim = (BF16_ATOL + BF16_RTOL * w.abs() if dn == "bf16"
+           else FLASH_TOL["f32"])
+    return float(d.max()), float(w.abs().max()), float((d / lim).max())
+
+
+def phase_flash(fk, fr, dev) -> dict:
+    """Flash kernel against its plain version (both on the card) over
+    ``FLASH_MATRIX`` x {bf16, f32} and ``FLASH_FULL`` (bf16); times the
+    full-width shapes beside the plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    out = {"max_abs_err": 0.0, "full": []}
+    cases = ([(c, d) for c in FLASH_MATRIX for d in dts]
+             + [(c, "bf16") for c in FLASH_FULL])
+    for i, (case, dn) in enumerate(cases):
+        B, S, H, K, hd, causal, window = case
+        q, k, v = (seeded(shape, 100 * i + j, dts[dn], dev) for j, shape in
+                   enumerate(((B, S, H, hd), (B, S, K, hd), (B, S, K, hd))))
+        got = fk.flash_attention(q, k, v, causal=causal, window=window)
+        plain_ms, want = cuda_ms(lambda: fr.flash_attention_ref(
+            q, k, v, causal=causal, window=window), torch.cuda.synchronize)
+        err, top, share = kernel_diff(got, want, dn)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        line = (f"  B{B} S{S} H{H} K{K} hd{hd} causal={causal} "
+                f"window={window} {dn}: max |kernel - plain| {err:.3g} "
+                f"(tolerance {FLASH_TOL[dn]}), max |plain| {top:.3g}, "
+                f"worst share of the element-wise limit {share:.3g}")
+        if case in FLASH_FULL:
+            ms = loop_ms(lambda: fk.flash_attention(q, k, v, causal=causal,
+                                                    window=window))
+            sdpa = lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal, enable_gqa=True)
+            lib_ms = loop_ms(sdpa)
+            bound, by = flash_bound(B, S, H, K, hd, causal, window, dn)
+            row = {"shape": [B, S, H, K, hd], "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+                   "max_abs_err": err}
+            out["full"].append(row)
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA "
+                     f"{lib_ms:.4f} ms, {by} bound {bound:.4f} ms")
+        print(line, flush=True)
+        check(err <= FLASH_TOL[dn] and share <= 1.0,
+              f"flash kernel disagrees with its plain version at {case} "
+              f"{dn}")
+    return out
+
+
+def decode_case(case, seed: int, dev):
+    """Rotated queries, a ring cache and its slot positions: ``fill``
+    positions written into ``W`` slots, position p in slot p mod W, the
+    newest W kept; the query at position ``fill - 1``."""
+    import torch
+    B, H, K, hd, W, window, fill = case
+    q = seeded((B, H, hd), seed, torch.bfloat16, dev)
+    kc = seeded((B, W, K, hd), seed + 1, torch.bfloat16, dev)
+    vc = seeded((B, W, K, hd), seed + 2, torch.bfloat16, dev)
+    slots = torch.arange(W)
+    newest = fill - 1 - torch.remainder(fill - 1 - slots, W)
+    kv_pos = torch.where(newest >= 0, newest, -1).to(torch.int32).to(dev)
+    q_pos = torch.tensor([fill - 1], dtype=torch.int32, device=dev)
+    return q, kc, vc, kv_pos, q_pos
+
+
+def phase_decode(pk, pr, dev) -> dict:
+    """Decode kernel against its plain version (both on the card) over
+    ``DECODE_MATRIX`` and ``DECODE_FULL``; times the full-width caches
+    beside the plain version and SDPA (a boolean mask of the valid
+    slots)."""
+    import torch
+    import torch.nn.functional as F
+    out = {"max_abs_err": 0.0, "full": []}
+    for i, case in enumerate(DECODE_MATRIX + DECODE_FULL):
+        B, H, K, hd, W, window, fill = case
+        q, kc, vc, kv_pos, q_pos = decode_case(case, 10 * i, dev)
+        got = pk.decode_attention(q, kc, vc, kv_pos, q_pos, window=window)
+        plain = lambda: pr.decode_ref(q, kc, vc, kv_pos.expand(B, W),
+                                      q_pos.expand(B), window=window)
+        plain_ms, want = cuda_ms(plain, torch.cuda.synchronize)
+        err, top, share = kernel_diff(got, want, "bf16")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        ok = (kv_pos >= 0) & (kv_pos <= q_pos)
+        if window:
+            ok &= (q_pos - kv_pos) < window
+        valid = int(ok.sum())
+        line = (f"  B{B} H{H} K{K} hd{hd} W{W} window={window}, {valid} "
+                f"valid slots: max |kernel - plain| {err:.3g} (tolerance "
+                f"{DECODE_TOL}), max |plain| {top:.3g}, worst share of the "
+                f"element-wise limit {share:.3g}")
+        if case in DECODE_FULL:
+            ms = loop_ms(lambda: pk.decode_attention(q, kc, vc, kv_pos,
+                                                     q_pos, window=window))
+            mask = ok[None, None, None, :]
+            sdpa = lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+            lib_ms = loop_ms(sdpa)
+            bound, by = decode_bound(B, H, K, hd, valid, W, "bf16")
+            out["full"].append({"shape": [B, H, K, hd, W], "valid": valid,
+                                "ms": ms, "plain_ms": plain_ms,
+                                "library_ms": lib_ms, "bound_ms": bound,
+                                "bound_by": by, "max_abs_err": err})
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA "
+                     f"{lib_ms:.4f} ms, {by} bound {bound:.5f} ms")
+        print(line, flush=True)
+        check(err <= DECODE_TOL and share <= 1.0,
+              f"decode kernel disagrees with its plain version at {case}")
+    return out
+
+
+def check_logits(step: int, logits, rec: dict) -> tuple[float, int, int]:
+    """Hold one step's ``[B, V]`` logits to its golden record: each row's
+    sorted top-k values and its logsumexp within ``LM_LOGIT_TOL``, and
+    the argmax equal to repro's where repro's top-1 minus top-2 margin
+    exceeds twice that; returns ``(max |diff|, argmax rows checked,
+    argmax rows differing)``."""
+    import torch
+    x = logits.float().cpu()
+    k = len(rec["top_logits"][0])
+    top = torch.topk(x, k, dim=-1).values
+    want = torch.tensor(rec["top_logits"])
+    lse = torch.logsumexp(x, -1)
+    diff = max(float((top - want).abs().max()),
+               float((lse - torch.tensor(rec["logsumexp"])).abs().max()))
+    margin = want[:, 0] - want[:, 1]
+    sure = margin > 2 * LM_LOGIT_TOL
+    am = torch.argmax(x, -1)
+    bad_am = int((am[sure] != torch.tensor(rec["argmax"])[sure]).sum())
+    check(diff <= LM_LOGIT_TOL, f"step {step}: logits differ from "
+                                f"golden_lm.json by {diff:.4f}")
+    check(bad_am == 0, f"step {step}: argmax differs from repro's where "
+                       f"its margin exceeds {2 * LM_LOGIT_TOL}")
+    return diff, int(sure.sum()), bad_am
+
+
+def lm_phases(golden_mod, sim, device="cuda") -> list:
+    """Phases 9-12 (the two attention kernels, tinyllama-1.1b at full
+    width against ``golden_lm.json``, and ``examples/serve_lm.py``'s run
+    on the port) on ``device``; returns the kernel line's rows for
+    ``flash_attention`` and ``paged_attention``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.core.simulator import MechanismConfig, SimConfig
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fr
+    from repro_torch.kernels.hcrac import ops as hops
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.paged_attention import ref as pr
+    from repro_torch.kernels.sim_step import ops as sops
+    from repro_torch.launch import steps
+    from repro_torch.models import lm, zoo
+    from repro_torch.serving.scheduler import (Request, Scheduler,
+                                               SchedulerConfig)
+    dev = torch.device(device)
+
+    print("\nphase 9: flash-attention kernel vs plain version (on the card)",
+          flush=True)
+    flash = phase_flash(fk, fr, dev)
+    print("\nphase 10: decode-attention kernel vs plain version (on the "
+          "card)", flush=True)
+    dec = phase_decode(pk, pr, dev)
+
+    # --- phase 11: tinyllama-1.1b at full width against repro -----------
+    print("\nphase 11: tinyllama-1.1b at full width vs golden_lm.json",
+          flush=True)
+    L = golden_mod.LM
+    gold = golden_mod.load_lm()
+    cfg = get(L["config"])
+    t0 = time.time()
+    tree = golden_mod.golden_weights(lm.lm_defs(cfg), L["seed"], dev)
+    check(golden_mod.weights_digest(tree) == gold["weights_digest"],
+          "the golden weights built on the card differ from repro's")
+    model = lm.LM(cfg, tree)
+    prompt, dec_in = golden_mod.lm_tokens(cfg.vocab_size, dev)
+    check(golden_mod.tokens_digest(prompt, dec_in) == gold["tokens_digest"],
+          "the golden tokens built on the card differ from repro's")
+    torch.cuda.synchronize()
+    print(f"  {cfg.name}: {sum(p.numel() for p in model.parameters())} "
+          f"parameters (bf16), golden weights and tokens built on the card "
+          f"in {time.time() - t0:.1f} s, digests equal to repro's",
+          flush=True)
+    prefill = lambda: zoo.prefill_fn(model, {"tokens": prompt}, cfg,
+                                     L["max_len"])
+    fa.launches = pa.launches = 0
+    logits, cache = prefill()
+    steps_out = [logits]
+    for t in range(L["steps"]):
+        logits, cache = zoo.decode_fn(model, cache, dec_in[t], cfg)
+        steps_out.append(logits)
+    torch.cuda.synchronize()
+    c_flash, c_dec = fa.launches, pa.launches
+    print(f"  prefill B{L['batch']} x {L['prompt']} + {L['steps']} decode "
+          f"steps: flash launches {c_flash}, decode launches {c_dec}",
+          flush=True)
+    check(c_flash == cfg.n_layers and c_dec == cfg.n_layers * L["steps"],
+          f"expected {cfg.n_layers} flash and {cfg.n_layers * L['steps']} "
+          f"decode launches")
+    worst, sure, bad = 0.0, 0, 0
+    for t, (x, rec) in enumerate(zip(steps_out, gold["steps"])):
+        check(tuple(x.shape) == (L["batch"], cfg.vocab_padded)
+              and bool(torch.isfinite(x.float()).all()),
+              f"step {t}: malformed logits")
+        d, n, b = check_logits(t, x, rec)
+        worst, sure, bad = max(worst, d), sure + n, bad + b
+    print(f"  {len(steps_out)} steps x {L['batch']} rows vs repro: max "
+          f"|d| top-{L['top_k']} logits / logsumexp {worst:.4f} (tolerance "
+          f"{LM_LOGIT_TOL}); argmax equal on all {sure} rows whose margin "
+          f"exceeds {2 * LM_LOGIT_TOL}", flush=True)
+    # times: prefill alone, then the decode steps on a copy of its cache
+    prefill_ms = cuda_ms(prefill, torch.cuda.synchronize)[0]
+    _, cache0 = prefill()
+    run_cache = {k: v.clone() for k, v in cache0.items()}
+
+    def decode_all():
+        c = run_cache
+        for t in range(L["steps"]):
+            c = zoo.decode_fn(model, c, dec_in[t], cfg)[1]
+    decode_ms = cuda_ms(decode_all, torch.cuda.synchronize)[0] / L["steps"]
+    names = ("flash_attention_kernel", "paged_attention_kernel")
+    p_wall, p_busy, p_k = profile_kernels(prefill, names)
+    run_cache = {k: v.clone() for k, v in cache0.items()}
+    d_wall, d_busy, d_k = profile_kernels(decode_all, names)
+    share = lambda part, whole: (f"{100 * part / whole:.1f} %"
+                                 if part is not None and whole
+                                 else "not measured")
+    print(f"  prefill {prefill_ms:.2f} ms; decode {decode_ms:.3f} ms a "
+          f"step (CUDA events)", flush=True)
+    print(f"  profiled prefill: {p_wall:.2f} ms wall, device busy "
+          f"{p_busy} ms, flash kernel {p_k[names[0]]:.3f} ms "
+          f"({share(p_k[names[0]], p_busy)} of the busy time)", flush=True)
+    print(f"  profiled {L['steps']} decode steps: {d_wall:.2f} ms wall, "
+          f"device busy {d_busy} ms, decode kernel {d_k[names[1]]:.3f} ms "
+          f"({share(d_k[names[1]], d_busy)} of the busy time, "
+          f"{share(d_busy, d_wall)} of the wall busy)", flush=True)
+
+    # --- phase 12: examples/serve_lm.py's run on the port ----------------
+    print("\nphase 12: examples/serve_lm.py on the port (tinyllama-1.1b, "
+          "full width)", flush=True)
+    n_new, batch = 8, 4
+    serve = steps.make_serve_step(cfg)
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, 16))
+                               ).to(dev)
+    fa.launches = pa.launches = hops.launches = sops.launches = 0
+    _, cache = zoo.prefill_fn(model, {"tokens": prompts}, cfg,
+                              max_len=16 + n_new + 4)
+    tok = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    outs = []
+    for _ in range(n_new):
+        tok, cache = serve(model, cache, tok)
+        outs.append(tok.cpu())
+    dt = time.time() - t0
+    outs = torch.stack(outs)
+    check(bool(((outs >= 0) & (outs < cfg.vocab_size)).all()),
+          "decoded tokens out of range")
+    print(f"  decoded {n_new} tokens x batch {batch} in {dt:.3f} s "
+          f"({n_new * batch / dt:.1f} tok/s): {outs.T.tolist()}", flush=True)
+    sched = Scheduler(SchedulerConfig(max_batch=batch, charge_aware=True),
+                      device=dev)
+    for rid in range(12):
+        sched.submit(Request(rid=rid, prompt_len=int(rng.integers(2048, 8192)),
+                             max_new=n_new))
+    sched.run(200)
+    trace = sched.emit_trace()
+    base = sim.simulate(trace, SimConfig(mech=MechanismConfig(kind="base")),
+                        device=dev)
+    cc = sim.simulate(trace, SimConfig(
+        mech=MechanismConfig(kind="chargecache")), device=dev)
+    launches = {"flash": fa.launches, "decode": pa.launches,
+                "probe": hops.launches, "sim_step": sops.launches}
+    print(f"  scheduler: {sched.stats}")
+    print(f"  DRAM closed loop: hit={cc['hcrac_hit_rate']:.1%} "
+          f"speedup={base['total_cycles'] / cc['total_cycles']:.4f}x")
+    print(f"  launches on this path: {launches}", flush=True)
+    check(launches["flash"] == cfg.n_layers
+          and launches["decode"] == cfg.n_layers * n_new,
+          f"serve_lm path launches {launches}: expected {cfg.n_layers} "
+          f"flash, {cfg.n_layers * n_new} decode")
+    check(launches["probe"] > 0 and launches["sim_step"] == 2,
+          f"serve_lm path launches {launches}: the scheduler's probes and "
+          f"two simulations must run on the card")
+    check(sched.stats["retired"] == 12 and cc["total_cycles"] > 0,
+          "the scheduler did not retire every request")
+
+    rows = []
+    for name, res, src, rep, n, n_c in (
+            ("flash_attention", flash, "flash_attention/csrc/"
+             "flash_attention.cu", "flash_attention/kernel.py:73",
+             launches["flash"], c_flash),
+            ("paged_attention", dec, "paged_attention/csrc/"
+             "paged_attention.cu", "paged_attention/kernel.py:68",
+             launches["decode"], c_dec)):
+        main = res["full"][0]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{src}",
+            "replaces": f"src/repro/kernels/{rep}", "launches": n,
+            "max_abs_err": res["max_abs_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shape": main["shape"], "launches_golden_run": n_c,
+            "full": res["full"][1:]})
+    rows[0].update({"prefill_ms": prefill_ms, "prefill_device_ms": p_busy,
+                    "prefill_kernel_ms": p_k[names[0]]})
+    rows[1].update({"decode_step_ms": decode_ms, "decode_device_ms":
+                    d_busy / L["steps"] if d_busy else None,
+                    "decode_kernel_ms": d_k[names[1]] / L["steps"]})
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -919,6 +1392,8 @@ def main() -> int:
     from repro_torch.golden import build_batch, load, load_batch, trace_sha256
     from repro_torch.kernels.sim_step import kernel, ops, ref
     from repro_torch.kernels.hcrac import kernel as hk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.paged_attention import kernel as pk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -931,13 +1406,15 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
-    # both libraries build at once, one nvcc each
+    # the four libraries build at once, one nvcc each
     t0 = time.time()
-    with ThreadPoolExecutor(2) as pool:
-        lib, hlib = pool.map(lambda f: f(), (kernel.library, hk.library))
-    print(f"sim_step + hcrac build+load: {time.time() - t0:.1f} s "
-          f"({lib._name}, {hlib._name})")
-    for built in (lib, hlib):
+    with ThreadPoolExecutor(4) as pool:
+        libs = list(pool.map(lambda f: f(), (kernel.library, hk.library,
+                                              fk.library, pk.library)))
+    print(f"sim_step + hcrac + flash_attention + paged_attention "
+          f"build+load: {time.time() - t0:.1f} s "
+          f"({', '.join(b._name for b in libs)})")
+    for built in libs:
         log = Path(built._name).with_suffix(".log")
         if log.exists():
             for line in log.read_text().splitlines():
@@ -1125,6 +1602,7 @@ def main() -> int:
 
     serve_rows = serving_phases(sim, timing, golden_mod)
     max_err = max(max_err, serve_rows[1]["max_abs_err"])
+    lm_rows = lm_phases(golden_mod, sim)
     print(smi)
 
     # --- phase 9: kernel numbers -----------------------------------------
@@ -1149,7 +1627,7 @@ def main() -> int:
         "points": len(grid32), "prepass_ms": gen_ms,
         "streams_equal_to_golden": same, "streams_differing": differ,
         "bound_ms": bound32, "bound_by": "bytes", "library_ms": None},
-        *serve_rows]}))
+        *serve_rows, *lm_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,10 @@
+"""phi3.5-moe-42b-a6.6b [hf:microsoft/Phi-3.5-MoE-instruct; hf] — 16e top-2."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3.5-moe-42b-a6.6b", family="moe",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8,
+    d_ff=6400, vocab_size=32064, head_dim=128,
+    n_experts=16, top_k=2,
+    rope_theta=10000.0, act="silu", norm_kind="rms",
+)

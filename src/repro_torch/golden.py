@@ -4,7 +4,10 @@ thesis experiment's two full-size workloads, recorded in
 (``SYNTH``), recorded in ``data/golden_synth.json`` with a digest of
 every generated stream, and for the serving loop's full-size cells
 (``SERVING``), recorded in ``data/golden_serving.json`` with each
-point's drawn arrival counts (all written by ``tests/_torch_golden.py``).
+point's drawn arrival counts, and for dense-LM serving (``LM``:
+tinyllama-1.1b at its published widths, prefill then teacher-forced
+decode), recorded in ``data/golden_lm.json`` (all written by
+``tests/_torch_golden.py``).
 
 This module names the workloads, rebuilds their traces with either
 package's ``traces`` module (``build_batch``), and loads the traces the
@@ -235,3 +238,111 @@ def load_batch(traces_mod, wname: str):
     if trace_sha256(batch) != want:
         raise ValueError(f"stored {wname} trace does not match its digest")
     return batch
+
+
+LM_PATH = DATA / "golden_lm.json"
+
+#: dense-LM serving at full width: ``repro``'s ``prefill_fn`` on ``batch``
+#: rows of ``prompt`` tokens (cache ``max_len``), then ``steps``
+#: teacher-forced ``decode_fn`` steps, weights from ``golden_weights``
+LM = {"config": "tinyllama-1.1b", "batch": 4, "prompt": 500,
+      "max_len": 520, "steps": 16, "seed": 14, "top_k": 8}
+
+#: lanes of the counter-based draws (weights take the leaf's path id)
+_LANE_PROMPT = 0x7072_6F6D
+_LANE_DECODE = 0x6465_636F
+#: elements a chunk of the weight draw
+_CHUNK = 1 << 24
+
+
+def golden_weights(defs, seed: int, device="cpu"):
+    """The golden weights of a ParamDef tree (``repro_torch.models
+    .params``), in bf16 on ``device``: a ``normal`` leaf draws element
+    ``i`` as ``(2 u - 1) * sqrt(3) * std`` with ``u = prng.uniform(seed,
+    path id, i)`` (uniform with the leaf's fan-in std), in float32 and
+    then rounded to bf16; ``ones`` / ``zeros`` as declared.  Integer
+    hashing and correctly rounded float32 products give the same bits on
+    every device and library version (numpy's and ``jax.random``'s
+    streams do not), so the card rebuilds the weights ``repro`` ran with.
+    Drawn in chunks of ``_CHUNK`` elements."""
+    import math
+
+    import torch
+
+    from repro_torch.models.params import map_defs, path_id
+    from repro_torch.workloads import prng
+    device = torch.device(device)
+
+    def draw(path, d):
+        if d.init in ("zeros", "ones"):
+            fill = torch.zeros if d.init == "zeros" else torch.ones
+            return fill(d.shape, dtype=torch.bfloat16, device=device)
+        n = math.prod(d.shape)
+        out = torch.empty(n, dtype=torch.bfloat16, device=device)
+        c = torch.tensor(math.sqrt(3.0) * d.std, dtype=torch.float32,
+                         device=device)
+        pid = path_id(path)
+        for i0 in range(0, n, _CHUNK):
+            idx = torch.arange(i0, min(n, i0 + _CHUNK), dtype=torch.int64,
+                               device=device)
+            u = prng.uniform(seed, pid, idx)
+            out[i0:i0 + idx.numel()] = ((u * 2 - 1) * c).to(torch.bfloat16)
+        return out.view(d.shape)
+
+    return map_defs(draw, defs)
+
+
+def weights_digest(tree) -> str:
+    """sha256 over every leaf's path, shape and its first and last 4 096
+    elements' bf16 bits (leaves in path order): a check that a device
+    rebuilt the golden weights without moving them all to the host."""
+    import torch
+
+    from repro_torch.models.params import leaf_paths
+    h = hashlib.sha256()
+    for path, t in leaf_paths(tree):
+        flat = t.reshape(-1)
+        h.update(f"{path}:{tuple(t.shape)}".encode())
+        for part in (flat[:4096], flat[-4096:]):
+            h.update(part.to(torch.bfloat16).view(torch.int16).cpu()
+                     .numpy().tobytes())
+    return h.hexdigest()
+
+
+def lm_tokens(vocab: int, device="cpu"):
+    """``(prompt [batch, prompt], decode inputs [steps, batch])`` int64
+    token ids of ``LM``, counter-based like the weights."""
+    import torch
+
+    from repro_torch.workloads import prng
+    B, P, T = LM["batch"], LM["prompt"], LM["steps"]
+    draw = lambda lane, n: torch.remainder(prng.hash_u32(
+        LM["seed"], lane, torch.arange(n, dtype=torch.int64,
+                                       device=device)), vocab)
+    return (draw(_LANE_PROMPT, B * P).view(B, P),
+            draw(_LANE_DECODE, T * B).view(T, B))
+
+
+def tokens_digest(prompt, decode) -> str:
+    h = hashlib.sha256()
+    for t in (prompt, decode):
+        h.update(t.to("cpu").numpy().astype(np.int32).tobytes())
+    return h.hexdigest()
+
+
+def logits_record(logits, k: int) -> dict:
+    """Per row of ``logits [B, V]``: the ``k`` largest values (sorted
+    down) and their ids, the logsumexp and the argmax (first index), all
+    from the logits as float32."""
+    import torch
+    x = torch.as_tensor(logits).float()
+    top = torch.topk(x, k, dim=-1)
+    return {"top_ids": top.indices.tolist(),
+            "top_logits": top.values.tolist(),
+            "logsumexp": torch.logsumexp(x, -1).tolist(),
+            "argmax": torch.argmax(x, -1).tolist()}
+
+
+def load_lm() -> dict:
+    with open(LM_PATH) as f:
+        return json.load(f)

@@ -1,0 +1,100 @@
+"""Declarative parameter trees (port of ``repro.models.params``).
+
+A model is declared as a tree (nested dicts and lists) of ``ParamDef``s:
+shape, logical axes and initialiser in one place.  ``init_params``
+materialises it on a device; ``count_params`` counts it.  The sharding
+views of the tree (``abstract_params``, ``param_shardings``,
+``param_specs``) come with the sharding slice of the port.
+"""
+
+from __future__ import annotations
+
+import zlib
+from typing import Iterator, NamedTuple
+
+import torch
+
+__all__ = ["ParamDef", "is_def", "leaf_paths", "map_defs", "init_params",
+           "count_params"]
+
+
+class ParamDef(NamedTuple):
+    shape: tuple
+    axes: tuple                 # logical axis names (len == len(shape))
+    init: str = "normal"        # normal | zeros | ones
+    scale: float = 1.0          # multiplier on the fan-in-scaled std
+
+    @property
+    def std(self) -> float:
+        """The fan-in-scaled standard deviation of a ``normal`` leaf."""
+        fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
+        return self.scale / max(fan_in, 1) ** 0.5
+
+
+def is_def(x) -> bool:
+    return isinstance(x, ParamDef)
+
+
+def leaf_paths(tree, prefix: str = "") -> Iterator[tuple[str, object]]:
+    """``(path, leaf)`` of every leaf, dict keys in sorted order (as
+    ``jax.tree_util`` flattens them); a path reads like ``jax.tree_util
+    .keystr``: ``['layers'][0]['attn']['wq']``."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaf_paths(tree[k], f"{prefix}[{k!r}]")
+    elif isinstance(tree, (list, tuple)) and not is_def(tree):
+        for i, t in enumerate(tree):
+            yield from leaf_paths(t, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+def map_defs(fn, tree, prefix: str = ""):
+    """The tree with every leaf replaced by ``fn(path, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: map_defs(fn, v, f"{prefix}[{k!r}]")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not is_def(tree):
+        return [map_defs(fn, t, f"{prefix}[{i}]") for i, t in enumerate(tree)]
+    return fn(prefix, tree)
+
+
+def path_id(path: str) -> int:
+    """The leaf's 31-bit key: crc32 of its path (``hash()`` is salted per
+    process)."""
+    return zlib.crc32(path.encode()) & 0x7FFFFFFF
+
+
+def init_params(defs, seed: int = 0, dtype=torch.float32, device="cpu"):
+    """Materialise a ParamDef tree on ``device``.  Each ``normal`` leaf
+    draws from its own ``torch.Generator`` seeded with the crc32 of its
+    path mixed with ``seed``, so the result does not depend on traversal
+    order.  The draws are not ``jax.random``'s: the same seed gives other weights
+    than ``repro.models.params.init_params``."""
+    device = torch.device(device)
+
+    def init_one(path, d: ParamDef):
+        if len(d.shape) != len(d.axes):
+            raise ValueError(f"{path}: shape {d.shape} vs axes {d.axes}")
+        if d.init == "zeros":
+            return torch.zeros(d.shape, dtype=dtype, device=device)
+        if d.init == "ones":
+            return torch.ones(d.shape, dtype=dtype, device=device)
+        gen = torch.Generator(device=device)
+        # 32 bits: the CPU generator keeps only the low word of a seed
+        gen.manual_seed((path_id(path) ^ (seed * 0x9E37_79B1)) & 0xFFFFFFFF)
+        x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        return (x * d.std).to(dtype)
+
+    return map_defs(init_one, defs)
+
+
+def count_params(defs) -> int:
+    total = 0
+    for _, d in leaf_paths(defs):
+        n = 1
+        for s in d.shape:
+            n *= s
+        total += n
+    return total

@@ -24,8 +24,19 @@ counter, the bank arrays, the per-step counts drawn and the per-step
 accepted arrivals, occupancy and queue length in
 ``golden_serving.json``.
 
-Run from the repo root (a few minutes on two CPU cores); the argument
-``synth``, ``traces`` or ``serving`` writes only that part:
+For dense-LM serving (``repro_torch.golden.LM``: tinyllama-1.1b at its
+published widths) it builds the golden weights with the port on the CPU
+(``golden.golden_weights``), carries them into ``repro`` with
+``convert.to_repro``, runs ``repro``'s ``prefill_fn`` and teacher-forced
+``decode_fn`` (``attn_impl="blocked"``) and records per step and row the
+top-8 logits and ids, the logsumexp and the argmax, with digests of the
+weights and the token inputs, in ``golden_lm.json``.  It then runs the
+port on the CPU on the same inputs and prints how far its logits are
+from ``repro``'s (not recorded).
+
+Run from the repo root (a few minutes on two CPU cores; ``lm`` about
+five minutes on eight); the argument ``synth``, ``traces``, ``serving``
+or ``lm`` writes only that part:
 
     JAX_PLATFORMS=cpu PYTHONPATH=src:tests python tests/_torch_golden.py
 
@@ -214,6 +225,71 @@ def compute_serving() -> dict:
             "scale": serving_record(scale, big)}
 
 
+def compute_lm() -> tuple[dict, dict]:
+    """``repro`` at full width on the golden weights and tokens; returns
+    the record and the per-step logits (numpy float32)."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.configs import get
+    from repro.models import lm as jlm, zoo
+    from repro_torch import golden
+    from repro_torch.models import convert, lm
+
+    from repro_torch.configs import get as t_get
+    L = golden.LM
+    cfg, t_cfg = get(L["config"]), t_get(L["config"])
+    t0 = time.time()
+    tree = golden.golden_weights(lm.lm_defs(t_cfg), L["seed"])
+    model = lm.LM(t_cfg, tree)
+    params = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a, jnp.bfloat16), convert.to_repro(model))
+    prompt, dec = golden.lm_tokens(cfg.vocab_size)
+    print(f"weights and tokens: {time.time() - t0:.0f} s", flush=True)
+    flags = jlm.RunFlags(attn_impl="blocked")
+    prefill = jax.jit(lambda p, t: zoo.prefill_fn(p, {"tokens": t}, cfg,
+                                                  L["max_len"], flags))
+    decode = jax.jit(lambda p, c, t: zoo.decode_fn(p, c, t, cfg, flags))
+    logits, cache = prefill(params, jnp.asarray(prompt.numpy(), jnp.int32))
+    steps = [np.asarray(logits, np.float32)]
+    for t in range(L["steps"]):
+        logits, cache = decode(params, cache,
+                               jnp.asarray(dec[t].numpy(), jnp.int32))
+        steps.append(np.asarray(logits, np.float32))
+    print(f"repro prefill + {L['steps']} decode steps: "
+          f"{time.time() - t0:.0f} s", flush=True)
+    rec = {"lm": L, "attn_impl": "blocked",
+           "weights_digest": golden.weights_digest(tree),
+           "tokens_digest": golden.tokens_digest(prompt, dec),
+           "steps": [golden.logits_record(x, L["top_k"]) for x in steps]}
+    return rec, {"model": model, "cfg": t_cfg, "prompt": prompt, "dec": dec,
+                 "logits": steps}
+
+
+def port_vs_repro(run: dict) -> None:
+    """Print how far the port's CPU logits are from ``repro``'s."""
+    import numpy as np
+    from repro_torch import golden
+    from repro_torch.models import zoo
+    L = golden.LM
+    cfg, model = run["cfg"], run["model"]
+    logits, cache = zoo.prefill_fn(model, {"tokens": run["prompt"]}, cfg,
+                                   L["max_len"])
+    got = [logits.float().numpy()]
+    for t in range(L["steps"]):
+        logits, cache = zoo.decode_fn(model, cache, run["dec"][t], cfg)
+        got.append(logits.float().numpy())
+    for t, (g, w) in enumerate(zip(got, run["logits"])):
+        top = np.sort(w, -1)[:, ::-1][:, :L["top_k"]]
+        gtop = np.sort(g, -1)[:, ::-1][:, :L["top_k"]]
+        print(f"  step {t}: port (CPU) vs repro: max |d| all logits "
+              f"{np.abs(g - w).max():.4f}, top-{L['top_k']} "
+              f"{np.abs(gtop - top).max():.4f}, argmax equal "
+              f"{int((g.argmax(-1) == w.argmax(-1)).sum())}/{len(g)}")
+
+
 def main(argv) -> int:
     what = argv[1] if len(argv) > 1 else "all"
     if what == "streams":
@@ -247,6 +323,15 @@ def main(argv) -> int:
                   p["retired"], p["admit_hot"], p["lat_sum"])
         s = data["scale"]
         print("scale", s["n_steps"], s["retired"], s["lat_sum"])
+    if what in ("all", "lm"):
+        from repro_torch.golden import LM_PATH
+        data, run = compute_lm()
+        with open(LM_PATH, "w") as f:
+            json.dump(data, f, indent=None, separators=(",", ":"))
+            f.write("\n")
+        for t, r in enumerate(data["steps"]):
+            print(t, r["argmax"], [round(x[0], 4) for x in r["top_logits"]])
+        port_vs_repro(run)
     return 0
 
 
