@@ -4,10 +4,11 @@ thesis experiment's two full-size workloads, recorded in
 (``SYNTH``), recorded in ``data/golden_synth.json`` with a digest of
 every generated stream, and for the serving loop's full-size cells
 (``SERVING``), recorded in ``data/golden_serving.json`` with each
-point's drawn arrival counts, and for dense-LM serving (``LM``:
+point's drawn arrival counts, for dense-LM serving (``LM``:
 tinyllama-1.1b at its published widths, prefill then teacher-forced
-decode), recorded in ``data/golden_lm.json`` (all written by
-``tests/_torch_golden.py``).
+decode), recorded in ``data/golden_lm.json``, and for SSM serving
+(``LM_SSM``: falcon-mamba-7b likewise), recorded in
+``data/golden_lm_ssm.json`` (all written by ``tests/_torch_golden.py``).
 
 This module names the workloads, rebuilds their traces with either
 package's ``traces`` module (``build_batch``), and loads the traces the
@@ -255,6 +256,33 @@ _LANE_DECODE = 0x6465_636F
 _CHUNK = 1 << 24
 
 
+def golden_leaf(path: str, d, seed: int, device="cpu", out=None):
+    """The golden value of one ParamDef ``d`` at ``path`` (see
+    ``golden_weights``), in bf16 on ``device``, written into ``out`` (a
+    bf16 tensor of the leaf's shape) when one is given."""
+    import math
+
+    import torch
+
+    from repro_torch.models.params import path_id
+    from repro_torch.workloads import prng
+    if out is None:
+        out = torch.empty(d.shape, dtype=torch.bfloat16, device=device)
+    if d.init in ("zeros", "ones"):
+        return out.fill_(0.0 if d.init == "zeros" else 1.0)
+    n = math.prod(d.shape)
+    flat = out.view(n)
+    c = torch.tensor(math.sqrt(3.0) * d.std, dtype=torch.float32,
+                     device=out.device)
+    pid = path_id(path)
+    for i0 in range(0, n, _CHUNK):
+        idx = torch.arange(i0, min(n, i0 + _CHUNK), dtype=torch.int64,
+                           device=out.device)
+        u = prng.uniform(seed, pid, idx)
+        flat[i0:i0 + idx.numel()] = ((u * 2 - 1) * c).to(torch.bfloat16)
+    return out
+
+
 def golden_weights(defs, seed: int, device="cpu"):
     """The golden weights of a ParamDef tree (``repro_torch.models
     .params``), in bf16 on ``device``: a ``normal`` leaf draws element
@@ -265,31 +293,9 @@ def golden_weights(defs, seed: int, device="cpu"):
     every device and library version (numpy's and ``jax.random``'s
     streams do not), so the card rebuilds the weights ``repro`` ran with.
     Drawn in chunks of ``_CHUNK`` elements."""
-    import math
-
-    import torch
-
-    from repro_torch.models.params import map_defs, path_id
-    from repro_torch.workloads import prng
-    device = torch.device(device)
-
-    def draw(path, d):
-        if d.init in ("zeros", "ones"):
-            fill = torch.zeros if d.init == "zeros" else torch.ones
-            return fill(d.shape, dtype=torch.bfloat16, device=device)
-        n = math.prod(d.shape)
-        out = torch.empty(n, dtype=torch.bfloat16, device=device)
-        c = torch.tensor(math.sqrt(3.0) * d.std, dtype=torch.float32,
-                         device=device)
-        pid = path_id(path)
-        for i0 in range(0, n, _CHUNK):
-            idx = torch.arange(i0, min(n, i0 + _CHUNK), dtype=torch.int64,
-                               device=device)
-            u = prng.uniform(seed, pid, idx)
-            out[i0:i0 + idx.numel()] = ((u * 2 - 1) * c).to(torch.bfloat16)
-        return out.view(d.shape)
-
-    return map_defs(draw, defs)
+    from repro_torch.models.params import map_defs
+    return map_defs(lambda path, d: golden_leaf(path, d, seed, device),
+                    defs)
 
 
 def weights_digest(tree) -> str:
@@ -309,16 +315,17 @@ def weights_digest(tree) -> str:
     return h.hexdigest()
 
 
-def lm_tokens(vocab: int, device="cpu"):
+def lm_tokens(vocab: int, device="cpu", spec: dict = LM):
     """``(prompt [batch, prompt], decode inputs [steps, batch])`` int64
-    token ids of ``LM``, counter-based like the weights."""
+    token ids of ``spec`` (``LM`` or ``LM_SSM``), counter-based like the
+    weights."""
     import torch
 
     from repro_torch.workloads import prng
-    B, P, T = LM["batch"], LM["prompt"], LM["steps"]
+    B, P, T = spec["batch"], spec["prompt"], spec["steps"]
     draw = lambda lane, n: torch.remainder(prng.hash_u32(
-        LM["seed"], lane, torch.arange(n, dtype=torch.int64,
-                                       device=device)), vocab)
+        spec["seed"], lane, torch.arange(n, dtype=torch.int64,
+                                         device=device)), vocab)
     return (draw(_LANE_PROMPT, B * P).view(B, P),
             draw(_LANE_DECODE, T * B).view(T, B))
 
@@ -343,6 +350,18 @@ def logits_record(logits, k: int) -> dict:
             "argmax": torch.argmax(x, -1).tolist()}
 
 
-def load_lm() -> dict:
-    with open(LM_PATH) as f:
+def load_lm(path: Path = LM_PATH) -> dict:
+    with open(path) as f:
         return json.load(f)
+
+
+LM_SSM_PATH = DATA / "golden_lm_ssm.json"
+
+#: SSM serving at full width: ``repro``'s ``prefill_fn`` on ``batch``
+#: rows of ``prompt`` tokens (two 256-step scan chunks, the second
+#: padded), then ``steps`` teacher-forced ``decode_fn`` steps, weights
+#: from ``golden_weights``; recorded at full depth and for the model cut
+#: to its first ``cut_layers`` layers (random weights make 64 layers
+#: chaotic: rounding moves the full-depth logits by ~1)
+LM_SSM = {"config": "falcon-mamba-7b", "batch": 2, "prompt": 300,
+          "steps": 8, "seed": 15, "top_k": 8, "cut_layers": 2}

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import resolve_device
 
 __all__ = ["from_repro", "to_repro"]
 
@@ -33,10 +34,11 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def from_repro(tree: dict, cfg: ModelConfig, device="cpu") -> lm.LM:
+def from_repro(tree: dict, cfg: ModelConfig, device=None) -> lm.LM:
     """The port's model from ``repro``'s parameter tree (numpy leaves,
-    ``layers`` stacked), in bf16 on ``device``."""
-    dev = torch.device(device)
+    ``layers`` stacked), in bf16 on ``device`` (CUDA unless named,
+    ``params.resolve_device``)."""
+    dev = resolve_device(device)
     conv = lambda a: _tensor(a).to(device=dev, dtype=torch.bfloat16)
     port = {k: _map(conv, t) for k, t in tree.items() if k != "layers"}
     port["layers"] = [_map(lambda a, i=i: conv(np.asarray(a)[i]),

@@ -2,7 +2,8 @@
 
 A model is declared as a tree (nested dicts and lists) of ``ParamDef``s:
 shape, logical axes and initialiser in one place.  ``init_params``
-materialises it on a device; ``count_params`` counts it.  The sharding
+materialises it on a device (CUDA unless the caller names another,
+``resolve_device``); ``count_params`` counts it.  The sharding
 views of the tree (``abstract_params``, ``param_shardings``,
 ``param_specs``) come with the sharding slice of the port.
 """
@@ -15,7 +16,7 @@ from typing import Iterator, NamedTuple
 import torch
 
 __all__ = ["ParamDef", "is_def", "leaf_paths", "map_defs", "init_params",
-           "count_params"]
+           "count_params", "resolve_device"]
 
 
 class ParamDef(NamedTuple):
@@ -65,13 +66,25 @@ def path_id(path: str) -> int:
     return zlib.crc32(path.encode()) & 0x7FFFFFFF
 
 
-def init_params(defs, seed: int = 0, dtype=torch.float32, device="cpu"):
-    """Materialise a ParamDef tree on ``device``.  Each ``normal`` leaf
-    draws from its own ``torch.Generator`` seeded with the crc32 of its
-    path mixed with ``seed``, so the result does not depend on traversal
-    order.  The draws are not ``jax.random``'s: the same seed gives other weights
-    than ``repro.models.params.init_params``."""
-    device = torch.device(device)
+def resolve_device(device) -> torch.device:
+    """The device a model helper builds on: CUDA unless the caller names
+    another; raises when CUDA is wanted and missing (no fallback to the
+    CPU)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to build on the CPU")
+    return device
+
+
+def init_params(defs, seed: int = 0, dtype=torch.float32, device=None):
+    """Materialise a ParamDef tree on ``device`` (``resolve_device``).
+    Each ``normal`` leaf draws from its own ``torch.Generator`` seeded
+    with the crc32 of its path mixed with ``seed``, so the result does not
+    depend on traversal order.  The draws are not ``jax.random``'s: the
+    same seed gives other weights than
+    ``repro.models.params.init_params``."""
+    device = resolve_device(device)
 
     def init_one(path, d: ParamDef):
         if len(d.shape) != len(d.axes):

@@ -3,8 +3,8 @@
 ``init_model`` builds a model from its ParamDef tree on a device (CUDA
 unless the caller names another; no fallback to the CPU);
 ``prefill_fn`` / ``decode_fn`` are the serving entry points, on the
-device the model lives on.  The dense family runs; the others raise
-``NotImplementedError`` naming the slice that brings them.  The
+device the model lives on.  The dense and ssm families run; the others
+raise ``NotImplementedError`` naming the slice that brings them.  The
 abstract input and cache specs come with the dry-run slice.
 """
 
@@ -19,16 +19,6 @@ from repro_torch.models.params import init_params
 __all__ = ["model_defs", "init_model", "prefill_fn", "decode_fn"]
 
 
-def _device(device) -> torch.device:
-    """CUDA unless the caller names another device; raises when CUDA is
-    wanted and missing."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to build the model on the CPU")
-    return device
-
-
 def model_defs(cfg: ModelConfig):
     return lm.lm_defs(cfg)
 
@@ -37,7 +27,7 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> lm.LM:
     """Random bf16 weights from the ParamDef tree
     (``params.init_params``)."""
     return lm.LM(cfg, init_params(model_defs(cfg), seed, torch.bfloat16,
-                                  _device(device)))
+                                  device))
 
 
 def prefill_fn(model: lm.LM, batch: dict, cfg: ModelConfig, max_len: int):

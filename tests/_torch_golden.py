@@ -34,9 +34,24 @@ weights and the token inputs, in ``golden_lm.json``.  It then runs the
 port on the CPU on the same inputs and prints how far its logits are
 from ``repro``'s (not recorded).
 
+For SSM serving (``repro_torch.golden.LM_SSM``: falcon-mamba-7b at its
+published widths) it does the same with ``ssm_impl="xla"`` (``repro``'s
+own ``test_ssm_scan`` holds its Pallas kernel to that scan) into
+``golden_lm_ssm.json``, at full depth and again on its first
+``cut_layers`` layers: with random weights the 64-layer model is chaotic
+(an ulp in 0.1 % of the weights moves ``repro``'s own logits by ~1), so
+only the cut run can hold the port to bf16 rounding.  The 14.5 GB of weights are drawn once, layer by
+layer into stacked bf16 tensors that the port's model views and JAX
+reads through DLPack without a copy; XLA's while-loop invariant code
+motion is switched off for this run, since on the CPU it hoists an f32
+copy of every stacked weight (29 GB) out of the layer scan, a move that
+changes no value.  The run then stays near 20 GB.  It is written only
+on request (``lm_ssm``, not ``all``): ~8 minutes for the weights and
+~10 for the two runs on eight cores.
+
 Run from the repo root (a few minutes on two CPU cores; ``lm`` about
-five minutes on eight); the argument ``synth``, ``traces``, ``serving``
-or ``lm`` writes only that part:
+five minutes on eight); the argument ``synth``, ``traces``, ``serving``,
+``lm`` or ``lm_ssm`` writes only that part:
 
     JAX_PLATFORMS=cpu PYTHONPATH=src:tests python tests/_torch_golden.py
 
@@ -268,26 +283,142 @@ def compute_lm() -> tuple[dict, dict]:
                  "logits": steps}
 
 
-def port_vs_repro(run: dict) -> None:
-    """Print how far the port's CPU logits are from ``repro``'s."""
+def port_vs_repro(run: dict, L: dict, max_len: int) -> tuple[float, float]:
+    """Print how far the port's CPU logits are from ``repro``'s; returns
+    the largest top-k and logsumexp distances over the steps."""
     import numpy as np
-    from repro_torch import golden
     from repro_torch.models import zoo
-    L = golden.LM
     cfg, model = run["cfg"], run["model"]
     logits, cache = zoo.prefill_fn(model, {"tokens": run["prompt"]}, cfg,
-                                   L["max_len"])
+                                   max_len)
     got = [logits.float().numpy()]
     for t in range(L["steps"]):
         logits, cache = zoo.decode_fn(model, cache, run["dec"][t], cfg)
         got.append(logits.float().numpy())
+    lse = lambda x: np.log(np.exp(x - x.max(-1, keepdims=True)).sum(-1)) \
+        + x.max(-1)
+    worst_top = worst_lse = 0.0
     for t, (g, w) in enumerate(zip(got, run["logits"])):
         top = np.sort(w, -1)[:, ::-1][:, :L["top_k"]]
         gtop = np.sort(g, -1)[:, ::-1][:, :L["top_k"]]
+        d_top = float(np.abs(gtop - top).max())
+        d_lse = float(np.abs(lse(g.astype(np.float64))
+                             - lse(w.astype(np.float64))).max())
+        worst_top, worst_lse = max(worst_top, d_top), max(worst_lse, d_lse)
         print(f"  step {t}: port (CPU) vs repro: max |d| all logits "
-              f"{np.abs(g - w).max():.4f}, top-{L['top_k']} "
-              f"{np.abs(gtop - top).max():.4f}, argmax equal "
+              f"{np.abs(g - w).max():.4f}, top-{L['top_k']} {d_top:.4f}, "
+              f"logsumexp {d_lse:.4f}, argmax equal "
               f"{int((g.argmax(-1) == w.argmax(-1)).sum())}/{len(g)}")
+    return worst_top, worst_lse
+
+
+def stacked_golden_model(t_cfg, seed: int):
+    """The golden weights of ``t_cfg`` as ``(port model, repro's tree)``
+    sharing one copy: each layer leaf is drawn into row ``i`` of a
+    stacked ``[n_layers, ...]`` bf16 tensor, the port's layers view those
+    rows, and ``repro``'s tree reads the stacked tensors through DLPack
+    (no copy on the CPU)."""
+    import jax
+    import torch
+    from repro_torch import golden
+    from repro_torch.models import lm
+    from repro_torch.models.params import map_defs
+    defs = lm.lm_defs(t_cfg)
+    nl = t_cfg.n_layers
+
+    def empty(d_tree):
+        if isinstance(d_tree, dict):
+            return {k: empty(v) for k, v in d_tree.items()}
+        return torch.empty((nl,) + d_tree.shape, dtype=torch.bfloat16)
+
+    def fill(stk, d_tree, path, i):
+        if isinstance(d_tree, dict):
+            for k, v in d_tree.items():
+                fill(stk[k], v, f"{path}[{k!r}]", i)
+        else:
+            golden.golden_leaf(path, d_tree, seed, out=stk[i])
+
+    def rows(stk, i):
+        if isinstance(stk, dict):
+            return {k: rows(v, i) for k, v in stk.items()}
+        return stk[i]
+
+    def jx(t):
+        if isinstance(t, dict):
+            return {k: jx(v) for k, v in t.items()}
+        return jax.dlpack.from_dlpack(t)
+
+    stacked = empty(defs["layers"][0])
+    for i, layer in enumerate(defs["layers"]):
+        fill(stacked, layer, f"['layers'][{i}]", i)
+    top = map_defs(lambda path, d: golden.golden_leaf(path, d, seed),
+                   {k: v for k, v in defs.items() if k != "layers"})
+    tree = dict(top, layers=[rows(stacked, i) for i in range(nl)])
+    model = lm.LM(t_cfg, tree)
+    return model, tree, jx(dict(top, layers=stacked))
+
+
+def compute_lm_ssm() -> tuple[dict, list]:
+    """``repro`` (``ssm_impl="xla"``) at full width on the golden weights
+    and tokens of ``LM_SSM``, at full depth and cut to its first
+    ``cut_layers`` layers (the same weights); returns the record and the
+    port's two runs."""
+    import dataclasses
+    import time
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.configs import get
+    from repro.models import lm as jlm, zoo
+    from repro_torch import golden
+    from repro_torch.configs import get as t_get
+    from repro_torch.models import lm
+    L = golden.LM_SSM
+    cfg, t_cfg = get(L["config"]), t_get(L["config"])
+    t0 = time.time()
+    model, tree, params = stacked_golden_model(t_cfg, L["seed"])
+    prompt, dec = golden.lm_tokens(cfg.vocab_size, spec=L)
+    print(f"weights and tokens: {time.time() - t0:.0f} s", flush=True)
+    flags = jlm.RunFlags(ssm_impl="xla")
+    max_len = L["prompt"] + L["steps"]
+
+    def run_repro(p, c):
+        prefill = jax.jit(lambda p, t: zoo.prefill_fn(p, {"tokens": t}, c,
+                                                      max_len, flags))
+        decode = jax.jit(lambda p, ca, t: zoo.decode_fn(p, ca, t, c, flags))
+        logits, cache = prefill(p, jnp.asarray(prompt.numpy(), jnp.int32))
+        out = [np.asarray(logits, np.float32)]
+        for t in range(L["steps"]):
+            logits, cache = decode(p, cache,
+                                   jnp.asarray(dec[t].numpy(), jnp.int32))
+            out.append(np.asarray(logits, np.float32))
+        return out
+
+    steps = run_repro(params, cfg)
+    print(f"repro prefill + {L['steps']} decode steps: "
+          f"{time.time() - t0:.0f} s", flush=True)
+    n_cut = L["cut_layers"]
+    cut_cfg = dataclasses.replace(cfg, n_layers=n_cut)
+    cut_params = dict(params, layers=jax.tree_util.tree_map(
+        lambda a: a[:n_cut], params["layers"]))
+    cut_steps = run_repro(cut_params, cut_cfg)
+    cut_tree = dict(tree, layers=tree["layers"][:n_cut])
+    t_cut_cfg = dataclasses.replace(t_cfg, n_layers=n_cut)
+    rec = {"lm": L, "ssm_impl": "xla",
+           "weights_digest": golden.weights_digest(tree),
+           "tokens_digest": golden.tokens_digest(prompt, dec),
+           "steps": [golden.logits_record(x, L["top_k"]) for x in steps],
+           "cut": {"n_layers": n_cut,
+                   "weights_digest": golden.weights_digest(cut_tree),
+                   "steps": [golden.logits_record(x, L["top_k"])
+                             for x in cut_steps]}}
+    runs = [{"model": m, "cfg": c, "prompt": prompt, "dec": dec,
+             "logits": x}
+            for m, c, x in ((model, t_cfg, steps),
+                            (lm.LM(t_cut_cfg, cut_tree), t_cut_cfg,
+                             cut_steps))]
+    return rec, runs
 
 
 def main(argv) -> int:
@@ -323,15 +454,33 @@ def main(argv) -> int:
                   p["retired"], p["admit_hot"], p["lat_sum"])
         s = data["scale"]
         print("scale", s["n_steps"], s["retired"], s["lat_sum"])
+    from repro_torch import golden
     if what in ("all", "lm"):
-        from repro_torch.golden import LM_PATH
         data, run = compute_lm()
-        with open(LM_PATH, "w") as f:
+        with open(golden.LM_PATH, "w") as f:
             json.dump(data, f, indent=None, separators=(",", ":"))
             f.write("\n")
         for t, r in enumerate(data["steps"]):
             print(t, r["argmax"], [round(x[0], 4) for x in r["top_logits"]])
-        port_vs_repro(run)
+        port_vs_repro(run, golden.LM, golden.LM["max_len"])
+    if what == "lm_ssm":
+        import os
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_"
+                                   "disable_hlo_passes=while-loop-invariant-"
+                                   "code-motion")
+        data, run = compute_lm_ssm()
+        with open(golden.LM_SSM_PATH, "w") as f:
+            json.dump(data, f, indent=None, separators=(",", ":"))
+            f.write("\n")
+        for t, r in enumerate(data["steps"]):
+            print(t, r["argmax"], [round(x[0], 4) for x in r["top_logits"]])
+        L = golden.LM_SSM
+        for name, r in zip(("full depth", f"first {L['cut_layers']} layers"),
+                           run):
+            print(f"port (CPU) vs repro, {name}:")
+            top, lse = port_vs_repro(r, L, L["prompt"] + L["steps"])
+            print(f"  largest distance: top-{L['top_k']} {top:.4f}, "
+                  f"logsumexp {lse:.4f}")
     return 0
 
 

@@ -92,7 +92,7 @@ def test_configs_match_repro(arch):
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_param_count_matches_repro_or_names_its_slice(arch):
     cfg = t_get(arch)
-    if cfg.family != "dense":
+    if cfg.family not in t_lm.PORTED:
         with pytest.raises(NotImplementedError, match="slice"):
             t_zoo.model_defs(cfg)
         return
@@ -103,9 +103,9 @@ def test_param_count_matches_repro_or_names_its_slice(arch):
 def test_init_params_is_keyed_by_path():
     cfg = t_get("tinyllama_1p1b").reduced()
     defs = t_zoo.model_defs(cfg)
-    a = t_params.init_params(defs, seed=3)
-    b = t_params.init_params(defs, seed=3)
-    c = t_params.init_params(defs, seed=4)
+    a = t_params.init_params(defs, seed=3, device="cpu")
+    b = t_params.init_params(defs, seed=3, device="cpu")
+    c = t_params.init_params(defs, seed=4, device="cpu")
     wq = lambda t, i: t["layers"][i]["attn"]["wq"]
     assert torch.equal(wq(a, 0), wq(b, 0))
     assert not torch.equal(wq(a, 0), wq(a, 1))      # other path, other draw
@@ -187,14 +187,14 @@ def test_convert_round_trip_is_exact(arch):
     cfgj, cfgt = _cfg(arch)
     params = j_zoo.init_model(cfgj, seed=1)
     tree = jax.tree_util.tree_map(np.asarray, params)
-    model = convert.from_repro(tree, cfgt)
+    model = convert.from_repro(tree, cfgt, device="cpu")
     back = convert.to_repro(model)
     flat_j = jax.tree_util.tree_leaves_with_path(tree)
     flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
     assert len(flat_j) == len(flat_b)
     for path, a in flat_j:
         assert np.array_equal(a.astype(np.float32), flat_b[path]), path
-    again = convert.from_repro(back, cfgt)
+    again = convert.from_repro(back, cfgt, device="cpu")
     for x, y in zip(model.parameters(), again.parameters()):
         assert x.dtype == y.dtype == torch.bfloat16 and torch.equal(x, y)
     assert (cfgt.tie_embeddings) == (model.head is None)
@@ -212,7 +212,8 @@ def served():
         cfgj, cfgt = _cfg(arch)
         params = j_zoo.init_model(cfgj, seed=0)
         model = convert.from_repro(jax.tree_util.tree_map(np.asarray,
-                                                          params), cfgt)
+                                                          params), cfgt,
+                                   device="cpu")
         rng = np.random.default_rng(11)
         B, S, T = 2, 12, 3
         prompt = rng.integers(0, cfgj.vocab_size, (B, S)).astype(np.int32)
@@ -274,7 +275,7 @@ def test_ring_cache_wraps_under_a_window():
     cfgj, cfgt = _cfg("tinyllama_1p1b", attn_window=8)
     params = j_zoo.init_model(cfgj, seed=2)
     model = convert.from_repro(jax.tree_util.tree_map(np.asarray, params),
-                               cfgt)
+                               cfgt, device="cpu")
     prompt = np.random.default_rng(5).integers(
         0, cfgj.vocab_size, (1, 13)).astype(np.int32)
     jl, jc = j_zoo.prefill_fn(params, {"tokens": jnp.asarray(prompt)}, cfgj,
@@ -309,7 +310,7 @@ def test_serve_step_matches_repro_greedy(monkeypatch):
     cfgj, cfgt = _cfg("tinyllama_1p1b")
     params = j_zoo.init_model(cfgj, seed=0)
     model = convert.from_repro(jax.tree_util.tree_map(np.asarray, params),
-                               cfgt)
+                               cfgt, device="cpu")
     prompt = np.random.default_rng(9).integers(
         0, cfgj.vocab_size, (2, 6)).astype(np.int32)
     _, jc = j_steps.make_prefill_step(cfgj, 12, PALLAS)(
