@@ -80,26 +80,36 @@ package.  Phases:
    to the golden file as in (b), with the golden counts pinned and with
    counts drawn on the card;
 9. the flash-attention kernel against its plain version (both on the
-   card): ``tests/test_kernels.py``'s matrix (5 shapes x bf16 / f32: hd
+   card): the count of tensor-core ``HMMA`` instructions in each bf16
+   entry of the built library (``cuobjdump -sass``; none fails), then
+   ``tests/test_kernels.py``'s matrix (5 shapes x bf16 / f32: hd
    32-128, S not a block multiple, MQA, non-causal, a sliding window)
    and the full-width prefill shapes B 4 x S 500, B 1 x S 4 096 and
-   phase 12's B 4 x S 16 (H 32, K 4, hd 64, bf16): bf16 outputs element
-   by element within one bf16 ulp of the plain output plus 1e-5
+   phase 12's B 4 x S 16 (H 32, K 4, hd 64, bf16), and phi4-mini's
+   widths B 1 x S 2 048 (H 24, K 8, hd 128): bf16 outputs element by
+   element within one bf16 ulp of the plain output plus 1e-5
    (``BF16_RTOL`` / ``BF16_ATOL``) and within 0.02 overall, f32 within
-   2e-5; the full-width shapes timed beside the plain version and
-   ``scaled_dot_product_attention``;
-10. the decode-attention kernel likewise (element by element as bf16
-    flash, and within 0.03 overall): the matrix (nearly empty cache, W
-    not a multiple, a window, MHA) and the full-width caches B 4, W 520
-    (516 filled), W 4 100 (wrapped) and phase 12's W 28 (24 filled), K
-    4, G 8, hd 64;
+   2e-5; the full-width shapes timed (CUDA events around back-to-back
+   calls, and around a CUDA graph of them: the device time a call)
+   beside the plain version, ``scaled_dot_product_attention`` and the
+   bound;
+10. the decode-attention kernel likewise (the HMMA count of its bf16
+    entries; element by element as bf16 flash, and within 0.03 overall):
+    the matrix (nearly empty cache, W
+    not a multiple, a window, MHA, G 48, rings that ``plan_split`` cuts
+    into 2, 3, 7 and 33 splits of which all but the first hold no valid
+    slot), and the full-width caches B 4, W 520 (516 filled), W 4 100
+    (wrapped) and phase 12's W 28 (24 filled), K 4, G 8, hd 64, and
+    granite's G 48 over K 1, hd 128, W 4 100; each case with its split
+    count and the kernels it launched, as the library counts them;
 11. tinyllama-1.1b at its published widths, the golden weights and
     tokens built on the card (digests equal to ``golden_lm.json``'s):
     ``prefill_fn`` on 4 x 500 tokens (cache 520), then 16 teacher-forced
     ``decode_fn`` steps, each step's top-8 logits and logsumexp within
     ``LM_LOGIT_TOL`` of ``repro``'s and the argmax equal where
     ``repro``'s margin exceeds twice that; 22 flash and 22 x 16 decode
-    launches; prefill and decode-step times and the kernels' share of
+    calls, each a split kernel and a combine launch (the library's
+    counts); prefill and decode-step times and the kernels' share of
     the device time (``torch.profiler``);
 12. ``examples/serve_lm.py``'s run on the port at full width (the
     main path of this slice): ``make_serve_step`` greedy decode of 4 x 16
@@ -107,7 +117,8 @@ package.  Phases:
     ``Scheduler`` on 12 requests through the probe kernel, then
     ``simulate`` with ``base`` and ``chargecache`` (hit rate, speedup);
     the launch counts are zeroed before it and must read 22 flash, 22 x 8
-    decode, at least one probe and 2 ``sim_step`` launches after it;
+    decode (each one split kernel, no combine), at least one probe and 2
+    ``sim_step`` launches after it;
 13. one JSON line of kernel numbers;
 14. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -951,16 +962,28 @@ FLASH_MATRIX = [(2, 128, 4, 2, 64, True, 0), (1, 256, 8, 2, 64, True, 64),
                 (2, 96, 4, 4, 32, True, 0), (1, 64, 4, 1, 128, False, 0),
                 (1, 160, 6, 2, 48, True, 32)]
 FLASH_FULL = [(4, 500, 32, 4, 64, True, 0), (1, 4096, 32, 4, 64, True, 0),
-              (4, 16, 32, 4, 64, True, 0)]
+              (4, 16, 32, 4, 64, True, 0), (1, 2048, 24, 8, 128, True, 0)]
 FLASH_TOL = {"bf16": 0.02, "f32": 2e-5}
 #: tests/test_kernels.py's decode matrix (B, H, K, hd, W, window, filled
-#: slots), then the full-width caches: phase 11's (520 slots, 516 filled),
-#: a 4 100-slot ring that has wrapped (query at position 5 000) and
-#: phase 12's last step (28 slots, 24 filled)
+#: slots) and G 48; then rings of 128, 192, 448 and 4 100 slots with 40
+#: filled, which ``plan_split`` cuts into 2, 3 and 7 chunks (a tile each:
+#: 4 blocks a chunk want more chunks than that on any card) and, on 132
+#: SMs, 33 chunks, each of at least 64 slots, so every chunk but the
+#: first holds no valid slot; then the full-width
+#: caches: phase 11's (520 slots, 516 filled), a 4 100-slot ring that has
+#: wrapped (query at position 5 000), phase 12's last step (28 slots, 24
+#: filled) and granite-34b's widths (H 48 over K 1, hd 128) on the
+#: wrapped ring
 DECODE_MATRIX = [(2, 8, 2, 64, 128, 0, 100), (1, 4, 4, 32, 256, 64, 256),
-                 (2, 4, 1, 128, 64, 0, 10), (1, 8, 8, 64, 96, 0, 96)]
+                 (2, 4, 1, 128, 64, 0, 10), (1, 8, 8, 64, 96, 0, 96),
+                 (2, 48, 1, 128, 96, 0, 80), (2, 8, 2, 64, 128, 0, 40),
+                 (2, 8, 2, 64, 192, 0, 40), (2, 8, 2, 64, 448, 0, 40),
+                 (4, 32, 4, 64, 4100, 0, 40)]
 DECODE_FULL = [(4, 32, 4, 64, 520, 0, 516), (4, 32, 4, 64, 4100, 0, 5001),
-               (4, 32, 4, 64, 28, 0, 24)]
+               (4, 32, 4, 64, 28, 0, 24), (4, 48, 1, 128, 4100, 0, 5001)]
+#: split counts the decode cases must reach (read from the library's
+#: counters)
+DECODE_SPLITS = {1, 2, 3, 7}
 DECODE_TOL = 0.03
 #: a bf16 kernel output against its plain version, element by element:
 #: |kernel - plain| <= BF16_ATOL + BF16_RTOL * |plain|.  Both compute in
@@ -1014,6 +1037,53 @@ def profile_kernels(fn, names) -> tuple[float, float | None, dict]:
     alts = lambda n: (n,) if isinstance(n, str) else n
     return wall, busy, {alts(n)[0]: ms([e for e in dev if any(
         a in e.name for a in alts(n))]) for n in names}
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` with the host's time taken out:
+    ``reps`` calls captured into a CUDA graph, the graph replayed between
+    two CUDA events, over ``reps`` (after warm-up calls, on a side stream
+    as graph capture wants)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def hmma_counts(lib_path: str, entry: str) -> dict:
+    """``{function: HMMA instructions}`` of the built library's functions
+    whose (mangled) name holds ``entry``, from ``cuobjdump -sass`` of the
+    CUDA toolkit that built it."""
+    from repro_torch import _build
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", lib_path],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            if entry in fn:
+                counts[fn] = 0
+        elif fn in counts and "HMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def seeded(shape, seed: int, dtype, device):
@@ -1070,12 +1140,22 @@ def kernel_diff(got, want, dn: str) -> tuple[float, float, float]:
 
 def phase_flash(fk, fr, dev) -> dict:
     """Flash kernel against its plain version (both on the card) over
-    ``FLASH_MATRIX`` x {bf16, f32} and ``FLASH_FULL`` (bf16); times the
-    full-width shapes beside the plain version and SDPA."""
+    ``FLASH_MATRIX`` x {bf16, f32} and ``FLASH_FULL`` (bf16), after the
+    HMMA count of its bf16 entries; times the full-width shapes beside
+    the plain version and SDPA."""
+    import re
     import torch
     import torch.nn.functional as F
+    hmma = {int(re.search(r"ILi(\d+)E", fn).group(1)): n for fn, n in
+            hmma_counts(fk.library()._name, fk.MMA_ENTRY).items()}
+    print(f"  HMMA instructions of the bf16 entry {fk.MMA_ENTRY} by head "
+          f"dim tile: {dict(sorted(hmma.items()))}", flush=True)
+    check(sorted(hmma) == list(range(16, fk.MAX_HD + 1, 16))
+          and min(hmma.values()) > 0,
+          f"the bf16 flash entries do not all run on the tensor cores: "
+          f"{hmma}")
     dts = {"bf16": torch.bfloat16, "f32": torch.float32}
-    out = {"max_abs_err": 0.0, "full": []}
+    out = {"max_abs_err": 0.0, "full": [], "hmma": hmma}
     cases = ([(c, d) for c in FLASH_MATRIX for d in dts]
              + [(c, "bf16") for c in FLASH_FULL])
     for i, (case, dn) in enumerate(cases):
@@ -1092,19 +1172,24 @@ def phase_flash(fk, fr, dev) -> dict:
                 f"(tolerance {FLASH_TOL[dn]}), max |plain| {top:.3g}, "
                 f"worst share of the element-wise limit {share:.3g}")
         if case in FLASH_FULL:
-            ms = loop_ms(lambda: fk.flash_attention(q, k, v, causal=causal,
-                                                    window=window))
+            run = lambda: fk.flash_attention(q, k, v, causal=causal,
+                                             window=window)
             sdpa = lambda: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=causal, enable_gqa=True)
-            lib_ms = loop_ms(sdpa)
+            ms, lib_ms = loop_ms(run), loop_ms(sdpa)
+            dev_ms, lib_dev_ms = graph_ms(run), graph_ms(sdpa)
             bound, by = flash_bound(B, S, H, K, hd, causal, window, dn)
-            row = {"shape": [B, S, H, K, hd], "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+            row = {"shape": [B, S, H, K, hd], "ms": ms, "device_ms": dev_ms,
+                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "library_device_ms": lib_dev_ms, "bound_ms": bound,
+                   "bound_by": by, "bound_share": bound / dev_ms,
                    "max_abs_err": err}
             out["full"].append(row)
-            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA "
-                     f"{lib_ms:.4f} ms, {by} bound {bound:.4f} ms")
+            line += (f"; kernel {ms:.4f} ms ({dev_ms:.4f} ms device, "
+                     f"{100 * bound / dev_ms:.1f} % of its {by} bound "
+                     f"{bound:.4f} ms), plain {plain_ms:.3f} ms, SDPA "
+                     f"{lib_ms:.4f} ms ({lib_dev_ms:.4f} ms device)")
         print(line, flush=True)
         check(err <= FLASH_TOL[dn] and share <= 1.0,
               f"flash kernel disagrees with its plain version at {case} "
@@ -1128,18 +1213,51 @@ def decode_case(case, seed: int, dev):
     return q, kc, vc, kv_pos, q_pos
 
 
+def decode_launches(pk, counts: dict, calls: int) -> str:
+    """Check that ``calls`` decode calls of one shape made, by the
+    library's ``counts``, one split kernel each over the same number of
+    chunks and a combine each where that number exceeds 1; returns their
+    summary."""
+    n_mma, chunks = counts[pk.MMA_ENTRY], counts["mma_chunks"]
+    n_split = chunks // max(n_mma, 1)
+    check(n_mma == calls and chunks == n_split * calls
+          and counts[pk.COMBINE_ENTRY] == (calls if n_split > 1 else 0)
+          and counts["paged_attention_kernel"] == 0,
+          f"{calls} decode calls launched {counts}")
+    return (f"{n_mma} x {pk.MMA_ENTRY} over {n_split} splits, "
+            f"{counts[pk.COMBINE_ENTRY]} x {pk.COMBINE_ENTRY}")
+
+
 def phase_decode(pk, pr, dev) -> dict:
     """Decode kernel against its plain version (both on the card) over
-    ``DECODE_MATRIX`` and ``DECODE_FULL``; times the full-width caches
+    ``DECODE_MATRIX`` and ``DECODE_FULL``, each case's first call counted
+    by the library (its splits and combine); times the full-width caches
     beside the plain version and SDPA (a boolean mask of the valid
     slots)."""
+    import re
     import torch
     import torch.nn.functional as F
-    out = {"max_abs_err": 0.0, "full": []}
+    hmma = {int(re.search(r"ILi(\d+)E", fn).group(1)): n for fn, n in
+            hmma_counts(pk.library()._name, pk.MMA_ENTRY).items()}
+    print(f"  HMMA instructions of the bf16 entry {pk.MMA_ENTRY} by head "
+          f"dim tile: {dict(sorted(hmma.items()))}", flush=True)
+    check(sorted(hmma) == list(range(16, pk.MAX_HD + 1, 16))
+          and min(hmma.values()) > 0,
+          f"the bf16 decode entries do not all run on the tensor cores: "
+          f"{hmma}")
+    out = {"max_abs_err": 0.0, "full": [], "hmma": hmma}
+    splits = set()
     for i, case in enumerate(DECODE_MATRIX + DECODE_FULL):
         B, H, K, hd, W, window, fill = case
         q, kc, vc, kv_pos, q_pos = decode_case(case, 10 * i, dev)
-        got = pk.decode_attention(q, kc, vc, kv_pos, q_pos, window=window)
+        run = lambda: pk.decode_attention(q, kc, vc, kv_pos, q_pos,
+                                          window=window)
+        pk.launch_counts(reset=True)
+        got = run()
+        counts = pk.launch_counts(reset=True)
+        launched = decode_launches(pk, counts, 1)
+        n_split = counts["mma_chunks"]
+        splits.add(n_split)
         plain = lambda: pr.decode_ref(q, kc, vc, kv_pos.expand(B, W),
                                       q_pos.expand(B), window=window)
         plain_ms, want = cuda_ms(plain, torch.cuda.synchronize)
@@ -1150,27 +1268,35 @@ def phase_decode(pk, pr, dev) -> dict:
             ok &= (q_pos - kv_pos) < window
         valid = int(ok.sum())
         line = (f"  B{B} H{H} K{K} hd{hd} W{W} window={window}, {valid} "
-                f"valid slots: max |kernel - plain| {err:.3g} (tolerance "
-                f"{DECODE_TOL}), max |plain| {top:.3g}, worst share of the "
-                f"element-wise limit {share:.3g}")
+                f"valid slots, {launched}: max |kernel - plain| "
+                f"{err:.3g} (tolerance {DECODE_TOL}), max |plain| {top:.3g}, "
+                f"worst share of the element-wise limit {share:.3g}")
         if case in DECODE_FULL:
-            ms = loop_ms(lambda: pk.decode_attention(q, kc, vc, kv_pos,
-                                                     q_pos, window=window))
             mask = ok[None, None, None, :]
             sdpa = lambda: F.scaled_dot_product_attention(
                 q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
                 attn_mask=mask, enable_gqa=True)
-            lib_ms = loop_ms(sdpa)
+            ms, lib_ms = loop_ms(run), loop_ms(sdpa)
+            dev_ms, lib_dev_ms = graph_ms(run), graph_ms(sdpa)
             bound, by = decode_bound(B, H, K, hd, valid, W, "bf16")
-            out["full"].append({"shape": [B, H, K, hd, W], "valid": valid,
-                                "ms": ms, "plain_ms": plain_ms,
-                                "library_ms": lib_ms, "bound_ms": bound,
-                                "bound_by": by, "max_abs_err": err})
-            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA "
-                     f"{lib_ms:.4f} ms, {by} bound {bound:.5f} ms")
+            out["full"].append({
+                "shape": [B, H, K, hd, W], "valid": valid,
+                "n_split": n_split, "launched_a_call": counts,
+                "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+                "bound_ms": bound, "bound_by": by,
+                "bound_share": bound / dev_ms, "max_abs_err": err})
+            line += (f"; kernel {ms:.4f} ms "
+                     f"({dev_ms:.4f} ms device, {100 * bound / dev_ms:.1f} % "
+                     f"of its {by} bound {bound:.5f} ms), plain "
+                     f"{plain_ms:.3f} ms, SDPA {lib_ms:.4f} ms "
+                     f"({lib_dev_ms:.4f} ms device)")
         print(line, flush=True)
         check(err <= DECODE_TOL and share <= 1.0,
               f"decode kernel disagrees with its plain version at {case}")
+    check(DECODE_SPLITS <= splits,
+          f"the decode cases reached the split counts {sorted(splits)}, "
+          f"not all of {sorted(DECODE_SPLITS)}")
     return out
 
 
@@ -1252,6 +1378,7 @@ def lm_phases(golden_mod, sim, device="cuda") -> list:
     prefill = lambda: zoo.prefill_fn(model, {"tokens": prompt}, cfg,
                                      L["max_len"])
     fa.launches = pa.launches = 0
+    pk.launch_counts(reset=True)
     logits, cache = prefill()
     steps_out = [logits]
     for t in range(L["steps"]):
@@ -1259,9 +1386,10 @@ def lm_phases(golden_mod, sim, device="cuda") -> list:
         steps_out.append(logits)
     torch.cuda.synchronize()
     c_flash, c_dec = fa.launches, pa.launches
+    k_dec = pk.launch_counts(reset=True)
     print(f"  prefill B{L['batch']} x {L['prompt']} + {L['steps']} decode "
-          f"steps: flash launches {c_flash}, decode launches {c_dec}",
-          flush=True)
+          f"steps: flash launches {c_flash}, decode calls {c_dec} "
+          f"({decode_launches(pk, k_dec, c_dec)})", flush=True)
     check(c_flash == cfg.n_layers and c_dec == cfg.n_layers * L["steps"],
           f"expected {cfg.n_layers} flash and {cfg.n_layers * L['steps']} "
           f"decode launches")
@@ -1286,7 +1414,7 @@ def lm_phases(golden_mod, sim, device="cuda") -> list:
         for t in range(L["steps"]):
             c = zoo.decode_fn(model, c, dec_in[t], cfg)[1]
     decode_ms = cuda_ms(decode_all, torch.cuda.synchronize)[0] / L["steps"]
-    names = ("flash_attention_kernel", "paged_attention_kernel")
+    names = ("flash_attention", "paged_attention")
     p_wall, p_busy, p_k = profile_kernels(prefill, names)
     run_cache = {k: v.clone() for k, v in cache0.items()}
     d_wall, d_busy, d_k = profile_kernels(decode_all, names)
@@ -1312,6 +1440,7 @@ def lm_phases(golden_mod, sim, device="cuda") -> list:
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, 16))
                                ).to(dev)
     fa.launches = pa.launches = hops.launches = sops.launches = 0
+    pk.launch_counts(reset=True)
     _, cache = zoo.prefill_fn(model, {"tokens": prompts}, cfg,
                               max_len=16 + n_new + 4)
     tok = torch.zeros((batch,), dtype=torch.int32, device=dev)
@@ -1340,14 +1469,17 @@ def lm_phases(golden_mod, sim, device="cuda") -> list:
         mech=MechanismConfig(kind="chargecache")), device=dev)
     launches = {"flash": fa.launches, "decode": pa.launches,
                 "probe": hops.launches, "sim_step": sops.launches}
+    k_serve = pk.launch_counts(reset=True)
     print(f"  scheduler: {sched.stats}")
     print(f"  DRAM closed loop: hit={cc['hcrac_hit_rate']:.1%} "
           f"speedup={base['total_cycles'] / cc['total_cycles']:.4f}x")
-    print(f"  launches on this path: {launches}", flush=True)
+    print(f"  launches on this path: {launches}; decode: "
+          f"{decode_launches(pk, k_serve, launches['decode'])}", flush=True)
     check(launches["flash"] == cfg.n_layers
-          and launches["decode"] == cfg.n_layers * n_new,
+          and launches["decode"] == cfg.n_layers * n_new
+          and k_serve[pk.COMBINE_ENTRY] == 0,
           f"serve_lm path launches {launches}: expected {cfg.n_layers} "
-          f"flash, {cfg.n_layers * n_new} decode")
+          f"flash, {cfg.n_layers * n_new} decode, no combine")
     check(launches["probe"] > 0 and launches["sim_step"] == 2,
           f"serve_lm path launches {launches}: the scheduler's probes and "
           f"two simulations must run on the card")
@@ -1362,19 +1494,19 @@ def lm_phases(golden_mod, sim, device="cuda") -> list:
             ("paged_attention", dec, "paged_attention/csrc/"
              "paged_attention.cu", "paged_attention/kernel.py:68",
              launches["decode"], c_dec)):
-        main = res["full"][0]
+        # the main path's shape; ``launches`` counts the wrappers' calls
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/{src}",
             "replaces": f"src/repro/kernels/{rep}", "launches": n,
-            "max_abs_err": res["max_abs_err"], "ms": main["ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "shape": main["shape"], "launches_golden_run": n_c,
-            "full": res["full"][1:]})
+            **res["full"][0], "max_abs_err": res["max_abs_err"],
+            "launches_golden_run": n_c, "full": res["full"][1:]})
     rows[0].update({"prefill_ms": prefill_ms, "prefill_device_ms": p_busy,
-                    "prefill_kernel_ms": p_k[names[0]]})
-    rows[1].update({"decode_step_ms": decode_ms, "decode_device_ms":
+                    "prefill_kernel_ms": p_k[names[0]],
+                    "hmma": flash["hmma"]})
+    rows[1].update({"hmma": dec["hmma"], "kernel_launches": k_serve,
+                    "kernel_launches_golden_run": k_dec,
+                    "decode_step_ms": decode_ms, "decode_device_ms":
                     d_busy / L["steps"] if d_busy else None,
                     "decode_kernel_ms": d_k[names[1]] / L["steps"]})
     return rows

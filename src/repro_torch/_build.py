@@ -2,8 +2,10 @@
 
 On first use a kernel's ``csrc/*.cu`` files are compiled with ``nvcc``
 into a shared library with a plain C interface, under ``build/kernels/``
-at the root of the checkout, named by a hash of the sources and flags, so
-an edited source rebuilds and an unchanged one loads the cached library.
+at the root of the checkout, named by a hash of the sources, the shared
+headers (``kernels/include/*.cuh``, on the include path) and the flags,
+so an edited source or header rebuilds and an unchanged one loads the
+cached library.
 The library is bound with ``ctypes``.  Nothing here runs at import time,
 and a missing ``nvcc`` or a failed compile raises.  ``require_cuda`` and
 ``launch`` are the launchers' shared checks and stream plumbing.
@@ -25,6 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+#: headers the kernels' sources share
+INCLUDE_DIR = Path(__file__).resolve().parent / "kernels" / "include"
 
 
 def find_nvcc() -> str:
@@ -41,9 +45,10 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str, sources: list[Path]) -> Path:
-    """Where the library built from ``sources`` lives (content-keyed)."""
+    """Where the library built from ``sources`` lives (keyed by their
+    content and the shared headers')."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(INCLUDE_DIR.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
@@ -58,7 +63,8 @@ def build(name: str, sources: list[Path]) -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    cmd = [find_nvcc(), *NVCC_FLAGS, f"-I{INCLUDE_DIR}", "-o", str(tmp),
+           *map(str, sources)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     out.with_suffix(".log").write_text(res.stdout + res.stderr)
     if res.returncode != 0:

@@ -3,8 +3,8 @@
 ``SimConfig`` defaults in ``repro_torch.core``).
 
 ``get(name)`` returns the ModelConfig; ``ALL_ARCHS`` lists the assigned ten.
-Only the ``dense`` family runs in the port so far (``repro_torch.models
-.lm``); the others are data here.
+The ``dense`` and ``ssm`` families run in the port so far
+(``repro_torch.models.lm``, ``models.ssm``); the others are data here.
 """
 
 from importlib import import_module

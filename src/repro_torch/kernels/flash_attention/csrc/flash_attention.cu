@@ -8,27 +8,44 @@
 // head h = k * G + g under KV head k, and the output acc / max(l, 1e-30)
 // cast to the input type (bf16 or f32).
 //
-// Bound on the card: at the model's shapes (hd 64, S up to a few
-// thousand) the work is 4 * hd operations per (query, key) pair, against
-// 2 * hd * 2 bytes per key and query row read once, so operations bound
-// it.  This first kernel does them in f32 on the CUDA cores, as the Pallas
-// kernel's f32 dots do, not on the tensor cores (wgmma is later work).
+// Bound on the card.  The work is 4 * hd operations per valid (query,
+// key) pair against 2 * hd * 2 bytes per query and key row read once.
+// At hd 64 a B 1 x S 4 096 causal prefill is bound by operations (68.7
+// GFLOP, 0.069 ms at the 989 TFLOP/s of the bf16 tensor cores), a B 4 x
+// S 500 one by bytes (18.4 MB, 0.0055 ms at 3.35 TB/s): short prompts are
+// launch- and latency-bound, long ones need the tensor cores.
 //
-// Design.  One block of 128 threads per (query tile, batch, head): R =
-// HDP / 32 threads share one query row (HDP = hd rounded up to 32, 64 or
+// bf16 inputs: the FlashAttention-2 shape on mma.sync
+// (flash_attention_mma_kernel).  A block of 4 warps owns 64 query rows (16
+// a warp) of one (batch, head); the grid is (ceil(S / 64), B * H), the last
+// query tiles (the most keys under a causal mask) scheduled first.  Each
+// warp keeps its 16 rows of Q in registers as mma A fragments, read once
+// from device memory.  K and V tiles of 64 keys stay bf16 in shared
+// memory, in a two-stage ring filled by 16-byte cp.async copies (the next
+// tile's copy runs under this tile's arithmetic).  Per tile, mma_tile.cuh
+// (shared with the decode kernel) forms S = Q K^T on the tensor cores,
+// this kernel masks it, and mma_tile.cuh runs the online softmax and P V
+// with p = p_hi + p_lo, both summed in f32, so that the f32 limits against
+// the plain version hold unchanged.  Tiles that every row of the block
+// masks (above the causal diagonal, before the window) are skipped: for a
+// row with a valid key the Pallas kernel's result does not depend on them
+// (their p is 0, or is cleared by the correction exp(-1e30 - m) = 0 once
+// a valid tile arrives); only tiles on a mask's edge evaluate the mask.
+// hd is any multiple of 8 up to 128: the kernel is built for hd rounded up
+// to 16 and loads zeros past hd.  The model's [B, S, H, hd] layout is read
+// through strides (rows 16-byte aligned).  wgmma and TMA
+// (FlashAttention-3's shape) are the next step.
+//
+// f32 inputs keep the CUDA-core kernel (flash_attention_kernel): R = HDP
+// / 32 threads share one query row (HDP = hd rounded up to 32, 64 or
 // 128), each owning 32 of its dims as 8 float4 groups, dims 4 * (c + R *
 // i) + t for lane c of the row, so the R lanes read neighbouring 16-byte
 // words of a shared-memory row.  The query rows and the running m, l and
 // acc live in registers.  K and V tiles of 32 keys are staged in shared
 // memory as f32 (8 loads a thread in flight before any store).  A
 // tile's 32 scores are formed first (an R-lane shuffle sum per key),
-// then the tile max, the correction and the p * V update.
-// Tiles that every row of the block masks (above the causal diagonal,
-// before the window) are skipped: for a row with a valid key the Pallas
-// kernel's result does not depend on them (their p is 0, or is cleared by
-// the correction exp(-1e30 - m) = 0 once a valid tile arrives).  The
-// model's [B, S, H, hd] layout is read through strides, with bounds
-// checks in place of ops.py's padding.
+// then the tile max, the correction and the p * V update, with the same
+// tile skipping.
 //
 // Built by repro_torch/_build.py with nvcc for sm_90a, bound with ctypes.
 
@@ -36,7 +53,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tile.cuh"
+
 namespace {
+
+// ------------------------------------------------ f32 path on the CUDA cores
 
 constexpr float NEG_INF = -1e30f;
 constexpr int THREADS = 128;
@@ -44,18 +65,11 @@ constexpr int BKV = 32;
 constexpr int LOADS = 8;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
 }
 
 struct Strides {
@@ -215,6 +229,179 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
                         causal, window, scale, stream);
 }
 
+
+// ------------------------------------------- bf16 path on the tensor cores
+
+using mma_tile::bf16;
+
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_THREADS = 32 * MMA_WARPS;
+constexpr int MMA_BQ = 16 * MMA_WARPS;  // query rows a block
+constexpr int MMA_BKV = mma_tile::TILE_KEYS;
+
+// shared memory of the two-stage K / V ring, in bytes
+template <int HDP>
+constexpr int mma_smem_bytes() {
+  return 2 * 2 * mma_tile::tile_elems<HDP>() * (int)sizeof(bf16);
+}
+
+// one 64-key tile of K and V into a stage of the ring (keys past Skv
+// zero-filled) as one cp.async group
+template <int HDP>
+__device__ __forceinline__ void load_kv(bf16* stage, const bf16* kb,
+                                        const bf16* vb, long long kss,
+                                        long long vss, int t0, int Skv,
+                                        int hd, int tid) {
+  mma_tile::load_tile<HDP, MMA_THREADS>(stage, kb + t0 * kss, kss,
+                                        Skv - t0, hd, tid);
+  mma_tile::load_tile<HDP, MMA_THREADS>(
+      stage + mma_tile::tile_elems<HDP>(), vb + t0 * vss, vss, Skv - t0, hd,
+      tid);
+  mma_tile::cp_async_commit();
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(MMA_THREADS)
+    flash_attention_mma_kernel(const bf16* __restrict__ q,
+                               const bf16* __restrict__ k,
+                               const bf16* __restrict__ v,
+                               bf16* __restrict__ o, int S, int Skv, int H,
+                               int K, int hd, Strides qs, Strides ks,
+                               Strides vs, Strides os, int causal,
+                               int window, float scale_log2) {
+  constexpr int TILE = mma_tile::tile_elems<HDP>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [2][K tile, V tile]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * MMA_BQ;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, kh = h / (H / K);
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this lane's two rows
+
+  const mma_tile::QRegs<HDP> qa(
+      q + b * qs.b + h * qs.h + (long long)q0 * qs.s, qs.s, warp * 16 + g,
+      S - q0, hd, t);
+  float oacc[HDP / 8][4];
+#pragma unroll
+  for (int n = 0; n < HDP / 8; ++n)
+    oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
+  // running max (log2 units) and this lane's part of the sum, rows r0, r1
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+
+  // keys past the block's last query row are all masked (causal), keys
+  // at or before its first row minus the window too
+  const int kv_end = causal ? min(Skv, q0 + MMA_BQ) : Skv;
+  const int kv_start =
+      window ? (max(0, q0 - window + 1) / MMA_BKV) * MMA_BKV : 0;
+  const int n_tiles = (kv_end - kv_start + MMA_BKV - 1) / MMA_BKV;
+  const bf16* kb = k + b * ks.b + kh * ks.h;
+  const bf16* vb = v + b * vs.b + kh * vs.h;
+
+  load_kv<HDP>(ring, kb, vb, ks.s, vs.s, kv_start, Skv, hd, tid);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = kv_start + it * MMA_BKV;
+    const bf16* kt = ring + (it & 1) * 2 * TILE;
+    if (it + 1 < n_tiles) {  // the next tile's copy runs under this one
+      load_kv<HDP>(ring + ((it + 1) & 1) * 2 * TILE, kb, vb, ks.s, vs.s,
+                   t0 + MMA_BKV, Skv, hd, tid);
+      mma_tile::cp_async_wait<1>();
+    } else {
+      mma_tile::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    float sc[8][4];
+    mma_tile::qk_tile<HDP>(sc, qa, kt, lane);
+    // scale, and mask where the tile meets a mask's edge
+    const bool edge = (causal && t0 + MMA_BKV - 1 > q0) ||
+                      (window && t0 < q0 + MMA_BQ - window) ||
+                      t0 + MMA_BKV > Skv;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[n][e] * scale_log2;
+        if (edge) {
+          const int row = e < 2 ? r0 : r1;
+          const int key = t0 + 8 * n + 2 * t + (e & 1);
+          bool ok = key < Skv;
+          if (causal) ok = ok && row >= key;
+          if (window) ok = ok && row - key < window;
+          x = ok ? x : NEG_INF;
+        }
+        sc[n][e] = x;
+      }
+    }
+    mma_tile::softmax_pv_tile<HDP>(sc, m0, m1, l0, l1, oacc, kt + TILE,
+                                   lane);
+    __syncthreads();  // the stage is refilled at the next iteration
+  }
+
+  const float inv0 = 1.f / fmaxf(mma_tile::quad_sum(l0), 1e-30f);
+  const float inv1 = 1.f / fmaxf(mma_tile::quad_sum(l1), 1e-30f);
+  bf16* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int n = 0; n < HDP / 8; ++n) {
+    const int d = 8 * n + 2 * t;
+    if (d >= hd) continue;
+    if (r0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + r0 * os.s + d) =
+          __floats2bfloat162_rn(oacc[n][0] * inv0, oacc[n][1] * inv0);
+    if (r1 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + r1 * os.s + d) =
+          __floats2bfloat162_rn(oacc[n][2] * inv1, oacc[n][3] * inv1);
+  }
+}
+
+template <int HDP>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
+               int S, int Skv, int H, int K, int hd, Strides qs, Strides ks,
+               Strides vs, Strides os, int causal, int window, float scale,
+               cudaStream_t stream) {
+  constexpr int smem = mma_smem_bytes<HDP>();
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_attention_mma_kernel<HDP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((S + MMA_BQ - 1) / MMA_BQ, B * H);
+  flash_attention_mma_kernel<HDP><<<grid, MMA_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, Skv, H, K, hd,
+      qs, ks, vs, os, causal, window, scale * mma_tile::LOG2E);
+  return (int)cudaGetLastError();
+}
+
+int launch_mma_hd(int hd, const void* q, const void* k, const void* v,
+                  void* o, int B, int S, int Skv, int H, int K, Strides qs,
+                  Strides ks, Strides vs, Strides os, int causal, int window,
+                  float scale, cudaStream_t st) {
+#define FLASH_MMA_CASE(n)                                                  \
+  case n:                                                                  \
+    return launch_mma<16 * n>(q, k, v, o, B, S, Skv, H, K, hd, qs, ks, vs, \
+                              os, causal, window, scale, st);
+  switch ((hd + 15) / 16) {
+    FLASH_MMA_CASE(1)
+    FLASH_MMA_CASE(2)
+    FLASH_MMA_CASE(3)
+    FLASH_MMA_CASE(4)
+    FLASH_MMA_CASE(5)
+    FLASH_MMA_CASE(6)
+    FLASH_MMA_CASE(7)
+    FLASH_MMA_CASE(8)
+  }
+#undef FLASH_MMA_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// 16-byte rows: the pointer and every stride a multiple of 8 elements
+bool rows_aligned(const void* p, long long sb, long long ss, long long sh) {
+  return ((uintptr_t)p % 16) == 0 && sb % 8 == 0 && ss % 8 == 0 &&
+         sh % 8 == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -225,7 +412,9 @@ const char* flash_attention_error_string(int err) {
 
 // q [B, S, H, hd], k / v [B, Skv, K, hd], o [B, S, H, hd], each with the
 // given element strides of its first three dims (the last is contiguous);
-// dtype 0 = float32, 1 = bfloat16.  Returns the launch's CUDA error code.
+// dtype 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores: hd a
+// multiple of 8, pointers 16-byte aligned and strides multiples of 8).
+// Returns the launch's CUDA error code.
 int flash_attention_launch(int dtype, int B, int S, int Skv, int H, int K,
                            int hd, const void* q, long long qsb,
                            long long qss, long long qsh, const void* k,
@@ -243,9 +432,14 @@ int flash_attention_launch(int dtype, int B, int S, int Skv, int H, int K,
   if (dtype == 0)
     return launch_hd<float>(hd, q, k, v, o, B, S, Skv, H, K, qs, ks, vs, os,
                             causal, window, scale, st);
-  if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(hd, q, k, v, o, B, S, Skv, H, K, qs, ks,
-                                    vs, os, causal, window, scale, st);
+  if (dtype == 1) {
+    if (hd % 8 != 0 || !rows_aligned(q, qsb, qss, qsh) ||
+        !rows_aligned(k, ksb, kss, ksh) || !rows_aligned(v, vsb, vss, vsh) ||
+        !rows_aligned(o, osb, oss, osh))
+      return (int)cudaErrorInvalidValue;
+    return launch_mma_hd(hd, q, k, v, o, B, S, Skv, H, K, qs, ks, vs, os,
+                         causal, window, scale, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,8 +4,10 @@
 Replaces ``repro/kernels/flash_attention/kernel.py::flash_attention_kernel``.
 The kernel reads the model's ``[B, S, H, hd]`` / ``[B, Skv, K, hd]``
 layout through strides (no transposed or padded copy) and writes a new
-``[B, S, H, hd]`` tensor; ``hd <= 128``, bf16 or f32.  The library is
-built on first use (``repro_torch._build``) and launched through
+``[B, S, H, hd]`` tensor; ``hd <= 128``.  bf16 runs on the tensor cores
+(``mma.sync``) and needs 16-byte rows (``hd`` and every stride a
+multiple of 8, 16-byte aligned data), f32 on the CUDA cores.  The library
+is built on first use (``repro_torch._build``) and launched through
 ``ctypes`` on PyTorch's current stream.
 """
 
@@ -20,12 +22,16 @@ import torch
 
 from repro_torch import _build
 
-__all__ = ["DTYPES", "library", "flash_attention"]
+__all__ = ["DTYPES", "MAX_HD", "MMA_ENTRY", "library", "rows_aligned",
+           "flash_attention"]
 
 #: input dtypes the kernel takes, and their codes in the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: largest head dim
 MAX_HD = 128
+#: the name of the bf16 (tensor-core) kernel, as it appears in the built
+#: library's symbols and in a profiler's kernel names
+MMA_ENTRY = "flash_attention_mma_kernel"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,6 +65,15 @@ def check_inputs(what: str, dev: torch.device, *named) -> torch.dtype:
     return dtype
 
 
+def rows_aligned(x: torch.Tensor) -> bool:
+    """Whether every row of ``x``'s last dim starts on 16 bytes: the data
+    16-byte aligned and every stride a multiple of 16 bytes (the bf16
+    path's 16-byte copies)."""
+    size = x.element_size()
+    return (x.data_ptr() % 16 == 0 and x.shape[-1] * size % 16 == 0
+            and all(st * size % 16 == 0 for st in x.stride()[:-1]))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: int) -> torch.Tensor:
     """Launch the kernel on q ``[B, S, H, hd]``, k / v ``[B, Skv, K,
@@ -76,6 +91,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k / v "
                          f"{tuple(k.shape)} / {tuple(v.shape)} do not fit "
                          f"(H a multiple of K, hd <= {MAX_HD})")
+    if dtype == torch.bfloat16 and not all(map(rows_aligned, (q, k, v))):
+        raise ValueError("flash_attention: bf16 q / k / v need 16-byte rows "
+                         "(hd and every stride a multiple of 8, the data "
+                         "16-byte aligned)")
     o = torch.empty((B, S, H, hd), dtype=dtype, device=dev)
     lib = library()
     err = _build.launch(

@@ -18,14 +18,14 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef
 
 __all__ = ["NEG_INF", "norm_defs", "norm_apply", "rope", "attention_defs",
-           "naive_attention", "attention_apply", "mlp_defs", "mlp_apply"]
+           "naive_attention", "attention_apply", "silu", "gelu_tanh",
+           "mlp_defs", "mlp_apply"]
 
 NEG_INF = -1e30
 
@@ -136,6 +136,25 @@ def attention_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
 
 # ----------------------------------------------------------------------- MLP
 
+# ``jax.nn``'s activations are composites that XLA rounds op by op; a
+# fused ``F.silu`` / ``F.gelu`` rounds once and differs by an ulp in ~40 %
+# of bf16 values.  These compose them as ``jax.nn`` does, each op rounded
+# in x's dtype (its Python constants are weakly typed: x's dtype too).
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * (1 / (1 + exp(-x)))``."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)``: ``x * 0.5 * (1 + tanh(
+    sqrt(2 / pi) * (x + 0.044715 * x**3)))``, ``x**3`` as ``x * (x * x)``
+    (``lax.integer_pow``)."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype)
+    k = torch.tensor(0.044715, dtype=x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * (x * x))))))
+
+
 def mlp_defs(cfg: ModelConfig):
     d, f = cfg.d_model, cfg.d_ff
     if cfg.act == "silu":  # SwiGLU
@@ -149,8 +168,8 @@ def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = x @ p["wi"].to(x.dtype)
     if cfg.act == "silu":
         g, u = h.chunk(2, dim=-1)
-        h = F.silu(g) * u
+        h = silu(g) * u
     else:
         # jax.nn.gelu's default is the tanh approximation
-        h = F.gelu(h, approximate="tanh")
+        h = gelu_tanh(h)
     return h @ p["wo"].to(x.dtype)

@@ -16,7 +16,8 @@ The dtypes follow ``repro`` op for op: projections, the conv and the
 softplus in bf16; ``A = -exp(A_log)``, ``decay``, ``dBu``, the scan and
 the ``D`` skip in f32, cast to bf16 before the ``silu(z)`` gate.  The
 activations are written as ``jax.nn.silu`` / ``softplus`` are, one
-rounded bf16 op at a time (XLA rounds each): a fused
+rounded bf16 op at a time (XLA rounds each; ``silu`` is
+``layers.silu``, shared with the dense MLP): a fused
 ``F.silu`` / ``F.softplus`` rounds once and differs by an ulp in ~15 %
 of the values, and one ulp of ``dt`` moves ``decay``, hence ``h``, by
 several per cent.
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import silu
 from repro_torch.models.params import ParamDef
 
 __all__ = ["CHUNK", "ssm_defs", "ssm_block_apply", "ssm_decode_step",
@@ -52,12 +54,6 @@ def ssm_defs(cfg: ModelConfig):
         "D": ParamDef((di,), ("hidden",), "ones"),
         "out_proj": ParamDef((di, d), ("hidden", "embed")),
     }
-
-
-def _silu(x):
-    """``x * sigmoid(x)`` as ``jax.nn.silu`` computes it:
-    ``x * (1 / (1 + exp(-x)))``, each op rounded in x's dtype."""
-    return x * (1 / (1 + torch.exp(-x)))
 
 
 def _softplus(x):
@@ -102,7 +98,7 @@ def _causal_conv(p, u, cfg: ModelConfig, conv_state=None):
         out = out + up[:, i:i + S] * w[i]
     out = out + p["conv_b"].to(u.dtype)
     new_state = up[:, up.shape[1] - (kc - 1):] if kc > 1 else pad
-    return _silu(out), new_state
+    return silu(out), new_state
 
 
 def _discretise(dt, u, Bm, A):
@@ -152,7 +148,7 @@ def ssm_block_apply(p, x, cfg: ModelConfig, chunk: int = CHUNK,
         ys.append(yc)
     y = torch.cat(ys, dim=1)[:, :S]
     y = y + u.float() * p["D"].float()
-    y = y.to(x.dtype) * _silu(z)
+    y = y.to(x.dtype) * silu(z)
     out = y @ p["out_proj"].to(x.dtype)
     if return_state:
         return out, {"conv": u_pre[:, S - (kc - 1):], "ssm": h}
@@ -171,7 +167,7 @@ def ssm_decode_step(p, x, state: dict, cfg: ModelConfig):
     h = decay * state["ssm"] + dBu
     y = torch.einsum("bdn,bn->bd", h, Cm[:, 0].float())
     y = y + u[:, 0].float() * p["D"].float()
-    y = y[:, None].to(x.dtype) * _silu(z)
+    y = y[:, None].to(x.dtype) * silu(z)
     return y @ p["out_proj"].to(x.dtype), {"conv": conv_state, "ssm": h}
 
 

@@ -150,6 +150,20 @@ def test_rope_matches_repro():
         [np.cos(1.0), 0.0, np.sin(1.0), 0.0], dtype=torch.float32))
 
 
+@pytest.mark.parametrize("name,jax_fn,port_fn", [
+    ("silu", jax.nn.silu, t_layers.silu),
+    ("gelu", jax.nn.gelu, t_layers.gelu_tanh),   # jax's default: tanh
+])
+def test_activation_equals_jax_nn(name, jax_fn, port_fn):
+    """The MLP's activations are ``jax.nn``'s composites, rounded op by op
+    in bf16 as XLA rounds them: equal bit for bit on the CPU."""
+    rng = np.random.default_rng(12)
+    xj, xt = _bf16_pair(rng, (4096,), 3.0)
+    got = port_fn(xt)
+    assert got.dtype == torch.bfloat16
+    assert np.array_equal(_f32(got), _f32(jax_fn(xj))), name
+
+
 @pytest.mark.parametrize("act", ["silu", "gelu"])
 def test_mlp_matches_repro(act):
     cfgj, cfgt = _cfg("tinyllama_1p1b", act=act)
