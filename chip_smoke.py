@@ -35,7 +35,11 @@ package.  Phases:
    x duration grid (one 38-point sweep), then single-core ``milc_like``
    at 150 000 requests over the 8 kinds, both with the RLTL post-pass;
    the 8-kind results must equal the golden file and order base <
-   chargecache < cc_nuat < lldram by weighted speedup;
+   chargecache < cc_nuat < lldram by weighted speedup; the kernel times
+   with ns per step beside the bytes bound and the dependent-chain bound
+   (``CHAIN_CYCLES`` a request at the SM clock ``nvidia-smi`` reads
+   during the sweep), and each entry's registers and spills as ptxas
+   reports them (no scan entry may spill);
 4. the synthesis entry against its plain version at a cut depth (1 500
    requests a core): on a 4-core mix, every kind x the 4 interleaves x
    ``ddr3_1ch`` / ``ddr3_2ch`` / a 32-bank geometry (the others padded
@@ -55,7 +59,10 @@ package.  Phases:
    ``MAX_DIFF_BLOCK_SHARE`` of the stream's blocks may differ and the
    stats are held to the generator's statistical tolerance
    (``repro_torch.golden.STAT_TOLERANCE``); kernel time, ns per step,
-   the pre-pass share (a launch of 0 scan steps) and the bytes bound;
+   the pre-pass share (a launch of 0 scan steps), the bytes bound and
+   the chain bound; then the scans' divider (``kernel.floor_div``)
+   against PyTorch's floor division on the card for every divisor of the
+   phase 3-5 points, 2**24 dividends each plus the edges;
 6. the HCRAC probe kernel against its plain version: tables of 128 and
    1 024 entries (2 ways) and 65 536 (16 ways), both expiry modes, 10**6
    queries with negative gids (Q not a multiple of the 256-thread
@@ -140,6 +147,18 @@ ROOT = Path(__file__).resolve().parent
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), for the bytes bound
 HBM_BYTES_PER_S = 3.35e12
+#: the scan's dependent chain a request (PERF.md section 6, PR 17): the
+#: instruction classes on a ChargeCache point's loop-carried path with no
+#: division and no global load left, their counts and their latency in
+#: SM cycles on Hopper (4 for arithmetic: CUDA C++ Programming Guide,
+#: "Multiprocessor Level"; ~30 for a shared-memory load: Luo et al. 2024,
+#: arXiv:2402.13499)
+CHAIN = (("integer add / logic / compare-select", 31, 4),
+         ("integer multiply-add", 4, 4),
+         ("shared-memory load", 1, 30))
+CHAIN_CYCLES = sum(n * lat for _, n, lat in CHAIN)
+#: dividends a divisor of the device-divider check (plus the edges)
+DIVIDER_SAMPLE = 1 << 24
 #: full-size workloads (benchmarks/common.py sizes, thesis Table 5.1)
 HEAT_CAPS = (32, 64, 128, 256, 512, 1024)
 HEAT_DURATIONS_MS = (0.5, 1.0, 2.0, 4.0, 16.0)
@@ -195,6 +214,104 @@ def median_ms(fn, reps: int = 3) -> float:
     torch.cuda.synchronize()
     return statistics.median(cuda_ms(fn, torch.cuda.synchronize)[0]
                              for _ in range(reps))
+
+
+def sm_clock_mhz(fn, seconds: float = 2.0) -> float:
+    """The SM clock (``nvidia-smi --query-gpu=clocks.sm``, MHz) while
+    ``fn()`` runs back to back for ``seconds``: the median of its samples
+    every 100 ms, or one reading right after where none landed."""
+    import tempfile
+    import torch
+    query = ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits"]
+    with tempfile.TemporaryFile("w+") as log:
+        smi = subprocess.Popen(query + ["-lms", "100"], stdout=log,
+                               stderr=subprocess.DEVNULL)
+        try:
+            t0 = time.time()
+            while time.time() - t0 < seconds:
+                fn()
+                torch.cuda.synchronize()
+        finally:
+            smi.terminate()
+            smi.wait(timeout=30)
+        log.seek(0)
+        mhz = [float(x) for x in log.read().split() if x.isdigit()]
+    if not mhz:
+        mhz = [float(subprocess.run(query, capture_output=True, text=True,
+                                    check=True, timeout=60).stdout.split()[0])]
+    return statistics.median(mhz)
+
+
+def chain_bound_ms(n_steps: int, mhz: float) -> float:
+    """The scan's dependent-chain bound: ``n_steps`` requests of
+    ``CHAIN_CYCLES`` each at ``mhz``."""
+    return n_steps * CHAIN_CYCLES / (mhz * 1e3)
+
+
+def ptxas_report(log: str) -> dict:
+    """``{entry: {"registers", "spill_stores", "spill_loads"}}`` of the
+    ``sim_*_kernel`` entries in a library's ``-Xptxas -v`` log."""
+    import re
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?(sim_[a-z]+_kernel)",
+                      line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {"registers": None, "spill_stores": 0,
+                          "spill_loads": 0}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[entry]["spill_stores"] = int(m.group(1))
+            out[entry]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+            entry = None
+    return out
+
+
+def check_divider(kernel, stacks) -> int:
+    """The kernel's divider (``kernel.floor_div``) against PyTorch's floor
+    division on the card, for every divisor (``kernel.DIVISOR_FIELDS``)
+    of the grids ``stacks`` (``(stacked params, ns_idx)`` pairs):
+    ``DIVIDER_SAMPLE`` seeded dividends each plus the edges (the int32
+    extremes, -1, 0, 1, multiples of the divisor +- 1 near 0 and both
+    extremes).  Returns the mismatching quotients and remainders."""
+    import torch
+    divisors = set()
+    for stacked, ns_idx in stacks:
+        params, _, offsets = kernel.pack(stacked, ns_idx)
+        at = dict(zip(kernel.FIELDS, offsets))
+        for f in kernel.DIVISOR_FIELDS:
+            divisors.update(params[:, at[f]].unique().tolist())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    lo, hi = -2**31, 2**31 - 1
+    bad = 0
+    for d in sorted(divisors):
+        edges = [lo, lo + 1, -1, 0, 1, hi - 1, hi]
+        edges += [k * d + e for k in range(-3, 4) for e in (-1, 0, 1)]
+        edges += [(lo // d + k) * d + e for k in range(3) for e in (-1, 0, 1)]
+        edges += [(hi // d - k) * d + e for k in range(3) for e in (-1, 0, 1)]
+        a = torch.cat([
+            torch.tensor([v for v in edges if lo <= v <= hi],
+                         dtype=torch.int32, device="cuda"),
+            torch.randint(lo, hi + 1, (DIVIDER_SAMPLE,), generator=gen,
+                          device="cuda", dtype=torch.int64).to(torch.int32)])
+        q, r = kernel.floor_div(a, d)
+        bad += int((q != torch.div(a, d, rounding_mode="floor")).sum())
+        bad += int((r != torch.remainder(a, d)).sum())
+    print(f"  device divider vs torch floor division: {len(divisors)} "
+          f"divisors of the phase 3-5 points ({min(divisors)} .. "
+          f"{max(divisors)}), {DIVIDER_SAMPLE} random dividends each plus "
+          f"the edges: {bad} mismatching values", flush=True)
+    return bad
 
 
 # --------------------------------------------------------------------------
@@ -1843,6 +1960,8 @@ def main() -> int:
     print(f"sim_step + hcrac + flash_attention + paged_attention + ssm_scan "
           f"build+load: {time.time() - t0:.1f} s "
           f"({', '.join(b._name for b in libs)})")
+    sim_log = Path(libs[0]._name).with_suffix(".log")
+    regs = ptxas_report(sim_log.read_text() if sim_log.exists() else "")
     for built in libs:
         log = Path(built._name).with_suffix(".log")
         if log.exists():
@@ -1947,11 +2066,25 @@ def main() -> int:
                           shape1.envelope.max_banks_total,
                           stacked1.thermal.seg_edge.shape[-1])
     bound1_ms = nbytes1 / HBM_BYTES_PER_S * 1e3
+    mhz8 = sm_clock_mhz(lambda: ops.run_sweep(*args8))
+    chain8, chain1 = (chain_bound_ms(w8["n_steps"], mhz8),
+                      chain_bound_ms(w1["n_steps"], mhz8))
     print(f"\n  kernel: {len(grid38)}-point eight-core sweep {ms8:.2f} ms "
-          f"({ms8 * 1e6 / w8['n_steps']:.0f} ns/step), bytes bound "
-          f"{bound_ms:.4f} ms ({nbytes} B); 8-point single-core sweep "
-          f"{ms1:.2f} ms ({ms1 * 1e6 / w1['n_steps']:.0f} ns/step), bytes "
-          f"bound {bound1_ms:.4f} ms ({nbytes1} B)")
+          f"({ms8 * 1e6 / w8['n_steps']:.1f} ns/step), bytes bound "
+          f"{bound_ms:.4f} ms ({nbytes} B), chain bound {chain8:.2f} ms "
+          f"({100 * chain8 / ms8:.1f} % reached); 8-point single-core "
+          f"sweep {ms1:.2f} ms ({ms1 * 1e6 / w1['n_steps']:.1f} ns/step), "
+          f"bytes bound {bound1_ms:.4f} ms ({nbytes1} B), chain bound "
+          f"{chain1:.2f} ms ({100 * chain1 / ms1:.1f} % reached)")
+    print(f"  chain bound: {CHAIN_CYCLES} cycles a request ("
+          + ", ".join(f"{n} x {name} at {lat}" for name, n, lat in CHAIN)
+          + f") at the SM clock read during the sweep, {mhz8:.0f} MHz")
+    for entry, r in regs.items():
+        print(f"  {entry}: {r['registers']} registers, spill stores "
+              f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
+    check(all(r["spill_stores"] + r["spill_loads"] == 0
+              for e, r in regs.items() if e != "sim_serve_kernel"),
+          "a scan entry spills registers")
 
     # --- phase 4: the synthesis entry against its plain version ---------
     print("\nphase 4: sim_step synthesis entry vs plain version (on the "
@@ -2024,10 +2157,23 @@ def main() -> int:
         args32[0].envelope.max_banks_total,
         args32[1].thermal.seg_edge.shape[-1], wi.shape[1] + wf.shape[1])
     bound32 = nbytes32 / HBM_BYTES_PER_S * 1e3
+    mhz32 = sm_clock_mhz(lambda: ops.run_synth(*args32, True))
+    chain32 = chain_bound_ms(n32, mhz32)
     print(f"\n  kernel: {len(grid32)}-point synth sweep {ms32:.2f} ms "
-          f"({ms32 * 1e6 / n32:.0f} ns/step); generation pre-pass alone "
-          f"{gen_ms:.2f} ms ({100 * gen_ms / ms32:.1f} %); bytes bound "
-          f"{bound32:.4f} ms ({nbytes32} B)")
+          f"({ms32 * 1e6 / n32:.1f} ns/step); generation pre-pass alone "
+          f"{gen_ms:.2f} ms ({100 * gen_ms / ms32:.1f} %), the scan "
+          f"{ms32 - gen_ms:.2f} ms ({(ms32 - gen_ms) * 1e6 / n32:.1f} "
+          f"ns/step); bytes bound {bound32:.4f} ms ({nbytes32} B); chain "
+          f"bound {chain32:.2f} ms at {mhz32:.0f} MHz ({100 * chain32 / ms32:.1f}"
+          f" % reached, {100 * chain32 / (ms32 - gen_ms):.1f} % of the scan)")
+
+    # the divider every scan builds, on the divisors of phases 3-5
+    div_bad = check_divider(kernel, [
+        (args8[1], args8[4]), (args1[1], args1[4]),
+        (args32[1], torch.zeros_like(args32[4])),
+        (lambda a: (a[1], torch.zeros_like(a[4])))(sim._stage_synth(
+            synth_cut_grid(sim, traces), None, torch.device("cuda")))])
+    check(div_bad == 0, "the device divider disagrees with floor division")
 
     serve_rows = serving_phases(sim, timing, golden_mod)
     max_err = max(max_err, serve_rows[1]["max_abs_err"])
@@ -2046,6 +2192,13 @@ def main() -> int:
         "ms_at_plain_steps": cut_ms, "steps": w8["n_steps"],
         "points": len(grid38), "single_core_ms": ms1,
         "single_core_bound_ms": bound1_ms,
+        "ns_per_step": ms8 * 1e6 / w8["n_steps"],
+        "single_core_ns_per_step": ms1 * 1e6 / w1["n_steps"],
+        "chain_bound_ms": chain8, "single_core_chain_bound_ms": chain1,
+        "chain_cycles_per_request": CHAIN_CYCLES, "sm_clock_mhz": mhz8,
+        "registers": regs.get("sim_step_kernel", {}).get("registers"),
+        "spill_bytes": sum(regs.get("sim_step_kernel", {}).get(k, 0)
+                           for k in ("spill_stores", "spill_loads")),
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}, {
         "name": "sim_step_synth", "route": "cuda",
         "source": "src/repro_torch/kernels/sim_step/csrc/sim_step.cu",
@@ -2056,6 +2209,12 @@ def main() -> int:
         "ms_at_plain_steps": s_cut_ms, "steps": n32,
         "points": len(grid32), "prepass_ms": gen_ms,
         "streams_equal_to_golden": same, "streams_differing": differ,
+        "ns_per_step": ms32 * 1e6 / n32, "chain_bound_ms": chain32,
+        "chain_cycles_per_request": CHAIN_CYCLES, "sm_clock_mhz": mhz32,
+        "divider_mismatches": div_bad,
+        "registers": regs.get("sim_synth_kernel", {}).get("registers"),
+        "spill_bytes": sum(regs.get("sim_synth_kernel", {}).get(k, 0)
+                           for k in ("spill_stores", "spill_loads")),
         "bound_ms": bound32, "bound_by": "bytes", "library_ms": None},
         *serve_rows, *lm_rows, ssm_row]}))
     print(json.dumps({"ok": True, "device": {

@@ -4,35 +4,61 @@
 // Replaces repro/kernels/sim_step/kernel.py::grid_step_call (the Pallas
 // grid launcher, reached from ops.py::_sweep_pallas), which runs one
 // sweep point's whole in-order request scan (simulator._run_impl) per
-// grid step.  Here each sweep point is one thread block of one warp:
-// lane 0 runs the scan, the other lanes help initialise the state and
-// write the results out.  The point's whole state (cores, MSHR rings,
-// banks, buses, the padded HCRAC table, its copy of the packed params)
-// lives in shared memory, sized by the envelope; the trace arrays and
-// the per-geometry next_same tables are read from global memory (a few
-// MB, resident in L2) and shared by every block.
+// grid step.  Here each sweep point is one thread block of two warps.
+// The point's whole state (cores, MSHR rings, banks, buses, the padded
+// HCRAC table, its copy of the packed params) lives in shared memory,
+// sized by the envelope; the trace arrays and the per-geometry next_same
+// tables are read from global memory (a few MB, resident in L2) and
+// shared by every block.
 //
 // What bounds it: not bytes and not operations, but a serial dependency
-// chain of n_steps requests per block — every request reads the bank,
-// bus and HCRAC state the previous one wrote.  G blocks run side by
-// side on the 132 SMs, so a sweep takes about as long as one point's
-// chain, whatever G is up to 132 (more points than SMs queue in waves).
-// A faster design (several lanes per step, prefetching the next
-// requests, more points per SM) is later work.
+// chain of n_steps requests per block.  A request's arrival depends on
+// the previous one's completion (its core's issue time), and its service
+// reads the bank, bus and HCRAC state the previous one wrote.  G blocks
+// run side by side on the 132 SMs, so a sweep takes about as long as one
+// point's chain, whatever G is up to 132.  The design keeps that chain to
+// shared-memory loads, integer adds and compare-selects:
+//  - every floor division or modulo by a constant of the point (tREFI,
+//    refresh groups, retention, HCRAC sets and caching duration, banks,
+//    rows, banks per channel) is a multiply and a shift (FloorDiv,
+//    kernels/include/floor_div.cuh), built once when the point starts;
+//  - warp 1 stages each core's next requests into shared memory ahead of
+//    the scan: a ring of NBUF tiles of TILE 16-byte records a core (gap,
+//    row and bank folded into the point's geometry, the bank's channel,
+//    write / dep / next_same flags).  No stream field is read from global
+//    memory on the chain, and the scan waits on a tile's counter only
+//    when a core crosses a tile boundary;
+//  - warp 0 runs the scan.  Lane k owns core k (cores k, k + 32, ... past
+//    32 cores) and holds its head request, its issue time and, loaded a
+//    request ahead, its next record and MSHR slot in registers; the
+//    earliest issue, first core on ties, is a warp min-reduce and a
+//    ballot, and the record reaches lane 0 by shuffles.  Lane 0 runs the
+//    service (Dram::service) and shuffles the completion time back; the
+//    owner then needs only compare-selects for its next issue time;
+//  - the HCRAC keeps, per entry, the index of its slot's sweep window
+//    instead of its insertion time (one division a check, not two), each
+//    open row's set beside it, and the 2-way table of the thesis is
+//    compiled for its way count.
+//
+// What is left: the service's own dependent chain (bank and HCRAC state,
+// the refresh and leak clocks, the mechanism fold) and the warp's
+// collectives, ~2 300 SM cycles a request against a dependent-chain bound
+// of 170 (PERF.md section 6; NVIDIA H100 80GB HBM3, 700 W).
 //
 // The synthesis entry (sim_synth_kernel) replaces the same launcher
 // reached from ops.py::_synth_pallas, which generates each point's
 // request stream in-kernel (simulator._run_synth_impl) and scans it.
-// Here lane c of the point's warp first generates core c's stream
+// Here thread c of the point's block first generates core c's stream
 // (workloads/generator.py::_gen_core: counter-based hashes, the recency
 // ring in shared memory) into a [G, C, L] global scratch together with
-// its next_same lookahead, then lane 0 scans it as above.  The pre-pass
-// is parallel over cores and adds ~15 B per request of scratch traffic;
-// the scan's serial chain still bounds the launch.
+// its next_same lookahead, then the block scans it as above.  The
+// pre-pass is parallel over cores and adds ~15 B per request of scratch
+// traffic.
 //
 // The serving entry (sim_serve_kernel, below) has no Pallas counterpart:
 // repro's serving loop is an XLA scan.  It runs the same per-request
-// service (Dram::service) once per page access of the loop.
+// service (Dram::service, with the same dividers) once per page access
+// of the loop, on lane 0 of a one-warp block.
 //
 // Semantics follow repro.core.simulator bit for bit: int32 arithmetic
 // wraps (done in uint32, since signed overflow is undefined in C++),
@@ -47,6 +73,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include "floor_div.cuh"
 
 namespace {
 
@@ -121,17 +149,33 @@ struct SynthLayout {
 
 constexpr int RING = 128;  // generator.RECENT_RING
 
+// The staged stream: each core's ring of NBUF tiles of TILE records.
+// A tile is what the producer warp fills in one pass, a record per lane.
+constexpr int TILE = 32;
+constexpr int TILE_SHIFT = 5;
+constexpr int NBUF = 2;
+// Threads of a trace or synthesis block: the scan warp and the producer.
+constexpr int SCAN_THREADS = 64;
+
 // Shared-memory words of the scan state; must match run_point's carve.
 __host__ __device__ inline int scan_words(const Dims& d) {
-  return d.P + 5 * d.C + d.C * d.M + 10 * d.NB + 2 * d.NCH +
+  return d.P + 5 * d.C + d.C * d.M + 11 * d.NB + 2 * d.NCH +
          3 * d.HS * d.W + N_STATS + 1 + d.S;
 }
 
-// Shared-memory words of one block: the scan state, then (synthesis
-// launches) the point's workload rows, each core's recency ring and its
-// next_same last-row file.
+// Shared-memory words of the staged stream (a multiple of 4, so what
+// follows stays 16-byte aligned): the tiles, each core's head record and
+// the one after it, its filled / released tile counters, and the stop
+// flag.
+__host__ __device__ inline int stage_words(const Dims& d) {
+  return (d.C * (NBUF * TILE * 4 + 8 + 2) + 1 + 3) & ~3;
+}
+
+// Shared-memory words of a trace or synthesis block: the staged stream,
+// the scan state, then (synthesis launches) the point's workload rows,
+// each core's recency ring and its next_same last-row file.
 __host__ __device__ inline int smem_words(const Dims& d) {
-  int w = scan_words(d);
+  int w = stage_words(d) + scan_words(d);
   if (d.SW > 0) w += d.PI + d.PF + d.C * (2 * RING + d.NB);
   return w;
 }
@@ -159,32 +203,77 @@ __device__ __forceinline__ int floormod(int a, int b) {
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 
-// The point's HCRAC: [HS, W] tables in shared memory; n_sets, caching
-// and period are the point's active values (never the padded shape's).
+// A shared-memory word another warp or lane writes (the staging counters)
+__device__ __forceinline__ int ld_volatile(const int* p) {
+  return *(const volatile int*)p;
+}
+__device__ __forceinline__ void st_volatile(int* p, int v) {
+  *(volatile int*)p = v;
+}
+// ... read with acquire, written with release semantics (block scope):
+// what the writer stored before the release is visible after the acquire
+__device__ __forceinline__ int ld_acquire(const int* p) {
+#ifdef __CUDA_ARCH__
+  int v;
+  asm volatile("ld.acquire.cta.shared::cta.b32 %0, [%1];"
+               : "=r"(v)
+               : "r"((unsigned)__cvta_generic_to_shared(p))
+               : "memory");
+  return v;
+#else
+  return __atomic_load_n(p, __ATOMIC_ACQUIRE);
+#endif
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+#ifdef __CUDA_ARCH__
+  asm volatile("st.release.cta.shared::cta.b32 [%0], %1;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(p)),
+               "r"(v)
+               : "memory");
+#else
+  __atomic_store_n(p, v, __ATOMIC_RELEASE);
+#endif
+}
+
+// The point's HCRAC: [HS, W] tables in shared memory; the set count,
+// caching duration and period are the point's active values (never the
+// padded shape's), the first two as dividers.  ``stamps`` holds what
+// aliveness needs of an entry's insertion time t_i: t_i itself under
+// exact expiry, else the index of the slot's sweep window that holds it,
+// floor((t_i - phase) / C), so a check divides once.  ``WAYS`` is the way
+// count when the launch fixes it at compile time (the ways' loads and
+// checks then issue together), else 0 and ``W`` holds it.
+template <int WAYS>
 struct Hcrac {
   int* tags;
-  int* itime;
+  int* stamps;
   int* lru;
-  int W, n_sets, caching, period;
+  int W, period;
+  FloorDiv sets, caching;
   bool exact;
 
-  __device__ bool alive(int set, int way, int it, int t) const {
-    if (exact) return wsub(t, it) <= caching;
-    int phase = wmul(set * W + way + 1, period);
-    // same sweep window <=> no invalidation of this slot in (it, t]
-    return floordiv(wsub(t, phase), caching) ==
-           floordiv(wsub(it, phase), caching);
+  __device__ __forceinline__ int ways() const { return WAYS ? WAYS : W; }
+
+  __device__ int stamp(int set, int way, int t) const {
+    if (exact) return t;
+    return caching.div(wsub(t, wmul(set * ways() + way + 1, period)));
   }
 
-  // hcrac.insert: the first matching way, else the first invalid way,
-  // else the least recently used valid way (first on ties).
-  __device__ void insert(int gid, int t) {
-    int set = floormod(gid, n_sets);
-    int base = set * W;
+  __device__ bool alive(int set, int way, int st, int t) const {
+    if (exact) return wsub(t, st) <= caching.d;
+    // same sweep window <=> no invalidation of this slot in (t_i, t]
+    return stamp(set, way, t) == st;
+  }
+
+  // hcrac.insert into ``set`` (gid's): the first matching way, else the
+  // first invalid way, else the least recently used valid way (first on
+  // ties).
+  __device__ void insert(int gid, int set, int t) {
+    int base = set * ways();
     int match_way = -1, inv_way = -1, lru_way = 0, lru_best = 0;
-    for (int w = 0; w < W; ++w) {
+    for (int w = 0; w < ways(); ++w) {
       int tag = tags[base + w];
-      bool valid = tag != NO_TAG && alive(set, w, itime[base + w], t);
+      bool valid = tag != NO_TAG && alive(set, w, stamps[base + w], t);
       if (valid && tag == gid && match_way < 0) match_way = w;
       if (!valid && inv_way < 0) inv_way = w;
       int key = valid ? lru[base + w] : I32_MAX;
@@ -195,31 +284,32 @@ struct Hcrac {
     }
     int way = match_way >= 0 ? match_way : (inv_way >= 0 ? inv_way : lru_way);
     tags[base + way] = gid;
-    itime[base + way] = t;
+    stamps[base + way] = stamp(set, way, t);
     lru[base + way] = t;
   }
+  __device__ void insert(int gid, int t) { insert(gid, sets.mod(gid), t); }
 
   // The read-only probe (kernels/hcrac, serving/loop/engine._probe_many):
   // a live way holds the gid; no LRU side effect.
   __device__ bool probe(int gid, int t) const {
-    int set = floormod(gid, n_sets);
-    int base = set * W;
-    for (int w = 0; w < W; ++w) {
+    int set = sets.mod(gid);
+    int base = set * ways();
+    for (int w = 0; w < ways(); ++w) {
       int tag = tags[base + w];
-      if (tag != NO_TAG && tag == gid && alive(set, w, itime[base + w], t))
+      if (tag != NO_TAG && tag == gid && alive(set, w, stamps[base + w], t))
         return true;
     }
     return false;
   }
 
-  // hcrac.lookup: a hit refreshes the matching ways' LRU stamps only.
-  __device__ bool lookup(int gid, int t) {
-    int set = floormod(gid, n_sets);
-    int base = set * W;
+  // hcrac.lookup in ``set`` (gid's): a hit refreshes the matching ways'
+  // LRU stamps only.
+  __device__ bool lookup(int gid, int set, int t) {
+    int base = set * ways();
     bool hit = false;
-    for (int w = 0; w < W; ++w) {
+    for (int w = 0; w < ways(); ++w) {
       int tag = tags[base + w];
-      if (tag != NO_TAG && tag == gid && alive(set, w, itime[base + w], t)) {
+      if (tag != NO_TAG && tag == gid && alive(set, w, stamps[base + w], t)) {
         lru[base + w] = t;
         hit = true;
       }
@@ -228,26 +318,29 @@ struct Hcrac {
   }
 };
 
-// dram.refresh_adjust with the row's refresh group (legacy tier).
-__device__ __forceinline__ int refresh_adjust(int t, int row, int tREFI,
-                                              int tRFC, int groups) {
-  int r = floormod(t, tREFI);
-  bool busy = r < tRFC &&
-              floormod(row, groups) == floormod(floordiv(t, tREFI), groups);
+// dram.refresh_adjust with the row's refresh group ``rgrp`` (legacy tier)
+__device__ __forceinline__ int refresh_adjust(int t, int rgrp,
+                                              const FloorDiv& trefi,
+                                              int tRFC,
+                                              const FloorDiv& groups) {
+  const int k = trefi.div(t);
+  const int r = wsub(t, wmul(k, trefi.d));
+  bool busy = r < tRFC && rgrp == groups.mod(k);
   return busy ? wadd(t, wsub(tRFC, r)) : t;
 }
 
-// dram.refresh_clamp_span with the row's refresh group (legacy tier).
-__device__ __forceinline__ int refresh_clamp_span(int t, int span, int row,
-                                                  int tREFI, int tRFC,
-                                                  int groups) {
-  int r = floormod(t, tREFI);
+// dram.refresh_clamp_span with the row's refresh group (legacy tier)
+__device__ __forceinline__ int refresh_clamp_span(int t, int span, int rgrp,
+                                                  const FloorDiv& trefi,
+                                                  int tRFC,
+                                                  const FloorDiv& groups) {
+  const int k = trefi.div(t);
+  const int r = wsub(t, wmul(k, trefi.d));
   int base = wsub(t, r);
-  int k = floordiv(t, tREFI);
-  int g = floormod(row, groups);
-  bool in_this = r < tRFC && g == floormod(k, groups);
-  bool into_next = wadd(r, span) > tREFI && g == floormod(wadd(k, 1), groups);
-  int fixed = in_this ? wadd(base, tRFC) : wadd(wadd(base, tREFI), tRFC);
+  bool in_this = r < tRFC && rgrp == groups.mod(k);
+  bool into_next =
+      wadd(r, span) > trefi.d && rgrp == groups.mod(wadd(k, 1));
+  int fixed = in_this ? wadd(base, tRFC) : wadd(wadd(base, trefi.d), tRFC);
   return (in_this || into_next) ? fixed : t;
 }
 
@@ -271,14 +364,17 @@ struct Out {
 };
 
 // The scan state of one point in shared memory (order must match
-// scan_words).  The serving entry uses it with one idle core.
+// scan_words).  Once the scan runs, the per-core arrays (position, stream
+// length, issue time, MSHR ring index, completion, MSHR ring) are written
+// by the core's owner lane alone.  The serving entry uses the state with
+// one idle core.
 struct Carve {
   int* prm;
-  int *ptr, *last_issue, *last_complete, *ring_idx, *core_end, *ring;
-  int *open_row, *ready_act, *ready_rdwr, *ready_pre, *last_pre_gid,
-      *last_pre_t, *ref_k, *last_ref_t, *bank_acts, *bank_ras;
+  int *ptr, *len, *iss, *ring_idx, *core_end, *ring;
+  int *open_row, *open_set, *ready_act, *ready_rdwr, *ready_pre,
+      *last_pre_gid, *last_pre_t, *ref_k, *last_ref_t, *bank_acts, *bank_ras;
   int *cmd_free, *data_free;
-  int *tags, *itime, *lru;
+  int *tags, *stamps, *lru;
   int* stats;
   int* s_end;
   float* leak;
@@ -289,13 +385,14 @@ __device__ __forceinline__ Carve carve(const Dims& d, int* sm) {
   Carve c;
   c.prm = sm;
   c.ptr = c.prm + d.P;
-  c.last_issue = c.ptr + C;
-  c.last_complete = c.last_issue + C;
-  c.ring_idx = c.last_complete + C;
+  c.len = c.ptr + C;
+  c.iss = c.len + C;
+  c.ring_idx = c.iss + C;
   c.core_end = c.ring_idx + C;
   c.ring = c.core_end + C;
   c.open_row = c.ring + C * d.M;
-  c.ready_act = c.open_row + NB;
+  c.open_set = c.open_row + NB;
+  c.ready_act = c.open_set + NB;
   c.ready_rdwr = c.ready_act + NB;
   c.ready_pre = c.ready_rdwr + NB;
   c.last_pre_gid = c.ready_pre + NB;
@@ -307,25 +404,26 @@ __device__ __forceinline__ Carve carve(const Dims& d, int* sm) {
   c.cmd_free = c.bank_ras + NB;
   c.data_free = c.cmd_free + NCH;
   c.tags = c.data_free + NCH;
-  c.itime = c.tags + d.HS * d.W;
-  c.lru = c.itime + d.HS * d.W;
+  c.stamps = c.tags + d.HS * d.W;
+  c.lru = c.stamps + d.HS * d.W;
   c.stats = c.lru + d.HS * d.W;
   c.s_end = c.stats + N_STATS;
   c.leak = reinterpret_cast<float*>(c.s_end + 1);
   return c;
 }
 
-// Every lane: copy the point's params and leak scales in and reset the
-// scan state (simulator._init_state).
+// Thread ``tid`` of ``nt``: copy the point's params and leak scales in
+// and reset the scan state (simulator._init_state).
 __device__ __forceinline__ void init_scan(const Dims& d, const Carve& c,
                                           const int* __restrict__ params,
                                           const float* __restrict__ seg_leak,
-                                          int gp, int lane) {
+                                          int gp, int tid, int nt) {
   const int C = d.C, NB = d.NB, NCH = d.NCH, M = d.M;
-  for (int i = lane; i < d.P; i += 32) c.prm[i] = params[(size_t)gp * d.P + i];
-  for (int i = lane; i < 5 * C + C * M; i += 32) c.ptr[i] = 0;
-  for (int i = lane; i < NB; i += 32) {
+  for (int i = tid; i < d.P; i += nt) c.prm[i] = params[(size_t)gp * d.P + i];
+  for (int i = tid; i < 5 * C + C * M; i += nt) c.ptr[i] = 0;
+  for (int i = tid; i < NB; i += nt) {
     c.open_row[i] = NO_ROW;
+    c.open_set[i] = 0;
     c.ready_act[i] = 0;
     c.ready_rdwr[i] = 0;
     c.ready_pre[i] = 0;
@@ -336,24 +434,24 @@ __device__ __forceinline__ void init_scan(const Dims& d, const Carve& c,
     c.bank_acts[i] = 0;
     c.bank_ras[i] = 0;
   }
-  for (int i = lane; i < 2 * NCH; i += 32) c.cmd_free[i] = 0;
-  for (int i = lane; i < d.HS * d.W; i += 32) {
+  for (int i = tid; i < 2 * NCH; i += nt) c.cmd_free[i] = 0;
+  for (int i = tid; i < d.HS * d.W; i += nt) {
     c.tags[i] = NO_TAG;
-    c.itime[i] = 0;
+    c.stamps[i] = 0;
     c.lru[i] = -1;
   }
-  for (int i = lane; i < N_STATS; i += 32) c.stats[i] = 0;
-  for (int i = lane; i < d.S; i += 32) c.leak[i] = seg_leak[(size_t)gp * d.S + i];
-  if (lane == 0) *c.s_end = d.n_steps;
+  for (int i = tid; i < N_STATS; i += nt) c.stats[i] = 0;
+  for (int i = tid; i < d.S; i += nt) c.leak[i] = seg_leak[(size_t)gp * d.S + i];
+  if (tid == 0) *c.s_end = d.n_steps;
 }
 
-// Every lane: write the point's stats and bank arrays.
+// Thread ``tid`` of ``nt``: write the point's stats and bank arrays.
 __device__ __forceinline__ void write_scan(const Dims& d, const Carve& c,
                                            int* stats, int* bank_stats,
-                                           int gp, int lane) {
-  for (int i = lane; i < N_STATS; i += 32)
+                                           int gp, int tid, int nt) {
+  for (int i = tid; i < N_STATS; i += nt)
     stats[(size_t)gp * N_STATS + i] = c.stats[i];
-  for (int i = lane; i < d.NB; i += 32) {
+  for (int i = tid; i < d.NB; i += nt) {
     bank_stats[((size_t)gp * 2 + 0) * d.NB + i] = c.bank_acts[i];
     bank_stats[((size_t)gp * 2 + 1) * d.NB + i] = c.bank_ras[i];
   }
@@ -371,11 +469,15 @@ struct Ev {
 };
 
 // A point's DRAM system on lane 0: its params, read once from the packed
-// row, and its bank, bus and HCRAC state in shared memory.  ``service``
-// is simulator._service for one live request.
+// row (its divisors as dividers), and its bank, bus and HCRAC state in
+// shared memory.  ``service`` is simulator._service for one live request.
+// Neither it nor Hcrac uses a warp collective: the serving entry calls
+// them from lane 0 alone.
+template <int WAYS>
 struct Dram {
-  int tRCD, tRAS, tRP, tCL, tCWL, tBL, tRTP, tWR, tREFI, tRFC, groups;
-  int retention, banks_total, bpc, n_rows;
+  int tRCD, tRAS, tRP, tCL, tCWL, tBL, tRTP, tWR, tREFI, tRFC;
+  int banks_total, n_rows;
+  FloorDiv trefi, groups, retention, bpc;
   bool closed, stateful, hc_gate;
   bool ll_en, cc_en, nuat_en, rltl_en, al_en, al_drift, th_en;
   int ll_rcd, ll_ras, cc_rcd, cc_ras, rltl_window, rltl_rcd, rltl_ras;
@@ -383,7 +485,7 @@ struct Dram {
   const int *al_rcd, *al_ras, *al_seg_rcd, *al_seg_ras, *th_edge;
   int NB, NBINS, S;
   Carve c;
-  Hcrac hc;
+  Hcrac<WAYS> hc;
 
   __device__ __forceinline__ Dram(const Dims& d, const Layout& lay,
                                   const Carve& cv)
@@ -398,12 +500,13 @@ struct Dram {
     tBL = prm[off[F_tBL]];
     tRTP = prm[off[F_tRTP]];
     tWR = prm[off[F_tWR]];
-    tREFI = prm[off[F_tREFI]];
+    trefi = FloorDiv::make(prm[off[F_tREFI]]);
+    tREFI = trefi.d;
     tRFC = prm[off[F_tRFC]];
-    groups = prm[off[F_GROUPS]];
-    retention = prm[off[F_RETENTION]];
+    groups = FloorDiv::make(prm[off[F_GROUPS]]);
+    retention = FloorDiv::make(prm[off[F_RETENTION]]);
     banks_total = prm[off[F_BANKS_TOTAL]];
-    bpc = prm[off[F_BANKS_PER_CH]];
+    bpc = FloorDiv::make(prm[off[F_BANKS_PER_CH]]);
     n_rows = prm[off[F_N_ROWS]];
     closed = prm[off[F_CLOSED]] != 0;
     stateful = prm[off[F_STATEFUL]] != 0;
@@ -433,23 +536,26 @@ struct Dram {
     NB = d.NB;
     NBINS = d.NBINS;
     S = d.S;
-    hc = Hcrac{cv.tags, cv.itime, cv.lru, d.W, prm[off[F_HC_SETS]],
-               prm[off[F_HC_CACHING]], prm[off[F_HC_PERIOD]], d.exact != 0};
+    hc = Hcrac<WAYS>{cv.tags, cv.stamps, cv.lru, d.W, prm[off[F_HC_PERIOD]],
+               FloorDiv::make(prm[off[F_HC_SETS]]),
+               FloorDiv::make(prm[off[F_HC_CACHING]]), d.exact != 0};
   }
 
   // Serve one live request arriving at ``t_arr`` (the bank and row
-  // already folded); updates the state, adds to ``acc`` and ``ev`` and
-  // returns its completion time.
-  __device__ __forceinline__ int service(int t_arr, int bank, int row,
-                                         bool is_write, bool ns, bool measure,
+  // already folded, ``ch`` the bank's channel, ``set`` the HCRAC set of
+  // its row); updates the state, adds to ``acc`` and ``ev`` and returns
+  // its completion time.
+  __device__ __forceinline__ int service(int t_arr, int bank, int ch,
+                                         int row, int set, bool is_write,
+                                         bool ns, bool measure,
                                          unsigned* acc, Ev& ev) {
     const unsigned m = measure ? 1u : 0u;
     const bool legacy = !stateful;
-    const int ch = floordiv(bank, bpc);
+    const int rgrp = groups.mod(row);
     const int t0 = imax(t_arr, c.cmd_free[ch]);
 
     // rolling refresh: catch the bank's REF counter up (stateful tier)
-    const int ref_due = wadd(floordiv(t0, tREFI), 1);
+    const int ref_due = wadd(trefi.div(t0), 1);
     const int n_pend = imax(wsub(ref_due, c.ref_k[bank]), 0);
     const bool do_ref = stateful && n_pend > 0;
     const int busy0 =
@@ -457,6 +563,7 @@ struct Dram {
     const int ref_t = imax(wmul(wsub(ref_due, 1), tREFI), c.ready_pre[bank]);
     const int ref_done = wadd(ref_t, tRFC);
     const int openr0 = c.open_row[bank];
+    const int open_set = c.open_set[bank];  // the open row's HCRAC set
     const bool ref_pre = do_ref && openr0 != NO_ROW;
     const int openr = do_ref ? NO_ROW : openr0;
     const int r_act_b = do_ref ? imax(c.ready_act[bank], ref_done)
@@ -466,7 +573,7 @@ struct Dram {
     const int r_rdwr_b = do_ref ? imax(c.ready_rdwr[bank], ref_done)
                                 : c.ready_rdwr[bank];
     const int gid_ref = wadd(wmul(bank, n_rows), ref_pre ? openr0 : 0);
-    if (ref_pre && hc_gate) hc.insert(gid_ref, ref_t);
+    if (ref_pre && hc_gate) hc.insert(gid_ref, open_set, ref_t);
 
     const bool is_hit = openr == row;
     const bool is_closed = openr == NO_ROW;
@@ -474,29 +581,27 @@ struct Dram {
 
     // conflict path: PRE the open row (insert it into the HCRAC)
     int t_pre = imax(t0, r_pre_b);
-    if (legacy) t_pre = refresh_adjust(t_pre, row, tREFI, tRFC, groups);
+    if (legacy) t_pre = refresh_adjust(t_pre, rgrp, trefi, tRFC, groups);
     const int gid_old = wadd(wmul(bank, n_rows), is_conflict ? openr : 0);
-    if (is_conflict && hc_gate) hc.insert(gid_old, t_pre);
+    if (is_conflict && hc_gate) hc.insert(gid_old, open_set, t_pre);
 
     // ACT
     int t_act = is_conflict ? wadd(t_pre, tRP) : imax(t0, r_act_b);
-    if (legacy) t_act = refresh_adjust(t_act, row, tREFI, tRFC, groups);
+    if (legacy) t_act = refresh_adjust(t_act, rgrp, trefi, tRFC, groups);
     const bool needs_act = !is_hit;
     const int gid = wadd(wmul(bank, n_rows), row);
     // the lookup runs on row hits too (LRU refresh); with the gate off
     // the table stays empty, so skipping it changes nothing
-    bool cc_hit = hc_gate ? hc.lookup(gid, t_act) : false;
+    bool cc_hit = hc_gate ? hc.lookup(gid, set, t_act) : false;
     cc_hit = cc_hit && needs_act && hc_gate;
 
     const int tslp =
         c.last_pre_gid[bank] == gid ? wsub(t_act, c.last_pre_t[bank]) : INF;
 
     // leak clock (dram.time_since_refresh / the stateful REF registers)
-    const int tsr_closed = floormod(
-        wsub(t_act, wmul(floormod(row, groups), tREFI)), retention);
+    const int tsr_closed = retention.mod(wsub(t_act, wmul(rgrp, tREFI)));
     const int kw = wsub(ref_due, 1);
-    const int j_g = wsub(kw, floormod(wsub(kw, floormod(row, groups)),
-                                      groups));
+    const int j_g = wsub(kw, groups.mod(wsub(kw, rgrp)));
     const int new_last_ref_t = do_ref ? ref_t : c.last_ref_t[bank];
     const int t_ref = j_g == kw ? new_last_ref_t : wmul(j_g, tREFI);
     const int tsr = (stateful && j_g >= 0) ? imax(wsub(t_act, t_ref), 0)
@@ -552,7 +657,7 @@ struct Dram {
     const int cas = is_write ? tCWL : tCL;
     t_rdwr = imax(t_rdwr, wsub(c.data_free[ch], cas));
     if (legacy)
-      t_rdwr = refresh_clamp_span(t_rdwr, wadd(cas, tBL), row, tREFI, tRFC,
+      t_rdwr = refresh_clamp_span(t_rdwr, wadd(cas, tBL), rgrp, trefi, tRFC,
                                   groups);
     const int done = wadd(wadd(t_rdwr, cas), tBL);
 
@@ -563,7 +668,7 @@ struct Dram {
         imax(needs_act ? wadd(t_act, ras) : r_pre_b, after_rw);
     const bool auto_pre = closed && !ns;
     const int t_autopre = new_ready_pre;
-    if (auto_pre && hc_gate) hc.insert(gid, t_autopre);
+    if (auto_pre && hc_gate) hc.insert(gid, set, t_autopre);
     const int new_open = auto_pre ? NO_ROW : row;
     const int new_ready_act =
         auto_pre ? wadd(t_autopre, tRP)
@@ -611,6 +716,7 @@ struct Dram {
 
     // state writes
     c.open_row[bank] = new_open;
+    c.open_set[bank] = set;
     c.ready_act[bank] = new_ready_act;
     c.ready_rdwr[bank] = new_ready_rdwr;
     c.ready_pre[bank] = new_ready_pre;
@@ -624,105 +730,300 @@ struct Dram {
   }
 };
 
-// One sweep point on one warp: every lane initialises the state, then
-// ``pre(prm)`` runs on every lane (the synthesis pre-pass; nothing for a
-// trace launch), then lane 0 runs the scan over ``tr`` and all lanes
-// write the results out.  ``tr`` is the point's view of its stream.
-template <class Pre>
+// The staged stream of one point in shared memory (stage_words): core
+// c's tile j, positions [j TILE, (j + 1) TILE), lives in buffer j % NBUF.
+struct Stage {
+  int4* tiles;    // [C, NBUF, TILE] records
+  int4* head;     // [C] each core's head record (past 32 cores)
+  int4* next;     // [C] the record after it (past 32 cores)
+  int* filled;    // [C] tiles the producer has written (warp 1 writes)
+  int* released;  // [C] tiles the scan is done with (owner lanes write)
+  int* stop;      // set by the scan when it ends
+};
+
+__device__ __forceinline__ Stage stage_carve(const Dims& d, int* sm) {
+  Stage g;
+  g.tiles = reinterpret_cast<int4*>(sm);
+  g.head = g.tiles + d.C * NBUF * TILE;
+  g.next = g.head + d.C;
+  g.filled = reinterpret_cast<int*>(g.next + d.C);
+  g.released = g.filled + d.C;
+  g.stop = g.released + d.C;
+  return g;
+}
+
+// A bank and an HCRAC set share a record's word
+__host__ __device__ inline bool record_fits(const Dims& d) {
+  return d.NB <= 0xffff && d.HS <= 0x7fff;
+}
+
+// A staged record: x the gap, y the row folded into the point's
+// geometry, z the folded bank (low 16 bits) and the HCRAC set of its row
+// (high), w the flags below and the bank's channel above them.
+enum { R_WRITE = 1, R_DEP = 2, R_NS = 4, R_CH_SHIFT = 3 };
+
+// The producer's view of a point's stream: the stream arrays, the point's
+// next_same table and the dividers that fold a request into its geometry.
+struct Feed {
+  Trace tr;
+  const uint8_t* ns;
+  int L, n_rows;
+  FloorDiv banks, rows, bpc, sets;
+
+  __device__ Feed(const Dims& d, const Layout& lay, const Carve& cv,
+                  const Trace& t)
+      : tr(t), L(d.L) {
+    const int* prm = cv.prm;
+    const int* off = lay.off;
+    ns = t.next_same + (size_t)prm[off[F_NS_IDX]] * d.C * d.L;
+    banks = FloorDiv::make(prm[off[F_BANKS_TOTAL]]);
+    rows = FloorDiv::make(prm[off[F_N_ROWS]]);
+    bpc = FloorDiv::make(prm[off[F_BANKS_PER_CH]]);
+    sets = FloorDiv::make(prm[off[F_HC_SETS]]);
+    n_rows = rows.d;
+  }
+
+  // Lane ``lane``'s record of core k's tile j; positions at or past the
+  // stream's length ``len`` are never read and stay unwritten.
+  __device__ void fill(const Stage& g, int k, int j, int len,
+                       int lane) const {
+    const int p = j * TILE + lane;
+    if (p >= len) return;
+    const size_t ix = (size_t)k * L + imin(p, L - 1);
+    const int bank = banks.mod(tr.bank[ix]);
+    const int row = rows.mod(tr.row[ix]);
+    int4 r;
+    r.x = tr.gap[ix];
+    r.y = row;
+    r.z = bank | sets.mod(wadd(wmul(bank, n_rows), row)) << 16;
+    r.w = (bpc.div(bank) << R_CH_SHIFT) | (ns[ix] ? R_NS : 0) |
+          (tr.dep[ix] ? R_DEP : 0) | (tr.is_write[ix] ? R_WRITE : 0);
+    g.tiles[(k * NBUF + (j & (NBUF - 1))) * TILE + lane] = r;
+  }
+};
+
+// Warp 1: keep every core's ring of tiles ahead of the scan until the
+// scan sets the stop flag.  Tile j of core k may be written once the scan
+// has released tile j - NBUF.  Every decision is lane 0's reading of the
+// counters, so the warp stays converged.
+__device__ void produce(const Stage& g, const Feed& f, const Carve& cv,
+                        int C, int lane) {
+  const unsigned FULL = 0xffffffffu;
+  while (!__shfl_sync(FULL, ld_volatile(g.stop), 0)) {
+    bool busy = false;
+    for (int k = 0; k < C; ++k) {
+      const int j = ld_volatile(&g.filled[k]);
+      const int rel = __shfl_sync(FULL, ld_volatile(&g.released[k]), 0);
+      if (j >= rel + NBUF || j * TILE >= cv.len[k]) continue;
+      f.fill(g, k, j, cv.len[k], lane);
+      __syncwarp();
+      if (lane == 0) st_release(&g.filled[k], j + 1);
+      __syncwarp();
+      busy = true;
+    }
+    if (!busy) __nanosleep(200);
+  }
+}
+
+// Core c's record at position p > 0, on an owner lane.  Crossing into a
+// new tile releases the previous one and waits until the producer has
+// filled this one (it normally has, a tile ahead).
+__device__ __forceinline__ int4 fetch(const Stage& g, int c, int p) {
+  const int j = p >> TILE_SHIFT;
+  if ((p & (TILE - 1)) == 0) {
+    st_volatile(&g.released[c], j);
+    while (ld_acquire(&g.filled[c]) <= j) __nanosleep(32);
+  }
+  return g.tiles[(c * NBUF + (j & (NBUF - 1))) * TILE + (p & (TILE - 1))];
+}
+
+// A lane's core in registers: its position, stream length, MSHR ring
+// index, latest completion, head request and its issue time, and, loaded
+// ahead so the chain never waits on them, the request after the head and
+// the MSHR slot the head's successor will wait on.
+struct CoreRegs {
+  int k, p, len, ri, end, issue, ring_next;
+  int4 head, next;
+};
+
+// One sweep point on a block of two warps (SCAN_THREADS): every thread
+// initialises the state, then ``pre(prm)`` runs on every thread (the
+// synthesis pre-pass; nothing for a trace launch).  Warp 1 then stages
+// the streams of ``tr`` (the point's view of its stream) while warp 0
+// runs the scan, and every thread writes the results out.
+//
+// The scan: lane k owns core k (with more than 32 cores, cores k, k + 32,
+// ... whose state lives in shared memory, the earliest of them in the
+// lane's registers).  A warp min-reduce of the lanes' issue times and a
+// ballot pick the earliest (the first core on ties), its record reaches
+// lane 0 by shuffles, lane 0 runs the service and shuffles the completion
+// time back, and the owner advances its core and loads what its next
+// issue time will need.  With one core, lane 0 runs the scan alone.
+template <int WAYS, class Pre>
 __device__ __forceinline__ void run_point(const Dims& d, const Layout& lay,
                                           const int* __restrict__ params,
                                           const float* __restrict__ seg_leak,
                                           const Trace& tr, int warmup,
                                           const Out& out, int* sm, Pre pre) {
   const int gp = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int C = d.C, L = d.L, M = d.M;
-  const Carve cv = carve(d, sm);
-  init_scan(d, cv, params, seg_leak, gp, lane);
-  __syncwarp();
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int C = d.C, M = d.M;
+  const Stage g = stage_carve(d, sm);
+  const Carve cv = carve(d, sm + stage_words(d));
+  init_scan(d, cv, params, seg_leak, gp, tid, SCAN_THREADS);
+  for (int k = tid; k < C; k += SCAN_THREADS) g.filled[k] = g.released[k] = 0;
+  if (tid == 0) *g.stop = 0;
+  __syncthreads();
   pre(cv.prm);
-  __syncwarp();
+  __syncthreads();
+  for (int k = tid; k < C; k += SCAN_THREADS) cv.len[k] = tr.length[k];
+  __syncthreads();
+  // warp 1 fills the first NBUF tiles of every core before the scan
+  if (tid >= 32) {
+    const Feed f(d, lay, cv, tr);
+    for (int k = 0; k < C; ++k) {
+      int j = 0;
+      for (; j < NBUF && j * TILE < cv.len[k]; ++j)
+        f.fill(g, k, j, cv.len[k], lane);
+      if (lane == 0) g.filled[k] = j;
+    }
+  }
+  __syncthreads();
 
   const size_t ev_plane = (size_t)d.G * d.n_steps;
   int* ev = out.events + (size_t)gp * d.n_steps;
   uint8_t* ev_ref8 = out.act_ref8 + (size_t)gp * d.n_steps;
 
-  if (lane == 0) {
-    Dram dr(d, lay, cv);
-    const uint8_t* next_same =
-        tr.next_same + (size_t)cv.prm[lay.off[F_NS_IDX]] * C * L;
-    // every accumulator wraps like JAX's int32 adds
+  if (tid >= 32) {
+    produce(g, Feed(d, lay, cv, tr), cv, C, lane);
+  } else {
+    const unsigned FULL = 0xffffffffu;
+    const bool many = C > 32;
+    Dram<WAYS> dr(d, lay, cv);
+    // lane 0's accumulators; every one wraps like JAX's int32 adds
     unsigned acc[N_STATS] = {0};
+    // position 0 of every core: last issue, last completion and MSHR ring
+    // all 0, so its issue time is max(gap, 0); a lane without a core
+    // stays at INF
+    CoreRegs me{};
+    me.k = -1;
+    me.issue = INF;
+    for (int k = lane; k < C; k += 32) {
+      const int len = cv.len[k];
+      const int4 head = g.tiles[k * NBUF * TILE];
+      const int4 next = g.tiles[k * NBUF * TILE + 1];
+      const int issue = len > 0 ? imax(head.x, 0) : INF;
+      if (many) {
+        cv.iss[k] = issue;
+        g.head[k] = head;
+        g.next[k] = next;
+      }
+      if (k == lane || issue < me.issue) {
+        me = CoreRegs{k, 0, len, 0, 0, issue, 0, head, next};
+      }
+    }
 
     int s = 0;
     for (; s < d.n_steps; ++s) {
       // 1. earliest-issue core selection (ties to the lowest index)
-      int c = 0, t_arr = 0;
-      for (int k = 0; k < C; ++k) {
-        int p = cv.ptr[k];
-        int issue = INF;
-        if (p < tr.length[k]) {
-          int pc = imin(imax(p, 0), L - 1);
-          issue = imax(wadd(cv.last_issue[k], tr.gap[k * L + pc]),
-                       cv.ring[k * M + cv.ring_idx[k]]);
-          issue = imax(issue, tr.dep[k * L + pc] ? cv.last_complete[k] : 0);
-        }
-        if (k == 0 || issue < t_arr) {
-          t_arr = issue;
-          c = k;
-        }
-      }
-      // a dead step changes nothing, so neither does any later one
+      const int t_arr = C == 1 ? me.issue : __reduce_min_sync(FULL, me.issue);
+      // a dead step changes nothing, so neither does any later one (with
+      // one core, lanes 1..31 leave here at once)
       if (t_arr >= INF) break;
-      const int pc = imin(imax(cv.ptr[c], 0), L - 1);
-      const int tix = c * L + pc;
+      int c = 0;
+      int4 rec = me.head;
+      if (C > 1) {
+        const bool tie = me.issue == t_arr;
+        c = many ? __reduce_min_sync(FULL, tie ? me.k : I32_MAX)
+                 : __ffs(__ballot_sync(FULL, tie)) - 1;
+        const int o = c & 31;
+        rec.y = __shfl_sync(FULL, rec.y, o);
+        rec.z = __shfl_sync(FULL, rec.z, o);
+        rec.w = __shfl_sync(FULL, rec.w, o);
+      }
 
       // 2. service (simulator._service)
-      Ev e;
-      const int done =
-          dr.service(t_arr, floormod(tr.bank[tix], dr.banks_total),
-                     floormod(tr.row[tix], dr.n_rows), tr.is_write[tix] != 0,
-                     next_same[tix] != 0, s >= warmup, acc, e);
-      if (d.collect) {
-        ev[0 * ev_plane + s] = e.act_gid;
-        ev[1 * ev_plane + s] = e.act_t;
-        ev[2 * ev_plane + s] = e.pre1_gid;
-        ev[3 * ev_plane + s] = e.pre1_t;
-        ev[4 * ev_plane + s] = e.pre2_gid;
-        ev[5 * ev_plane + s] = e.pre2_t;
-        ev[6 * ev_plane + s] = e.pre3_gid;
-        ev[7 * ev_plane + s] = e.pre3_t;
-        ev_ref8[s] = e.ref8 ? 1 : 0;
+      int done = 0;
+      if (lane == 0) {
+        Ev e;
+        done = dr.service(t_arr, rec.z & 0xffff, rec.w >> R_CH_SHIFT, rec.y,
+                          rec.z >> 16, (rec.w & R_WRITE) != 0,
+                          (rec.w & R_NS) != 0, s >= warmup, acc, e);
+        if (d.collect) {
+          ev[0 * ev_plane + s] = e.act_gid;
+          ev[1 * ev_plane + s] = e.act_t;
+          ev[2 * ev_plane + s] = e.pre1_gid;
+          ev[3 * ev_plane + s] = e.pre1_t;
+          ev[4 * ev_plane + s] = e.pre2_gid;
+          ev[5 * ev_plane + s] = e.pre2_t;
+          ev[6 * ev_plane + s] = e.pre3_gid;
+          ev[7 * ev_plane + s] = e.pre3_t;
+          ev_ref8[s] = e.ref8 ? 1 : 0;
+        }
       }
+      if (C > 1) done = __shfl_sync(FULL, done, 0);
 
-      // 3. core bookkeeping
-      const int ri = cv.ring_idx[c];
-      cv.ptr[c] = cv.ptr[c] + 1;
-      cv.last_issue[c] = t_arr;
-      cv.last_complete[c] = done;
-      cv.ring[c * M + ri] = done;
-      cv.ring_idx[c] = floormod(ri + 1, M);
-      cv.core_end[c] = imax(cv.core_end[c], done);
+      // 3. core bookkeeping on the owner lane: the next request's issue
+      //    time is max(last issue + gap, oldest MSHR slot, completion if
+      //    dependent), INF past the stream
+      if (me.k == c) {
+        cv.ring[c * M + me.ri] = done;
+        me.ri = me.ri + 1 == M ? 0 : me.ri + 1;
+        me.end = imax(me.end, done);
+        me.p += 1;
+        me.issue = INF;
+        if (me.p < me.len) {
+          me.issue = imax(wadd(t_arr, me.next.x),
+                          M == 1 ? done : me.ring_next);
+          me.issue = imax(me.issue, (me.next.w & R_DEP) ? done : 0);
+        }
+        me.head = me.next;
+        // what the issue time after this one will need
+        me.ring_next = cv.ring[c * M + (me.ri + 1 == M ? 0 : me.ri + 1)];
+        if (me.p + 1 < me.len) me.next = fetch(g, c, me.p + 1);
+        if (many) {
+          // park this core, then take up the lane's earliest one
+          cv.ptr[c] = me.p;
+          cv.ring_idx[c] = me.ri;
+          cv.core_end[c] = me.end;
+          cv.iss[c] = me.issue;
+          g.head[c] = me.head;
+          g.next[c] = me.next;
+          int best = lane;
+          for (int k = lane; k < C; k += 32)
+            if (cv.iss[k] < cv.iss[best]) best = k;
+          me = CoreRegs{best, cv.ptr[best], cv.len[best], cv.ring_idx[best],
+                        cv.core_end[best], cv.iss[best], 0, g.head[best],
+                        g.next[best]};
+          me.ring_next =
+              cv.ring[best * M + (me.ri + 1 == M ? 0 : me.ri + 1)];
+        }
+      }
     }
-    *cv.s_end = s;
+    if (!many && lane < C) cv.core_end[lane] = me.end;
+    __syncwarp();
 
-    // simulator._retire_trailing_refs (stateful tier)
-    if (dr.stateful) {
-      int total = cv.core_end[0];
-      for (int k = 1; k < C; ++k) total = imax(total, cv.core_end[k]);
-      acc[REFS_ISSUED] =
-          (unsigned)wmul(wadd(floordiv(total, dr.tREFI), 1), dr.banks_total);
+    if (lane == 0) {
+      *cv.s_end = s;
+      st_volatile(g.stop, 1);
+      // simulator._retire_trailing_refs (stateful tier)
+      if (dr.stateful) {
+        int total = cv.core_end[0];
+        for (int k = 1; k < C; ++k) total = imax(total, cv.core_end[k]);
+        acc[REFS_ISSUED] =
+            (unsigned)wmul(wadd(dr.trefi.div(total), 1), dr.banks_total);
+      }
+      for (int i = 0; i < N_STATS; ++i) cv.stats[i] = (int)acc[i];
     }
-    for (int i = 0; i < N_STATS; ++i) cv.stats[i] = (int)acc[i];
   }
-  __syncwarp();
+  __syncthreads();
 
-  write_scan(d, cv, out.stats, out.bank_stats, gp, lane);
-  for (int i = lane; i < C; i += 32)
+  write_scan(d, cv, out.stats, out.bank_stats, gp, tid, SCAN_THREADS);
+  for (int i = tid; i < C; i += SCAN_THREADS)
     out.core_end[(size_t)gp * C + i] = cv.core_end[i];
   // dead tail steps: no events (time lanes zeroed for determinism)
   if (d.collect) {
-    for (int s = *cv.s_end + lane; s < d.n_steps; s += 32) {
+    for (int s = *cv.s_end + tid; s < d.n_steps; s += SCAN_THREADS) {
       for (int lane_i = 0; lane_i < 8; ++lane_i)
         ev[lane_i * ev_plane + s] = (lane_i % 2 == 0) ? -1 : 0;
       ev_ref8[s] = 0;
@@ -731,14 +1032,22 @@ __device__ __forceinline__ void run_point(const Dims& d, const Layout& lay,
 }
 
 // __maxnreg__: left to itself ptxas stops at 128 registers and spills in
-// the shared Dram::service; 200 lets it keep the scan's state in
-// registers (135 used, no spills)
+// the shared Dram::service; 200 lets it keep the scan's state and the
+// point's dividers in registers (ptxas for sm_90a: 193 registers here,
+// 189 in the synthesis entry, no spill; chip_smoke prints its report).
+// 255 was no faster.
 __global__ void __maxnreg__(200)
 sim_step_kernel(Dims d, Layout lay, const int* __restrict__ params,
                 const float* __restrict__ seg_leak, Trace tr, Out out) {
-  extern __shared__ int sm[];
-  run_point(d, lay, params, seg_leak, tr, d.warmup, out, sm,
-            [](const int*) {});
+  extern __shared__ int4 sm4[];
+  // the thesis's 2-way HCRAC compiled for its way count, so a set's two
+  // ways are loaded and checked together
+  auto none = [](const int*) {};
+  int* sm = reinterpret_cast<int*>(sm4);
+  if (d.W == 2)
+    run_point<2>(d, lay, params, seg_leak, tr, d.warmup, out, sm, none);
+  else
+    run_point<0>(d, lay, params, seg_leak, tr, d.warmup, out, sm, none);
 }
 
 // ---------------------------------------------------------------------------
@@ -825,7 +1134,7 @@ struct Stream {
 
 // One core's stream (generator._gen_core) into the point's scratch, then
 // its queue-hit lookahead over the folded stream (a reverse pass with
-// one [NB] last-row file, as simulator._next_same_folded).  Runs on lane
+// one [NB] last-row file, as simulator._next_same_folded).  Runs on thread
 // ``c``; ``wi``/``wf`` are the point's workload rows in shared memory.
 __device__ void gen_core(const Dims& d, const SynthLayout& sl, int c,
                          const int* wi, const float* wf, int banks_total,
@@ -965,32 +1274,36 @@ sim_synth_kernel(Dims d, Layout lay, SynthLayout sl,
                  const float* __restrict__ seg_leak,
                  const int* __restrict__ wparams_i,
                  const float* __restrict__ wparams_f, Stream st, Out out) {
-  extern __shared__ int sm[];
+  extern __shared__ int4 sm4[];
+  int* sm = reinterpret_cast<int*>(sm4);
   const int gp = blockIdx.x;
-  const int lane = threadIdx.x;
-  int* wi = sm + scan_words(d);
+  const int tid = threadIdx.x;
+  int* wi = sm + stage_words(d) + scan_words(d);
   float* wf = reinterpret_cast<float*>(wi + d.PI);
   int* rings = reinterpret_cast<int*>(wf + d.PF);
   int* last_rows = rings + 2 * RING * d.C;
-  for (int i = lane; i < d.PI; i += 32)
+  for (int i = tid; i < d.PI; i += SCAN_THREADS)
     wi[i] = wparams_i[(size_t)gp * d.PI + i];
-  for (int i = lane; i < d.PF; i += 32)
+  for (int i = tid; i < d.PF; i += SCAN_THREADS)
     wf[i] = wparams_f[(size_t)gp * d.PF + i];
-  __syncwarp();
+  __syncthreads();
 
   const size_t pt = (size_t)gp * d.C * d.L;
   Trace tr{st.gap + pt, st.bank + pt, st.row + pt, st.is_write + pt,
            st.dep + pt, wi + sl.ioff[W_LENGTH], st.next_same + pt};
   auto pre = [&](const int* prm) {
-    const int c = lane;
+    const int c = tid;
     if (c < d.C)
       gen_core(d, sl, c, wi, wf, prm[lay.off[F_BANKS_TOTAL]],
                prm[lay.off[F_BANKS_PER_CH]], prm[lay.off[F_N_ROWS]],
                rings + 2 * RING * c, rings + 2 * RING * c + RING,
                last_rows + d.NB * c, st);
   };
-  run_point(d, lay, params, seg_leak, tr, wi[sl.ioff[W_WARMUP]], out, sm,
-            pre);
+  const int warmup = wi[sl.ioff[W_WARMUP]];
+  if (d.W == 2)
+    run_point<2>(d, lay, params, seg_leak, tr, warmup, out, sm, pre);
+  else
+    run_point<0>(d, lay, params, seg_leak, tr, warmup, out, sm, pre);
 }
 
 // ---------------------------------------------------------------------------
@@ -1001,10 +1314,11 @@ sim_synth_kernel(Dims d, Layout lay, SynthLayout sl,
 // table, the decode slots and the admission queue in shared memory, then
 // lane 0 runs the scheduler steps.  Each page access is one hot-table
 // insert and one Dram::service, the code the trace and synthesis entries
-// run; a masked access of the plain engine changes no state, so only the
-// enabled ones run here.  Like the scan, it is bound by lane 0's serial
-// chain (~1 service a page access plus the O(slots x queue) admission
-// loop), not by bytes.
+// run, with the same dividers (the hot table's set count and caching
+// duration too); a masked access of the plain engine changes no state, so
+// only the enabled ones run here.  Like the scan, it is bound by lane 0's
+// serial chain, not by bytes: ~1 service a page access plus the
+// O(slots x queue) admission loop, which still runs on lane 0 alone.
 // ---------------------------------------------------------------------------
 
 // Fields of the packed per-point serving row (int32 [G, PS]; rate and
@@ -1110,11 +1424,11 @@ sim_serve_kernel(Dims d, Layout lay, ServeDims sd,
   const int lane = threadIdx.x;
   const int SB = sd.SB, Q = sd.Q, HT = sd.HHS * sd.HW;
   const Carve cv = carve(d, sm);
-  init_scan(d, cv, params, seg_leak, gp, lane);
+  init_scan(d, cv, params, seg_leak, gp, lane, 32);
   int* sv = sm + scan_words(d);
   int* htags = sv + sd.PS;
-  int* hitime = htags + HT;
-  int* hlru = hitime + HT;
+  int* hstamps = htags + HT;
+  int* hlru = hstamps + HT;
   int* slot_rid = hlru + HT;
   int* slot_done = slot_rid + SB;
   int* slot_max = slot_done + SB;
@@ -1130,7 +1444,7 @@ sim_serve_kernel(Dims d, Layout lay, ServeDims sd,
     sv[i] = sparams[(size_t)gp * sd.PS + i];
   for (int i = lane; i < HT; i += 32) {
     htags[i] = NO_TAG;
-    hitime[i] = 0;
+    hstamps[i] = 0;
     hlru[i] = -1;
   }
   for (int i = lane; i < SB; i += 32) {
@@ -1144,9 +1458,10 @@ sim_serve_kernel(Dims d, Layout lay, ServeDims sd,
   __syncwarp();
 
   if (lane == 0) {
-    Dram dr(d, lay, cv);
-    Hcrac hot{htags, hitime, hlru, sd.HW, sv[V_HOT_SETS], sv[V_HOT_CACHING],
-              sv[V_HOT_PERIOD], sd.hexact != 0};
+    Dram<0> dr(d, lay, cv);
+    Hcrac<0> hot{htags, hstamps, hlru, sd.HW, sv[V_HOT_PERIOD],
+              FloorDiv::make(sv[V_HOT_SETS]), FloorDiv::make(sv[V_HOT_CACHING]),
+              sd.hexact != 0};
     const float rate = __int_as_float(sv[V_RATE]);
     const float burst = __int_as_float(sv[V_BURST]);
     const unsigned seed = (unsigned)sv[V_SEED];
@@ -1159,7 +1474,7 @@ sim_serve_kernel(Dims d, Layout lay, ServeDims sd,
     // predicted charge, fifo by arrival order alone
     const bool use_charge = sv[V_CA_EN] != 0 || pre_en;
     const int q_thresh = sv[V_PRE_THRESH];
-    const float cfl = fmax_nan(__int2float_rn(hot.caching), 1.0f);
+    const float cfl = fmax_nan(__int2float_rn(hot.caching.d), 1.0f);
     const size_t plane = (size_t)d.G * sd.n_steps;
     int* steps_out = out.steps + (size_t)gp * sd.n_steps;
 
@@ -1180,8 +1495,9 @@ sim_serve_kernel(Dims d, Layout lay, ServeDims sd,
             (int)(hash_w3(r, kk, lane_const(P_BANK)) % (unsigned)dr.banks_total);
         const int row =
             (int)(hash_w3(r, kk, lane_const(P_ROW)) % (unsigned)dr.n_rows);
-        dr.service(wadd(t, wmul(4, cnt)), bank, row, is_write, false, measure,
-                   acc, ev);
+        dr.service(wadd(t, wmul(4, cnt)), bank, dr.bpc.div(bank), row,
+                   dr.hc.sets.mod(wadd(wmul(bank, dr.n_rows), row)),
+                   is_write, false, measure, acc, ev);
         ++cnt;
       };
 
@@ -1325,7 +1641,19 @@ sim_serve_kernel(Dims d, Layout lay, ServeDims sd,
     out.now[gp] = now;
   }
   __syncwarp();
-  write_scan(d, cv, out.stats, out.bank_stats, gp, lane);
+  write_scan(d, cv, out.stats, out.bank_stats, gp, lane, 32);
+}
+
+// The dividers themselves: q[i], r[i] = floor(a[i] / d), a[i] - d q[i]
+// (chip_smoke and the tests hold them against PyTorch's floor division).
+__global__ void floor_div_kernel(const int* __restrict__ a, int n, int d,
+                                 int* __restrict__ q, int* __restrict__ r) {
+  const FloorDiv f = FloorDiv::make(d);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    q[i] = f.div(a[i]);
+    r[i] = f.mod(a[i]);
+  }
 }
 
 }  // namespace
@@ -1357,6 +1685,7 @@ int sim_step_launch(const int* dims, const int* layout, const int* params,
                     void* stream) {
   Dims d;
   memcpy(&d, dims, sizeof(Dims));
+  if (!record_fits(d)) return (int)cudaErrorInvalidValue;
   Layout lay;
   memcpy(lay.off, layout, sizeof(lay.off));
   const int smem = 4 * smem_words(d);
@@ -1365,8 +1694,8 @@ int sim_step_launch(const int* dims, const int* layout, const int* params,
   if (err != cudaSuccess) return (int)err;
   Trace tr{gap, bank, row, is_write, dep, length, next_same};
   Out out{stats, bank_stats, core_end, events, act_ref8};
-  sim_step_kernel<<<d.G, 32, smem, (cudaStream_t)stream>>>(d, lay, params,
-                                                           seg_leak, tr, out);
+  sim_step_kernel<<<d.G, SCAN_THREADS, smem, (cudaStream_t)stream>>>(
+      d, lay, params, seg_leak, tr, out);
   return (int)cudaGetLastError();
 }
 
@@ -1383,7 +1712,8 @@ int sim_synth_launch(const int* dims, const int* layout,
                      int* events, uint8_t* act_ref8, void* stream) {
   Dims d;
   memcpy(&d, dims, sizeof(Dims));
-  if (d.C > 32 || d.SW < 1) return (int)cudaErrorInvalidValue;
+  if (d.C > 32 || d.SW < 1 || !record_fits(d))
+    return (int)cudaErrorInvalidValue;
   Layout lay;
   memcpy(lay.off, layout, sizeof(lay.off));
   SynthLayout sl;
@@ -1395,8 +1725,19 @@ int sim_synth_launch(const int* dims, const int* layout,
   if (err != cudaSuccess) return (int)err;
   Stream st{gap, bank, row, is_write, dep, next_same};
   Out out{stats, bank_stats, core_end, events, act_ref8};
-  sim_synth_kernel<<<d.G, 32, smem, (cudaStream_t)stream>>>(
+  sim_synth_kernel<<<d.G, SCAN_THREADS, smem, (cudaStream_t)stream>>>(
       d, lay, sl, params, seg_leak, wparams_i, wparams_f, st, out);
+  return (int)cudaGetLastError();
+}
+
+// Divide ``n`` int32 values by the positive divisor ``d`` on ``stream``
+// (floor_div_kernel); returns the launch's CUDA error code.
+int sim_step_floor_div(const int* a, int n, int d, int* q, int* r,
+                       void* stream) {
+  if (d < 1 || n < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  const int blocks = n / 256 + 1 < 2048 ? n / 256 + 1 : 2048;
+  floor_div_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(a, n, d, q, r);
   return (int)cudaGetLastError();
 }
 

@@ -7,12 +7,24 @@ row per point (plus the float32 ``[G, S]`` thermal leak scales), builds
 the kernel on first use (``repro_torch._build``), and launches it
 through ``ctypes`` on PyTorch's current stream.
 
-The kernel has two entries.  ``sim_step`` scans one trace shared by
+The kernel has two scan entries.  ``sim_step`` scans one trace shared by
 every point.  ``sim_synth`` (replacing the same launcher reached from
 ``repro/kernels/sim_step/ops.py::_synth_pallas``) first generates each
 point's streams in the block, into a ``[G, C, L]`` scratch this module
 allocates (and returns on request), then scans them; its workload and
 interleave params travel as one int32 and one float32 row per point.
+
+What bounds both is one serial chain a point: each request's arrival
+waits on the previous one's completion, and its service reads the bank,
+bus and HCRAC state the previous one wrote.  The kernel keeps that chain
+in shared memory and registers: a block is two warps, one staging each
+core's next requests into shared memory (already folded into the point's
+geometry) while the other scans, a lane per core choosing the earliest
+issue with a warp reduction; and every floor division by a constant of
+the point is a multiply and a shift (``kernels/include/floor_div.cuh``,
+built once a point).  So ``pack`` refuses a divisor that is not positive
+(``DIVISOR_FIELDS``), naming the field, and ``floor_div`` runs the
+kernel's divider itself.
 
 The serving entry ``sim_serve`` (no Pallas counterpart: ``repro``'s
 serving loop, ``serving/loop/engine.py::_run_serving_impl``, is an XLA
@@ -56,6 +68,15 @@ FIELDS = (
     "al_enable", "al_drift", "al_rcd", "al_ras", "al_seg_rcd", "al_seg_ras",
     "th_enable", "th_seg_edge",
 )
+
+#: packed fields the kernel divides by (``FloorDiv``): each must be
+#: positive at every point
+DIVISOR_FIELDS = ("tREFI", "n_refresh_groups", "retention_cycles",
+                  "banks_total", "banks_per_channel", "n_rows", "hc_n_sets",
+                  "hc_caching_cycles")
+
+#: serving fields the kernel divides by (the hot-page table's)
+SERVE_DIVISOR_FIELDS = ("hot_n_sets", "hot_caching_cycles")
 
 #: the launch sizes, in the kernel's ``Dims`` order
 DIMS = ("G", "C", "L", "NB", "NCH", "HS", "W", "M", "NBINS", "S", "P",
@@ -104,18 +125,19 @@ _P = ctypes.c_void_p
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """Build (first use) and load the kernel library; check its ABI."""
-    lib = bind_trace_entry(_build.load("sim_step",
-                                       Path(__file__).parent / "csrc"))
+    lib = bind_scan_entries(_build.load("sim_step",
+                                        Path(__file__).parent / "csrc"))
     lib.sim_step_abi.restype = ctypes.c_char_p
     lib.sim_step_abi.argtypes = []
-    lib.sim_synth_launch.restype = ctypes.c_int
-    lib.sim_synth_launch.argtypes = [_P] * 19
     lib.sim_serve_abi.restype = ctypes.c_char_p
     lib.sim_serve_abi.argtypes = []
     lib.sim_serve_smem_bytes.restype = ctypes.c_int
     lib.sim_serve_smem_bytes.argtypes = [_P, _P]
     lib.sim_serve_launch.restype = ctypes.c_int
     lib.sim_serve_launch.argtypes = [_P] * 13
+    lib.sim_step_floor_div.restype = ctypes.c_int
+    lib.sim_step_floor_div.argtypes = [_P, ctypes.c_int, ctypes.c_int, _P,
+                                       _P, _P]
     for got, want in ((lib.sim_step_abi().decode(), abi_string()),
                       (lib.sim_serve_abi().decode(), serve_abi_string())):
         if got != want:
@@ -124,16 +146,19 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def bind_trace_entry(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C signatures of the trace entry (``sim_step_launch``
-    and its helpers, unchanged since the entry was written, so a library
-    built from any version of the source binds); returns ``lib``."""
+def bind_scan_entries(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of the trace and synthesis entries
+    (``sim_step_launch``, ``sim_synth_launch`` and their helpers,
+    unchanged since the entries were written, so a library built from
+    any version of the source since then binds); returns ``lib``."""
     lib.sim_step_smem_bytes.restype = ctypes.c_int
     lib.sim_step_smem_bytes.argtypes = [_P]
     lib.sim_step_error_string.restype = ctypes.c_char_p
     lib.sim_step_error_string.argtypes = [ctypes.c_int]
     lib.sim_step_launch.restype = ctypes.c_int
     lib.sim_step_launch.argtypes = [_P] * 17
+    lib.sim_synth_launch.restype = ctypes.c_int
+    lib.sim_synth_launch.argtypes = [_P] * 19
     return lib
 
 
@@ -160,9 +185,21 @@ def _concat(cols: list) -> tuple[torch.Tensor, list[int]]:
     return torch.cat(cols, dim=1).contiguous(), offsets
 
 
+def _check_divisors(values: dict, fields, what: str) -> None:
+    """Refuse a divisor of the kernel that is not positive at some point
+    (the kernel builds a ``FloorDiv`` from each), naming the field."""
+    lows = torch.stack([values[f].reshape(-1).amin().to(torch.int64)
+                        for f in fields]).tolist()
+    for f, low in zip(fields, lows):
+        if low <= 0:
+            raise ValueError(f"{what}: {f} must be positive at every point "
+                             f"(the kernel divides by it), got {low}")
+
+
 def pack(stacked, ns_idx) -> tuple[torch.Tensor, torch.Tensor, list[int]]:
     """The grid's params as ``(int32 [G, P], float32 [G, S], offsets)``;
-    ``offsets[i]`` is where ``FIELDS[i]`` starts in a row."""
+    ``offsets[i]`` is where ``FIELDS[i]`` starts in a row.  Raises if a
+    divisor (``DIVISOR_FIELDS``) is not positive."""
     T, geo, h, mech, th = (stacked.timing, stacked.geom, stacked.hcrac,
                            stacked.mech, stacked.thermal)
     G = ns_idx.shape[0]
@@ -194,6 +231,7 @@ def pack(stacked, ns_idx) -> tuple[torch.Tensor, torch.Tensor, list[int]]:
         "al_seg_rcd": al["seg_rcd"], "al_seg_ras": al["seg_ras"],
         "th_enable": th.enable, "th_seg_edge": th.seg_edge,
     }
+    _check_divisors(values, DIVISOR_FIELDS, "sim_step")
     params, offsets = _concat([values[f].reshape(G, -1).to(torch.int32)
                                for f in FIELDS])
     leak = th.seg_leak.reshape(G, -1).to(torch.float32).contiguous()
@@ -210,6 +248,9 @@ def _dims(lib, shape, stacked, G, P, C, L, n_steps, warmup,
     NB = shape.envelope.max_banks_total
     if stacked.mech["aldram"]["rcd"].shape[-1] != NB:
         raise ValueError("aldram tables are not sized to the envelope")
+    if shape.mshr < 1:
+        raise ValueError(f"sim_step needs at least one MSHR, not "
+                         f"{shape.mshr}")
     dims = {"G": G, "C": C, "L": L, "NB": NB,
             "NCH": shape.envelope.max_channels,
             "HS": shape.hcrac.n_sets, "W": shape.hcrac.n_ways,
@@ -379,6 +420,7 @@ def pack_serve(params, warmups) -> torch.Tensor:
         "preempting_enable": pol["preempting"]["enable"],
         "preempting_q_thresh": pol["preempting"]["q_thresh"],
         "warmup": warmups}
+    _check_divisors(values, SERVE_DIVISOR_FIELDS, "sim_serve")
     return torch.stack([values[f].to(torch.int32) for f in SERVE_FIELDS],
                        dim=1).contiguous()
 
@@ -437,3 +479,25 @@ def sim_serve(shape, params, warmups, counts=None):
     serve_stats = {k: serve[:, i] for i, k in enumerate(SERVE_STAT_KEYS)}
     ys = tuple(steps) if shape.collect_steps else None
     return sim_stats, serve_stats, now, ys
+
+
+def floor_div(a: torch.Tensor, d: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(floor(a / d), a - d floor(a / d))`` of a contiguous int32 tensor
+    by a positive divisor: on a CUDA tensor through the kernel's divider
+    (``FloorDiv``, a launch of ``floor_div_kernel``), on a CPU tensor
+    through PyTorch's floor division (its plain version)."""
+    if not 1 <= d <= 2**31 - 1:
+        raise ValueError(f"the divider takes a positive int32 divisor, "
+                         f"not {d}")
+    if a.dtype != torch.int32 or not a.is_contiguous():
+        raise ValueError("floor_div takes a contiguous int32 tensor")
+    if a.device.type == "cpu":
+        return torch.div(a, d, rounding_mode="floor"), torch.remainder(a, d)
+    _build.require_cuda(a.device, "floor_div")
+    if a.numel() >= 2**31:
+        raise ValueError("floor_div takes fewer than 2**31 values")
+    q, r = torch.empty_like(a), torch.empty_like(a)
+    err = _build.launch(library().sim_step_floor_div, a.device, a.data_ptr(),
+                        a.numel(), d, q.data_ptr(), r.data_ptr())
+    _check(library(), err, "floor_div")
+    return q, r

@@ -1,22 +1,31 @@
-"""Times the ``sim_step`` kernel's trace entry built from several CUDA
+"""Times the ``sim_step`` kernel's two scan entries built from several CUDA
 sources in one run on the card, so two versions of the kernel (say, a
 parent commit's ``sim_step.cu`` and this tree's) are compared on the
 same card, in turns.
 
 For each ``NAME=PATH`` argument it builds ``PATH`` through the port's own
-``repro_torch._build.build`` (same flags, content-keyed under
-``build/kernels/``), prints what ptxas reports (registers, spills) for
-each entry, then runs the full-size trace sweeps of ``chip_smoke.py``
-phase 3 — the 38-point eight-core grid over 280 400 steps and the
-8-point single-core sweep over 150 000 — with every library in turn, forward then backward, each a
-CUDA-event median of 3 after a warm-up.  Every library's stats must equal
-the first's.  Only the trace entry's C interface (``sim_step_launch``,
-bound by ``kernel.bind_trace_entry``) is used, so any version of the
-source builds and runs.
+``repro_torch._build.build`` (same flags and include path, content-keyed
+under ``build/kernels/``), prints what ptxas reports (registers, spills)
+for each entry and a census of its SASS (``cuobjdump -sass``:
+instructions, integer-division sequences — one ``MUFU.RCP`` each —,
+global and shared-memory loads, warp reductions), then runs the full-size sweeps of ``chip_smoke.py``
+phases 3 and 5 — the trace entry over the 38-point eight-core grid
+(280 400 steps) and the 8-point single-core sweep (150 000 steps), and
+the synthesis entry over the 32-point synth grid (320 000 steps) — with
+every library in turn, forward then backward, each a CUDA-event median
+of 3 after a warm-up.  Every library's stats must equal the first's.
+Only the scan entries' C interfaces (``sim_step_launch`` and
+``sim_synth_launch``, bound by ``kernel.bind_scan_entries``) are used,
+so any version of the source since the synthesis entry was written
+builds and runs.
 
-Run from the root of a checkout on a machine with the card:
+Run from the root of a checkout on a machine with the card (the older
+source in a directory the checkout's ``.gitignore`` lists, such as
+``build/``):
 
-    python tests/_torch_kernel_ab.py parent=old/sim_step.cu \\
+    git show HEAD~1:src/repro_torch/kernels/sim_step/csrc/sim_step.cu \\
+        > build/ab/sim_step_parent.cu
+    python tests/_torch_kernel_ab.py parent=build/ab/sim_step_parent.cu \\
         tree=src/repro_torch/kernels/sim_step/csrc/sim_step.cu
 """
 
@@ -24,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -36,10 +46,43 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch import _build  # noqa: E402
+from repro_torch import golden as golden_mod  # noqa: E402
 from repro_torch.core import mechanisms, simulator as sim  # noqa: E402
 from repro_torch.core import timing, traces  # noqa: E402
 from repro_torch.golden import load_batch  # noqa: E402
 from repro_torch.kernels.sim_step import kernel  # noqa: E402
+
+CELLS = ("eight_core", "single_core", "synth")
+
+
+#: SASS mnemonics the census counts, by what they stand for
+CENSUS = (("divisions", r"MUFU\.RCP"), ("global loads", r"LDG"),
+          ("shared loads", r"LDS"), ("warp reductions", r"REDUX"))
+
+
+def sass_census(lib: Path) -> dict:
+    """``{entry: {"instructions": n, <CENSUS name>: n, ...}}`` of the
+    ``sim_*_kernel`` entries of a built library."""
+    cuobjdump = shutil.which("cuobjdump") or str(
+        Path(_build.find_nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    out, entry = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*?(sim_[a-z]+_kernel)", line)
+        if m or "Function :" in line:
+            entry = m.group(1) if m else None
+            if entry:
+                out[entry] = dict.fromkeys(
+                    ["instructions", *(k for k, _ in CENSUS)], 0)
+            continue
+        op = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(\S.*?);", line)
+        if entry is None or op is None:
+            continue
+        out[entry]["instructions"] += 1
+        for k, pat in CENSUS:
+            out[entry][k] += bool(re.search(rf"\b{pat}", op.group(1)))
+    return out
 
 
 def build(name: str, src: Path) -> ctypes.CDLL:
@@ -50,7 +93,10 @@ def build(name: str, src: Path) -> ctypes.CDLL:
             print(f"  {name}: {entry.group(1)}")
         elif "registers" in line or "spill" in line:
             print(f"  {name}:   {line.strip()}")
-    return kernel.bind_trace_entry(ctypes.CDLL(str(lib)))
+    for entry, counts in sass_census(lib).items():
+        print(f"  {name}: {entry} SASS " + ", ".join(
+            f"{k} {v}" for k, v in counts.items()))
+    return kernel.bind_scan_entries(ctypes.CDLL(str(lib)))
 
 
 def main(argv) -> int:
@@ -68,27 +114,36 @@ def main(argv) -> int:
     args1 = cs.launch_inputs(sim, batch1, [
         sim.SimConfig(mech=sim.MechanismConfig(kind=k), policy="open")
         for k in mechanisms.names()])
-    times = {n: {"eight_core": [], "single_core": []} for n in libs}
-    first = None
+    args32 = sim._stage_synth(cs.synth_full_grid(sim, golden_mod, timing),
+                              None, torch.device("cuda"))
+    launch = {"eight_core": lambda: kernel.sim_step(*args8),
+              "single_core": lambda: kernel.sim_step(*args1),
+              "synth": lambda: kernel.sim_synth(*args32)}
+    steps = {"eight_core": args8[6], "single_core": args1[6],
+             "synth": args32[7]}
+    times = {n: {c: [] for c in CELLS} for n in libs}
+    first = {}
     for name in list(libs) + list(libs)[::-1]:
         kernel.library = lambda name=name: libs[name]
-        stats = kernel.sim_step(*args8)[0]
-        torch.cuda.synchronize()
-        stats = torch.stack([stats[k] for k in sim.STAT_KEYS])
-        first = stats if first is None else first
-        bad = int((stats != first).sum())
-        for cell, args in (("eight_core", args8), ("single_core", args1)):
-            times[name][cell].append(
-                cs.median_ms(lambda args=args: kernel.sim_step(*args)))
-        print(f"{name}: eight-core {times[name]['eight_core'][-1]:.2f} ms, "
-              f"single-core {times[name]['single_core'][-1]:.2f} ms, stats "
-              f"differing from the first library's: {bad}", flush=True)
+        bad = 0
+        for cell in CELLS:
+            stats = launch[cell]()[0]
+            torch.cuda.synchronize()
+            stats = torch.stack([stats[k] for k in sim.STAT_KEYS])
+            first.setdefault(cell, stats)
+            bad += int((stats != first[cell]).sum())
+            times[name][cell].append(cs.median_ms(launch[cell]))
+        print(f"{name}: " + ", ".join(
+            f"{c} {times[name][c][-1]:.2f} ms "
+            f"({times[name][c][-1] * 1e6 / steps[c]:.0f} ns/step)"
+            for c in CELLS)
+            + f"; stats differing from the first library's: {bad}",
+            flush=True)
         if bad:
             return 1
     for name, t in times.items():
-        print(f"{name}: median eight-core "
-              f"{statistics.median(t['eight_core']):.2f} ms, single-core "
-              f"{statistics.median(t['single_core']):.2f} ms")
+        print(f"{name}: median " + ", ".join(
+            f"{c} {statistics.median(t[c]):.2f} ms" for c in CELLS))
     return 0
 
 

@@ -6,8 +6,12 @@ Three groups:
   module and of ``chip_smoke.py``);
 * CPU-side checks of the dispatch: the package imports without CUDA or
   ``nvcc``, the entry points refuse to fall back to the CPU, a registry
-  the kernel does not carry is refused, and the Python and CUDA sides
-  agree on the packed-params layout;
+  the kernel does not carry is refused, the Python and CUDA sides agree
+  on the packed-params layout and on which fields the kernel divides by,
+  and a divisor that is not positive is refused;
+* the kernel's divider (``kernels/include/floor_div.cuh``): a Python
+  mirror of its multiplier and shift, and the header built as host C++
+  where ``g++`` exists, both held to Python's ``//`` and ``%``;
 * the CUDA kernel against its plain version, marked ``cuda``: these skip
   where no CUDA device exists and run on the card with
   ``python -m pytest -m cuda tests/test_torch_sim_step.py``.
@@ -15,6 +19,8 @@ Three groups:
 
 import ast
 import re
+import shutil
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -24,7 +30,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import mechanisms as registry  # noqa: E402
 from repro_torch.core import simulator as sim  # noqa: E402
-from repro_torch.core import traces  # noqa: E402
+from repro_torch.core import timing, traces  # noqa: E402
 from repro_torch.core.dram import DRAMConfig  # noqa: E402
 from repro_torch.kernels.sim_step import kernel, ops, ref  # noqa: E402
 
@@ -177,6 +183,182 @@ def test_abi_and_packed_layout_match_the_cuda_source():
     assert at["th_seg_edge"] + 2 == params.shape[1]
 
 
+def test_divisor_fields_are_the_ones_the_kernel_divides_by():
+    """Every packed field the kernel builds a ``FloorDiv`` from is in
+    ``DIVISOR_FIELDS`` (or ``SERVE_DIVISOR_FIELDS``), so ``pack`` refuses
+    each one that is not positive, and no other."""
+    src = (PORT / "kernels" / "sim_step" / "csrc" / "sim_step.cu").read_text()
+    enum = re.findall(r"\bF_\w+", src.split("enum Field {")[1]
+                      .split("};")[0])[:-1]
+    serve = re.findall(r"\bV_\w+", src.split("enum ServeField {")[1]
+                       .split("};")[0])[:-1]
+    made = set(re.findall(r"FloorDiv::make\((?:prm\[off\[|sv\[)(\w+)\]",
+                          src))
+    assert made == ({enum[kernel.FIELDS.index(f)]
+                     for f in kernel.DIVISOR_FIELDS}
+                    | {serve[kernel.SERVE_FIELDS.index(f)]
+                       for f in kernel.SERVE_DIVISOR_FIELDS})
+    # every other division in the scan's request loop is gone
+    scan = src.split("struct Hcrac {")[1].split("struct Stage {")[0]
+    assert not re.search(r"\bfloor(div|mod)\(", scan)
+
+
+#: where ``pack`` reads each divisor from a stacked grid
+_DIVISOR_SOURCES = {
+    "tREFI": ("timing", "tREFI"),
+    "n_refresh_groups": ("timing", "n_refresh_groups"),
+    "retention_cycles": ("timing", "retention_cycles"),
+    "banks_total": ("geom", "banks_total"),
+    "banks_per_channel": ("geom", "banks_per_channel"),
+    "n_rows": ("geom", "n_rows"),
+    "hc_n_sets": ("hcrac", "n_sets"),
+    "hc_caching_cycles": ("hcrac", "caching_cycles"),
+}
+
+
+@pytest.mark.parametrize("value", (0, -3))
+@pytest.mark.parametrize("field", kernel.DIVISOR_FIELDS)
+def test_pack_refuses_a_divisor_that_is_not_positive(field, value):
+    _, stacked, _, _, ns_idx, *_ = _inputs(
+        traces.single_core_batch("mcf_like", 64, seed=0), _grid()[:3])
+    kernel.pack(stacked, ns_idx)
+    group, name = _DIVISOR_SOURCES[field]
+    part = getattr(stacked, group)
+    bad = getattr(part, name).clone()
+    bad[1] = value
+    stacked = stacked._replace(**{group: part._replace(**{name: bad})})
+    with pytest.raises(ValueError, match=rf"{field} must be positive"):
+        kernel.pack(stacked, ns_idx)
+
+
+@pytest.mark.parametrize("field", ("n_sets", "caching_cycles"))
+def test_pack_serve_refuses_a_hot_divisor_that_is_not_positive(field):
+    from repro_torch.serving.loop import engine
+    from repro_torch.serving.loop.spec import ServingSpec
+    grid = [sim.SimConfig(serving=ServingSpec(n_reqs=16, n_steps=8))] * 2
+    _, params, warm = engine.stage_serving(grid, device=torch.device("cpu"))
+    kernel.pack_serve(params, warm)
+    bad = getattr(params.hot, field).clone()
+    bad[0] = 0
+    params = params._replace(hot=params.hot._replace(**{field: bad}))
+    with pytest.raises(ValueError, match=rf"hot_{field} must be positive"):
+        kernel.pack_serve(params, warm)
+
+
+@pytest.mark.parametrize("d", (0, -1, 2**31))
+def test_floor_div_refuses_a_divisor_out_of_range(d):
+    with pytest.raises(ValueError, match="positive int32 divisor"):
+        kernel.floor_div(torch.zeros(4, dtype=torch.int32), d)
+
+
+# ------------------------------------------------------ the divider
+
+I32_MIN, I32_MAX = -2**31, 2**31 - 1
+
+
+def _phase_divisors():
+    """tREFI, retention and the HCRAC caching durations of chip_smoke's
+    full-size points (phases 3-5): the default timing, 0.5-16 ms."""
+    t = timing.TimingParams()
+    return ([t.tREFI, t.retention_cycles]
+            + [timing.ms_to_cycles(ms) for ms in (0.5, 1.0, 2.0, 4.0, 16.0)])
+
+
+DIVISORS = (1, 2, 3, 7, 8, 2**30, 2**31 - 1, *_phase_divisors())
+
+
+def _magic(d):
+    """The divider's multiplier and shift (``FloorDiv::make``)."""
+    ceil_log2 = (d - 1).bit_length()
+    s = 31 + ceil_log2
+    return -(-(1 << s) // d), s
+
+
+def _mirror(a: np.ndarray, d: int) -> tuple[np.ndarray, np.ndarray]:
+    """``FloorDiv::div`` / ``mod`` over an int32 array, step by step:
+    fold the sign (u = a ^ (a >> 31) < 2**31), multiply-shift, unfold,
+    remainder in wrapping uint32."""
+    m, s = _magic(d)
+    sgn = (a.astype(np.int64) >> 31).astype(np.uint32)  # 0 or 0xffffffff
+    u = a.astype(np.uint32) ^ sgn
+    q = ((u.astype(np.uint64) * np.uint64(m)) >> np.uint64(s)).astype(
+        np.uint32) ^ sgn
+    r = a.astype(np.uint32) - q * np.uint32(d)
+    return q.view(np.int32), r.view(np.int32)
+
+
+def _dividends(d: int, n_random: int = 1 << 16) -> np.ndarray:
+    """Edge dividends (the int32 extremes, -1, 0, 1, multiples of ``d``
+    near 0 and near both extremes, each +- 1) and a seeded sample."""
+    near = [k * d + e for k in range(-3, 4) for e in (-1, 0, 1)]
+    ext = [(I32_MIN // d + k) * d + e for k in range(0, 3) for e in (-1, 0, 1)]
+    ext += [(I32_MAX // d - k) * d + e for k in range(0, 3) for e in (-1, 0, 1)]
+    edges = [I32_MIN, I32_MIN + 1, -1, 0, 1, I32_MAX - 1, I32_MAX]
+    vals = [v for v in edges + near + ext if I32_MIN <= v <= I32_MAX]
+    rng = np.random.default_rng(d % (2**32))
+    sample = rng.integers(I32_MIN, I32_MAX, n_random, dtype=np.int64,
+                          endpoint=True)
+    return np.concatenate([np.array(vals, np.int64), sample]).astype(np.int32)
+
+
+@pytest.mark.parametrize("d", DIVISORS)
+def test_divider_mirror_equals_floor_division(d):
+    m, s = _magic(d)
+    # Granlund-Montgomery's condition for 31-bit operands, and m fits
+    ceil_log2 = s - 31
+    assert 2**s <= m * d <= 2**s + 2**ceil_log2 and m < 2**32
+    a = _dividends(d)
+    q, r = _mirror(a, d)
+    a64 = a.astype(np.int64)
+    np.testing.assert_array_equal(q, a64 // d)
+    np.testing.assert_array_equal(r, a64 % d)
+    # the CPU path of the wrapper is PyTorch's floor division
+    tq, tr = kernel.floor_div(torch.from_numpy(a), d)
+    np.testing.assert_array_equal(tq.numpy(), a64 // d)
+    np.testing.assert_array_equal(tr.numpy(), a64 % d)
+
+
+_HOST_MAIN = r"""
+#include <cstdio>
+#include "floor_div.cuh"
+int main() {
+  int d, n;
+  while (std::scanf("%d %d", &d, &n) == 2) {
+    const FloorDiv f = FloorDiv::make(d);
+    for (int i = 0; i < n; ++i) {
+      int a;
+      if (std::scanf("%d", &a) != 1) return 1;
+      std::printf("%d %d\n", f.div(a), f.mod(a));
+    }
+  }
+  return 0;
+}
+"""
+
+
+def test_divider_header_built_as_host_cpp(tmp_path):
+    """``floor_div.cuh`` compiled by the host compiler (it is plain C++
+    outside nvcc) divides every divisor's dividends as ``//`` and ``%``."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ on PATH to build floor_div.cuh as host C++")
+    (tmp_path / "main.cc").write_text(_HOST_MAIN)
+    exe = tmp_path / "floor_div_host"
+    subprocess.run([gxx, "-std=c++17", "-O2", "-Wall", "-Werror",
+                    f"-I{PORT / 'kernels' / 'include'}", "-o", str(exe),
+                    str(tmp_path / "main.cc")], check=True, timeout=120)
+    cases = {d: _dividends(d, 1 << 12) for d in DIVISORS}
+    feed = "".join(f"{d} {a.size}\n" + " ".join(map(str, a.tolist())) + "\n"
+                   for d, a in cases.items())
+    out = subprocess.run([str(exe)], input=feed, capture_output=True,
+                         text=True, check=True, timeout=120).stdout.split()
+    got = np.array(out, dtype=np.int64).reshape(-1, 2)
+    want = np.concatenate([np.stack([a.astype(np.int64) // d,
+                                     a.astype(np.int64) % d], axis=1)
+                           for d, a in cases.items()])
+    np.testing.assert_array_equal(got, want)
+
+
 # ------------------------------------------------------------- on the card
 
 @pytest.fixture
@@ -229,3 +411,71 @@ def test_cuda_sweep_matches_cpu_sweep(cuda):
             assert a[k] == b[k], k
         np.testing.assert_array_equal(a["rltl_hist"], b["rltl_hist"])
         np.testing.assert_array_equal(a["bank_acts"], b["bank_acts"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", DIVISORS)
+def test_device_divider_matches_torch_floor_division(cuda, d):
+    a = torch.from_numpy(_dividends(d, 1 << 20)).to(cuda)
+    q, r = kernel.floor_div(a, d)
+    assert torch.equal(q, torch.div(a, d, rounding_mode="floor"))
+    assert torch.equal(r, torch.remainder(a, d))
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_at_a_padded_length(cuda):
+    """Cores of different lengths in an L that is no multiple of the
+    staging tile, so tiles end past a stream and past L."""
+    batch = traces.pad_batch_to(
+        traces.multicore_batch(["mcf_like", "lbm_like", "hmmer_like"], 333,
+                               seed=8), 1_061)
+    _assert_kernel_matches_plain(_inputs(batch, _grid(), cuda))
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_past_32_cores(cuda):
+    """More cores than lanes: lane k owns cores k, k + 32, ..."""
+    names = ["mcf_like", "lbm_like", "milc_like", "gcc_like"] * 10 + [
+        "hmmer_like"] * 3
+    batch = traces.multicore_batch(names, 90, seed=4)
+    _assert_kernel_matches_plain(_inputs(batch, _grid()[:8], cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_ways", (1, 4))
+def test_kernel_matches_plain_other_way_counts(cuda, n_ways):
+    """An HCRAC of other than the 2 ways the kernel compiles for."""
+    from repro_torch.core.hcrac import HCRACConfig
+    grid = [sim.SimConfig(mech=sim.MechanismConfig(
+                kind=k, hcrac=HCRACConfig(n_entries=64, n_ways=n_ways)),
+                policy=pol)
+            for k in ("chargecache", "cc_nuat") for pol in ("open", "closed")]
+    batch = traces.multicore_batch(["mcf_like", "lbm_like", "milc_like"], 500,
+                                   seed=7)
+    _assert_kernel_matches_plain(_inputs(batch, grid, cuda))
+
+
+@pytest.mark.cuda
+def test_synth_entry_matches_plain_at_a_padded_length(cuda):
+    """The synthesis entry with points of different request counts, so
+    the shared max_len pads most of them."""
+    from repro_torch.core.dram import InterleaveConfig
+    from repro_torch.kernels.sim_step import ref as sref
+    names = ("mcf_like", "lbm_like", "milc_like")
+    grid = [sim.SimConfig(mech=sim.MechanismConfig(kind=k), policy=pol,
+                          interleave=InterleaveConfig(il),
+                          workload=traces.WorkloadSpec(names=names, n_req=n,
+                                                       seed=5))
+            for k in ("base", "chargecache", "cc_nuat")
+            for pol in ("open", "closed") for il in ("bank", "xor")
+            for n in (250, 517)]
+    args = sim._stage_synth(grid, None, cuda)
+    got = ops.run_synth(*args, True, True)
+    want = sref.run_synth_ref(*args, True, True)
+    for k in ("gap", "bank", "row", "is_write", "dep", "next_same"):
+        assert torch.equal(got[3][k], want[3][k]), k
+    for k in want[0]:
+        assert torch.equal(got[0][k], want[0][k]), k
+    assert torch.equal(got[1], want[1])
+    for f in ("act_gid", "pre1_gid", "pre2_gid", "pre3_gid", "act_ref8"):
+        assert torch.equal(getattr(got[2], f), getattr(want[2], f)), f
