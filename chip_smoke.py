@@ -71,9 +71,11 @@ package.  Phases:
 7. the serving entry against the plain serving engine (both on the
    card) on the 24 points of ``repro_torch.golden.SERVING`` cut to
    ``SERVE_CUT_STEPS`` steps, then on the scale streams' geometry (32
-   slots, a 128-entry queue) under every policy and mechanism cut to
-   ``SCALE_CUT_STEPS``: arrivals drawn in the kernel, pinned, and a
-   ``reduce_keys`` launch; every output equal, per-step arrays included;
+   slots, a 128-entry queue) and on 48 slots with a 200-entry queue and
+   48 arrivals a step (past one warp of lanes) under every policy and
+   mechanism cut to ``SCALE_CUT_STEPS``: arrivals drawn in the kernel,
+   pinned, and a ``reduce_keys`` launch; every output equal, per-step
+   arrays included;
 8. the serving path at full size: (a) host parity — the host scheduler
    (``run_host``, its probes through the probe kernel) and
    ``simulate_serving`` (the serving entry) on a pinned 320-step
@@ -85,7 +87,11 @@ package.  Phases:
    them may differ and every request must retire; (c) the 10**4- and
    10**5-request scale points, timed, every request retired, 10**4 held
    to the golden file as in (b), with the golden counts pinned and with
-   counts drawn on the card;
+   counts drawn on the card; the serving entry's times beside its
+   dependent-chain bound (``serve_chain_bound``: the DRAM service, the
+   hot table's inserts and the scheduler's steps, each at the SM clock
+   read during the run; every page access counted by a launch without
+   warm-up), its registers and spills;
 9. the flash-attention kernel against its plain version (both on the
    card): the count of tensor-core ``HMMA`` instructions in each bf16
    entry of the built library (``cuobjdump -sass``; none fails), then
@@ -135,6 +141,7 @@ non-zero at once when no CUDA device is available.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -157,6 +164,18 @@ CHAIN = (("integer add / logic / compare-select", 31, 4),
          ("integer multiply-add", 4, 4),
          ("shared-memory load", 1, 30))
 CHAIN_CYCLES = sum(n * lat for _, n, lat in CHAIN)
+#: the serving entry's three chains (PERF.md section 6, the serving
+#: entry's bound), SM cycles: one access's DRAM service (``CHAIN`` less
+#: its core pick: 25 ALU, 4 IMAD, 1 shared-memory load), one exact 2-way
+#: hot-table insert (13 ALU, 2 IMAD, 1 load), and the scheduler's step at
+#: the scale geometry (its warp collectives at ~30 cycles each, as a
+#: shared-memory load): every step, each admission, each chunk of <= 32
+#: records
+SERVE_DRAM_CYCLES = 25 * 4 + 4 * 4 + 30
+SERVE_HOT_CYCLES = 13 * 4 + 2 * 4 + 30
+SERVE_STEP_CYCLES = 770
+SERVE_ADMIT_CYCLES = 474
+SERVE_CHUNK_CYCLES = 650
 #: dividends a divisor of the device-divider check (plus the edges)
 DIVIDER_SAMPLE = 1 << 24
 #: full-size workloads (benchmarks/common.py sizes, thesis Table 5.1)
@@ -175,6 +194,8 @@ SERVE_CUT_STEPS = 60
 #: cut depth of the same comparison at the scale streams' geometry (the
 #: queue fills and drops within 20 steps of pinned counts)
 SCALE_CUT_STEPS = 40
+#: the serving geometry past one warp of lanes that phase 7 also holds
+WIDE_BATCH, WIDE_QUEUE = 48, 200
 #: the largest share of a serving point's drawn arrival counts that may
 #: differ from ``repro``'s (its own mirror rule: float32 ``log1p`` / ``log``
 #: an ulp apart)
@@ -247,6 +268,23 @@ def chain_bound_ms(n_steps: int, mhz: float) -> float:
     """The scan's dependent-chain bound: ``n_steps`` requests of
     ``CHAIN_CYCLES`` each at ``mhz``."""
     return n_steps * CHAIN_CYCLES / (mhz * 1e3)
+
+
+def serve_chain_bound(n_acc: int, n_steps: int, admitted: int,
+                      probes: int, mhz: float) -> tuple[float, str]:
+    """The serving entry's dependent-chain bound of a point, ms, and the
+    chain that sets it: ``n_acc`` page accesses through the DRAM service
+    and the hot table's inserts, ``n_steps`` scheduler steps with
+    ``admitted`` admissions and at least (n_acc + probes) / 32 chunks of
+    records."""
+    chunks = -(-(n_acc + probes) // 32)
+    chains = {"dram": n_acc * SERVE_DRAM_CYCLES,
+              "hot": n_acc * SERVE_HOT_CYCLES,
+              "scheduler": (n_steps * SERVE_STEP_CYCLES
+                            + admitted * SERVE_ADMIT_CYCLES
+                            + chunks * SERVE_CHUNK_CYCLES)}
+    name = max(chains, key=chains.get)
+    return chains[name] / (mhz * 1e3), name
 
 
 def ptxas_report(log: str) -> dict:
@@ -743,17 +781,24 @@ def serving_grid(sim, golden_mod, timing, n_steps=0):
             for p in golden_mod.serving_points()]
 
 
-def scale_grid(sim, golden_mod, timing, n_steps):
+def scale_grid(sim, golden_mod, timing, n_steps, max_batch=None,
+               queue_cap=None):
     """The scale streams' geometry (``SERVING["scale"]``: 32 slots, a
-    128-entry queue, up to 32 arrivals a step) under every policy and
-    mechanism of the grid, cut to ``n_steps`` scheduler steps."""
+    128-entry queue, up to 32 arrivals a step; or ``max_batch`` slots and
+    arrivals a step and a ``queue_cap``-entry queue) under every policy
+    and mechanism of the grid, cut to ``n_steps`` scheduler steps."""
     S = golden_mod.SERVING
     sc = S["scale"]
-    return [serving_config(sim, golden_mod, timing,
-                           *golden_mod.serving_spec_kwargs(
-                               sc["n_reqs"], sc["rate"], sc["burstiness"],
-                               sc["max_batch"], pol), mech, n_steps)
-            for pol in S["policies"] for mech in S["mechanisms"]]
+    out = []
+    for pol in S["policies"]:
+        arr, spec = golden_mod.serving_spec_kwargs(
+            sc["n_reqs"], sc["rate"], sc["burstiness"],
+            max_batch or sc["max_batch"], pol)
+        if queue_cap:
+            spec["queue_cap"] = queue_cap
+        out += [serving_config(sim, golden_mod, timing, arr, spec, mech,
+                               n_steps) for mech in S["mechanisms"]]
+    return out
 
 
 def scale_config(sim, golden_mod, n_reqs):
@@ -877,10 +922,12 @@ def check_drawn(label, res: dict, gold: dict, n_reqs: int,
     return diff, 0
 
 
-def serving_phases(sim, timing, golden_mod, device="cuda") -> tuple:
+def serving_phases(sim, timing, golden_mod, regs: dict,
+                   device="cuda") -> tuple:
     """Phases 6-8 (the probe kernel, the serving entry, the serving path
     at full size) on ``device``; returns the kernel line's entries for
-    ``hcrac_lookup`` and ``sim_step_serve``."""
+    ``hcrac_lookup`` and ``sim_step_serve`` (``regs``: ptxas's report of
+    the sim_step library)."""
     import numpy as np
     import torch
     from repro_torch.core import hcrac as hcl
@@ -917,6 +964,13 @@ def serving_phases(sim, timing, golden_mod, device="cuda") -> tuple:
         sim, engine, ops, ref,
         scale_grid(sim, golden_mod, timing, n_steps=SCALE_CUT_STEPS), device)
     v_bad, v_err = v_bad + sc_bad, max(v_err, sc_err)
+    print("  48 slots, a 200-entry queue, 48 arrivals a step, every policy "
+          "x mechanism:", flush=True)
+    wide_bad, wide_err, *_ = phase_serve_vs_plain(
+        sim, engine, ops, ref,
+        scale_grid(sim, golden_mod, timing, n_steps=SCALE_CUT_STEPS,
+                   max_batch=WIDE_BATCH, queue_cap=WIDE_QUEUE), device)
+    v_bad, v_err = v_bad + wide_bad, max(v_err, wide_err)
 
     # --- phase 8: the serving path at full size ---------------------------
     print("\nphase 8: serving path at full size", flush=True)
@@ -1011,20 +1065,38 @@ def serving_phases(sim, timing, golden_mod, device="cuda") -> tuple:
     check(serve_launches > 0 and probe_launches > 0,
           f"serving path launches: sim_serve {serve_launches}, probe "
           f"{probe_launches}")
-    # kernel times at the main path's shapes
-    sh24, pa24, wa24 = engine.stage_serving(grid24, None, True,
-                                            torch.device(device))
+    # kernel times at the main path's shapes, beside the chain bound
+    dev = torch.device(device)
+    sh24, pa24, wa24 = engine.stage_serving(grid24, None, True, dev)
     ms24 = median_ms(lambda: ops.run_serve(sh24, pa24, wa24, None))
+    staged = {n_req: engine.stage_serving(
+        [scale_config(sim, golden_mod, n_req)], None, False, dev)
+        for n_req in scale}
+    mhz = sm_clock_mhz(lambda: ops.run_serve(*staged[10_000], None))
+
+    def bound(cfgs) -> tuple[float, str, int]:
+        """The slowest point's chain bound, its chain, and its page
+        accesses with the warm-up (a launch without warm-up counts them)."""
+        red = sim.sweep_serving(
+            [dataclasses.replace(c, warmup_frac=0.0) for c in cfgs],
+            reduce_keys=("n_req", "n_steps", "admitted", "admit_probes"),
+            device=dev)
+        return max((*serve_chain_bound(*map(int, r), mhz), int(r[0]))
+                   for r in red)
+
+    b24, chain24, _ = bound(grid24)
     for n_req, row in scale.items():
-        sh, pa, wa = engine.stage_serving(
-            [scale_config(sim, golden_mod, n_req)], None, False,
-            torch.device(device))
-        row["ms"] = median_ms(lambda: ops.run_serve(sh, pa, wa, None),
+        row["ms"] = median_ms(lambda: ops.run_serve(*staged[n_req], None),
                               reps=1 if n_req > 10_000 else 3)
+        row["chain_bound_ms"], row["chain"], row["all_accesses"] = bound(
+            [scale_config(sim, golden_mod, n_req)])
         print(f"      {n_req} requests: {row['steps']} steps, "
-              f"{row['accesses']} measured page accesses, kernel "
-              f"{row['ms']:.1f} ms ({row['ms'] * 1e6 / max(row['accesses'], 1):.0f}"
-              f" ns an access), {row['wall_s']:.2f} s wall, admit_hot_rate "
+              f"{row['accesses']} measured page accesses "
+              f"({row['all_accesses']} with the warm-up), kernel "
+              f"{row['ms']:.1f} ms ({row['ms'] * 1e6 / row['all_accesses']:.0f}"
+              f" ns an access), chain bound {row['chain_bound_ms']:.2f} ms "
+              f"({row['chain']}; {100 * row['chain_bound_ms'] / row['ms']:.1f}"
+              f" % reached), {row['wall_s']:.2f} s wall, admit_hot_rate "
               f"{row['admit_hot_rate']:.4f}", flush=True)
     nb = sh24.sim.envelope.max_banks_total
     prow = kernel.pack(pa24.mech, wa24)[0].shape[1]
@@ -1033,10 +1105,19 @@ def serving_phases(sim, timing, golden_mod, device="cuda") -> tuple:
                                  + 3 * sh24.n_steps)
     v_bound = v_bytes / HBM_BYTES_PER_S * 1e3
     n_access = sum(int(r["n_req"]) for r in res_d)
+    reg = regs.get("sim_serve_kernel", {})
+    spill = sum(reg.get(k, 0) for k in ("spill_stores", "spill_loads"))
     print(f"\n  serving kernel: 24-point grid x {sh24.n_steps} steps "
-          f"{ms24:.3f} ms ({n_access} measured page accesses); bytes bound "
-          f"{v_bound:.5f} ms ({v_bytes} B); launches on the serving path: "
-          f"sim_serve {serve_launches}, hcrac probe {probe_launches}")
+          f"{ms24:.3f} ms ({n_access} measured page accesses); chain bound "
+          f"{b24:.3f} ms ({chain24}; {100 * b24 / ms24:.1f} % reached) at "
+          f"{mhz:.0f} MHz; bytes bound {v_bound:.5f} ms ({v_bytes} B); "
+          f"{reg.get('registers')} registers, {spill} B spilled; launches "
+          f"on the serving path: sim_serve {serve_launches}, hcrac probe "
+          f"{probe_launches}")
+    print(f"  chain bound: DRAM {SERVE_DRAM_CYCLES} cycles an access, hot "
+          f"table {SERVE_HOT_CYCLES} an insert, scheduler "
+          f"{SERVE_STEP_CYCLES} a step + {SERVE_ADMIT_CYCLES} an admission "
+          f"+ {SERVE_CHUNK_CYCLES} a chunk of <= 32 records")
 
     return ({
         "name": "hcrac_lookup", "route": "cuda",
@@ -1061,6 +1142,9 @@ def serving_phases(sim, timing, golden_mod, device="cuda") -> tuple:
         "steps": sh24.n_steps, "points": len(grid24),
         "counts_differing": d_counts,
         "scale": {str(k): v for k, v in scale.items()},
+        "chain_bound_ms": b24, "chain": chain24, "sm_clock_mhz": mhz,
+        "chain_share": b24 / ms24, "registers": reg.get("registers"),
+        "spill_bytes": spill,
         "bound_ms": v_bound, "bound_by": "bytes", "library_ms": None})
 
 
@@ -2083,8 +2167,7 @@ def main() -> int:
         print(f"  {entry}: {r['registers']} registers, spill stores "
               f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
     check(all(r["spill_stores"] + r["spill_loads"] == 0
-              for e, r in regs.items() if e != "sim_serve_kernel"),
-          "a scan entry spills registers")
+              for r in regs.values()), "a scan entry spills registers")
 
     # --- phase 4: the synthesis entry against its plain version ---------
     print("\nphase 4: sim_step synthesis entry vs plain version (on the "
@@ -2175,7 +2258,7 @@ def main() -> int:
             synth_cut_grid(sim, traces), None, torch.device("cuda")))])
     check(div_bad == 0, "the device divider disagrees with floor division")
 
-    serve_rows = serving_phases(sim, timing, golden_mod)
+    serve_rows = serving_phases(sim, timing, golden_mod, regs)
     max_err = max(max_err, serve_rows[1]["max_abs_err"])
     lm_rows = lm_phases(golden_mod, sim)
     ssm_row = ssm_phases(golden_mod, smi)

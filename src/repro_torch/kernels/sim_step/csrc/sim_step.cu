@@ -40,10 +40,11 @@
 //    open row's set beside it, and the 2-way table of the thesis is
 //    compiled for its way count.
 //
-// What is left: the service's own dependent chain (bank and HCRAC state,
-// the refresh and leak clocks, the mechanism fold) and the warp's
-// collectives, ~2 300 SM cycles a request against a dependent-chain bound
-// of 170 (PERF.md section 6; NVIDIA H100 80GB HBM3, 700 W).
+// What is left in the two scan entries: the service's own dependent chain
+// (bank and HCRAC state, the refresh and leak clocks, the mechanism fold)
+// and the warp's collectives, ~2 300 SM cycles a request against a
+// dependent-chain bound of 170 (PERF.md section 6; NVIDIA H100 80GB HBM3,
+// 700 W).
 //
 // The synthesis entry (sim_synth_kernel) replaces the same launcher
 // reached from ops.py::_synth_pallas, which generates each point's
@@ -56,9 +57,13 @@
 // traffic.
 //
 // The serving entry (sim_serve_kernel, below) has no Pallas counterpart:
-// repro's serving loop is an XLA scan.  It runs the same per-request
-// service (Dram::service, with the same dividers) once per page access
-// of the loop, on lane 0 of a one-warp block.
+// repro's serving loop is an XLA scan.  A point is a block of three
+// warps, one a chain: the scheduler across warp 0's lanes
+// (kernels/include/serve_sched.cuh) stages each step's page accesses as
+// records in a shared-memory ring; warp 1 runs the hot-page table's
+// inserts on lane 0 and the step's probes across its lanes; lane 0 of
+// warp 2 runs the same per-request service (Dram::service, with the same
+// dividers) once per access record, and nothing else.
 //
 // Semantics follow repro.core.simulator bit for bit: int32 arithmetic
 // wraps (done in uint32, since signed overflow is undefined in C++),
@@ -75,8 +80,23 @@
 #include <string.h>
 
 #include "floor_div.cuh"
+#include "serve_sched.cuh"
 
 namespace {
+
+// the shared arithmetic and hashes (kernels/include/serve_sched.cuh)
+using sched::fmax_nan;
+using sched::fmin_nan;
+using sched::fmix;
+using sched::hash_w3;
+using sched::imax;
+using sched::imin;
+using sched::kGold;
+using sched::lane_const;
+using sched::mix;
+using sched::wadd;
+using sched::wmul;
+using sched::wsub;
 
 constexpr int INF = 1 << 30;
 constexpr int NO_ROW = -1;
@@ -180,15 +200,6 @@ __host__ __device__ inline int smem_words(const Dims& d) {
   return w;
 }
 
-__device__ __forceinline__ int wadd(int a, int b) {
-  return (int)((unsigned)a + (unsigned)b);
-}
-__device__ __forceinline__ int wsub(int a, int b) {
-  return (int)((unsigned)a - (unsigned)b);
-}
-__device__ __forceinline__ int wmul(int a, int b) {
-  return (int)((unsigned)a * (unsigned)b);
-}
 __device__ __forceinline__ int floordiv(int a, int b) {
   int q = a / b;
   int r = a % b;
@@ -200,8 +211,6 @@ __device__ __forceinline__ int floormod(int a, int b) {
   if (r != 0 && ((r < 0) != (b < 0))) r += b;
   return r;
 }
-__device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
-__device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 
 // A shared-memory word another warp or lane writes (the staging counters)
 __device__ __forceinline__ int ld_volatile(const int* p) {
@@ -472,7 +481,7 @@ struct Ev {
 // row (its divisors as dividers), and its bank, bus and HCRAC state in
 // shared memory.  ``service`` is simulator._service for one live request.
 // Neither it nor Hcrac uses a warp collective: the serving entry calls
-// them from lane 0 alone.
+// the service from one lane and the inserts from another, alone.
 template <int WAYS>
 struct Dram {
   int tRCD, tRAS, tRP, tCL, tCWL, tBL, tRTP, tWR, tREFI, tRFC;
@@ -1055,29 +1064,14 @@ sim_step_kernel(Dims d, Layout lay, const int* __restrict__ params,
 // then the scan.  Replaces repro/kernels/sim_step/ops.py::_synth_pallas.
 // ---------------------------------------------------------------------------
 
-constexpr unsigned kM1 = 0x85EBCA6Bu, kM2 = 0xC2B2AE35u, kGold = 0x9E3779B9u;
 constexpr int MAX_GAP = 1 << 20;
 
 // prng.lanes(14), in generator.py's order
-__host__ __device__ constexpr unsigned lane_const(int i) {
-  return kGold * (unsigned)(i + 1);
-}
 enum {
   L_HIT, L_SEQ, L_HOT, L_PICK, L_GAP, L_WRITE, L_DEP, L_RBANK, L_RROW,
   L_HOTBANK, L_HOTROW, L_B0, L_STRIDE, L_PICK2
 };
 
-__device__ __forceinline__ unsigned mix(unsigned h, unsigned w) {
-  h = (h ^ w) * kM1;
-  return (h ^ (h >> 15)) * kM2;
-}
-__device__ __forceinline__ unsigned fmix(unsigned h) {
-  h ^= h >> 16;
-  h *= kM1;
-  h ^= h >> 13;
-  h *= kM2;
-  return h ^ (h >> 16);
-}
 // prng.hash_u32 over (seed, core, lane) and (seed, core, lane, x)
 __device__ __forceinline__ unsigned hash3(unsigned a, unsigned b, int ln) {
   return fmix(mix(mix(mix(kGold * 4u, a), b), lane_const(ln)));
@@ -1095,13 +1089,6 @@ __device__ __forceinline__ float uniform4(unsigned a, unsigned b, int ln,
 // generator._umod: uint32 hash mod a positive count
 __device__ __forceinline__ int umod(unsigned h, int n) {
   return (int)(h % (unsigned)imax(n, 1));
-}
-// jnp.maximum / jnp.minimum on float32: NaN propagates
-__device__ __forceinline__ float fmax_nan(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-__device__ __forceinline__ float fmin_nan(float a, float b) {
-  return (a < b || a != a) ? a : b;
 }
 
 // generator._rank_pick.  The same CUDA math functions (log1pf, expf) and
@@ -1309,16 +1296,36 @@ sim_synth_kernel(Dims d, Layout lay, SynthLayout sl,
 // ---------------------------------------------------------------------------
 // The serving entry: the continuous-batching closed loop
 // (serving/loop/engine.py::_run_serving_impl; in repro an XLA scan,
-// serving/loop/engine.py:342, with no Pallas kernel).  One point a warp:
-// every lane initialises the DRAM state (one idle core), the hot-page
-// table, the decode slots and the admission queue in shared memory, then
-// lane 0 runs the scheduler steps.  Each page access is one hot-table
-// insert and one Dram::service, the code the trace and synthesis entries
-// run, with the same dividers (the hot table's set count and caching
-// duration too); a masked access of the plain engine changes no state, so
-// only the enabled ones run here.  Like the scan, it is bound by lane 0's
-// serial chain, not by bytes: ~1 service a page access plus the
-// O(slots x queue) admission loop, which still runs on lane 0 alone.
+// serving/loop/engine.py:342, with no Pallas kernel).  One point a block
+// of three warps (SERVE_THREADS).
+//
+// The scheduler never reads the hot-page table or the DRAM state: an
+// access arrives at t + 4 cnt, which the scheduler alone fixes, and no
+// completion time is fed back; the probes' hits feed only a counter.  So
+// a point is three chains that only the ordered list of page accesses
+// joins, each on a warp of its own:
+//  - warp 0, the scheduler (kernels/include/serve_sched.cuh): arrivals,
+//    preemption, admission and retirement across its lanes, slot j and
+//    queue entry q on lanes j % 32 and q % 32.  It writes each step's
+//    accesses, in the plain engine's order, as 16-byte records into a
+//    ring of SERVE_RING in shared memory: a header (the step's clock, its
+//    prefill, probe and decode counts, the measure flag), then per access
+//    the hot-table key, the row, the bank and the DRAM HCRAC set of its
+//    row, and its arrival t + 4 cnt; a probe's record holds its key.  The
+//    lane owning (request, page) hashes it and folds it into the point's
+//    geometry, off both chains;
+//  - warp 1, the hot table: lane 0 inserts each access's key in order
+//    (the thesis's 2-way table compiled for its way count); a step's
+//    probes, which come after its prefill inserts and before its decode
+//    inserts, run across the lanes and are counted by ballot;
+//  - warp 2, lane 0: Dram::service over the access records, loaded a
+//    record ahead; nothing else runs on its path (the bank's channel is
+//    a multiply and a shift of the prefetched bank).
+// The ring's counters are a release store and acquire loads in shared
+// memory: `filled` (the scheduler's), `hot_pos` and `dram_pos` (the
+// chains'); a record is overwritten only once both chains have passed
+// it.  Each side publishes its position before it waits on the other, so
+// a step with more records than the ring still runs.
 // ---------------------------------------------------------------------------
 
 // Fields of the packed per-point serving row (int32 [G, PS]; rate and
@@ -1343,16 +1350,22 @@ struct ServeDims {
   int HHS, HW, hexact, SB, Q, A, Pp, Pt, n_steps, collect, pinned, PS;
 };
 
-// engine.SERVE_STAT_KEYS, in order
-enum { SV_ARRIVED, SV_DROPPED, SV_ADMITTED, SV_RETIRED, SV_PREEMPTED,
-       SV_PROBES, SV_HOT, SV_OCC, SV_QLEN, N_SERVE_STATS };
+using sched::N_SERVE_STATS;
+using sched::SV_HOT;
 
-// Shared-memory words of a serving block: the scan state (one core), the
-// serving row, the hot table, the slots (4 arrays), the queue (6 arrays)
-// and the queue's scores.
+// Threads of a serving block: the scheduler, the hot table, the DRAM
+constexpr int SERVE_THREADS = 96;
+// Records of the ring (a power of two; several steps at the scale
+// streams' ~40-260 records a step)
+constexpr int SERVE_RING = 4096;
+
+// Shared-memory words of a serving block: the ring and its counters, the
+// scan state (one core), the serving row, the hot table, the slots (4
+// arrays), the queue (6 arrays) and the queue's scores.
 __host__ __device__ inline int serve_words(const Dims& d,
                                            const ServeDims& sd) {
-  return scan_words(d) + sd.PS + 3 * sd.HHS * sd.HW + 4 * sd.SB + 7 * sd.Q;
+  return 4 * SERVE_RING + 4 + scan_words(d) + sd.PS +
+         3 * sd.HHS * sd.HW + 4 * sd.SB + 7 * sd.Q;
 }
 
 struct ServeOut {
@@ -1363,20 +1376,11 @@ struct ServeOut {
   int* steps;       // [3, G, n_steps]: occ, qlen, arrivals
 };
 
-// prng.hash_u32 / prng.uniform over three words
-__device__ __forceinline__ unsigned hash_w3(unsigned a, unsigned b,
-                                            unsigned c) {
-  return fmix(mix(mix(mix(kGold * 4u, a), b), c));
-}
+// prng.uniform over three words
 __device__ __forceinline__ float uniform_w3(unsigned a, unsigned b,
                                             unsigned c) {
   return __fmul_rn((float)(hash_w3(a, b, c) >> 8), 5.9604645e-08f);
 }
-
-// arrivals.py lanes (on, count, prompt, decode) and engine.py lanes
-// (gid, bank, row): prng.lanes(4) and prng.lanes(3)
-enum { A_ON, A_COUNT, A_PROMPT, A_DECODE };
-enum { P_GID, P_BANK, P_ROW };
 
 // arrivals.step_counts at step s: the ON/OFF gate, then a geometric
 // count floor(log1p(-u) / log(q)) — log1pf/logf as PyTorch's eager CUDA
@@ -1384,264 +1388,318 @@ enum { P_GID, P_BANK, P_ROW };
 __device__ __forceinline__ int step_count(float rate, float burst,
                                           unsigned seed, int s) {
   const float b = fmax_nan(burst, 1.0f);
-  const bool on =
-      __fmul_rn(uniform_w3(seed, lane_const(A_ON), (unsigned)s), b) < 1.0f;
+  const bool on = __fmul_rn(uniform_w3(seed, lane_const(sched::A_ON),
+                                       (unsigned)s),
+                            b) < 1.0f;
   const float m = __fmul_rn(rate, b);
   float q = __fdiv_rn(m, __fadd_rn(1.0f, m));
   q = fmin_nan(fmax_nan(q, (float)1e-9), (float)(1.0 - 1e-6));
-  const float u = uniform_w3(seed, lane_const(A_COUNT), (unsigned)s);
+  const float u =
+      uniform_w3(seed, lane_const(sched::A_COUNT), (unsigned)s);
   const int n = (int)floorf(__fdiv_rn(log1pf(-u), logf(q)));
   return on ? n : 0;
 }
 
-// arrivals.request_attrs: lo + uint32 hash mod the inclusive span
-__device__ __forceinline__ int request_attr(unsigned seed, int ln, int rid,
-                                            int lo, int hi) {
-  const unsigned span = (unsigned)wadd(wsub(hi, lo), 1);
-  return wadd(lo, (int)(hash_w3(seed, lane_const(ln), (unsigned)rid) % span));
+constexpr unsigned RING_MASK = SERVE_RING - 1;
+// a header record's measure flag, above its decode count
+constexpr unsigned H_MEASURE = 0x80000000u;
+
+// a position at or past another (ring positions wrap as uint32)
+__device__ __forceinline__ bool reached(unsigned pos, unsigned need) {
+  return (int)(pos - need) >= 0;
 }
 
-// engine.page_gid: the 31-bit hot-table key of (request, page)
-__device__ __forceinline__ int page_gid(int rid, int k) {
-  return (int)(hash_w3((unsigned)rid, (unsigned)k, lane_const(P_GID)) &
-               0x7FFFFFFFu);
+// The scheduler's end of the ring (serve_sched.cuh's Sink): records are
+// written from ``pos`` on and published with ``filled``; ``limit`` is
+// the first position not yet known to be free.
+struct RingSink {
+  int4* ring;
+  int *filled, *hot_pos, *dram_pos;
+  int lane;
+  unsigned pos, limit;
+  int banks_total, n_rows;
+  FloorDiv dsets;  // the DRAM HCRAC's set count
+
+  // make the records written so far visible to the chains
+  __device__ void publish() {
+    __syncwarp();
+    if (lane == 0) st_release(filled, (int)pos);
+  }
+  __device__ void reserve(const sched::Warp&, int n) {
+    if (reached(limit, pos + n)) return;
+    publish();
+    unsigned lim = 0;
+    if (lane == 0) {
+      for (;;) {
+        const unsigned h = (unsigned)ld_acquire(hot_pos);
+        const unsigned d = (unsigned)ld_acquire(dram_pos);
+        lim = (reached(h, d) ? d : h) + SERVE_RING;
+        if (reached(lim, pos + n)) break;
+        __nanosleep(100);
+      }
+    }
+    limit = __shfl_sync(0xffffffffu, lim, 0);
+  }
+  __device__ void header(const sched::Warp& w, int t, int n_pre,
+                         int n_probe, int n_dec, bool measure) {
+    reserve(w, 1);
+    if (lane == 0)
+      ring[pos & RING_MASK] =
+          make_int4(t, n_pre, n_probe,
+                    (int)((unsigned)n_dec | (measure ? H_MEASURE : 0u)));
+    __syncwarp();
+    pos += 1;
+  }
+  // lane l's record of the chunk: page k of request rid
+  __device__ void put(int l, int rid, int k, int kind, int t_arr) {
+    int4 r;
+    r.x = sched::page_gid(rid, k);
+    r.y = r.z = 0;
+    r.w = t_arr;
+    if (kind != sched::K_PROBE) {
+      const unsigned ur = (unsigned)rid, uk = (unsigned)k;
+      const int bank =
+          (int)(hash_w3(ur, uk, lane_const(sched::P_BANK)) %
+                (unsigned)banks_total);
+      const int row = (int)(hash_w3(ur, uk, lane_const(sched::P_ROW)) %
+                            (unsigned)n_rows);
+      r.y = row;
+      r.z = bank | dsets.mod(wadd(wmul(bank, n_rows), row)) << 16;
+    }
+    ring[(pos + l) & RING_MASK] = r;
+  }
+  __device__ void advance(int n) { pos += n; }
+};
+
+// A chain's end of the ring: ``wait`` returns once record ``need - 1``
+// is published, and before it waits, publishes ``done`` (the records
+// this chain is finished with) as its position.
+struct RingReader {
+  const int4* ring;
+  const int* filled;
+  int* mine;
+  unsigned avail;
+
+  __device__ void wait(unsigned need, unsigned done) {
+    if (reached(avail, need)) return;
+    st_release(mine, (int)done);
+    while (!reached(avail = (unsigned)ld_acquire(filled), need))
+      __nanosleep(20);
+  }
+  __device__ int4 at(unsigned p) const { return ring[p & RING_MASK]; }
+};
+
+// A step's header record
+struct StepHead {
+  int t, n_pre, n_probe, n_dec;
+  bool measure;
+  __device__ explicit StepHead(int4 h)
+      : t(h.x), n_pre(h.y), n_probe(h.z),
+        n_dec((int)((unsigned)h.w & ~H_MEASURE)),
+        measure(((unsigned)h.w & H_MEASURE) != 0) {}
+};
+
+// Warp 0: the scheduler's steps, arrivals drawn (or read, pinned) for 32
+// steps at a time, a step on each lane.
+__device__ void serve_schedule(const ServeDims& sd, const int* sv,
+                               const sched::State& st, RingSink& sink,
+                               const int* __restrict__ counts,
+                               const ServeOut& out, int G, int gp,
+                               int lane) {
+  const int n = sd.n_steps;
+  sched::Sched<RingSink> sc;
+  // the registry fold: charge_aware and preempting both score by the
+  // predicted charge, fifo by arrival order alone
+  sc.p = sched::Params{
+      (unsigned)sv[V_SEED], sv[V_PROMPT_LO], sv[V_PROMPT_HI],
+      sv[V_DECODE_LO], sv[V_DECODE_HI], sv[V_NREQS], sv[V_CPS],
+      sv[V_WARMUP], sv[V_PRE_THRESH], sv[V_PRE_EN] != 0,
+      sv[V_CA_EN] != 0 || sv[V_PRE_EN] != 0,
+      fmax_nan(__int2float_rn(sv[V_HOT_CACHING]), 1.0f),
+      FloorDiv::make(sv[V_PAGE_TOKENS]), sd.SB, sd.Q, sd.A, sd.Pp, sd.Pt};
+  sc.st = st;
+  sc.reset(lane, 32);
+  __syncwarp();
+  const sched::Warp w{lane};
+  const float rate = __int_as_float(sv[V_RATE]);
+  const float burst = __int_as_float(sv[V_BURST]);
+  const size_t plane = (size_t)G * n;
+  int* steps_out = out.steps + (size_t)gp * n;
+  int drawn = 0;  // this lane's step of the current 32
+  for (int s = 0; s < n; ++s) {
+    if ((s & 31) == 0) {
+      const int sl = s + lane;
+      drawn = sl >= n ? 0
+              : sd.pinned ? counts[(size_t)gp * n + sl]
+                          : step_count(rate, burst, sc.p.seed, sl);
+    }
+    const int n_drawn = __shfl_sync(0xffffffffu, drawn, s & 31);
+    const sched::StepOut o = sc.step(w, sink, s, n_drawn);
+    sink.publish();
+    if (sd.collect && lane == 0) {
+      steps_out[0 * plane + s] = o.occ;
+      steps_out[1 * plane + s] = o.qlen;
+      steps_out[2 * plane + s] = o.n_new;
+    }
+  }
+  if (lane == 0) {
+    for (int i = 0; i < N_SERVE_STATS; ++i)
+      if (i != SV_HOT) out.serve[(size_t)gp * N_SERVE_STATS + i] = (int)sc.sv[i];
+    out.now[gp] = sc.now;
+  }
 }
 
-// policies._charge_score: clip(1 - age / C, 0, 1) in float32
-__device__ __forceinline__ float charge_score(int now, int touch, float c) {
-  const float age = __int2float_rn(wsub(now, touch));
-  return fmin_nan(fmax_nan(__fsub_rn(1.0f, __fdiv_rn(age, c)), 0.0f), 1.0f);
+// Warp 1: the hot-page table.  Lane 0 inserts every access's key at its
+// step's clock; a step's probes run across the lanes between its prefill
+// and its decode inserts.  Returns the probes' hits (on every lane).
+template <int HW>
+__device__ unsigned serve_hot(const ServeDims& sd, const int* sv,
+                              int* htags, int* hstamps, int* hlru,
+                              RingReader rd, int lane) {
+  Hcrac<HW> hot{htags, hstamps, hlru, sd.HW, sv[V_HOT_PERIOD],
+                FloorDiv::make(sv[V_HOT_SETS]),
+                FloorDiv::make(sv[V_HOT_CACHING]), sd.hexact != 0};
+  unsigned hits = 0, pos = 0;
+  // lane 0: insert the keys of records [p, p + n) at cycle t, each key
+  // loaded a record ahead
+  auto inserts = [&](unsigned p, int n, int t) {
+    if (n == 0) return;
+    rd.wait(p + 1, p);
+    int gid = rd.at(p).x;
+    for (int i = 0; i < n; ++i) {
+      const int cur = gid;
+      if (i + 1 < n) {
+        rd.wait(p + i + 2, p + i + 1);
+        gid = rd.at(p + i + 1).x;
+      }
+      hot.insert(cur, t);
+    }
+  };
+  for (int s = 0; s < sd.n_steps; ++s) {
+    if (lane == 0) rd.wait(pos + 1, pos);
+    __syncwarp();
+    const StepHead h(rd.at(pos));
+    pos += 1;
+    if (lane == 0) inserts(pos, h.n_pre, h.t);
+    pos += h.n_pre;
+    for (int c = 0; c < h.n_probe; c += 32) {
+      const int m = imin(32, h.n_probe - c);
+      if (lane == 0) rd.wait(pos + c + m, pos + c);
+      __syncwarp();
+      const bool hit = lane < m && hot.probe(rd.at(pos + c + lane).x, h.t);
+      hits += __popc(__ballot_sync(0xffffffffu, hit));
+    }
+    pos += h.n_probe;
+    if (lane == 0) {
+      inserts(pos, h.n_dec, h.t);
+      st_release(rd.mine, (int)(pos + h.n_dec));
+    }
+    pos += h.n_dec;
+    __syncwarp();
+  }
+  return hits;
 }
 
-__global__ void __launch_bounds__(32)
+// Warp 2, lane 0: the DRAM service of every access record, in order, each
+// record loaded a record ahead; the stats end in shared memory.
+template <int WAYS>
+__device__ void serve_dram(const Dims& d, const Layout& lay, const Carve& cv,
+                           const ServeDims& sd, RingReader rd) {
+  Dram<WAYS> dr(d, lay, cv);
+  unsigned acc[N_STATS] = {0};
+  Ev ev;
+  unsigned pos = 0;
+  auto serve = [&](unsigned p, int n, bool is_write, bool measure) {
+    if (n == 0) return;
+    rd.wait(p + 1, p);
+    int4 nx = rd.at(p);
+    for (int i = 0; i < n; ++i) {
+      const int4 r = nx;
+      if (i + 1 < n) {
+        rd.wait(p + i + 2, p + i + 1);
+        nx = rd.at(p + i + 1);
+      }
+      const int bank = r.z & 0xffff;
+      dr.service(r.w, bank, dr.bpc.div(bank), r.y, r.z >> 16, is_write,
+                 false, measure, acc, ev);
+    }
+  };
+  for (int s = 0; s < sd.n_steps; ++s) {
+    rd.wait(pos + 1, pos);
+    const StepHead h(rd.at(pos));
+    pos += 1;
+    serve(pos, h.n_pre, true, h.measure);
+    pos += h.n_pre + h.n_probe;
+    serve(pos, h.n_dec, false, h.measure);
+    pos += h.n_dec;
+    st_release(rd.mine, (int)pos);
+  }
+  for (int i = 0; i < N_STATS; ++i) cv.stats[i] = (int)acc[i];
+}
+
+// __maxnreg__: the DRAM lane holds the point's params and dividers and
+// the service's state in registers, as the scan entries do.
+__global__ void __maxnreg__(255)
 sim_serve_kernel(Dims d, Layout lay, ServeDims sd,
                  const int* __restrict__ params,
                  const float* __restrict__ seg_leak,
                  const int* __restrict__ sparams,
                  const int* __restrict__ counts, ServeOut out) {
-  extern __shared__ int sm[];
+  extern __shared__ int4 sm4[];
   const int gp = blockIdx.x;
-  const int lane = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int SB = sd.SB, Q = sd.Q, HT = sd.HHS * sd.HW;
+  int4* ring = sm4;
+  int* ctr = reinterpret_cast<int*>(ring + SERVE_RING);  // filled, hot, dram
+  int* sm = ctr + 4;
   const Carve cv = carve(d, sm);
-  init_scan(d, cv, params, seg_leak, gp, lane, 32);
+  init_scan(d, cv, params, seg_leak, gp, tid, SERVE_THREADS);
   int* sv = sm + scan_words(d);
   int* htags = sv + sd.PS;
   int* hstamps = htags + HT;
   int* hlru = hstamps + HT;
-  int* slot_rid = hlru + HT;
-  int* slot_done = slot_rid + SB;
-  int* slot_max = slot_done + SB;
-  int* slot_pages = slot_max + SB;
-  int* q_rid = slot_pages + SB;
-  int* q_done = q_rid + Q;
-  int* q_max = q_done + Q;
-  int* q_pages = q_max + Q;
-  int* q_touch = q_pages + Q;
-  int* q_seq = q_touch + Q;
-  float* score = reinterpret_cast<float*>(q_seq + Q);
-  for (int i = lane; i < sd.PS; i += 32)
+  int* slots = hlru + HT;
+  int* queue = slots + 4 * SB;
+  const sched::State st{slots,          slots + SB,     slots + 2 * SB,
+                        slots + 3 * SB, queue,          queue + Q,
+                        queue + 2 * Q,  queue + 3 * Q,  queue + 4 * Q,
+                        queue + 5 * Q,
+                        reinterpret_cast<float*>(queue + 6 * Q)};
+  for (int i = tid; i < sd.PS; i += SERVE_THREADS)
     sv[i] = sparams[(size_t)gp * sd.PS + i];
-  for (int i = lane; i < HT; i += 32) {
+  for (int i = tid; i < HT; i += SERVE_THREADS) {
     htags[i] = NO_TAG;
     hstamps[i] = 0;
     hlru[i] = -1;
   }
-  for (int i = lane; i < SB; i += 32) {
-    slot_rid[i] = -1;
-    slot_done[i] = slot_max[i] = slot_pages[i] = 0;
-  }
-  for (int i = lane; i < Q; i += 32) {
-    q_rid[i] = -1;
-    q_done[i] = q_max[i] = q_pages[i] = q_touch[i] = q_seq[i] = 0;
-  }
-  __syncwarp();
+  if (tid < 3) ctr[tid] = 0;
+  __syncthreads();
 
-  if (lane == 0) {
-    Dram<0> dr(d, lay, cv);
-    Hcrac<0> hot{htags, hstamps, hlru, sd.HW, sv[V_HOT_PERIOD],
-              FloorDiv::make(sv[V_HOT_SETS]), FloorDiv::make(sv[V_HOT_CACHING]),
-              sd.hexact != 0};
-    const float rate = __int_as_float(sv[V_RATE]);
-    const float burst = __int_as_float(sv[V_BURST]);
-    const unsigned seed = (unsigned)sv[V_SEED];
-    const int p_lo = sv[V_PROMPT_LO], p_hi = sv[V_PROMPT_HI];
-    const int d_lo = sv[V_DECODE_LO], d_hi = sv[V_DECODE_HI];
-    const int n_reqs = sv[V_NREQS], cps = sv[V_CPS];
-    const int ptok = sv[V_PAGE_TOKENS], warmup = sv[V_WARMUP];
-    const bool pre_en = sv[V_PRE_EN] != 0;
-    // the registry fold: charge_aware and preempting both score by the
-    // predicted charge, fifo by arrival order alone
-    const bool use_charge = sv[V_CA_EN] != 0 || pre_en;
-    const int q_thresh = sv[V_PRE_THRESH];
-    const float cfl = fmax_nan(__int2float_rn(hot.caching.d), 1.0f);
-    const size_t plane = (size_t)d.G * sd.n_steps;
-    int* steps_out = out.steps + (size_t)gp * sd.n_steps;
-
-    unsigned acc[N_STATS] = {0};
-    unsigned sacc[N_SERVE_STATS] = {0};
-    int n_arrived = 0, next_seq = 0, now = 0;
-    Ev ev;
-    for (int s = 0; s < sd.n_steps; ++s) {
-      const int t = now;
-      const bool measure = s >= warmup;
-      const int n_drawn = sd.pinned ? counts[(size_t)gp * sd.n_steps + s]
-                                    : step_count(rate, burst, seed, s);
-      int cnt = 0;  // the step's accesses so far: _INTRA = 4 cycles apart
-      auto access = [&](int rid, int k, bool is_write) {
-        const unsigned r = (unsigned)rid, kk = (unsigned)k;
-        hot.insert(page_gid(rid, k), t);
-        const int bank =
-            (int)(hash_w3(r, kk, lane_const(P_BANK)) % (unsigned)dr.banks_total);
-        const int row =
-            (int)(hash_w3(r, kk, lane_const(P_ROW)) % (unsigned)dr.n_rows);
-        dr.service(wadd(t, wmul(4, cnt)), bank, dr.bpc.div(bank), row,
-                   dr.hc.sets.mod(wadd(wmul(bank, dr.n_rows), row)),
-                   is_write, false, measure, acc, ev);
-        ++cnt;
-      };
-
-      // 1. arrivals into free queue slots in position order, then their
-      //    prompt prefill (hot inserts + DRAM writes)
-      int free_q = 0;
-      for (int q = 0; q < Q; ++q) free_q += q_rid[q] < 0;
-      const int want = imin(n_drawn, wsub(n_reqs, n_arrived));
-      const int n_new = imin(imin(want, free_q), sd.A);
-      for (int q = 0, r = 0; q < Q && r < n_new; ++q) {
-        if (q_rid[q] >= 0) continue;
-        const int rid = wadd(n_arrived, r);
-        q_rid[q] = rid;
-        q_done[q] = 0;
-        q_pages[q] = request_attr(seed, A_PROMPT, rid, p_lo, p_hi);
-        q_max[q] = request_attr(seed, A_DECODE, rid, d_lo, d_hi);
-        q_touch[q] = t;
-        q_seq[q] = wadd(next_seq, r);
-        ++r;
-      }
-      for (int a = 0; a < n_new; ++a) {
-        const int rid = wadd(n_arrived, a);
-        const int pages =
-            imin(request_attr(seed, A_PROMPT, rid, p_lo, p_hi), sd.Pp);
-        for (int k = 0; k < pages; ++k) access(rid, k, true);
-      }
-      n_arrived = wadd(n_arrived, n_new);
-      next_seq = wadd(next_seq, n_new);
-
-      // 2. preemption: the first slot with the most remaining work (>= 2)
-      //    goes back to the first free queue slot
-      const int q_len = wadd(wsub(Q, free_q), n_new);
-      int victim = 0, v_key = 0;
-      bool any_cand = false;
-      for (int j = 0; j < SB; ++j) {
-        const int rem = wsub(slot_max[j], slot_done[j]);
-        const bool cand = slot_rid[j] >= 0 && rem >= 2;
-        const int key = cand ? rem : -1;
-        if (j == 0 || key > v_key) {
-          v_key = key;
-          victim = j;
-        }
-        any_cand = any_cand || cand;
-      }
-      const bool pe = pre_en && q_len > q_thresh &&
-                      wsub(free_q, n_new) > 0 && any_cand;
-      if (pe) {
-        int qd = 0;
-        while (q_rid[qd] >= 0) ++qd;
-        q_rid[qd] = slot_rid[victim];
-        q_done[qd] = slot_done[victim];
-        q_max[qd] = slot_max[victim];
-        q_pages[qd] = slot_pages[victim];
-        q_touch[qd] = wsub(t, cps);  // its last decode step
-        q_seq[qd] = next_seq;        // back of the line
-        next_seq = wadd(next_seq, 1);
-        slot_rid[victim] = -1;
-      }
-
-      // 3. admission: best score first, the smallest q_seq on ties, into
-      //    the first free slot, until no slot or no request is left
-      for (int q = 0; q < Q; ++q)
-        score[q] = use_charge ? charge_score(t, q_touch[q], cfl) : 0.0f;
-      int n_adm = 0;
-      for (int it = 0; it < SB; ++it) {
-        int dest = -1;
-        for (int j = 0; j < SB && dest < 0; ++j)
-          if (slot_rid[j] < 0) dest = j;
-        float best = -__int_as_float(0x7f800000);  // -inf
-        bool any_q = false;
-        for (int q = 0; q < Q; ++q) {
-          if (q_rid[q] < 0) continue;
-          any_q = true;
-          if (score[q] > best) best = score[q];
-        }
-        if (dest < 0 || !any_q) break;
-        int pick = 0, p_seq = INF;
-        for (int q = 0; q < Q; ++q) {
-          if (q_rid[q] >= 0 && score[q] >= best && q_seq[q] < p_seq) {
-            p_seq = q_seq[q];
-            pick = q;
-          }
-        }
-        slot_rid[dest] = q_rid[pick];
-        slot_done[dest] = q_done[pick];
-        slot_max[dest] = q_max[pick];
-        slot_pages[dest] = q_pages[pick];
-        q_rid[pick] = -1;
-        ++n_adm;
-      }
-
-      // 4. read-only probes of first-decode requests' prompt pages
-      for (int j = 0; j < SB; ++j) {
-        if (slot_rid[j] < 0 || slot_done[j] != 0) continue;
-        const int pages = imin(slot_pages[j], sd.Pt);
-        for (int k = 0; k < pages; ++k) {
-          sacc[SV_PROBES] += 1u;
-          sacc[SV_HOT] += hot.probe(page_gid(slot_rid[j], k), t) ? 1u : 0u;
-        }
-      }
-
-      // 5. decode: every active request streams all its KV pages
-      for (int j = 0; j < SB; ++j) {
-        if (slot_rid[j] < 0) continue;
-        const int npages = imin(
-            wadd(slot_pages[j],
-                 floordiv(wadd(slot_done[j], wsub(ptok, 1)), ptok)),
-            sd.Pt);
-        for (int k = 0; k < npages; ++k) access(slot_rid[j], k, false);
-      }
-
-      // 6. advance one token, retire the finished, count occupancy
-      int occ = 0, n_ret = 0, qlen = 0;
-      for (int j = 0; j < SB; ++j) {
-        if (slot_rid[j] < 0) continue;
-        ++occ;
-        slot_done[j] = wadd(slot_done[j], 1);
-        if (slot_done[j] >= slot_max[j]) {
-          slot_rid[j] = -1;
-          ++n_ret;
-        }
-      }
-      for (int q = 0; q < Q; ++q) qlen += q_rid[q] >= 0;
-      sacc[SV_ARRIVED] += (unsigned)n_new;
-      sacc[SV_DROPPED] += (unsigned)wsub(want, n_new);
-      sacc[SV_ADMITTED] += (unsigned)n_adm;
-      sacc[SV_RETIRED] += (unsigned)n_ret;
-      sacc[SV_PREEMPTED] += pe ? 1u : 0u;
-      sacc[SV_OCC] += (unsigned)occ;
-      sacc[SV_QLEN] += (unsigned)qlen;
-      if (sd.collect) {
-        steps_out[0 * plane + s] = occ;
-        steps_out[1 * plane + s] = qlen;
-        steps_out[2 * plane + s] = n_new;
-      }
-      now = wadd(now, cps);
-    }
-    for (int i = 0; i < N_STATS; ++i) cv.stats[i] = (int)acc[i];
-    for (int i = 0; i < N_SERVE_STATS; ++i)
-      out.serve[(size_t)gp * N_SERVE_STATS + i] = (int)sacc[i];
-    out.now[gp] = now;
+  const RingReader rd0{ring, ctr, nullptr, 0u};
+  if (warp == 0) {
+    const int* prm = cv.prm;
+    RingSink sink{ring, ctr, ctr + 1, ctr + 2, lane, 0u, (unsigned)SERVE_RING,
+                  prm[lay.off[F_BANKS_TOTAL]], prm[lay.off[F_N_ROWS]],
+                  FloorDiv::make(prm[lay.off[F_HC_SETS]])};
+    serve_schedule(sd, sv, st, sink, counts, out, d.G, gp, lane);
+  } else if (warp == 1) {
+    RingReader rd = rd0;
+    rd.mine = ctr + 1;
+    const unsigned hits =
+        sd.HW == 2 ? serve_hot<2>(sd, sv, htags, hstamps, hlru, rd, lane)
+                   : serve_hot<0>(sd, sv, htags, hstamps, hlru, rd, lane);
+    if (lane == 0) out.serve[(size_t)gp * N_SERVE_STATS + SV_HOT] = (int)hits;
+  } else if (lane == 0) {
+    RingReader rd = rd0;
+    rd.mine = ctr + 2;
+    if (d.W == 2)
+      serve_dram<2>(d, lay, cv, sd, rd);
+    else
+      serve_dram<0>(d, lay, cv, sd, rd);
   }
   __syncwarp();
-  write_scan(d, cv, out.stats, out.bank_stats, gp, lane, 32);
+  __syncthreads();
+  write_scan(d, cv, out.stats, out.bank_stats, gp, tid, SERVE_THREADS);
 }
 
 // The dividers themselves: q[i], r[i] = floor(a[i] / d), a[i] - d q[i]
@@ -1755,6 +1813,7 @@ int sim_serve_smem_bytes(const int* dims, const int* serve_dims) {
 // Launch the serving entry: one block per grid point runs the serving
 // closed loop for ``serve_dims``' n_steps steps, its arrivals drawn in
 // the kernel or, with ``pinned``, read from ``counts`` [G, n_steps].
+// Refuses a geometry whose bank or HCRAC set does not fit a record.
 // Returns the launch's CUDA error code.
 int sim_serve_launch(const int* dims, const int* layout,
                      const int* serve_dims, const int* params,
@@ -1765,7 +1824,8 @@ int sim_serve_launch(const int* dims, const int* layout,
   memcpy(&d, dims, sizeof(Dims));
   ServeDims sd;
   memcpy(&sd, serve_dims, sizeof(ServeDims));
-  if (d.C != 1 || sd.PS != N_SERVE_FIELDS || sd.SB < 1 || sd.Q < 1)
+  if (d.C != 1 || sd.PS != N_SERVE_FIELDS || sd.SB < 1 || sd.Q < 1 ||
+      !record_fits(d))
     return (int)cudaErrorInvalidValue;
   Layout lay;
   memcpy(lay.off, layout, sizeof(lay.off));
@@ -1774,7 +1834,7 @@ int sim_serve_launch(const int* dims, const int* layout,
       sim_serve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   ServeOut out{stats, bank_stats, serve, now, steps};
-  sim_serve_kernel<<<d.G, 32, smem, (cudaStream_t)stream>>>(
+  sim_serve_kernel<<<d.G, SERVE_THREADS, smem, (cudaStream_t)stream>>>(
       d, lay, sd, params, seg_leak, sparams, counts, out);
   return (int)cudaGetLastError();
 }

@@ -29,8 +29,15 @@ kernel's divider itself.
 The serving entry ``sim_serve`` (no Pallas counterpart: ``repro``'s
 serving loop, ``serving/loop/engine.py::_run_serving_impl``, is an XLA
 scan) runs the continuous-batching closed loop per point, its DRAM
-state that of one idle core; its serving params travel as one int32 row
-per point (``SERVE_FIELDS``, the two float32 arrival knobs as bits).
+state that of one idle core.  The scheduler reads neither the hot-page
+table nor the DRAM state, so a point's block is three warps, one a
+chain: the scheduler across one warp's lanes
+(``kernels/include/serve_sched.cuh``) stages each step's page accesses
+as records in a shared-memory ring, one warp keeps the hot-page table
+(inserts on a lane, the step's probes across the lanes), and one lane
+runs the DRAM service of each access.  Its serving params travel as one
+int32 row per point (``SERVE_FIELDS``, the two float32 arrival knobs as
+bits).
 
 The packed rows' fields are defined once, here (``FIELDS``,
 ``SYNTH_INT_FIELDS``, ``SYNTH_FLOAT_FIELDS``, ``SERVE_FIELDS``): their
@@ -75,8 +82,9 @@ DIVISOR_FIELDS = ("tREFI", "n_refresh_groups", "retention_cycles",
                   "banks_total", "banks_per_channel", "n_rows", "hc_n_sets",
                   "hc_caching_cycles")
 
-#: serving fields the kernel divides by (the hot-page table's)
-SERVE_DIVISOR_FIELDS = ("hot_n_sets", "hot_caching_cycles")
+#: serving fields the kernel divides by (the hot-page table's, and the
+#: tokens a KV page the scheduler grows a request's pages by)
+SERVE_DIVISOR_FIELDS = ("hot_n_sets", "hot_caching_cycles", "page_tokens")
 
 #: the launch sizes, in the kernel's ``Dims`` order
 DIMS = ("G", "C", "L", "NB", "NCH", "HS", "W", "M", "NBINS", "S", "P",
@@ -125,16 +133,10 @@ _P = ctypes.c_void_p
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """Build (first use) and load the kernel library; check its ABI."""
-    lib = bind_scan_entries(_build.load("sim_step",
-                                        Path(__file__).parent / "csrc"))
+    lib = bind_serve_entry(bind_scan_entries(_build.load(
+        "sim_step", Path(__file__).parent / "csrc")))
     lib.sim_step_abi.restype = ctypes.c_char_p
     lib.sim_step_abi.argtypes = []
-    lib.sim_serve_abi.restype = ctypes.c_char_p
-    lib.sim_serve_abi.argtypes = []
-    lib.sim_serve_smem_bytes.restype = ctypes.c_int
-    lib.sim_serve_smem_bytes.argtypes = [_P, _P]
-    lib.sim_serve_launch.restype = ctypes.c_int
-    lib.sim_serve_launch.argtypes = [_P] * 13
     lib.sim_step_floor_div.restype = ctypes.c_int
     lib.sim_step_floor_div.argtypes = [_P, ctypes.c_int, ctypes.c_int, _P,
                                        _P, _P]
@@ -159,6 +161,19 @@ def bind_scan_entries(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sim_step_launch.argtypes = [_P] * 17
     lib.sim_synth_launch.restype = ctypes.c_int
     lib.sim_synth_launch.argtypes = [_P] * 19
+    return lib
+
+
+def bind_serve_entry(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of the serving entry (``sim_serve_launch``
+    and its helpers, unchanged since the entry was written); returns
+    ``lib``."""
+    lib.sim_serve_abi.restype = ctypes.c_char_p
+    lib.sim_serve_abi.argtypes = []
+    lib.sim_serve_smem_bytes.restype = ctypes.c_int
+    lib.sim_serve_smem_bytes.argtypes = [_P, _P]
+    lib.sim_serve_launch.restype = ctypes.c_int
+    lib.sim_serve_launch.argtypes = [_P] * 13
     return lib
 
 

@@ -1,4 +1,4 @@
-"""Times the ``sim_step`` kernel's two scan entries built from several CUDA
+"""Times the ``sim_step`` kernel's three entries built from several CUDA
 sources in one run on the card, so two versions of the kernel (say, a
 parent commit's ``sim_step.cu`` and this tree's) are compared on the
 same card, in turns.
@@ -8,14 +8,20 @@ For each ``NAME=PATH`` argument it builds ``PATH`` through the port's own
 under ``build/kernels/``), prints what ptxas reports (registers, spills)
 for each entry and a census of its SASS (``cuobjdump -sass``:
 instructions, integer-division sequences — one ``MUFU.RCP`` each —,
-global and shared-memory loads, warp reductions), then runs the full-size sweeps of ``chip_smoke.py``
-phases 3 and 5 — the trace entry over the 38-point eight-core grid
-(280 400 steps) and the 8-point single-core sweep (150 000 steps), and
-the synthesis entry over the 32-point synth grid (320 000 steps) — with
+global and shared-memory loads, warp reductions) for each
+``sim_*_kernel`` entry, then runs the full-size cells of ``chip_smoke.py``
+phases 3, 5 and 8 — the trace entry over the 38-point eight-core grid
+(280 400 steps) and the 8-point single-core sweep (150 000 steps), the
+synthesis entry over the 32-point synth grid (320 000 steps), and the
+serving entry over the 24-point serving grid (528 steps) and the 10**4-
+and 10**5-request scale points (arrivals drawn in the kernel) — with
 every library in turn, forward then backward, each a CUDA-event median
-of 3 after a warm-up.  Every library's stats must equal the first's.
-Only the scan entries' C interfaces (``sim_step_launch`` and
-``sim_synth_launch``, bound by ``kernel.bind_scan_entries``) are used,
+of 3 after a warm-up (of 1 for the 10**5 point).  Every library's
+outputs must equal the first's: the scans' stats, and every output of
+the serving entry (its stats, counters, clock and per-step arrays).
+Only the entries' C interfaces (``sim_step_launch``,
+``sim_synth_launch`` and ``sim_serve_launch``, bound by
+``kernel.bind_scan_entries`` and ``kernel.bind_serve_entry``) are used,
 so any version of the source since the synthesis entry was written
 builds and runs.
 
@@ -51,8 +57,10 @@ from repro_torch.core import mechanisms, simulator as sim  # noqa: E402
 from repro_torch.core import timing, traces  # noqa: E402
 from repro_torch.golden import load_batch  # noqa: E402
 from repro_torch.kernels.sim_step import kernel  # noqa: E402
+from repro_torch.serving.loop import engine  # noqa: E402
 
-CELLS = ("eight_core", "single_core", "synth")
+CELLS = ("eight_core", "single_core", "synth", "serve_grid", "serve_1e4",
+         "serve_1e5")
 
 
 #: SASS mnemonics the census counts, by what they stand for
@@ -96,7 +104,17 @@ def build(name: str, src: Path) -> ctypes.CDLL:
     for entry, counts in sass_census(lib).items():
         print(f"  {name}: {entry} SASS " + ", ".join(
             f"{k} {v}" for k, v in counts.items()))
-    return kernel.bind_scan_entries(ctypes.CDLL(str(lib)))
+    return kernel.bind_serve_entry(
+        kernel.bind_scan_entries(ctypes.CDLL(str(lib))))
+
+
+def outputs(cell: str, out) -> torch.Tensor:
+    """A launch's outputs as one int64 vector, to compare libraries."""
+    if not cell.startswith("serve"):
+        return torch.stack([out[0][k] for k in sim.STAT_KEYS]).long().ravel()
+    sim_stats, serve, now, ys = out
+    parts = [*sim_stats.values(), *serve.values(), now, *(ys or ())]
+    return torch.cat([p.long().ravel() for p in parts])
 
 
 def main(argv) -> int:
@@ -116,23 +134,32 @@ def main(argv) -> int:
         for k in mechanisms.names()])
     args32 = sim._stage_synth(cs.synth_full_grid(sim, golden_mod, timing),
                               None, torch.device("cuda"))
+    dev = torch.device("cuda")
+    serve = {"serve_grid": engine.stage_serving(
+        cs.serving_grid(sim, golden_mod, timing), None, True, dev)}
+    for n_req in (10_000, 100_000):
+        serve[f"serve_1e{len(str(n_req)) - 1}"] = engine.stage_serving(
+            [cs.scale_config(sim, golden_mod, n_req)], None, False, dev)
     launch = {"eight_core": lambda: kernel.sim_step(*args8),
               "single_core": lambda: kernel.sim_step(*args1),
-              "synth": lambda: kernel.sim_synth(*args32)}
+              "synth": lambda: kernel.sim_synth(*args32),
+              **{c: (lambda a=a: kernel.sim_serve(*a))
+                 for c, a in serve.items()}}
     steps = {"eight_core": args8[6], "single_core": args1[6],
-             "synth": args32[7]}
+             "synth": args32[7],
+             **{c: a[0].n_steps for c, a in serve.items()}}
     times = {n: {c: [] for c in CELLS} for n in libs}
     first = {}
     for name in list(libs) + list(libs)[::-1]:
         kernel.library = lambda name=name: libs[name]
         bad = 0
         for cell in CELLS:
-            stats = launch[cell]()[0]
+            got = outputs(cell, launch[cell]())
             torch.cuda.synchronize()
-            stats = torch.stack([stats[k] for k in sim.STAT_KEYS])
-            first.setdefault(cell, stats)
-            bad += int((stats != first[cell]).sum())
-            times[name][cell].append(cs.median_ms(launch[cell]))
+            first.setdefault(cell, got)
+            bad += int((got != first[cell]).sum())
+            times[name][cell].append(cs.median_ms(
+                launch[cell], reps=1 if cell == "serve_1e5" else 3))
         print(f"{name}: " + ", ".join(
             f"{c} {times[name][c][-1]:.2f} ms "
             f"({times[name][c][-1] * 1e6 / steps[c]:.0f} ns/step)"

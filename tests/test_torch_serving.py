@@ -450,15 +450,11 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("pinned", [False, True], ids=["drawn", "pinned"])
-@pytest.mark.parametrize("exact", [False, True], ids=["sweep", "exact"])
-def test_kernel_matches_plain_serving(cuda, pinned, exact):
-    grid = _t_grid(hot_exact=exact) + _t_grid(hot_exact=exact,
-                                              hot_entries=128)
-    shape, params, warm = t_engine.stage_serving(grid, None, True, cuda)
-    counts = (torch.from_numpy(_pinned(len(grid))).to(cuda) if pinned
-              else None)
+def _assert_kernel_matches_plain(dev, grid, counts):
+    """The serving entry and the plain engine on ``grid`` (``counts``
+    pinned, or drawn where None): every output bit for bit."""
+    shape, params, warm = t_engine.stage_serving(grid, None, True, dev)
+    counts = None if counts is None else torch.from_numpy(counts).to(dev)
     before = ops.serve_launches
     got = ops.run_serve(shape, params, warm, counts)
     assert ops.serve_launches == before + 1
@@ -470,6 +466,42 @@ def test_kernel_matches_plain_serving(cuda, pinned, exact):
     assert torch.equal(got[2], want[2])
     for x, y in zip(got[3], want[3]):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pinned", [False, True], ids=["drawn", "pinned"])
+@pytest.mark.parametrize("exact", [False, True], ids=["sweep", "exact"])
+def test_kernel_matches_plain_serving(cuda, pinned, exact):
+    grid = _t_grid(hot_exact=exact) + _t_grid(hot_exact=exact,
+                                              hot_entries=128)
+    _assert_kernel_matches_plain(cuda, grid,
+                                 _pinned(len(grid)) if pinned else None)
+
+
+#: the scale streams' geometry and one past a warp's lanes: (slots,
+#: queue, arrivals a step)
+WIDE = {"32x128": (32, 128, 32), "48x200": (48, 200, 48)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pinned", [False, True], ids=["drawn", "pinned"])
+@pytest.mark.parametrize("exact", [False, True], ids=["sweep", "exact"])
+@pytest.mark.parametrize("geometry", sorted(WIDE))
+def test_kernel_matches_plain_serving_wide(cuda, geometry, pinned, exact):
+    """The scheduler's strided lanes, many records a step, the queue
+    filling (drops) and preemptions, at full widths."""
+    SB, Q, A = WIDE[geometry]
+    arr = t_arr.ArrivalConfig(rate=8.0, burstiness=2.0, prompt_pages_min=1,
+                              prompt_pages_max=2, decode_min=4,
+                              decode_max=8, seed=11)
+    grid = [t_sim.SimConfig(serving=ServingSpec(
+        policy=p, arrival=arr, n_reqs=10_000, max_batch=SB, queue_cap=Q,
+        arrivals_max=A, n_steps=40, hot_entries=1024, hot_ways=2,
+        hot_caching_ms=0.05, hot_exact=exact),
+        mech=t_sim.MechanismConfig(kind=k)) for p in POLICIES for k in MECHS]
+    counts = np.random.default_rng(5).integers(
+        0, A + 8, (len(grid), 40)).astype(np.int32)
+    _assert_kernel_matches_plain(cuda, grid, counts if pinned else None)
 
 
 @pytest.mark.cuda

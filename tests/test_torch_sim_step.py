@@ -245,6 +245,18 @@ def test_pack_serve_refuses_a_hot_divisor_that_is_not_positive(field):
         kernel.pack_serve(params, warm)
 
 
+def test_pack_serve_refuses_page_tokens_that_are_not_positive():
+    """The scheduler grows a request's pages by a divider of page_tokens."""
+    from repro_torch.serving.loop import engine
+    from repro_torch.serving.loop.spec import ServingSpec
+    grid = [sim.SimConfig(serving=ServingSpec(n_reqs=16, n_steps=8))] * 2
+    _, params, warm = engine.stage_serving(grid, device=torch.device("cpu"))
+    bad = params.page_tokens.clone()
+    bad[1] = 0
+    with pytest.raises(ValueError, match="page_tokens must be positive"):
+        kernel.pack_serve(params._replace(page_tokens=bad), warm)
+
+
 @pytest.mark.parametrize("d", (0, -1, 2**31))
 def test_floor_div_refuses_a_divisor_out_of_range(d):
     with pytest.raises(ValueError, match="positive int32 divisor"):
