@@ -10,11 +10,12 @@ It builds the ``sim_step`` kernel (three entries: over a trace,
 synthesising its own streams, and the serving closed loop), the HCRAC
 probe kernel, the flash- and decode-attention kernels and the ssm_scan
 kernel from the sources in the checkout, holds each against its plain
-PyTorch version, drives the port's five paths at full size
+PyTorch version, drives the port's six paths at full size
 (``repro_torch.core.simulator.sweep``, ``sweep_synth``, the serving
 loop: ``sweep_serving`` and the host scheduler's ``run_host``, dense-LM
 serving of tinyllama-1.1b: ``prefill_fn`` / ``decode_fn`` and
-``examples/serve_lm.py``'s run, and SSM serving of falcon-mamba-7b),
+``examples/serve_lm.py``'s run, SSM serving of falcon-mamba-7b, and the
+Experiment layer drawing the thesis's five figures),
 checks the results against the JAX package's recorded golden numbers
 (``src/repro_torch/data/golden_fullwidth.json``, ``golden_synth.json``,
 ``golden_serving.json``, ``golden_lm.json`` and ``golden_lm_ssm.json``),
@@ -67,7 +68,8 @@ package.  Phases:
    1 024 entries (2 ways) and 65 536 (16 ways), both expiry modes, 10**6
    queries with negative gids (Q not a multiple of the 256-thread
    block), then the host scheduler's own table at the few queries of one
-   probe; zero mismatches; kernel times against the bytes bound;
+   probe; zero mismatches; kernel times against the bytes bound (the
+   queries and the table sets they touch);
 7. the serving entry against the plain serving engine (both on the
    card) on the 24 points of ``repro_torch.golden.SERVING`` cut to
    ``SERVE_CUT_STEPS`` steps, then on the scale streams' geometry (32
@@ -132,8 +134,34 @@ package.  Phases:
     the launch counts are zeroed before it and must read 22 flash, 22 x 8
     decode (each one split kernel, no combine), at least one probe and 2
     ``sim_step`` launches after it;
-13. one JSON line of kernel numbers;
-14. the last line: ``{"ok": true, "device": {...}}``.
+13.-15. falcon-mamba-7b serving (the ssm_scan kernel, the golden run,
+    prefill at B 4 x 2 048);
+16. the Experiment layer and the thesis's five figures
+    (``repro_torch.experiment``, ``repro_torch.figures``): (a) an
+    Experiment on the card against the plain engine — two single-core
+    traces of 2 000 requests x every kind x capacity (32, 128) in chunks
+    of 5 (12 unique points: a padded tail), RLTL on; the same group
+    through ``sweep_traces``, and its launch half alone under
+    ``torch.cuda.set_sync_debug_mode("error")``; a small synthetic and a
+    small serving Experiment against direct sweeps on the card (their
+    float draws are held to the plain engine on the card in phases 4 and
+    7) — zero mismatches; (b) the two golden
+    workloads through the Experiment's mechanism axis, every cell equal
+    to ``golden_fullwidth.json``; (c) the five figures at the thesis's
+    sizes (22 single-core workloads x 150 000 requests, 20 eight-core
+    mixes x 40 000 a core; 5 mixes for capacity and duration), each
+    figure's CSV rows, wall time and ``sim_step`` launches (equal to the
+    runner's plan, one a trace batch and chunk), every Fig 6.1 cell and
+    the first trace's cells of every other figure equal to a direct
+    ``sweep()`` on the card, then the scheduler-policy study
+    (``serving.study.policy_experiment``: the schedulers' probes through
+    the probe kernel, the policy x mechanism grid through the sim_step
+    kernel) against direct sweeps; the launch counts are zeroed before
+    the figures and read after the study; (d) the eight-core average
+    speedups ordered base < chargecache < cc_nuat < lldram and lldram's
+    ``acts_lowered_frac`` 1.0 (``examples/chargecache_sim.py``'s check);
+then one JSON line of kernel numbers, and the last line:
+``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line is printed.  Exits
 non-zero at once when no CUDA device is available.
@@ -675,10 +703,15 @@ def device_ms(fn, name: str, reps: int = 20):
     return us[0] / 1e3 if us else None
 
 
-def probe_bound_ms(Q, cfg) -> float:
+def probe_bound_ms(gids, cfg) -> float:
     """Bytes bound of one probe launch: each query's gid, time and hit
-    (12 B) once, the table's tags and insertion times once."""
-    return (Q * 12 + 2 * cfg.n_sets * cfg.n_ways * 4) / HBM_BYTES_PER_S * 1e3
+    (12 B) once, and the tags and insertion times of the sets these
+    queries touch (their ways, 8 B each) once — what this run's data
+    needs, not the whole table."""
+    import torch
+    touched = torch.unique(torch.remainder(gids.long(), cfg.n_sets)).numel()
+    return ((gids.numel() * 12 + touched * cfg.n_ways * 8)
+            / HBM_BYTES_PER_S * 1e3)
 
 
 def probe_diff(got, want) -> tuple[int, int]:
@@ -712,7 +745,7 @@ def phase_probe(hcl, hk, hops, href, host_cfg, device="cuda"):
                                              times)
             ms = median_ms(launch)
             dev_ms = device_ms(launch, "hcrac_lookup")
-            bound = probe_bound_ms(PROBE_Q, cfg)
+            bound = probe_bound_ms(gids, cfg)
             print(f"  {entries:6d} entries x {ways:2d} ways, "
                   f"{'exact' if exact else 'sweep'}: {PROBE_Q} queries, "
                   f"hits {int(want.sum())}, mismatches {bad}; kernel "
@@ -737,7 +770,7 @@ def phase_probe(hcl, hk, hops, href, host_cfg, device="cuda"):
     check(bad == 0, "probe kernel disagrees at the host scheduler's shape")
     out["main_path_probe_ms"] = median_ms(
         lambda: hk.hcrac_lookup(host_cfg, st.tags, st.itime, q_gids, q_times))
-    out["main_path_probe_bound_ms"] = probe_bound_ms(2, host_cfg)
+    out["main_path_probe_bound_ms"] = probe_bound_ms(q_gids, host_cfg)
     out["main_path_probe_device_ms"] = device_ms(
         lambda: hk.hcrac_lookup(host_cfg, st.tags, st.itime, q_gids,
                                 q_times), "hcrac_lookup")
@@ -745,8 +778,8 @@ def phase_probe(hcl, hk, hops, href, host_cfg, device="cuda"):
           f"2 queries: mismatches {bad}, kernel "
           f"{out['main_path_probe_ms']:.4f} ms a probe (launch included; "
           f"device time alone {out['main_path_probe_device_ms']} ms), "
-          f"bytes bound {out['main_path_probe_bound_ms']:.6f} ms",
-          flush=True)
+          f"bytes bound {out['main_path_probe_bound_ms']:.3e} ms (the "
+          f"queries and the sets they touch)", flush=True)
     return out
 
 
@@ -2004,6 +2037,288 @@ def ssm_phases(golden_mod, smi: str, device="cuda") -> dict:
             "logits_max_diff": worst_full, "logits_max_diff_cut": worst_cut}
 
 
+# --------------------------------------------------------------------------
+# phase 16: the Experiment layer and the five figures
+# --------------------------------------------------------------------------
+
+#: (a): the two traces, the capacities and the chunk of the kernel-vs-plain
+#: Experiment (12 unique points in chunks of 5: a padded tail)
+EXP_CHECK = {"n_req": 2000, "names": ("milc_like", "mcf_like"),
+             "caps": (32, 128), "chunk": 5}
+
+
+def cell_mismatches(want: dict, got: dict, rltl: bool) -> int:
+    """Values of two stats dicts that differ: every ``BITWISE_KEYS`` stat
+    (``golden_fullwidth.json``'s list), ``core_end``, the per-bank
+    accumulators and, with ``rltl``, the RLTL histogram."""
+    import numpy as np
+    from repro_torch import golden as golden_mod
+    bad = sum(int(want[k]) != int(got[k])
+              for k in golden_mod.load()["bitwise_keys"])
+    keys = ["core_end", "bank_acts", "bank_act_ras_sum"]
+    keys += ["rltl_hist"] if rltl else []
+    return bad + sum(not np.array_equal(want[k], got[k]) for k in keys)
+
+
+def results_mismatches(want, got, rltl: bool) -> int:
+    check(want.dims == got.dims and want.coords == got.coords,
+          "Results grids differ in dims or coords")
+    return sum(cell_mismatches(a, b, rltl)
+               for a, b in zip(want.cells.flat, got.cells.flat))
+
+
+def experiment_vs_plain(sim, traces, mechanisms, Experiment, device="cuda"):
+    """(a): the Experiment layer on the card against the plain engine,
+    and the launch half's promise of no synchronisation; the synthetic
+    and serving modes of the layer against direct sweeps on the card
+    (their entries draw floats, whose last ulp the CPU's plain engine may
+    round otherwise: phases 4 and 7 hold them against the plain engine
+    on the card)."""
+    import torch
+    from repro_torch.serving.loop import ServingSpec
+    from repro_torch.workloads.arrivals import ArrivalConfig
+    E = EXP_CHECK
+    batches = {n: traces.single_core_batch(n, E["n_req"], seed=3)
+               for n in E["names"]}
+    kw = dict(traces=batches, trace_dim="workload", rltl=True,
+              chunk_size=E["chunk"],
+              axes={"mechanism": list(mechanisms.names()),
+                    "capacity": E["caps"]})
+    t0 = time.time()
+    got = Experiment(device=device, **kw).run()
+    card_s = time.time() - t0
+    t0 = time.time()
+    want = Experiment(device="cpu", **kw).run()
+    plain_s = time.time() - t0
+    check(got.meta["n_unique"] % E["chunk"] != 0, "no padded tail chunk")
+    bad = {"experiment": results_mismatches(want, got, rltl=True)}
+    # the labeled group through sweep_traces, and its launch half alone
+    # with every synchronisation an error
+    _, _, cfgs = Experiment(device="cpu", **kw).expand()
+    group = list(batches.values())
+    direct = sim.sweep_traces(group, cfgs, rltl=True, device=device)
+    plain = sim.sweep_traces(group, cfgs, rltl=True, device="cpu")
+    bad["sweep_traces"] = sum(cell_mismatches(a, b, True) for ra, rb in
+                              zip(plain, direct) for a, b in zip(ra, rb))
+    dev, host = torch.device(device), torch.device("cpu")
+    shape, stacked = sim._grid_shape_and_params(cfgs, cfgs, host)
+    geoms, idx = sim._hoist_geoms(cfgs, cfgs, host)
+    geoms = sim._tree_map(lambda x: x.to(dev), geoms)
+    staged = [sim._stage_trace(b, shape, geoms, dev, cfgs[0].warmup_frac,
+                               True) for b in group]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = sim._launch_grid(shape, stacked, idx, staged, True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    bad["launch_half"] = sum(
+        cell_mismatches(a, b, True) for ra, rb in zip(
+            plain, sim._drain_grid(outs, cfgs, group)) for a, b in zip(ra, rb))
+    # the synthetic and serving modes of the layer, small
+    synth = Experiment(device=device, traces=None, chunk_size=3, rltl=True,
+                       base=sim.SimConfig(workload=traces.WorkloadSpec(
+                           names=("stream_copy_like", "mcf_like"),
+                           n_req=300, seed=4)),
+                       axes={"interleave": ["bank", "xor"],
+                             "geometry": ["ddr3_2ch"],
+                             "mechanism": ["base", "chargecache"]})
+    res = synth.run()
+    bad["synth"] = sum(cell_mismatches(a, b, True) for a, b in zip(
+        sim.sweep_synth(synth.expand()[2], rltl=True, device=device),
+        res.cells.flat))
+    spec = ServingSpec(arrival=ArrivalConfig(
+        rate=1.5, prompt_pages_min=1, prompt_pages_max=2, decode_min=4,
+        decode_max=12, seed=7), n_reqs=24, max_batch=4, queue_cap=32,
+        arrivals_max=4, n_steps=48, hot_entries=1018, hot_exact=True)
+    serve = Experiment(device=device, traces=None, chunk_size=4,
+                       base=sim.SimConfig(serving=spec),
+                       axes={"policy": ["fifo", "charge_aware", "preempting"],
+                             "arrival_rate": (0.5, 2.0)})
+    res = serve.run()
+    want_s = sim.sweep_serving(serve.expand()[2], device=device)
+    bad["serving"] = sum(
+        cell_mismatches(a, b, False) + sum(
+            int(a[k]) != int(b[k]) for k in ("arrived", "dropped", "retired",
+                                             "preempted", "admit_hot"))
+        for a, b in zip(want_s, res.cells.flat))
+    print(f"  (a) {len(group)} traces x {len(cfgs)} points ({got.meta['n_unique']}"
+          f" unique, chunks of {E['chunk']}), card {card_s:.1f} s / plain "
+          f"{plain_s:.1f} s (host clocks); the Experiment, sweep_traces and "
+          f"its launch half under sync-debug 'error' against the plain "
+          f"engine, a synthetic and a serving Experiment against direct "
+          f"sweeps on the card: mismatching values {bad}", flush=True)
+    check(sum(bad.values()) == 0, "the Experiment layer on the card "
+          "disagrees with the plain engine or a direct sweep")
+    return sum(bad.values())
+
+
+def golden_through_experiment(sim, traces, golden_mod, Experiment) -> int:
+    """(b): the two golden workloads through the Experiment's mechanism
+    axis, every cell against ``golden_fullwidth.json``."""
+    gold = golden_mod.load()
+    kinds = tuple(gold["kinds"])
+    bad = 0
+    for wname in ("eight_core", "single_core"):
+        w = gold["workloads"][wname]
+        batch = golden_mod.load_batch(traces, wname)
+        res = Experiment(traces=batch, axes={"mechanism": list(kinds)},
+                         base=sim.SimConfig(policy=w["policy"]),
+                         rltl=True).run()
+        bad += check_golden(w, kinds, [res.point(mechanism=k)
+                                       for k in kinds])
+    print(f"  (b) golden workloads through the Experiment: {bad} "
+          f"mismatching values", flush=True)
+    check(bad == 0, "the Experiment disagrees with the golden numbers")
+    return bad
+
+
+def direct_mismatches(sim, res, exp, which, rltl: bool) -> int:
+    """The Experiment's cells against a direct ``sweep()`` of each trace
+    named in ``which`` (its trace-dim labels) on the card."""
+    _, _, cfgs = exp.expand()
+    dim = exp.trace_dim
+    bad = 0
+    for label in which:
+        batch = exp.traces[label]
+        row = res.sel(**{dim: label})
+        for a, b in zip(sim.sweep(batch, cfgs, rltl=rltl), row.cells.flat):
+            bad += cell_mismatches(a, b, rltl)
+    return bad
+
+
+def figure_phase(sim):
+    """(c) and (d): the five figures at the thesis's sizes on the card,
+    each cell equal to a direct sweep (every trace for Fig 6.1, the first
+    trace of each group for the others); the eight-core ordering; and the
+    scheduler-policy study.  Returns the main path's launch counts and
+    the figures' numbers for the kernels line."""
+    from repro_torch.figures import (capacity, common as C, duration,
+                                     energy, rltl, speedup)
+    from repro_torch.kernels.hcrac import ops as hops
+    from repro_torch.kernels.sim_step import ops
+    from repro_torch.serving import study
+    S = C.THESIS
+    t0 = time.time()
+    mixes = S.mixes()
+    for name in S.singles:
+        C.single_batch(name, S.n_req_1c, S.seed)
+    for m in mixes:
+        C.mix_batch(tuple(m), S.n_req_8c, S.seed)
+    print(f"  traces: {len(S.singles)} single-core x {S.n_req_1c} requests, "
+          f"{len(mixes)} eight-core mixes x {S.n_req_8c} a core, built on "
+          f"the host in {time.time() - t0:.1f} s", flush=True)
+
+    figs = {}
+    ops.launches = ops.synth_launches = ops.serve_launches = 0
+    hops.launches = 0
+    t_all = time.time()
+
+    def run(name, fn, *args):
+        before = ops.launches
+        t = time.time()
+        out = fn(S, *args, device="cuda")
+        wall = time.time() - t
+        res = out["results"]
+        launches = ops.launches - before
+        check(launches == res.meta["n_kernel_launches"],
+              f"{name}: {launches} sim_step launches, the runner planned "
+              f"{res.meta['n_kernel_launches']}")
+        figs[name] = {"wall_s": wall, "launches": launches,
+                      "chunks": res.meta["n_chunks"],
+                      "traces": len(res.coords[res.dims[0]])}
+        return out, wall * 1e6
+
+    sp1, us1 = run("speedup_single", speedup.single_core)
+    sp8, us8 = run("speedup_eight", speedup.eight_core)
+    cap1, usc1 = run("capacity_single", capacity.single_hits)
+    cap8, usc8 = run("capacity_eight", capacity.eight)
+    dur, usd = run("duration", duration.work)
+    en1, use1 = run("energy_single", energy.single)
+    en8, use8 = run("energy_eight", energy.eight)
+    rl1, usr1 = run("rltl_single_open", rltl.fig_3_1_single, "open")
+    rlc, usrc = run("rltl_single_closed", rltl.fig_3_1_single, "closed")
+    rl8, usr8 = run("rltl_eight", rltl.fig_3_1_eight, "closed")
+    fig_s = time.time() - t_all
+    fig_launches = ops.launches
+    t0 = time.time()
+    pol = study.policy_experiment(device="cuda")
+    pol_res = pol.run()
+    pol_s = time.time() - t0
+    main_launches = {"sim_step": ops.launches, "hcrac": hops.launches,
+                     "sim_synth": ops.synth_launches,
+                     "sim_serve": ops.serve_launches}
+    print(f"  main path: five figures {fig_s:.1f} s wall, sim_step launches "
+          f"{fig_launches}; policy study {pol_s:.1f} s; counts after both: "
+          f"{main_launches}", flush=True)
+    check(main_launches["sim_step"] > 0 and main_launches["hcrac"] > 0,
+          "the main path launched no sim_step or no probe kernel")
+    rows = (speedup.rows(sp1, us1, sp8, us8)
+            + capacity.rows(cap1, usc1, cap8, usc8) + duration.rows(dur, usd)
+            + energy.rows(en1, use1, en8, use8)
+            + rltl.rows(rl1, usr1, rlc, usrc, rl8, usr8))
+    for row in rows:
+        print(f"  {row}")
+    for name, f in figs.items():
+        print(f"    {name:<20} {f['wall_s']:7.2f} s wall, {f['traces']:2d} "
+              f"traces x {f['chunks']} chunk(s) = {f['launches']} sim_step "
+              f"launches")
+
+    # (c) the cells against direct sweeps on the card
+    t0 = time.time()
+    bad = 0
+    exp = C.singles_experiment(S.singles, speedup.AXES, S.n_req_1c, S.seed)
+    bad += direct_mismatches(sim, sp1["results"], exp, S.singles, False)
+    exp = C.mixes_experiment(mixes, speedup.AXES, S.n_req_8c, S.seed)
+    bad += direct_mismatches(sim, sp8["results"], exp,
+                             sp8["results"].coords["mix"], False)
+    firsts = (
+        (cap1, C.singles_experiment, S.singles, capacity.SINGLE_AXES, {},
+         False),
+        (cap8, C.mixes_experiment, S.sub_mixes(), capacity.EIGHT_AXES, {},
+         False),
+        (dur, C.mixes_experiment, S.sub_mixes(), duration.AXES, {}, False),
+        (en1, C.singles_experiment, S.singles, energy.AXES, {}, False),
+        (en8, C.mixes_experiment, mixes, energy.AXES, {}, False),
+        (rl1, C.singles_experiment, S.singles, rltl.AXES,
+         dict(base=C.sim_cfg("base", 1, "open"), rltl=True), True),
+        (rlc, C.singles_experiment, S.singles, rltl.AXES,
+         dict(base=C.sim_cfg("base", 1, "closed"), rltl=True), True),
+        (rl8, C.mixes_experiment, mixes, rltl.AXES,
+         dict(base=C.sim_cfg("base", 8, "closed"), rltl=True), True))
+    n_size = {C.singles_experiment: S.n_req_1c, C.mixes_experiment:
+              S.n_req_8c}
+    for out, make, traces_of, axes, kw, with_rltl in firsts:
+        exp = make(traces_of, axes, n_size[make], S.seed, **kw)
+        res = out["results"]
+        bad += direct_mismatches(sim, res, exp,
+                                 res.coords[res.dims[0]][:1], with_rltl)
+    for label in pol_res.coords["policy"]:
+        for a, b in zip(sim.sweep(pol.traces[label], pol.expand()[2],
+                                  rltl=False),
+                        pol_res.sel(policy=label).cells.flat):
+            bad += cell_mismatches(a, b, False)
+    print(f"  (c) cells against direct sweeps on the card (every Fig 6.1 "
+          f"trace, the first of each other group, both policy traces): "
+          f"{bad} mismatching values ({time.time() - t0:.1f} s)", flush=True)
+    check(bad == 0, "an Experiment cell differs from its direct sweep")
+
+    # (d) the thesis's ordering (examples/chargecache_sim.py's check)
+    a8 = sp8["avg"]
+    lowered = sp8["results"].sel(mechanism="lldram").metric(
+        "acts_lowered_frac")
+    print(f"  (d) eight-core average speedups: base 1.0 < chargecache "
+          f"{a8['chargecache']:.4f} < cc_nuat {a8['cc_nuat']:.4f} < lldram "
+          f"{a8['lldram']:.4f}; lldram acts_lowered_frac "
+          f"{lowered.min():.4f}..{lowered.max():.4f}", flush=True)
+    check(1.0 < a8["chargecache"] < a8["cc_nuat"] < a8["lldram"],
+          "speedup ordering base < chargecache < cc_nuat < lldram broken")
+    check(bool((lowered == 1.0).all()), "lldram lowers fewer than all ACTs")
+    return {"figures": figs, "figures_s": fig_s, "figure_launches":
+            fig_launches, "main": main_launches, "cells_vs_direct": bad,
+            "rows": rows, "policy_study_s": pol_s}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2262,6 +2577,14 @@ def main() -> int:
     max_err = max(max_err, serve_rows[1]["max_abs_err"])
     lm_rows = lm_phases(golden_mod, sim)
     ssm_row = ssm_phases(golden_mod, smi)
+
+    # --- phase 16: the Experiment layer and the five figures -------------
+    print("\nphase 16: the Experiment layer and the five figures", flush=True)
+    from repro_torch.experiment import Experiment
+    exp_bad = experiment_vs_plain(sim, traces, mechanisms, Experiment)
+    gold_bad = golden_through_experiment(sim, traces, golden_mod, Experiment)
+    fig = figure_phase(sim)
+    serve_rows[0]["launches_policy_study"] = fig["main"]["hcrac"]
     print(smi)
 
     # --- kernel numbers ---------------------------------------------------
@@ -2282,7 +2605,12 @@ def main() -> int:
         "registers": regs.get("sim_step_kernel", {}).get("registers"),
         "spill_bytes": sum(regs.get("sim_step_kernel", {}).get(k, 0)
                            for k in ("spill_stores", "spill_loads")),
-        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}, {
+        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+        "experiment_mismatches": exp_bad + gold_bad + fig["cells_vs_direct"],
+        "figure_launches": fig["figure_launches"],
+        "figures_s": fig["figures_s"],
+        "figure_walls_s": {k: v["wall_s"] for k, v in fig["figures"].items()},
+        "experiment_main_launches": fig["main"]}, {
         "name": "sim_step_synth", "route": "cuda",
         "source": "src/repro_torch/kernels/sim_step/csrc/sim_step.cu",
         "replaces": "src/repro/kernels/sim_step/ops.py:65",

@@ -1,10 +1,13 @@
-"""Per-architecture model configs of the assigned pool (port of
-``repro.configs``; the paper's DDR3 system configs are the simulator's
-``SimConfig`` defaults in ``repro_torch.core``).
+"""Per-architecture model configs of the assigned pool, and the paper's
+own DDR3 system configs (port of ``repro.configs``).
 
 ``get(name)`` returns the ModelConfig; ``ALL_ARCHS`` lists the assigned ten.
 The ``dense`` and ``ssm`` families run in the port so far
 (``repro_torch.models.lm``, ``models.ssm``); the others are data here.
+``chargecache_ddr3`` (thesis Table 5.1) and ``aldram_ddr3`` (its AL-DRAM
+evaluation) hold ``SIM_CONFIG`` / ``MECHANISMS`` (and ``TEMPERATURES``)
+for the simulator; they are not model archs and stay out of
+``ALL_ARCHS``.
 """
 
 from importlib import import_module

@@ -16,7 +16,8 @@ from repro_torch.core.simulator import (MechanismConfig, MechParams,
                                         REDUCE_KEYS, SimConfig, SimShape,
                                         mech_params, params_from_numpy,
                                         sim_shape, simulate, simulate_synth,
-                                        sweep, sweep_synth, weighted_speedup,
+                                        sweep, sweep_synth, sweep_traces,
+                                        weighted_speedup,
                                         default_nuat_bins, RLTL_EDGES_MS)
 from repro_torch.core.traces import WorkloadSpec
 from repro_torch.core import (aldram, charge_model, energy, mechanisms,
@@ -32,7 +33,7 @@ __all__ = [
     "HCRACConfig", "HCRACParams", "HCRACState", "MechanismConfig",
     "MechParams", "REDUCE_KEYS", "SimConfig", "SimShape", "mech_params",
     "params_from_numpy", "sim_shape", "simulate", "simulate_synth", "sweep",
-    "sweep_synth", "WorkloadSpec",
+    "sweep_synth", "sweep_traces", "WorkloadSpec",
     "weighted_speedup", "default_nuat_bins", "RLTL_EDGES_MS",
     "charge_model", "energy", "mechanisms", "rltl", "traces",
 ]

@@ -1,14 +1,25 @@
-"""Scalar-metric registry (port of ``repro.core.metrics``; numpy, host).
+"""Scalar-metric registry and streaming aggregations (port of
+``repro.core.metrics``; numpy, host).
 
 One source of truth for every derived scalar the engine reports: a
 *metric* is a named host-side formula over integer *ingredient* counters
 (``deps`` — stat keys like ``lat_sum``/``n_req``, or the engine-derived
-``total_cycles``).  ``simulator._finalize`` and the serving engine's
-``run_sweep`` call ``finalize_scalars``, which fills in every registered
-metric whose deps are present.  The formulas are dtype-explicit numpy,
-so they give the same float64 values as ``repro``'s.  The reduce path
-and the streaming aggregations of ``repro.core.metrics`` belong to the
-Experiment layer, not ported yet.
+``total_cycles``).  Two consumers:
+
+* the full-stats path: ``simulator._finalize`` and the serving engine's
+  drain call ``finalize_scalars``, which fills in every registered
+  metric whose deps are present;
+* the reduce path (``Experiment(reduce=...)``): a launch lowers the
+  metrics' integer deps (``resolve`` / ``deps_for``) to an int32
+  ``[chunk, n_deps]`` array on the device, and the host applies the same
+  formulas vectorized over the chunk.
+
+The formulas are dtype-explicit numpy, so the scalar and the vectorized
+call give the same float64 values, and both equal ``repro``'s.  An
+*aggregation* (``mean`` / ``min`` / ``max`` / ``argbest``, or any
+``register_aggregation`` name) folds a metric's values chunk by chunk
+over the whole grid.  The public face is ``repro_torch.experiment.
+metrics``.
 """
 
 from __future__ import annotations
@@ -18,7 +29,9 @@ from typing import Callable, Sequence
 
 import numpy as np
 
-__all__ = ["Metric", "register_metric", "metric_names", "finalize_scalars"]
+__all__ = ["Metric", "register_metric", "metric_names", "resolve",
+           "deps_for", "finalize_scalars", "register_aggregation",
+           "aggregation_names", "make_aggregator"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +66,42 @@ def register_metric(name: str, deps: Sequence[str], best: str = "min",
 
 def metric_names() -> tuple[str, ...]:
     return tuple(_METRICS)
+
+
+def resolve(names: Sequence[str], available: Sequence[str]
+            ) -> tuple[Metric, ...]:
+    """Metric objects for ``names``, validated against the launch's
+    reducible ingredient keys.  A name that is itself a reducible key
+    (a raw counter like ``retired`` or ``acts``) resolves to an identity
+    metric, so ``reduce=("total_cycles", "retired")`` just works."""
+    avail = set(available)
+    out = []
+    for n in names:
+        m = _METRICS.get(n)
+        if m is None:
+            if n not in avail:
+                raise ValueError(
+                    f"{n!r} is neither a registered metric "
+                    f"({metric_names()}) nor a reducible stat key")
+            m = Metric(n, (n,), lambda x: x, best="max", as_int=True)
+        missing = tuple(d for d in m.deps if d not in avail)
+        if missing:
+            raise ValueError(
+                f"metric {n!r} needs deps {missing} which this launch mode "
+                f"cannot reduce (available: {tuple(sorted(avail))})")
+        out.append(m)
+    return tuple(out)
+
+
+def deps_for(metrics: Sequence[Metric]) -> tuple[str, ...]:
+    """Ordered union of the metrics' ingredient keys (first-use order) —
+    the ``reduce_keys`` a launch lowers on the device."""
+    seen: list[str] = []
+    for m in metrics:
+        for d in m.deps:
+            if d not in seen:
+                seen.append(d)
+    return tuple(seen)
 
 
 def finalize_scalars(stats: dict) -> dict:
@@ -129,3 +178,96 @@ def _occ_mean(occ_sum, n_steps):
 @register_metric("qlen_mean", deps=("qlen_sum", "n_steps"), best="min")
 def _qlen_mean(qlen_sum, n_steps):
     return qlen_sum / np.maximum(n_steps, 1)
+
+
+# --------------------------------------------------------------------------
+# Streaming aggregations
+# --------------------------------------------------------------------------
+
+_AGGREGATIONS: dict[str, Callable] = {}
+
+
+def register_aggregation(name: str):
+    """Register an aggregation factory: ``factory(metric) -> aggregator``
+    with ``update(values, flat_idx)`` and ``result()``."""
+    def deco(factory):
+        _AGGREGATIONS[name] = factory
+        return factory
+    return deco
+
+
+def aggregation_names() -> tuple[str, ...]:
+    return tuple(_AGGREGATIONS)
+
+
+def make_aggregator(agg: str, metric: Metric):
+    if agg not in _AGGREGATIONS:
+        raise ValueError(f"unknown aggregation {agg!r}; registered: "
+                         f"{aggregation_names()}")
+    return _AGGREGATIONS[agg](metric)
+
+
+@register_aggregation("mean")
+class _Mean:
+    def __init__(self, metric: Metric):
+        self._sum, self._n = 0.0, 0
+
+    def update(self, values: np.ndarray, flat_idx: np.ndarray):
+        self._sum += float(np.sum(values, dtype=np.float64))
+        self._n += int(values.size)
+
+    def result(self):
+        return self._sum / max(self._n, 1)
+
+
+class _Extremum:
+    _cmp = min
+
+    def __init__(self, metric: Metric):
+        self._best = None
+
+    def update(self, values: np.ndarray, flat_idx: np.ndarray):
+        if values.size == 0:
+            return
+        v = float(type(self)._cmp(values.min(), values.max()))
+        self._best = v if self._best is None else type(self)._cmp(
+            self._best, v)
+
+    def result(self):
+        return self._best
+
+
+@register_aggregation("min")
+class _Min(_Extremum):
+    _cmp = min
+
+
+@register_aggregation("max")
+class _Max(_Extremum):
+    _cmp = max
+
+
+@register_aggregation("argbest")
+class _ArgBest:
+    """Best grid point in the metric's ``best`` direction; ties keep the
+    earliest flat index (deterministic under any chunking)."""
+
+    def __init__(self, metric: Metric):
+        self._lower_is_better = metric.best == "min"
+        self._val, self._idx = None, None
+
+    def update(self, values: np.ndarray, flat_idx: np.ndarray):
+        if values.size == 0:
+            return
+        pick = int(np.argmin(values) if self._lower_is_better
+                   else np.argmax(values))
+        v, i = float(values[pick]), int(flat_idx[pick])
+        better = (self._val is None
+                  or (v < self._val if self._lower_is_better
+                      else v > self._val)
+                  or (v == self._val and i < self._idx))
+        if better:
+            self._val, self._idx = v, i
+
+    def result(self):
+        return {"value": self._val, "flat_index": self._idx}

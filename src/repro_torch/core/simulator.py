@@ -868,6 +868,22 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
+def _stage_trace(batch: TraceBatch, shape: SimShape, ns_geoms: GeomParams,
+                 device, warmup_frac: float, pad_steps: bool = False):
+    """One trace batch on ``device``: ``(trace, lookahead tables, warm-up
+    steps, n_steps)``.  ``ns_geoms`` (on ``device``) are the grid's
+    distinct fold geometries; the warm-up is ``int(warmup_frac x the
+    request count)`` and ``n_steps`` the request count (``pad_steps``:
+    cores x padded length, whose tail steps are no-ops)."""
+    n_req = _check_horizon(batch)
+    if pad_steps and batch.gap.size >= 2**24:
+        raise ValueError("trace too long for the int32 cycle horizon")
+    trace = _device_trace(batch, device)
+    ns = _ns_tables(shape, trace, ns_geoms)
+    return (trace, ns, int(warmup_frac * n_req),
+            batch.gap.size if pad_steps else n_req)
+
+
 def _stage(batch: TraceBatch, grid: Sequence[SimConfig], device,
            pad_steps: bool = False,
            shape_grid: Sequence[SimConfig] | None = None,
@@ -881,29 +897,105 @@ def _stage(batch: TraceBatch, grid: Sequence[SimConfig], device,
     if not grid:
         raise ValueError("empty sweep grid")
     shape, stacked = _grid_shape_and_params(grid, shape_grid, device)
-    n_req = _check_horizon(batch)
-    trace = _device_trace(batch, device)
-    if n_steps is None:
-        n_steps = batch.gap.size if pad_steps else n_req
     ns_geoms, ns_idx = _hoist_geoms(
         grid, shape_grid if shape_grid is not None else grid, device)
-    ns = _ns_tables(shape, trace, ns_geoms)
-    return (shape, stacked, trace, ns, ns_idx,
-            int(grid[0].warmup_frac * n_req), n_steps)
+    trace, ns, warmup, steps = _stage_trace(
+        batch, shape, ns_geoms, device, grid[0].warmup_frac, pad_steps)
+    return (shape, stacked, trace, ns, ns_idx, warmup,
+            steps if n_steps is None else n_steps)
+
+
+def _launch_batch(staged: tuple, collect_events: bool = True,
+                  reduce_keys: tuple | None = None):
+    """The launch half of a sweep: one ``ops.run_sweep`` over ``_stage``'s
+    tuple, returning the device outputs without waiting for them — the
+    stats triple, or with ``reduce_keys`` the int32 ``[G, n_deps]``
+    reduction (no events).  Nothing here synchronises with the device or
+    copies to the host when the params are staged on the host."""
+    from repro_torch.kernels.sim_step import ops as sim_step_ops
+    out = sim_step_ops.run_sweep(*staged,
+                                 collect_events and reduce_keys is None)
+    if reduce_keys is None:
+        return out
+    return _reduce_device(out[0], out[1], reduce_keys)
+
+
+def _drain_batch(out, grid, lengths, reduce_keys: tuple | None = None):
+    """The drain half: wait for a ``_launch_batch`` output and bring it
+    to the host, as the reduced int32 ``[len(grid), n_deps]`` array or
+    one finished stats dict for each of ``grid``'s points (the leading
+    points of the launch)."""
+    return _drain(out, grid, lambda i: lengths, reduce_keys)
+
+
+def _launch_grid(shape: SimShape, stacked: MechParams, ns_idx,
+                 staged_traces: Sequence[tuple], collect_events: bool = False,
+                 reduce_keys: tuple | None = None) -> list:
+    """The launch half of ``sweep_traces``: one grid over several trace
+    batches (``_stage_trace`` tuples of one step count), one output a
+    batch, as ``_launch_batch`` returns it.
+
+    On the card each batch is one ``sim_step`` launch.  On the CPU the
+    plain engine's cost is a step's op count, nearly whatever the point
+    count, so the batches run as one call over batch × grid points,
+    each point with its own stream (the form the synthetic path uses),
+    and the outputs split per batch; every point's result is the one a
+    call per batch gives."""
+    if len(staged_traces) == 1 or staged_traces[0][0]["gap"].is_cuda:
+        return [_launch_batch((shape, stacked, trace, ns, ns_idx, warmup,
+                               n_steps), collect_events, reduce_keys)
+                for trace, ns, warmup, n_steps in staged_traces]
+    from repro_torch.kernels.sim_step import ops as sim_step_ops
+    n_steps = {st[3] for st in staged_traces}
+    if len(n_steps) != 1:
+        raise ValueError("a trace group must share one step count")
+    B, G = len(staged_traces), ns_idx.shape[0]
+    trace = {k: torch.stack([st[0][k] for st in staged_traces])
+             .repeat_interleave(G, dim=0) for k in staged_traces[0][0]}
+    n_geom = staged_traces[0][1].shape[0]
+    ns = torch.cat([st[1] for st in staged_traces])
+    ns_bg = (torch.arange(B, dtype=_I32)[:, None] * n_geom
+             + ns_idx.to(_I32)[None, :]).reshape(-1)
+    warmups = torch.tensor([st[2] for st in staged_traces],
+                           dtype=_I32).repeat_interleave(G)
+    stacked_bg = _tree_map(
+        lambda a: a.repeat((B,) + (1,) * (a.dim() - 1)), stacked)
+    stats, core_end, events = sim_step_ops.run_sweep(
+        shape, stacked_bg, trace, ns, ns_bg, warmups, n_steps.pop(),
+        collect_events and reduce_keys is None)
+    if reduce_keys is not None:
+        red = _reduce_device(stats, core_end, reduce_keys)
+        return [red[b * G:(b + 1) * G] for b in range(B)]
+    return [({k: v[b * G:(b + 1) * G] for k, v in stats.items()},
+             core_end[b * G:(b + 1) * G],
+             None if events is None
+             else Events(*(lane[b * G:(b + 1) * G] for lane in events)))
+            for b in range(B)]
+
+
+def _drain_grid(outs: list, grid, batches, reduce_keys: tuple | None = None):
+    """The drain half of ``sweep_traces``: ``out[b][g]`` stats dicts, or
+    the int32 ``[batch, grid, n_deps]`` reduction."""
+    rows = [_drain_batch(out, grid, b.length, reduce_keys)
+            for out, b in zip(outs, batches)]
+    return np.stack(rows) if reduce_keys is not None else rows
 
 
 def _drain(out, grid, lengths_of, reduce_keys):
-    """The host view of a launch's ``(stats, core_end, events or None)``:
-    the reduced ``[G, n_deps]`` int32 array, or one finished stats dict
-    per point (``lengths_of(i)`` gives point ``i``'s request counts)."""
-    stats, core_end, events = out
+    """The host view of a launch's output: the reduced ``[G, n_deps]``
+    int32 array (first ``len(grid)`` rows), or one finished stats dict
+    per point of ``grid`` from the ``(stats, core_end, events or None)``
+    triple (``lengths_of(i)`` gives point ``i``'s request counts)."""
+    n = len(grid)
     if reduce_keys is not None:
-        return _reduce_device(stats, core_end, reduce_keys).cpu().numpy()
+        return out[:n].cpu().numpy()
+    stats, core_end, events = out
     hist = total = None
     if events is not None:
-        hist, total = (x.cpu().numpy() for x in _rltl_device(events))
-    stats_np = {k: v.cpu().numpy() for k, v in stats.items()}
-    core_np = core_end.cpu().numpy()
+        hist, total = (x.cpu().numpy() for x in _rltl_device(
+            Events(*(lane[:n] for lane in events))))
+    stats_np = {k: v[:n].cpu().numpy() for k, v in stats.items()}
+    core_np = core_end[:n].cpu().numpy()
     return [
         _finalize({k: v[i] for k, v in stats_np.items()}, core_np[i],
                   (None, None) if hist is None else (hist[i], total[i]),
@@ -933,13 +1025,45 @@ def sweep(batch: TraceBatch, grid: Sequence[SimConfig],
     array reduced on the device instead, without events.  ``device``
     defaults to CUDA.
     """
-    from repro_torch.kernels.sim_step import ops as sim_step_ops
-
     grid = list(grid)
-    launch = _stage(batch, grid, _resolve_device(device), pad_steps,
+    staged = _stage(batch, grid, _resolve_device(device), pad_steps,
                     shape_grid)
-    out = sim_step_ops.run_sweep(*launch, rltl and reduce_keys is None)
-    return _drain(out, grid, lambda i: batch.length, reduce_keys)
+    out = _launch_batch(staged, rltl, reduce_keys)
+    return _drain_batch(out, grid, batch.length, reduce_keys)
+
+
+def sweep_traces(batches: Sequence[TraceBatch], grid: Sequence[SimConfig],
+                 rltl: bool = False,
+                 shape_grid: Sequence[SimConfig] | None = None,
+                 reduce_keys: tuple | None = None, device=None):
+    """Evaluate a config grid over several same-shape trace batches.
+
+    Each batch is one launch of the whole grid (on a CUDA device one
+    ``sim_step`` kernel launch, on the CPU the plain engine), with the
+    scan padded to the trace capacity (cores x padded length: the tail
+    steps are no-ops) and each batch's own warm-up.  The params are
+    staged once, on the host, for every batch.  Returns ``out[b][g]``,
+    the stats of batch ``b`` under config ``g``, bitwise equal to
+    ``repro.core.sweep_traces`` (the RLTL histogram only with ``rltl``);
+    with ``reduce_keys`` the int32 ``[batch, grid, n_deps]`` reduction.
+    ``device`` defaults to CUDA.
+    """
+    batches = list(batches)
+    grid = list(grid)
+    if not batches or not grid:
+        raise ValueError("empty sweep")
+    if any(b.gap.shape != batches[0].gap.shape for b in batches):
+        raise ValueError("sweep_traces requires same-shape trace batches")
+    device = _resolve_device(device)
+    host = torch.device("cpu")
+    shape, stacked = _grid_shape_and_params(grid, shape_grid, host)
+    ns_geoms, ns_idx = _hoist_geoms(
+        grid, shape_grid if shape_grid is not None else grid, host)
+    ns_geoms = _tree_map(lambda x: x.to(device), ns_geoms)
+    staged = [_stage_trace(b, shape, ns_geoms, device, grid[0].warmup_frac,
+                           pad_steps=True) for b in batches]
+    outs = _launch_grid(shape, stacked, ns_idx, staged, rltl, reduce_keys)
+    return _drain_grid(outs, grid, batches, reduce_keys)
 
 
 def simulate(batch: TraceBatch, cfg: SimConfig = SimConfig(),
@@ -1046,6 +1170,28 @@ def _stage_synth(grid: Sequence[SimConfig],
             n_steps)
 
 
+def _launch_synth(staged: tuple, collect_events: bool = True,
+                  reduce_keys: tuple | None = None, device=None):
+    """The launch half of a synthetic sweep: one ``ops.run_synth`` over
+    ``_stage_synth``'s tuple on ``device`` (default: where it was
+    staged), returning the device outputs without waiting for them, or
+    with ``reduce_keys`` the int32 ``[G, n_deps]`` reduction."""
+    from repro_torch.kernels.sim_step import ops as sim_step_ops
+    out = sim_step_ops.run_synth(*staged,
+                                 collect_events and reduce_keys is None,
+                                 device=device)
+    if reduce_keys is None:
+        return out
+    return _reduce_device(out[0], out[1], reduce_keys)
+
+
+def _drain_synth(out, grid, reduce_keys: tuple | None = None):
+    """The drain half of a synthetic sweep (``_drain`` with each point's
+    own request counts)."""
+    return _drain(out, grid, lambda i: grid[i].workload.lengths(),
+                  reduce_keys)
+
+
 def sweep_synth(grid: Sequence[SimConfig], rltl: bool = True,
                 shape_grid: Sequence[SimConfig] | None = None,
                 reduce_keys: tuple | None = None, device=None):
@@ -1061,13 +1207,10 @@ def sweep_synth(grid: Sequence[SimConfig], rltl: bool = True,
     longest spec over ``shape_grid`` (padded steps are no-ops).
     ``device`` defaults to CUDA.
     """
-    from repro_torch.kernels.sim_step import ops as sim_step_ops
-
     grid = list(grid)
-    launch = _stage_synth(grid, shape_grid, _resolve_device(device))
-    out = sim_step_ops.run_synth(*launch, rltl and reduce_keys is None)
-    return _drain(out, grid, lambda i: grid[i].workload.lengths(),
-                  reduce_keys)
+    staged = _stage_synth(grid, shape_grid, _resolve_device(device))
+    return _drain_synth(_launch_synth(staged, rltl, reduce_keys), grid,
+                        reduce_keys)
 
 
 def simulate_synth(cfg: SimConfig, device=None) -> dict:

@@ -295,6 +295,15 @@ def _outputs(G, C, NB, n_steps, collect_events, dev):
             torch.empty(ev_shape, dtype=torch.bool, device=dev))
 
 
+def _to_launch(dev, *rows) -> tuple:
+    """The packed rows on the launch device.  Rows packed on the host (a
+    grid staged there, as the Experiment runner stages it) are copied
+    without blocking: the host returns once the bytes are staged for the
+    copy, so neither the divisor check nor the copy waits for earlier
+    work on the stream."""
+    return tuple(r.to(dev, non_blocking=True) for r in rows)
+
+
 def _check(lib, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} launch failed: "
@@ -318,12 +327,15 @@ def sim_step(shape, stacked, trace: dict, ns, ns_idx, warmup: int,
              n_steps: int, collect_events: bool = True):
     """Launch the trace entry over a ``[G]`` grid; returns ``(stats,
     core_end, events or None)`` laid out as ``ref.run_sweep_ref`` returns
-    them.  The launch is asynchronous on the current stream; a refused
-    launch raises."""
+    them.  The trace and lookahead tables lie on the card; ``stacked``
+    and ``ns_idx`` may lie there too or on the host (``_to_launch``).
+    The launch is asynchronous on the current stream; a refused launch
+    raises."""
     dev = trace["gap"].device
     _build.require_cuda(dev, "sim_step")
     lib = library()
     params, leak, offsets = pack(stacked, ns_idx)
+    params, leak = _to_launch(dev, params, leak)
     G, P = params.shape
     C, L = trace["gap"].shape
     c_dims = _dims(lib, shape, stacked, G, P, C, L, n_steps, warmup,
@@ -374,16 +386,17 @@ def pack_synth(stacked, wparams, ilparams, warmups
 
 def sim_synth(shape, stacked, wparams, ilparams, warmups, n_cores: int,
               max_len: int, n_steps: int, collect_events: bool = True,
-              stream: bool = False):
+              stream: bool = False, device=None):
     """Launch the synthesis entry over a ``[G]`` grid: each block
     generates its point's streams into a ``[G, C, max_len]`` scratch and
     scans them.  Returns ``(stats, core_end, events or None)`` as
     ``ref.run_synth_ref`` does, plus the scratch streams (and ``length
     [G, C]``) when ``stream`` is set.  The pre-pass generates all
     ``max_len`` positions whatever ``n_steps`` is, so ``n_steps=0``
-    generates the streams and skips the scan.  Asynchronous on the
-    current stream; a refused launch raises."""
-    dev = warmups.device
+    generates the streams and skips the scan.  ``device`` is the card
+    (default: where ``warmups`` lies); the params may lie on the host.
+    Asynchronous on the current stream; a refused launch raises."""
+    dev = warmups.device if device is None else torch.device(device)
     _build.require_cuda(dev, "sim_synth")
     if not 1 <= n_cores <= 32:
         raise ValueError("the synthesis entry runs one lane per core: "
@@ -391,8 +404,9 @@ def sim_synth(shape, stacked, wparams, ilparams, warmups, n_cores: int,
     lib = library()
     G = warmups.shape[0]
     params, leak, offsets = pack(
-        stacked, torch.zeros(G, dtype=torch.int32, device=dev))
+        stacked, torch.zeros(G, dtype=torch.int32, device=warmups.device))
     wi, wf, soff = pack_synth(stacked, wparams, ilparams, warmups)
+    params, leak, wi, wf = _to_launch(dev, params, leak, wi, wf)
     SW = wparams.seg_edge.shape[-1]
     c_dims = _dims(lib, shape, stacked, G, params.shape[1], n_cores,
                    max_len, n_steps, 0, collect_events, SW=SW,
@@ -411,7 +425,7 @@ def sim_synth(shape, stacked, wparams, ilparams, warmups, n_cores: int,
     _check(lib, err, "sim_synth")
     out = _results(outs, collect_events)
     if stream:
-        return out + ({**scratch, "length": wparams.length},)
+        return out + ({**scratch, "length": wparams.length.to(dev)},)
     return out
 
 
@@ -440,22 +454,26 @@ def pack_serve(params, warmups) -> torch.Tensor:
                        dim=1).contiguous()
 
 
-def sim_serve(shape, params, warmups, counts=None):
+def sim_serve(shape, params, warmups, counts=None, device=None):
     """Launch the serving entry over a ``[G]`` grid (``shape`` a
     ``serving.loop.engine.ServingShape``, ``params`` its
-    ``ServingParams``; ``counts`` int32 ``[G, n_steps]`` pins the
-    arrivals, else the kernel draws them).  Returns ``(sim stats, serve
-    stats, final clock [G], (occ, qlen, arrivals) [G, n_steps] or None)``
-    laid out as ``ref.run_serve_ref`` returns them.  Asynchronous on the
-    current stream; a refused launch raises."""
-    dev = warmups.device
+    ``ServingParams``; ``counts`` int32 ``[G, n_steps]`` on the card
+    pins the arrivals, else the kernel draws them).  Returns ``(sim
+    stats, serve stats, final clock [G], (occ, qlen, arrivals) [G,
+    n_steps] or None)`` laid out as ``ref.run_serve_ref`` returns them.
+    ``device`` is the card (default: where ``warmups`` lies); the params
+    may lie on the host.  Asynchronous on the current stream; a refused
+    launch raises."""
+    dev = warmups.device if device is None else torch.device(device)
     _build.require_cuda(dev, "sim_serve")
     lib = library()
     G = warmups.shape[0]
     n = shape.n_steps
     params_i, leak, offsets = pack(
-        params.mech, torch.zeros(G, dtype=torch.int32, device=dev))
+        params.mech, torch.zeros(G, dtype=torch.int32,
+                                 device=warmups.device))
     srow = pack_serve(params, warmups)
+    params_i, leak, srow = _to_launch(dev, params_i, leak, srow)
     c_dims = _dims(lib, shape.sim, params.mech, G, params_i.shape[1], 1, 1,
                    n, 0, False)
     sdims = {"HHS": shape.hot.n_sets, "HW": shape.hot.n_ways,

@@ -7,7 +7,11 @@ path: CPU tensors run the plain engine (``ref.run_sweep_ref`` /
 ``run_synth_ref`` / ``run_serve_ref``), CUDA tensors launch the CUDA
 kernel's trace, synthesis or serving entry (``kernel.sim_step`` /
 ``sim_synth`` / ``sim_serve``), and a failed build or launch raises.
-Nothing on the CUDA path calls the plain engine.
+Nothing on the CUDA path calls the plain engine.  On the CUDA path the
+params may lie on the host (the Experiment runner stages them there):
+the kernel packs them there and copies the packed rows without waiting
+for the device.  The trace entry follows its trace's device; the other
+two take ``device`` (default: where ``warmups`` lies).
 
 The kernel carries the bodies of the five builtin block-bearing policies
 (``lldram``, ``chargecache``, ``nuat``, ``rltl``, ``aldram``, in that
@@ -20,6 +24,8 @@ carries the three builtin serving policies (``fifo``, ``charge_aware``,
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.core import mechanisms as registry
 from repro_torch.kernels.sim_step import ref
@@ -81,14 +87,15 @@ def run_sweep(shape, stacked, trace: dict, ns, ns_idx, warmup: int,
 
 def run_synth(shape, stacked, wparams, ilparams, warmups, n_cores: int,
               max_len: int, n_steps: int, collect_events: bool = True,
-              stream: bool = False):
-    """Generate and scan every point of a stacked ``[G]`` synthetic grid;
-    returns ``(stats, core_end, events or None)`` as
-    ``ref.run_synth_ref`` does, plus the generated streams when
+              stream: bool = False, device=None):
+    """Generate and scan every point of a stacked ``[G]`` synthetic grid
+    on ``device`` (default: where ``warmups`` lies; on a card the params
+    may lie on the host); returns ``(stats, core_end, events or None)``
+    as ``ref.run_synth_ref`` does, plus the generated streams when
     ``stream`` is set."""
     global synth_launches
     check_registry()
-    device = warmups.device
+    device = warmups.device if device is None else torch.device(device)
     if device.type == "cpu":
         return ref.run_synth_ref(shape, stacked, wparams, ilparams, warmups,
                                  n_cores, max_len, n_steps, collect_events,
@@ -97,7 +104,8 @@ def run_synth(shape, stacked, wparams, ilparams, warmups, n_cores: int,
         raise ValueError(f"sim_step runs on CPU or CUDA, not {device}")
     from repro_torch.kernels.sim_step import kernel
     out = kernel.sim_synth(shape, stacked, wparams, ilparams, warmups,
-                           n_cores, max_len, n_steps, collect_events, stream)
+                           n_cores, max_len, n_steps, collect_events, stream,
+                           device)
     synth_launches += 1
     return out
 
@@ -114,20 +122,21 @@ def check_serving_registry() -> None:
             f"registry holds {[(n, c.__name__) for n, c in got]}")
 
 
-def run_serve(shape, params, warmups, counts=None):
+def run_serve(shape, params, warmups, counts=None, device=None):
     """Run the serving closed loop at every point of a stacked ``[G]``
-    grid (``counts [G, n_steps]`` pins the arrivals); returns ``(sim
-    stats, serve stats, final clock, per-step arrays or None)`` as
-    ``ref.run_serve_ref`` does."""
+    grid on ``device`` (default: where ``warmups`` lies; on a card the
+    params may lie on the host; ``counts [G, n_steps]`` pins the
+    arrivals); returns ``(sim stats, serve stats, final clock, per-step
+    arrays or None)`` as ``ref.run_serve_ref`` does."""
     global serve_launches
     check_registry()
     check_serving_registry()
-    device = warmups.device
+    device = warmups.device if device is None else torch.device(device)
     if device.type == "cpu":
         return ref.run_serve_ref(shape, params, warmups, counts)
     if device.type != "cuda":
         raise ValueError(f"sim_step runs on CPU or CUDA, not {device}")
     from repro_torch.kernels.sim_step import kernel
-    out = kernel.sim_serve(shape, params, warmups, counts)
+    out = kernel.sim_serve(shape, params, warmups, counts, device)
     serve_launches += 1
     return out

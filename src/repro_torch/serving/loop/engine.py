@@ -481,13 +481,34 @@ def _pinned(counts, n_grid: int, shape: ServingShape, device):
     return torch.from_numpy(np.array(counts)).to(device)
 
 
-def _drain_serving(out, grid, shape: ServingShape) -> list[dict]:
-    """One finished stats dict per point from a launch's outputs."""
+def _launch_serving(shape: ServingShape, params, warmups, counts=None,
+                    reduce_keys: tuple | None = None, device=None):
+    """The launch half of a serving sweep: one ``ops.run_serve`` on
+    ``device`` (default: where ``warmups`` lies), returning the device
+    outputs without waiting for them, or with ``reduce_keys`` the int32
+    ``[G, n_keys]`` reduction.  ``counts`` (on ``device``) pins the
+    arrivals."""
+    from repro_torch.kernels.sim_step import ops as sim_step_ops
+    out = sim_step_ops.run_serve(shape, params, warmups, counts,
+                                 device=device)
+    if reduce_keys is None:
+        return out
+    return _serve_reduce(shape, *out[:3], reduce_keys)
+
+
+def _drain_serving(out, grid, shape: ServingShape,
+                   reduce_keys: tuple | None = None):
+    """The drain half: the reduced int32 ``[len(grid), n_keys]`` array,
+    or one finished stats dict for each of ``grid``'s points (the
+    leading points of the launch)."""
+    n = len(grid)
+    if reduce_keys is not None:
+        return out[:n].cpu().numpy()
     sim_stats, serve_stats, final_now, ys = out
-    sim_np = {k: v.cpu().numpy() for k, v in sim_stats.items()}
-    serve_np = {k: v.cpu().numpy() for k, v in serve_stats.items()}
-    now_np = final_now.cpu().numpy()
-    ys_np = None if ys is None else tuple(y.cpu().numpy() for y in ys)
+    sim_np = {k: v[:n].cpu().numpy() for k, v in sim_stats.items()}
+    serve_np = {k: v[:n].cpu().numpy() for k, v in serve_stats.items()}
+    now_np = final_now[:n].cpu().numpy()
+    ys_np = None if ys is None else tuple(y[:n].cpu().numpy() for y in ys)
     rows = []
     for i, cfg in enumerate(grid):
         res = sim_mod._finalize(
@@ -519,8 +540,6 @@ def run_sweep(grid, shape_grid=None, counts=None,
     reduces on the device and returns an int32 ``[G, n_keys]`` numpy
     array (no per-step arrays).  ``device`` defaults to CUDA.
     """
-    from repro_torch.kernels.sim_step import ops as sim_step_ops
-
     grid = list(grid)
     device = sim_mod._resolve_device(device)
     if reduce_keys is not None:
@@ -529,10 +548,8 @@ def run_sweep(grid, shape_grid=None, counts=None,
                                            device)
     if counts is not None:
         counts = _pinned(counts, len(grid), shape, device)
-    out = sim_step_ops.run_serve(shape, params, warmups, counts)
-    if reduce_keys is not None:
-        return _serve_reduce(shape, *out[:3], reduce_keys).cpu().numpy()
-    return _drain_serving(out, grid, shape)
+    out = _launch_serving(shape, params, warmups, counts, reduce_keys)
+    return _drain_serving(out, grid, shape, reduce_keys)
 
 
 def simulate_serving(cfg, counts=None, collect_steps: bool = True,

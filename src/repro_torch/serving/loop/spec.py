@@ -64,6 +64,13 @@ class ServingSpec:
         if not self.page_tokens > 0:
             raise ValueError("page_tokens must be > 0")
 
+    def canonical(self) -> "ServingSpec":
+        """Behaviour-equivalent representative for experiment dedup:
+        knobs only read by disabled policies are reset to defaults."""
+        if self.policy != "preempting" and self.preempt_queue_frac != 0.5:
+            return dataclasses.replace(self, preempt_queue_frac=0.5)
+        return self
+
     def hot_cfg(self) -> hcl.HCRACConfig:
         return hcl.HCRACConfig(
             n_entries=self.hot_entries, n_ways=self.hot_ways,
