@@ -6,19 +6,22 @@ CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds the ``sim_step`` kernel (three entries: over a trace,
-synthesising its own streams, and the serving closed loop), the HCRAC
+It builds the ``sim_step`` kernel (four entries: over a trace,
+synthesising its own streams, the serving closed loop, and the FR-FCFS
+window engine over a trace or its own streams), the HCRAC
 probe kernel, the flash- and decode-attention kernels and the ssm_scan
 kernel from the sources in the checkout, holds each against its plain
 PyTorch version, drives the port's six paths at full size
 (``repro_torch.core.simulator.sweep``, ``sweep_synth``, the serving
 loop: ``sweep_serving`` and the host scheduler's ``run_host``, dense-LM
 serving of tinyllama-1.1b: ``prefill_fn`` / ``decode_fn`` and
-``examples/serve_lm.py``'s run, SSM serving of falcon-mamba-7b, and the
-Experiment layer drawing the thesis's five figures),
+``examples/serve_lm.py``'s run, SSM serving of falcon-mamba-7b, the
+Experiment layer drawing the thesis's five figures, and the FR-FCFS
+controller study),
 checks the results against the JAX package's recorded golden numbers
 (``src/repro_torch/data/golden_fullwidth.json``, ``golden_synth.json``,
-``golden_serving.json``, ``golden_lm.json`` and ``golden_lm_ssm.json``),
+``golden_serving.json``, ``golden_lm.json``, ``golden_lm_ssm.json`` and
+``golden_frfcfs.json``),
 and times the kernels.  It imports nothing of JAX or of the ``repro``
 package.  Phases:
 
@@ -160,7 +163,30 @@ package.  Phases:
     the figures and read after the study; (d) the eight-core average
     speedups ordered base < chargecache < cc_nuat < lldram and lldram's
     ``acts_lowered_frac`` 1.0 (``examples/chargecache_sim.py``'s check);
-then one JSON line of kernel numbers, and the last line:
+17. the FR-FCFS controller tier, the ``sim_window`` entry: (a) against
+    the plain window engine on the card, 8 points (frfcfs windows 4, 8
+    and 16 with in-order riders, on one channel and on 2 channels x 2
+    ranks, where tRRD and tFAW bind, both row policies) x ~1 000 steps
+    in one launch of depth 16, over a trace and over generated streams
+    (the streams too), every output as in phase 2; (b) the eight-core
+    golden trace at full size, {base, chargecache} x {in-order, frfcfs
+    w8, w16} in one launch, the frfcfs points equal to
+    ``golden_frfcfs.json`` (``repro``'s window engine on the CPU) bit
+    for bit; its time, ns a step, the share of the window entry's
+    dependent-chain bound (``WINDOW_STEP_CYCLES``) and the bytes bound;
+    (c) that launch's in-order riders equal to the trace entry's output
+    for the same points; (d) ``figures/frfcfs.py``'s grid at full size (8
+    cores x 40 000 requests, controller x mechanism x window), the main
+    path of this slice: the launch counts are zeroed before it and must
+    read one ``sim_window`` launch after; its stream and every cell held
+    to ``repro``'s run of ``benchmarks/frfcfs.py`` at that size
+    (``golden_frfcfs.json``: bit for bit where the stream's digest is
+    ``repro``'s, else within the statistical tolerance), and the study's
+    three assertions evaluated on the card's numbers and on ``repro``'s,
+    which must fare alike (at this size ``repro``'s own study breaks its
+    window-depth assertion: ROADMAP.md, Queue 3); the entry's registers
+    and spills;
+then the total time, one JSON line of kernel numbers, and the last line:
 ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line is printed.  Exits
@@ -2319,6 +2345,275 @@ def figure_phase(sim):
             "rows": rows, "policy_study_s": pol_s}
 
 
+# --------------------------------------------------------------------------
+# phase 17: the FR-FCFS controller tier (the sim_window entry)
+# --------------------------------------------------------------------------
+
+#: the window entry's dependent chain a step (PERF.md section 6),
+#: SM cycles, in the cost model of ``CHAIN`` (4 an ALU op, ~30 a
+#: shared-memory load and a warp collective): the in-order path's
+#: ``CHAIN_CYCLES``; the selection (a slot's fields, then its bank's open
+#: row, 6 ALU ops, two warp reductions: the key, then the slot); a
+#: successful admission (the core's position, then its MSHR slot, front
+#: record and gates, 10 ALU ops for the slot index and the issue time,
+#: two reductions: the time, then the core, and the owner's stores read
+#: back by the next attempt); and a failed one (the same loads and ALU
+#: ops, one reduction)
+WINDOW_SELECT_CYCLES = 2 * 30 + 6 * 4 + 2 * 30
+WINDOW_ADMIT_CYCLES = 2 * 30 + 10 * 4 + 2 * 30 + 30
+WINDOW_FAIL_CYCLES = 2 * 30 + 10 * 4 + 30
+WINDOW_STEP_CYCLES = (CHAIN_CYCLES + WINDOW_SELECT_CYCLES
+                      + WINDOW_ADMIT_CYCLES + WINDOW_FAIL_CYCLES)
+#: requests a core of the window entry's kernel-vs-plain comparison (4
+#: cores: ~1 000 steps)
+WINDOW_CUT_REQ = 250
+
+
+def window_cut_grid(sim, with_workload=None):
+    """Phase 17 (a)'s 8 points: frfcfs windows 4, 8 and 16 with in-order
+    riders, on the default geometry and on 2 channels x 2 ranks (where
+    tRRD and tFAW bind), both row policies; one launch of depth 16."""
+    from repro_torch.core.dram import DRAMConfig
+    d2 = DRAMConfig(n_channels=2, n_ranks=2, n_banks=8)
+    points = (("base", "frfcfs", 4, None, "closed"),
+              ("chargecache", "frfcfs", 8, None, "closed"),
+              ("rltl", "inorder", 1, None, "open"),
+              ("cc_aldram", "frfcfs", 16, None, "open"),
+              ("base", "frfcfs", 16, d2, "closed"),
+              ("chargecache", "frfcfs", 8, d2, "open"),
+              ("nuat", "inorder", 1, d2, "closed"),
+              ("cc_nuat", "frfcfs", 4, d2, "open"))
+    grid = []
+    for kind, ctrl, w, dram, pol in points:
+        kw = {} if dram is None else {"dram": dram}
+        cfg = sim.SimConfig(mech=sim.MechanismConfig(kind=kind),
+                            controller=ctrl, window=w, policy=pol, **kw)
+        if with_workload is not None:
+            cfg = dataclasses.replace(cfg, workload=with_workload)
+        grid.append(cfg)
+    return grid
+
+
+def window_chain_bound_ms(n_steps: int, mhz: float) -> float:
+    return n_steps * WINDOW_STEP_CYCLES / (mhz * 1e3)
+
+
+def window_phase(sim, traces, golden_mod, kernel, ops, ref, regs,
+                 device="cuda"):
+    """Phase 17: (a) the window entry against the plain window engine on
+    the card, trace and synthesis feeds; (b) the eight-core golden trace
+    at full size against ``golden_frfcfs.json``; (c) that launch's
+    in-order riders against the trace entry; (d) ``figures/frfcfs.py``'s
+    grid at full size, the main path of this slice, against ``repro``'s
+    run of the study.  Returns the kernels-line entry."""
+    import torch
+    from repro_torch.experiment import runner
+    from repro_torch.figures import common as C, frfcfs
+    dev = torch.device(device)
+    W = 16
+    t_phase = time.time()
+
+    # (a) kernel against plain version, both on the card
+    batch = traces.multicore_batch(["mcf_like", "stream_copy_like",
+                                    "lbm_like", "gcc_like"], WINDOW_CUT_REQ,
+                                   seed=5)
+    grid = window_cut_grid(sim)
+    staged = sim._stage(batch, grid, dev)
+    a_args = (staged[0], W) + staged[1:] + (True,)
+    got = ops.run_window(*a_args)
+    torch.cuda.synchronize()
+    plain_ms, want = cuda_ms(lambda: ref.run_window_ref(*a_args),
+                             torch.cuda.synchronize)
+    a_bad, a_err = compare_outputs(got, want)
+    cut_ms = median_ms(lambda: ops.run_window(*a_args))
+    a_mhz = sm_clock_mhz(lambda: ops.run_window(*a_args))
+    a_chain = window_chain_bound_ms(staged[6], a_mhz)
+    print(f"  (a) trace feed, {len(grid)} points (windows 4/8/16, in-order "
+          f"riders, 1 x 1 and 2 x 2 channels x ranks) x {staged[6]} steps: "
+          f"kernel {cut_ms:.3f} ms ({cut_ms * 1e6 / staged[6]:.1f} ns/step, "
+          f"{100 * a_chain / cut_ms:.1f} % of the chain bound at "
+          f"{a_mhz:.0f} MHz), plain {plain_ms:.0f} ms, mismatches {a_bad}",
+          flush=True)
+    spec = traces.WorkloadSpec(names=("stream_copy_like", "mcf_like",
+                                      "lbm_like", "libquantum_like"),
+                               n_req=WINDOW_CUT_REQ, seed=7)
+    sgrid = window_cut_grid(sim, with_workload=spec)
+    y = sim._stage_synth(sgrid, None, dev)
+    got = ops.run_window_synth(y[0], W, *y[1:], True, True)
+    torch.cuda.synchronize()
+    want = ref.run_window_synth_ref(y[0], W, *y[1:], True, True)
+    s_bad = compare_streams(got[3], want[3])
+    b, e = compare_outputs(got[:3], want[:3])
+    s_bad += b
+    a_err = max(a_err, e)
+    y_ms = median_ms(lambda: ops.run_window_synth(y[0], W, *y[1:], True))
+    print(f"  (a) synthesis feed, {len(sgrid)} points x {y[7]} steps: "
+          f"kernel {y_ms:.3f} ms ({y_ms * 1e6 / y[7]:.1f} ns/step with the "
+          f"pre-pass, {100 * window_chain_bound_ms(y[7], a_mhz) / y_ms:.1f} "
+          f"% of the chain bound); streams and outputs, mismatches {s_bad}",
+          flush=True)
+    check(a_bad + s_bad == 0, "sim_window disagrees with the plain engine")
+
+    # (b) the golden eight-core trace at full size, one launch of 6 points
+    gold = golden_mod.load_frfcfs()
+    batch8 = golden_mod.load_batch(traces, gold["workload"])
+    kinds = golden_mod.FRFCFS["kinds"]
+    tiers = (("inorder", 1),) + tuple(("frfcfs", w)
+                                      for w in golden_mod.FRFCFS["windows"])
+    grid6 = [sim.SimConfig(mech=sim.MechanismConfig(kind=k),
+                           policy=gold["policy"], controller=c, window=w)
+             for k in kinds for c, w in tiers]
+    b_args = launch_inputs(sim, batch8, grid6, device=device)
+    b_args = (b_args[0], W) + b_args[1:]
+    out = ops.run_window(*b_args)
+    res6 = sim._drain(out, grid6, lambda i: batch8.length, None)
+    b_bad = 0
+    for p in gold["points"]:
+        r = res6[grid6.index(sim.SimConfig(
+            mech=sim.MechanismConfig(kind=p["kind"]), policy=gold["policy"],
+            controller="frfcfs", window=p["window"]))]
+        for key in gold["bitwise_keys"] + ["core_end", "rltl_hist",
+                                           "rltl_total", "bank_acts",
+                                           "bank_act_ras_sum"]:
+            want_v = p[key]
+            got_v = ([int(x) for x in r[key]] if isinstance(want_v, list)
+                     else int(r[key]))
+            if got_v != want_v:
+                b_bad += 1
+                print(f"  MISMATCH {p['kind']} w{p['window']}.{key}: got "
+                      f"{got_v} want {want_v}")
+    n8 = gold["n_steps"]
+    ms8 = median_ms(lambda: ops.run_window(*b_args))
+    mhz = sm_clock_mhz(lambda: ops.run_window(*b_args))
+    chain8 = window_chain_bound_ms(n8, mhz)
+    prow = kernel.pack(b_args[2], b_args[5])[0].shape[1]
+    nbytes = bytes_moved(batch8, len(grid6), b_args[4].shape[0], n8, prow,
+                         b_args[0].envelope.max_banks_total,
+                         b_args[2].thermal.seg_edge.shape[-1])
+    bound8 = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  (b) eight-core golden trace, {len(grid6)} points x {n8} steps "
+          f"(frfcfs w8 / w16 and in-order riders, base and chargecache): "
+          f"{b_bad} values differ from golden_frfcfs.json; kernel "
+          f"{ms8:.2f} ms ({ms8 * 1e6 / n8:.1f} ns/step), chain bound "
+          f"{chain8:.2f} ms at {mhz:.0f} MHz ({WINDOW_STEP_CYCLES} cycles a "
+          f"step: {CHAIN_CYCLES} the in-order path + {WINDOW_SELECT_CYCLES} "
+          f"selection + {WINDOW_ADMIT_CYCLES} admission + "
+          f"{WINDOW_FAIL_CYCLES} failed admission; "
+          f"{100 * chain8 / ms8:.1f} % reached), bytes bound {bound8:.4f} "
+          f"ms", flush=True)
+    for i, k in enumerate(kinds):
+        rows = [res6[i * len(tiers) + j] for j in range(len(tiers))]
+        print("    " + k + ": " + ", ".join(
+            f"{c}{'' if c == 'inorder' else f' w{w}'} hit rate "
+            f"{r['row_hits'] / max(r['n_req'], 1):.4f} cycles "
+            f"{r['total_cycles']}" for (c, w), r in zip(tiers, rows)))
+    check(b_bad == 0, "sim_window disagrees with repro's golden FR-FCFS run")
+
+    # (c) the in-order riders of that launch against the trace entry
+    ridx = [i for i, cfg in enumerate(grid6) if cfg.controller == "inorder"]
+    c_args = launch_inputs(sim, batch8, [grid6[i] for i in ridx],
+                           device=device)
+    step_out = ops.run_sweep(*c_args)
+    rider = ({k: v[ridx] for k, v in out[0].items()}, out[1][ridx],
+             type(out[2])(*(lane[ridx] for lane in out[2])))
+    c_bad, _ = compare_outputs(rider, step_out)
+    c_ms = median_ms(lambda: ops.run_sweep(*c_args))
+    print(f"  (c) the launch's {len(ridx)} in-order riders against "
+          f"sim_step_kernel on the same points: mismatches {c_bad}; "
+          f"sim_step_kernel {c_ms:.2f} ms ({c_ms * 1e6 / n8:.1f} ns/step, "
+          f"{100 * chain_bound_ms(n8, mhz) / c_ms:.1f} % of its own chain "
+          f"bound) against the window entry's {ms8 * 1e6 / n8:.1f} ns/step "
+          f"for the same riders among its points", flush=True)
+    check(c_bad == 0, "in-order riders differ from the trace entry")
+
+    # (d) figures/frfcfs.py at full size: the main path of this slice
+    ops.launches = ops.synth_launches = ops.window_launches = 0
+    t0 = time.time()
+    res, _ = frfcfs.frfcfs_grid(C.THESIS.n_req_8c, device=device)
+    fig_s = time.time() - t0
+    main_launches = {"sim_window": ops.window_launches,
+                     "sim_step": ops.launches,
+                     "sim_synth": ops.synth_launches}
+    cell = lambda m, c, w: res.sel(mechanism=m, controller=c,
+                                   window=w).cells.flat[0]
+    fig = {**frfcfs.summarize(cell), "us": fig_s * 1e6,
+           "launches": main_launches["sim_window"]}
+    for row in frfcfs.rows(fig):
+        print(f"  (d) {row}")
+    print(f"  (d) figures/frfcfs.py's grid at {C.THESIS.n_req_8c} requests "
+          f"a core x 8 cores, {res.meta['n_unique']} unique points: "
+          f"{fig_s:.1f} s wall; launches {main_launches}", flush=True)
+    check(main_launches["sim_window"] == 1 and res.meta["n_kernel_launches"]
+          == 1, "figures/frfcfs.py made other than one sim_window launch")
+    # the figure's launch alone (timed outside the counted run) and its
+    # stream, held with every cell to repro's run of benchmarks/frfcfs.py
+    _, _, cfgs = frfcfs.experiment(C.THESIS.n_req_8c).expand()
+    d_args = sim._stage_synth(runner._dedup(cfgs, True, "synth")[0], None,
+                              dev)
+    d_ms = median_ms(lambda: ops.run_window_synth(d_args[0], W,
+                                                  *d_args[1:], False))
+    d_mhz = sm_clock_mhz(lambda: ops.run_window_synth(d_args[0], W,
+                                                      *d_args[1:], False))
+    d_steps = d_args[7]
+    print(f"  (d) its launch alone: {len(d_args[4])} points x {d_steps} "
+          f"steps, {d_ms:.2f} ms ({d_ms * 1e6 / d_steps:.1f} ns/step with "
+          f"the pre-pass, "
+          f"{100 * window_chain_bound_ms(d_steps, d_mhz) / d_ms:.1f} % of "
+          f"the chain bound at {d_mhz:.0f} MHz)", flush=True)
+    study = gold["study"]
+    stream = kernel.sim_window_synth(d_args[0], W, *d_args[1:7], 0, False,
+                                     True)[3]
+    same_stream = (golden_mod.trace_sha256(point_batch(traces, stream, 0))
+                   == study["stream_sha256"])
+    want = {(g["mechanism"], g["controller"], g["window"]): g
+            for g in study["cells"]}
+    d_bad = 0
+    for key, g in want.items():
+        r = cell(*key)
+        if same_stream:
+            d_bad += sum(
+                ([int(x) for x in r[k]] if k == "core_end" else int(r[k]))
+                != g[k] for k in gold["bitwise_keys"] + ["core_end"])
+        else:
+            d_bad += len(golden_mod.tolerance_violations(r, g))
+    port_failed = frfcfs.failed_checks(fig)
+    repro_failed = frfcfs.failed_checks(frfcfs.summarize(
+        lambda m, c, w: want[m, c, w]))
+    print(f"  (d) against repro's run of benchmarks/frfcfs.py at this size "
+          f"(golden_frfcfs.json): stream {'equal' if same_stream else 'differs'}"
+          f", {len(want)} cells, {d_bad} "
+          f"{'values differ' if same_stream else 'tolerance violations'}; "
+          f"the study's assertions broken on the card: "
+          f"{port_failed or 'none'}; in repro's run: {repro_failed or 'none'}",
+          flush=True)
+    check(d_bad == 0, "the FR-FCFS study differs from repro's")
+    check(port_failed == repro_failed,
+          "the FR-FCFS study's assertions fare otherwise than in repro")
+    r = regs.get("sim_window_kernel", {})
+    print(f"  sim_window_kernel: {r.get('registers')} registers, spill "
+          f"stores {r.get('spill_stores')} B, spill loads "
+          f"{r.get('spill_loads')} B; phase 17 {time.time() - t_phase:.1f} "
+          f"s", flush=True)
+    return {
+        "name": "sim_window", "route": "cuda",
+        "source": "src/repro_torch/kernels/sim_step/csrc/sim_step.cu",
+        "replaces": "src/repro/controller/engine.py:264 _run_window_impl "
+                    "(an XLA scan, no Pallas kernel)",
+        "launches": main_launches["sim_window"], "max_abs_err": a_err,
+        "mismatches": a_bad + s_bad + b_bad + c_bad + d_bad,
+        "ms": ms8, "plain_ms": plain_ms, "plain_points": len(grid),
+        "plain_steps": staged[6], "ms_at_plain_steps": cut_ms,
+        "steps": n8, "points": len(grid6), "ns_per_step": ms8 * 1e6 / n8,
+        "chain_bound_ms": chain8,
+        "chain_cycles_per_step": WINDOW_STEP_CYCLES, "sm_clock_mhz": mhz,
+        "registers": r.get("registers"),
+        "spill_bytes": (r.get("spill_stores") or 0)
+        + (r.get("spill_loads") or 0),
+        "figure_s": fig_s, "figure_rows": frfcfs.rows(fig),
+        "figure_launch_ms": d_ms, "figure_checks_broken": port_failed,
+        "bound_ms": bound8, "bound_by": "bytes", "library_ms": None}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2341,6 +2636,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
 
     # --- phase 1: the card and the build --------------------------------
     smi = subprocess.run(
@@ -2585,6 +2881,13 @@ def main() -> int:
     gold_bad = golden_through_experiment(sim, traces, golden_mod, Experiment)
     fig = figure_phase(sim)
     serve_rows[0]["launches_policy_study"] = fig["main"]["hcrac"]
+
+    # --- phase 17: the FR-FCFS controller tier ----------------------------
+    print("\nphase 17: the FR-FCFS controller tier (the sim_window entry)",
+          flush=True)
+    window_row = window_phase(sim, traces, golden_mod, kernel, ops, ref,
+                              regs)
+    print(f"\nchip_smoke total: {time.time() - t_start:.1f} s")
     print(smi)
 
     # --- kernel numbers ---------------------------------------------------
@@ -2627,7 +2930,7 @@ def main() -> int:
         "spill_bytes": sum(regs.get("sim_synth_kernel", {}).get(k, 0)
                            for k in ("spill_stores", "spill_loads")),
         "bound_ms": bound32, "bound_by": "bytes", "library_ms": None},
-        *serve_rows, *lm_rows, ssm_row]}))
+        *serve_rows, *lm_rows, ssm_row, window_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

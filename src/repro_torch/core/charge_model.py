@@ -62,6 +62,37 @@ def t_restore_ns(idle_ms):
     return t_ready_ns(idle_ms) + RAS_A_NS + RAS_B_NS_PER_V * (VDD - v)
 
 
+def bitline_waveform(idle_ms: float, t_max_ns: float = 60.0,
+                     dt_ns: float = 0.01):
+    """The bitline voltage after an ACT (Fig 4.2), by a fixed-step
+    exponential-growth integrator: the deviation from ``VHALF`` grows as
+    ``v <- min(v (1 + dt / TAU_SA), VHALF)`` from the charge-sharing
+    point, in float32.  Returns ``(times_ns, v_bitline)``, one value a
+    step; a plain serial loop, as ``repro``'s ``lax.scan``."""
+    v = charge_sharing_delta(cell_voltage(idle_ms))
+    n = int(t_max_ns / dt_ns)
+    gain = torch.tensor(1.0 + dt_ns / TAU_SA_NS, dtype=_F32)
+    rail = torch.tensor(VHALF, dtype=_F32)
+    devs = torch.empty(n, dtype=_F32)
+    for i in range(n):
+        v = torch.minimum(v * gain, rail)
+        devs[i] = v
+    times = (torch.arange(n, dtype=_F32) + 1.0) * dt_ns
+    return times, VHALF + devs
+
+
+def t_ready_ns_numeric(idle_ms: float) -> float:
+    """The ready time from ``bitline_waveform``: the first step at or past
+    ``VHALF + V_READY_MARGIN``, plus the closed form's affine offset
+    ``T0_NS``; ``inf`` when the waveform never crosses the margin inside
+    the integration window."""
+    times, v = bitline_waveform(idle_ms)
+    crossed = v >= VHALF + V_READY_MARGIN
+    if not bool(crossed.any()):
+        return float("inf")
+    return float(times[int(torch.argmax(crossed.to(torch.int8)))]) + T0_NS
+
+
 @dataclasses.dataclass(frozen=True)
 class DerivedTimings:
     duration_ms: float

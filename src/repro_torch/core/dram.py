@@ -117,6 +117,15 @@ def global_row_id(geom: GeomParams, global_bank, row):
     return global_bank * geom.n_rows + row
 
 
+def in_active_geometry(geom: GeomParams, bank, row):
+    """Bool: ``(bank, row)`` addresses the active geometry directly —
+    exactly where ``fold_address`` is the identity."""
+    bank = torch.as_tensor(bank)
+    row = torch.as_tensor(row)
+    return ((bank >= 0) & (bank < geom.banks_total)
+            & (row >= 0) & (row < geom.n_rows))
+
+
 def fold_address(geom: GeomParams, bank, row):
     """Map a trace's (bank, row) into the active geometry: the identity
     for a trace generated against it, a contention-preserving fold onto

@@ -156,6 +156,41 @@ def insert(cfg: HCRACConfig, st: HCRACState, gid, t, enable, params):
     return st
 
 
+def occupancy(cfg: HCRACConfig, st: HCRACState, t,
+              params: HCRACParams | None = None):
+    """Fraction of entries alive at cycle ``t`` (a diagnostic), float32
+    ``[G]`` over a ``[G]``-batched state of ``cfg``'s shape; ``t`` is a
+    scalar or ``[G]``.  ``params`` defaults to ``cfg``'s own values."""
+    G, S = st.tags.shape[:2]
+    dev = st.tags.device
+    if params is None:
+        params = HCRACParams(*(torch.full((G,), int(v), dtype=torch.int32,
+                                          device=dev)
+                               for v in params_of(cfg)))
+    t = torch.as_tensor(t, dtype=torch.int32, device=dev).expand(G)
+    rep = lambda x: x.repeat_interleave(S)
+    sets = torch.arange(S, dtype=torch.int32, device=dev).repeat(G)
+    alive = _alive(cfg, sets, st.itime.reshape(G * S, -1), rep(t),
+                   HCRACParams(*(rep(x) for x in params)))
+    valid = (st.tags != NO_TAG) & alive.reshape(st.tags.shape)
+    return valid.to(torch.float32).mean(dim=(1, 2))
+
+
+def _ceil_log2(n: int) -> int:
+    return (int(n) - 1).bit_length()
+
+
+def storage_bits(cfg: HCRACConfig, n_ranks: int = 1, n_banks: int = 8,
+                 n_rows: int = 65536) -> int:
+    """Thesis Eq. 6.1/6.2: the storage cost (bits) of one HCRAC — each
+    entry holds the rank (past one), bank and row address, a valid bit
+    and its LRU state."""
+    entry = _ceil_log2(n_ranks) if n_ranks > 1 else 0
+    entry += _ceil_log2(n_banks) + _ceil_log2(n_rows) + 1
+    lru_bits = 1 if cfg.n_ways == 2 else max(1, cfg.n_ways.bit_length())
+    return cfg.n_entries * (entry + lru_bits)
+
+
 def padded_shape(cfg: HCRACConfig, n_sets_max: int) -> HCRACConfig:
     """The static shape carrier for a capacity sweep: same ways / expiry,
     arrays sized for ``n_sets_max`` sets; the per-point fields are zeroed

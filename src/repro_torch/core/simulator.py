@@ -5,8 +5,10 @@ Port of ``repro.core.simulator``'s in-order engine, over a trace
 for itself (``simulate_synth`` / ``sweep_synth``, the generator in
 ``repro_torch.workloads``); the serving closed loop's entry points
 (``simulate_serving`` / ``sweep_serving``) lead to
-``repro_torch.serving.loop``, whose engine calls ``_service`` here.  One step of the scan = one memory request,
-end to end —
+``repro_torch.serving.loop``, whose engine calls ``_service`` here, and
+a grid holding an FR-FCFS point runs on ``repro_torch.controller``'s
+window engine, which calls it too.  One step of the scan = one memory
+request, end to end —
 
 1. **CPU issue model**: each core issues its next request after its
    front-end gap, subject to an MSHR window and (for dependent requests)
@@ -95,11 +97,10 @@ class MechanismConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
-    """One simulated system.  The in-order engine, trace-driven or over an
-    on-device synthetic stream (``workload``), is the only tier of this
-    package so far; the fields that select the other tiers of ``repro``
-    are kept so that a configuration naming them fails loudly instead of
-    running something else."""
+    """One simulated system: trace-driven, over an on-device synthetic
+    stream (``workload``) or the serving closed loop (``serving``), on
+    the in-order controller or the FR-FCFS window tier
+    (``controller="frfcfs"``, ``repro_torch.controller``)."""
     dram: DRAMConfig = DDR3_SYSTEM
     timing: TimingParams = DDR3_1600
     mech: MechanismConfig = MechanismConfig()
@@ -120,8 +121,17 @@ class SimConfig:
     #: ``simulate_serving`` / ``sweep_serving``; ``None`` means trace- or
     #: workload-driven as above
     serving: object | None = None
-    #: "inorder" (this engine) or "frfcfs" (``repro.controller``)
+    #: controller tier: "inorder" serves one request a step in earliest-
+    #: issue order; "frfcfs" routes the launch through the window engine
+    #: (``repro_torch.controller``): a bounded request window with row-hit-
+    #: first / oldest-first selection and per-rank tRRD/tFAW ACT windows.
+    #: A grid holding any frfcfs point runs whole on that engine, its
+    #: in-order points riding along at a window cap of 1 (bitwise the
+    #: in-order engine)
     controller: str = "inorder"
+    #: FR-FCFS window depth (requests visible to a scheduling decision);
+    #: read only when controller="frfcfs"
+    window: int = 8
 
     def __post_init__(self):
         if self.workload is not None and not isinstance(self.workload,
@@ -133,10 +143,11 @@ class SimConfig:
             raise ValueError(f"unknown refresh mode {self.refresh_mode!r}")
         if self.controller not in ("inorder", "frfcfs"):
             raise ValueError(f"unknown controller {self.controller!r}")
-        if self.controller == "frfcfs":
-            raise NotImplementedError(
-                "the FR-FCFS controller tier is not ported yet "
-                "(ROADMAP.md, Queue 1: FR-FCFS controller tier)")
+        if self.window < 1:
+            raise ValueError(f"window depth must be >= 1, not {self.window}")
+        if self.controller == "frfcfs" and self.serving is not None:
+            raise ValueError("the serving loop models the in-order "
+                             "controller only")
         if self.serving is not None:
             from repro_torch.serving.loop.spec import ServingSpec
             if not isinstance(self.serving, ServingSpec):
@@ -167,6 +178,9 @@ class MechParams(NamedTuple):
     mech: dict                       # {policy: {leaf: tensor}}
     refresh_stateful: torch.Tensor   # bool: stateful REF tier
     thermal: aldram_lib.ThermalParams
+    # controller tier: read only by the window engine
+    frfcfs: torch.Tensor             # bool: FR-FCFS selection + tRRD/tFAW
+    win_cap: torch.Tensor            # int32 window depth (1 = in-order)
 
 
 def sim_shape(cfg: SimConfig, n_sets_max: int | None = None,
@@ -209,6 +223,9 @@ def mech_params(cfg: SimConfig, hints: dict | None = None,
             enable=torch.tensor(bool(th_en)),
             seg_edge=torch.from_numpy(th_edge),
             seg_leak=torch.from_numpy(th_leak)),
+        frfcfs=torch.tensor(cfg.controller == "frfcfs"),
+        win_cap=torch.tensor(cfg.window if cfg.controller == "frfcfs" else 1,
+                             dtype=_I32),
     )
 
 
@@ -253,7 +270,8 @@ def _grid_shape_and_params(grid: Sequence[SimConfig],
     hints = registry.pad_hints([cfg.mech for cfg in shape_grid])
     shape = sim_shape(c0, n_sets_max=n_sets_max, envelope=env)
     # points differing only in what mech_params does not read share one
-    key = lambda c: (c.timing, c.dram, c.policy, c.mech, c.refresh_mode)
+    key = lambda c: (c.timing, c.dram, c.policy, c.mech, c.refresh_mode,
+                     c.controller, c.window)
     points: dict = {}
     for cfg in grid:
         if key(cfg) not in points:
@@ -266,15 +284,7 @@ def _grid_shape_and_params(grid: Sequence[SimConfig],
 def params_from_numpy(tree: dict, device=None) -> MechParams:
     """Build ``MechParams`` from a nested dict of numpy arrays keyed by
     field name — the layout of ``repro``'s stacked ``MechParams`` (its
-    ``_asdict()`` tree).  ``repro``'s controller-tier leaves (``frfcfs``,
-    ``win_cap``) are accepted only at their in-order values."""
-    tree = dict(tree)
-    frfcfs = tree.pop("frfcfs", None)
-    win_cap = tree.pop("win_cap", None)
-    if (frfcfs is not None and np.any(frfcfs)) or (
-            win_cap is not None and np.any(np.asarray(win_cap) != 1)):
-        raise NotImplementedError(
-            "FR-FCFS controller params: that tier is not ported yet")
+    ``_asdict()`` tree)."""
     t = lambda x: torch.as_tensor(np.asarray(x), device=device)
     sub = lambda cls, d: cls(**{f: t(d[f]) for f in cls._fields})
     return MechParams(
@@ -286,6 +296,8 @@ def params_from_numpy(tree: dict, device=None) -> MechParams:
               for n, b in tree["mech"].items()},
         refresh_stateful=t(tree["refresh_stateful"]),
         thermal=sub(aldram_lib.ThermalParams, tree["thermal"]),
+        frfcfs=t(tree["frfcfs"]),
+        win_cap=t(tree["win_cap"]),
     )
 
 
@@ -383,12 +395,15 @@ def _init_state(shape: SimShape, n_points: int, n_cores: int,
 
 
 def _service(shape: SimShape, p: MechParams, st: SimState, t_arr, bank,
-             row, is_write, next_same, measure, enable):
+             row, is_write, next_same, measure, enable, act_floor=None):
     """Serve one request at every point (all arguments ``[G]``): updates
     ``st`` in place and returns ``(done, events)``.
 
     ``enable`` marks a live step; a dead step's state writes are masked
-    and its events carry gid -1.
+    and its events carry gid -1.  ``act_floor`` is the FR-FCFS tier's
+    rank window: an ACT (never a row hit's clock read) issues no earlier
+    than it, and the return grows ``(t_act, needs_act)`` for the caller's
+    rank registers.
     """
     T = p.timing
     geom = p.geom
@@ -444,6 +459,8 @@ def _service(shape: SimShape, p: MechParams, st: SimState, t_arr, bank,
     t_act = torch.where(is_conflict, radj(t_pre + T.tRP),
                         radj(torch.maximum(t0, r_act_b)))
     needs_act = ~is_hit
+    if act_floor is not None:
+        t_act = torch.where(needs_act, torch.maximum(t_act, act_floor), t_act)
     gid = dram_lib.global_row_id(geom, bank, row)
     cc_hit, _ = hcrac_lib.lookup(hshape, st.hcrac, gid, t_act, enable,
                                  p.hcrac)
@@ -578,6 +595,8 @@ def _service(shape: SimShape, p: MechParams, st: SimState, t_arr, bank,
     st.last_ref_t[g, bank] = new_last_ref_t
     st.cmd_bus_free[g, ch] = w(new_cmd_free, st.cmd_bus_free[g, ch])
     st.data_bus_free[g, ch] = w(done, st.data_bus_free[g, ch])
+    if act_floor is not None:
+        return done, events, (t_act, needs_act)
     return done, events
 
 
@@ -905,16 +924,42 @@ def _stage(batch: TraceBatch, grid: Sequence[SimConfig], device,
             steps if n_steps is None else n_steps)
 
 
-def _launch_batch(staged: tuple, collect_events: bool = True,
-                  reduce_keys: tuple | None = None):
-    """The launch half of a sweep: one ``ops.run_sweep`` over ``_stage``'s
-    tuple, returning the device outputs without waiting for them — the
-    stats triple, or with ``reduce_keys`` the int32 ``[G, n_deps]``
-    reduction (no events).  Nothing here synchronises with the device or
-    copies to the host when the params are staged on the host."""
+def _launch_controller(grid: Sequence[SimConfig],
+                       shape_grid: Sequence[SimConfig] | None = None):
+    """The controller tier of a launch and its window depth: ``("inorder",
+    1)`` when every point is in-order (the in-order engine runs), else
+    ``("frfcfs", W)`` with ``W`` the largest frfcfs window over ``grid``
+    and ``shape_grid``, so every chunk of one grid shares it; the
+    in-order points then ride the window engine at a window cap of 1."""
+    pts = list(grid) + (list(shape_grid) if shape_grid is not None else [])
+    if all(cfg.controller == "inorder" for cfg in pts):
+        return "inorder", 1
+    return "frfcfs", max(cfg.window for cfg in pts
+                         if cfg.controller == "frfcfs")
+
+
+def _run_scan(controller: str, window: int, shape: SimShape, stacked,
+              *rest):
+    """One trace launch on the tier's engine: ``ops.run_window`` at depth
+    ``window`` for ``"frfcfs"``, else ``ops.run_sweep`` (``rest``: their
+    common trailing arguments)."""
     from repro_torch.kernels.sim_step import ops as sim_step_ops
-    out = sim_step_ops.run_sweep(*staged,
-                                 collect_events and reduce_keys is None)
+    if controller == "frfcfs":
+        return sim_step_ops.run_window(shape, window, stacked, *rest)
+    return sim_step_ops.run_sweep(shape, stacked, *rest)
+
+
+def _launch_batch(staged: tuple, collect_events: bool = True,
+                  reduce_keys: tuple | None = None,
+                  controller: str = "inorder", window: int = 1):
+    """The launch half of a sweep: one launch of the controller tier's
+    engine (``_run_scan``) over ``_stage``'s tuple, returning the device
+    outputs without waiting for them — the stats triple, or with
+    ``reduce_keys`` the int32 ``[G, n_deps]`` reduction (no events).
+    Nothing here synchronises with the device or copies to the host when
+    the params are staged on the host."""
+    out = _run_scan(controller, window, *staged,
+                    collect_events and reduce_keys is None)
     if reduce_keys is None:
         return out
     return _reduce_device(out[0], out[1], reduce_keys)
@@ -930,12 +975,14 @@ def _drain_batch(out, grid, lengths, reduce_keys: tuple | None = None):
 
 def _launch_grid(shape: SimShape, stacked: MechParams, ns_idx,
                  staged_traces: Sequence[tuple], collect_events: bool = False,
-                 reduce_keys: tuple | None = None) -> list:
+                 reduce_keys: tuple | None = None,
+                 controller: str = "inorder", window: int = 1) -> list:
     """The launch half of ``sweep_traces``: one grid over several trace
     batches (``_stage_trace`` tuples of one step count), one output a
     batch, as ``_launch_batch`` returns it.
 
-    On the card each batch is one ``sim_step`` launch.  On the CPU the
+    On the card each batch is one launch of the controller tier's entry
+    (``sim_step``, or ``sim_window`` for an frfcfs grid).  On the CPU the
     plain engine's cost is a step's op count, nearly whatever the point
     count, so the batches run as one call over batch × grid points,
     each point with its own stream (the form the synthetic path uses),
@@ -943,9 +990,9 @@ def _launch_grid(shape: SimShape, stacked: MechParams, ns_idx,
     call per batch gives."""
     if len(staged_traces) == 1 or staged_traces[0][0]["gap"].is_cuda:
         return [_launch_batch((shape, stacked, trace, ns, ns_idx, warmup,
-                               n_steps), collect_events, reduce_keys)
+                               n_steps), collect_events, reduce_keys,
+                              controller, window)
                 for trace, ns, warmup, n_steps in staged_traces]
-    from repro_torch.kernels.sim_step import ops as sim_step_ops
     n_steps = {st[3] for st in staged_traces}
     if len(n_steps) != 1:
         raise ValueError("a trace group must share one step count")
@@ -960,9 +1007,9 @@ def _launch_grid(shape: SimShape, stacked: MechParams, ns_idx,
                            dtype=_I32).repeat_interleave(G)
     stacked_bg = _tree_map(
         lambda a: a.repeat((B,) + (1,) * (a.dim() - 1)), stacked)
-    stats, core_end, events = sim_step_ops.run_sweep(
-        shape, stacked_bg, trace, ns, ns_bg, warmups, n_steps.pop(),
-        collect_events and reduce_keys is None)
+    stats, core_end, events = _run_scan(
+        controller, window, shape, stacked_bg, trace, ns, ns_bg, warmups,
+        n_steps.pop(), collect_events and reduce_keys is None)
     if reduce_keys is not None:
         red = _reduce_device(stats, core_end, reduce_keys)
         return [red[b * G:(b + 1) * G] for b in range(B)]
@@ -1014,8 +1061,10 @@ def sweep(batch: TraceBatch, grid: Sequence[SimConfig],
     caching durations, timing sets, row and refresh policies, and DRAM
     geometries padded to a shared envelope) is stacked into ``[G]``
     params and run as one sweep: on a CUDA device by one launch of the
-    ``sim_step`` kernel, on the CPU by the plain engine.  Returns one
-    stats dict per point, bitwise equal to ``repro.core.sweep``.
+    ``sim_step`` kernel, on the CPU by the plain engine; a grid holding
+    a ``controller="frfcfs"`` point runs whole on the window engine
+    (``_launch_controller``).  Returns one stats dict per point, bitwise
+    equal to ``repro``'s per-config ``simulate``.
 
     ``pad_steps=True`` runs ``cores x padded length`` steps instead of the
     exact request count (padded steps are no-ops).  ``rltl=False`` skips
@@ -1028,7 +1077,8 @@ def sweep(batch: TraceBatch, grid: Sequence[SimConfig],
     grid = list(grid)
     staged = _stage(batch, grid, _resolve_device(device), pad_steps,
                     shape_grid)
-    out = _launch_batch(staged, rltl, reduce_keys)
+    out = _launch_batch(staged, rltl, reduce_keys,
+                        *_launch_controller(grid, shape_grid))
     return _drain_batch(out, grid, batch.length, reduce_keys)
 
 
@@ -1062,14 +1112,15 @@ def sweep_traces(batches: Sequence[TraceBatch], grid: Sequence[SimConfig],
     ns_geoms = _tree_map(lambda x: x.to(device), ns_geoms)
     staged = [_stage_trace(b, shape, ns_geoms, device, grid[0].warmup_frac,
                            pad_steps=True) for b in batches]
-    outs = _launch_grid(shape, stacked, ns_idx, staged, rltl, reduce_keys)
+    outs = _launch_grid(shape, stacked, ns_idx, staged, rltl, reduce_keys,
+                        *_launch_controller(grid, shape_grid))
     return _drain_grid(outs, grid, batches, reduce_keys)
 
 
 def simulate(batch: TraceBatch, cfg: SimConfig = SimConfig(),
              device=None) -> dict:
-    """Run one configuration on a trace batch; returns its stats dict
-    (a one-point ``sweep``)."""
+    """Run one configuration on a trace batch (on its controller tier);
+    returns its stats dict (a one-point ``sweep``)."""
     return sweep(batch, [cfg], device=device)[0]
 
 
@@ -1171,15 +1222,20 @@ def _stage_synth(grid: Sequence[SimConfig],
 
 
 def _launch_synth(staged: tuple, collect_events: bool = True,
-                  reduce_keys: tuple | None = None, device=None):
-    """The launch half of a synthetic sweep: one ``ops.run_synth`` over
-    ``_stage_synth``'s tuple on ``device`` (default: where it was
+                  reduce_keys: tuple | None = None, device=None,
+                  controller: str = "inorder", window: int = 1):
+    """The launch half of a synthetic sweep: one ``ops.run_synth`` (or,
+    for an frfcfs grid, ``ops.run_window_synth`` at depth ``window``)
+    over ``_stage_synth``'s tuple on ``device`` (default: where it was
     staged), returning the device outputs without waiting for them, or
     with ``reduce_keys`` the int32 ``[G, n_deps]`` reduction."""
     from repro_torch.kernels.sim_step import ops as sim_step_ops
-    out = sim_step_ops.run_synth(*staged,
-                                 collect_events and reduce_keys is None,
-                                 device=device)
+    collect = collect_events and reduce_keys is None
+    if controller == "frfcfs":
+        out = sim_step_ops.run_window_synth(staged[0], window, *staged[1:],
+                                            collect, device=device)
+    else:
+        out = sim_step_ops.run_synth(*staged, collect, device=device)
     if reduce_keys is None:
         return out
     return _reduce_device(out[0], out[1], reduce_keys)
@@ -1209,8 +1265,10 @@ def sweep_synth(grid: Sequence[SimConfig], rltl: bool = True,
     """
     grid = list(grid)
     staged = _stage_synth(grid, shape_grid, _resolve_device(device))
-    return _drain_synth(_launch_synth(staged, rltl, reduce_keys), grid,
-                        reduce_keys)
+    ctrl, win = _launch_controller(grid, shape_grid)
+    return _drain_synth(_launch_synth(staged, rltl, reduce_keys,
+                                      controller=ctrl, window=win),
+                        grid, reduce_keys)
 
 
 def simulate_synth(cfg: SimConfig, device=None) -> dict:

@@ -71,6 +71,11 @@ CARD_BUDGET_SHARE = 0.5
 
 def _canonical(cfg: SimConfig, mode: str) -> SimConfig:
     cfg = dataclasses.replace(cfg, mech=registry.canonical_mech(cfg.mech))
+    if cfg.controller == "inorder":
+        # only the frfcfs tier reads the window depth: in-order points
+        # across a window axis are one run
+        cfg = dataclasses.replace(
+            cfg, window=SimConfig.__dataclass_fields__["window"].default)
     if mode == "synth":
         if cfg.dram.n_channels == 1:
             # with one active channel every interleave policy degenerates
@@ -105,7 +110,8 @@ def _dedup(configs: list[SimConfig], enable: bool, mode: str):
 
 def bytes_per_point(n_steps: int, n_sets_max: int, n_ways: int,
                     n_cores: int, mshr: int, n_traces: int, rltl: bool,
-                    n_banks_total: int = 16, synth: bool = False) -> int:
+                    n_banks_total: int = 16, synth: bool = False,
+                    window: int = 0) -> int:
     """Rough device bytes one grid point of one chunk holds, from its
     launch to the end of its drain, summed over the ``n_traces`` batches
     of a trace group (one launch each, all in flight together).
@@ -121,7 +127,12 @@ def bytes_per_point(n_steps: int, n_sets_max: int, n_ways: int,
       (gid, time, kind, sort keys, two orders and the gathered copies:
       ~64 B a slot, 256 B a step);
     - a synthetic point's generated streams (3 int32 and 3 bool lanes a
-      position, 15 B).
+      position, 15 B);
+    - ``window > 0``, the FR-FCFS tier: the window engine's own state,
+      ``repro``'s words (9 arrays of ``window`` slots, 6 a bank for the
+      rank registers, ``mshr + 3`` a core for the admission gates),
+      counted once: the port updates its state in place, where
+      ``repro``'s scan carries it in and out.
 
     The shared trace and its lookahead tables are excluded (one copy a
     trace, not a point).
@@ -133,6 +144,8 @@ def bytes_per_point(n_steps: int, n_sets_max: int, n_ways: int,
             + n_cores * (mshr + 6)) * 4
     if synth:
         per += 15 * n_steps
+    if window > 0:
+        per += (9 * window + 6 * n_banks_total + n_cores * (mshr + 3)) * 4
     if rltl:
         per += (33 + 256) * n_steps
     return per * max(1, n_traces)
@@ -166,6 +179,8 @@ def _auto_chunk(unique: list[SimConfig], groups, rltl: bool,
     n_sets_max = max(c.mech.hcrac.n_sets for c in unique)
     n_ways = unique[0].mech.hcrac.n_ways
     n_banks_max = max(c.dram.banks_total for c in unique)
+    ctrl, win = sim_mod._launch_controller(unique)
+    win = win if ctrl == "frfcfs" else 0
     worst = 1
     for batches in groups.values():
         n_cores, max_len = batches[0][1].gap.shape[0], max(
@@ -173,7 +188,8 @@ def _auto_chunk(unique: list[SimConfig], groups, rltl: bool,
         worst = max(worst, bytes_per_point(
             n_steps=n_cores * max_len, n_sets_max=n_sets_max,
             n_ways=n_ways, n_cores=n_cores, mshr=unique[0].mshr,
-            n_traces=len(batches), rltl=rltl, n_banks_total=n_banks_max))
+            n_traces=len(batches), rltl=rltl, n_banks_total=n_banks_max,
+            window=win))
     if mode == "serving":
         sp = [c.serving for c in unique]
         per = 4096
@@ -189,7 +205,8 @@ def _auto_chunk(unique: list[SimConfig], groups, rltl: bool,
         worst = bytes_per_point(
             n_steps=n_cores * max_len, n_sets_max=n_sets_max,
             n_ways=n_ways, n_cores=n_cores, mshr=unique[0].mshr,
-            n_traces=1, rltl=rltl, n_banks_total=n_banks_max, synth=True)
+            n_traces=1, rltl=rltl, n_banks_total=n_banks_max, synth=True,
+            window=win)
     budget = _budget_bytes(budget_mb, device, pipeline_depth)
     return min(int(max(1, budget // worst)), len(unique))
 
@@ -324,7 +341,8 @@ def run_experiment(exp: Experiment, progress=None,
             "chunk_size": chunk, "n_chunks": n_chunks,
             # drains: a trace-mode chunk drains a whole trace group
             "n_launches": n_chunks * max(1, len(groups)),
-            # sim_step kernel launches on the card: one a trace batch
+            # kernel launches on the card (sim_step, or sim_window for an
+            # frfcfs grid): one a trace batch
             "n_kernel_launches": n_chunks * max(1, n_batches),
             "mode": mode, "pipeline_depth": depth, "device": str(device)}
     if reduced:
@@ -407,6 +425,9 @@ def run_experiment(exp: Experiment, progress=None,
             fan_full(t, ci, list(row))
 
     # ---- stage once, then build the launch/drain work list ----------
+    # the controller tier of the whole unique grid: one window depth, so
+    # every chunk runs on one entry
+    ctrl, win = sim_mod._launch_controller(unique)
     work: list[tuple[Callable, Callable]] = []
 
     if serving:
@@ -438,7 +459,7 @@ def run_experiment(exp: Experiment, progress=None,
 
             def launch(staged=staged):
                 return sim_mod._launch_synth(staged, exp.rltl, reduce_keys,
-                                             device)
+                                             device, ctrl, win)
 
             def finish(out, ci=ci):
                 fan(0, ci, sim_mod._drain_synth(out, valid_cfgs[ci],
@@ -468,7 +489,8 @@ def run_experiment(exp: Experiment, progress=None,
 
                 def launch(sch=sch, nch=nch, staged=staged):
                     return sim_mod._launch_grid(tshape, sch, nch, staged,
-                                                exp.rltl, reduce_keys)
+                                                exp.rltl, reduce_keys, ctrl,
+                                                win)
 
                 def finish(outs, ci=ci, batches=batches, padded=padded):
                     rows = sim_mod._drain_grid(outs, valid_cfgs[ci], padded,

@@ -137,20 +137,21 @@ def _axis_refresh_mode(cfg: SimConfig, mode: str) -> SimConfig:
 @register_axis("controller")
 def _axis_controller(cfg: SimConfig, mode: str) -> SimConfig:
     """Memory-controller tier: ``"inorder"`` (the per-bank in-order
-    engine) or ``"frfcfs"`` (``repro``'s bounded-window row-hit-first
-    tier), which ``SimConfig`` refuses until that tier is ported."""
+    engine) or ``"frfcfs"`` (the bounded-window row-hit-first tier with
+    rank-level tRRD/tFAW, ``repro_torch.controller``).  Any frfcfs point
+    routes the whole launch through the window engine, the in-order
+    points riding along at a window cap of 1, so a controller ×
+    mechanism grid is still one launch a trace batch and chunk."""
     return dataclasses.replace(cfg, controller=mode)
 
 
 @register_axis("window")
 def _axis_window(cfg: SimConfig, depth) -> SimConfig:
-    """FR-FCFS request-window depth.  Only the frfcfs tier reads it, and
-    ``SimConfig`` refuses that tier until it is ported, so every point
-    here is in-order and the axis leaves it as it is: in-order points
-    are one run at every depth, as ``repro``'s dedup makes them."""
+    """FR-FCFS request-window depth (read by frfcfs points only; the
+    runner's dedup makes in-order points one run at every depth)."""
     if int(depth) < 1:
         raise ValueError(f"window depth must be >= 1, not {depth!r}")
-    return cfg
+    return dataclasses.replace(cfg, window=int(depth))
 
 
 @register_axis("temp_drift")

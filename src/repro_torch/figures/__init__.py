@@ -1,5 +1,7 @@
 """The thesis's figure scripts on the port (port of ``benchmarks/``'
-``speedup``, ``capacity``, ``duration``, ``energy`` and ``rltl``).
+``speedup``, ``capacity``, ``duration``, ``energy`` and ``rltl``, the
+charge model's ``charge_model_bench`` as ``charge_model``, and the
+FR-FCFS controller study ``frfcfs``).
 
 Each module computes one figure through ``repro_torch.experiment`` and
 prints ``repro``'s CSV rows::

@@ -151,7 +151,8 @@ def csv_row(name: str, us: float, derived: str) -> str:
 
 def main(run, description: str, argv=None) -> None:
     """The command line of a figure: ``run(sizes, device)`` gives its CSV
-    rows, printed one a line, then the ``sim_step`` launches it made."""
+    rows, printed one a line, then the ``sim_step`` and ``sim_window``
+    launches it made."""
     from repro_torch.kernels.sim_step import ops
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--quick", action="store_true",
@@ -159,7 +160,8 @@ def main(run, description: str, argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="'cpu' for the plain engine (default: the card)")
     args = ap.parse_args(argv)
-    before = ops.launches
+    before = ops.launches, ops.window_launches
     for row in run(QUICK if args.quick else THESIS, args.device):
         print(row, flush=True)
-    print(f"# sim_step launches: {ops.launches - before}")
+    print(f"# sim_step launches: {ops.launches - before[0]}")
+    print(f"# sim_window launches: {ops.window_launches - before[1]}")

@@ -241,6 +241,26 @@ def load_batch(traces_mod, wname: str):
     return batch
 
 
+FRFCFS_PATH = DATA / "golden_frfcfs.json"
+
+#: the FR-FCFS tier at full size: the eight-core golden trace under
+#: {base, chargecache} x frfcfs windows (default configurations, as the
+#: golden in-order numbers), recorded from ``repro``'s window engine
+FRFCFS = {"workload": "eight_core", "kinds": ("base", "chargecache"),
+          "windows": (8, 16)}
+
+
+def frfcfs_points() -> list[dict]:
+    """The FR-FCFS golden points, in record order."""
+    return [{"kind": k, "window": w} for k in FRFCFS["kinds"]
+            for w in FRFCFS["windows"]]
+
+
+def load_frfcfs() -> dict:
+    with open(FRFCFS_PATH) as f:
+        return json.load(f)
+
+
 LM_PATH = DATA / "golden_lm.json"
 
 #: dense-LM serving at full width: ``repro``'s ``prefill_fn`` on ``batch``

@@ -123,6 +123,11 @@ enum Field {
   N_FIELDS
 };
 
+// The window entry's own fields, after those in the packed row.  They
+// and its window depth travel in parameters of its own (WinLayout, WIN),
+// so the other entries' kernel parameters stay as they were.
+enum WinField { F_tRRD, F_tFAW, F_N_BANKS, F_FRFCFS, F_WIN_CAP, N_WIN_FIELDS };
+
 const char* const kAbi =
     "fields:tRCD,tRAS,tRP,tCL,tCWL,tBL,tRTP,tWR,tREFI,tRFC,"
     "n_refresh_groups,retention_cycles,banks_total,banks_per_channel,"
@@ -130,9 +135,10 @@ const char* const kAbi =
     "hc_caching_cycles,hc_sweep_period,ns_idx,ll_enable,ll_tRCD,ll_tRAS,"
     "cc_enable,cc_tRCD,cc_tRAS,nuat_enable,nuat_edge,nuat_rcd,nuat_ras,"
     "rltl_enable,rltl_window,rltl_tRCD,rltl_tRAS,al_enable,al_drift,al_rcd,"
-    "al_ras,al_seg_rcd,al_seg_ras,th_enable,th_seg_edge;"
+    "al_ras,al_seg_rcd,al_seg_ras,th_enable,th_seg_edge,tRRD,tFAW,n_banks,"
+    "frfcfs,win_cap;"
     "dims:G,C,L,NB,NCH,HS,W,M,NBINS,S,P,n_steps,warmup,collect,exact,"
-    "SW,PI,PF;"
+    "SW,PI,PF,WIN;"
     "synth_int:seed,core_idx,n_cores,length,hot_rows,n_hot_banks,seg_edge,"
     "il_kind_id,il_block_rows,n_channels,warmup;"
     "synth_float:mean_gap,p_rowhit,p_hot,p_seq,p_dep,p_write,stack_zipf,"
@@ -140,7 +146,9 @@ const char* const kAbi =
 
 // Static sizes of one launch, in the order of kAbi's "dims".  SW, PI and
 // PF (workload segments, int and float synth row widths) are 0 for a
-// trace launch.
+// trace launch.  W is the HCRAC's way count.  The last of kAbi's dims,
+// WIN (the FR-FCFS window depth, 0 but for the window entry), is read by
+// the window entry's launcher alone.
 struct Dims {
   int G, C, L, NB, NCH, HS, W, M, NBINS, S, P, n_steps, warmup, collect,
       exact, SW, PI, PF;
@@ -148,6 +156,10 @@ struct Dims {
 
 struct Layout {
   int off[N_FIELDS];
+};
+
+struct WinLayout {
+  int off[N_WIN_FIELDS];
 };
 
 // Field indices of the packed per-point synthesis rows: int32 [G, PI]
@@ -553,11 +565,18 @@ struct Dram {
   // Serve one live request arriving at ``t_arr`` (the bank and row
   // already folded, ``ch`` the bank's channel, ``set`` the HCRAC set of
   // its row); updates the state, adds to ``acc`` and ``ev`` and returns
-  // its completion time.
+  // its completion time.  ``FLOOR`` is the FR-FCFS tier's rank window
+  // (the window entry's alone; the other entries compile it away): an
+  // ACT issues no earlier than ``act_floor``, and the ACT's cycle and
+  // whether there was one go to ``t_act_out`` / ``needs_out``.
+  template <bool FLOOR = false>
   __device__ __forceinline__ int service(int t_arr, int bank, int ch,
                                          int row, int set, bool is_write,
                                          bool ns, bool measure,
-                                         unsigned* acc, Ev& ev) {
+                                         unsigned* acc, Ev& ev,
+                                         int act_floor = 0,
+                                         int* t_act_out = nullptr,
+                                         bool* needs_out = nullptr) {
     const unsigned m = measure ? 1u : 0u;
     const bool legacy = !stateful;
     const int rgrp = groups.mod(row);
@@ -598,6 +617,12 @@ struct Dram {
     int t_act = is_conflict ? wadd(t_pre, tRP) : imax(t0, r_act_b);
     if (legacy) t_act = refresh_adjust(t_act, rgrp, trefi, tRFC, groups);
     const bool needs_act = !is_hit;
+    if constexpr (FLOOR) {
+      // only a real ACT is held back; a row hit's t_act is a clock read
+      if (needs_act) t_act = imax(t_act, act_floor);
+      *t_act_out = t_act;
+      *needs_out = needs_act;
+    }
     const int gid = wadd(wmul(bank, n_rows), row);
     // the lookup runs on row hits too (LRU refresh); with the gate off
     // the table stays empty, so skipping it changes nothing
@@ -792,12 +817,9 @@ struct Feed {
     n_rows = rows.d;
   }
 
-  // Lane ``lane``'s record of core k's tile j; positions at or past the
-  // stream's length ``len`` are never read and stay unwritten.
-  __device__ void fill(const Stage& g, int k, int j, int len,
-                       int lane) const {
-    const int p = j * TILE + lane;
-    if (p >= len) return;
+  // Core k's record at position p (clipped to the stream's last
+  // position, as the engines clip a read past the end).
+  __device__ int4 record(int k, int p) const {
     const size_t ix = (size_t)k * L + imin(p, L - 1);
     const int bank = banks.mod(tr.bank[ix]);
     const int row = rows.mod(tr.row[ix]);
@@ -807,7 +829,16 @@ struct Feed {
     r.z = bank | sets.mod(wadd(wmul(bank, n_rows), row)) << 16;
     r.w = (bpc.div(bank) << R_CH_SHIFT) | (ns[ix] ? R_NS : 0) |
           (tr.dep[ix] ? R_DEP : 0) | (tr.is_write[ix] ? R_WRITE : 0);
-    g.tiles[(k * NBUF + (j & (NBUF - 1))) * TILE + lane] = r;
+    return r;
+  }
+
+  // Lane ``lane``'s record of core k's tile j; positions at or past the
+  // stream's length ``len`` are never read and stay unwritten.
+  __device__ void fill(const Stage& g, int k, int j, int len,
+                       int lane) const {
+    const int p = j * TILE + lane;
+    if (p >= len) return;
+    g.tiles[(k * NBUF + (j & (NBUF - 1))) * TILE + lane] = record(k, p);
   }
 };
 
@@ -1702,6 +1733,359 @@ sim_serve_kernel(Dims d, Layout lay, ServeDims sd,
   write_scan(d, cv, out.stats, out.bank_stats, gp, tid, SERVE_THREADS);
 }
 
+// ---------------------------------------------------------------------------
+// The window entry: the FR-FCFS controller tier
+// (controller/engine.py::_run_window_impl; in repro an XLA scan,
+// controller/engine.py:264, with no Pallas kernel).  One point a block of
+// one warp (WIN_THREADS), over a trace or, with the synthesis pre-pass
+// (gen_core) first, over streams it generates itself.
+//
+// A step admits, then serves.  Admission: lane k owns core k (k, k + 32,
+// ...) and computes its front request's issue time and eligibility from
+// shared memory; a warp min-reduce of the times and a min-reduce of the
+// tied cores' indices pick the earliest core (the first on ties), a
+// min-reduce over the lanes' first free slots picks the slot, and the
+// owner lane writes the request into it and loads the core's next front
+// record (folded into the point's geometry as the staged records of the
+// scan entries are).  Up to WIN attempts a step; a failed attempt changes
+// nothing, so the loop stops at the first.  Selection: slot k lives on
+// lane k mod 32; each lane keys its slots ((hit ? 0 : HIT_PENALTY) +
+// admission sequence), and two min-reduces give the winning slot.  Lane
+// 0 then serves it with Dram::service under the rank's tRRD/tFAW floor
+// and updates the rank's registers, the core's gates and MSHR slot and
+// the controller clock.  The window, the per-core gates, the rank
+// registers and the FAW rings live in shared memory.
+//
+// What bounds it: the same serial chain as the scan entries, one request
+// a step, plus a step's collectives: at least one successful and one
+// failed admission (two reductions each) and the selection (two more).
+// ---------------------------------------------------------------------------
+
+// selection key of a window entry that is not a row hit (controller/
+// engine.py HIT_PENALTY); rank registers' start (NEG); tFAW's ACT count
+constexpr int HIT_PENALTY = 1 << 26;
+constexpr int NEG = -(1 << 28);
+constexpr int FAW_DEPTH = 4;
+// Threads of a window block: one warp
+constexpr int WIN_THREADS = 32;
+
+// Shared-memory words of the window state, in win_carve's order (a
+// multiple of 4: the front records come first, 16-byte aligned)
+__host__ __device__ inline int window_words(const Dims& d, int WN) {
+  return (4 * d.C + 3 * d.C + d.C * d.M + (2 + FAW_DEPTH) * d.NB + 8 * WN +
+          3) & ~3;
+}
+
+// Shared-memory words of a window block: the window state, the scan state
+// and (synthesis feed) the point's workload rows, each core's recency
+// ring and its next_same last-row file.
+__host__ __device__ inline int window_smem_words(const Dims& d, int WN) {
+  int w = window_words(d, WN) + scan_words(d);
+  if (d.SW > 0) w += d.PI + d.PF + d.C * (2 * RING + d.NB);
+  return w;
+}
+
+// The window engine's own state in shared memory (window_words): per
+// core its front request (a record as Feed::record makes it), its last
+// issue, whether its youngest admitted request is served and when it
+// completes, and whether each MSHR slot's occupant is served; per rank
+// (bank / n_banks, below the envelope's bank count) its newest ACT, its
+// ring of the last FAW_DEPTH ACTs and the ring's oldest slot; the WN
+// window slots, eight arrays side by side.
+struct WinCarve {
+  int4* front;
+  int *last_issue, *yg_served, *yg_done, *ring_served;
+  int *rank_last, *faw, *faw_ptr;
+  int *valid, *core, *idx, *bank, *row, *flags, *arr, *seq;
+};
+
+__device__ __forceinline__ WinCarve win_carve(const Dims& d, int WN,
+                                              int* sm) {
+  WinCarve w;
+  w.front = reinterpret_cast<int4*>(sm);
+  w.last_issue = sm + 4 * d.C;
+  w.yg_served = w.last_issue + d.C;
+  w.yg_done = w.yg_served + d.C;
+  w.ring_served = w.yg_done + d.C;
+  w.rank_last = w.ring_served + d.C * d.M;
+  w.faw = w.rank_last + d.NB;
+  w.faw_ptr = w.faw + FAW_DEPTH * d.NB;
+  w.valid = w.faw_ptr + d.NB;
+  w.core = w.valid + WN;
+  w.idx = w.core + WN;
+  w.bank = w.idx + WN;
+  w.row = w.bank + WN;
+  w.flags = w.row + WN;
+  w.arr = w.flags + WN;
+  w.seq = w.arr + WN;
+  return w;
+}
+
+// One sweep point's window scan of depth WN on a block of one warp:
+// every lane initialises the state, ``pre(prm)`` runs (the synthesis
+// pre-pass; nothing for a trace), then the steps as above, then the
+// results.
+template <int WAYS, class Pre>
+__device__ __forceinline__ void run_window(const Dims& d, const Layout& lay,
+                                           const WinLayout& wl, int WN,
+                                           const int* __restrict__ params,
+                                           const float* __restrict__ seg_leak,
+                                           const Trace& tr, int warmup,
+                                           const Out& out, int* sm, Pre pre) {
+  const unsigned FULL = 0xffffffffu;
+  const int gp = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int C = d.C, M = d.M;
+  const WinCarve wv = win_carve(d, WN, sm);
+  const Carve cv = carve(d, sm + window_words(d, WN));
+  init_scan(d, cv, params, seg_leak, gp, lane, WIN_THREADS);
+  for (int k = lane; k < C; k += WIN_THREADS) {
+    wv.last_issue[k] = 0;
+    wv.yg_served[k] = 1;
+    wv.yg_done[k] = 0;
+  }
+  for (int i = lane; i < C * M; i += WIN_THREADS) wv.ring_served[i] = 1;
+  for (int i = lane; i < d.NB; i += WIN_THREADS) {
+    wv.rank_last[i] = NEG;
+    wv.faw_ptr[i] = 0;
+  }
+  for (int i = lane; i < FAW_DEPTH * d.NB; i += WIN_THREADS) wv.faw[i] = NEG;
+  for (int i = lane; i < 8 * WN; i += WIN_THREADS) wv.valid[i] = 0;
+  __syncthreads();
+  pre(cv.prm);
+  __syncthreads();
+  for (int k = lane; k < C; k += WIN_THREADS) cv.len[k] = tr.length[k];
+  const Feed f(d, lay, cv, tr);
+  for (int k = lane; k < C; k += WIN_THREADS) wv.front[k] = f.record(k, 0);
+  __syncthreads();
+
+  const int* prm = cv.prm;
+  const int* off = wl.off;
+  const int win_cap = prm[off[F_WIN_CAP]];
+  const bool frfcfs = prm[off[F_FRFCFS]] != 0;
+  const int tRRD = prm[off[F_tRRD]];
+  const int tFAW = prm[off[F_tFAW]];
+  const FloorDiv rank_of = FloorDiv::make(prm[off[F_N_BANKS]]);
+  const FloorDiv mshr = FloorDiv::make(M);
+  Dram<WAYS> dr(d, lay, cv);
+  // lane 0's accumulators; every one wraps like JAX's int32 adds
+  unsigned acc[N_STATS] = {0};
+  const size_t ev_plane = (size_t)d.G * d.n_steps;
+  int* ev = out.events + (size_t)gp * d.n_steps;
+  uint8_t* ev_ref8 = out.act_ref8 + (size_t)gp * d.n_steps;
+  // the controller clock, the admission count and the window's occupancy,
+  // the same on every lane
+  int now = 0, seq = 0, occ = 0;
+
+  int s = 0;
+  for (; s < d.n_steps; ++s) {
+    // 1. admission: the earliest-issue eligible core's front request
+    //    enters the first free slot, at most WN times
+    for (int a = 0; a < WN; ++a) {
+      int best = INF, bk = I32_MAX;
+      for (int k = lane; k < C; k += WIN_THREADS) {
+        const int p = cv.ptr[k];
+        const int pos = k * M + mshr.mod(p);
+        const int4 fr = wv.front[k];
+        const bool dep = (fr.w & R_DEP) != 0;
+        if (p < cv.len[k] && wv.ring_served[pos] &&
+            (!dep || wv.yg_served[k])) {
+          int iss = imax(wadd(wv.last_issue[k], fr.x), cv.ring[pos]);
+          iss = imax(iss, dep ? wv.yg_done[k] : 0);
+          if (iss < best) {
+            best = iss;
+            bk = k;
+          }
+        }
+      }
+      const int t_iss = __reduce_min_sync(FULL, best);
+      if (!(occ < win_cap && t_iss < INF && (t_iss <= now || occ == 0)))
+        break;
+      const int c = __reduce_min_sync(FULL, best == t_iss ? bk : I32_MAX);
+      int slot = I32_MAX;
+      for (int k = lane; k < WN; k += WIN_THREADS) {
+        if (!wv.valid[k]) {
+          slot = k;
+          break;
+        }
+      }
+      slot = __reduce_min_sync(FULL, slot);
+      if (lane == (c & (WIN_THREADS - 1))) {
+        const int p = cv.ptr[c];
+        const int4 fr = wv.front[c];
+        wv.valid[slot] = 1;
+        wv.core[slot] = c;
+        wv.idx[slot] = p;
+        wv.bank[slot] = fr.z;
+        wv.row[slot] = fr.y;
+        wv.flags[slot] = fr.w;
+        wv.arr[slot] = t_iss;
+        wv.seq[slot] = seq;
+        cv.ptr[c] = p + 1;
+        wv.last_issue[c] = t_iss;
+        wv.yg_served[c] = 0;
+        wv.ring_served[c * M + mshr.mod(p)] = 0;
+        wv.front[c] = f.record(c, p + 1);
+      }
+      if (occ == 0) now = imax(now, t_iss);
+      ++occ;
+      ++seq;
+      __syncwarp();
+    }
+
+    // 2. selection: row hits first, then the oldest admission
+    int bkey = I32_MAX, be = I32_MAX;
+    for (int k = lane; k < WN; k += WIN_THREADS) {
+      if (wv.valid[k]) {
+        const int hit = cv.open_row[wv.bank[k] & 0xffff] == wv.row[k];
+        const int key = (hit ? 0 : HIT_PENALTY) + wv.seq[k];
+        if (key < bkey) {
+          bkey = key;
+          be = k;
+        }
+      }
+    }
+    const int gkey = __reduce_min_sync(FULL, bkey);
+    // an empty window after admission: every core is done, and so is
+    // every later step
+    if (gkey == I32_MAX) break;
+    const int e = __reduce_min_sync(FULL, bkey == gkey ? be : I32_MAX);
+
+    // 3. service under the rank's ACT floor, and the bookkeeping
+    int next_now = now;
+    if (lane == 0) {
+      const int z = wv.bank[e], fl = wv.flags[e];
+      const int bank = z & 0xffff, ch = fl >> R_CH_SHIFT;
+      const int cc = wv.core[e], idx = wv.idx[e];
+      const int rank = rank_of.div(bank);
+      int* faw = wv.faw + rank * FAW_DEPTH;
+      const int fslot = wv.faw_ptr[rank];
+      const int act_floor =
+          frfcfs ? imax(wadd(wv.rank_last[rank], tRRD), wadd(faw[fslot], tFAW))
+                 : 0;
+      Ev evr;
+      int t_act = 0;
+      bool needs_act = false;
+      const int done = dr.template service<true>(
+          wv.arr[e], bank, ch, wv.row[e], z >> 16, (fl & R_WRITE) != 0,
+          (fl & R_NS) != 0, s >= warmup, acc, evr, act_floor, &t_act,
+          &needs_act);
+      if (d.collect) {
+        ev[0 * ev_plane + s] = evr.act_gid;
+        ev[1 * ev_plane + s] = evr.act_t;
+        ev[2 * ev_plane + s] = evr.pre1_gid;
+        ev[3 * ev_plane + s] = evr.pre1_t;
+        ev[4 * ev_plane + s] = evr.pre2_gid;
+        ev[5 * ev_plane + s] = evr.pre2_t;
+        ev[6 * ev_plane + s] = evr.pre3_gid;
+        ev[7 * ev_plane + s] = evr.pre3_t;
+        ev_ref8[s] = evr.ref8 ? 1 : 0;
+      }
+      // the rank window, on a real ACT of an frfcfs point; the running
+      // max keeps the register monotone when an old miss is served
+      // after a younger request activated later
+      if (frfcfs && needs_act) {
+        wv.rank_last[rank] = imax(wv.rank_last[rank], t_act);
+        faw[fslot] = t_act;
+        wv.faw_ptr[rank] = (fslot + 1) & (FAW_DEPTH - 1);
+      }
+      const int pos = cc * M + mshr.mod(idx);
+      if (idx == cv.ptr[cc] - 1) {  // the core's youngest admitted request
+        wv.yg_served[cc] = 1;
+        wv.yg_done[cc] = done;
+      }
+      cv.ring[pos] = done;
+      wv.ring_served[pos] = 1;
+      cv.core_end[cc] = imax(cv.core_end[cc], done);
+      wv.valid[e] = 0;
+      // the next decision waits for this service's commands on its
+      // channel's command bus
+      next_now = imax(now, cv.cmd_free[ch]);
+    }
+    now = __shfl_sync(FULL, next_now, 0);
+    --occ;
+    __syncwarp();
+  }
+
+  if (lane == 0) {
+    *cv.s_end = s;
+    // simulator._retire_trailing_refs (stateful tier)
+    if (dr.stateful) {
+      int total = cv.core_end[0];
+      for (int k = 1; k < C; ++k) total = imax(total, cv.core_end[k]);
+      acc[REFS_ISSUED] =
+          (unsigned)wmul(wadd(dr.trefi.div(total), 1), dr.banks_total);
+    }
+    for (int i = 0; i < N_STATS; ++i) cv.stats[i] = (int)acc[i];
+  }
+  __syncthreads();
+
+  write_scan(d, cv, out.stats, out.bank_stats, gp, lane, WIN_THREADS);
+  for (int i = lane; i < C; i += WIN_THREADS)
+    out.core_end[(size_t)gp * C + i] = cv.core_end[i];
+  // dead tail steps: no events (time lanes zeroed for determinism)
+  if (d.collect) {
+    for (int t = *cv.s_end + lane; t < d.n_steps; t += WIN_THREADS) {
+      for (int lane_i = 0; lane_i < 8; ++lane_i)
+        ev[lane_i * ev_plane + t] = (lane_i % 2 == 0) ? -1 : 0;
+      ev_ref8[t] = 0;
+    }
+  }
+}
+
+// The window entry: a trace feed (SW == 0) or the synthesis feed, whose
+// pre-pass generates each core's stream (thread c, core c: C <= 32) into
+// the [G, C, L] scratch ``st`` as sim_synth_kernel's does.
+__global__ void __maxnreg__(255)
+sim_window_kernel(Dims d, Layout lay, WinLayout wl, int WN, SynthLayout sl,
+                  const int* __restrict__ params,
+                  const float* __restrict__ seg_leak,
+                  const int* __restrict__ wparams_i,
+                  const float* __restrict__ wparams_f, Trace tr, Stream st,
+                  Out out) {
+  extern __shared__ int4 sm4[];
+  int* sm = reinterpret_cast<int*>(sm4);
+  if (d.SW == 0) {
+    auto none = [](const int*) {};
+    if (d.W == 2)
+      run_window<2>(d, lay, wl, WN, params, seg_leak, tr, d.warmup, out, sm,
+                    none);
+    else
+      run_window<0>(d, lay, wl, WN, params, seg_leak, tr, d.warmup, out, sm,
+                    none);
+    return;
+  }
+  const int gp = blockIdx.x;
+  const int tid = threadIdx.x;
+  int* wi = sm + window_words(d, WN) + scan_words(d);
+  float* wf = reinterpret_cast<float*>(wi + d.PI);
+  int* rings = reinterpret_cast<int*>(wf + d.PF);
+  int* last_rows = rings + 2 * RING * d.C;
+  for (int i = tid; i < d.PI; i += WIN_THREADS)
+    wi[i] = wparams_i[(size_t)gp * d.PI + i];
+  for (int i = tid; i < d.PF; i += WIN_THREADS)
+    wf[i] = wparams_f[(size_t)gp * d.PF + i];
+  __syncthreads();
+  const size_t pt = (size_t)gp * d.C * d.L;
+  const Trace gen{st.gap + pt, st.bank + pt, st.row + pt, st.is_write + pt,
+                  st.dep + pt, wi + sl.ioff[W_LENGTH], st.next_same + pt};
+  auto pre = [&](const int* prm) {
+    const int c = tid;
+    if (c < d.C)
+      gen_core(d, sl, c, wi, wf, prm[lay.off[F_BANKS_TOTAL]],
+               prm[lay.off[F_BANKS_PER_CH]], prm[lay.off[F_N_ROWS]],
+               rings + 2 * RING * c, rings + 2 * RING * c + RING,
+               last_rows + d.NB * c, st);
+  };
+  const int warmup = wi[sl.ioff[W_WARMUP]];
+  if (d.W == 2)
+    run_window<2>(d, lay, wl, WN, params, seg_leak, gen, warmup, out, sm,
+                  pre);
+  else
+    run_window<0>(d, lay, wl, WN, params, seg_leak, gen, warmup, out, sm,
+                  pre);
+}
+
 // The dividers themselves: q[i], r[i] = floor(a[i] / d), a[i] - d q[i]
 // (chip_smoke and the tests hold them against PyTorch's floor division).
 __global__ void floor_div_kernel(const int* __restrict__ a, int n, int d,
@@ -1796,6 +2180,56 @@ int sim_step_floor_div(const int* a, int n, int d, int* q, int* r,
   if (n == 0) return 0;
   const int blocks = n / 256 + 1 < 2048 ? n / 256 + 1 : 2048;
   floor_div_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(a, n, d, q, r);
+  return (int)cudaGetLastError();
+}
+
+int sim_window_smem_bytes(const int* dims) {
+  Dims d;
+  memcpy(&d, dims, sizeof(Dims));
+  return 4 * window_smem_words(d, dims[18]);
+}
+
+// Launch the window entry: one block (a warp) per sweep point runs the
+// FR-FCFS window engine of depth dims' WIN (its 19th entry; ``layout``
+// holds the N_FIELDS offsets, then the N_WIN_FIELDS) over a trace
+// (``synth_layout``, ``wparams_i`` and ``wparams_f`` null, dims' SW 0:
+// gap .. next_same are the trace and its lookahead tables) or, with SW >
+// 0, over the streams it generates into the [G, C, L] scratch gap ..
+// next_same (``length`` then unused).  Refuses a window of depth < 1, a geometry whose bank or
+// HCRAC set does not fit a record and a synthesis feed of more than 32
+// cores.  Returns the launch's CUDA error code.
+int sim_window_launch(const int* dims, const int* layout,
+                      const int* synth_layout, const int* params,
+                      const float* seg_leak, const int* wparams_i,
+                      const float* wparams_f, int* gap, int* bank, int* row,
+                      uint8_t* is_write, uint8_t* dep, const int* length,
+                      uint8_t* next_same, int* stats, int* bank_stats,
+                      int* core_end, int* events, uint8_t* act_ref8,
+                      void* stream) {
+  Dims d;
+  memcpy(&d, dims, sizeof(Dims));
+  const int WN = dims[18];
+  if (WN < 1 || !record_fits(d) || (d.SW > 0 && d.C > WIN_THREADS))
+    return (int)cudaErrorInvalidValue;
+  Layout lay;
+  memcpy(lay.off, layout, sizeof(lay.off));
+  WinLayout wl;
+  memcpy(wl.off, layout + N_FIELDS, sizeof(wl.off));
+  SynthLayout sl{};
+  if (d.SW > 0) {
+    memcpy(sl.ioff, synth_layout, sizeof(sl.ioff));
+    memcpy(sl.foff, synth_layout + N_SYNTH_INT, sizeof(sl.foff));
+  }
+  const int smem = 4 * window_smem_words(d, WN);
+  cudaError_t err = cudaFuncSetAttribute(
+      sim_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  Trace tr{gap, bank, row, is_write, dep, length, next_same};
+  Stream st{gap, bank, row, is_write, dep, next_same};
+  Out out{stats, bank_stats, core_end, events, act_ref8};
+  sim_window_kernel<<<d.G, WIN_THREADS, smem, (cudaStream_t)stream>>>(
+      d, lay, wl, WN, sl, params, seg_leak, wparams_i, wparams_f, tr, st,
+      out);
   return (int)cudaGetLastError();
 }
 

@@ -39,6 +39,14 @@ runs the DRAM service of each access.  Its serving params travel as one
 int32 row per point (``SERVE_FIELDS``, the two float32 arrival knobs as
 bits).
 
+The window entry ``sim_window`` (no Pallas counterpart either:
+``repro`` runs its FR-FCFS tier as an XLA scan,
+``controller/engine.py::_run_window_impl``) runs the window engine per
+point on a block of one warp, over a trace or, after the synthesis
+entry's pre-pass, over the streams it generates: the cores' issue
+fronts and the window's slots across the lanes, the service on lane 0
+under the rank's tRRD/tFAW floor.  Its window depth is ``DIMS``' ``WIN``.
+
 The packed rows' fields are defined once, here (``FIELDS``,
 ``SYNTH_INT_FIELDS``, ``SYNTH_FLOAT_FIELDS``, ``SERVE_FIELDS``): their
 offsets are computed from the grid's sizes and passed to the kernel,
@@ -73,22 +81,24 @@ FIELDS = (
     "nuat_enable", "nuat_edge", "nuat_rcd", "nuat_ras",
     "rltl_enable", "rltl_window", "rltl_tRCD", "rltl_tRAS",
     "al_enable", "al_drift", "al_rcd", "al_ras", "al_seg_rcd", "al_seg_ras",
-    "th_enable", "th_seg_edge",
+    "th_enable", "th_seg_edge", "tRRD", "tFAW", "n_banks", "frfcfs",
+    "win_cap",
 )
 
 #: packed fields the kernel divides by (``FloorDiv``): each must be
 #: positive at every point
 DIVISOR_FIELDS = ("tREFI", "n_refresh_groups", "retention_cycles",
                   "banks_total", "banks_per_channel", "n_rows", "hc_n_sets",
-                  "hc_caching_cycles")
+                  "hc_caching_cycles", "n_banks")
 
 #: serving fields the kernel divides by (the hot-page table's, and the
 #: tokens a KV page the scheduler grows a request's pages by)
 SERVE_DIVISOR_FIELDS = ("hot_n_sets", "hot_caching_cycles", "page_tokens")
 
-#: the launch sizes, in the kernel's ``Dims`` order
+#: the launch sizes, in the kernel's ``Dims`` order (``W``: the HCRAC's
+#: ways; ``WIN``: the FR-FCFS window depth, 0 but for the window entry)
 DIMS = ("G", "C", "L", "NB", "NCH", "HS", "W", "M", "NBINS", "S", "P",
-        "n_steps", "warmup", "collect", "exact", "SW", "PI", "PF")
+        "n_steps", "warmup", "collect", "exact", "SW", "PI", "PF", "WIN")
 
 #: int32 fields of the synthesis entry's packed workload row, in the
 #: kernel's ``SynthInt`` order: ``WorkloadParams`` identity leaves
@@ -133,8 +143,8 @@ _P = ctypes.c_void_p
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """Build (first use) and load the kernel library; check its ABI."""
-    lib = bind_serve_entry(bind_scan_entries(_build.load(
-        "sim_step", Path(__file__).parent / "csrc")))
+    lib = bind_window_entry(bind_serve_entry(bind_scan_entries(_build.load(
+        "sim_step", Path(__file__).parent / "csrc"))))
     lib.sim_step_abi.restype = ctypes.c_char_p
     lib.sim_step_abi.argtypes = []
     lib.sim_step_floor_div.restype = ctypes.c_int
@@ -174,6 +184,16 @@ def bind_serve_entry(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sim_serve_smem_bytes.argtypes = [_P, _P]
     lib.sim_serve_launch.restype = ctypes.c_int
     lib.sim_serve_launch.argtypes = [_P] * 13
+    return lib
+
+
+def bind_window_entry(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of the window entry (``sim_window_launch``
+    and its shared-memory size); returns ``lib``."""
+    lib.sim_window_smem_bytes.restype = ctypes.c_int
+    lib.sim_window_smem_bytes.argtypes = [_P]
+    lib.sim_window_launch.restype = ctypes.c_int
+    lib.sim_window_launch.argtypes = [_P] * 20
     return lib
 
 
@@ -245,6 +265,8 @@ def pack(stacked, ns_idx) -> tuple[torch.Tensor, torch.Tensor, list[int]]:
         "al_rcd": al["rcd"], "al_ras": al["ras"],
         "al_seg_rcd": al["seg_rcd"], "al_seg_ras": al["seg_ras"],
         "th_enable": th.enable, "th_seg_edge": th.seg_edge,
+        "tRRD": T.tRRD, "tFAW": T.tFAW, "n_banks": geo.n_banks,
+        "frfcfs": stacked.frfcfs, "win_cap": stacked.win_cap,
     }
     _check_divisors(values, DIVISOR_FIELDS, "sim_step")
     params, offsets = _concat([values[f].reshape(G, -1).to(torch.int32)
@@ -258,8 +280,9 @@ def _c_ints(xs) -> ctypes.Array:
 
 
 def _dims(lib, shape, stacked, G, P, C, L, n_steps, warmup,
-          collect_events, SW=0, PI=0, PF=0):
-    """The launch sizes as a C int array, after the shared-memory check."""
+          collect_events, SW=0, PI=0, PF=0, WIN=0):
+    """The launch sizes as a C int array, after the shared-memory check
+    (the window entry's when ``WIN`` > 0)."""
     NB = shape.envelope.max_banks_total
     if stacked.mech["aldram"]["rcd"].shape[-1] != NB:
         raise ValueError("aldram tables are not sized to the envelope")
@@ -275,9 +298,10 @@ def _dims(lib, shape, stacked, G, P, C, L, n_steps, warmup,
             "n_steps": n_steps, "warmup": warmup,
             "collect": int(collect_events),
             "exact": int(shape.hcrac.exact_expiry),
-            "SW": SW, "PI": PI, "PF": PF}
+            "SW": SW, "PI": PI, "PF": PF, "WIN": WIN}
     c_dims = _c_ints([dims[k] for k in DIMS])
-    smem = lib.sim_step_smem_bytes(ctypes.cast(c_dims, _P))
+    smem = (lib.sim_window_smem_bytes if WIN > 0
+            else lib.sim_step_smem_bytes)(ctypes.cast(c_dims, _P))
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"sim_step needs {smem} B of shared memory per "
                          f"block; Hopper allows {MAX_SMEM_BYTES}")
@@ -323,6 +347,24 @@ def _results(outs, collect_events):
     return out, core_end, events
 
 
+def _check_trace(trace: dict, ns, dev) -> None:
+    """Raise unless the trace and its lookahead tables are contiguous
+    tensors of the kernel's types on ``dev``."""
+    C, L = trace["gap"].shape
+    expect = {"gap": torch.int32, "bank": torch.int32, "row": torch.int32,
+              "is_write": torch.bool, "dep": torch.bool,
+              "length": torch.int32}
+    for k, dt in expect.items():
+        x = trace[k]
+        if x.device != dev or x.dtype != dt or not x.is_contiguous():
+            raise ValueError(f"trace[{k!r}] must be a contiguous {dt} "
+                             f"tensor on {dev}")
+    if (ns.dtype != torch.bool or ns.device != dev or not ns.is_contiguous()
+            or tuple(ns.shape[1:]) != (C, L)):
+        raise ValueError("next_same must be a contiguous bool [n_geom, C, L]"
+                         f" tensor on {dev}")
+
+
 def sim_step(shape, stacked, trace: dict, ns, ns_idx, warmup: int,
              n_steps: int, collect_events: bool = True):
     """Launch the trace entry over a ``[G]`` grid; returns ``(stats,
@@ -340,18 +382,7 @@ def sim_step(shape, stacked, trace: dict, ns, ns_idx, warmup: int,
     C, L = trace["gap"].shape
     c_dims = _dims(lib, shape, stacked, G, P, C, L, n_steps, warmup,
                    collect_events)
-    expect = {"gap": torch.int32, "bank": torch.int32, "row": torch.int32,
-              "is_write": torch.bool, "dep": torch.bool,
-              "length": torch.int32}
-    for k, dt in expect.items():
-        x = trace[k]
-        if x.device != dev or x.dtype != dt or not x.is_contiguous():
-            raise ValueError(f"trace[{k!r}] must be a contiguous {dt} "
-                             f"tensor on {dev}")
-    if (ns.dtype != torch.bool or ns.device != dev or not ns.is_contiguous()
-            or tuple(ns.shape[1:]) != (C, L)):
-        raise ValueError("next_same must be a contiguous bool [n_geom, C, L]"
-                         f" tensor on {dev}")
+    _check_trace(trace, ns, dev)
     outs = _outputs(G, C, shape.envelope.max_banks_total, n_steps,
                     collect_events, dev)
     err = _build.launch(
@@ -423,6 +454,84 @@ def sim_synth(shape, stacked, wparams, ilparams, warmups, n_cores: int,
         *(scratch[k].data_ptr() for k, _ in STREAM_FIELDS),
         *(x.data_ptr() for x in outs))
     _check(lib, err, "sim_synth")
+    out = _results(outs, collect_events)
+    if stream:
+        return out + ({**scratch, "length": wparams.length.to(dev)},)
+    return out
+
+
+def sim_window(shape, W: int, stacked, trace: dict, ns, ns_idx,
+               warmup: int, n_steps: int, collect_events: bool = True):
+    """Launch the window entry's trace feed over a ``[G]`` grid: the
+    FR-FCFS window engine of depth ``W`` at every point (in-order points
+    at ``win_cap = 1``).  Returns ``(stats, core_end, events or None)``
+    as ``ref.run_window_ref`` does; takes what ``sim_step`` takes.
+    Asynchronous on the current stream; a refused launch raises."""
+    dev = trace["gap"].device
+    _build.require_cuda(dev, "sim_window")
+    if W < 1:
+        raise ValueError(f"the window depth must be >= 1, not {W}")
+    lib = library()
+    params, leak, offsets = pack(stacked, ns_idx)
+    params, leak = _to_launch(dev, params, leak)
+    G, P = params.shape
+    C, L = trace["gap"].shape
+    c_dims = _dims(lib, shape, stacked, G, P, C, L, n_steps, warmup,
+                   collect_events, WIN=W)
+    _check_trace(trace, ns, dev)
+    outs = _outputs(G, C, shape.envelope.max_banks_total, n_steps,
+                    collect_events, dev)
+    err = _build.launch(
+        lib.sim_window_launch, dev,
+        ctypes.cast(c_dims, _P), ctypes.cast(_c_ints(offsets), _P), None,
+        params.data_ptr(), leak.data_ptr(), None, None,
+        *(trace[k].data_ptr() for k in ("gap", "bank", "row", "is_write",
+                                         "dep", "length")),
+        ns.data_ptr(), *(x.data_ptr() for x in outs))
+    _check(lib, err, "sim_window")
+    return _results(outs, collect_events)
+
+
+def sim_window_synth(shape, W: int, stacked, wparams, ilparams, warmups,
+                     n_cores: int, max_len: int, n_steps: int,
+                     collect_events: bool = True, stream: bool = False,
+                     device=None):
+    """Launch the window entry's synthesis feed over a ``[G]`` grid: each
+    block generates its point's streams (the synthesis entry's pre-pass)
+    into a ``[G, C, max_len]`` scratch, then runs the window engine of
+    depth ``W`` over them.  Takes and returns what ``sim_synth`` does.
+    Asynchronous on the current stream; a refused launch raises."""
+    dev = warmups.device if device is None else torch.device(device)
+    _build.require_cuda(dev, "sim_window")
+    if not 1 <= n_cores <= 32:
+        raise ValueError("the synthesis pre-pass runs one lane per core: "
+                         f"1..32 cores, not {n_cores}")
+    if W < 1:
+        raise ValueError(f"the window depth must be >= 1, not {W}")
+    lib = library()
+    G = warmups.shape[0]
+    params, leak, offsets = pack(
+        stacked, torch.zeros(G, dtype=torch.int32, device=warmups.device))
+    wi, wf, soff = pack_synth(stacked, wparams, ilparams, warmups)
+    params, leak, wi, wf = _to_launch(dev, params, leak, wi, wf)
+    c_dims = _dims(lib, shape, stacked, G, params.shape[1], n_cores,
+                   max_len, n_steps, 0, collect_events,
+                   SW=wparams.seg_edge.shape[-1], PI=wi.shape[1],
+                   PF=wf.shape[1], WIN=W)
+    scratch = {k: torch.empty((G, n_cores, max_len), dtype=dt, device=dev)
+               for k, dt in STREAM_FIELDS}
+    outs = _outputs(G, n_cores, shape.envelope.max_banks_total, n_steps,
+                    collect_events, dev)
+    err = _build.launch(
+        lib.sim_window_launch, dev,
+        ctypes.cast(c_dims, _P), ctypes.cast(_c_ints(offsets), _P),
+        ctypes.cast(_c_ints(soff), _P), params.data_ptr(), leak.data_ptr(),
+        wi.data_ptr(), wf.data_ptr(),
+        *(scratch[k].data_ptr() for k in ("gap", "bank", "row", "is_write",
+                                           "dep")),
+        None, scratch["next_same"].data_ptr(),
+        *(x.data_ptr() for x in outs))
+    _check(lib, err, "sim_window")
     out = _results(outs, collect_events)
     if stream:
         return out + ({**scratch, "length": wparams.length.to(dev)},)

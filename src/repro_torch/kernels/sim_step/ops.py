@@ -1,12 +1,15 @@
 """Dispatch of the ``sim_step`` kernel tier.
 
 ``run_sweep`` is what ``repro_torch.core.simulator.sweep`` calls,
-``run_synth`` what ``sweep_synth`` calls, and ``run_serve`` what
-``sweep_serving`` calls.  The device of the input tensors decides the
-path: CPU tensors run the plain engine (``ref.run_sweep_ref`` /
-``run_synth_ref`` / ``run_serve_ref``), CUDA tensors launch the CUDA
-kernel's trace, synthesis or serving entry (``kernel.sim_step`` /
-``sim_synth`` / ``sim_serve``), and a failed build or launch raises.
+``run_synth`` what ``sweep_synth`` calls, ``run_window`` /
+``run_window_synth`` what both call for an FR-FCFS grid, and
+``run_serve`` what ``sweep_serving`` calls.  The device of the input
+tensors decides the path: CPU tensors run the plain engine
+(``ref.run_sweep_ref`` / ``run_synth_ref`` / ``run_window_ref`` /
+``run_window_synth_ref`` / ``run_serve_ref``), CUDA tensors launch the
+CUDA kernel's trace, synthesis, window or serving entry
+(``kernel.sim_step`` / ``sim_synth`` / ``sim_window`` / ``sim_serve``),
+and a failed build or launch raises.
 Nothing on the CUDA path calls the plain engine.  On the CUDA path the
 params may lie on the host (the Experiment runner stages them there):
 the kernel packs them there and copies the packed rows without waiting
@@ -31,8 +34,9 @@ from repro_torch.core import mechanisms as registry
 from repro_torch.kernels.sim_step import ref
 from repro_torch.serving.loop import policies as serving_policies
 
-__all__ = ["run_sweep", "run_synth", "run_serve", "launches",
-           "synth_launches", "serve_launches"]
+__all__ = ["run_sweep", "run_synth", "run_window", "run_window_synth",
+           "run_serve", "launches", "synth_launches", "window_launches",
+           "serve_launches"]
 
 #: CUDA launches of the trace entry made through ``run_sweep``
 launches = 0
@@ -40,6 +44,9 @@ launches = 0
 synth_launches = 0
 #: CUDA launches of the serving entry made through ``run_serve``
 serve_launches = 0
+#: CUDA launches of the window entry made through ``run_window`` and
+#: ``run_window_synth``
+window_launches = 0
 
 #: the block-bearing policies the kernel carries, in fold order
 KERNEL_POLICIES = (("lldram", registry.LLDRAM),
@@ -107,6 +114,52 @@ def run_synth(shape, stacked, wparams, ilparams, warmups, n_cores: int,
                            n_cores, max_len, n_steps, collect_events, stream,
                            device)
     synth_launches += 1
+    return out
+
+
+def run_window(shape, W: int, stacked, trace: dict, ns, ns_idx, warmup,
+               n_steps: int, collect_events: bool = True):
+    """Run a stacked ``[G]`` grid over one trace on the FR-FCFS window
+    engine of depth ``W`` (in-order points at ``win_cap = 1``); returns
+    ``(stats, core_end, events or None)`` as ``ref.run_window_ref``
+    does."""
+    global window_launches
+    check_registry()
+    device = trace["gap"].device
+    if device.type == "cpu":
+        return ref.run_window_ref(shape, W, stacked, trace, ns, ns_idx,
+                                  warmup, n_steps, collect_events)
+    if device.type != "cuda":
+        raise ValueError(f"sim_step runs on CPU or CUDA, not {device}")
+    from repro_torch.kernels.sim_step import kernel
+    out = kernel.sim_window(shape, W, stacked, trace, ns, ns_idx, warmup,
+                            n_steps, collect_events)
+    window_launches += 1
+    return out
+
+
+def run_window_synth(shape, W: int, stacked, wparams, ilparams, warmups,
+                     n_cores: int, max_len: int, n_steps: int,
+                     collect_events: bool = True, stream: bool = False,
+                     device=None):
+    """Generate every point's streams of a stacked ``[G]`` synthetic grid
+    and scan them on the window engine of depth ``W``, on ``device``
+    (default: where ``warmups`` lies); returns what ``run_synth``
+    returns."""
+    global window_launches
+    check_registry()
+    device = warmups.device if device is None else torch.device(device)
+    if device.type == "cpu":
+        return ref.run_window_synth_ref(shape, W, stacked, wparams, ilparams,
+                                        warmups, n_cores, max_len, n_steps,
+                                        collect_events, stream)
+    if device.type != "cuda":
+        raise ValueError(f"sim_step runs on CPU or CUDA, not {device}")
+    from repro_torch.kernels.sim_step import kernel
+    out = kernel.sim_window_synth(shape, W, stacked, wparams, ilparams,
+                                  warmups, n_cores, max_len, n_steps,
+                                  collect_events, stream, device)
+    window_launches += 1
     return out
 
 

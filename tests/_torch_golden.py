@@ -49,9 +49,16 @@ changes no value.  The run then stays near 20 GB.  It is written only
 on request (``lm_ssm``, not ``all``): ~8 minutes for the weights and
 ~10 for the two runs on eight cores.
 
+For the FR-FCFS tier (``repro_torch.golden.FRFCFS``) it runs
+``repro.core.simulate`` over the stored eight-core trace with frfcfs
+windows 8 and 16 for base and ChargeCache and records the same values
+plus the per-bank accumulators in ``golden_frfcfs.json``, then
+``benchmarks/frfcfs.py``'s grid at full size (every cell's stats and
+the digests of its stream; argument ``frfcfs``, ~6 minutes).
+
 Run from the repo root (a few minutes on two CPU cores; ``lm`` about
 five minutes on eight); the argument ``synth``, ``traces``, ``serving``,
-``lm`` or ``lm_ssm`` writes only that part:
+``frfcfs``, ``lm`` or ``lm_ssm`` writes only that part:
 
     JAX_PLATFORMS=cpu PYTHONPATH=src:tests python tests/_torch_golden.py
 
@@ -66,8 +73,9 @@ from __future__ import annotations
 import json
 import sys
 
-from repro_torch.golden import (GOLDEN_PATH, SERVING, SERVING_PATH, SYNTH,
-                                SYNTH_PATH, WORKLOADS, build_batch,
+from repro_torch.golden import (FRFCFS, FRFCFS_PATH, GOLDEN_PATH, SERVING,
+                                SERVING_PATH, SYNTH, SYNTH_PATH, WORKLOADS,
+                                build_batch, frfcfs_points,
                                 save_batches, serving_points,
                                 serving_spec_kwargs, stream_block_digests,
                                 stream_key, synth_points, trace_sha256)
@@ -107,6 +115,62 @@ def compute(trace_batches: dict) -> dict:
                         for k, r in zip(registry.names(), res)},
         }
     return out
+
+
+def compute_frfcfs() -> dict:
+    """``repro``'s window engine over the stored eight-core trace, a
+    ``simulate`` a point (``repro``'s ``sweep`` of an frfcfs grid does
+    not run: ROADMAP.md, Queue 3)."""
+    from _parity import BITWISE_KEYS
+    from repro.core import MechanismConfig, SimConfig, simulate, traces
+    from repro_torch.golden import load, load_batch
+    wname = FRFCFS["workload"]
+    batch = load_batch(traces, wname)
+    spec = load()["workloads"][wname]
+    grid = [SimConfig(mech=MechanismConfig(kind=p["kind"]),
+                      policy=spec["policy"], controller="frfcfs",
+                      window=p["window"]) for p in frfcfs_points()]
+    res = [simulate(batch, cfg) for cfg in grid]
+    points = []
+    for p, r in zip(frfcfs_points(), res):
+        rec = cell_record(r, BITWISE_KEYS)
+        rec.update({k: [int(x) for x in r[k]]
+                    for k in ("bank_acts", "bank_act_ras_sum")})
+        points.append({**p, **rec})
+    return {"workload": wname, "policy": spec["policy"],
+            "n_steps": int(batch.length.sum()),
+            "trace_sha256": spec["trace_sha256"],
+            "bitwise_keys": list(BITWISE_KEYS), "points": points,
+            "study": compute_frfcfs_study(BITWISE_KEYS)}
+
+
+def compute_frfcfs_study(keys) -> dict:
+    """``benchmarks/frfcfs.py``'s grid at its full size (40 000 requests
+    a core), through ``repro``'s Experiment: every cell's stats, and the
+    digests of the stream all its points share."""
+    import os
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    if os.environ.get("REPRO_BENCH_QUICK", "0") == "1":
+        raise RuntimeError("the study is recorded at its full size")
+    from benchmarks import frfcfs as F
+    from repro.core import WorkloadSpec
+    from repro.workloads import materialize
+    res = F.frfcfs_grid()[0]
+    spec = WorkloadSpec(names=F.LOCALITY_MIX, n_req=F.C.N_REQ_8C, seed=7)
+    stream = materialize(spec)
+    cells = []
+    for m in res.coords["mechanism"]:
+        for c in res.coords["controller"]:
+            for w in res.coords["window"]:
+                r = res.sel(mechanism=m, controller=c, window=w).cells.flat[0]
+                rec = {k: int(r[k]) for k in keys}
+                rec["core_end"] = [int(x) for x in r["core_end"]]
+                cells.append({"mechanism": m, "controller": c, "window": w,
+                              **rec})
+    return {"n_req": F.C.N_REQ_8C, "names": list(F.LOCALITY_MIX),
+            "seed": 7, "stream_sha256": trace_sha256(stream),
+            "stream_blocks": stream_block_digests(stream), "cells": cells}
 
 
 def synth_configs() -> list:
@@ -454,6 +518,13 @@ def main(argv) -> int:
                   p["retired"], p["admit_hot"], p["lat_sum"])
         s = data["scale"]
         print("scale", s["n_steps"], s["retired"], s["lat_sum"])
+    if what in ("all", "frfcfs"):
+        data = compute_frfcfs()
+        with open(FRFCFS_PATH, "w") as f:
+            json.dump(data, f, indent=None, separators=(",", ":"))
+            f.write("\n")
+        for p in data["points"]:
+            print(p["kind"], p["window"], p["total_cycles"], p["row_hits"])
     from repro_torch import golden
     if what in ("all", "lm"):
         data, run = compute_lm()

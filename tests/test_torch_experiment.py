@@ -17,8 +17,9 @@
   cells equal to direct ``sweep()`` / ``sweep_traces()`` even chunked,
   label selection, a toy mechanism with no simulator edits, cycle-free
   imports, dedup, memory-budget chunking — plus the port's own rules:
-  CUDA unless ``device="cpu"``, the refused ``backend`` / ``frfcfs``
-  axes, the ``ChunkScheduler``'s order and failures.
+  CUDA unless ``device="cpu"``, the refused ``backend`` axis, the
+  ``frfcfs`` axis against ``repro``'s Experiment, the
+  ``ChunkScheduler``'s order and failures.
 * The Experiment layer on the card against the plain engine, marked
   ``cuda``: skips without a CUDA device and runs there with
   ``python -m pytest -m cuda tests/test_torch_experiment.py``.
@@ -495,20 +496,25 @@ def test_backend_axis_is_refused():
                    device="cpu").expand()
 
 
-def test_controller_and_window_axes():
-    """``inorder`` runs and a window axis leaves in-order points as they
-    are (one run at every depth, as ``repro`` dedups them); ``frfcfs``
-    raises the port's refusal of that tier."""
-    batch = t_traces.single_core_batch("milc_like", 200, seed=0)
+def test_controller_and_window_axes(jax_ref):
+    """A window axis leaves in-order points as they are (one run at every
+    depth, as ``repro`` dedups them), and the ``frfcfs`` axis runs the
+    window engine: every cell equals ``repro``'s Experiment (a labelled
+    trace: ``repro``'s unlabelled-batch route of an frfcfs grid does not
+    run, ROADMAP.md Queue 3)."""
+    jb, batch = _batches("single_core_batch", "milc_like", 200, seed=0)
     res = Experiment(traces=batch, device="cpu",
                      axes={"controller": ["inorder"], "window": (2, 8),
                            "mechanism": ["chargecache"]}).run()
     assert res.meta["n_unique"] == 1
     _same(res.point(controller="inorder", window=2, mechanism="chargecache"),
           res.point(controller="inorder", window=8, mechanism="chargecache"))
-    with pytest.raises(NotImplementedError, match="FR-FCFS"):
-        Experiment(traces=batch, axes={"controller": ["frfcfs"]},
-                   device="cpu").expand()
+    axes = {"controller": ["frfcfs", "inorder"], "window": (2, 8),
+            "mechanism": ["chargecache"]}
+    res = Experiment(traces={"milc": batch}, axes=axes, device="cpu").run()
+    jres = JExperiment(traces={"milc": jb}, axes=axes).run()
+    assert res.meta["n_unique"] == jres.meta["n_unique"] == 3
+    _cells_equal(jres, res)
     with pytest.raises(ValueError, match="window"):
         Experiment(traces=batch, axes={"window": (0,)},
                    device="cpu").expand()

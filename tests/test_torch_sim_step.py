@@ -158,9 +158,12 @@ def test_abi_and_packed_layout_match_the_cuda_source():
         f"{','.join(kernel.SYNTH_INT_FIELDS)};synth_float:" \
         f"{','.join(kernel.SYNTH_FLOAT_FIELDS)}"
     assert abi == kernel.abi_string()
+    # every entry's fields, then the window entry's own
     enum = src.split("enum Field {")[1].split("};")[0]
-    assert len(re.findall(r"\bF_\w+", enum)) == len(kernel.FIELDS)
+    win = src.split("enum WinField {")[1].split("};")[0]
+    assert len(re.findall(r"\bF_\w+", enum + win)) == len(kernel.FIELDS)
     assert enum.strip().endswith("N_FIELDS")
+    assert win.strip().endswith("N_WIN_FIELDS")
 
     ramp = sim.MechanismConfig(kind="cc_aldram", thermal=sim.aldram_lib
                                .ThermalConfig(((0.0, 55.0), (0.02, 70.0))))
@@ -180,7 +183,15 @@ def test_abi_and_packed_layout_match_the_cuda_source():
         stacked.mech["aldram"]["seg_ras"].reshape(G, -1))
     np.testing.assert_array_equal(params[:, at["hc_gate"]],
                                   registry.hcrac_gate(stacked.mech))
-    assert at["th_seg_edge"] + 2 == params.shape[1]
+    assert at["th_seg_edge"] + 2 == at["tRRD"]
+    # the FR-FCFS tier's fields close the row
+    for f, want in (("tRRD", stacked.timing.tRRD),
+                    ("tFAW", stacked.timing.tFAW),
+                    ("n_banks", stacked.geom.n_banks),
+                    ("frfcfs", stacked.frfcfs),
+                    ("win_cap", stacked.win_cap)):
+        np.testing.assert_array_equal(params[:, at[f]], want.to(torch.int32))
+    assert at["win_cap"] + 1 == params.shape[1]
 
 
 def test_divisor_fields_are_the_ones_the_kernel_divides_by():
@@ -188,8 +199,9 @@ def test_divisor_fields_are_the_ones_the_kernel_divides_by():
     ``DIVISOR_FIELDS`` (or ``SERVE_DIVISOR_FIELDS``), so ``pack`` refuses
     each one that is not positive, and no other."""
     src = (PORT / "kernels" / "sim_step" / "csrc" / "sim_step.cu").read_text()
-    enum = re.findall(r"\bF_\w+", src.split("enum Field {")[1]
-                      .split("};")[0])[:-1]
+    enum = [f for part in ("enum Field {", "enum WinField {")
+            for f in re.findall(r"\bF_\w+", src.split(part)[1]
+                                .split("};")[0])]
     serve = re.findall(r"\bV_\w+", src.split("enum ServeField {")[1]
                        .split("};")[0])[:-1]
     made = set(re.findall(r"FloorDiv::make\((?:prm\[off\[|sv\[)(\w+)\]",
@@ -213,6 +225,7 @@ _DIVISOR_SOURCES = {
     "n_rows": ("geom", "n_rows"),
     "hc_n_sets": ("hcrac", "n_sets"),
     "hc_caching_cycles": ("hcrac", "caching_cycles"),
+    "n_banks": ("geom", "n_banks"),
 }
 
 

@@ -198,8 +198,7 @@ def test_grid_params_match_repro_and_round_trip(main_sweep):
     j_shape, jp = j_sim._grid_shape_and_params(jgrid)
     t_shape, tp = t_sim._grid_shape_and_params(tgrid)
     jtree = _tree_np(jp)
-    jflat = _flat({k: v for k, v in jtree.items()
-                   if k not in ("frfcfs", "win_cap")})
+    jflat = _flat(jtree)
     tflat = _flat(_tree_np(tp))
     assert jflat.keys() == tflat.keys()
     for k in jflat:
@@ -224,9 +223,11 @@ def test_grid_params_match_repro_and_round_trip(main_sweep):
     for x, y in zip(a[2], b[2]):
         assert torch.equal(x, y)
 
-    frf = dict(jtree, frfcfs=np.ones_like(jtree["frfcfs"]))
-    with pytest.raises(NotImplementedError):
-        t_sim.params_from_numpy(frf)
+    # the controller tier's leaves carry across too
+    frf = dict(jtree, frfcfs=np.ones_like(jtree["frfcfs"]),
+               win_cap=np.full_like(jtree["win_cap"], 16))
+    from_frf = t_sim.params_from_numpy(frf)
+    assert bool(from_frf.frfcfs.all()) and int(from_frf.win_cap.min()) == 16
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -265,8 +266,13 @@ def test_rltl_device_matches_host_post_pass(main_sweep):
 
 
 def test_sim_config_rejects_unported_tiers():
-    with pytest.raises(NotImplementedError, match="FR-FCFS"):
-        t_sim.SimConfig(controller="frfcfs")
+    # the FR-FCFS tier is ported; like repro, it refuses the serving loop
+    from repro_torch.serving.loop import ServingSpec
+    assert t_sim.SimConfig(controller="frfcfs").window == 8
+    with pytest.raises(ValueError, match="in-order controller"):
+        t_sim.SimConfig(controller="frfcfs", serving=ServingSpec())
+    with pytest.raises(ValueError, match="controller"):
+        t_sim.SimConfig(controller="fcfs")
     # the serving loop is ported: a ServingSpec is taken, else raises
     with pytest.raises(TypeError, match="ServingSpec"):
         t_sim.SimConfig(serving=object())
