@@ -168,7 +168,11 @@ package.  Phases:
     and 16 with in-order riders, on one channel and on 2 channels x 2
     ranks, where tRRD and tFAW bind, both row policies) x ~1 000 steps
     in one launch of depth 16, over a trace and over generated streams
-    (the streams too), every output as in phase 2; (b) the eight-core
+    (the streams too), every output as in phase 2, and the general
+    controller of ``window_ctl.cuh`` (40 cores; 8 cores at depth 40)
+    with a rider; the in-order riders of every launch run the trace
+    entry's scan in the same launch, and (b) and (d) name those blocks;
+    (b) the eight-core
     golden trace at full size, {base, chargecache} x {in-order, frfcfs
     w8, w16} in one launch, the frfcfs points equal to
     ``golden_frfcfs.json`` (``repro``'s window engine on the CPU) bit
@@ -2367,6 +2371,8 @@ WINDOW_STEP_CYCLES = (CHAIN_CYCLES + WINDOW_SELECT_CYCLES
 #: requests a core of the window entry's kernel-vs-plain comparison (4
 #: cores: ~1 000 steps)
 WINDOW_CUT_REQ = 250
+#: the window depth of phase 17's launches (the largest window they hold)
+WINDOW_DEPTH = 16
 
 
 def window_cut_grid(sim, with_workload=None):
@@ -2394,6 +2400,31 @@ def window_cut_grid(sim, with_workload=None):
     return grid
 
 
+def window_full_inputs(sim, traces, golden_mod, device="cuda"):
+    """Phase 17's two full-size launches: ``(golden, study)``, each
+    ``(grid, launch arguments)`` — the eight-core golden trace under
+    {base, chargecache} x {in-order, frfcfs w8, w16} (``ops.run_window``'s
+    arguments at depth ``WINDOW_DEPTH``), and ``figures/frfcfs.py``'s
+    unique points at the thesis size (``ops.run_window_synth``'s, the
+    depth and ``collect_events`` to add)."""
+    import torch
+    from repro_torch.experiment import runner
+    from repro_torch.figures import common as C, frfcfs
+    gold = golden_mod.load_frfcfs()
+    batch8 = golden_mod.load_batch(traces, gold["workload"])
+    tiers = (("inorder", 1),) + tuple(("frfcfs", w)
+                                      for w in golden_mod.FRFCFS["windows"])
+    grid6 = [sim.SimConfig(mech=sim.MechanismConfig(kind=k),
+                           policy=gold["policy"], controller=c, window=w)
+             for k in golden_mod.FRFCFS["kinds"] for c, w in tiers]
+    b_args = launch_inputs(sim, batch8, grid6, device=device)
+    b_args = (b_args[0], WINDOW_DEPTH) + b_args[1:]
+    _, _, cfgs = frfcfs.experiment(C.THESIS.n_req_8c).expand()
+    study = runner._dedup(cfgs, True, "synth")[0]
+    d_args = sim._stage_synth(study, None, torch.device(device))
+    return (grid6, b_args), (study, d_args)
+
+
 def window_chain_bound_ms(n_steps: int, mhz: float) -> float:
     return n_steps * WINDOW_STEP_CYCLES / (mhz * 1e3)
 
@@ -2407,10 +2438,9 @@ def window_phase(sim, traces, golden_mod, kernel, ops, ref, regs,
     grid at full size, the main path of this slice, against ``repro``'s
     run of the study.  Returns the kernels-line entry."""
     import torch
-    from repro_torch.experiment import runner
     from repro_torch.figures import common as C, frfcfs
     dev = torch.device(device)
-    W = 16
+    W = WINDOW_DEPTH
     t_phase = time.time()
 
     # (a) kernel against plain version, both on the card
@@ -2452,7 +2482,28 @@ def window_phase(sim, traces, golden_mod, kernel, ops, ref, regs,
           f"pre-pass, {100 * window_chain_bound_ms(y[7], a_mhz) / y_ms:.1f} "
           f"% of the chain bound); streams and outputs, mismatches {s_bad}",
           flush=True)
-    check(a_bad + s_bad == 0, "sim_window disagrees with the plain engine")
+    # the general controller (past 32 cores or 32 slots): 40 cores at the
+    # depth of the cut grid, 8 cores at depth 40
+    g_bad = 0
+    for n_cores, depth in ((40, W), (8, 40)):
+        gb = traces.multicore_batch(
+            [("mcf_like", "stream_copy_like", "lbm_like", "gcc_like")[c % 4]
+             for c in range(n_cores)], 320 // n_cores, seed=5)
+        gg = [sim.SimConfig(mech=sim.MechanismConfig(kind=k),
+                            controller=c, window=w, policy=p)
+              for k, c, w, p in (("chargecache", "frfcfs", depth, "open"),
+                                 ("base", "frfcfs", 4, "closed"),
+                                 ("rltl", "inorder", 1, "closed"))]
+        st_g = sim._stage(gb, gg, dev)
+        g_args = (st_g[0], depth) + st_g[1:] + (True,)
+        b, e = compare_outputs(ops.run_window(*g_args),
+                               ref.run_window_ref(*g_args))
+        g_bad += b
+        a_err = max(a_err, e)
+    print(f"  (a) the general controller (40 cores at depth {W}, 8 cores at "
+          f"depth 40, with a rider): mismatches {g_bad}", flush=True)
+    check(a_bad + s_bad + g_bad == 0,
+          "sim_window disagrees with the plain engine")
 
     # (b) the golden eight-core trace at full size, one launch of 6 points
     gold = golden_mod.load_frfcfs()
@@ -2460,11 +2511,10 @@ def window_phase(sim, traces, golden_mod, kernel, ops, ref, regs,
     kinds = golden_mod.FRFCFS["kinds"]
     tiers = (("inorder", 1),) + tuple(("frfcfs", w)
                                       for w in golden_mod.FRFCFS["windows"])
-    grid6 = [sim.SimConfig(mech=sim.MechanismConfig(kind=k),
-                           policy=gold["policy"], controller=c, window=w)
-             for k in kinds for c, w in tiers]
-    b_args = launch_inputs(sim, batch8, grid6, device=device)
-    b_args = (b_args[0], W) + b_args[1:]
+    (grid6, b_args), (study_grid, d_args) = window_full_inputs(
+        sim, traces, golden_mod, device)
+    scan_blocks = [f"{c.mech.kind} {c.controller}" for c in grid6
+                   if c.controller == "inorder"]
     out = ops.run_window(*b_args)
     res6 = sim._drain(out, grid6, lambda i: batch8.length, None)
     b_bad = 0
@@ -2492,7 +2542,8 @@ def window_phase(sim, traces, golden_mod, kernel, ops, ref, regs,
                          b_args[2].thermal.seg_edge.shape[-1])
     bound8 = nbytes / HBM_BYTES_PER_S * 1e3
     print(f"  (b) eight-core golden trace, {len(grid6)} points x {n8} steps "
-          f"(frfcfs w8 / w16 and in-order riders, base and chargecache): "
+          f"(frfcfs w8 / w16 and in-order riders, base and chargecache; "
+          f"blocks on the scan's path, run_point: {scan_blocks}): "
           f"{b_bad} values differ from golden_frfcfs.json; kernel "
           f"{ms8:.2f} ms ({ms8 * 1e6 / n8:.1f} ns/step), chain bound "
           f"{chain8:.2f} ms at {mhz:.0f} MHz ({WINDOW_STEP_CYCLES} cycles a "
@@ -2522,8 +2573,9 @@ def window_phase(sim, traces, golden_mod, kernel, ops, ref, regs,
           f"sim_step_kernel on the same points: mismatches {c_bad}; "
           f"sim_step_kernel {c_ms:.2f} ms ({c_ms * 1e6 / n8:.1f} ns/step, "
           f"{100 * chain_bound_ms(n8, mhz) / c_ms:.1f} % of its own chain "
-          f"bound) against the window entry's {ms8 * 1e6 / n8:.1f} ns/step "
-          f"for the same riders among its points", flush=True)
+          f"bound); in the window launch they run the same scan "
+          f"(run_point), the launch taking {ms8 * 1e6 / n8:.1f} ns/step for "
+          f"its slowest (frfcfs) block", flush=True)
     check(c_bad == 0, "in-order riders differ from the trace entry")
 
     # (d) figures/frfcfs.py at full size: the main path of this slice
@@ -2547,16 +2599,16 @@ def window_phase(sim, traces, golden_mod, kernel, ops, ref, regs,
           == 1, "figures/frfcfs.py made other than one sim_window launch")
     # the figure's launch alone (timed outside the counted run) and its
     # stream, held with every cell to repro's run of benchmarks/frfcfs.py
-    _, _, cfgs = frfcfs.experiment(C.THESIS.n_req_8c).expand()
-    d_args = sim._stage_synth(runner._dedup(cfgs, True, "synth")[0], None,
-                              dev)
     d_ms = median_ms(lambda: ops.run_window_synth(d_args[0], W,
                                                   *d_args[1:], False))
     d_mhz = sm_clock_mhz(lambda: ops.run_window_synth(d_args[0], W,
                                                       *d_args[1:], False))
     d_steps = d_args[7]
+    d_scan = [f"{c.mech.kind} {c.controller}" for c in study_grid
+              if c.controller == "inorder"]
     print(f"  (d) its launch alone: {len(d_args[4])} points x {d_steps} "
-          f"steps, {d_ms:.2f} ms ({d_ms * 1e6 / d_steps:.1f} ns/step with "
+          f"steps (blocks on the scan's path: {d_scan}), {d_ms:.2f} ms "
+          f"({d_ms * 1e6 / d_steps:.1f} ns/step with "
           f"the pre-pass, "
           f"{100 * window_chain_bound_ms(d_steps, d_mhz) / d_ms:.1f} % of "
           f"the chain bound at {d_mhz:.0f} MHz)", flush=True)
@@ -2592,15 +2644,18 @@ def window_phase(sim, traces, golden_mod, kernel, ops, ref, regs,
     r = regs.get("sim_window_kernel", {})
     print(f"  sim_window_kernel: {r.get('registers')} registers, spill "
           f"stores {r.get('spill_stores')} B, spill loads "
-          f"{r.get('spill_loads')} B; phase 17 {time.time() - t_phase:.1f} "
-          f"s", flush=True)
+          f"{r.get('spill_loads')} B; golden launch {ms8 * 1e6 / n8:.1f} "
+          f"ns/step ({100 * chain8 / ms8:.1f} % of the {WINDOW_STEP_CYCLES}"
+          f"-cycle bound), study launch {d_ms * 1e6 / d_steps:.1f} ns/step "
+          f"({100 * window_chain_bound_ms(d_steps, d_mhz) / d_ms:.1f} %); "
+          f"phase 17 {time.time() - t_phase:.1f} s", flush=True)
     return {
         "name": "sim_window", "route": "cuda",
         "source": "src/repro_torch/kernels/sim_step/csrc/sim_step.cu",
         "replaces": "src/repro/controller/engine.py:264 _run_window_impl "
                     "(an XLA scan, no Pallas kernel)",
         "launches": main_launches["sim_window"], "max_abs_err": a_err,
-        "mismatches": a_bad + s_bad + b_bad + c_bad + d_bad,
+        "mismatches": a_bad + s_bad + g_bad + b_bad + c_bad + d_bad,
         "ms": ms8, "plain_ms": plain_ms, "plain_points": len(grid),
         "plain_steps": staged[6], "ms_at_plain_steps": cut_ms,
         "steps": n8, "points": len(grid6), "ns_per_step": ms8 * 1e6 / n8,

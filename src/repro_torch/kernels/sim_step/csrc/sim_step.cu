@@ -1,5 +1,6 @@
 // sim_step.cu — the DRAM simulator scan as a CUDA kernel, over a trace,
-// over streams it synthesises itself, or driven by the serving closed loop.
+// over streams it synthesises itself, or driven by the serving closed loop,
+// and the FR-FCFS window engine over a trace or synthesised streams.
 //
 // Replaces repro/kernels/sim_step/kernel.py::grid_step_call (the Pallas
 // grid launcher, reached from ops.py::_sweep_pallas), which runs one
@@ -65,6 +66,13 @@
 // warp 2 runs the same per-request service (Dram::service, with the same
 // dividers) once per access record, and nothing else.
 //
+// The window entry (sim_window_kernel, below) has no Pallas counterpart
+// either: repro's FR-FCFS controller tier is an XLA scan.  A point is a
+// block of two warps: warp 1 stages the streams as above, warp 0 runs the
+// controller of kernels/include/window_ctl.cuh (issue times and slot keys
+// in lane registers) and, on lane 0, the same service under the rank's
+// ACT floor; an in-order point's block runs the scan instead.
+//
 // Semantics follow repro.core.simulator bit for bit: int32 arithmetic
 // wraps (done in uint32, since signed overflow is undefined in C++),
 // division and modulo are floor division and floor modulo where an
@@ -81,6 +89,7 @@
 
 #include "floor_div.cuh"
 #include "serve_sched.cuh"
+#include "window_ctl.cuh"
 
 namespace {
 
@@ -1736,296 +1745,328 @@ sim_serve_kernel(Dims d, Layout lay, ServeDims sd,
 // ---------------------------------------------------------------------------
 // The window entry: the FR-FCFS controller tier
 // (controller/engine.py::_run_window_impl; in repro an XLA scan,
-// controller/engine.py:264, with no Pallas kernel).  One point a block of
-// one warp (WIN_THREADS), over a trace or, with the synthesis pre-pass
-// (gen_core) first, over streams it generates itself.
+// controller/engine.py:264, with no Pallas kernel), over a trace or, with
+// the synthesis pre-pass (gen_core) first, over streams it generates
+// itself.  One point a block of two warps (SCAN_THREADS).
 //
-// A step admits, then serves.  Admission: lane k owns core k (k, k + 32,
-// ...) and computes its front request's issue time and eligibility from
-// shared memory; a warp min-reduce of the times and a min-reduce of the
-// tied cores' indices pick the earliest core (the first on ties), a
-// min-reduce over the lanes' first free slots picks the slot, and the
-// owner lane writes the request into it and loads the core's next front
-// record (folded into the point's geometry as the staged records of the
-// scan entries are).  Up to WIN attempts a step; a failed attempt changes
-// nothing, so the loop stops at the first.  Selection: slot k lives on
-// lane k mod 32; each lane keys its slots ((hit ? 0 : HIT_PENALTY) +
-// admission sequence), and two min-reduces give the winning slot.  Lane
-// 0 then serves it with Dram::service under the rank's tRRD/tFAW floor
-// and updates the rank's registers, the core's gates and MSHR slot and
-// the controller clock.  The window, the per-core gates, the rank
-// registers and the FAW rings live in shared memory.
+// A block whose point is in-order (a rider of an FR-FCFS grid, at a
+// window cap of 1) runs the trace or synthesis entry's scan, run_point:
+// the window engine at a cap of 1 serves the in-order engine's requests
+// in its order with its timings, bit for bit, and the scan does it in
+// half the time a step.  An FR-FCFS block:
+//  - warp 1 stages each core's stream as the scan entries do (Feed,
+//    produce): no stream field is read from global memory on the chain;
+//  - warp 0 is the controller (kernels/include/window_ctl.cuh): each
+//    core's issue time and each window slot's key live in its owner
+//    lane's registers and change only with what they depend on; an
+//    admission attempt is a reduction, a successful one a ballot and
+//    three shuffles more; the selection's best key is carried across the
+//    step (a reduction after each service).  Lane 0 serves the selected
+//    request with Dram::service under the rank's tRRD / tFAW floor
+//    (precomputed a rank), keeps the rank registers and the events, and
+//    hands the completion, the bank's new open row and the clock back by
+//    shuffles.
 //
 // What bounds it: the same serial chain as the scan entries, one request
-// a step, plus a step's collectives: at least one successful and one
-// failed admission (two reductions each) and the selection (two more).
+// a step, plus the controller's work of a step, all on one warp's
+// in-order instruction stream: ~1 200 SM cycles of Dram::service and
+// ~120 controller instructions (PERF.md section 6, PR 21).
 // ---------------------------------------------------------------------------
 
-// selection key of a window entry that is not a row hit (controller/
-// engine.py HIT_PENALTY); rank registers' start (NEG); tFAW's ACT count
-constexpr int HIT_PENALTY = 1 << 26;
+// rank registers' start (NEG); tFAW's ACT count
 constexpr int NEG = -(1 << 28);
 constexpr int FAW_DEPTH = 4;
-// Threads of a window block: one warp
-constexpr int WIN_THREADS = 32;
+static_assert((int)winctl::R_WRITE == (int)R_WRITE &&
+                  (int)winctl::R_DEP == (int)R_DEP &&
+                  (int)winctl::R_NS == (int)R_NS &&
+                  (int)winctl::R_CH_SHIFT == (int)R_CH_SHIFT,
+              "the controller reads the staged records");
 
 // Shared-memory words of the window state, in win_carve's order (a
-// multiple of 4: the front records come first, 16-byte aligned)
+// multiple of 4: the slots' records come first, 16-byte aligned).
 __host__ __device__ inline int window_words(const Dims& d, int WN) {
-  return (4 * d.C + 3 * d.C + d.C * d.M + (2 + FAW_DEPTH) * d.NB + 8 * WN +
-          3) & ~3;
+  return (8 * WN + WN + d.C * d.M + 3 * d.C + (3 + FAW_DEPTH) * d.NB + 3) &
+         ~3;
 }
 
-// Shared-memory words of a window block: the window state, the scan state
-// and (synthesis feed) the point's workload rows, each core's recency
-// ring and its next_same last-row file.
+// Shared-memory words of a window block: the staged stream, the window
+// state and the scan state (an in-order block uses the first and the
+// last, as run_point carves them), then (synthesis feed) the point's
+// workload rows, each core's recency ring and its next_same last-row
+// file.
+__host__ __device__ inline int window_block_words(const Dims& d, int WN) {
+  return stage_words(d) + window_words(d, WN) + scan_words(d);
+}
 __host__ __device__ inline int window_smem_words(const Dims& d, int WN) {
-  int w = window_words(d, WN) + scan_words(d);
+  int w = window_block_words(d, WN);
   if (d.SW > 0) w += d.PI + d.PF + d.C * (2 * RING + d.NB);
   return w;
 }
 
-// The window engine's own state in shared memory (window_words): per
-// core its front request (a record as Feed::record makes it), its last
-// issue, whether its youngest admitted request is served and when it
-// completes, and whether each MSHR slot's occupant is served; per rank
-// (bank / n_banks, below the envelope's bank count) its newest ACT, its
-// ring of the last FAW_DEPTH ACTs and the ring's oldest slot; the WN
-// window slots, eight arrays side by side.
+// The window engine's own state in shared memory (window_words): the WN
+// slots' records and the keys of those past 32; per core its MSHR ring's
+// served flags and, parked past 32 cores, its last issue and youngest's
+// state; per rank (bank / n_banks, below the envelope's bank count) its
+// newest ACT, its ring of the last FAW_DEPTH ACTs, the ring's oldest slot
+// and the floor they set on its next ACT.
 struct WinCarve {
-  int4* front;
-  int *last_issue, *yg_served, *yg_done, *ring_served;
-  int *rank_last, *faw, *faw_ptr;
-  int *valid, *core, *idx, *bank, *row, *flags, *arr, *seq;
+  winctl::Slot* slots;
+  int *skey, *ring_served, *last, *ys, *yd;
+  int *rank_last, *faw, *faw_ptr, *act_floor;
 };
 
 __device__ __forceinline__ WinCarve win_carve(const Dims& d, int WN,
                                               int* sm) {
   WinCarve w;
-  w.front = reinterpret_cast<int4*>(sm);
-  w.last_issue = sm + 4 * d.C;
-  w.yg_served = w.last_issue + d.C;
-  w.yg_done = w.yg_served + d.C;
-  w.ring_served = w.yg_done + d.C;
-  w.rank_last = w.ring_served + d.C * d.M;
+  w.slots = reinterpret_cast<winctl::Slot*>(sm);
+  w.skey = sm + 8 * WN;
+  w.ring_served = w.skey + WN;
+  w.last = w.ring_served + d.C * d.M;
+  w.ys = w.last + d.C;
+  w.yd = w.ys + d.C;
+  w.rank_last = w.yd + d.C;
   w.faw = w.rank_last + d.NB;
   w.faw_ptr = w.faw + FAW_DEPTH * d.NB;
-  w.valid = w.faw_ptr + d.NB;
-  w.core = w.valid + WN;
-  w.idx = w.core + WN;
-  w.bank = w.idx + WN;
-  w.row = w.bank + WN;
-  w.flags = w.row + WN;
-  w.arr = w.flags + WN;
-  w.seq = w.arr + WN;
+  w.act_floor = w.faw_ptr + d.NB;
   return w;
 }
 
-// One sweep point's window scan of depth WN on a block of one warp:
-// every lane initialises the state, ``pre(prm)`` runs (the synthesis
-// pre-pass; nothing for a trace), then the steps as above, then the
-// results.
-template <int WAYS, class Pre>
+// Clock stamps of the window entry, compiled in only by a measurement
+// build (-DWINDOW_STAMPS; tests/_torch_window_stamps.py reads them): per
+// point, SM cycles of the step loop, the successful and the failed
+// admission attempts, the selection, the service with its bookkeeping,
+// the record fetches (on the owner lanes) and the event stores, then the
+// attempts' and the steps' counts.
+enum {
+  ST_LOOP, ST_ADMIT_OK, ST_ADMIT_FAIL, ST_SELECT, ST_SERVICE, ST_FETCH,
+  ST_EVENTS, ST_N_OK, ST_N_FAIL, ST_STEPS, N_STAMP
+};
+#ifdef WINDOW_STAMPS
+constexpr int MAX_STAMP_G = 64;
+__device__ unsigned long long g_stamps[MAX_STAMP_G * N_STAMP];
+#endif
+struct Stamps {
+#ifdef WINDOW_STAMPS
+  unsigned long long v[N_STAMP] = {};
+  __device__ static long long clock() {
+    asm volatile("" ::: "memory");
+    const long long t = clock64();
+    asm volatile("" ::: "memory");
+    return t;
+  }
+  __device__ void since(int i, long long t0) { v[i] += clock() - t0; }
+  __device__ void count(int i, int n = 1) { v[i] += n; }
+  __device__ void flush(int gp, int lane) const {
+    if (gp >= MAX_STAMP_G) return;
+    atomicAdd(&g_stamps[gp * N_STAMP + ST_FETCH], v[ST_FETCH]);
+    if (lane == 0)
+      for (int i = 0; i < N_STAMP; ++i)
+        if (i != ST_FETCH) g_stamps[gp * N_STAMP + i] = v[i];
+  }
+#else
+  __device__ static long long clock() { return 0; }
+  __device__ void since(int, long long) {}
+  __device__ void count(int, int = 1) {}
+  __device__ void flush(int, int) const {}
+#endif
+};
+
+// The controller's view of the staged streams: positions 0 and 1 are in
+// the first tile before the loop starts, later ones come through fetch.
+struct StagedSrc {
+  Stage g;
+  Stamps* st;
+  __device__ int4 first(int c, int i) const {
+    return g.tiles[c * NBUF * TILE + i];
+  }
+  __device__ int4 record(int c, int p) const {
+    const long long t0 = Stamps::clock();
+    const int4 r = fetch(g, c, p);
+#ifdef WINDOW_STAMPS
+    asm volatile("" ::"r"(r.x), "r"(r.y), "r"(r.z), "r"(r.w));
+#endif
+    st->since(ST_FETCH, t0);
+    return r;
+  }
+};
+
+// One FR-FCFS point's window scan of depth WN on a block of two warps:
+// every thread initialises the state, ``pre(prm)`` runs (the synthesis
+// pre-pass; nothing for a trace), warp 1 stages the streams of ``tr``
+// while warp 0 runs the steps with the controller ``Ctl``
+// (window_ctl.cuh: FastCtl up to 32 cores and 32 slots, else Ctl), then
+// every thread writes the results.
+template <int WAYS, template <class> class Ctl, class Pre>
 __device__ __forceinline__ void run_window(const Dims& d, const Layout& lay,
                                            const WinLayout& wl, int WN,
                                            const int* __restrict__ params,
                                            const float* __restrict__ seg_leak,
                                            const Trace& tr, int warmup,
                                            const Out& out, int* sm, Pre pre) {
-  const unsigned FULL = 0xffffffffu;
   const int gp = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int C = d.C, M = d.M;
-  const WinCarve wv = win_carve(d, WN, sm);
-  const Carve cv = carve(d, sm + window_words(d, WN));
-  init_scan(d, cv, params, seg_leak, gp, lane, WIN_THREADS);
-  for (int k = lane; k < C; k += WIN_THREADS) {
-    wv.last_issue[k] = 0;
-    wv.yg_served[k] = 1;
-    wv.yg_done[k] = 0;
-  }
-  for (int i = lane; i < C * M; i += WIN_THREADS) wv.ring_served[i] = 1;
-  for (int i = lane; i < d.NB; i += WIN_THREADS) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int C = d.C, M = d.M, NB = d.NB;
+  const Stage g = stage_carve(d, sm);
+  const WinCarve wv = win_carve(d, WN, sm + stage_words(d));
+  const Carve cv = carve(d, sm + stage_words(d) + window_words(d, WN));
+  init_scan(d, cv, params, seg_leak, gp, tid, SCAN_THREADS);
+  for (int k = tid; k < C; k += SCAN_THREADS) g.filled[k] = g.released[k] = 0;
+  if (tid == 0) *g.stop = 0;
+  for (int i = tid; i < C * M; i += SCAN_THREADS) wv.ring_served[i] = 1;
+  for (int i = tid; i < NB; i += SCAN_THREADS) {
     wv.rank_last[i] = NEG;
     wv.faw_ptr[i] = 0;
   }
-  for (int i = lane; i < FAW_DEPTH * d.NB; i += WIN_THREADS) wv.faw[i] = NEG;
-  for (int i = lane; i < 8 * WN; i += WIN_THREADS) wv.valid[i] = 0;
+  for (int i = tid; i < FAW_DEPTH * NB; i += SCAN_THREADS) wv.faw[i] = NEG;
   __syncthreads();
   pre(cv.prm);
   __syncthreads();
-  for (int k = lane; k < C; k += WIN_THREADS) cv.len[k] = tr.length[k];
-  const Feed f(d, lay, cv, tr);
-  for (int k = lane; k < C; k += WIN_THREADS) wv.front[k] = f.record(k, 0);
+  for (int k = tid; k < C; k += SCAN_THREADS) cv.len[k] = tr.length[k];
+  __syncthreads();
+  // warp 1 fills the first NBUF tiles of every core before the steps
+  if (tid >= 32) {
+    const Feed f(d, lay, cv, tr);
+    for (int k = 0; k < C; ++k) {
+      int j = 0;
+      for (; j < NBUF && j * TILE < cv.len[k]; ++j)
+        f.fill(g, k, j, cv.len[k], lane);
+      if (lane == 0) g.filled[k] = j;
+    }
+  }
   __syncthreads();
 
-  const int* prm = cv.prm;
-  const int* off = wl.off;
-  const int win_cap = prm[off[F_WIN_CAP]];
-  const bool frfcfs = prm[off[F_FRFCFS]] != 0;
-  const int tRRD = prm[off[F_tRRD]];
-  const int tFAW = prm[off[F_tFAW]];
-  const FloorDiv rank_of = FloorDiv::make(prm[off[F_N_BANKS]]);
-  const FloorDiv mshr = FloorDiv::make(M);
-  Dram<WAYS> dr(d, lay, cv);
-  // lane 0's accumulators; every one wraps like JAX's int32 adds
-  unsigned acc[N_STATS] = {0};
   const size_t ev_plane = (size_t)d.G * d.n_steps;
   int* ev = out.events + (size_t)gp * d.n_steps;
   uint8_t* ev_ref8 = out.act_ref8 + (size_t)gp * d.n_steps;
-  // the controller clock, the admission count and the window's occupancy,
-  // the same on every lane
-  int now = 0, seq = 0, occ = 0;
 
-  int s = 0;
-  for (; s < d.n_steps; ++s) {
-    // 1. admission: the earliest-issue eligible core's front request
-    //    enters the first free slot, at most WN times
-    for (int a = 0; a < WN; ++a) {
-      int best = INF, bk = I32_MAX;
-      for (int k = lane; k < C; k += WIN_THREADS) {
-        const int p = cv.ptr[k];
-        const int pos = k * M + mshr.mod(p);
-        const int4 fr = wv.front[k];
-        const bool dep = (fr.w & R_DEP) != 0;
-        if (p < cv.len[k] && wv.ring_served[pos] &&
-            (!dep || wv.yg_served[k])) {
-          int iss = imax(wadd(wv.last_issue[k], fr.x), cv.ring[pos]);
-          iss = imax(iss, dep ? wv.yg_done[k] : 0);
-          if (iss < best) {
-            best = iss;
-            bk = k;
-          }
-        }
-      }
-      const int t_iss = __reduce_min_sync(FULL, best);
-      if (!(occ < win_cap && t_iss < INF && (t_iss <= now || occ == 0)))
-        break;
-      const int c = __reduce_min_sync(FULL, best == t_iss ? bk : I32_MAX);
-      int slot = I32_MAX;
-      for (int k = lane; k < WN; k += WIN_THREADS) {
-        if (!wv.valid[k]) {
-          slot = k;
+  if (tid >= 32) {
+    produce(g, Feed(d, lay, cv, tr), cv, C, lane);
+  } else {
+    const unsigned FULL = 0xffffffffu;
+    const int* prm = cv.prm;
+    const int* off = wl.off;
+    const int tRRD = prm[off[F_tRRD]];
+    const int tFAW = prm[off[F_tFAW]];
+    const FloorDiv rank_of = FloorDiv::make(prm[off[F_N_BANKS]]);
+    for (int i = lane; i < NB; i += 32)
+      wv.act_floor[i] = imax(wadd(NEG, tRRD), wadd(NEG, tFAW));
+    __syncwarp();
+    Stamps st;
+    const sched::Warp w{lane};
+    Ctl<StagedSrc> ctl;
+    ctl.m = winctl::Mem{cv.ring,   wv.ring_served, cv.len,   cv.ptr,
+                        cv.ring_idx, cv.iss,       wv.last,  wv.ys,
+                        wv.yd,     g.head,         g.next,   wv.slots,
+                        wv.skey,   cv.open_row};
+    ctl.src = StagedSrc{g, &st};
+    ctl.init(w, C, M, WN, prm[off[F_WIN_CAP]]);
+    Dram<WAYS> dr(d, lay, cv);
+    // lane 0's accumulators; every one wraps like JAX's int32 adds
+    unsigned acc[N_STATS] = {0};
+
+    const long long t_loop = Stamps::clock();
+    int s = 0;
+    for (; s < d.n_steps; ++s) {
+      // 1. admission: at most WN attempts; a failed one changes nothing,
+      //    so neither would any later one of the step
+      for (int a = 0; a < WN; ++a) {
+        const long long ta = Stamps::clock();
+        if (!ctl.admit(w)) {
+          st.since(ST_ADMIT_FAIL, ta);
+          st.count(ST_N_FAIL);
           break;
         }
+        st.since(ST_ADMIT_OK, ta);
+        st.count(ST_N_OK);
       }
-      slot = __reduce_min_sync(FULL, slot);
-      if (lane == (c & (WIN_THREADS - 1))) {
-        const int p = cv.ptr[c];
-        const int4 fr = wv.front[c];
-        wv.valid[slot] = 1;
-        wv.core[slot] = c;
-        wv.idx[slot] = p;
-        wv.bank[slot] = fr.z;
-        wv.row[slot] = fr.y;
-        wv.flags[slot] = fr.w;
-        wv.arr[slot] = t_iss;
-        wv.seq[slot] = seq;
-        cv.ptr[c] = p + 1;
-        wv.last_issue[c] = t_iss;
-        wv.yg_served[c] = 0;
-        wv.ring_served[c * M + mshr.mod(p)] = 0;
-        wv.front[c] = f.record(c, p + 1);
-      }
-      if (occ == 0) now = imax(now, t_iss);
-      ++occ;
-      ++seq;
-      __syncwarp();
-    }
 
-    // 2. selection: row hits first, then the oldest admission
-    int bkey = I32_MAX, be = I32_MAX;
-    for (int k = lane; k < WN; k += WIN_THREADS) {
-      if (wv.valid[k]) {
-        const int hit = cv.open_row[wv.bank[k] & 0xffff] == wv.row[k];
-        const int key = (hit ? 0 : HIT_PENALTY) + wv.seq[k];
-        if (key < bkey) {
-          bkey = key;
-          be = k;
+      // 2. selection: row hits first, then the oldest admission; an
+      //    empty window after admission means every core is done, and so
+      //    is every later step
+      const long long tsel = Stamps::clock();
+      const int e = ctl.select(w);
+      if (e < 0) break;
+      const winctl::Slot sl = wv.slots[e];
+      const long long tsv = Stamps::clock();
+      st.since(ST_SELECT, tsel);
+
+      // 3. service under the rank's ACT floor, on lane 0
+      const int bank = sl.rec.z & 0xffff, ch = sl.rec.w >> R_CH_SHIFT;
+      int done = 0, open = 0, next_now = 0;
+      if (lane == 0) {
+        const int rank = rank_of.div(bank);
+        const int act_floor = wv.act_floor[rank];
+        Ev evr;
+        int t_act = 0;
+        bool needs_act = false;
+        done = dr.template service<true>(
+            sl.aux.w, bank, ch, sl.rec.y, sl.rec.z >> 16,
+            (sl.rec.w & R_WRITE) != 0, (sl.rec.w & R_NS) != 0, s >= warmup,
+            acc, evr, act_floor, &t_act, &needs_act);
+        open = cv.open_row[bank];
+        // the next decision waits for this service's commands on its
+        // channel's command bus
+        next_now = imax(ctl.now, cv.cmd_free[ch]);
+        const long long tev = Stamps::clock();
+        if (d.collect) {
+          ev[0 * ev_plane + s] = evr.act_gid;
+          ev[1 * ev_plane + s] = evr.act_t;
+          ev[2 * ev_plane + s] = evr.pre1_gid;
+          ev[3 * ev_plane + s] = evr.pre1_t;
+          ev[4 * ev_plane + s] = evr.pre2_gid;
+          ev[5 * ev_plane + s] = evr.pre2_t;
+          ev[6 * ev_plane + s] = evr.pre3_gid;
+          ev[7 * ev_plane + s] = evr.pre3_t;
+          ev_ref8[s] = evr.ref8 ? 1 : 0;
         }
+        st.since(ST_EVENTS, tev);
+        // the rank window, on a real ACT; the running max keeps the
+        // register monotone when an old miss is served after a younger
+        // request activated later; then the floor on the rank's next ACT
+        if (needs_act) {
+          int* faw = wv.faw + rank * FAW_DEPTH;
+          const int fslot = wv.faw_ptr[rank];
+          const int last = imax(wv.rank_last[rank], t_act);
+          const int nslot = (fslot + 1) & (FAW_DEPTH - 1);
+          wv.rank_last[rank] = last;
+          faw[fslot] = t_act;
+          wv.faw_ptr[rank] = nslot;
+          wv.act_floor[rank] =
+              imax(wadd(last, tRRD), wadd(faw[nslot], tFAW));
+        }
+        cv.core_end[sl.aux.x] = imax(cv.core_end[sl.aux.x], done);
       }
+      done = __shfl_sync(FULL, done, 0);
+      open = __shfl_sync(FULL, open, 0);
+      next_now = __shfl_sync(FULL, next_now, 0);
+      ctl.served(w, e, sl, done, open, next_now);
+      st.since(ST_SERVICE, tsv);
     }
-    const int gkey = __reduce_min_sync(FULL, bkey);
-    // an empty window after admission: every core is done, and so is
-    // every later step
-    if (gkey == I32_MAX) break;
-    const int e = __reduce_min_sync(FULL, bkey == gkey ? be : I32_MAX);
+    st.since(ST_LOOP, t_loop);
+    st.count(ST_STEPS, s);
+    st.flush(gp, lane);
 
-    // 3. service under the rank's ACT floor, and the bookkeeping
-    int next_now = now;
     if (lane == 0) {
-      const int z = wv.bank[e], fl = wv.flags[e];
-      const int bank = z & 0xffff, ch = fl >> R_CH_SHIFT;
-      const int cc = wv.core[e], idx = wv.idx[e];
-      const int rank = rank_of.div(bank);
-      int* faw = wv.faw + rank * FAW_DEPTH;
-      const int fslot = wv.faw_ptr[rank];
-      const int act_floor =
-          frfcfs ? imax(wadd(wv.rank_last[rank], tRRD), wadd(faw[fslot], tFAW))
-                 : 0;
-      Ev evr;
-      int t_act = 0;
-      bool needs_act = false;
-      const int done = dr.template service<true>(
-          wv.arr[e], bank, ch, wv.row[e], z >> 16, (fl & R_WRITE) != 0,
-          (fl & R_NS) != 0, s >= warmup, acc, evr, act_floor, &t_act,
-          &needs_act);
-      if (d.collect) {
-        ev[0 * ev_plane + s] = evr.act_gid;
-        ev[1 * ev_plane + s] = evr.act_t;
-        ev[2 * ev_plane + s] = evr.pre1_gid;
-        ev[3 * ev_plane + s] = evr.pre1_t;
-        ev[4 * ev_plane + s] = evr.pre2_gid;
-        ev[5 * ev_plane + s] = evr.pre2_t;
-        ev[6 * ev_plane + s] = evr.pre3_gid;
-        ev[7 * ev_plane + s] = evr.pre3_t;
-        ev_ref8[s] = evr.ref8 ? 1 : 0;
+      *cv.s_end = s;
+      st_volatile(g.stop, 1);
+      // simulator._retire_trailing_refs (stateful tier)
+      if (dr.stateful) {
+        int total = cv.core_end[0];
+        for (int k = 1; k < C; ++k) total = imax(total, cv.core_end[k]);
+        acc[REFS_ISSUED] =
+            (unsigned)wmul(wadd(dr.trefi.div(total), 1), dr.banks_total);
       }
-      // the rank window, on a real ACT of an frfcfs point; the running
-      // max keeps the register monotone when an old miss is served
-      // after a younger request activated later
-      if (frfcfs && needs_act) {
-        wv.rank_last[rank] = imax(wv.rank_last[rank], t_act);
-        faw[fslot] = t_act;
-        wv.faw_ptr[rank] = (fslot + 1) & (FAW_DEPTH - 1);
-      }
-      const int pos = cc * M + mshr.mod(idx);
-      if (idx == cv.ptr[cc] - 1) {  // the core's youngest admitted request
-        wv.yg_served[cc] = 1;
-        wv.yg_done[cc] = done;
-      }
-      cv.ring[pos] = done;
-      wv.ring_served[pos] = 1;
-      cv.core_end[cc] = imax(cv.core_end[cc], done);
-      wv.valid[e] = 0;
-      // the next decision waits for this service's commands on its
-      // channel's command bus
-      next_now = imax(now, cv.cmd_free[ch]);
+      for (int i = 0; i < N_STATS; ++i) cv.stats[i] = (int)acc[i];
     }
-    now = __shfl_sync(FULL, next_now, 0);
-    --occ;
-    __syncwarp();
-  }
-
-  if (lane == 0) {
-    *cv.s_end = s;
-    // simulator._retire_trailing_refs (stateful tier)
-    if (dr.stateful) {
-      int total = cv.core_end[0];
-      for (int k = 1; k < C; ++k) total = imax(total, cv.core_end[k]);
-      acc[REFS_ISSUED] =
-          (unsigned)wmul(wadd(dr.trefi.div(total), 1), dr.banks_total);
-    }
-    for (int i = 0; i < N_STATS; ++i) cv.stats[i] = (int)acc[i];
   }
   __syncthreads();
 
-  write_scan(d, cv, out.stats, out.bank_stats, gp, lane, WIN_THREADS);
-  for (int i = lane; i < C; i += WIN_THREADS)
+  write_scan(d, cv, out.stats, out.bank_stats, gp, tid, SCAN_THREADS);
+  for (int i = tid; i < C; i += SCAN_THREADS)
     out.core_end[(size_t)gp * C + i] = cv.core_end[i];
   // dead tail steps: no events (time lanes zeroed for determinism)
   if (d.collect) {
-    for (int t = *cv.s_end + lane; t < d.n_steps; t += WIN_THREADS) {
+    for (int t = *cv.s_end + tid; t < d.n_steps; t += SCAN_THREADS) {
       for (int lane_i = 0; lane_i < 8; ++lane_i)
         ev[lane_i * ev_plane + t] = (lane_i % 2 == 0) ? -1 : 0;
       ev_ref8[t] = 0;
@@ -2035,7 +2076,25 @@ __device__ __forceinline__ void run_window(const Dims& d, const Layout& lay,
 
 // The window entry: a trace feed (SW == 0) or the synthesis feed, whose
 // pre-pass generates each core's stream (thread c, core c: C <= 32) into
-// the [G, C, L] scratch ``st`` as sim_synth_kernel's does.
+// the [G, C, L] scratch ``st`` as sim_synth_kernel's does.  A block whose
+// point is in-order runs run_point (the trace and synthesis entries' scan)
+// instead of the window engine.
+template <int WAYS, class Pre>
+__device__ __forceinline__ void window_or_scan(
+    bool frfcfs, const Dims& d, const Layout& lay, const WinLayout& wl,
+    int WN, const int* __restrict__ params,
+    const float* __restrict__ seg_leak, const Trace& tr, int warmup,
+    const Out& out, int* sm, Pre pre) {
+  if (frfcfs && d.C <= 32 && WN <= 32)
+    run_window<WAYS, winctl::FastCtl>(d, lay, wl, WN, params, seg_leak, tr,
+                                      warmup, out, sm, pre);
+  else if (frfcfs)
+    run_window<WAYS, winctl::Ctl>(d, lay, wl, WN, params, seg_leak, tr,
+                                  warmup, out, sm, pre);
+  else
+    run_point<WAYS>(d, lay, params, seg_leak, tr, warmup, out, sm, pre);
+}
+
 __global__ void __maxnreg__(255)
 sim_window_kernel(Dims d, Layout lay, WinLayout wl, int WN, SynthLayout sl,
                   const int* __restrict__ params,
@@ -2045,25 +2104,26 @@ sim_window_kernel(Dims d, Layout lay, WinLayout wl, int WN, SynthLayout sl,
                   Out out) {
   extern __shared__ int4 sm4[];
   int* sm = reinterpret_cast<int*>(sm4);
+  const int gp = blockIdx.x;
+  const int tid = threadIdx.x;
+  const bool frfcfs = params[(size_t)gp * d.P + wl.off[F_FRFCFS]] != 0;
   if (d.SW == 0) {
     auto none = [](const int*) {};
     if (d.W == 2)
-      run_window<2>(d, lay, wl, WN, params, seg_leak, tr, d.warmup, out, sm,
-                    none);
+      window_or_scan<2>(frfcfs, d, lay, wl, WN, params, seg_leak, tr,
+                        d.warmup, out, sm, none);
     else
-      run_window<0>(d, lay, wl, WN, params, seg_leak, tr, d.warmup, out, sm,
-                    none);
+      window_or_scan<0>(frfcfs, d, lay, wl, WN, params, seg_leak, tr,
+                        d.warmup, out, sm, none);
     return;
   }
-  const int gp = blockIdx.x;
-  const int tid = threadIdx.x;
-  int* wi = sm + window_words(d, WN) + scan_words(d);
+  int* wi = sm + window_block_words(d, WN);
   float* wf = reinterpret_cast<float*>(wi + d.PI);
   int* rings = reinterpret_cast<int*>(wf + d.PF);
   int* last_rows = rings + 2 * RING * d.C;
-  for (int i = tid; i < d.PI; i += WIN_THREADS)
+  for (int i = tid; i < d.PI; i += SCAN_THREADS)
     wi[i] = wparams_i[(size_t)gp * d.PI + i];
-  for (int i = tid; i < d.PF; i += WIN_THREADS)
+  for (int i = tid; i < d.PF; i += SCAN_THREADS)
     wf[i] = wparams_f[(size_t)gp * d.PF + i];
   __syncthreads();
   const size_t pt = (size_t)gp * d.C * d.L;
@@ -2079,11 +2139,11 @@ sim_window_kernel(Dims d, Layout lay, WinLayout wl, int WN, SynthLayout sl,
   };
   const int warmup = wi[sl.ioff[W_WARMUP]];
   if (d.W == 2)
-    run_window<2>(d, lay, wl, WN, params, seg_leak, gen, warmup, out, sm,
-                  pre);
+    window_or_scan<2>(frfcfs, d, lay, wl, WN, params, seg_leak, gen, warmup,
+                      out, sm, pre);
   else
-    run_window<0>(d, lay, wl, WN, params, seg_leak, gen, warmup, out, sm,
-                  pre);
+    window_or_scan<0>(frfcfs, d, lay, wl, WN, params, seg_leak, gen, warmup,
+                      out, sm, pre);
 }
 
 // The dividers themselves: q[i], r[i] = floor(a[i] / d), a[i] - d q[i]
@@ -2189,15 +2249,17 @@ int sim_window_smem_bytes(const int* dims) {
   return 4 * window_smem_words(d, dims[18]);
 }
 
-// Launch the window entry: one block (a warp) per sweep point runs the
+// Launch the window entry: one block (two warps) per sweep point runs the
 // FR-FCFS window engine of depth dims' WIN (its 19th entry; ``layout``
-// holds the N_FIELDS offsets, then the N_WIN_FIELDS) over a trace
-// (``synth_layout``, ``wparams_i`` and ``wparams_f`` null, dims' SW 0:
-// gap .. next_same are the trace and its lookahead tables) or, with SW >
-// 0, over the streams it generates into the [G, C, L] scratch gap ..
-// next_same (``length`` then unused).  Refuses a window of depth < 1, a geometry whose bank or
-// HCRAC set does not fit a record and a synthesis feed of more than 32
-// cores.  Returns the launch's CUDA error code.
+// holds the N_FIELDS offsets, then the N_WIN_FIELDS), or the in-order scan
+// for a point whose frfcfs field is 0, over a trace (``synth_layout``,
+// ``wparams_i`` and ``wparams_f`` null, dims' SW 0: gap .. next_same are
+// the trace and its lookahead tables) or, with SW > 0, over the streams it
+// generates into the [G, C, L] scratch gap .. next_same (``length`` then
+// unused).  Refuses a window of depth < 1, a geometry whose bank or HCRAC
+// set does not fit a record, a synthesis feed of more than 32 cores and
+// streams whose admission count could reach the selection key's hit
+// penalty (C L >= 2**26).  Returns the launch's CUDA error code.
 int sim_window_launch(const int* dims, const int* layout,
                       const int* synth_layout, const int* params,
                       const float* seg_leak, const int* wparams_i,
@@ -2209,7 +2271,9 @@ int sim_window_launch(const int* dims, const int* layout,
   Dims d;
   memcpy(&d, dims, sizeof(Dims));
   const int WN = dims[18];
-  if (WN < 1 || !record_fits(d) || (d.SW > 0 && d.C > WIN_THREADS))
+  // every admission sequence stays below the key's hit penalty
+  if (WN < 1 || !record_fits(d) || (d.SW > 0 && d.C > 32) ||
+      (long long)d.C * d.L >= winctl::HIT_PENALTY)
     return (int)cudaErrorInvalidValue;
   Layout lay;
   memcpy(lay.off, layout, sizeof(lay.off));
@@ -2227,11 +2291,23 @@ int sim_window_launch(const int* dims, const int* layout,
   Trace tr{gap, bank, row, is_write, dep, length, next_same};
   Stream st{gap, bank, row, is_write, dep, next_same};
   Out out{stats, bank_stats, core_end, events, act_ref8};
-  sim_window_kernel<<<d.G, WIN_THREADS, smem, (cudaStream_t)stream>>>(
+  sim_window_kernel<<<d.G, SCAN_THREADS, smem, (cudaStream_t)stream>>>(
       d, lay, wl, WN, sl, params, seg_leak, wparams_i, wparams_f, tr, st,
       out);
   return (int)cudaGetLastError();
 }
+
+#ifdef WINDOW_STAMPS
+// A measurement build's stamps of the last window launch: copy n values
+// (N_STAMP a point) to ``out`` and zero them.
+int sim_window_stamps(unsigned long long* out, int n) {
+  if (n > MAX_STAMP_G * N_STAMP) n = MAX_STAMP_G * N_STAMP;
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_stamps, n * sizeof(*out));
+  if (err != cudaSuccess) return (int)err;
+  static unsigned long long zero[MAX_STAMP_G * N_STAMP];
+  return (int)cudaMemcpyToSymbol(g_stamps, zero, sizeof(zero));
+}
+#endif
 
 const char* sim_serve_abi() { return kServeAbi; }
 

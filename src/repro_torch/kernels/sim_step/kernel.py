@@ -42,10 +42,14 @@ bits).
 The window entry ``sim_window`` (no Pallas counterpart either:
 ``repro`` runs its FR-FCFS tier as an XLA scan,
 ``controller/engine.py::_run_window_impl``) runs the window engine per
-point on a block of one warp, over a trace or, after the synthesis
-entry's pre-pass, over the streams it generates: the cores' issue
-fronts and the window's slots across the lanes, the service on lane 0
-under the rank's tRRD/tFAW floor.  Its window depth is ``DIMS``' ``WIN``.
+point on a block of two warps, over a trace or, after the synthesis
+entry's pre-pass, over the streams it generates: one warp stages the
+streams, the other keeps the cores' issue times and the window's slot
+keys in its lanes' registers (``kernels/include/window_ctl.cuh``) and
+serves on lane 0 under the rank's tRRD/tFAW floor; an in-order point's
+block runs the trace entry's scan instead.  Its window depth is
+``DIMS``' ``WIN``; streams whose admission count could reach the
+selection key's hit penalty (cores x length >= 2**26) are refused.
 
 The packed rows' fields are defined once, here (``FIELDS``,
 ``SYNTH_INT_FIELDS``, ``SYNTH_FLOAT_FIELDS``, ``SERVE_FIELDS``): their

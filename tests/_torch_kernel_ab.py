@@ -1,4 +1,4 @@
-"""Times the ``sim_step`` kernel's three entries built from several CUDA
+"""Times the ``sim_step`` kernel's four entries built from several CUDA
 sources in one run on the card, so two versions of the kernel (say, a
 parent commit's ``sim_step.cu`` and this tree's) are compared on the
 same card, in turns.
@@ -9,21 +9,25 @@ under ``build/kernels/``), prints what ptxas reports (registers, spills)
 for each entry and a census of its SASS (``cuobjdump -sass``:
 instructions, integer-division sequences — one ``MUFU.RCP`` each —,
 global and shared-memory loads, warp reductions) for each
-``sim_*_kernel`` entry, then runs the full-size cells of ``chip_smoke.py``
-phases 3, 5 and 8 — the trace entry over the 38-point eight-core grid
+``sim_*_kernel`` entry (``sim_step``, ``sim_synth``, ``sim_serve`` and
+``sim_window``), then runs the full-size cells of ``chip_smoke.py``
+phases 3, 5, 8 and 17 — the trace entry over the 38-point eight-core grid
 (280 400 steps) and the 8-point single-core sweep (150 000 steps), the
-synthesis entry over the 32-point synth grid (320 000 steps), and the
+synthesis entry over the 32-point synth grid (320 000 steps), the
 serving entry over the 24-point serving grid (528 steps) and the 10**4-
-and 10**5-request scale points (arrivals drawn in the kernel) — with
-every library in turn, forward then backward, each a CUDA-event median
-of 3 after a warm-up (of 1 for the 10**5 point).  Every library's
-outputs must equal the first's: the scans' stats, and every output of
-the serving entry (its stats, counters, clock and per-step arrays).
-Only the entries' C interfaces (``sim_step_launch``,
-``sim_synth_launch`` and ``sim_serve_launch``, bound by
-``kernel.bind_scan_entries`` and ``kernel.bind_serve_entry``) are used,
-so any version of the source since the synthesis entry was written
-builds and runs.
+and 10**5-request scale points (arrivals drawn in the kernel), and the
+window entry over the eight-core golden trace (6 points x 280 400 steps)
+and the FR-FCFS study's launch (8 points x 320 000 steps with the
+synthesis pre-pass) — with every library in turn, forward then
+backward, each a CUDA-event median of 3 after a warm-up (of 1 for the
+10**5 point).  Every library's outputs must equal the first's: the
+scans' and the window entry's stats (and its ``core_end``), and every
+output of the serving entry (its stats, counters, clock and per-step
+arrays).  Only the entries' C interfaces (``sim_step_launch``,
+``sim_synth_launch``, ``sim_serve_launch`` and ``sim_window_launch``,
+bound by ``kernel.bind_scan_entries``, ``bind_serve_entry`` and
+``bind_window_entry``) are used, so any version of the source since the
+window entry was written builds and runs.
 
 Run from the root of a checkout on a machine with the card (the older
 source in a directory the checkout's ``.gitignore`` lists, such as
@@ -60,7 +64,7 @@ from repro_torch.kernels.sim_step import kernel  # noqa: E402
 from repro_torch.serving.loop import engine  # noqa: E402
 
 CELLS = ("eight_core", "single_core", "synth", "serve_grid", "serve_1e4",
-         "serve_1e5")
+         "serve_1e5", "window_golden", "window_study")
 
 
 #: SASS mnemonics the census counts, by what they stand for
@@ -104,12 +108,15 @@ def build(name: str, src: Path) -> ctypes.CDLL:
     for entry, counts in sass_census(lib).items():
         print(f"  {name}: {entry} SASS " + ", ".join(
             f"{k} {v}" for k, v in counts.items()))
-    return kernel.bind_serve_entry(
-        kernel.bind_scan_entries(ctypes.CDLL(str(lib))))
+    return kernel.bind_window_entry(kernel.bind_serve_entry(
+        kernel.bind_scan_entries(ctypes.CDLL(str(lib)))))
 
 
 def outputs(cell: str, out) -> torch.Tensor:
     """A launch's outputs as one int64 vector, to compare libraries."""
+    if cell.startswith("window"):
+        return torch.cat([torch.stack([out[0][k] for k in sim.STAT_KEYS])
+                          .long().ravel(), out[1].long().ravel()])
     if not cell.startswith("serve"):
         return torch.stack([out[0][k] for k in sim.STAT_KEYS]).long().ravel()
     sim_stats, serve, now, ys = out
@@ -140,14 +147,19 @@ def main(argv) -> int:
     for n_req in (10_000, 100_000):
         serve[f"serve_1e{len(str(n_req)) - 1}"] = engine.stage_serving(
             [cs.scale_config(sim, golden_mod, n_req)], None, False, dev)
+    (_, win8), (_, study) = cs.window_full_inputs(sim, traces, golden_mod)
     launch = {"eight_core": lambda: kernel.sim_step(*args8),
               "single_core": lambda: kernel.sim_step(*args1),
               "synth": lambda: kernel.sim_synth(*args32),
               **{c: (lambda a=a: kernel.sim_serve(*a))
-                 for c, a in serve.items()}}
+                 for c, a in serve.items()},
+              "window_golden": lambda: kernel.sim_window(*win8),
+              "window_study": lambda: kernel.sim_window_synth(
+                  study[0], cs.WINDOW_DEPTH, *study[1:], False)}
     steps = {"eight_core": args8[6], "single_core": args1[6],
              "synth": args32[7],
-             **{c: a[0].n_steps for c, a in serve.items()}}
+             **{c: a[0].n_steps for c, a in serve.items()},
+             "window_golden": win8[7], "window_study": study[7]}
     times = {n: {c: [] for c in CELLS} for n in libs}
     first = {}
     for name in list(libs) + list(libs)[::-1]:

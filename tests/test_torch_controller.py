@@ -12,7 +12,10 @@
   case of ``tests/test_oracle.py``; a mixed-window ``sweep_traces``
   grid; a mixed-window ``sweep_synth`` grid (streams compared first, then
   the rule of ``tests/_torch_streams.py``); an ``Experiment`` over
-  controller x window x mechanism, cell for cell.
+  controller x window x mechanism, cell for cell; five points under
+  thermal drift, AL-DRAM at 85 C, legacy refresh and an MSHR of 4
+  (ROADMAP.md, "Facts that are not faults"), on every ``BITWISE_KEYS``
+  stat and ``core_end``.
 * The port's host oracle (``controller/oracle.py::run_host``) equals both
   engines.
 * Inside the port: a ``win_cap = 1`` rider equals the in-order engine
@@ -179,6 +182,59 @@ def test_legacy_refresh_closed_policy_two_channels(jax_ref):
     h = oracle.run_host(tb, t_cfg)
     for k in BITWISE_KEYS:
         assert int(h[k]) == int(got[k]), k
+
+
+# ------------------------------- drift, aldram, legacy refresh, small MSHR
+
+FIVE_STREAM = dict(names=("mcf_like", "omnetpp_like"), n_req=160, seed=11)
+FIVE = ("cc_aldram_w8_ramp", "cc_nuat_closed_w16_ramp", "aldram_w4_85C",
+        "chargecache_closed_legacy_w8", "rltl_w2_mshr4")
+
+
+def _five_point(sim, spec, name):
+    """One of ROADMAP.md's five FR-FCFS points ("Facts that are not
+    faults") in the package of ``sim`` (``spec``: its experiment spec
+    module, for the ``ramp`` thermal schedule)."""
+    ramp = spec.THERMAL_PRESETS["ramp"]
+    mech = sim.MechanismConfig
+    hot = dataclasses.replace(mech(kind="aldram").aldram, temperature_c=85.0)
+    return {
+        "cc_aldram_w8_ramp": lambda: sim.SimConfig(
+            mech=mech(kind="cc_aldram", thermal=ramp), controller="frfcfs",
+            window=8),
+        "cc_nuat_closed_w16_ramp": lambda: sim.SimConfig(
+            mech=mech(kind="cc_nuat", thermal=ramp), controller="frfcfs",
+            window=16, policy="closed"),
+        "aldram_w4_85C": lambda: sim.SimConfig(
+            mech=mech(kind="aldram", aldram=hot), controller="frfcfs",
+            window=4),
+        "chargecache_closed_legacy_w8": lambda: sim.SimConfig(
+            mech=mech(kind="chargecache"), controller="frfcfs", window=8,
+            policy="closed", refresh_mode="legacy"),
+        "rltl_w2_mshr4": lambda: sim.SimConfig(
+            mech=mech(kind="rltl"), controller="frfcfs", window=2, mshr=4),
+    }[name]()
+
+
+@pytest.fixture(scope="module")
+def five_stream():
+    return _port_batch(FIVE_STREAM)
+
+
+@pytest.mark.parametrize("name", FIVE)
+def test_five_frfcfs_points_match_repro(five_stream, jax_ref, name):
+    """The frfcfs tier under thermal drift, AL-DRAM at 85 C, the legacy
+    refresh tier and an MSHR of 4: the port's ``simulate`` equals
+    ``repro``'s on every ``BITWISE_KEYS`` stat and ``core_end``."""
+    from repro.experiment import spec as j_spec
+    from repro_torch.experiment import spec as t_spec
+    jb, tb = five_stream
+    got = t_sim.simulate(tb, _five_point(t_sim, t_spec, name), device="cpu")
+    want = j_sim.simulate(jb, _five_point(j_sim, j_spec, name))
+    for k in BITWISE_KEYS:
+        assert int(got[k]) == int(want[k]), k
+    np.testing.assert_array_equal(np.asarray(want["core_end"]),
+                                  got["core_end"])
 
 
 # ------------------------------------------ sweep_traces, sweep_synth
@@ -417,6 +473,36 @@ def test_kernel_synth_feed_matches_plain(cuda):
     for k in want[0]:
         assert torch.equal(got[0][k], want[0][k]), k
     assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FIVE)
+def test_kernel_matches_plain_on_five_points(cuda, five_stream, name):
+    """The window entry against the plain engine on the five points
+    above, each with an in-order rider of the same mechanism (the scan's
+    path in the same launch)."""
+    from repro_torch.experiment import spec as t_spec
+    cfg = _five_point(t_sim, t_spec, name)
+    rider = dataclasses.replace(cfg, controller="inorder", window=1)
+    staged = t_sim._stage(five_stream[1], [cfg, rider], cuda)
+    _kernel_vs_plain(staged, cfg.window, staged[-1] + 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cores,W", [(40, 16), (8, 40)],
+                         ids=["40cores", "40slots"])
+def test_kernel_general_controller_matches_plain(cuda, n_cores, W):
+    """Past 32 cores or 32 window slots the entry runs window_ctl.cuh's
+    general controller (cores parked in shared memory, slots strided
+    past one warp); against the plain engine, with a rider."""
+    names = ("mcf_like", "stream_copy_like", "lbm_like", "gcc_like")
+    tb = t_traces.multicore_batch([names[c % 4] for c in range(n_cores)],
+                                  240 // n_cores, seed=4)
+    grid = [_cfg(t_sim, "chargecache", "frfcfs", W),
+            _cfg(t_sim, "base", "frfcfs", 4, policy="closed"),
+            _cfg(t_sim, "rltl", "inorder", 1)]
+    staged = t_sim._stage(tb, grid, cuda)
+    _kernel_vs_plain(staged, W, staged[-1] + 5)
 
 
 @pytest.mark.cuda
