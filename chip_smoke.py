@@ -11,17 +11,18 @@ synthesising its own streams, the serving closed loop, and the FR-FCFS
 window engine over a trace or its own streams), the HCRAC
 probe kernel, the flash- and decode-attention kernels and the ssm_scan
 kernel from the sources in the checkout, holds each against its plain
-PyTorch version, drives the port's six paths at full size
+PyTorch version, drives the port's paths at full size
 (``repro_torch.core.simulator.sweep``, ``sweep_synth``, the serving
 loop: ``sweep_serving`` and the host scheduler's ``run_host``, dense-LM
 serving of tinyllama-1.1b: ``prefill_fn`` / ``decode_fn`` and
-``examples/serve_lm.py``'s run, SSM serving of falcon-mamba-7b, the
-Experiment layer drawing the thesis's five figures, and the FR-FCFS
-controller study),
+``examples/serve_lm_torch.py``, SSM serving of falcon-mamba-7b, the
+Experiment layer drawing the thesis's five figures, the FR-FCFS
+controller study, and the simulator-side studies with the ChargeCache
+example),
 checks the results against the JAX package's recorded golden numbers
 (``src/repro_torch/data/golden_fullwidth.json``, ``golden_synth.json``,
-``golden_serving.json``, ``golden_lm.json``, ``golden_lm_ssm.json`` and
-``golden_frfcfs.json``),
+``golden_serving.json``, ``golden_lm.json``, ``golden_lm_ssm.json``,
+``golden_frfcfs.json`` and ``golden_drivers.json``),
 and times the kernels.  It imports nothing of JAX or of the ``repro``
 package.  Phases:
 
@@ -29,8 +30,10 @@ package.  Phases:
 2. kernel against plain version (both on the card) at <= 2 000
    requests: every mechanism kind x 2 geometries, open and closed
    policy, stateful and legacy refresh, the ``ramp`` thermal schedule, a
-   point folded into a padded 32-bank envelope, exact HCRAC expiry, and
-   padded steps; then the full-size grid's inputs at a cut depth.  Every
+   point folded into a padded 32-bank envelope, exact HCRAC expiry,
+   padded steps, and every kind under 4x refresh pressure
+   (``timing.with_refresh_pressure``, stateful refresh); then the
+   full-size grid's inputs at a cut depth.  Every
    stat, bank array, ``core_end``, event gid lane and event time lane
    (where its gid is live) must agree exactly;
 3. the main path at full size, on the stored traces the golden numbers
@@ -48,7 +51,9 @@ package.  Phases:
    requests a core): on a 4-core mix, every kind x the 4 interleaves x
    ``ddr3_1ch`` / ``ddr3_2ch`` / a 32-bank geometry (the others padded
    into its envelope) x open and closed policy x stateful and legacy
-   refresh, a phased spec on part of the points; then phase 5's 32
+   refresh, a phased spec on part of the points; every kind under 4x
+   refresh pressure on ``figures/refresh.py``'s four-core stream at 500
+   requests a core; then phase 5's 32
    points (8 cores, 1 024 HCRAC entries) cut to that depth.  The
    generated streams, every output as in phase 2, and the
    ``reduce_keys`` launch must agree exactly;
@@ -129,8 +134,8 @@ package.  Phases:
     calls, each a split kernel and a combine launch (the library's
     counts); prefill and decode-step times and the kernels' share of
     the device time (``torch.profiler``);
-12. ``examples/serve_lm.py``'s run on the port at full width (the
-    main path of this slice): ``make_serve_step`` greedy decode of 4 x 16
+12. ``examples/serve_lm_torch.py``'s ``main`` at full width (its model
+    and configuration passed in): ``make_serve_step`` greedy decode of 4 x 16
     prompt tokens x 8 new tokens (tokens/s), the charge-aware
     ``Scheduler`` on 12 requests through the probe kernel, then
     ``simulate`` with ``base`` and ``chargecache`` (hit rate, speedup);
@@ -190,6 +195,24 @@ package.  Phases:
     which must fare alike (at this size ``repro``'s own study breaks its
     window-depth assertion: ROADMAP.md, Queue 3); the entry's registers
     and spills;
+18. the simulator-side studies (``repro_torch.figures``) and the examples,
+    the main path of this slice: (a) geometry, aldram, refresh,
+    workloads, sweep_bench, serving_trace, serving_loop and megasweep
+    (10**4 and 10**5 points, each arm a subprocess) at ``repro``'s full
+    size, the launch counts zeroed before them and read after (each
+    study holds its launches to the runner's plan itself), each study's
+    CSV rows, wall time and launches, and its cells against a direct
+    ``sweep()`` / ``sweep_synth()`` / ``sweep_serving()`` on the card (the
+    first mix of geometry and aldram; megasweep's 10**5 metric arrays
+    against a direct sweep of its 500 distinct points); (b) the refresh
+    study against ``repro``'s full-size run (``golden_drivers.json``: the
+    stream's digest first, then every cell bit for bit where it is equal,
+    else within the statistical tolerance, and the dedup's point count);
+    (c) ``examples/chargecache_sim_torch.py`` at its default size,
+    single-core and ``--eight-core`` in the order base < chargecache <
+    cc_nuat < lldram, then ``--heat-grid`` and ``--geo-grid``, and the
+    dispatcher ``python -m repro_torch.figures.run --quick`` on four
+    studies writing its JSON under a temporary directory;
 then the total time, one JSON line of kernel numbers, and the last line:
 ``{"ok": true, "device": {...}}``.
 
@@ -201,6 +224,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -243,6 +267,9 @@ HEAT_DURATIONS_MS = (0.5, 1.0, 2.0, 4.0, 16.0)
 CUT_STEPS = 1000
 #: requests a core of the synthesis entry's kernel-vs-plain comparison
 SYNTH_CUT_REQ = 1500
+#: requests a core of phase 4's refresh-pressure points (the plain engine
+#: takes ~7 ms a step on the card)
+PRESSURE_CUT_REQ = 500
 #: the largest share of a full-size stream's 1 000-position blocks that
 #: may differ from ``repro``'s (float32 draws an ulp apart; at most 7 of
 #: 320 differed on the H100)
@@ -483,6 +510,13 @@ def phase_kernel_vs_plain(sim, traces, aldram, ops, ref, device="cuda"):
                 policy=pol)
              for k in ("chargecache", "cc_nuat", "cc_aldram")
              for n in (32, 256) for pol in ("open", "closed")], False),
+        # 4x refresh pressure (tREFI / 4), stateful refresh: the timing of
+        # figures/refresh.py's pressure axis
+        "refresh_pressure_4x": (
+            traces.multicore_batch(["milc_like", "mcf_like"], 900, seed=4),
+            [sim.SimConfig(timing=pressure_4x(), mech=sim.MechanismConfig(
+                kind=k), policy=pol, refresh_mode="stateful")
+             for k in kinds for pol in ("open", "closed")], False),
     }
     max_err = 0
     for name, (batch, grid, pad) in cases.items():
@@ -495,6 +529,24 @@ def phase_kernel_vs_plain(sim, traces, aldram, ops, ref, device="cuda"):
               f"mismatches {bad}", flush=True)
         check(bad == 0, f"kernel disagrees with plain version on {name}")
     return max_err
+
+
+def pressure_4x():
+    """4x refresh pressure, the timing of ``figures/refresh.py``'s
+    pressure axis: tREFI / 4, floored at tRFC + 1."""
+    from repro_torch.core.timing import DDR3_1600, with_refresh_pressure
+    return with_refresh_pressure(DDR3_1600, 4)
+
+
+def pressure_synth_grid(sim, traces):
+    """Phase 4's refresh-pressure points: every kind under 4x pressure
+    (stateful refresh) on ``figures/refresh.py``'s four-core stream."""
+    from repro_torch.core import mechanisms as registry
+    spec = traces.WorkloadSpec(names=("milc_like",) * 4,
+                               n_req=PRESSURE_CUT_REQ, seed=3)
+    return [sim.SimConfig(timing=pressure_4x(), mech=sim.MechanismConfig(
+        kind=k), policy="closed", refresh_mode="stateful", workload=spec)
+        for k in registry.names()]
 
 
 def heat_grid(sim, timing):
@@ -606,7 +658,7 @@ def synth_vs_plain(sim, ops, ref, name, grid, device="cuda"):
     want_red = sim._reduce_device(want[0], want[1], REDUCE_KEYS).cpu()
     r_bad = int((torch.as_tensor(red) != want_red).sum())
     print(f"  {name}: {len(grid)} points x {args[5]} cores x {args[7]} "
-          f"steps ({SYNTH_CUT_REQ} requests a core): kernel "
+          f"steps ({grid[0].workload.n_req} requests a core): kernel "
           f"{kernel_ms:.3f} ms, plain {plain_ms:.1f} ms; mismatches: "
           f"outputs {bad}, streams {s_bad}, reduce_keys {r_bad}",
           flush=True)
@@ -1264,6 +1316,16 @@ BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
 LM_LOGIT_TOL = 0.125
 
 
+def load_example(name: str):
+    """``examples/<name>.py`` of the checkout as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def loop_ms(fn, n: int = 20) -> float:
     """Mean time of ``n`` back-to-back calls of ``fn`` on the current
     stream (CUDA events around the loop, after one warm-up), in ms."""
@@ -1592,13 +1654,11 @@ def check_logits(step: int, logits, rec: dict, tol: float = LM_LOGIT_TOL,
 
 def lm_phases(golden_mod, sim, device="cuda") -> list:
     """Phases 9-12 (the two attention kernels, tinyllama-1.1b at full
-    width against ``golden_lm.json``, and ``examples/serve_lm.py``'s run
+    width against ``golden_lm.json``, and ``examples/serve_lm_torch.py``
     on the port) on ``device``; returns the kernel line's rows for
     ``flash_attention`` and ``paged_attention``."""
-    import numpy as np
     import torch
     from repro_torch.configs import get
-    from repro_torch.core.simulator import MechanismConfig, SimConfig
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention import ref as fr
@@ -1607,10 +1667,7 @@ def lm_phases(golden_mod, sim, device="cuda") -> list:
     from repro_torch.kernels.paged_attention import ops as pa
     from repro_torch.kernels.paged_attention import ref as pr
     from repro_torch.kernels.sim_step import ops as sops
-    from repro_torch.launch import steps
     from repro_torch.models import lm, zoo
-    from repro_torch.serving.scheduler import (Request, Scheduler,
-                                               SchedulerConfig)
     dev = torch.device(device)
 
     print("\nphase 9: flash-attention kernel vs plain version (on the card)",
@@ -1695,48 +1752,23 @@ def lm_phases(golden_mod, sim, device="cuda") -> list:
           f"({share(d_k[names[1]], d_busy)} of the busy time, "
           f"{share(d_busy, d_wall)} of the wall busy)", flush=True)
 
-    # --- phase 12: examples/serve_lm.py's run on the port ----------------
-    print("\nphase 12: examples/serve_lm.py on the port (tinyllama-1.1b, "
+    # --- phase 12: examples/serve_lm_torch.py at full width -------------
+    print("\nphase 12: examples/serve_lm_torch.py (tinyllama-1.1b, "
           "full width)", flush=True)
     n_new, batch = 8, 4
-    serve = steps.make_serve_step(cfg)
-    rng = np.random.default_rng(0)
-    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, 16))
-                               ).to(dev)
+    serve_lm = load_example("serve_lm_torch")
     fa.launches = pa.launches = hops.launches = sops.launches = 0
     pk.launch_counts(reset=True)
-    _, cache = zoo.prefill_fn(model, {"tokens": prompts}, cfg,
-                              max_len=16 + n_new + 4)
-    tok = torch.zeros((batch,), dtype=torch.int32, device=dev)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    outs = []
-    for _ in range(n_new):
-        tok, cache = serve(model, cache, tok)
-        outs.append(tok.cpu())
-    dt = time.time() - t0
-    outs = torch.stack(outs)
+    ex = serve_lm.main(["--requests", "12", "--new", str(n_new), "--batch",
+                        str(batch)], cfg=cfg, model=model)
+    outs, sched, cc = ex["tokens"], ex["sched"], ex["chargecache"]
     check(bool(((outs >= 0) & (outs < cfg.vocab_size)).all()),
           "decoded tokens out of range")
-    print(f"  decoded {n_new} tokens x batch {batch} in {dt:.3f} s "
-          f"({n_new * batch / dt:.1f} tok/s): {outs.T.tolist()}", flush=True)
-    sched = Scheduler(SchedulerConfig(max_batch=batch, charge_aware=True),
-                      device=dev)
-    for rid in range(12):
-        sched.submit(Request(rid=rid, prompt_len=int(rng.integers(2048, 8192)),
-                             max_new=n_new))
-    sched.run(200)
-    trace = sched.emit_trace()
-    base = sim.simulate(trace, SimConfig(mech=MechanismConfig(kind="base")),
-                        device=dev)
-    cc = sim.simulate(trace, SimConfig(
-        mech=MechanismConfig(kind="chargecache")), device=dev)
+    print(f"  decoded {n_new} tokens x batch {batch} in {ex['seconds']:.3f} "
+          f"s ({ex['tok_s']:.1f} tok/s): {outs.T.tolist()}", flush=True)
     launches = {"flash": fa.launches, "decode": pa.launches,
                 "probe": hops.launches, "sim_step": sops.launches}
     k_serve = pk.launch_counts(reset=True)
-    print(f"  scheduler: {sched.stats}")
-    print(f"  DRAM closed loop: hit={cc['hcrac_hit_rate']:.1%} "
-          f"speedup={base['total_cycles'] / cc['total_cycles']:.4f}x")
     print(f"  launches on this path: {launches}; decode: "
           f"{decode_launches(pk, k_serve, launches['decode'])}", flush=True)
     check(launches["flash"] == cfg.n_layers
@@ -2203,7 +2235,8 @@ def golden_through_experiment(sim, traces, golden_mod, Experiment) -> int:
     return bad
 
 
-def direct_mismatches(sim, res, exp, which, rltl: bool) -> int:
+def direct_mismatches(sim, res, exp, which, rltl: bool,
+                      device="cuda") -> int:
     """The Experiment's cells against a direct ``sweep()`` of each trace
     named in ``which`` (its trace-dim labels) on the card."""
     _, _, cfgs = exp.expand()
@@ -2212,7 +2245,8 @@ def direct_mismatches(sim, res, exp, which, rltl: bool) -> int:
     for label in which:
         batch = exp.traces[label]
         row = res.sel(**{dim: label})
-        for a, b in zip(sim.sweep(batch, cfgs, rltl=rltl), row.cells.flat):
+        for a, b in zip(sim.sweep(batch, cfgs, rltl=rltl, device=device),
+                        row.cells.flat):
             bad += cell_mismatches(a, b, rltl)
     return bad
 
@@ -2669,6 +2703,233 @@ def window_phase(sim, traces, golden_mod, kernel, ops, ref, regs,
         "bound_ms": bound8, "bound_by": "bytes", "library_ms": None}
 
 
+# --------------------------------------------------------------------------
+# phase 18: the simulator-side studies and the examples
+# --------------------------------------------------------------------------
+
+#: megasweep's grid sizes in phase 18 (``repro``'s full size)
+MEGASWEEP_SIZES = (10_000, 100_000)
+#: the serving counters a serving cell is held to beside ``cell_mismatches``
+SERVE_COUNTERS = ("arrived", "dropped", "retired", "preempted", "admit_hot",
+                  "admit_probes")
+#: the simulator-side studies in the order phase 18 runs them
+STUDIES = ("geometry", "aldram", "refresh", "workloads", "sweep_bench",
+           "serving_trace", "serving_loop", "megasweep")
+
+
+def serve_mismatches(want: dict, got: dict) -> int:
+    return cell_mismatches(want, got, False) + sum(
+        int(want[k]) != int(got[k]) for k in SERVE_COUNTERS)
+
+
+def study_cells_vs_direct(sim, mods, outs, S, device) -> dict:
+    """(a): each study's cells against a direct sweep on the card: the
+    first mix's for geometry and aldram, every cell of the synthetic and
+    serving grids, sweep_bench's cold call against its warm one, and
+    every point of megasweep's full arm (10**5 at full size: the 500
+    distinct configurations and their replicas) against a direct sweep of
+    the 500.  Returns mismatching values by study."""
+    import numpy as np
+    bad = {}
+    for name in ("geometry", "aldram"):
+        res = outs[name]["results"]
+        bad[name] = direct_mismatches(sim, res, mods[name].experiment(
+            S, device), res.coords["mix"][:1], False, device)
+    for name in ("refresh", "workloads"):
+        cfgs = mods[name].experiment(S, device).expand()[2]
+        bad[name] = sum(cell_mismatches(a, b, False) for a, b in zip(
+            sim.sweep_synth(cfgs, rltl=False, device=device),
+            outs[name]["results"].cells.flat))
+    for name in ("serving_trace", "serving_loop"):
+        cfgs = mods[name].experiment(S, device).expand()[2]
+        bad[name] = sum(serve_mismatches(a, b) for a, b in zip(
+            sim.sweep_serving(cfgs, device=device),
+            outs[name]["results"].cells.flat))
+    sb = outs["sweep_bench"]
+    bad["sweep_bench"] = sum(cell_mismatches(a, b, False)
+                             for a, b in zip(sb["cold"], sb["warm"]))
+    ms = mods["megasweep"]
+    big = max(S.megasweep)
+    exp = ms.experiment("full", big, device)
+    _, coords, cfgs = exp.expand()
+    reps = len(coords["rep"])
+    direct = sim.sweep(exp.traces, cfgs[::reps], rltl=False, device=device)
+    got = outs["megasweep"]["arms"][big]["metrics"]
+    bad["megasweep"] = sum(int((got[m] != np.array(
+        [float(r[m]) for r in direct]).reshape(got[m].shape[:-1] + (1,))
+    ).sum()) for m in ms.METRICS)
+    return bad
+
+
+def refresh_vs_golden(sim, traces, golden_mod, kernel, refresh, out, S,
+                      device) -> tuple[bool, int]:
+    """(b): the refresh study at full size against ``repro``'s run
+    (``golden_drivers.json``): its stream (the synthesis entry's pre-pass)
+    against the recorded digest; where equal every cell's stats bit for
+    bit and the headline numbers exactly, else each cell within the
+    statistical tolerance; the dedup's unique point count equal.  Returns
+    ``(stream equal, mismatching values or tolerance violations)``."""
+    import torch
+    gold = golden_mod.load_drivers()["refresh"]
+    res = out["results"]
+    check(res.meta["n_unique"] == gold["meta"]["n_unique"]
+          and res.meta["n_points"] == gold["meta"]["n_points"],
+          f"refresh dedups to {res.meta['n_unique']} of "
+          f"{res.meta['n_points']} points, repro to {gold['meta']}")
+    cfgs = refresh.experiment(S, device).expand()[2]
+    args = sim._stage_synth(cfgs[:1], None, torch.device(device))
+    stream = kernel.sim_synth(*(args[:7] + (0, False)), True)[3]
+    batch = point_batch(traces, stream, 0)
+    same = golden_mod.trace_sha256(batch) == gold["stream_sha256"]
+    if not same:
+        blocks = golden_mod.stream_block_digests(batch)
+        diff = [(c, b) for c, row in enumerate(gold["stream_blocks"])
+                for b, d in enumerate(row) if blocks[c][b] != d]
+        n_blocks = sum(len(row) for row in gold["stream_blocks"])
+        print(f"  (b) the stream differs from repro's in {len(diff)} of "
+              f"{n_blocks} blocks: {diff[:8]}", flush=True)
+        check(len(diff) <= MAX_DIFF_BLOCK_SHARE * n_blocks,
+              "the refresh stream differs from repro's in too many blocks")
+    bad = 0
+    keys = gold["bitwise_keys"] + ["core_end", "bank_acts",
+                                   "bank_act_ras_sum"]
+    for g in gold["cells"]:
+        r = res.sel(**{d: g[d] for d in gold["dims"]}).cells.flat[0]
+        if same:
+            bad += sum((int(r[k]) if not isinstance(g[k], list)
+                        else [int(x) for x in r[k]]) != g[k] for k in keys)
+        else:
+            bad += len(golden_mod.tolerance_violations(r, g))
+    doc = refresh.document(out)
+    head = {k: doc[k] for k in gold["headline"]}
+    if same:
+        bad += sum(head[k] != v for k, v in gold["headline"].items())
+    print(f"  (b) refresh against repro's full-size run "
+          f"(golden_drivers.json): stream {'equal' if same else 'differs'}, "
+          f"{len(gold['cells'])} cells, {res.meta['n_unique']} unique "
+          f"points (repro {gold['meta']['n_unique']}), {bad} "
+          f"{'values differ' if same else 'tolerance violations'}; "
+          f"headline here {head}, in repro {gold['headline']}", flush=True)
+    check(bad == 0, "the refresh study differs from repro's")
+    return same, bad
+
+
+def driver_phase(sim, traces, golden_mod, kernel, device="cuda") -> dict:
+    """Phase 18: (a) the simulator-side studies at ``repro``'s full size,
+    their launches and cells; (b) refresh against ``repro``'s run; (c) the
+    ChargeCache example's four modes at its default size, and the
+    dispatcher's quick spin.  Returns the launch counts and numbers for
+    the kernels line."""
+    import importlib
+    import tempfile
+    from repro_torch.figures import common as C, run as run_mod
+    from repro_torch.kernels.hcrac import ops as hops
+    from repro_torch.kernels.sim_step import ops
+    mods = {name: importlib.import_module(f"repro_torch.figures.{name}")
+            for name in STUDIES}
+    megasweep, refresh = mods["megasweep"], mods["refresh"]
+    S = dataclasses.replace(C.THESIS, megasweep=MEGASWEEP_SIZES)
+    t_phase = time.time()
+
+    def counts():
+        return {"sim_step": ops.launches, "sim_synth": ops.synth_launches,
+                "sim_serve": ops.serve_launches,
+                "sim_window": ops.window_launches, "hcrac": hops.launches}
+
+    # (a) the studies: the main path of this slice
+    ops.launches = ops.synth_launches = ops.serve_launches = 0
+    ops.window_launches = hops.launches = 0
+    outs, walls, rows = {}, {}, []
+    for name in STUDIES:
+        before = counts()
+        t0 = time.time()
+        outs[name] = mods[name].study(S, device)
+        after = counts()
+        walls[name] = {"wall_s": time.time() - t0,
+                       "launches": {k: after[k] - before[k] for k in after
+                                    if after[k] != before[k]}}
+        rows += mods[name].rows(outs[name])
+        print(f"  (a) {name}: {walls[name]['wall_s']:.1f} s wall, launches "
+              f"{walls[name]['launches']}", flush=True)
+    main_launches = counts()
+    # megasweep's arms launch in subprocesses of their own, each holding
+    # its launches to its runner's plan; their counts come back here
+    ms_launches = sum(a[m]["launches"] for a in outs["megasweep"]
+                      ["arms"].values() for m in ("full", "streamed"))
+    walls["megasweep"]["launches"]["sim_step (arms)"] = ms_launches
+    print(f"  main path: {sum(w['wall_s'] for w in walls.values()):.1f} s; "
+          f"launches {main_launches}, megasweep's arms {ms_launches} "
+          f"sim_step", flush=True)
+    for row in rows:
+        print(f"  {row}")
+    arm = (lambda r: f"{r['sec']:.2f} s ({r['points_per_sec']:.0f} "
+           f"points/s, peak RSS {r['maxrss_mb']:.0f} MB, "
+           f"{r['maxrss_start_mb']:.0f} MB before the run, {r['n_chunks']} "
+           f"chunks)")
+    for n, a in outs["megasweep"]["arms"].items():
+        print(f"  megasweep {n} points: full {arm(a['full'])}, streamed "
+              f"{arm(a['streamed'])}: {a['speedup']:.3f}x "
+              f"(repro's headline: >= {megasweep.HEADLINE_SPEEDUP}x at "
+              f"{megasweep.HEADLINE_POINTS})", flush=True)
+    check(main_launches["sim_step"] > 0 and main_launches["sim_synth"] > 0
+          and main_launches["sim_serve"] > 0 and main_launches["hcrac"] > 0
+          and ms_launches > 0,
+          f"the studies launched a kernel of their path no time: "
+          f"{main_launches}")
+    t0 = time.time()
+    bad = study_cells_vs_direct(sim, mods, outs, S, device)
+    print(f"  (a) cells against direct sweeps on the card "
+          f"({time.time() - t0:.1f} s): mismatching values {bad}",
+          flush=True)
+    check(sum(bad.values()) == 0,
+          "a study's cell differs from its direct sweep")
+
+    # (b) refresh against repro's full-size run
+    same, g_bad = refresh_vs_golden(sim, traces, golden_mod, kernel, refresh,
+                                    outs["refresh"], S, device)
+
+    # (c) the ChargeCache example at its default size, every mode
+    ex = load_example("chargecache_sim_torch")
+    t0 = time.time()
+    order = {}
+    for label, argv in (("single-core", []), ("eight-core", ["--eight-core"])):
+        tab = ex.main(argv + ["--device", device])
+        sp = {k: v["speedup"] for k, v in tab["rows"].items()}
+        order[label] = sp
+        print(f"  (c) examples/chargecache_sim_torch.py {' '.join(argv)}: "
+              f"base 1.0 < chargecache {sp['chargecache']:.4f} < cc_nuat "
+              f"{sp['cc_nuat']:.4f} < lldram {sp['lldram']:.4f}", flush=True)
+        check(1.0 < sp["chargecache"] < sp["cc_nuat"] < sp["lldram"],
+              f"{label}: speedup ordering base < chargecache < cc_nuat < "
+              f"lldram broken")
+    heat = ex.main(["--heat-grid", "--device", device])
+    geo = ex.main(["--geo-grid", "--device", device])
+    check(all(0.0 < h <= 1.0 for row in heat["hit"].values() for h in row)
+          and all(v["cc"] > 1.0 for v in geo.values()),
+          "the example's heat or geometry grid is malformed")
+    ex_s = time.time() - t0
+    print(f"  (c) the example's four modes: {ex_s:.1f} s", flush=True)
+    # the dispatcher's quick spin over a few studies, its JSON under a
+    # temporary directory
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.time()
+        rc = run_mod.main(["--quick", "--only", "sweep,geometry,refresh,"
+                           "serving", "--device", device, "--json", d])
+        written = sorted(os.listdir(d))
+    print(f"  (c) python -m repro_torch.figures.run --quick --only ...: "
+          f"exit {rc}, {time.time() - t0:.1f} s, wrote {written}", flush=True)
+    check(rc == 0 and "BENCH_results.json" in written,
+          "the dispatcher's quick spin failed")
+    print(f"  phase 18 {time.time() - t_phase:.1f} s", flush=True)
+    return {"main": main_launches, "megasweep_launches": ms_launches,
+            "walls": walls, "cells_vs_direct": bad,
+            "refresh_stream_equal": same, "refresh_golden_bad": g_bad,
+            "example_speedups": order, "example_s": ex_s, "rows": rows,
+            "megasweep": {n: {k: a[k] for k in ("full", "streamed",
+                                                  "speedup")}
+                          for n, a in outs["megasweep"]["arms"].items()}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2845,8 +3106,10 @@ def main() -> int:
      s_cut_steps) = synth_vs_plain(
         sim, ops, ref, "full-size grid cut",
         synth_full_grid(sim, golden_mod, timing, n_req=SYNTH_CUT_REQ))
-    s_bad += m_bad
-    s_err = max(s_err, m_err)
+    p_bad, p_err = synth_vs_plain(sim, ops, ref, "4x refresh pressure",
+                                  pressure_synth_grid(sim, traces))[:2]
+    s_bad += m_bad + p_bad
+    s_err = max(s_err, m_err, p_err)
     max_err = max(max_err, s_err)
 
     # --- phase 5: the synthesis path at full size -------------------------
@@ -2942,6 +3205,16 @@ def main() -> int:
           flush=True)
     window_row = window_phase(sim, traces, golden_mod, kernel, ops, ref,
                               regs)
+
+    # --- phase 18: the simulator-side studies and the examples -----------
+    print("\nphase 18: the simulator-side studies and the examples",
+          flush=True)
+    drv = driver_phase(sim, traces, golden_mod, kernel)
+    p18 = dict(drv["main"])
+    p18["sim_step"] += drv["megasweep_launches"]
+    for row, key in ((serve_rows[0], "hcrac"), (serve_rows[1], "sim_serve")):
+        row["launches"] += p18[key]
+        row["launches_phase18"] = p18[key]
     print(f"\nchip_smoke total: {time.time() - t_start:.1f} s")
     print(smi)
 
@@ -2950,7 +3223,8 @@ def main() -> int:
         "name": "sim_step", "route": "cuda",
         "source": "src/repro_torch/kernels/sim_step/csrc/sim_step.cu",
         "replaces": "src/repro/kernels/sim_step/kernel.py:66",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches + p18["sim_step"],
+        "launches_phase18": p18["sim_step"], "max_abs_err": max_err,
         "mismatches": cut_bad,
         "ms": ms8, "plain_ms": plain_t, "plain_steps": CUT_STEPS,
         "ms_at_plain_steps": cut_ms, "steps": w8["n_steps"],
@@ -2968,11 +3242,19 @@ def main() -> int:
         "figure_launches": fig["figure_launches"],
         "figures_s": fig["figures_s"],
         "figure_walls_s": {k: v["wall_s"] for k, v in fig["figures"].items()},
-        "experiment_main_launches": fig["main"]}, {
+        "experiment_main_launches": fig["main"],
+        "study_mismatches": sum(drv["cells_vs_direct"].values()),
+        "study_walls_s": {k: v["wall_s"] for k, v in drv["walls"].items()},
+        "study_launches": {k: v["launches"] for k, v in drv["walls"].items()},
+        "megasweep": drv["megasweep"],
+        "example_speedups": drv["example_speedups"]}, {
         "name": "sim_step_synth", "route": "cuda",
         "source": "src/repro_torch/kernels/sim_step/csrc/sim_step.cu",
         "replaces": "src/repro/kernels/sim_step/ops.py:65",
-        "launches": synth_launches, "max_abs_err": s_err,
+        "launches": synth_launches + p18["sim_synth"],
+        "launches_phase18": p18["sim_synth"],
+        "refresh_stream_equal_to_golden": drv["refresh_stream_equal"],
+        "max_abs_err": s_err,
         "mismatches": s_bad + fs_bad, "ms": ms32, "plain_ms": s_plain_ms,
         "plain_points": s_cut_points, "plain_steps": s_cut_steps,
         "ms_at_plain_steps": s_cut_ms, "steps": n32,

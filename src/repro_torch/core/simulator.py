@@ -273,11 +273,17 @@ def _grid_shape_and_params(grid: Sequence[SimConfig],
     key = lambda c: (c.timing, c.dram, c.policy, c.mech, c.refresh_mode,
                      c.controller, c.window)
     points: dict = {}
+    kidx = []
     for cfg in grid:
-        if key(cfg) not in points:
-            points[key(cfg)] = mech_params(cfg, hints=hints, envelope=env)
-    stacked = _tree_map(lambda *xs: torch.stack(xs).to(device),
-                        *(points[key(c)] for c in grid))
+        k = key(cfg)
+        if k not in points:
+            points[k] = len(points), mech_params(cfg, hints=hints,
+                                                 envelope=env)
+        kidx.append(points[k][0])
+    # stack the distinct points once, then fan out with one index a leaf
+    kidx = torch.tensor(kidx, dtype=torch.long)
+    stacked = _tree_map(lambda *xs: torch.stack(xs)[kidx].to(device),
+                        *(p for _, p in points.values()))
     return shape, stacked
 
 

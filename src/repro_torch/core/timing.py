@@ -78,6 +78,22 @@ def traced(tp: TimingParams) -> TimingVec:
                        for f in TimingVec._fields))
 
 
+def with_refresh_pressure(tp: TimingParams, factor: float) -> TimingParams:
+    """Timings with the refresh interval scaled by ``1/factor`` — factor
+    2/4 mirrors the DDR4 high-temperature 2x/4x refresh modes.
+
+    ``n_refresh_groups`` is unchanged, so the retention window shrinks
+    with ``tREFI``: rows are younger on average and both the REF
+    blackout share (``tRFC/tREFI``) and the charge-headroom mechanisms'
+    opportunity grow (the pressure axis of ``figures/refresh.py``).
+    ``tREFI`` is rounded half to even (Python's ``round``) and floored
+    at ``tRFC + 1``.
+    """
+    assert factor >= 1.0, "refresh pressure only shortens tREFI"
+    return dataclasses.replace(
+        tp, tREFI=max(tp.tRFC + 1, int(round(tp.tREFI / factor))))
+
+
 #: Baseline DDR3-1600 timings (Table 5.1).
 DDR3_1600 = TimingParams()
 

@@ -261,6 +261,19 @@ def load_frfcfs() -> dict:
         return json.load(f)
 
 
+DRIVERS_PATH = DATA / "golden_drivers.json"
+
+#: the simulator-side studies recorded from ``repro`` at full size:
+#: ``benchmarks/refresh.py``'s grid (its four-core ``milc_like`` stream is
+#: generated on the device, so it does not depend on numpy's version)
+DRIVERS = {"refresh": {"n_cores": 4, "n_req": 40_000, "seed": 3}}
+
+
+def load_drivers() -> dict:
+    with open(DRIVERS_PATH) as f:
+        return json.load(f)
+
+
 LM_PATH = DATA / "golden_lm.json"
 
 #: dense-LM serving at full width: ``repro``'s ``prefill_fn`` on ``batch``

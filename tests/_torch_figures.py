@@ -35,26 +35,26 @@ def repro_benchmarks():
 
 
 @contextmanager
-def repro_sizes(jc):
-    """``benchmarks.common`` resized to ``SIZES`` (its module globals, read
+def repro_sizes(jc, sizes: C.Sizes = SIZES):
+    """``benchmarks.common`` resized to ``sizes`` (its module globals, read
     at call time), restored on exit; the traces are checked equal to the
     port's."""
     saved = {k: getattr(jc, k) for k in ("N_REQ_1C", "N_REQ_8C",
                                           "SINGLE_NAMES", "N_MIXES", "QUICK")}
-    jc.N_REQ_1C, jc.N_REQ_8C = SIZES.n_req_1c, SIZES.n_req_8c
-    jc.SINGLE_NAMES, jc.N_MIXES = list(SINGLES), SIZES.n_mixes
+    jc.N_REQ_1C, jc.N_REQ_8C = sizes.n_req_1c, sizes.n_req_8c
+    jc.SINGLE_NAMES, jc.N_MIXES = list(sizes.singles), sizes.n_mixes
     jc.QUICK = False
     try:
-        for name in SINGLES:
+        for name in sizes.singles:
             assert golden.trace_sha256(jc._single_batch(
-                name, SIZES.n_req_1c, SIZES.seed)) == golden.trace_sha256(
-                C.single_batch(name, SIZES.n_req_1c, SIZES.seed))
+                name, sizes.n_req_1c, sizes.seed)) == golden.trace_sha256(
+                C.single_batch(name, sizes.n_req_1c, sizes.seed))
         mixes = jc.eight_core_mixes()
-        assert mixes == SIZES.mixes()
+        assert mixes == sizes.mixes()
         for m in mixes:
             assert golden.trace_sha256(jc._mix_batch(
-                tuple(m), SIZES.n_req_8c, SIZES.seed)) == golden.trace_sha256(
-                C.mix_batch(tuple(m), SIZES.n_req_8c, SIZES.seed))
+                tuple(m), sizes.n_req_8c, sizes.seed)) == golden.trace_sha256(
+                C.mix_batch(tuple(m), sizes.n_req_8c, sizes.seed))
         yield
     finally:
         for k, v in saved.items():

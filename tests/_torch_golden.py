@@ -56,9 +56,15 @@ plus the per-bank accumulators in ``golden_frfcfs.json``, then
 ``benchmarks/frfcfs.py``'s grid at full size (every cell's stats and
 the digests of its stream; argument ``frfcfs``, ~6 minutes).
 
+For the simulator-side studies (``repro_torch.golden.DRIVERS``) it runs
+``benchmarks/refresh.py`` at its full size (its ``run()``, then its grid)
+and records every cell's stats with the per-bank accumulators, the row,
+the headline numbers of its document and the digests of its stream in
+``golden_drivers.json`` (argument ``drivers``, about half a minute).
+
 Run from the repo root (a few minutes on two CPU cores; ``lm`` about
 five minutes on eight); the argument ``synth``, ``traces``, ``serving``,
-``frfcfs``, ``lm`` or ``lm_ssm`` writes only that part:
+``frfcfs``, ``drivers``, ``lm`` or ``lm_ssm`` writes only that part:
 
     JAX_PLATFORMS=cpu PYTHONPATH=src:tests python tests/_torch_golden.py
 
@@ -73,7 +79,8 @@ from __future__ import annotations
 import json
 import sys
 
-from repro_torch.golden import (FRFCFS, FRFCFS_PATH, GOLDEN_PATH, SERVING,
+from repro_torch.golden import (DRIVERS_PATH, FRFCFS, FRFCFS_PATH,
+                                GOLDEN_PATH, SERVING,
                                 SERVING_PATH, SYNTH, SYNTH_PATH, WORKLOADS,
                                 build_batch, frfcfs_points,
                                 save_batches, serving_points,
@@ -171,6 +178,58 @@ def compute_frfcfs_study(keys) -> dict:
     return {"n_req": F.C.N_REQ_8C, "names": list(F.LOCALITY_MIX),
             "seed": 7, "stream_sha256": trace_sha256(stream),
             "stream_blocks": stream_block_digests(stream), "cells": cells}
+
+
+def compute_drivers() -> dict:
+    """``benchmarks/refresh.py``'s grid at its full size (four cores x
+    40 000 requests) through ``repro``'s Experiment: every cell's stats
+    (with the per-bank accumulators), the study's row and headline
+    numbers (its own ``run()``, its document written to a temporary
+    directory) and the digests of the stream all its points share."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    if os.environ.get("REPRO_BENCH_QUICK", "0") == "1":
+        raise RuntimeError("the studies are recorded at their full size")
+    from _parity import BITWISE_KEYS
+    from benchmarks import refresh as R
+    from repro.core import WorkloadSpec
+    from repro.workloads import materialize
+    from repro_torch.golden import DRIVERS
+    spec = DRIVERS["refresh"]
+    assert R.C.N_REQ_8C == spec["n_req"]
+    with tempfile.TemporaryDirectory() as d:
+        R.REFRESH_JSON = os.path.join(d, "refresh.json")
+        rows = R.run()  # first, so that its one-compile assertion holds
+        with open(R.REFRESH_JSON) as f:
+            doc = json.load(f)
+    res = R.refresh_grid()[0]
+    cells = []
+    for idx in np.ndindex(*res.shape):
+        r = res.cells[idx]
+        rec = {d: res.coords[d][i] for d, i in zip(res.dims, idx)}
+        rec.update({k: int(r[k]) for k in BITWISE_KEYS})
+        rec.update({k: [int(x) for x in r[k]]
+                    for k in ("core_end", "bank_acts", "bank_act_ras_sum")})
+        cells.append(rec)
+    wspec = WorkloadSpec(names=("milc_like",) * spec["n_cores"],
+                         n_req=spec["n_req"], seed=spec["seed"])
+    base = R.C.sim_cfg("base", spec["n_cores"])
+    stream = materialize(wspec, base.dram, base.interleave)
+    headline = {k: v for k, v in doc.items()
+                if isinstance(v, (int, float)) and k != "compiles"}
+    return {"refresh": {**spec, "compiles": doc["compiles"],
+                        "dims": list(res.dims),
+                        "meta": {k: res.meta[k] for k in
+                                 ("n_points", "n_unique", "n_chunks")},
+                        "bitwise_keys": list(BITWISE_KEYS),
+                        "stream_sha256": trace_sha256(stream),
+                        "stream_blocks": stream_block_digests(stream),
+                        "headline": headline, "row": rows[0],
+                        "cells": cells}}
 
 
 def synth_configs() -> list:
@@ -518,6 +577,14 @@ def main(argv) -> int:
                   p["retired"], p["admit_hot"], p["lat_sum"])
         s = data["scale"]
         print("scale", s["n_steps"], s["retired"], s["lat_sum"])
+    if what in ("all", "drivers"):
+        data = compute_drivers()
+        with open(DRIVERS_PATH, "w") as f:
+            json.dump(data, f, indent=None, separators=(",", ":"))
+            f.write("\n")
+        r = data["refresh"]
+        print(r["row"])
+        print(r["meta"], r["stream_sha256"])
     if what in ("all", "frfcfs"):
         data = compute_frfcfs()
         with open(FRFCFS_PATH, "w") as f:

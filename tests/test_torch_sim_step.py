@@ -39,7 +39,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 @pytest.mark.parametrize("path", _port_files(),
