@@ -9,20 +9,22 @@ CUDA toolkit:
 It builds the ``sim_step`` kernel (four entries: over a trace,
 synthesising its own streams, the serving closed loop, and the FR-FCFS
 window engine over a trace or its own streams), the HCRAC
-probe kernel, the flash- and decode-attention kernels and the ssm_scan
-kernel from the sources in the checkout, holds each against its plain
+probe kernel, the flash- and decode-attention kernels, the ssm_scan
+and the rglru_scan kernels from the sources in the checkout, holds each against its plain
 PyTorch version, drives the port's paths at full size
 (``repro_torch.core.simulator.sweep``, ``sweep_synth``, the serving
 loop: ``sweep_serving`` and the host scheduler's ``run_host``, dense-LM
 serving of tinyllama-1.1b: ``prefill_fn`` / ``decode_fn`` and
 ``examples/serve_lm_torch.py``, SSM serving of falcon-mamba-7b, the
 Experiment layer drawing the thesis's five figures, the FR-FCFS
-controller study, and the simulator-side studies with the ChargeCache
-example),
+controller study, the simulator-side studies with the ChargeCache
+example, and the rest of the model zoo: recurrentgemma-2b, the MoE
+configs, whisper-small, granite-34b, pixtral-12b and phi3-medium-14b),
 checks the results against the JAX package's recorded golden numbers
 (``src/repro_torch/data/golden_fullwidth.json``, ``golden_synth.json``,
 ``golden_serving.json``, ``golden_lm.json``, ``golden_lm_ssm.json``,
-``golden_frfcfs.json`` and ``golden_drivers.json``),
+``golden_frfcfs.json``, ``golden_drivers.json`` and
+``golden_lm_zoo.json``),
 and times the kernels.  It imports nothing of JAX or of the ``repro``
 package.  Phases:
 
@@ -213,6 +215,35 @@ package.  Phases:
     cc_nuat < lldram, then ``--heat-grid`` and ``--geo-grid``, and the
     dispatcher ``python -m repro_torch.figures.run --quick`` on four
     studies writing its JSON under a temporary directory;
+19. the flash and decode kernels at the zoo's shapes and the rglru_scan
+    kernel against their plain versions: flash at recurrentgemma-2b's
+    prefills (B 1 x S 2 100 and B 4 x 2 048, H 10 over K 1, hd 256,
+    window 2 048), S 16 and a bidirectional case, whisper-small's
+    encoder, decoder and cross-attention (64 queries over 1 500 frames),
+    mixtral's and phi3.5-moe's prefills, bf16 (and f32 where short);
+    decode over a 2 048-slot ring (G 10 over K 1, hd 256, wrapped),
+    whisper's self- and cross-attention (all 1 500 frames valid) and
+    mixtral's last step, each split as ``plan_split`` cuts it and in one
+    chunk; rglru_scan (the gate factor and the recurrence) bit for bit
+    at B 2 x 2 048 x 2 560, phase 20's prefill and a decode step; timed
+    beside the plain versions, SDPA (a mask where there is one) and the
+    bounds; the hd-256 entries' registers and spills;
+20. recurrentgemma-2b at published widths: its first 3 layers at B 1 x
+    2 100 (the ring wraps) + 8 steps against ``golden_lm_zoo.json``; the
+    full 26 layers at B 2 x 300 + 8 steps against the same model on the
+    plain kernels, both within ``ZOO_ULPS``; then prefill B 4 x 2 048 and
+    a decode step timed, with the kernels' device time
+    (``torch.profiler``), every kernel's launches counted;
+21. phi3.5-moe (2 layers, B 1 x 300 + 8 steps, against ``repro``: its
+    router logits within ``ROUTE_LOGIT_ULPS`` of the record's, its
+    expert choices equal but at near ties) and mixtral-8x22b (2 layers,
+    B 2 x 300 + 8 steps, against the plain kernels, routing likewise),
+    timed;
+22. whisper-small at full depth (12 + 12 layers, 1 500 stub frames, B 2
+    x 64 + 8 steps, cache 80) against the record, timed;
+23. granite-34b (2 layers), pixtral-12b (2 layers, 256 stub patches) and
+    phi3-medium-14b (4 layers) against the record; then pixtral-12b and
+    phi3-medium-14b at full depth, prefill and decode timed;
 then the total time, one JSON line of kernel numbers, and the last line:
 ``{"ok": true, "device": {...}}``.
 
@@ -372,14 +403,15 @@ def serve_chain_bound(n_acc: int, n_steps: int, admitted: int,
     return chains[name] / (mhz * 1e3), name
 
 
-def ptxas_report(log: str) -> dict:
+def ptxas_report(log: str, entry_re: str = r"(sim_[a-z]+_kernel)") -> dict:
     """``{entry: {"registers", "spill_stores", "spill_loads"}}`` of the
-    ``sim_*_kernel`` entries in a library's ``-Xptxas -v`` log."""
+    entries whose mangled name matches ``entry_re`` (its first group
+    names them; default: the ``sim_*_kernel`` entries) in a library's
+    ``-Xptxas -v`` log."""
     import re
     out, entry = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(sim_[a-z]+_kernel)",
-                      line)
+        m = re.search(r"Compiling entry function '\S*?" + entry_re, line)
         if m:
             entry = m.group(1)
             out[entry] = {"registers": None, "spill_stores": 0,
@@ -1421,21 +1453,22 @@ def seeded(shape, seed: int, dtype, device):
     return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
-def flash_bound(B, S, H, K, hd, causal, window, dtype) -> tuple:
+def flash_bound(B, S, H, K, hd, causal, window, dtype, Skv=None) -> tuple:
     """``(bound ms, 'bytes' | 'operations')``: q, k, v read once and the
     output written once, against 4 * hd operations per valid (query, key)
-    pair."""
+    pair; ``Skv`` keys (default ``S``)."""
     import torch
+    Skv = S if Skv is None else Skv
     q = torch.arange(S)[:, None]
-    k = torch.arange(S)[None, :]
-    ok = torch.ones(S, S, dtype=torch.bool)
+    k = torch.arange(Skv)[None, :]
+    ok = torch.ones(S, Skv, dtype=torch.bool)
     if causal:
         ok &= q >= k
     if window:
         ok &= (q - k) < window
     pairs = int(ok.sum()) * B * H
     size = 2 if dtype == "bf16" else 4
-    nbytes = size * hd * (2 * B * S * H + 2 * B * S * K)
+    nbytes = size * hd * (2 * B * S * H + 2 * B * Skv * K)
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_o = 4 * hd * pairs / PEAK_OPS[dtype] * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
@@ -1523,17 +1556,19 @@ def phase_flash(fk, fr, dev) -> dict:
     return out
 
 
-def decode_case(case, seed: int, dev):
+def decode_case(case, seed: int, dev, cross: bool = False):
     """Rotated queries, a ring cache and its slot positions: ``fill``
     positions written into ``W`` slots, position p in slot p mod W, the
-    newest W kept; the query at position ``fill - 1``."""
+    newest W kept; the query at position ``fill - 1``.  ``cross``: slot p
+    holds position p (every slot below the query valid)."""
     import torch
     B, H, K, hd, W, window, fill = case
     q = seeded((B, H, hd), seed, torch.bfloat16, dev)
     kc = seeded((B, W, K, hd), seed + 1, torch.bfloat16, dev)
     vc = seeded((B, W, K, hd), seed + 2, torch.bfloat16, dev)
     slots = torch.arange(W)
-    newest = fill - 1 - torch.remainder(fill - 1 - slots, W)
+    newest = (slots if cross
+              else fill - 1 - torch.remainder(fill - 1 - slots, W))
     kv_pos = torch.where(newest >= 0, newest, -1).to(torch.int32).to(dev)
     q_pos = torch.tensor([fill - 1], dtype=torch.int32, device=dev)
     return q, kc, vc, kv_pos, q_pos
@@ -2097,6 +2132,734 @@ def ssm_phases(golden_mod, smi: str, device="cuda") -> dict:
             "discretise_chunk_ms": disc_ms, "decode_step_ms": decode_ms,
             "decode_device_ms": d_busy / S["steps"] if d_busy else None,
             "logits_max_diff": worst_full, "logits_max_diff_cut": worst_cut}
+
+
+# --------------------------------------------------------------------------
+# phases 19-23: the rest of the model zoo (hybrid, MoE, enc-dec, dense gaps)
+# --------------------------------------------------------------------------
+
+#: phase 19's flash shapes (B, S, Skv, H, K, hd, causal, window), each
+#: the zoo's serving path gives the kernel: at hd 256 recurrentgemma-2b's
+#: golden prefill (B 1 x S 2 100, H 10 over K 1, window 2 048), phase
+#: 20's serving prefill (B 4 x 2 048), a short prompt and a bidirectional
+#: case; whisper-small's encoder (1 500 frames, no mask), decoder (64
+#: tokens, causal) and cross-attention (64 queries over the 1 500 frames,
+#: no mask: S != Skv, the last 64-key tile holds 28 keys); mixtral-8x22b's
+#: (H 48 over K 8, hd 128, window 4 096) and phi3.5-moe's (H 32 over K
+#: 8) 300-token prefills.  bf16, and f32 too where S <= 256; the bf16
+#: calls timed
+FLASH_ZOO = [(1, 2100, 2100, 10, 1, 256, True, 2048),
+             (4, 2048, 2048, 10, 1, 256, True, 2048),
+             (1, 16, 16, 10, 1, 256, True, 2048),
+             (2, 100, 100, 4, 4, 256, False, 0),
+             (2, 1500, 1500, 12, 12, 64, False, 0),
+             (2, 64, 64, 12, 12, 64, True, 0),
+             (2, 64, 1500, 12, 12, 64, False, 0),
+             (2, 300, 300, 48, 8, 128, True, 4096),
+             (1, 300, 300, 32, 8, 128, True, 0)]
+#: phase 19's decode shapes (B, H, K, hd, W, window, filled, cross): at
+#: hd 256 phase 20's first serving step (2 048 slots, the query at 2 048)
+#: and the golden run's last step (the ring wrapped); whisper-small's
+#: self-attention at its golden run's last step (80 slots, 72 filled) and
+#: its cross-attention (``cross``: slot p holds frame p, all 1 500 valid,
+#: the query at position 1 500, as ``encdec.decode_step`` asks);
+#: mixtral-8x22b's last golden step (308 slots, G 6, hd 128, window
+#: 4 096).  Each split as ``plan_split`` cuts it and in one chunk, the
+#: first timed
+DECODE_ZOO = [(4, 10, 1, 256, 2048, 2048, 2049, False),
+              (1, 10, 1, 256, 2048, 2048, 2116, False),
+              (2, 12, 12, 64, 80, 0, 72, False),
+              (2, 12, 12, 64, 1500, 0, 1501, True),
+              (2, 48, 8, 128, 308, 4096, 308, False)]
+#: phase 19's rglru_scan shapes (B, S, d): B 2 x 2 048,
+#: phase 20's serving prefill and one decode step
+SCAN_RG = [(2, 2048, 2560), (4, 2048, 2560), (4, 1, 2560)]
+#: a golden zoo run's logits against ``golden_lm_zoo.json`` (or a run on
+#: the plain kernels, recurrentgemma-2b's full depth included), in bf16
+#: ulps at the magnitude of the record's largest top logit: four, as
+#: ``LM_LOGIT_TOL`` is at tinyllama's 4-8
+ZOO_ULPS = 4
+#: phase 20's serving shape: prefill B 4 x 2 048, then one decode step
+RG_SERVE = {"batch": 4, "prompt": 2048, "steps": 1}
+#: the full-depth runs on the plain kernels: B 2 x 300 tokens, 8 steps
+ZOO_FULL = {"batch": 2, "prompt": 300, "steps": 8, "seed": 30, "top_k": 8}
+#: mixtral-8x22b cut to 2 layers (5.2 G parameters), against the same
+#: model on the plain kernels on the card (no repro record: see
+#: golden.LM_ZOO)
+MIXTRAL_CUT = {"config": "mixtral-8x22b", "cut_layers": 2, "batch": 2,
+               "prompt": 300, "max_len": 308, "steps": 8, "seed": 31,
+               "top_k": 8}
+#: phase 23's full-depth serving shapes
+DENSE_SERVE = {"pixtral-12b": {"batch": 2, "prompt": 300, "patches": 256,
+                               "steps": 8, "seed": 32},
+               "phi3-medium-14b": {"batch": 4, "prompt": 500, "steps": 8,
+                                   "seed": 33}}
+
+
+def ulp_tol(top: float, ulps: int) -> float:
+    """``ulps`` bf16 ulps at magnitude ``top``."""
+    import math
+    return ulps * 2.0 ** (math.floor(math.log2(max(abs(top), 2.0 ** -126)))
+                          - 7)
+
+
+def plain_kernels():
+    """A context in which the three model kernels' launchers run their
+    plain versions on the card (the wrappers' counters still count):
+    the reference a run without a ``repro`` record is held to."""
+    import contextlib
+
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+    from repro_torch.kernels.paged_attention import kernel as pk, ref as pr
+    from repro_torch.kernels.rglru_scan import kernel as rk, ref as rr
+
+    def decode_plain(q, kc, vc, kv_pos, q_pos, *, window):
+        B, W = q.shape[0], kc.shape[1]
+        return pr.decode_ref(q, kc, vc, kv_pos.expand(B, W),
+                             q_pos.expand(B), window=window)
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = (fk.flash_attention, pk.decode_attention, rk.rglru_scan)
+        fk.flash_attention = fr.flash_attention_ref
+        pk.decode_attention = decode_plain
+        rk.rglru_scan = rr.rglru_scan_ref
+        try:
+            yield
+        finally:
+            fk.flash_attention, pk.decode_attention, rk.rglru_scan = saved
+    return ctx()
+
+
+def route_hook():
+    """A context recording every MoE layer call's ``(eidx, router
+    logits)`` (``layers.moe_route``'s, on the host) into the list it
+    yields."""
+    import contextlib
+
+    from repro_torch.models import layers
+
+    @contextlib.contextmanager
+    def ctx():
+        calls, orig = [], layers.moe_route
+
+        def hooked(p, x, cfg):
+            out = orig(p, x, cfg)
+            logits = (x @ p["router"].to(x.dtype)).float()
+            calls.append((out[2].cpu(), logits.cpu()))
+            return out
+        layers.moe_route = hooked
+        try:
+            yield calls
+        finally:
+            layers.moe_route = orig
+    return ctx()
+
+
+def run_steps(zoo, model, cfg, batch, dec, max_len: int, steps: int):
+    """``prefill_fn`` then ``steps`` teacher-forced ``decode_fn`` steps;
+    the logits of each."""
+    import torch
+    logits, cache = zoo.prefill_fn(model, batch, cfg, max_len)
+    out = [logits]
+    for t in range(steps):
+        logits, cache = zoo.decode_fn(model, cache, dec[t], cfg)
+        out.append(logits)
+    torch.cuda.synchronize()
+    return out
+
+
+def hold_logits(label, steps_out, records, tol, vocab, skip_rows=None):
+    """Each step's logits against its record (``check_logits``), rows in
+    ``skip_rows[step]`` left out; returns ``(max |diff|, rows whose
+    argmax was checked)``."""
+    import torch
+    worst, sure = 0.0, 0
+    for t, (x, rec) in enumerate(zip(steps_out, records)):
+        check(x.shape[1] == vocab and bool(torch.isfinite(x.float()).all()),
+              f"{label} step {t}: malformed logits")
+        keep = [r for r in range(x.shape[0])
+                if not skip_rows or r not in skip_rows.get(t, ())]
+        if not keep:
+            continue
+        sub = {k: [v[r] for r in keep] for k, v in rec.items()
+               if isinstance(v, list)}
+        d, n, _ = check_logits(t, x[keep], sub, tol, label)
+        worst, sure = max(worst, d), sure + n
+    return worst, sure
+
+
+def plain_records(steps_out, k: int) -> list:
+    """``golden.logits_record`` of a run's steps (a reference run)."""
+    import torch
+    return [{"top_ids": None, **{key: v for key, v in (
+        ("top_logits", torch.topk(x.float().cpu(), k, -1).values.tolist()),
+        ("logsumexp", torch.logsumexp(x.float().cpu(), -1).tolist()),
+        ("argmax", torch.argmax(x.float().cpu(), -1).tolist()))}}
+        for x in steps_out]
+
+
+def zoo_golden_model(golden_mod, lm, zoo, cfg, spec, dev, rec=None):
+    """The golden model of ``spec`` (cut as it says) and its inputs on the
+    card, their digests held to ``rec`` where there is one."""
+    import torch
+    c = golden_mod.zoo_config(cfg, spec)
+    tree = golden_mod.golden_weights(zoo.model_defs(c), spec["seed"], dev)
+    batch, dec = golden_mod.zoo_inputs(c, spec, dev)
+    if rec is not None:
+        check(golden_mod.weights_digest(tree) == rec["weights_digest"],
+              f"{c.name}: the golden weights built on the card differ from "
+              f"repro's")
+        check(golden_mod.inputs_digest(batch, dec) == rec["inputs_digest"],
+              f"{c.name}: the golden inputs built on the card differ from "
+              f"repro's")
+    torch.cuda.synchronize()
+    return lm.LM(c, tree), c, batch, dec
+
+
+def kernel_counts(fa, pa, ro, pk) -> dict:
+    return {"flash": fa.launches, "decode": pa.launches, "rglru": ro.launches,
+            "decode_kernels": pk.launch_counts()}
+
+
+def zero_counts(fa, pa, ro, pk) -> None:
+    fa.launches = pa.launches = ro.launches = 0
+    pk.launch_counts(reset=True)
+
+
+def routing_flips(calls, rec_routing, golden_mod):
+    """Compare a run's MoE routing (``route_hook``) with a record (a list
+    per step of per-call ``routing_record``s): ``(tokens differing,
+    tokens differing that are not near a tie of the record's logits,
+    {step: batch rows whose last token's choice differs}, the largest
+    distance of the run's router logits from the record's in bf16 ulps
+    (``golden.route_logit_ulps``), tokens whose choice is not the
+    first-index top-k of the run's own logits)``.  With the last 0 and
+    the logits within ``ROUTE_LOGIT_ULPS``, every differing choice is the
+    logits' rounding."""
+    import torch
+    from repro_torch.models import layers
+    flips = off_tie = not_top = 0
+    worst = 0.0
+    rows = {}
+    it = iter(calls)
+    for t, step in enumerate(rec_routing):
+        for r in step:
+            eidx, logits = next(it)
+            want = torch.tensor(r["eidx"], dtype=torch.int32)
+            got = eidx.to(torch.int32).reshape(want.shape)
+            ref_logits = torch.tensor(r["logits"])
+            logits = logits.reshape(ref_logits.shape)
+            worst = max(worst, float(golden_mod.route_logit_ulps(
+                logits, ref_logits).max()))
+            _, own = layers.top_k_first(torch.softmax(logits, -1),
+                                        want.shape[-1])
+            not_top += int((own.to(torch.int32) != got).any(-1).sum())
+            diff = (got != want).any(-1).reshape(-1)
+            near = golden_mod.route_near_ties(ref_logits,
+                                              want.shape[-1]).reshape(-1)
+            flips += int(diff.sum())
+            off_tie += int((diff & ~near).sum())
+            last = (got[:, -1] != want[:, -1]).any(-1)
+            rows.setdefault(t, set()).update(
+                torch.nonzero(last).reshape(-1).tolist())
+    return flips, off_tie, rows, worst, not_top
+
+
+def record_routing(calls, steps: int, n_layers: int, k: int, golden_mod):
+    """A run's routing (``route_hook``) as ``routing_record``s per step."""
+    out, it = [], iter(calls)
+    for _ in range(steps + 1):
+        out.append([golden_mod.routing_record(*next(it), k)
+                    for _ in range(n_layers)])
+    return out
+
+
+def phase_zoo_kernels(fk, fr, pk, pr, rk, rr, dev) -> dict:
+    """Phase 19: the two attention kernels at the zoo's shapes (hd 256,
+    whisper's, the MoE configs') and the rglru_scan kernel against their
+    plain versions on the card; times beside the plain versions, SDPA and
+    the bounds; registers and spills."""
+    import torch
+    import torch.nn.functional as F
+    out = {"flash": [], "decode": [], "scan": [], "max_abs_err": {}}
+    for i, case in enumerate(FLASH_ZOO):
+        B, S, Skv, H, K, hd, causal, window = case
+        for dn, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            if dn == "f32" and S > 256:
+                continue
+            q, k, v = (seeded(sh, 300 + 10 * i + j, dt, dev) for j, sh in
+                       enumerate(((B, S, H, hd), (B, Skv, K, hd),
+                                  (B, Skv, K, hd))))
+            got = fk.flash_attention(q, k, v, causal=causal, window=window)
+            plain_ms, want = cuda_ms(lambda: fr.flash_attention_ref(
+                q, k, v, causal=causal, window=window),
+                torch.cuda.synchronize)
+            err, top, share = kernel_diff(got, want, dn)
+            out["max_abs_err"]["flash"] = max(
+                out["max_abs_err"].get("flash", 0.0), err)
+            line = (f"  flash B{B} S{S} Skv{Skv} H{H} K{K} hd{hd} "
+                    f"causal={causal} window={window} {dn}: max |kernel - "
+                    f"plain| {err:.3g} (tolerance {FLASH_TOL[dn]}), max "
+                    f"|plain| {top:.3g}, worst share of the element-wise "
+                    f"limit {share:.3g}")
+            check(err <= FLASH_TOL[dn] and share <= 1.0,
+                  f"flash kernel disagrees with its plain version at {case} "
+                  f"{dn}")
+            if dn == "bf16":
+                mask = None
+                if causal or window:
+                    qi = torch.arange(S, device=dev)[:, None]
+                    ki = torch.arange(Skv, device=dev)[None, :]
+                    mask = torch.ones(S, Skv, dtype=torch.bool, device=dev)
+                    if causal:
+                        mask &= qi >= ki
+                    if window:
+                        mask &= (qi - ki) < window
+                run = lambda: fk.flash_attention(q, k, v, causal=causal,
+                                                 window=window)
+                sdpa = lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=mask, enable_gqa=True)
+                dev_ms, lib_dev_ms = graph_ms(run), graph_ms(sdpa)
+                bound, by = flash_bound(B, S, H, K, hd, causal, window, dn,
+                                        Skv)
+                out["flash"].append({
+                    "shape": [B, S, Skv, H, K, hd], "causal": causal,
+                    "window": window, "device_ms": dev_ms,
+                    "plain_ms": plain_ms, "library_device_ms": lib_dev_ms,
+                    "bound_ms": bound, "bound_by": by,
+                    "bound_share": bound / dev_ms, "max_abs_err": err})
+                line += (f"; kernel {dev_ms:.4f} ms device "
+                         f"({100 * bound / dev_ms:.1f} % of its {by} bound "
+                         f"{bound:.4f} ms), plain {plain_ms:.3f} ms, SDPA "
+                         f"{lib_dev_ms:.4f} ms device")
+            print(line, flush=True)
+            del q, k, v, got, want
+    orig_plan = pk.plan_split
+    for i, case in enumerate(DECODE_ZOO):
+        B, H, K, hd, W, window, fill, cross = case
+        q, kc, vc, kv_pos, q_pos = decode_case(case[:7], 400 + 10 * i, dev,
+                                               cross)
+        plain_ms, want = cuda_ms(lambda: pr.decode_ref(
+            q, kc, vc, kv_pos.expand(B, W), q_pos.expand(B), window=window),
+            torch.cuda.synchronize)
+        ok = (kv_pos >= 0) & (kv_pos <= q_pos)
+        if window:
+            ok &= (q_pos - kv_pos) < window
+        valid = int(ok.sum())
+        for split in ("planned", "one chunk"):
+            if split == "one chunk":
+                pk.plan_split = lambda W, blocks, sms: (1, -(-W // 64) * 64)
+            try:
+                pk.launch_counts(reset=True)
+                run = lambda: pk.decode_attention(q, kc, vc, kv_pos, q_pos,
+                                                  window=window)
+                got = run()
+                counts = pk.launch_counts(reset=True)
+                err, top, share = kernel_diff(got, want, "bf16")
+                out["max_abs_err"]["decode"] = max(
+                    out["max_abs_err"].get("decode", 0.0), err)
+                line = (f"  decode B{B} H{H} K{K} hd{hd} W{W} window={window}"
+                        f" query at {fill - 1}, {valid} valid slots, {split} "
+                        f"({decode_launches(pk, counts, 1)}): max |kernel - "
+                        f"plain| {err:.3g} (tolerance {DECODE_TOL}), max "
+                        f"|plain| {top:.3g}, worst share {share:.3g}")
+                check(err <= DECODE_TOL and share <= 1.0,
+                      f"decode kernel disagrees with its plain version at "
+                      f"{case} ({split})")
+                if split == "planned":
+                    sdpa = lambda: F.scaled_dot_product_attention(
+                        q[:, :, None], kc.transpose(1, 2),
+                        vc.transpose(1, 2), attn_mask=ok[None, None, None],
+                        enable_gqa=True)
+                    dev_ms, lib_dev_ms = graph_ms(run), graph_ms(sdpa)
+                    bound, by = decode_bound(B, H, K, hd, valid, W, "bf16")
+                    out["decode"].append({
+                        "shape": [B, H, K, hd, W], "valid": valid,
+                        "n_split": counts["mma_chunks"],
+                        "device_ms": dev_ms, "plain_ms": plain_ms,
+                        "library_device_ms": lib_dev_ms, "bound_ms": bound,
+                        "bound_by": by, "bound_share": bound / dev_ms,
+                        "max_abs_err": err})
+                    line += (f"; kernel {dev_ms:.4f} ms device "
+                             f"({100 * bound / dev_ms:.1f} % of its {by} bound "
+                             f"{bound:.5f} ms), plain {plain_ms:.3f} ms, SDPA "
+                             f"{lib_dev_ms:.4f} ms device")
+                print(line, flush=True)
+            finally:
+                pk.plan_split = orig_plan
+    for i, (B, S, d) in enumerate(SCAN_RG):
+        g = torch.Generator(device=dev)
+        g.manual_seed(500 + i)
+        a = torch.rand((B, S, d), generator=g, device=dev) * 0.5 + 0.5
+        a[..., 0] = 1.0                 # 1 - a * a clamped to 1e-9
+        x = torch.randn((B, S, d), generator=g, device=dev) * 0.3
+        h0 = torch.randn((B, d), generator=g, device=dev)
+        hs, hn = rk.rglru_scan(a, x, h0)
+        plain_ms, (ws, wn) = cuda_ms(lambda: rr.rglru_scan_ref(a, x, h0),
+                                     torch.cuda.synchronize)
+        bad = int((hs != ws).sum()) + int((hn != wn).sum())
+        ms = loop_ms(lambda: rk.rglru_scan(a, x, h0))
+        bound = 4 * (3 * B * S * d + 2 * B * d) / HBM_BYTES_PER_S * 1e3
+        out["scan"].append({"shape": [B, S, d], "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": bound,
+                            "bound_by": "bytes", "bound_share": bound / ms,
+                            "mismatches": bad})
+        print(f"  rglru_scan B{B} S{S} d{d}: {bad} elements differing from "
+              f"the plain version; kernel {ms:.4f} ms ({100 * bound / ms:.1f}"
+              f" % of its bytes bound {bound:.4f} ms), plain "
+              f"{plain_ms:.1f} ms", flush=True)
+        check(bad == 0, f"rglru_scan disagrees with its plain version at "
+                        f"{(B, S, d)}")
+    regs = {}
+    for lib, name in ((fk.library(), "flash"), (pk.library(), "decode"),
+                      (rk.library(), "rglru")):
+        log = Path(lib._name).with_suffix(".log")
+        text = log.read_text() if log.exists() else ""
+        regs.update(ptxas_report(
+            text, r"((?:flash|paged)_attention_mma_kernelILi256E|"
+                  r"rglru_scan_kernel)"))
+    for entry, r in regs.items():
+        print(f"  ptxas {entry}: {r['registers']} registers, spill stores "
+              f"{r['spill_stores']} B, spill loads {r['spill_loads']} B",
+              flush=True)
+    out["ptxas"] = regs
+    return out
+
+
+def zoo_phases(golden_mod, smi: str, device="cuda") -> dict:
+    """Phases 19-23 on ``device``; returns the kernel line's additions:
+    ``flash`` / ``decode`` extras for their rows and the ``rglru_scan``
+    row."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fr
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.paged_attention import ref as pr
+    from repro_torch.kernels.rglru_scan import kernel as rk
+    from repro_torch.kernels.rglru_scan import ops as ro
+    from repro_torch.kernels.rglru_scan import ref as rr
+    from repro_torch.models import lm, zoo
+    dev = torch.device(device)
+    torch.cuda.empty_cache()
+    gold = golden_mod.load_lm_zoo()
+    share = lambda part, whole: (f"{100 * part / whole:.1f} %"
+                                 if part is not None and whole
+                                 else "not measured")
+
+    print("\nphase 19: flash and decode kernels at the zoo's shapes, "
+          "rglru_scan (on the card)", flush=True)
+    kern = phase_zoo_kernels(fk, fr, pk, pr, rk, rr, dev)
+    result = {"kernels": kern, "runs": {}}
+
+    def golden_run(name, ulps=ZOO_ULPS):
+        """A ``golden_lm_zoo.json`` entry on the card: its logits held to
+        the record, its kernels' launches counted."""
+        rec = gold[name]
+        spec = rec["spec"]
+        t0 = time.time()
+        model, c, batch, dec = zoo_golden_model(golden_mod, lm, zoo,
+                                                get(spec["config"]), spec,
+                                                dev, rec)
+        tol = ulp_tol(max(abs(x) for s in rec["steps"]
+                          for row in s["top_logits"] for x in row), ulps)
+        zero_counts(fa, pa, ro, pk)
+        with route_hook() as calls:
+            steps_out = run_steps(zoo, model, c, batch, dec,
+                                  spec["max_len"], spec["steps"])
+        counts = kernel_counts(fa, pa, ro, pk)
+        skip, routing = None, {}
+        if "routing" in rec:
+            flips, off_tie, skip, lg_ulps, not_top = routing_flips(
+                calls, rec["routing"], golden_mod)
+            n_tok = sum(len(r["near_ties"]) for st in rec["routing"]
+                        for r in st)
+            routing = {"flips": flips, "off_tie": off_tie,
+                       "router_logit_ulps": lg_ulps, "not_top_k": not_top,
+                       "near_ties": n_tok,
+                       "rows_skipped": {t: sorted(r) for t, r in
+                                        skip.items() if r}}
+            print(f"  {name}: router logits vs repro's: at most {lg_ulps:g} "
+                  f"bf16 ulps at the token's top logit (limit "
+                  f"{golden_mod.ROUTE_LOGIT_ULPS}); {not_top} tokens' choice "
+                  f"not the top-k of their logits; routing: {flips} tokens "
+                  f"chose other experts, {off_tie} of them not near a tie "
+                  f"({n_tok} near ties in the record at "
+                  f"{golden_mod.ROUTE_NEAR_TIE_ULPS} ulps)", flush=True)
+            check(lg_ulps <= golden_mod.ROUTE_LOGIT_ULPS and not_top == 0,
+                  f"{name}: router logits differ from repro's by more than "
+                  f"{golden_mod.ROUTE_LOGIT_ULPS} bf16 ulps, or the choice "
+                  f"is not their top-k")
+            check(off_tie == 0, f"{name}: routing differs from repro's "
+                                f"beyond a near tie")
+        worst, sure = hold_logits(name, steps_out, rec["steps"], tol,
+                                  c.vocab_padded, skip)
+        wall = time.time() - t0
+        print(f"  {name} ({c.n_layers} layers, B{spec['batch']} x "
+              f"{spec['prompt']}{' + ' + str(spec.get('patches')) + ' patches' if spec.get('patches') else ''}"
+              f", {spec['steps']} steps): max |d| top-{spec['top_k']} logits "
+              f"/ logsumexp vs repro {worst:.4f} (tolerance {tol:.4f}, "
+              f"{ulps} bf16 ulps at the top logits), argmax equal on {sure} "
+              f"rows; launches {counts}; {wall:.1f} s", flush=True)
+        result["runs"][name] = {"max_diff": worst, "tol": tol,
+                                "launches": counts, **routing}
+        return model, c, counts
+
+    def plain_run(label, model, c, batch, dec, max_len, steps, ulps,
+                  moe=False):
+        """``model`` on its kernels against itself on the plain versions
+        (both on the card)."""
+        zero_counts(fa, pa, ro, pk)
+        with route_hook() as calls:
+            steps_out = run_steps(zoo, model, c, batch, dec, max_len, steps)
+        counts = kernel_counts(fa, pa, ro, pk)
+        with plain_kernels(), route_hook() as ref_calls:
+            ref_out = run_steps(zoo, model, c, batch, dec, max_len, steps)
+        recs = plain_records(ref_out, 8)
+        tol = ulp_tol(max(abs(x) for s in recs for row in s["top_logits"]
+                          for x in row), ulps)
+        skip, extra = None, {}
+        if moe:
+            ref_routing = record_routing(ref_calls, steps, c.n_layers,
+                                         c.top_k, golden_mod)
+            flips, off_tie, skip, lg_ulps, not_top = routing_flips(
+                calls, ref_routing, golden_mod)
+            extra = {"flips": flips, "off_tie": off_tie,
+                     "router_logit_ulps": lg_ulps, "not_top_k": not_top}
+            print(f"  {label}: router logits vs the plain run's: at most "
+                  f"{lg_ulps:g} bf16 ulps (limit "
+                  f"{golden_mod.ROUTE_LOGIT_ULPS}); {not_top} tokens' choice "
+                  f"not the top-k of their logits; routing: {flips} tokens "
+                  f"chose other experts, {off_tie} of them not near a tie",
+                  flush=True)
+            check(lg_ulps <= golden_mod.ROUTE_LOGIT_ULPS and not_top == 0,
+                  f"{label}: router logits differ from the plain run's by "
+                  f"more than {golden_mod.ROUTE_LOGIT_ULPS} bf16 ulps, or "
+                  f"the choice is not their top-k")
+            check(off_tie == 0, f"{label}: routing differs from the plain "
+                                f"run beyond a near tie")
+        worst, sure = hold_logits(label, steps_out, recs, tol,
+                                  c.vocab_padded, skip)
+        print(f"  {label}: kernels vs plain versions on the card: max |d| "
+              f"top-8 logits / logsumexp {worst:.4f} (tolerance {tol:.4f}, "
+              f"{ulps} bf16 ulps), argmax equal on {sure} rows; launches "
+              f"{counts}", flush=True)
+        result["runs"][label] = {"max_diff": worst, "tol": tol,
+                                 "launches": counts, **extra}
+        return counts
+
+    def serve_timed(label, model, c, batch, max_len, steps):
+        """Prefill and ``steps`` greedy decode steps timed (CUDA events),
+        the three kernels' device time by ``torch.profiler``, the launches
+        of this run (the main path of the phase)."""
+        prefill = lambda: zoo.prefill_fn(model, batch, c, max_len)
+        logits, cache = prefill()            # warm-up at these shapes
+        del cache
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(fa, pa, ro, pk)
+        start, mid, end = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(3))
+        start.record()
+        logits, cache = prefill()
+        mid.record()
+        tok = torch.argmax(logits, -1)
+        for _ in range(steps):
+            logits, cache = zoo.decode_fn(model, cache, tok, c)
+            tok = torch.argmax(logits, -1)
+        end.record()
+        end.synchronize()
+        counts = kernel_counts(fa, pa, ro, pk)
+        prefill_ms = start.elapsed_time(mid)
+        decode_ms = mid.elapsed_time(end) / steps
+        names = ("flash_attention", "paged_attention", "rglru_scan",
+                 ("gemm", "nvjet", "cutlass", "xmma"), "double")
+        p_wall, p_busy, p_k = profile_kernels(prefill, names)
+        cache0 = cache
+
+        def one_step():
+            zoo.decode_fn(model, {k: (v.clone() if torch.is_tensor(v) else
+                                      {kk: vv.clone() for kk, vv in v.items()})
+                                  for k, v in cache0.items()}, tok, c)
+        d_wall, d_busy, d_k = profile_kernels(one_step, names)
+        print(f"  {label}: prefill B{batch['tokens'].shape[0]} x "
+              f"{batch['tokens'].shape[1]} {prefill_ms:.2f} ms, decode "
+              f"{decode_ms:.3f} ms a step (CUDA events); peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+              f"launches {counts}", flush=True)
+        print(f"    profiled prefill: {p_wall:.2f} ms wall, device busy "
+              f"{p_busy} ms; flash {p_k['flash_attention']:.3f} ms "
+              f"({share(p_k['flash_attention'], p_busy)}), rglru_scan "
+              f"{p_k['rglru_scan']:.3f} ms ({share(p_k['rglru_scan'], p_busy)}),"
+              f" GEMMs {p_k['gemm']:.2f} ms ({share(p_k['gemm'], p_busy)}), "
+              f"f64 kernels {p_k['double']:.2f} ms", flush=True)
+        check(not p_k["double"], f"{label}: the prefill ran f64 kernels "
+                                 f"(the plain versions' arithmetic)")
+        print(f"    profiled decode step (cache copy included): "
+              f"{d_wall:.2f} ms wall, device busy {d_busy} ms "
+              f"({share(d_busy, d_wall)} of the wall); decode kernel "
+              f"{d_k['paged_attention']:.3f} ms, rglru_scan "
+              f"{d_k['rglru_scan']:.3f} ms, GEMMs {d_k['gemm']:.2f} ms",
+              flush=True)
+        row = {"prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+               "prefill_device_ms": p_busy, "decode_device_ms": d_busy,
+               "prefill_kernel_ms": {k: p_k[k] for k in names[:3]},
+               "decode_kernel_ms": {k: d_k[k] for k in names[:3]},
+               "prefill_gemm_ms": p_k["gemm"], "decode_gemm_ms": d_k["gemm"],
+               "prefill_f64_ms": p_k["double"],
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": counts}
+        result["runs"][label + " serving"] = row
+        del cache, cache0
+        return row
+
+    def full_batch(c, spec, seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        batch = {"tokens": torch.randint(0, c.vocab_size, (spec["batch"],
+                                                           spec["prompt"]),
+                                         generator=g, device=dev)}
+        if spec.get("patches"):
+            batch["prefix_embeds"] = torch.randn(
+                (spec["batch"], spec["patches"], c.d_model), generator=g,
+                device=dev).to(torch.bfloat16)
+        dec = torch.randint(0, c.vocab_size, (spec["steps"], spec["batch"]),
+                            generator=g, device=dev)
+        return batch, dec
+
+    # --- phase 20: recurrentgemma-2b -------------------------------------
+    print("\nphase 20: recurrentgemma-2b at published widths", flush=True)
+    model, c, counts = golden_run("recurrentgemma-2b")
+    n_attn = lm.layer_types(c).count("attn")
+    n_rec = c.n_layers - n_attn
+    steps = gold["recurrentgemma-2b"]["spec"]["steps"]
+    check(counts["flash"] == n_attn and counts["decode"] == n_attn * steps
+          and counts["rglru"] == n_rec * (1 + steps),
+          f"recurrentgemma golden run launches {counts}")
+    del model
+    cfg = get("recurrentgemma-2b")
+    t0 = time.time()
+    tree = golden_mod.golden_weights(zoo.model_defs(cfg), 23, dev)
+    model = lm.LM(cfg, tree)
+    del tree
+    batch, dec = full_batch(cfg, ZOO_FULL, ZOO_FULL["seed"])
+    max_len = ZOO_FULL["prompt"] + ZOO_FULL["steps"]
+    counts = plain_run(f"recurrentgemma-2b full depth ({cfg.n_layers} "
+                       f"layers)", model, cfg, batch, dec, max_len,
+                       ZOO_FULL["steps"], ZOO_ULPS)
+    print(f"  full depth: {time.time() - t0:.1f} s", flush=True)
+    g = torch.Generator(device=dev)
+    g.manual_seed(20)
+    tokens = torch.randint(0, cfg.vocab_size, (RG_SERVE["batch"],
+                                               RG_SERVE["prompt"]),
+                           generator=g, device=dev)
+    rg_serve = serve_timed("recurrentgemma-2b", model, cfg,
+                           {"tokens": tokens},
+                           RG_SERVE["prompt"] + RG_SERVE["steps"],
+                           RG_SERVE["steps"])
+    n_attn = lm.layer_types(cfg).count("attn")
+    n_rec = cfg.n_layers - n_attn
+    check(rg_serve["launches"]["flash"] == n_attn
+          and rg_serve["launches"]["decode"] == n_attn * RG_SERVE["steps"]
+          and rg_serve["launches"]["rglru"] == n_rec * (1 + RG_SERVE["steps"]),
+          f"recurrentgemma serving launches {rg_serve['launches']}")
+    del model
+    torch.cuda.empty_cache()
+
+    # --- phase 21: the MoE family ----------------------------------------
+    print("\nphase 21: the MoE family at published widths", flush=True)
+    model, c, counts = golden_run("phi3.5-moe-42b-a6.6b")
+    spec = gold["phi3.5-moe-42b-a6.6b"]["spec"]
+    check(counts["flash"] == c.n_layers
+          and counts["decode"] == c.n_layers * spec["steps"],
+          f"phi3.5-moe launches {counts}")
+    moe_serve = serve_timed(f"phi3.5-moe-42b-a6.6b ({c.n_layers} layers)",
+                            model, c,
+                            golden_mod.zoo_inputs(c, spec, dev)[0],
+                            spec["max_len"], spec["steps"])
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    model, c, batch, dec = zoo_golden_model(golden_mod, lm, zoo,
+                                            get(MIXTRAL_CUT["config"]),
+                                            MIXTRAL_CUT, dev)
+    plain_run(f"mixtral-8x22b (first {c.n_layers} layers)", model, c, batch,
+              dec, MIXTRAL_CUT["max_len"], MIXTRAL_CUT["steps"], ZOO_ULPS,
+              moe=True)
+    serve_timed(f"mixtral-8x22b (first {c.n_layers} layers)", model, c,
+                batch, MIXTRAL_CUT["max_len"], MIXTRAL_CUT["steps"])
+    print(f"  mixtral: {time.time() - t0:.1f} s", flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    # --- phase 22: whisper-small -----------------------------------------
+    print("\nphase 22: whisper-small at full depth", flush=True)
+    model, c, counts = golden_run("whisper-small")
+    spec = gold["whisper-small"]["spec"]
+    check(counts["flash"] == c.n_enc_layers + 2 * c.n_layers
+          and counts["decode"] == 2 * c.n_layers * spec["steps"],
+          f"whisper launches {counts}")
+    wh_serve = serve_timed("whisper-small", model, c,
+                           golden_mod.zoo_inputs(c, spec, dev)[0],
+                           spec["max_len"], spec["steps"])
+    del model
+
+    # --- phase 23: the dense gaps ----------------------------------------
+    print("\nphase 23: granite-34b, pixtral-12b and phi3-medium-14b",
+          flush=True)
+    for name in ("granite-34b", "pixtral-12b", "phi3-medium-14b"):
+        model, c, counts = golden_run(name)
+        spec = gold[name]["spec"]
+        check(counts["flash"] == c.n_layers
+              and counts["decode"] == c.n_layers * spec["steps"],
+              f"{name} launches {counts}")
+        del model
+        torch.cuda.empty_cache()
+    dense_serve = {}
+    for name, spec in DENSE_SERVE.items():
+        cfg = get(name)
+        t0 = time.time()
+        tree = golden_mod.golden_weights(zoo.model_defs(cfg), spec["seed"],
+                                         dev)
+        model = lm.LM(cfg, tree)
+        del tree
+        batch, _ = full_batch(cfg, spec, spec["seed"])
+        P = spec.get("patches", 0)
+        dense_serve[name] = serve_timed(
+            f"{name} full depth ({cfg.n_layers} layers, "
+            f"{sum(p.numel() for p in model.parameters()) / 1e9:.1f} G "
+            f"parameters)", model, cfg, batch, P + spec["prompt"]
+            + spec["steps"], spec["steps"])
+        check(dense_serve[name]["launches"]["flash"] == cfg.n_layers,
+              f"{name} serving launches {dense_serve[name]['launches']}")
+        print(f"  {name}: {time.time() - t0:.1f} s with its weights",
+              flush=True)
+        del model
+        torch.cuda.empty_cache()
+    print(f"  card: {smi}", flush=True)
+    scan = kern["scan"][0]
+    result["rglru_row"] = {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+        "replaces": "none: src/repro/models/rglru.py:76 is an XLA scan",
+        "launches": rg_serve["launches"]["rglru"],
+        "max_abs_err": 0.0 if all(x["mismatches"] == 0
+                                  for x in kern["scan"]) else None,
+        "ms": scan["ms"], "plain_ms": scan["plain_ms"],
+        "bound_ms": scan["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "shape": scan["shape"],
+        "full": kern["scan"][1:], "ptxas": kern["ptxas"].get(
+            "rglru_scan_kernel"),
+        "prefill_kernel_ms": rg_serve["prefill_kernel_ms"]["rglru_scan"],
+        "serving": rg_serve}
+    result["serving"] = {"recurrentgemma-2b": rg_serve,
+                         "phi3.5-moe-42b-a6.6b": moe_serve,
+                         "whisper-small": wh_serve, **dense_serve}
+    return result
 
 
 # --------------------------------------------------------------------------
@@ -2930,6 +3693,27 @@ def driver_phase(sim, traces, golden_mod, kernel, device="cuda") -> dict:
                           for n, a in outs["megasweep"]["arms"].items()}}
 
 
+def add_zoo_rows(lm_rows: list, zoo_rows: dict) -> None:
+    """Phases 19-23's numbers into the flash and decode rows of the kernel
+    line (``zoo``: their phase-19 shapes; ``launches_zoo``: the serving
+    runs' launches)."""
+    flash, dec = lm_rows
+    flash["zoo"] = zoo_rows["kernels"]["flash"]
+    dec["zoo"] = zoo_rows["kernels"]["decode"]
+    flash["ptxas_hd256"] = {k: v for k, v in zoo_rows["kernels"]["ptxas"]
+                            .items() if k.startswith("flash")}
+    dec["ptxas_hd256"] = {k: v for k, v in zoo_rows["kernels"]["ptxas"]
+                          .items() if k.startswith("paged")}
+    for row, key in ((flash, "flash"), (dec, "decode")):
+        row["launches_zoo"] = {name: run["launches"][key] for name, run in
+                               zoo_rows["serving"].items()}
+    flash["max_abs_err"] = max(flash["max_abs_err"],
+                               zoo_rows["kernels"]["max_abs_err"]["flash"])
+    dec["max_abs_err"] = max(dec["max_abs_err"],
+                             zoo_rows["kernels"]["max_abs_err"]["decode"])
+    flash["zoo_runs"] = zoo_rows["runs"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2949,6 +3733,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.paged_attention import kernel as pk
     from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.rglru_scan import kernel as rk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2962,14 +3747,14 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
-    # the five libraries build at once, one nvcc each
+    # the six libraries build at once, one nvcc each
     t0 = time.time()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         libs = list(pool.map(lambda f: f(), (kernel.library, hk.library,
                                               fk.library, pk.library,
-                                              sk.library)))
+                                              sk.library, rk.library)))
     print(f"sim_step + hcrac + flash_attention + paged_attention + ssm_scan "
-          f"build+load: {time.time() - t0:.1f} s "
+          f"+ rglru_scan build+load: {time.time() - t0:.1f} s "
           f"({', '.join(b._name for b in libs)})")
     sim_log = Path(libs[0]._name).with_suffix(".log")
     regs = ptxas_report(sim_log.read_text() if sim_log.exists() else "")
@@ -3215,6 +4000,8 @@ def main() -> int:
     for row, key in ((serve_rows[0], "hcrac"), (serve_rows[1], "sim_serve")):
         row["launches"] += p18[key]
         row["launches_phase18"] = p18[key]
+    zoo_rows = zoo_phases(golden_mod, smi)
+    add_zoo_rows(lm_rows, zoo_rows)
     print(f"\nchip_smoke total: {time.time() - t_start:.1f} s")
     print(smi)
 
@@ -3267,7 +4054,8 @@ def main() -> int:
         "spill_bytes": sum(regs.get("sim_synth_kernel", {}).get(k, 0)
                            for k in ("spill_stores", "spill_loads")),
         "bound_ms": bound32, "bound_by": "bytes", "library_ms": None},
-        *serve_rows, *lm_rows, ssm_row, window_row]}))
+        *serve_rows, *lm_rows, ssm_row, window_row,
+        zoo_rows["rglru_row"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

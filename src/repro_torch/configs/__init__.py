@@ -1,9 +1,8 @@
 """Per-architecture model configs of the assigned pool, and the paper's
 own DDR3 system configs (port of ``repro.configs``).
 
-``get(name)`` returns the ModelConfig; ``ALL_ARCHS`` lists the assigned ten.
-The ``dense`` and ``ssm`` families run in the port so far
-(``repro_torch.models.lm``, ``models.ssm``); the others are data here.
+``get(name)`` returns the ModelConfig; ``ALL_ARCHS`` lists the assigned ten,
+every one served by ``repro_torch.models.zoo``.
 ``chargecache_ddr3`` (thesis Table 5.1) and ``aldram_ddr3`` (its AL-DRAM
 evaluation) hold ``SIM_CONFIG`` / ``MECHANISMS`` (and ``TEMPERATURES``)
 for the simulator; they are not model archs and stay out of

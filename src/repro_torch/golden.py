@@ -8,7 +8,11 @@ point's drawn arrival counts, for dense-LM serving (``LM``:
 tinyllama-1.1b at its published widths, prefill then teacher-forced
 decode), recorded in ``data/golden_lm.json``, and for SSM serving
 (``LM_SSM``: falcon-mamba-7b likewise), recorded in
-``data/golden_lm_ssm.json`` (all written by ``tests/_torch_golden.py``).
+``data/golden_lm_ssm.json``, and for the rest of the model zoo
+(``LM_ZOO``: recurrentgemma-2b, whisper-small, phi3.5-moe,
+granite-34b, pixtral-12b and phi3-medium-14b at published widths, most
+cut in depth), recorded in ``data/golden_lm_zoo.json`` with the MoE
+layer's expert choices (all written by ``tests/_torch_golden.py``).
 
 This module names the workloads, rebuilds their traces with either
 package's ``traces`` module (``build_batch``), and loads the traces the
@@ -296,24 +300,35 @@ def golden_leaf(path: str, d, seed: int, device="cpu", out=None):
     import math
 
     import torch
-
-    from repro_torch.models.params import path_id
-    from repro_torch.workloads import prng
     if out is None:
         out = torch.empty(d.shape, dtype=torch.bfloat16, device=device)
     if d.init in ("zeros", "ones"):
         return out.fill_(0.0 if d.init == "zeros" else 1.0)
     n = math.prod(d.shape)
     flat = out.view(n)
-    c = torch.tensor(math.sqrt(3.0) * d.std, dtype=torch.float32,
-                     device=out.device)
-    pid = path_id(path)
     for i0 in range(0, n, _CHUNK):
         idx = torch.arange(i0, min(n, i0 + _CHUNK), dtype=torch.int64,
                            device=out.device)
-        u = prng.uniform(seed, pid, idx)
-        flat[i0:i0 + idx.numel()] = ((u * 2 - 1) * c).to(torch.bfloat16)
+        flat[i0:i0 + idx.numel()] = _leaf_values(path, d, seed, idx)
     return out
+
+
+def _leaf_values(path: str, d, seed: int, idx):
+    """Elements ``idx`` (flat) of the golden value of ParamDef ``d`` at
+    ``path``, bf16 (``golden_weights``' draw)."""
+    import math
+
+    import torch
+
+    from repro_torch.models.params import path_id
+    from repro_torch.workloads import prng
+    if d.init in ("zeros", "ones"):
+        return torch.full(idx.shape, 0.0 if d.init == "zeros" else 1.0,
+                          dtype=torch.bfloat16, device=idx.device)
+    c = torch.tensor(math.sqrt(3.0) * d.std, dtype=torch.float32,
+                     device=idx.device)
+    u = prng.uniform(seed, path_id(path), idx)
+    return ((u * 2 - 1) * c).to(torch.bfloat16)
 
 
 def golden_weights(defs, seed: int, device="cpu"):
@@ -344,6 +359,26 @@ def weights_digest(tree) -> str:
         h.update(f"{path}:{tuple(t.shape)}".encode())
         for part in (flat[:4096], flat[-4096:]):
             h.update(part.to(torch.bfloat16).view(torch.int16).cpu()
+                     .numpy().tobytes())
+    return h.hexdigest()
+
+
+def defs_digest(defs, seed: int) -> str:
+    """``weights_digest(golden_weights(defs, seed))`` without building the
+    weights: only the first and last 4 096 elements of each leaf are
+    drawn."""
+    import math
+
+    import torch
+
+    from repro_torch.models.params import leaf_paths
+    h = hashlib.sha256()
+    for path, d in leaf_paths(defs):
+        n = math.prod(d.shape)
+        h.update(f"{path}:{tuple(d.shape)}".encode())
+        for lo, hi in ((0, min(n, 4096)), (max(0, n - 4096), n)):
+            idx = torch.arange(lo, hi, dtype=torch.int64)
+            h.update(_leaf_values(path, d, seed, idx).view(torch.int16)
                      .numpy().tobytes())
     return h.hexdigest()
 
@@ -398,3 +433,157 @@ LM_SSM_PATH = DATA / "golden_lm_ssm.json"
 #: chaotic: rounding moves the full-depth logits by ~1)
 LM_SSM = {"config": "falcon-mamba-7b", "batch": 2, "prompt": 300,
           "steps": 8, "seed": 15, "top_k": 8, "cut_layers": 2}
+
+
+LM_ZOO_PATH = DATA / "golden_lm_zoo.json"
+
+#: the rest of the model zoo at published widths: ``repro``'s
+#: ``prefill_fn`` (blocked attention) on ``batch`` rows of ``prompt``
+#: tokens (after ``patches`` stub patch embeddings; with ``frames`` stub
+#: encoder frames), cache ``max_len``, then ``steps`` teacher-forced
+#: ``decode_fn`` steps, weights from ``golden_weights`` and inputs
+#: counter-based, each model cut to its first ``cut_layers`` layers
+#: (None: full depth).  The cuts keep each run's footprint on the CPU that
+#: records it near 10 GB: recurrentgemma-2b to one rec, rec, attn period,
+#: at a prompt past its 2 048-token window (its ring wraps); phi3.5-moe
+#: to 2 layers at one row, so that the first MoE layer's output for every
+#: prompt token reaches the compared logits through the second layer's
+#: attention; granite-34b and pixtral-12b (whose 1.3 G embedding and
+#: head parameters dominate) to 2 layers, phi3-medium-14b to 4.
+#: mixtral-8x22b has no entry: one of its layers holds 2.4 G parameters,
+#: and ``repro`` on the CPU would need ~18 GB for it.
+LM_ZOO = {
+    "recurrentgemma-2b": {"config": "recurrentgemma-2b", "cut_layers": 3,
+                          "batch": 1, "prompt": 2100, "max_len": 2116,
+                          "steps": 8, "seed": 23, "top_k": 8},
+    "whisper-small": {"config": "whisper-small", "cut_layers": None,
+                      "batch": 2, "prompt": 64, "frames": 1500,
+                      "max_len": 80, "steps": 8, "seed": 24, "top_k": 8},
+    "phi3.5-moe-42b-a6.6b": {"config": "phi3.5-moe-42b-a6.6b",
+                             "cut_layers": 2, "batch": 1, "prompt": 300,
+                             "max_len": 308, "steps": 8, "seed": 26,
+                             "top_k": 8},
+    "granite-34b": {"config": "granite-34b", "cut_layers": 2, "batch": 2,
+                    "prompt": 300, "max_len": 308, "steps": 8, "seed": 27,
+                    "top_k": 8},
+    "pixtral-12b": {"config": "pixtral-12b", "cut_layers": 2, "batch": 2,
+                    "prompt": 300, "patches": 256, "max_len": 564,
+                    "steps": 8, "seed": 28, "top_k": 8},
+    "phi3-medium-14b": {"config": "phi3-medium-14b", "cut_layers": 4,
+                        "batch": 2, "prompt": 300, "max_len": 308,
+                        "steps": 8, "seed": 29, "top_k": 8},
+}
+
+#: lanes of the counter-based stub frames and patch embeddings
+_LANE_FRAMES = 0x6672_616D
+_LANE_PATCHES = 0x7061_7463
+#: how far the port's router logits (bf16) may lie from ``repro``'s on
+#: the same golden weights and inputs, in bf16 ulps at the magnitude of
+#: the token's largest logit: the two round sums of other orders, over
+#: inputs that differ by the upstream layers' rounding.  Measured: 3 for
+#: phi3.5-moe's 2 layers against ``repro``, on the CPU
+#: (``tests/_torch_golden.py lm_zoo --port``) and on the H100
+#: (chip_smoke phase 21); 4 for mixtral's 2 layers against its plain
+#: kernels on the H100
+ROUTE_LOGIT_ULPS = 4
+#: a MoE token is near a tie when two of its first ``top_k + 1`` sorted
+#: router logits lie within this many bf16 ulps (at the token's largest
+#: logit) of each other: two logits that each move by
+#: ``ROUTE_LOGIT_ULPS`` can swap them
+ROUTE_NEAR_TIE_ULPS = 2 * ROUTE_LOGIT_ULPS
+
+
+def zoo_config(cfg, spec: dict):
+    """``cfg`` cut to ``spec``'s ``cut_layers`` (unchanged at None)."""
+    import dataclasses
+    n = spec.get("cut_layers")
+    return cfg if n is None else dataclasses.replace(cfg, n_layers=n)
+
+
+def _embeds(seed: int, lane: int, shape, device):
+    """Counter-based bf16 values of unit variance: ``(2 u - 1) sqrt(3)``."""
+    import math
+
+    import torch
+
+    from repro_torch.workloads import prng
+    n = math.prod(shape)
+    u = prng.uniform(seed, lane, torch.arange(n, dtype=torch.int64,
+                                              device=device))
+    return ((u * 2 - 1) * math.sqrt(3.0)).to(torch.bfloat16).view(shape)
+
+
+def zoo_inputs(cfg, spec: dict, device="cpu") -> tuple[dict, object]:
+    """``(prefill batch, decode tokens [steps, batch])`` of a ``LM_ZOO``
+    entry on ``device``: counter-based token ids (``lm_tokens``), and the
+    stub encoder ``frames`` [B, frames, d] or ``prefix_embeds`` [B,
+    patches, d] (bf16) where the entry has them."""
+    prompt, dec = lm_tokens(cfg.vocab_size, device, spec)
+    batch = {"tokens": prompt}
+    B, d = spec["batch"], cfg.d_model
+    if spec.get("frames"):
+        batch["frames"] = _embeds(spec["seed"], _LANE_FRAMES,
+                                  (B, spec["frames"], d), device)
+    if spec.get("patches"):
+        batch["prefix_embeds"] = _embeds(spec["seed"], _LANE_PATCHES,
+                                         (B, spec["patches"], d), device)
+    return batch, dec
+
+
+def inputs_digest(batch: dict, dec) -> str:
+    """sha256 of the token ids (int32) and the stub embeddings' bf16
+    bits, in key order."""
+    import torch
+    h = hashlib.sha256(tokens_digest(batch["tokens"], dec).encode())
+    for key in sorted(batch):
+        if key != "tokens":
+            h.update(key.encode())
+            h.update(batch[key].to(torch.bfloat16).view(torch.int16).cpu()
+                     .numpy().tobytes())
+    return h.hexdigest()
+
+
+def _token_ulp(logits):
+    """[..., 1] the bf16 ulp at each token's largest |router logit|."""
+    import torch
+    top = torch.as_tensor(logits).float().abs().amax(-1, keepdim=True)
+    return torch.exp2(torch.floor(torch.log2(top.clamp_min(2.0 ** -126)))
+                      - 7)
+
+
+def route_near_ties(logits, k: int):
+    """[...] bool: the tokens of router ``logits`` [..., E] (f32) whose
+    first ``k + 1`` sorted values hold a gap within
+    ``ROUTE_NEAR_TIE_ULPS`` bf16 ulps at the token's largest logit."""
+    import torch
+    lg = torch.as_tensor(logits).float()
+    s = torch.sort(lg, -1, descending=True).values[..., :k + 1]
+    gaps = s[..., :-1] - s[..., 1:]
+    return (gaps <= ROUTE_NEAR_TIE_ULPS * _token_ulp(lg)).any(-1)
+
+
+def route_logit_ulps(got, want):
+    """[...] each token's largest distance of router logits ``got`` from
+    ``want`` ([..., E]), in bf16 ulps at ``want``'s largest logit."""
+    import torch
+    w = torch.as_tensor(want).float()
+    return ((torch.as_tensor(got).float() - w).abs()
+            / _token_ulp(w)).amax(-1)
+
+
+def routing_record(eidx, logits, k: int) -> dict:
+    """One MoE layer call's routing: the expert ids [B, S, k] (int),
+    their sha256 (int32 bytes), the router logits [B, S, E] (bf16 values)
+    and the near-tie tokens' flat indices."""
+    import torch
+    e = torch.as_tensor(eidx).to(torch.int32).cpu()
+    lg = torch.as_tensor(logits).float().cpu()
+    near = route_near_ties(lg, k).reshape(-1)
+    return {"digest": hashlib.sha256(e.numpy().tobytes()).hexdigest(),
+            "eidx": e.tolist(), "logits": lg.tolist(),
+            "near_ties": torch.nonzero(near).reshape(-1).tolist()}
+
+
+def load_lm_zoo() -> dict:
+    with open(LM_ZOO_PATH) as f:
+        return json.load(f)

@@ -31,19 +31,28 @@
 // row with a valid key the Pallas kernel's result does not depend on them
 // (their p is 0, or is cleared by the correction exp(-1e30 - m) = 0 once
 // a valid tile arrives); only tiles on a mask's edge evaluate the mask.
-// hd is any multiple of 8 up to 128: the kernel is built for hd rounded up
-// to 16 and loads zeros past hd.  The model's [B, S, H, hd] layout is read
-// through strides (rows 16-byte aligned).  wgmma and TMA
+// hd is any multiple of 8 up to 256: the kernel is built for hd rounded up
+// to 16 (HDP) and loads zeros past hd.  Above 128 the output's dims are
+// split over the grid's z (mma_tile::out_split): each of NZ blocks of a
+// query tile forms the whole S = Q K^T and the same online softmax, and
+// keeps P V for its own DV <= 128 output dims only, so a thread holds
+// HDP / 4 Q registers and DV / 2 accumulators (64 + 64 at hd 256) where
+// one block owning all dims would need 64 + 128.  The QK^T products are
+// made twice; the blocks share nothing, so nothing waits.  A stage of the
+// ring holds the K tile at HDP dims and the V tile at DV dims (100 KB of
+// dynamic shared memory at hd 256).  The model's [B, S, H, hd] layout is
+// read through strides (rows 16-byte aligned).  wgmma and TMA
 // (FlashAttention-3's shape) are the next step.
 //
 // f32 inputs keep the CUDA-core kernel (flash_attention_kernel): R = HDP
-// / 32 threads share one query row (HDP = hd rounded up to 32, 64 or
-// 128), each owning 32 of its dims as 8 float4 groups, dims 4 * (c + R *
+// / 32 threads share one query row (HDP = hd rounded up to 32, 64, 128 or
+// 256), each owning 32 of its dims as 8 float4 groups, dims 4 * (c + R *
 // i) + t for lane c of the row, so the R lanes read neighbouring 16-byte
 // words of a shared-memory row.  The query rows and the running m, l and
 // acc live in registers.  K and V tiles of 32 keys are staged in shared
-// memory as f32 (8 loads a thread in flight before any store).  A
-// tile's 32 scores are formed first (an R-lane shuffle sum per key),
+// memory as f32 (8 loads a thread in flight before any store; 16 keys a
+// tile at HDP 256, so that the two tiles stay within 48 KB).  A
+// tile's scores are formed first (an R-lane shuffle sum per key),
 // then the tile max, the correction and the p * V update, with the same
 // tile skipping.
 //
@@ -63,6 +72,13 @@ constexpr float NEG_INF = -1e30f;
 constexpr int THREADS = 128;
 constexpr int BKV = 32;
 constexpr int LOADS = 8;
+
+// keys a tile of the f32 kernel: 32, or 16 at HDP 256 (2 x 32 KB of f32
+// K and V tiles)
+template <int HDP>
+__host__ __device__ constexpr int f32_tile_keys() {
+  return HDP > 128 ? BKV / 2 : BKV;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 template <typename T>
@@ -86,8 +102,9 @@ __global__ void __launch_bounds__(THREADS)
   constexpr int R = HDP / 32;       // threads per query row
   constexpr int BQ = THREADS / R;   // query rows per block
   constexpr int NG = 8;             // float4 groups per thread
-  __shared__ __align__(16) float kt[BKV * HDP];
-  __shared__ __align__(16) float vt[BKV * HDP];
+  constexpr int TK = f32_tile_keys<HDP>();
+  __shared__ __align__(16) float kt[TK * HDP];
+  __shared__ __align__(16) float vt[TK * HDP];
 
   const int tid = threadIdx.x;
   const int c = tid % R;
@@ -114,28 +131,28 @@ __global__ void __launch_bounds__(THREADS)
   // keys past the block's last query row are all masked (causal), keys
   // at or before its first row minus the window too
   const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
-  const int kv_start = window ? (max(0, q0 - window + 1) / BKV) * BKV : 0;
+  const int kv_start = window ? (max(0, q0 - window + 1) / TK) * TK : 0;
   const T* kb = k + b * ks.b + kh * ks.h;
   const T* vb = v + b * vs.b + kh * vs.h;
 
-  for (int t0 = kv_start; t0 < kv_end; t0 += BKV) {
+  for (int t0 = kv_start; t0 < kv_end; t0 += TK) {
     __syncthreads();
     // LOADS elements of K and V a thread in flight before any is stored
-    for (int base = tid; base < BKV * HDP; base += LOADS * THREADS) {
+    for (int base = tid; base < TK * HDP; base += LOADS * THREADS) {
       float kx[LOADS], vx[LOADS];
 #pragma unroll
       for (int u = 0; u < LOADS; ++u) {
         const int idx = base + u * THREADS;
         const int j = t0 + idx / HDP;
         const int d = idx % HDP;
-        const bool in = idx < BKV * HDP && j < Skv && d < hd;
+        const bool in = idx < TK * HDP && j < Skv && d < hd;
         kx[u] = in ? to_f32(kb[(long long)j * ks.s + d]) : 0.f;
         vx[u] = in ? to_f32(vb[(long long)j * vs.s + d]) : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < LOADS; ++u) {
         const int idx = base + u * THREADS;
-        if (idx < BKV * HDP) {
+        if (idx < TK * HDP) {
           kt[idx] = kx[u];
           vt[idx] = vx[u];
         }
@@ -143,10 +160,10 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();
 
-    float s[BKV];
+    float s[TK];
     float mt = NEG_INF;
 #pragma unroll
-    for (int j = 0; j < BKV; ++j) {
+    for (int j = 0; j < TK; ++j) {
       const float4* kr = reinterpret_cast<const float4*>(kt + j * HDP);
       float dot = 0.f;
 #pragma unroll
@@ -171,7 +188,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int i = 0; i < 4 * NG; ++i) acc[i] *= corr;
 #pragma unroll
-    for (int j = 0; j < BKV; ++j) {
+    for (int j = 0; j < TK; ++j) {
       const float p = expf(s[j] - m_new);
       l += p;
       const float4* vr = reinterpret_cast<const float4*>(vt + j * HDP);
@@ -225,7 +242,10 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
   if (hd <= 64)
     return launch<T, 64>(q, k, v, o, B, S, Skv, H, K, hd, qs, ks, vs, os,
                          causal, window, scale, stream);
-  return launch<T, 128>(q, k, v, o, B, S, Skv, H, K, hd, qs, ks, vs, os,
+  if (hd <= 128)
+    return launch<T, 128>(q, k, v, o, B, S, Skv, H, K, hd, qs, ks, vs, os,
+                          causal, window, scale, stream);
+  return launch<T, 256>(q, k, v, o, B, S, Skv, H, K, hd, qs, ks, vs, os,
                         causal, window, scale, stream);
 }
 
@@ -239,24 +259,33 @@ constexpr int MMA_THREADS = 32 * MMA_WARPS;
 constexpr int MMA_BQ = 16 * MMA_WARPS;  // query rows a block
 constexpr int MMA_BKV = mma_tile::TILE_KEYS;
 
+// bf16 elements of one stage of the K / V ring: the K tile at HDP dims,
+// the V tile at the block's DV output dims
+template <int HDP>
+__host__ __device__ constexpr int stage_elems() {
+  return mma_tile::tile_elems<HDP>() +
+         mma_tile::tile_elems<mma_tile::out_dims<HDP>()>();
+}
+
 // shared memory of the two-stage K / V ring, in bytes
 template <int HDP>
 constexpr int mma_smem_bytes() {
-  return 2 * 2 * mma_tile::tile_elems<HDP>() * (int)sizeof(bf16);
+  return 2 * stage_elems<HDP>() * (int)sizeof(bf16);
 }
 
-// one 64-key tile of K and V into a stage of the ring (keys past Skv
-// zero-filled) as one cp.async group
+// one 64-key tile of K (all dims) and of V (the DV dims from d0) into a
+// stage of the ring (keys past Skv zero-filled) as one cp.async group
 template <int HDP>
 __device__ __forceinline__ void load_kv(bf16* stage, const bf16* kb,
                                         const bf16* vb, long long kss,
                                         long long vss, int t0, int Skv,
-                                        int hd, int tid) {
+                                        int hd, int d0, int tid) {
+  constexpr int DV = mma_tile::out_dims<HDP>();
   mma_tile::load_tile<HDP, MMA_THREADS>(stage, kb + t0 * kss, kss,
                                         Skv - t0, hd, tid);
-  mma_tile::load_tile<HDP, MMA_THREADS>(
-      stage + mma_tile::tile_elems<HDP>(), vb + t0 * vss, vss, Skv - t0, hd,
-      tid);
+  mma_tile::load_tile<DV, MMA_THREADS>(
+      stage + mma_tile::tile_elems<HDP>(), vb + t0 * vss + d0, vss,
+      Skv - t0, hd - d0, tid);
   mma_tile::cp_async_commit();
 }
 
@@ -270,8 +299,11 @@ __global__ void __launch_bounds__(MMA_THREADS)
                                Strides vs, Strides os, int causal,
                                int window, float scale_log2) {
   constexpr int TILE = mma_tile::tile_elems<HDP>();
+  constexpr int STAGE = stage_elems<HDP>();
+  constexpr int DV = mma_tile::out_dims<HDP>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [2][K tile, V tile]
+  const int d0 = blockIdx.z * DV;  // this block's output dims d0 + [0, DV)
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -282,9 +314,9 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const mma_tile::QRegs<HDP> qa(
       q + b * qs.b + h * qs.h + (long long)q0 * qs.s, qs.s, warp * 16 + g,
       S - q0, hd, t);
-  float oacc[HDP / 8][4];
+  float oacc[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < HDP / 8; ++n)
+  for (int n = 0; n < DV / 8; ++n)
     oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
   // running max (log2 units) and this lane's part of the sum, rows r0, r1
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
@@ -298,13 +330,13 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const bf16* kb = k + b * ks.b + kh * ks.h;
   const bf16* vb = v + b * vs.b + kh * vs.h;
 
-  load_kv<HDP>(ring, kb, vb, ks.s, vs.s, kv_start, Skv, hd, tid);
+  load_kv<HDP>(ring, kb, vb, ks.s, vs.s, kv_start, Skv, hd, d0, tid);
   for (int it = 0; it < n_tiles; ++it) {
     const int t0 = kv_start + it * MMA_BKV;
-    const bf16* kt = ring + (it & 1) * 2 * TILE;
+    const bf16* kt = ring + (it & 1) * STAGE;
     if (it + 1 < n_tiles) {  // the next tile's copy runs under this one
-      load_kv<HDP>(ring + ((it + 1) & 1) * 2 * TILE, kb, vb, ks.s, vs.s,
-                   t0 + MMA_BKV, Skv, hd, tid);
+      load_kv<HDP>(ring + ((it + 1) & 1) * STAGE, kb, vb, ks.s, vs.s,
+                   t0 + MMA_BKV, Skv, hd, d0, tid);
       mma_tile::cp_async_wait<1>();
     } else {
       mma_tile::cp_async_wait<0>();
@@ -333,8 +365,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
         sc[n][e] = x;
       }
     }
-    mma_tile::softmax_pv_tile<HDP>(sc, m0, m1, l0, l1, oacc, kt + TILE,
-                                   lane);
+    mma_tile::softmax_pv_tile<DV>(sc, m0, m1, l0, l1, oacc, kt + TILE,
+                                  lane);
     __syncthreads();  // the stage is refilled at the next iteration
   }
 
@@ -342,8 +374,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const float inv1 = 1.f / fmaxf(mma_tile::quad_sum(l1), 1e-30f);
   bf16* ob = o + b * os.b + h * os.h;
 #pragma unroll
-  for (int n = 0; n < HDP / 8; ++n) {
-    const int d = 8 * n + 2 * t;
+  for (int n = 0; n < DV / 8; ++n) {
+    const int d = d0 + 8 * n + 2 * t;
     if (d >= hd) continue;
     if (r0 < S)
       *reinterpret_cast<__nv_bfloat162*>(ob + r0 * os.s + d) =
@@ -366,7 +398,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((S + MMA_BQ - 1) / MMA_BQ, B * H);
+  const dim3 grid((S + MMA_BQ - 1) / MMA_BQ, B * H,
+                  mma_tile::out_split<HDP>());
   flash_attention_mma_kernel<HDP><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), S, Skv, H, K, hd,
@@ -391,6 +424,14 @@ int launch_mma_hd(int hd, const void* q, const void* k, const void* v,
     FLASH_MMA_CASE(6)
     FLASH_MMA_CASE(7)
     FLASH_MMA_CASE(8)
+    FLASH_MMA_CASE(9)
+    FLASH_MMA_CASE(10)
+    FLASH_MMA_CASE(11)
+    FLASH_MMA_CASE(12)
+    FLASH_MMA_CASE(13)
+    FLASH_MMA_CASE(14)
+    FLASH_MMA_CASE(15)
+    FLASH_MMA_CASE(16)
   }
 #undef FLASH_MMA_CASE
   return (int)cudaErrorInvalidValue;
@@ -424,7 +465,7 @@ int flash_attention_launch(int dtype, int B, int S, int Skv, int H, int K,
                            long long oss, long long osh, int causal,
                            int window, float scale, void* stream) {
   if (B <= 0 || S <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || hd <= 0 ||
-      hd > 128 || B * H > 65535)
+      hd > 256 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
       os{osb, oss, osh};

@@ -4,9 +4,11 @@
 Replaces ``repro/kernels/flash_attention/kernel.py::flash_attention_kernel``.
 The kernel reads the model's ``[B, S, H, hd]`` / ``[B, Skv, K, hd]``
 layout through strides (no transposed or padded copy) and writes a new
-``[B, S, H, hd]`` tensor; ``hd <= 128``.  bf16 runs on the tensor cores
-(``mma.sync``) and needs 16-byte rows (``hd`` and every stride a
-multiple of 8, 16-byte aligned data), f32 on the CUDA cores.  The library
+``[B, S, H, hd]`` tensor; ``hd <= 256`` (above 128 each query tile's
+output dims are split over two blocks, ``mma_tile.cuh::out_split``).
+bf16 runs on the tensor cores (``mma.sync``) and needs 16-byte rows
+(``hd`` and every stride a multiple of 8, 16-byte aligned data), f32 on
+the CUDA cores.  The library
 is built on first use (``repro_torch._build``) and launched through
 ``ctypes`` on PyTorch's current stream.
 """
@@ -28,7 +30,7 @@ __all__ = ["DTYPES", "MAX_HD", "MMA_ENTRY", "library", "rows_aligned",
 #: input dtypes the kernel takes, and their codes in the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: largest head dim
-MAX_HD = 128
+MAX_HD = 256
 #: the name of the bf16 (tensor-core) kernel, as it appears in the built
 #: library's symbols and in a profiler's kernel names
 MMA_ENTRY = "flash_attention_mma_kernel"

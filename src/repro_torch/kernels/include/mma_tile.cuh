@@ -43,6 +43,22 @@ __host__ __device__ constexpr int tile_elems() {
   return TILE_KEYS * (HDP + 8);
 }
 
+// The output's dims a block keeps accumulators for: all HDP up to
+// MAX_OUT_DIMS; above it the dims are split over out_split() blocks of
+// out_dims() each (a multiple of 16), every block forming the whole Q K^T
+// and the same online softmax but P V for its own dims only.  At HDP 256
+// that is two blocks of 128 dims: 64 accumulator registers a thread
+// instead of 128.
+constexpr int MAX_OUT_DIMS = 128;
+template <int HDP>
+__host__ __device__ constexpr int out_split() {
+  return (HDP + MAX_OUT_DIMS - 1) / MAX_OUT_DIMS;
+}
+template <int HDP>
+__host__ __device__ constexpr int out_dims() {
+  return (HDP / out_split<HDP>() + 15) / 16 * 16;
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }

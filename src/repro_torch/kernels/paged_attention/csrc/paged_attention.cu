@@ -36,7 +36,11 @@
 // while the warp reads the slots' positions; then Q K^T, the online softmax and P V with
 // p = p_hi + p_lo, as the prefill kernel does (the limits hold unchanged,
 // mma_tile.cuh).  Blocks of one warp and 18-35 KB of shared memory let
-// 6-12 tiles' loads be in flight on an SM.
+// 6-12 tiles' loads be in flight on an SM.  Above hd 128 the output's
+// dims are split over the grid's z as in the prefill kernel
+// (mma_tile::out_split): at hd 256 two blocks of 128 dims each form the
+// whole Q K^T and the same softmax, each keeping P V for its dims (64
+// accumulator registers a lane, not 128); 58 KB of shared memory a block.
 //
 // f32 caches (paged_attention_kernel, on the CUDA cores): one pass over
 // the ring, with G tiled across blocks the same way and no split (no
@@ -101,6 +105,7 @@ constexpr int smem_floats(int gts) {
   return BKV * (HDP + 1) + BKV * HDP + gts * HDP;
 }
 static_assert(4 * smem_floats<128>(GT) <= 48 * 1024, "f32 shared memory");
+// HDP 256 takes up to 82 KB, as dynamic shared memory past 48 KB
 
 template <int HDP>
 __global__ void paged_attention_kernel(
@@ -220,11 +225,12 @@ __global__ void __launch_bounds__(32) paged_attention_mma_kernel(
     long long ksw, long long ksh, long long vsb, long long vsw,
     long long vsh, long long pos_sb, long long qpos_sb, int window,
     float scale_log2) {
-  constexpr int TILE = mma_tile::tile_elems<HDP>();
+  constexpr int DV = mma_tile::out_dims<HDP>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* kt = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vt = kt + TILE;
-  bf16* qt = vt + TILE;  // 16 rows
+  bf16* vt = kt + mma_tile::tile_elems<HDP>();  // the DV dims from d0
+  bf16* qt = vt + mma_tile::tile_elems<DV>();   // 16 rows
+  const int d0 = blockIdx.z * DV;  // this block's output dims d0 + [0, DV)
 
   const int lane = threadIdx.x, g = lane / 4, t = lane % 4;
   const int bk = blockIdx.x / n_gt;
@@ -235,9 +241,9 @@ __global__ void __launch_bounds__(32) paged_attention_mma_kernel(
 
   // the block's queries land with the first tile (one cp.async group)
   mma_tile::load_tile<HDP, 32, 16>(qt, q + row0 * hd, hd, gt, hd, lane);
-  float oacc[HDP / 8][4];
+  float oacc[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < HDP / 8; ++n)
+  for (int n = 0; n < DV / 8; ++n)
     oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
 
@@ -250,7 +256,8 @@ __global__ void __launch_bounds__(32) paged_attention_mma_kernel(
   for (int t0 = start; t0 < end; t0 += mma_tile::TILE_KEYS) {
     __syncwarp();  // the previous tile's readers are done
     mma_tile::load_tile<HDP, 32>(kt, kb + t0 * ksw, ksw, end - t0, hd, lane);
-    mma_tile::load_tile<HDP, 32>(vt, vb + t0 * vsw, vsw, end - t0, hd, lane);
+    mma_tile::load_tile<DV, 32>(vt, vb + t0 * vsw + d0, vsw, end - t0,
+                                hd - d0, lane);
     mma_tile::cp_async_commit();
     // this lane's 16 slots 8 n + 2 t + c: in the chunk, and valid
     uint32_t in = 0, ok = 0;
@@ -283,7 +290,7 @@ __global__ void __launch_bounds__(32) paged_attention_mma_kernel(
                                 : out_of_chunk();
       }
     }
-    mma_tile::softmax_pv_tile<HDP>(sc, m0, m1, l0, l1, oacc, vt, lane);
+    mma_tile::softmax_pv_tile<DV>(sc, m0, m1, l0, l1, oacc, vt, lane);
   }
 
   l0 = mma_tile::quad_sum(l0);
@@ -298,8 +305,8 @@ __global__ void __launch_bounds__(32) paged_attention_mma_kernel(
     if (n_split == 1) {
       const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-      for (int n = 0; n < HDP / 8; ++n) {
-        const int d = 8 * n + 2 * t;
+      for (int n = 0; n < DV / 8; ++n) {
+        const int d = d0 + 8 * n + 2 * t;
         if (d < hd)
           *reinterpret_cast<__nv_bfloat162*>(o + row * hd + d) =
               __floats2bfloat162_rn(oacc[n][2 * half] * inv,
@@ -308,13 +315,13 @@ __global__ void __launch_bounds__(32) paged_attention_mma_kernel(
     } else {
       const long long part = row * n_split + blockIdx.y;
 #pragma unroll
-      for (int n = 0; n < HDP / 8; ++n) {
-        const int d = 8 * n + 2 * t;
+      for (int n = 0; n < DV / 8; ++n) {
+        const int d = d0 + 8 * n + 2 * t;
         if (d < hd)
           *reinterpret_cast<float2*>(part_acc + part * hd + d) =
               make_float2(oacc[n][2 * half], oacc[n][2 * half + 1]);
       }
-      if (t == 0) {
+      if (t == 0 && blockIdx.z == 0) {  // every z has the same (m, l)
         part_ml[2 * part] = m;
         part_ml[2 * part + 1] = l;
       }
@@ -326,12 +333,14 @@ __global__ void __launch_bounds__(32) paged_attention_mma_kernel(
 // 1e-30), e_s = 2^(m_s - max_s m_s).  Each warp finds the max and the sum
 // (its lanes over the splits), then sums the acc of every fourth split
 // (its lanes over the dims, the splits' loads unrolled so that several are
-// in flight); the four warps' sums are added in shared memory.
+// in flight); the four warps' sums are added in shared memory.  Dims
+// lane + 32 i, i < CD (hd <= 256).
 __global__ void __launch_bounds__(THREADS) paged_attention_combine_kernel(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
     bf16* __restrict__ o, int n_split, int hd) {
   constexpr int WARPS = THREADS / 32;
-  __shared__ float red[WARPS][128];
+  constexpr int CD = 8;
+  __shared__ float red[WARPS][32 * CD];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long long row = blockIdx.x;
   const float* ml = part_ml + 2 * row * n_split;
@@ -343,22 +352,24 @@ __global__ void __launch_bounds__(THREADS) paged_attention_combine_kernel(
     l += exp2f(ml[2 * s] - m) * ml[2 * s + 1];
   l = warp_sum(l);
   const float* pa = part_acc + row * n_split * hd;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};  // dims lane + 32 * i (hd <= 128)
+  float acc[CD];
+#pragma unroll
+  for (int i = 0; i < CD; ++i) acc[i] = 0.f;
 #pragma unroll 4
   for (int s = warp; s < n_split; s += WARPS) {
     const float e = exp2f(ml[2 * s] - m);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < CD; ++i)
       if (lane + 32 * i < hd)
         acc[i] += e * pa[(long long)s * hd + lane + 32 * i];
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) red[warp][lane + 32 * i] = acc[i];
+  for (int i = 0; i < CD; ++i) red[warp][lane + 32 * i] = acc[i];
   __syncthreads();
   if (warp != 0) return;
   const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < CD; ++i) {
     const int d = lane + 32 * i;
     if (d >= hd) continue;
     float sum = 0.f;
@@ -398,6 +409,12 @@ int launched(Counter counter, int chunks = 0) {
 template <int HDP>
 int launch_f32(const Args& a, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<HDP>(a.gts);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_attention_kernel<HDP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   paged_attention_kernel<HDP><<<a.B * a.K * a.n_gt, 32 * a.gts, smem,
                                 stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.kc),
@@ -411,8 +428,16 @@ int launch_f32(const Args& a, cudaStream_t stream) {
 template <int HDP>
 int launch_mma(const Args& a, cudaStream_t stream) {
   constexpr int smem =
-      (2 * mma_tile::tile_elems<HDP>() + 16 * (HDP + 8)) * (int)sizeof(bf16);
-  const dim3 grid(a.B * a.K * a.n_gt, a.n_split);
+      (mma_tile::tile_elems<HDP>() +
+       mma_tile::tile_elems<mma_tile::out_dims<HDP>()>() + 16 * (HDP + 8)) *
+      (int)sizeof(bf16);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_attention_mma_kernel<HDP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid(a.B * a.K * a.n_gt, a.n_split, mma_tile::out_split<HDP>());
   paged_attention_mma_kernel<HDP><<<grid, 32, smem, stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.kc),
       static_cast<const bf16*>(a.vc), a.kv_pos, a.q_pos,
@@ -439,6 +464,14 @@ int launch_mma_hd(const Args& a, cudaStream_t st) {
     DECODE_MMA_CASE(6)
     DECODE_MMA_CASE(7)
     DECODE_MMA_CASE(8)
+    DECODE_MMA_CASE(9)
+    DECODE_MMA_CASE(10)
+    DECODE_MMA_CASE(11)
+    DECODE_MMA_CASE(12)
+    DECODE_MMA_CASE(13)
+    DECODE_MMA_CASE(14)
+    DECODE_MMA_CASE(15)
+    DECODE_MMA_CASE(16)
   }
 #undef DECODE_MMA_CASE
   return (int)cudaErrorInvalidValue;
@@ -488,7 +521,7 @@ int paged_attention_launch(int dtype, int B, int W, int K, int G, int hd,
                        (ksw * size) % 16 == 0 && (ksh * size) % 16 == 0 &&
                        (vsb * size) % 16 == 0 && (vsw * size) % 16 == 0 &&
                        (vsh * size) % 16 == 0;
-  if (B <= 0 || W <= 0 || K <= 0 || G <= 0 || hd <= 0 || hd > 128 ||
+  if (B <= 0 || W <= 0 || K <= 0 || G <= 0 || hd <= 0 || hd > 256 ||
       !aligned || n_gt <= 0 || gts <= 0 || gts > GT ||
       (long long)n_gt * gts < G || chunk <= 0 ||
       (long long)chunk * n_split < W ||
@@ -506,7 +539,8 @@ int paged_attention_launch(int dtype, int B, int W, int K, int G, int hd,
   if (dtype == 0) {
     if (hd <= 32) return launch_f32<32>(a, st);
     if (hd <= 64) return launch_f32<64>(a, st);
-    return launch_f32<128>(a, st);
+    if (hd <= 128) return launch_f32<128>(a, st);
+    return launch_f32<256>(a, st);
   }
   if (dtype == 1) return launch_mma_hd(a, st);
   return (int)cudaErrorInvalidValue;

@@ -5,7 +5,7 @@ Replaces ``repro/kernels/paged_attention/kernel.py::decode_attention_kernel``.
 The kernel reads the model's ``[B, W, K, hd]`` ring cache through strides
 (no transposed copy, no padding of ``W``; rows 16-byte aligned), the slot
 positions through a batch stride (0 for the model's one row shared by
-the batch) and ``q_pos`` likewise; ``hd <= 128``, any ``G = H / K``; bf16
+the batch) and ``q_pos`` likewise; ``hd <= 256``, any ``G = H / K``; bf16
 on the tensor cores, f32 on the CUDA cores.  For bf16 it splits the ring
 into chunks (``plan_split``) so that enough blocks cover the card; with
 more than one chunk a second, small kernel combines the chunks' partials

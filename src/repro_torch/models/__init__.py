@@ -1,3 +1,4 @@
 """The LM substrate of the port (``repro.models``): configs, parameter
-trees, layers, the dense decoder-only LM and the zoo's entry points;
-``convert`` carries weights to and from ``repro``."""
+trees, layers, the decoder-only LM (dense, moe, ssm and hybrid
+families), the encoder-decoder and the zoo's entry points; ``convert``
+carries weights to and from ``repro``."""

@@ -34,38 +34,49 @@ def _map(fn, tree):
     return fn(tree)
 
 
+#: the keys of a parameter tree whose layers ``repro`` stacks
+_STACKED = ("layers", "enc_layers", "dec_layers")
+
+
+def _depth(t) -> int:
+    while isinstance(t, dict):
+        t = next(iter(t.values()))
+    return np.asarray(t).shape[0]
+
+
 def from_repro(tree: dict, cfg: ModelConfig, device=None) -> lm.LM:
     """The port's model from ``repro``'s parameter tree (numpy leaves,
-    ``layers`` stacked), in bf16 on ``device`` (CUDA unless named,
-    ``params.resolve_device``)."""
+    ``layers`` / ``enc_layers`` / ``dec_layers`` stacked), in bf16 on
+    ``device`` (CUDA unless named, ``params.resolve_device``)."""
     dev = resolve_device(device)
     conv = lambda a: _tensor(a).to(device=dev, dtype=torch.bfloat16)
-    port = {k: _map(conv, t) for k, t in tree.items() if k != "layers"}
-    port["layers"] = [_map(lambda a, i=i: conv(np.asarray(a)[i]),
-                           tree["layers"])
-                      for i in range(cfg.n_layers)]
+    port = {}
+    for k, t in tree.items():
+        if k in _STACKED:
+            port[k] = [_map(lambda a, i=i: conv(np.asarray(a)[i]), t)
+                       for i in range(_depth(t))]
+        else:
+            port[k] = _map(conv, t)
     return lm.LM(cfg, port)
 
 
 def to_repro(model: lm.LM) -> dict:
-    """``repro``'s parameter tree (``layers`` stacked) as float32 numpy
+    """``repro``'s parameter tree (layer lists stacked) as float32 numpy
     arrays."""
     f32 = lambda t: t.detach().float().cpu().numpy()
     tree = model.tree()
-    out = {k: _map(f32, t) for k, t in tree.items() if k != "layers"}
-    layers = tree["layers"]
 
-    def stack(path):
+    def stack(layers, path):
         def get(t):
             for k in path:
                 t = t[k]
             return t
         return np.stack([f32(get(lp)) for lp in layers])
 
-    def walk(t, path):
+    def walk(layers, t, path):
         if isinstance(t, dict):
-            return {k: walk(v, path + (k,)) for k, v in t.items()}
-        return stack(path)
+            return {k: walk(layers, v, path + (k,)) for k, v in t.items()}
+        return stack(layers, path)
 
-    out["layers"] = walk(layers[0], ())
-    return out
+    return {k: (walk(t, t[0], ()) if isinstance(t, list) else _map(f32, t))
+            for k, t in tree.items()}

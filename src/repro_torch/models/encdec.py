@@ -1,0 +1,186 @@
+"""Encoder-decoder LM, whisper-small's backbone (port of
+``repro.models.encdec``, serving half).
+
+The audio frontend is a stub, as in ``repro``: the caller gives
+precomputed frame embeddings ``[B, enc_seq, d_model]``.  The encoder is a
+bidirectional transformer, the decoder adds cross-attention to the
+encoder's output; LayerNorm, GeLU (``layers.gelu_tanh``) and absolute
+sinusoidal positions (no RoPE: ``rope_theta`` is 0).  The model is the
+``lm.LM`` container over ``encdec_defs``' tree (``enc_layers`` /
+``dec_layers`` lists).
+
+Attention routes.  Prefill runs every attention through the
+flash-attention kernel: the encoder's self-attention without a mask, the
+decoder's causal, the cross-attention without a mask over ``S != Skv``.
+Decode runs both through the decode-attention kernel: self-attention
+over the decoder's cache with ``q_pos = pos`` and the cache's slot
+positions (a slot counts when ``0 <= kv_pos <= pos``), which is
+``repro``'s blocked path; cross-attention over the cached encoder keys
+and values, every slot counting.  ``repro``'s pallas decode masks by
+``arange`` and ignores the positions (ROADMAP.md, Queue 3, fault 6); the
+port follows the blocked path.
+
+The decoder's self-cache holds ``max_len`` slots written at slot ``pos``
+(not a ring; past ``max_len`` the write lands on the last slot, as
+``dynamic_update_slice`` clamps it); decode writes it IN PLACE.
+``decode_train`` and ``loss_fn`` (training) come with a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.models import layers as L
+from repro_torch.models import lm
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import ParamDef, resolve_device
+
+__all__ = ["encdec_defs", "encode", "init_cache", "prefill", "decode_step"]
+
+
+def _sinusoid(S: int, d: int, dtype, device) -> torch.Tensor:
+    """[S, d]: ``sin`` then ``cos`` of ``pos / 10000^(2 i / d)``, f32
+    before the cast (``jnp.power``, ``sin`` and ``cos`` in f32)."""
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10000.0, device=device), 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
+
+
+def _sinusoid_at(pos: torch.Tensor, d: int, dtype) -> torch.Tensor:
+    """[d]: the sinusoid of the int scalar tensor ``pos``."""
+    dim = torch.arange(d // 2, dtype=torch.float32, device=pos.device)
+    ang = pos.float() / torch.pow(torch.tensor(10000.0, device=pos.device),
+                                  2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
+
+
+def encdec_defs(cfg: ModelConfig):
+    d, v = cfg.d_model, cfg.vocab_padded
+    enc_layer = {"norm1": L.norm_defs(cfg), "attn": L.attention_defs(cfg),
+                 "norm2": L.norm_defs(cfg), "mlp": L.mlp_defs(cfg)}
+    dec_layer = {"norm1": L.norm_defs(cfg), "attn": L.attention_defs(cfg),
+                 "normx": L.norm_defs(cfg), "xattn": L.attention_defs(cfg),
+                 "norm2": L.norm_defs(cfg), "mlp": L.mlp_defs(cfg)}
+    return {
+        "embed": ParamDef((v, d), ("vocab", "embed")),
+        "enc_layers": [enc_layer] * cfg.n_enc_layers,
+        "enc_norm": L.norm_defs(cfg),
+        "dec_layers": [dec_layer] * cfg.n_layers,
+        "final_norm": L.norm_defs(cfg),
+        "head": ParamDef((d, v), ("embed", "vocab")),
+    }
+
+
+def _mlp_block(lp, x, cfg: ModelConfig):
+    return x + L.mlp_apply(lp["mlp"], L.norm_apply(lp["norm2"], x, cfg), cfg)
+
+
+def encode(model: lm.LM, frames, cfg: ModelConfig) -> torch.Tensor:
+    """frames: [B, F, d] stub embeddings -> encoder states [B, F, d]."""
+    x = frames.to(torch.bfloat16)
+    x = x + _sinusoid(x.shape[1], x.shape[2], x.dtype, x.device)[None]
+    for lp in model.enc_layers:
+        y, _ = L.attention_apply(lp["attn"], L.norm_apply(lp["norm1"], x,
+                                                          cfg), cfg,
+                                 causal=False)
+        x = _mlp_block(lp, x + y, cfg)
+    return L.norm_apply(model.enc_norm, x, cfg)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> dict:
+    """A zero decode cache on ``device`` (CUDA unless named): the decoder's
+    self-attention ``k`` / ``v`` [nl, B, max_len, K, hd] bf16 and
+    ``kv_pos`` [nl, max_len] (-1 = empty), the cross-attention keys and
+    values ``xk`` / ``xv`` [nl, B, enc_seq, K, hd] bf16 and ``pos``."""
+    device = resolve_device(device)
+    nl, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    kv = lambda n: torch.zeros((nl, batch, n, K, hd), dtype=torch.bfloat16,
+                               device=device)
+    return {"k": kv(max_len), "v": kv(max_len),
+            "kv_pos": torch.full((nl, max_len), -1, dtype=torch.int32,
+                                 device=device),
+            "xk": kv(cfg.enc_seq), "xv": kv(cfg.enc_seq),
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def prefill(model: lm.LM, frames, tokens, cfg: ModelConfig, max_len: int):
+    """Encode the frames and teacher-force the prompt tokens (``S <=
+    max_len``); build the decode cache: per layer the prompt's keys and
+    values in slots ``0 .. S-1`` and the encoder's cross keys and
+    values.  Returns ``(logits of the last position [B, V], cache)``."""
+    enc = encode(model, frames, cfg)
+    B, S = tokens.shape
+    dev = enc.device
+    if S > max_len:
+        raise ValueError(f"{cfg.name}: a prompt of {S} tokens does not fit "
+                         f"a cache of max_len {max_len}")
+    cache: dict[str, Any] = init_cache(cfg, B, max_len, device=dev)
+    xks, xvs = [], []
+    x = F.embedding(tokens, model.embed).to(torch.bfloat16)
+    x = x + _sinusoid(S, cfg.d_model, x.dtype, dev)[None]
+    for i, lp in enumerate(model.dec_layers):
+        y, (k, v) = L.attention_apply(
+            lp["attn"], L.norm_apply(lp["norm1"], x, cfg), cfg, causal=True)
+        x = x + y
+        y, (xk, xv) = L.attention_apply(
+            lp["xattn"], L.norm_apply(lp["normx"], x, cfg), cfg,
+            causal=False, cross_x=enc)
+        x = _mlp_block(lp, x + y, cfg)
+        cache["k"][i][:, :S] = k
+        cache["v"][i][:, :S] = v
+        xks.append(xk)
+        xvs.append(xv)
+    cache["kv_pos"][:, :S] = torch.arange(S, dtype=torch.int32, device=dev)
+    cache["xk"], cache["xv"] = torch.stack(xks), torch.stack(xvs)
+    cache["pos"] = torch.tensor(S, dtype=torch.int32, device=dev)
+    x = L.norm_apply(model.final_norm, x, cfg)
+    return lm.logits_fn(model, x[:, -1:], cfg)[:, 0], cache
+
+
+def decode_step(model: lm.LM, cache: dict, tokens, cfg: ModelConfig):
+    """One decoder token against the self-cache and the cross keys and
+    values.  tokens: [B] int.  Writes each layer's key, value and slot
+    position at slot ``min(pos, max_len - 1)`` IN PLACE; returns
+    ``(logits [B, V], new cache)``, the dict sharing those tensors with a
+    new ``pos``."""
+    B = tokens.shape[0]
+    pos = cache["pos"]
+    W, F_ = cache["k"].shape[2], cache["xk"].shape[2]
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    x = F.embedding(tokens, model.embed).to(torch.bfloat16)[:, None]
+    x = x + _sinusoid_at(pos, cfg.d_model, x.dtype)
+    slot = torch.clamp(pos, max=W - 1).reshape(1).long()
+    # cross-attention: every cached frame counts (0 <= kv_pos <= q_pos)
+    epos = torch.arange(F_, dtype=torch.int32, device=x.device)
+    q_all = torch.full((1,), F_, dtype=torch.int32, device=x.device)
+    for i, lp in enumerate(model.dec_layers):
+        p = lp["attn"]
+        h = L.norm_apply(lp["norm1"], x, cfg)
+        ck, cv, cpos = cache["k"][i], cache["v"][i], cache["kv_pos"][i]
+        ck.index_copy_(1, slot, (h @ p["wk"].to(h.dtype)).reshape(B, 1, K,
+                                                                  hd))
+        cv.index_copy_(1, slot, (h @ p["wv"].to(h.dtype)).reshape(B, 1, K,
+                                                                  hd))
+        cpos.index_copy_(0, slot, pos.reshape(1))
+        q = (h @ p["wq"].to(h.dtype)).reshape(B, 1, H, hd)
+        out = pa_ops.decode_attention(q, ck, cv, q_pos=pos.reshape(1),
+                                      kv_pos=cpos, window=0, rope_theta=0.0)
+        x = x + out.reshape(B, 1, H * hd) @ p["wo"].to(h.dtype)
+        p = lp["xattn"]
+        h = L.norm_apply(lp["normx"], x, cfg)
+        q = (h @ p["wq"].to(h.dtype)).reshape(B, 1, H, hd)
+        out = pa_ops.decode_attention(q, cache["xk"][i], cache["xv"][i],
+                                      q_pos=q_all, kv_pos=epos, window=0,
+                                      rope_theta=0.0)
+        x = x + out.reshape(B, 1, H * hd) @ p["wo"].to(h.dtype)
+        x = _mlp_block(lp, x, cfg)
+    new_cache = dict(cache)
+    new_cache["pos"] = pos + 1
+    x = L.norm_apply(model.final_norm, x, cfg)
+    return lm.logits_fn(model, x, cfg)[:, 0], new_cache

@@ -1,5 +1,5 @@
-"""Common transformer layers: norms, RoPE, GQA attention, MLP (port of
-``repro.models.layers``, dense family).
+"""Common transformer layers: norms, RoPE, GQA attention, MLP, MoE (port
+of ``repro.models.layers``).
 
 Pure-function style: ``*_defs(cfg)`` returns the ParamDef tree of a
 layer, ``*_apply(p, x, ...)`` runs it on ``p``, a mapping of tensors (a
@@ -9,8 +9,7 @@ Attention goes through the flash-attention kernel's dispatch
 card, its plain version on the CPU, the counterpart of ``repro``'s
 ``attn_impl="pallas"``.  ``naive_attention`` is the reference for
 arbitrary positions.  ``repro``'s XLA strategies ``blocked_attention``
-and ``split_kv_decode_attention`` come with the sharding slice; MoE
-with its own.
+and ``split_kv_decode_attention`` come with the sharding slice.
 """
 
 from __future__ import annotations
@@ -18,14 +17,16 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef
 
 __all__ = ["NEG_INF", "norm_defs", "norm_apply", "rope", "attention_defs",
-           "naive_attention", "attention_apply", "silu", "gelu_tanh",
-           "mlp_defs", "mlp_apply"]
+           "naive_attention", "attention_apply", "sigmoid", "silu", "gelu_tanh",
+           "mlp_defs", "mlp_apply", "moe_defs", "top_k_first", "moe_capacity",
+           "moe_route", "moe_apply"]
 
 NEG_INF = -1e30
 
@@ -116,19 +117,23 @@ def naive_attention(q, k, v, q_pos, kv_pos, causal, window, kv_valid=None):
 
 
 def attention_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
-                    causal: bool = True, window: int = 0):
-    """Self-attention sub-layer over positions ``arange(S)``: projections +
-    RoPE + the flash-attention kernel + output projection.  Returns
-    ``(out, (k, v))``, ``k`` / ``v`` this call's projected (and rotated)
-    keys and values for the cache."""
+                    causal: bool = True, window: int = 0, cross_x=None):
+    """Attention sub-layer: projections + RoPE + the flash-attention
+    kernel + output projection.  Self-attention over positions
+    ``arange(S)``; with ``cross_x`` [B, Skv, d] (encoder states) the keys
+    and values come from it, nothing is rotated and no mask may be asked
+    for.  Returns ``(out, (k, v))``, ``k`` / ``v`` this call's projected
+    (and rotated) keys and values for the cache."""
     B = x.shape[0]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    src = x if cross_x is None else cross_x
     q = (x @ p["wq"].to(x.dtype)).reshape(B, -1, H, hd)
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, -1, K, hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, -1, K, hd)
-    pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    k = rope(k, pos[None], cfg.rope_theta)
-    q = rope(q, pos[None], cfg.rope_theta)
+    k = (src @ p["wk"].to(x.dtype)).reshape(B, -1, K, hd)
+    v = (src @ p["wv"].to(x.dtype)).reshape(B, -1, K, hd)
+    if cross_x is None:
+        pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        k = rope(k, pos[None], cfg.rope_theta)
+        q = rope(q, pos[None], cfg.rope_theta)
     out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
     y = out.reshape(B, -1, H * hd) @ p["wo"].to(x.dtype)
     return y, (k, v)
@@ -141,9 +146,14 @@ def attention_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
 # of bf16 values.  These compose them as ``jax.nn`` does, each op rounded
 # in x's dtype (its Python constants are weakly typed: x's dtype too).
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``: ``1 / (1 + exp(-x))``."""
+    return 1 / (1 + torch.exp(-x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu``: ``x * (1 / (1 + exp(-x)))``."""
-    return x * (1 / (1 + torch.exp(-x)))
+    return x * sigmoid(x)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -173,3 +183,90 @@ def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         # jax.nn.gelu's default is the tanh approximation
         h = gelu_tanh(h)
     return h @ p["wo"].to(x.dtype)
+
+
+# ----------------------------------------------------------------------- MoE
+
+def moe_defs(cfg: ModelConfig):
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "router": ParamDef((d, E), ("embed", None)),
+        "wi": ParamDef((E, d, 2 * f), ("experts", "embed", "expert_hidden")),
+        "wo": ParamDef((E, f, d), ("experts", "expert_hidden", "embed")),
+    }
+
+
+def top_k_first(x: torch.Tensor, k: int):
+    """``(values, indices)`` of the ``k`` largest entries along the last
+    dim, ties to the lower index (``jax.lax.top_k``'s order; ``torch.topk``
+    promises none): a stable descending sort."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_capacity(cfg: ModelConfig, S: int) -> int:
+    """Slots an expert has in a row of ``S`` tokens: ``capacity_factor *
+    k * S / E`` rounded, at least 8 and a multiple of 8."""
+    cap = int(cfg.capacity_factor * cfg.top_k * S / cfg.n_experts + 0.5)
+    return max(8, -(-cap // 8) * 8)
+
+
+def moe_route(p, x: torch.Tensor, cfg: ModelConfig):
+    """The router of ``moe_apply``: ``(probs [B, S, E] f32, gate [B, S,
+    k] f32, eidx [B, S, k] int64, pos [B, S, k] int64)``, ``pos`` the
+    slot's place in its expert's queue of the row (a cumsum over the
+    row's ``S * k`` slots in token order)."""
+    B, S, _ = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    logits = (x @ p["router"].to(x.dtype)).float()
+    probs = torch.softmax(logits, -1)
+    gate, eidx = top_k_first(probs, k)
+    gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+    flat = F.one_hot(eidx, E).reshape(B, S * k, E)
+    pos = torch.cumsum(flat, 1) - flat
+    pos = torch.gather(pos, 2, eidx.reshape(B, S * k, 1)).reshape(B, S, k)
+    return probs, gate, eidx, pos
+
+
+def moe_apply(p, x: torch.Tensor, cfg: ModelConfig):
+    """Token-choice top-k MoE, capacity-bounded, dispatched per batch row
+    (``repro``'s ``moe_apply``): each row's slots go to ``[E, cap]``
+    buffers in queue order, a slot past its expert's capacity is dropped
+    (its token keeps the residual only); the two expert products run as
+    batched bf16 matmuls; each token's kept outputs are weighted by their
+    gates (cast to bf16) and added in bf16.  Returns ``(y [B, S, d],
+    the load-balancing aux loss, f32 scalar)``."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    probs, gate, eidx, pos = moe_route(p, x, cfg)
+    cap = moe_capacity(cfg, S)
+    keep = pos < cap
+    slot = eidx * cap + torch.where(keep, pos, 0)      # [B, S, k]
+    rows = torch.arange(B, device=x.device)[:, None, None]
+    # dispatch: every kept slot owns its buffer row; dropped ones write
+    # nothing (repro adds them into a column that is sliced away)
+    buf = x.new_zeros((B, E * cap, d))
+    src = x[:, :, None, :].expand(B, S, k, d)
+    buf[rows.expand(B, S, k)[keep], slot[keep]] = src[keep]
+    buf = buf.reshape(B, E, cap, d)
+    wi = p["wi"].to(x.dtype)
+    wo = p["wo"].to(x.dtype)
+    h = torch.einsum("becd,edf->becf", buf, wi)
+    g, u = h.chunk(2, dim=-1)
+    out = torch.einsum("becf,efd->becd", silu(g) * u, wo)
+    # combine: each slot's output times its gate in bf16, the k of a token
+    # added in bf16 (into zeros, so their order does not matter)
+    got = out.reshape(B, E * cap, d)[rows, slot]        # [B, S, k, d]
+    w = (gate * keep).to(x.dtype)[..., None]
+    contrib = torch.where(keep[..., None], got * w, torch.zeros_like(got))
+    y = contrib[:, :, 0]
+    for j in range(1, k):
+        y = y + contrib[:, :, j]
+    return y, _aux_loss(probs.reshape(-1, E), eidx.reshape(-1, k), E)
+
+
+def _aux_loss(probs, eidx, E: int):
+    """Load-balancing auxiliary loss (Switch-style)."""
+    me = probs.mean(0)
+    ce = F.one_hot(eidx[:, 0], E).float().mean(0)
+    return E * torch.sum(me * ce)

@@ -1,4 +1,6 @@
-"""Decoder-only LM, dense and ssm families (port of ``repro.models.lm``).
+"""Decoder-only LM: the dense, moe, ssm and hybrid families (port of
+``repro.models.lm``; the encdec family is ``models/encdec.py`` on the
+same ``LM`` container).
 
 * The layers are an ``nn.ModuleList`` (``repro`` stacks them on a
   ``layers`` axis under ``lax.scan``); each layer's parameters keep
@@ -13,14 +15,23 @@
   Prefill runs the block's selective scan through the ssm_scan kernel
   (one launch per layer and 256-step chunk) and keeps each layer's
   conv state and ``h``; decode advances them one token, in place.
+* moe (mixtral, phi3.5-moe): the dense layer with ``layers.moe_apply``
+  in place of the MLP; ``forward`` sums its aux loss over the layers.
+* hybrid (recurrentgemma): every layer holds the union set, ``attn`` and
+  ``rec`` (``repro`` selects the mixer with ``lax.cond`` on a static
+  type vector; here a Python branch on ``layer_types``).  Attention
+  layers use the local window ``cfg.local_window``; the cache holds a
+  ring of ``min(max_len, local_window)`` slots and an RG-LRU state for
+  every layer, and each layer writes only its own kind (a rec layer's
+  ring stays zero with ``kv_pos = -1``, an attn layer's state stays at
+  ``rglru_init_state``), as ``repro``'s two branches leave them.
 * ``cache["pos"]`` is one int32 scalar for the whole batch.  On CUDA
   tensors the kernels launch, on CPU tensors their plain versions run
   (``repro``'s ``RunFlags(attn_impl="pallas", ssm_impl="pallas")``);
   there is no ``RunFlags``.  The activations are bf16 whatever the
   parameter dtype, as in ``repro``.
-* The other families raise ``NotImplementedError``: they come with later
-  slices of the port.  So do ``loss_fn``, ``chunked_ce`` and
-  ``grad_cast_bf16`` (training).
+* ``loss_fn``, ``chunked_ce`` and ``grad_cast_bf16`` (training) come with
+  a later slice of the port.
 """
 
 from __future__ import annotations
@@ -33,28 +44,13 @@ from torch import nn
 
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as R
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef, resolve_device
 
-__all__ = ["LM", "layer_types", "lm_defs", "forward", "logits_fn",
-           "init_cache", "prefill", "decode_step", "tree_of"]
-
-#: the families the port runs
-PORTED = ("dense", "ssm")
-#: where each family that is not ported yet comes in (ROADMAP.md)
-LATER_SLICES = {
-    "hybrid": "the recurrentgemma slice (models/rglru.py)",
-    "moe": "the MoE slice (layers.moe_apply)",
-    "encdec": "the whisper slice (models/encdec.py)",
-}
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported to "
-            f"repro_torch yet; it comes with {LATER_SLICES[cfg.family]}")
+__all__ = ["LM", "layer_types", "attn_window", "lm_defs", "forward",
+           "logits_fn", "init_cache", "prefill", "decode_step", "tree_of"]
 
 
 def layer_types(cfg: ModelConfig) -> tuple:
@@ -67,15 +63,30 @@ def layer_types(cfg: ModelConfig) -> tuple:
     return ("attn",) * cfg.n_layers
 
 
+def attn_window(cfg: ModelConfig) -> int:
+    """The attention window: the local window of a hybrid, else
+    ``attn_window`` (0: none)."""
+    return cfg.local_window if cfg.family == "hybrid" else cfg.attn_window
+
+
 def lm_defs(cfg: ModelConfig):
-    """Full model ParamDef tree, one tree per layer in ``layers``."""
-    require_ported(cfg)
+    """Full model ParamDef tree, one tree per layer in ``layers`` (a
+    hybrid's layers hold the union set, ``attn`` and ``rec``)."""
     d, v = cfg.d_model, cfg.vocab_padded
-    if cfg.family == "ssm":
-        layer = {"norm1": L.norm_defs(cfg), "ssm": SSM.ssm_defs(cfg)}
-    else:
-        layer = {"norm1": L.norm_defs(cfg), "attn": L.attention_defs(cfg),
-                 "norm2": L.norm_defs(cfg), "mlp": L.mlp_defs(cfg)}
+    types = set(layer_types(cfg))
+    layer: dict[str, Any] = {"norm1": L.norm_defs(cfg)}
+    if "attn" in types:
+        layer["attn"] = L.attention_defs(cfg)
+    if "rec" in types:
+        layer["rec"] = R.rglru_defs(cfg)
+    if "ssm" in types:
+        layer["ssm"] = SSM.ssm_defs(cfg)
+    if cfg.family != "ssm":
+        layer["norm2"] = L.norm_defs(cfg)
+        if cfg.family == "moe":
+            layer["moe"] = L.moe_defs(cfg)
+        else:
+            layer["mlp"] = L.mlp_defs(cfg)
     out: dict[str, Any] = {
         "embed": ParamDef((v, d), ("vocab", "embed"), scale=1.0),
         "layers": [layer] * cfg.n_layers,
@@ -102,26 +113,37 @@ def tree_of(m) -> dict:
 
 
 class LM(nn.Module):
-    """The parameters of a decoder-only LM: ``embed`` [V, d], ``layers``
-    (one ``ModuleDict`` per layer: norm1, attn, norm2, mlp; or norm1, ssm),
-    ``final_norm`` and ``head`` [d, V] (None with tied embeddings)."""
+    """The parameters of a model, one attribute per key of its ParamDef
+    tree: a tensor as a parameter (``embed`` [V, d], ``head`` [d, V]), a
+    list of layer trees as an ``nn.ModuleList`` of ``ModuleDict``s
+    (``layers``; ``enc_layers`` / ``dec_layers`` of an encoder-decoder),
+    a tree as a ``ModuleDict`` (``final_norm``).  ``head`` is None with
+    tied embeddings."""
 
     def __init__(self, cfg: ModelConfig, tree: dict):
         super().__init__()
-        require_ported(cfg)
-        self.embed = nn.Parameter(tree["embed"], requires_grad=False)
-        self.layers = nn.ModuleList(_module(t) for t in tree["layers"])
-        self.final_norm = _module(tree["final_norm"])
-        self.head = (nn.Parameter(tree["head"], requires_grad=False)
-                     if "head" in tree else None)
+        self._keys = tuple(tree)
+        for key, t in tree.items():
+            if isinstance(t, torch.Tensor):
+                setattr(self, key, nn.Parameter(t, requires_grad=False))
+            elif isinstance(t, list):
+                setattr(self, key, nn.ModuleList(_module(x) for x in t))
+            else:
+                setattr(self, key, _module(t))
+        if "head" not in tree:
+            self.head = None
 
     def tree(self) -> dict:
-        """The parameters as ``lm_defs``' tree of tensors."""
-        out = {"embed": self.embed.data,
-               "layers": [tree_of(lp) for lp in self.layers],
-               "final_norm": tree_of(self.final_norm)}
-        if self.head is not None:
-            out["head"] = self.head.data
+        """The parameters as the ParamDef tree's tree of tensors."""
+        out = {}
+        for key in self._keys:
+            m = getattr(self, key)
+            if isinstance(m, nn.Parameter):
+                out[key] = m.data
+            elif isinstance(m, nn.ModuleList):
+                out[key] = [tree_of(x) for x in m]
+            else:
+                out[key] = tree_of(m)
         return out
 
 
@@ -132,26 +154,38 @@ def _embed(model: LM, tokens, prefix_embeds=None) -> torch.Tensor:
     return x
 
 
-def _mlp_block(lp, x, cfg: ModelConfig) -> torch.Tensor:
-    return x + L.mlp_apply(lp["mlp"], L.norm_apply(lp["norm2"], x, cfg), cfg)
+def _ffn_block(lp, x, cfg: ModelConfig):
+    """``x`` plus the MLP (or MoE) of ``norm2(x)``; returns ``(x, the MoE
+    aux loss or None)``."""
+    h = L.norm_apply(lp["norm2"], x, cfg)
+    if cfg.family == "moe":
+        y, aux = L.moe_apply(lp["moe"], h, cfg)
+        return x + y, aux
+    return x + L.mlp_apply(lp["mlp"], h, cfg), None
 
 
 def forward(model: LM, tokens, cfg: ModelConfig, prefix_embeds=None):
     """Trunk forward.  tokens: [B, S_tok]; prefix_embeds: [B, P, d] stub
     frontend output, prepended to the token embeddings.  Returns hidden
-    states [B, S, d] and the aux-loss scalar (0 for these families)."""
-    require_ported(cfg)
+    states [B, S, d] and the aux-loss scalar (the MoE layers' sum; 0 for
+    the other families)."""
     x = _embed(model, tokens, prefix_embeds)
-    for lp in model.layers:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp, kind in zip(model.layers, layer_types(cfg)):
         h = L.norm_apply(lp["norm1"], x, cfg)
-        if cfg.family == "ssm":
+        if kind == "ssm":
             x = x + SSM.ssm_block_apply(lp["ssm"], h, cfg)
             continue
-        y, _ = L.attention_apply(lp["attn"], h, cfg, causal=True,
-                                 window=cfg.attn_window)
-        x = _mlp_block(lp, x + y, cfg)
+        if kind == "rec":
+            y = R.rglru_block_apply(lp["rec"], h, cfg)
+        else:
+            y, _ = L.attention_apply(lp["attn"], h, cfg, causal=True,
+                                     window=attn_window(cfg))
+        x, a = _ffn_block(lp, x + y, cfg)
+        if a is not None:
+            aux = aux + a
     x = L.norm_apply(model.final_norm, x, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def logits_fn(model: LM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -165,70 +199,77 @@ def logits_fn(model: LM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 # ------------------------------------------------------------------ serving
 
+def _stacked(st: dict, nl: int) -> dict:
+    return {k: v[None].repeat(nl, *(1,) * v.dim()) for k, v in st.items()}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
     """Decode cache on ``device`` (CUDA unless named): the int32 scalar
-    ``pos`` and, dense, per layer a bf16 ring buffer of ``W =
-    min(max_len, window)`` slots (``max_len`` without a window) and
+    ``pos`` and, with attention layers, per layer a bf16 ring buffer of
+    ``W = min(max_len, window)`` slots (``max_len`` without a window) and
     ``kv_pos`` [nl, W] (-1 = empty); ssm, ``{"ssm": {"conv": [nl, B,
-    kc-1, di] bf16, "ssm": [nl, B, di, N] f32}}`` (no ring)."""
-    require_ported(cfg)
+    kc-1, di] bf16, "ssm": [nl, B, di, N] f32}}`` (no ring); hybrid, the
+    ring and ``{"rec": {"conv": [nl, B, kc-1, d] bf16, "h": [nl, B, d]
+    f32}}``, both for every layer."""
     device = resolve_device(device)
     nl = cfg.n_layers
+    types = set(layer_types(cfg))
     cache: dict[str, Any] = {
         "pos": torch.zeros((), dtype=torch.int32, device=device)}
-    if cfg.family == "ssm":
-        st = SSM.ssm_init_state(cfg, batch, device)
-        cache["ssm"] = {k: v[None].repeat(nl, *(1,) * v.dim())
-                        for k, v in st.items()}
-        return cache
-    K, hd = cfg.n_kv_heads, cfg.hd
-    window = cfg.attn_window
-    W = min(max_len, window) if window else max_len
-    cache["k"] = torch.zeros((nl, batch, W, K, hd), dtype=torch.bfloat16,
-                             device=device)
-    cache["v"] = torch.zeros_like(cache["k"])
-    cache["kv_pos"] = torch.full((nl, W), -1, dtype=torch.int32,
+    if "attn" in types:
+        K, hd = cfg.n_kv_heads, cfg.hd
+        window = attn_window(cfg)
+        W = min(max_len, window) if window else max_len
+        cache["k"] = torch.zeros((nl, batch, W, K, hd), dtype=torch.bfloat16,
                                  device=device)
+        cache["v"] = torch.zeros_like(cache["k"])
+        cache["kv_pos"] = torch.full((nl, W), -1, dtype=torch.int32,
+                                     device=device)
+    if "rec" in types:
+        cache["rec"] = _stacked(R.rglru_init_state(cfg, batch, device), nl)
+    if "ssm" in types:
+        cache["ssm"] = _stacked(SSM.ssm_init_state(cfg, batch, device), nl)
     return cache
 
 
 def prefill(model: LM, tokens, cfg: ModelConfig, max_len: int,
             prefix_embeds=None):
     """Run the prompt through the trunk and build the decode cache: each
-    layer's last ``min(W, S)`` keys and values in ring order (dense), or
-    its exact conv state and ``h`` after the last token (ssm; the prompt
-    needs ``ssm_conv - 1`` tokens or more).  Returns ``(logits of the
-    last position [B, V], cache)``."""
-    require_ported(cfg)
+    attention layer's last ``min(W, S)`` keys and values in ring order,
+    each recurrent layer's exact conv state and ``h`` after the last
+    token (ssm and rec layers; the prompt needs ``ssm_conv - 1`` tokens or
+    more).  Returns ``(logits of the last position [B, V], cache)``."""
     x = _embed(model, tokens, prefix_embeds)
     B, Sq = x.shape[0], x.shape[1]
     dev = x.device
     cache = init_cache(cfg, B, max_len, device=dev)
     cache["pos"] = torch.tensor(Sq, dtype=torch.int32, device=dev)
-    if cfg.family == "ssm":
-        conv, hs = cache["ssm"]["conv"], cache["ssm"]["ssm"]
-        for i, lp in enumerate(model.layers):
-            y, st = SSM.ssm_block_apply(lp["ssm"],
-                                        L.norm_apply(lp["norm1"], x, cfg),
-                                        cfg, return_state=True)
-            conv[i] = st["conv"]
-            hs[i] = st["ssm"]
-            x = x + y
-    else:
+    if "k" in cache:
         q_pos = torch.arange(Sq, dtype=torch.int32, device=dev)
         W = cache["k"].shape[2]
         take = min(W, Sq)
         pos = q_pos[Sq - take:]
         slots = torch.remainder(pos, W).long()
-        for i, lp in enumerate(model.layers):
-            y, (k, v) = L.attention_apply(
-                lp["attn"], L.norm_apply(lp["norm1"], x, cfg), cfg,
-                causal=True, window=cfg.attn_window)
+    for i, (lp, kind) in enumerate(zip(model.layers, layer_types(cfg))):
+        h = L.norm_apply(lp["norm1"], x, cfg)
+        if kind == "ssm":
+            y, st = SSM.ssm_block_apply(lp["ssm"], h, cfg, return_state=True)
+            cache["ssm"]["conv"][i] = st["conv"]
+            cache["ssm"]["ssm"][i] = st["ssm"]
+            x = x + y
+            continue
+        if kind == "rec":
+            y, st = R.rglru_block_apply(lp["rec"], h, cfg, return_state=True)
+            cache["rec"]["conv"][i] = st["conv"]
+            cache["rec"]["h"][i] = st["h"]
+        else:
+            y, (k, v) = L.attention_apply(lp["attn"], h, cfg, causal=True,
+                                          window=attn_window(cfg))
             cache["k"][i][:, slots] = k[:, Sq - take:]
             cache["v"][i][:, slots] = v[:, Sq - take:]
             cache["kv_pos"][i][slots] = pos
-            x = _mlp_block(lp, x + y, cfg)
+        x = _ffn_block(lp, x + y, cfg)[0]
     x = L.norm_apply(model.final_norm, x, cfg)
     return logits_fn(model, x[:, -1:], cfg)[:, 0], cache
 
@@ -237,19 +278,18 @@ def decode_step(model: LM, cache: dict, tokens, cfg: ModelConfig):
     """One decode step.  tokens: [B] int.  Returns ``(logits [B, V], new
     cache)``.
 
-    Writes the cache IN PLACE: dense, each layer's new key, value and
+    Writes the cache IN PLACE: each attention layer's new key, value and
     slot position go into ``cache["k"]`` / ``["v"]`` / ``["kv_pos"]``;
-    ssm, each layer's new conv state and ``h`` overwrite
-    ``cache["ssm"]["conv"][i]`` / ``["ssm"][i]`` (no copy of the cache a
-    step, where ``repro`` returns an updated one).  The returned dict
-    shares those tensors and holds a new ``pos``.  A caller that needs
-    the old cache again clones it first."""
-    require_ported(cfg)
+    each ssm or rec layer's new conv state and ``h`` overwrite its row of
+    ``cache["ssm"]`` / ``cache["rec"]`` (no copy of the cache a step,
+    where ``repro`` returns an updated one).  The returned dict shares
+    those tensors and holds a new ``pos``.  A caller that needs the old
+    cache again clones it first."""
     x = _embed(model, tokens)[:, None, :]                   # [B, 1, d]
     pos = cache["pos"]
-    for i, lp in enumerate(model.layers):
+    for i, (lp, kind) in enumerate(zip(model.layers, layer_types(cfg))):
         h = L.norm_apply(lp["norm1"], x, cfg)
-        if cfg.family == "ssm":
+        if kind == "ssm":
             conv, hs = cache["ssm"]["conv"], cache["ssm"]["ssm"]
             y, st = SSM.ssm_decode_step(lp["ssm"], h, {"conv": conv[i],
                                                        "ssm": hs[i]}, cfg)
@@ -257,8 +297,15 @@ def decode_step(model: LM, cache: dict, tokens, cfg: ModelConfig):
             hs[i] = st["ssm"]
             x = x + y
             continue
-        y = _cached_attention(lp["attn"], h, cache, i, cfg, pos)
-        x = _mlp_block(lp, x + y, cfg)
+        if kind == "rec":
+            conv, hs = cache["rec"]["conv"], cache["rec"]["h"]
+            y, st = R.rglru_decode_step(lp["rec"], h, {"conv": conv[i],
+                                                       "h": hs[i]}, cfg)
+            conv[i] = st["conv"]
+            hs[i] = st["h"]
+        else:
+            y = _cached_attention(lp["attn"], h, cache, i, cfg, pos)
+        x = _ffn_block(lp, x + y, cfg)[0]
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
     x = L.norm_apply(model.final_norm, x, cfg)
@@ -283,6 +330,6 @@ def _cached_attention(p, h, cache: dict, i: int, cfg: ModelConfig, pos):
     cpos.index_copy_(0, slot, pos.reshape(1))
     q = (h @ p["wq"].to(h.dtype)).reshape(B, 1, H, hd)
     out = pa_ops.decode_attention(q, ck, cv, q_pos=pos.reshape(1),
-                                  kv_pos=cpos, window=cfg.attn_window,
+                                  kv_pos=cpos, window=attn_window(cfg),
                                   rope_theta=cfg.rope_theta)
     return out.reshape(B, 1, H * hd) @ p["wo"].to(h.dtype)

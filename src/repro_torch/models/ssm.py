@@ -33,8 +33,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import silu
 from repro_torch.models.params import ParamDef
 
-__all__ = ["CHUNK", "ssm_defs", "ssm_block_apply", "ssm_decode_step",
-           "ssm_init_state"]
+__all__ = ["CHUNK", "ssm_defs", "causal_conv", "ssm_block_apply",
+           "ssm_decode_step", "ssm_init_state"]
 
 #: time steps a scan launch (``repro``'s default ``chunk``)
 CHUNK = 256
@@ -80,24 +80,31 @@ def _selective(p, u_conv, cfg: ModelConfig):
     return dt, Bmat, Cmat
 
 
-def _causal_conv(p, u, cfg: ModelConfig, conv_state=None):
-    """Depthwise causal conv1d along S, then silu.  conv_state: [B, kc-1,
-    di] (zeros without one).  Returns ``(silu(conv), the last kc-1 rows
-    of [state, u])``."""
-    kc = cfg.ssm_conv
-    w = p["conv_w"].to(u.dtype)                        # [kc, di]
+def causal_conv(p, u, kc: int, conv_state=None):
+    """Depthwise causal conv1d along S with ``p["conv_w"]`` [kc, d] and
+    ``p["conv_b"]``, each product and sum rounded in u's dtype (``repro``'s
+    ``sum`` of shifted products).  conv_state: [B, kc-1, d] (zeros
+    without one).  Returns ``(conv, the last kc-1 rows of [state, u])``;
+    the RG-LRU block uses it too."""
+    w = p["conv_w"].to(u.dtype)                        # [kc, d]
     if conv_state is None:
         pad = torch.zeros((u.shape[0], kc - 1, u.shape[2]), dtype=u.dtype,
                           device=u.device)
     else:
         pad = conv_state.to(u.dtype)
-    up = torch.cat([pad, u], dim=1)                    # [B, S+kc-1, di]
+    up = torch.cat([pad, u], dim=1)                    # [B, S+kc-1, d]
     S = u.shape[1]
     out = up[:, 0:S] * w[0]
     for i in range(1, kc):
         out = out + up[:, i:i + S] * w[i]
     out = out + p["conv_b"].to(u.dtype)
     new_state = up[:, up.shape[1] - (kc - 1):] if kc > 1 else pad
+    return out, new_state
+
+
+def _causal_conv(p, u, cfg: ModelConfig, conv_state=None):
+    """The mamba block's conv: ``causal_conv``, then silu."""
+    out, new_state = causal_conv(p, u, cfg.ssm_conv, conv_state)
     return silu(out), new_state
 
 

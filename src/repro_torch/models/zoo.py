@@ -1,25 +1,34 @@
-"""Model zoo: family dispatch (port of ``repro.models.zoo``).
+"""Model zoo: family dispatch and input specs (port of
+``repro.models.zoo``).
 
 ``init_model`` builds a model from its ParamDef tree on a device (CUDA
 unless the caller names another; no fallback to the CPU);
-``prefill_fn`` / ``decode_fn`` are the serving entry points, on the
-device the model lives on.  The dense and ssm families run; the others
-raise ``NotImplementedError`` naming the slice that brings them.  The
-abstract input and cache specs come with the dry-run slice.
+``prefill_fn`` / ``decode_fn`` are the serving entry points of every
+family, on the device the model lives on (the encdec family through
+``models/encdec.py``, the others through ``models/lm.py``);
+``init_cache`` is the matching zero cache.  ``batch_specs`` gives a
+shape cell's model inputs as meta-device tensors (no memory, no
+shardings) and ``make_batch`` draws them.  ``repro``'s ``cache_specs``
+and ``abstract_model`` carry shardings and serve only its dry run; they
+come with the port's meta-device dry run (ROADMAP.md, Queue 1 item 4),
+as does ``loss_fn`` with training.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import lm
-from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import init_params
+from repro_torch.models import encdec, lm
+from repro_torch.models.config import ModelConfig, ShapeConfig
+from repro_torch.models.params import init_params, resolve_device
 
-__all__ = ["model_defs", "init_model", "prefill_fn", "decode_fn"]
+__all__ = ["model_defs", "init_model", "init_cache", "prefill_fn",
+           "decode_fn", "batch_specs", "make_batch"]
 
 
 def model_defs(cfg: ModelConfig):
+    if cfg.family == "encdec":
+        return encdec.encdec_defs(cfg)
     return lm.lm_defs(cfg)
 
 
@@ -30,9 +39,22 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> lm.LM:
                                   device))
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> dict:
+    """The zero decode cache of ``cfg``'s family (``lm.init_cache`` /
+    ``encdec.init_cache``) on ``device`` (CUDA unless named)."""
+    if cfg.family == "encdec":
+        return encdec.init_cache(cfg, batch, max_len, device)
+    return lm.init_cache(cfg, batch, max_len, device)
+
+
 def prefill_fn(model: lm.LM, batch: dict, cfg: ModelConfig, max_len: int):
-    """batch: ``tokens`` [B, S] (and ``prefix_embeds``) on the model's
-    device -> ``(last-position logits [B, V], cache)``."""
+    """batch: ``tokens`` [B, S] (and ``prefix_embeds`` [B, P, d], or
+    ``frames`` [B, F, d] for encdec) on the model's device -> ``(last-
+    position logits [B, V], cache)``."""
+    if cfg.family == "encdec":
+        return encdec.prefill(model, batch["frames"], batch["tokens"], cfg,
+                              max_len)
     return lm.prefill(model, batch["tokens"], cfg, max_len,
                       prefix_embeds=batch.get("prefix_embeds"))
 
@@ -40,4 +62,63 @@ def prefill_fn(model: lm.LM, batch: dict, cfg: ModelConfig, max_len: int):
 def decode_fn(model: lm.LM, cache: dict, tokens, cfg: ModelConfig):
     """One decode step (the cache is updated in place, see
     ``lm.decode_step``) -> ``(logits [B, V], cache)``."""
+    if cfg.family == "encdec":
+        return encdec.decode_step(model, cache, tokens, cfg)
     return lm.decode_step(model, cache, tokens, cfg)
+
+
+# ------------------------------------------------------------- input specs
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The model-input batch of one shape cell as meta-device tensors
+    (shapes and dtypes of ``repro``'s ``batch_specs``, without
+    shardings): int32 tokens (and targets for training), bf16
+    ``frames`` [B, enc_seq, d] (encdec) or ``prefix_embeds`` [B,
+    n_patches, d] (vision, whose patches count against ``seq_len``);
+    decode: one token a row."""
+    B, S = shape.global_batch, shape.seq_len
+    bf16, i32 = torch.bfloat16, torch.int32
+    if shape.kind == "decode":
+        return {"tokens": _spec((B,), i32)}
+    out = {}
+    if cfg.family == "encdec":
+        out["frames"] = _spec((B, cfg.enc_seq, cfg.d_model), bf16)
+    n_text = S
+    if cfg.frontend == "vision":
+        out["prefix_embeds"] = _spec((B, cfg.n_patches, cfg.d_model), bf16)
+        n_text = S - cfg.n_patches
+    if shape.kind == "train":
+        if cfg.family == "encdec":
+            n_text = S
+        out["tokens"] = _spec((B, n_text), i32)
+        out["targets"] = _spec((B, n_text), i32)
+    else:
+        out["tokens"] = _spec((B, n_text), i32)
+    return out
+
+
+def make_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
+               device=None) -> dict:
+    """A random batch matching ``batch_specs`` on ``device`` (CUDA
+    unless named): token ids uniform in ``[0, min(vocab, 1000))``, float
+    inputs standard normal cast to their dtype, drawn from one
+    ``torch.Generator`` seeded with ``seed`` in the specs' order (other
+    numbers than ``repro``'s ``jax.random`` draw)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    out = {}
+    for name, s in batch_specs(cfg, shape).items():
+        if s.dtype == torch.int32:
+            out[name] = torch.randint(0, min(cfg.vocab_size, 1000),
+                                      tuple(s.shape), generator=gen,
+                                      dtype=torch.int32, device=device)
+        else:
+            out[name] = torch.randn(tuple(s.shape), generator=gen,
+                                    dtype=torch.float32,
+                                    device=device).to(s.dtype)
+    return out

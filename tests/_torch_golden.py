@@ -62,9 +62,26 @@ and records every cell's stats with the per-bank accumulators, the row,
 the headline numbers of its document and the digests of its stream in
 ``golden_drivers.json`` (argument ``drivers``, about half a minute).
 
+For the rest of the model zoo (``repro_torch.golden.LM_ZOO``:
+recurrentgemma-2b, whisper-small, phi3.5-moe, granite-34b, pixtral-12b,
+phi3-medium-14b at published widths, cut in depth as each entry says) it
+runs ``repro``'s ``prefill_fn`` and teacher-forced ``decode_fn``
+(blocked attention) on the golden weights and counter-based inputs (the
+stub frames and patch embeddings too) and records per step the top-k
+logits as for ``lm``, the weights' and inputs' digests, and for the MoE
+entry every layer call's expert choices, router logits and near-tie
+tokens (read through a host callback around ``repro``'s ``moe_apply``)
+in ``golden_lm_zoo.json``.  Argument ``lm_zoo`` (only on request), then
+optionally a comma-separated subset of the entries, whose records merge
+into the file, and ``--port`` to print the port's CPU distance to each
+(for the MoE entry also its router logits' distance, in the units of
+``golden.ROUTE_LOGIT_ULPS``): up to ~9 minutes and 12.8 GiB peak RSS an
+entry on eight cores (printed after each entry).
+
 Run from the repo root (a few minutes on two CPU cores; ``lm`` about
 five minutes on eight); the argument ``synth``, ``traces``, ``serving``,
-``frfcfs``, ``drivers``, ``lm`` or ``lm_ssm`` writes only that part:
+``frfcfs``, ``drivers``, ``lm``, ``lm_ssm`` or ``lm_zoo`` writes only
+that part:
 
     JAX_PLATFORMS=cpu PYTHONPATH=src:tests python tests/_torch_golden.py
 
@@ -436,23 +453,23 @@ def port_vs_repro(run: dict, L: dict, max_len: int) -> tuple[float, float]:
 
 
 def stacked_golden_model(t_cfg, seed: int):
-    """The golden weights of ``t_cfg`` as ``(port model, repro's tree)``
-    sharing one copy: each layer leaf is drawn into row ``i`` of a
-    stacked ``[n_layers, ...]`` bf16 tensor, the port's layers view those
-    rows, and ``repro``'s tree reads the stacked tensors through DLPack
-    (no copy on the CPU)."""
+    """The golden weights of ``t_cfg`` as ``(port model, its tree,
+    repro's tree)`` sharing one copy: each layer leaf (of ``layers``, or
+    ``enc_layers`` / ``dec_layers``) is drawn into row ``i`` of a stacked
+    ``[n, ...]`` bf16 tensor, the port's layers view those rows, and
+    ``repro``'s tree reads the stacked tensors through DLPack (no copy on
+    the CPU)."""
     import jax
     import torch
     from repro_torch import golden
-    from repro_torch.models import lm
+    from repro_torch.models import lm, zoo
     from repro_torch.models.params import map_defs
-    defs = lm.lm_defs(t_cfg)
-    nl = t_cfg.n_layers
+    defs = zoo.model_defs(t_cfg)
 
-    def empty(d_tree):
+    def empty(d_tree, n):
         if isinstance(d_tree, dict):
-            return {k: empty(v) for k, v in d_tree.items()}
-        return torch.empty((nl,) + d_tree.shape, dtype=torch.bfloat16)
+            return {k: empty(v, n) for k, v in d_tree.items()}
+        return torch.empty((n,) + d_tree.shape, dtype=torch.bfloat16)
 
     def fill(stk, d_tree, path, i):
         if isinstance(d_tree, dict):
@@ -471,14 +488,18 @@ def stacked_golden_model(t_cfg, seed: int):
             return {k: jx(v) for k, v in t.items()}
         return jax.dlpack.from_dlpack(t)
 
-    stacked = empty(defs["layers"][0])
-    for i, layer in enumerate(defs["layers"]):
-        fill(stacked, layer, f"['layers'][{i}]", i)
+    stacked = {}
+    for key, layers in defs.items():
+        if isinstance(layers, list):
+            stacked[key] = empty(layers[0], len(layers))
+            for i, layer in enumerate(layers):
+                fill(stacked[key], layer, f"[{key!r}][{i}]", i)
     top = map_defs(lambda path, d: golden.golden_leaf(path, d, seed),
-                   {k: v for k, v in defs.items() if k != "layers"})
-    tree = dict(top, layers=[rows(stacked, i) for i in range(nl)])
+                   {k: v for k, v in defs.items() if k not in stacked})
+    tree = dict(top, **{k: [rows(stk, i) for i in range(len(defs[k]))]
+                        for k, stk in stacked.items()})
     model = lm.LM(t_cfg, tree)
-    return model, tree, jx(dict(top, layers=stacked))
+    return model, tree, jx(dict(top, **stacked))
 
 
 def compute_lm_ssm() -> tuple[dict, list]:
@@ -544,6 +565,135 @@ def compute_lm_ssm() -> tuple[dict, list]:
     return rec, runs
 
 
+def compute_lm_zoo(names=None) -> dict:
+    """``repro`` (blocked attention) at published widths on the golden
+    weights and inputs of each ``LM_ZOO`` entry (``names``: a subset),
+    cut in depth as the entry says; for MoE entries also every layer
+    call's expert choices (``golden.routing_record``), read through a
+    host callback around ``repro``'s ``moe_apply``.  Returns the record
+    and the port's runs (for ``port_vs_repro``)."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.configs import get
+    from repro.models import layers as jlayers, lm as jlm, zoo
+    from repro_torch import golden
+    from repro_torch.configs import get as t_get
+    flags = jlm.RunFlags(attn_impl="blocked")
+    out, runs = {}, {}
+    calls = []
+    orig_moe = jlayers.moe_apply
+
+    def moe_recorded(p, x, cfg):
+        y, aux = orig_moe(p, x, cfg)
+        logits = (x @ p["router"].astype(x.dtype)).astype(jnp.float32)
+        _, eidx = jax.lax.top_k(jax.nn.softmax(logits, -1), cfg.top_k)
+        jax.debug.callback(lambda e, lg: calls.append(
+            golden.routing_record(np.asarray(e), np.asarray(lg),
+                                  cfg.top_k)), eidx, logits, ordered=True)
+        return y, aux
+
+    jlayers.moe_apply = moe_recorded
+    try:
+        for name, spec in golden.LM_ZOO.items():
+            if names and name not in names:
+                continue
+            t0 = time.time()
+            cfg = golden.zoo_config(get(spec["config"]), spec)
+            t_cfg = golden.zoo_config(t_get(spec["config"]), spec)
+            model, tree, params = stacked_golden_model(t_cfg, spec["seed"])
+            batch, dec = golden.zoo_inputs(t_cfg, spec)
+            jbatch = {k: (jnp.asarray(v.numpy(), jnp.int32)
+                          if k == "tokens" else jax.dlpack.from_dlpack(v))
+                      for k, v in batch.items()}
+            prefill = jax.jit(lambda p, b: zoo.prefill_fn(
+                p, b, cfg, spec["max_len"], flags))
+            decode = jax.jit(lambda p, c, t: zoo.decode_fn(p, c, t, cfg,
+                                                           flags))
+            calls.clear()
+            logits, cache = prefill(params, jbatch)
+            steps = [np.asarray(logits, np.float32)]
+            routing = [list(calls)]
+            for t in range(spec["steps"]):
+                calls.clear()
+                logits, cache = decode(params, cache,
+                                       jnp.asarray(dec[t].numpy(), jnp.int32))
+                steps.append(np.asarray(logits, np.float32))
+                routing.append(list(calls))
+            del cache
+            rec = {"spec": spec, "n_layers": cfg.n_layers,
+                   "attn_impl": "blocked",
+                   "weights_digest": golden.weights_digest(tree),
+                   "inputs_digest": golden.inputs_digest(batch, dec),
+                   "steps": [golden.logits_record(x, spec["top_k"])
+                             for x in steps]}
+            if cfg.family == "moe":
+                jax.effects_barrier()
+                rec["routing"] = routing
+                ties = sum(len(c["near_ties"]) for r in routing for c in r)
+                print(f"  {name}: {ties} near-tie router tokens over "
+                      f"{sum(len(r) for r in routing)} layer calls")
+            out[name] = rec
+            runs[name] = {"model": model, "cfg": t_cfg, "batch": batch,
+                          "dec": dec, "logits": steps, "spec": spec}
+            print(f"{name}: {cfg.n_layers} layers, repro prefill + "
+                  f"{spec['steps']} decode steps: {time.time() - t0:.0f} s, "
+                  f"peak RSS so far {peak_rss_gib():.1f} GiB", flush=True)
+            del params
+    finally:
+        jlayers.moe_apply = orig_moe
+    return out, runs
+
+
+def peak_rss_gib() -> float:
+    """This process's peak resident set size (Linux: ``ru_maxrss`` in
+    KiB)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def zoo_port_vs_repro(run: dict, rec: dict) -> tuple[float, float, float]:
+    """``port_vs_repro`` for a ``compute_lm_zoo`` run (stub inputs
+    included), and for a MoE entry the largest distance of the port's
+    router logits from the record's (``golden.route_logit_ulps``; else
+    0)."""
+    import numpy as np
+    from repro_torch import golden
+    from repro_torch.models import layers, zoo
+    cfg, model, spec = run["cfg"], run["model"], run["spec"]
+    routed, orig = [], layers.moe_route
+
+    def hooked(p, x, c):
+        routed.append((x @ p["router"].to(x.dtype)).float())
+        return orig(p, x, c)
+    layers.moe_route = hooked
+    try:
+        logits, cache = zoo.prefill_fn(model, run["batch"], cfg,
+                                       spec["max_len"])
+        got = [logits.float().numpy()]
+        for t in range(spec["steps"]):
+            logits, cache = zoo.decode_fn(model, cache, run["dec"][t], cfg)
+            got.append(logits.float().numpy())
+    finally:
+        layers.moe_route = orig
+    calls = [c for step in rec.get("routing", []) for c in step]
+    worst_route = max((float(golden.route_logit_ulps(g, c["logits"]).max())
+                       for g, c in zip(routed, calls)), default=0.0)
+    worst_top = worst_lse = 0.0
+    lse = lambda x: np.log(np.exp(x - x.max(-1, keepdims=True)).sum(-1)) \
+        + x.max(-1)
+    for g, w in zip(got, run["logits"]):
+        k = spec["top_k"]
+        top = np.sort(w, -1)[:, ::-1][:, :k]
+        gtop = np.sort(g, -1)[:, ::-1][:, :k]
+        worst_top = max(worst_top, float(np.abs(gtop - top).max()))
+        worst_lse = max(worst_lse, float(np.abs(
+            lse(g.astype(np.float64)) - lse(w.astype(np.float64))).max()))
+    return worst_top, worst_lse, worst_route
+
+
 def main(argv) -> int:
     what = argv[1] if len(argv) > 1 else "all"
     if what == "streams":
@@ -601,6 +751,25 @@ def main(argv) -> int:
         for t, r in enumerate(data["steps"]):
             print(t, r["argmax"], [round(x[0], 4) for x in r["top_logits"]])
         port_vs_repro(run, golden.LM, golden.LM["max_len"])
+    if what == "lm_zoo":
+        import os
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_"
+                                   "disable_hlo_passes=while-loop-invariant-"
+                                   "code-motion")
+        names = argv[2].split(",") if len(argv) > 2 else None
+        data, runs = compute_lm_zoo(names)
+        if golden.LM_ZOO_PATH.exists():
+            data = {**golden.load_lm_zoo(), **data}
+        with open(golden.LM_ZOO_PATH, "w") as f:
+            json.dump({k: data[k] for k in golden.LM_ZOO if k in data}, f,
+                      indent=None, separators=(",", ":"))
+            f.write("\n")
+        for name, run in runs.items():
+            if "--port" in argv:
+                top, lse, route = zoo_port_vs_repro(run, data[name])
+                print(f"{name}: port (CPU) vs repro: max |d| top-k "
+                      f"{top:.4f}, logsumexp {lse:.4f}, router logits "
+                      f"{route:g} bf16 ulps")
     if what == "lm_ssm":
         import os
         os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_"

@@ -50,6 +50,9 @@ FLASH_CASES = [
     (1, 160, 6, 2, 48, True, 32),      # odd head_dim, SWA
     (1, 128, 6, 2, 128, True, 0),      # hd 128, G 3 (phi4-mini's widths)
     (2, 80, 4, 2, 16, True, 0),        # hd 16 (the reduced configs)
+    (1, 144, 10, 1, 256, True, 64),    # hd 256, MQA G 10, a window
+                                       # (recurrentgemma's widths)
+    (2, 48, 4, 4, 256, False, 0),      # hd 256, bidirectional
 ]
 #: tests/test_kernels.py::test_paged_attention's matrix
 DECODE_CASES = [
@@ -58,6 +61,7 @@ DECODE_CASES = [
     (2, 4, 1, 128, 64, 0, 10),         # nearly-empty cache
     (1, 8, 8, 64, 96, 0, 96),          # MHA, non-multiple W
     (2, 48, 1, 128, 96, 0, 80),        # G 48 over K 1 (granite's widths)
+    (1, 10, 1, 256, 64, 32, 60),       # hd 256, G 10, a window
 ]
 #: split-KV cases (B, H, K, hd, W, window, fill) on a ring that keeps the
 #: newest W positions, the query at position fill - 1
@@ -66,6 +70,7 @@ SPLIT_CASES = [
     (1, 4, 4, 32, 96, 0, 250),         # a wrapped ring
     (2, 8, 2, 64, 128, 48, 300),       # wrapped, under a window
     (2, 48, 1, 128, 96, 0, 70),        # G 48, K 1
+    (1, 10, 1, 256, 192, 128, 300),    # hd 256, G 10: wrapped, a window
 ]
 N_SPLITS = [1, 2, 3, 7]
 DTYPES = {"bf16": (jnp.bfloat16, torch.bfloat16, 0.02),

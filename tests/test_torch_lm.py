@@ -2,11 +2,14 @@
 
 Small sizes on the CPU: the layers (norms, RoPE, MLP, attention) on the
 same numpy-seeded inputs; the exact weight round trip ``convert``; the
-reduced tinyllama / phi4-mini (tied embeddings) / granite (MQA, K = 1)
-configs through ``prefill_fn`` and three ``decode_fn`` steps against
-``repro`` with ``RunFlags(attn_impl="pallas")`` (its Pallas kernels in
-interpret mode), weights carried across; and the port's own prefill +
-decode against its full forward, as ``tests/test_models.py`` holds
+reduced tinyllama / phi4-mini (tied embeddings) / granite (MQA, K = 1) /
+phi3-medium (K 2 here, G 2) / pixtral (4 stub patch embeddings as a
+prefix) configs through ``prefill_fn`` and three ``decode_fn`` steps
+against ``repro`` with ``RunFlags(attn_impl="pallas")`` (its Pallas
+kernels in interpret mode), weights carried across; and the port's own
+prefill + decode against its full forward, as ``tests/test_models.py``
+holds ``repro``'s.  For every one of the ten configs: the parameter
+count, the zero decode cache and the shape cells' input specs against
 ``repro``'s.
 
 Tolerances.  Both sides compute in bf16 with f32 statistics, but round
@@ -27,6 +30,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.configs import ALL_ARCHS, get as j_get  # noqa: E402
+from repro.models.config import SHAPES, ShapeConfig  # noqa: E402
 from repro.launch import steps as j_steps  # noqa: E402
 from repro.models import layers as j_layers  # noqa: E402
 from repro.models import lm as j_lm  # noqa: E402
@@ -46,7 +50,8 @@ LM_TOL = 0.0625
 #: one layer's bf16 output: two ulps at |x| < 4
 LAYER_TOL = 0.0313
 PALLAS = j_lm.RunFlags(attn_impl="pallas")
-SERVE_ARCHS = ["tinyllama_1p1b", "phi4_mini_3p8b", "granite_34b"]
+SERVE_ARCHS = ["tinyllama_1p1b", "phi4_mini_3p8b", "granite_34b",
+               "phi3_medium_14b", "pixtral_12b"]
 
 
 def _f32(x):
@@ -91,13 +96,66 @@ def test_configs_match_repro(arch):
 
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_param_count_matches_repro_or_names_its_slice(arch):
+    """Every family is ported: the ParamDef tree counts ``repro``'s
+    parameters (no family names a later slice any more)."""
     cfg = t_get(arch)
-    if cfg.family not in t_lm.PORTED:
-        with pytest.raises(NotImplementedError, match="slice"):
-            t_zoo.model_defs(cfg)
-        return
     assert (t_params.count_params(t_zoo.model_defs(cfg))
             == j_params.count_params(j_zoo.model_defs(j_get(arch))))
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_init_cache_matches_repro(arch):
+    """``zoo.init_cache`` has the keys, shapes and dtypes of ``repro``'s
+    decode cache (``zoo.cache_specs`` of a decode cell), and ``repro``'s
+    zero values (``lm.init_cache``; the encdec cache is zeros but
+    ``kv_pos`` -1)."""
+    cfgj, cfgt = _cfg(arch)
+    B, max_len = 3, 40
+    want = dict(_leaves(j_zoo.cache_specs(
+        cfgj, ShapeConfig("cell", max_len, B, "decode"))))
+    got = dict(_leaves(t_zoo.init_cache(cfgt, B, max_len, device="cpu")))
+    assert set(got) == set(want)
+    for key, spec in want.items():
+        assert tuple(got[key].shape) == spec.shape, key
+        assert str(got[key].dtype).split(".")[-1] == str(spec.dtype), key
+    if cfgj.family != "encdec":
+        for key, a in _leaves(j_lm.init_cache(cfgj, B, max_len)):
+            assert np.array_equal(_f32(got[key]) if got[key].is_floating_point()
+                                  else got[key].numpy(), np.asarray(a)), key
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_batch_specs_match_repro(arch):
+    """``zoo.batch_specs`` (meta tensors) has ``repro``'s inputs, shapes
+    and dtypes in every shape cell, and ``make_batch`` draws them."""
+    cfgj, cfgt = _cfg(arch)
+    for shape in list(SHAPES.values()) + [ShapeConfig("p", 40, 2, "prefill"),
+                                          ShapeConfig("t", 24, 2, "train")]:
+        want = j_zoo.batch_specs(cfgj, shape)
+        got = t_zoo.batch_specs(cfgt, shape)
+        assert set(got) == set(want), shape.name
+        for name, s in want.items():
+            assert got[name].device.type == "meta"
+            assert tuple(got[name].shape) == s.shape, (shape.name, name)
+            assert str(got[name].dtype).split(".")[-1] == str(s.dtype)
+    small = ShapeConfig("p", 40, 2, "prefill")
+    batch = t_zoo.make_batch(cfgt, small, seed=3, device="cpu")
+    again = t_zoo.make_batch(cfgt, small, seed=3, device="cpu")
+    for name, x in batch.items():
+        assert torch.equal(x, again[name])
+        assert tuple(x.shape) == tuple(t_zoo.batch_specs(cfgt, small)[
+            name].shape)
+        if x.dtype == torch.int32:
+            assert 0 <= int(x.min()) and int(x.max()) < min(
+                cfgt.vocab_size, 1000)
 
 
 def test_init_params_is_keyed_by_path():
@@ -153,6 +211,7 @@ def test_rope_matches_repro():
 @pytest.mark.parametrize("name,jax_fn,port_fn", [
     ("silu", jax.nn.silu, t_layers.silu),
     ("gelu", jax.nn.gelu, t_layers.gelu_tanh),   # jax's default: tanh
+    ("sigmoid", jax.nn.sigmoid, t_layers.sigmoid),   # the RG-LRU gates
 ])
 def test_activation_equals_jax_nn(name, jax_fn, port_fn):
     """The MLP's activations are ``jax.nn``'s composites, rounded op by op
@@ -232,10 +291,15 @@ def served():
         B, S, T = 2, 12, 3
         prompt = rng.integers(0, cfgj.vocab_size, (B, S)).astype(np.int32)
         dec = rng.integers(0, cfgj.vocab_size, (T, B)).astype(np.int32)
-        jl, jc = j_zoo.prefill_fn(params, {"tokens": jnp.asarray(prompt)},
-                                  cfgj, max_len=S + 4, flags=PALLAS)
-        tl, tc = t_zoo.prefill_fn(model, {"tokens": torch.from_numpy(prompt)},
-                                  cfgt, max_len=S + 4)
+        bj = {"tokens": jnp.asarray(prompt)}
+        bt = {"tokens": torch.from_numpy(prompt)}
+        P = cfgj.n_patches if cfgj.frontend == "vision" else 0
+        if P:     # stub patch embeddings, a prefix of the sequence
+            bj["prefix_embeds"], bt["prefix_embeds"] = _bf16_pair(
+                rng, (B, P, cfgj.d_model))
+        jl, jc = j_zoo.prefill_fn(params, bj, cfgj, max_len=P + S + 4,
+                                  flags=PALLAS)
+        tl, tc = t_zoo.prefill_fn(model, bt, cfgt, max_len=P + S + 4)
         rows = [(jl, jc, tl, {k: v.clone() for k, v in tc.items()})]
         for t in range(T):
             jl, jc = j_zoo.decode_fn(params, jc, jnp.asarray(dec[t]), cfgj,
@@ -378,3 +442,54 @@ def test_golden_weights_do_not_depend_on_the_chunking(monkeypatch):
     std = defs["layers"][1]["attn"]["wq"].std
     assert abs(float(wq.float().std()) / std - 1) < 0.05
     assert float(wq.float().abs().max()) <= 3 ** 0.5 * std * 1.01
+
+
+def test_defs_digest_is_the_weights_digest():
+    """``golden.defs_digest`` draws only the elements ``weights_digest``
+    reads, and gives its digest."""
+    for arch in ("tinyllama_1p1b", "recurrentgemma_2b", "whisper_small",
+                 "mixtral_8x22b"):
+        defs = t_zoo.model_defs(t_get(arch).reduced())
+        assert golden.defs_digest(defs, 21) == golden.weights_digest(
+            golden.golden_weights(defs, 21))
+
+
+@pytest.mark.parametrize("name", list(golden.LM_ZOO))
+def test_golden_zoo_digests_reproduce(name):
+    """Each ``golden_lm_zoo.json`` entry was computed on the inputs
+    (tokens, stub frames or patch embeddings) and the weights that the
+    counter-based draws give here, so the card rebuilds the same; the
+    record holds every step's top-k logits per row, and the MoE entry
+    every layer call's expert choices, router logits and near ties (those
+    of ``golden.route_near_ties`` at today's margin), its choices the
+    first-index top-k of its logits."""
+    rec = golden.load_lm_zoo()[name]
+    spec = golden.LM_ZOO[name]
+    assert rec["spec"] == spec
+    cfg = golden.zoo_config(t_get(spec["config"]), spec)
+    assert rec["n_layers"] == cfg.n_layers
+    batch, dec = golden.zoo_inputs(cfg, spec)
+    assert batch["tokens"].shape == (spec["batch"], spec["prompt"])
+    assert golden.inputs_digest(batch, dec) == rec["inputs_digest"]
+    assert golden.defs_digest(t_zoo.model_defs(cfg), spec["seed"]) \
+        == rec["weights_digest"]
+    assert len(rec["steps"]) == spec["steps"] + 1
+    assert all(len(s["top_logits"]) == spec["batch"]
+               and len(s["top_logits"][0]) == spec["top_k"]
+               for s in rec["steps"])
+    if cfg.family == "moe":
+        assert len(rec["routing"]) == spec["steps"] + 1
+        assert all(len(step) == cfg.n_layers for step in rec["routing"])
+        first = rec["routing"][0][0]
+        assert np.asarray(first["eidx"]).shape == (spec["batch"],
+                                                   spec["prompt"], cfg.top_k)
+        for step in rec["routing"]:
+            for call in step:
+                logits = torch.tensor(call["logits"])
+                assert logits.shape[-1] == cfg.n_experts
+                near = golden.route_near_ties(logits, cfg.top_k)
+                assert torch.nonzero(near.reshape(-1)).reshape(-1).tolist() \
+                    == call["near_ties"]
+                _, eidx = t_layers.top_k_first(torch.softmax(logits, -1),
+                                               cfg.top_k)
+                assert eidx.tolist() == call["eidx"]

@@ -370,14 +370,6 @@ def test_init_cache_matches_repro():
     assert tc["ssm"]["ssm"].dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "mixtral_8x22b",
-                                  "whisper_small"])
-def test_other_families_still_name_their_slice(arch):
-    cfg = t_get(arch).reduced()
-    with pytest.raises(NotImplementedError, match="slice"):
-        t_lm.init_cache(cfg, 1, 4, device="cpu")
-
-
 def test_helpers_want_cuda_unless_told():
     """``init_params``, ``init_cache`` and ``from_repro`` build on CUDA
     unless the caller names a device: here, with no card, they raise."""
