@@ -224,16 +224,22 @@ package.  Phases:
     decode over a 2 048-slot ring (G 10 over K 1, hd 256, wrapped),
     whisper's self- and cross-attention (all 1 500 frames valid) and
     mixtral's last step, each split as ``plan_split`` cuts it and in one
-    chunk; rglru_scan (the gate factor and the recurrence) bit for bit
-    at B 2 x 2 048 x 2 560, phase 20's prefill and a decode step; timed
-    beside the plain versions, SDPA (a mask where there is one) and the
-    bounds; the hd-256 entries' registers and spills;
+    chunk; rglru_scan (the gates, the gate factor and the recurrence
+    from bf16 gate inputs, a channel saturating ``r`` to 0 and one ``i``
+    to 1) bit for bit in ``h_seq`` and ``h_S`` at B 2 x 2 048 x 2 560,
+    phase 20's prefill and a decode step, and on every non-NaN bf16 value
+    as ``r_pre`` and ``i_pre`` (``RG_EVERY``); timed beside the plain
+    versions, SDPA (a mask where there is one) and the bounds (the scan's
+    bytes: three bf16 inputs read, h written); the hd-256 entries' and
+    the scan's registers and spills, the scan's shared memory a block;
 20. recurrentgemma-2b at published widths: its first 3 layers at B 1 x
     2 100 (the ring wraps) + 8 steps against ``golden_lm_zoo.json``; the
     full 26 layers at B 2 x 300 + 8 steps against the same model on the
     plain kernels, both within ``ZOO_ULPS``; then prefill B 4 x 2 048 and
     a decode step timed, with the kernels' device time
-    (``torch.profiler``), every kernel's launches counted;
+    (``torch.profiler``: also the element-wise kernels' share of the
+    prefill and the kernels one decode step launches), every kernel's
+    launches counted;
 21. phi3.5-moe (2 layers, B 1 x 300 + 8 steps, against ``repro``: its
     router logits within ``ROUTE_LOGIT_ULPS`` of the record's, its
     expert choices equal but at near ties) and mixtral-8x22b (2 layers,
@@ -1378,7 +1384,9 @@ def profile_kernels(fn, names) -> tuple[float, float | None, dict]:
     """``fn()`` under ``torch.profiler``: ``(wall ms, device busy ms,
     {name: device ms of the kernels whose name holds it})``; busy is
     None when the profiler saw no device activity.  A name may be a
-    tuple of alternatives, keyed by its first."""
+    tuple of alternatives, keyed by its first.  The dict's
+    ``"n_kernels"`` counts the kernels the device ran (copies and sets
+    left out)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1393,8 +1401,11 @@ def profile_kernels(fn, names) -> tuple[float, float | None, dict]:
     ms = lambda evs: sum(e.time_range.elapsed_us() for e in evs) / 1e3
     busy = ms(dev) if dev else None
     alts = lambda n: (n,) if isinstance(n, str) else n
-    return wall, busy, {alts(n)[0]: ms([e for e in dev if any(
+    by_name = {alts(n)[0]: ms([e for e in dev if any(
         a in e.name for a in alts(n))]) for n in names}
+    by_name["n_kernels"] = sum(not e.name.startswith(("Memcpy", "Memset"))
+                               for e in dev)
+    return wall, busy, by_name
 
 
 def graph_ms(fn, reps: int = 20) -> float:
@@ -2174,6 +2185,8 @@ DECODE_ZOO = [(4, 10, 1, 256, 2048, 2048, 2049, False),
 #: phase 19's rglru_scan shapes (B, S, d): B 2 x 2 048,
 #: phase 20's serving prefill and one decode step
 SCAN_RG = [(2, 2048, 2560), (4, 2048, 2560), (4, 1, 2560)]
+#: phase 19's sweep of every bf16 gate input (B, S, d): 65 536 elements
+RG_EVERY = (2, 1024, 32)
 #: a golden zoo run's logits against ``golden_lm_zoo.json`` (or a run on
 #: the plain kernels, recurrentgemma-2b's full depth included), in bf16
 #: ulps at the magnitude of the record's largest top logit: four, as
@@ -2203,6 +2216,37 @@ def ulp_tol(top: float, ulps: int) -> float:
                           - 7)
 
 
+def rglru_case(B, S, d, seed: int, dev, every: bool = False):
+    """The rglru_scan kernel's inputs ``(r_pre, i_pre, u, nsp, h0)`` on
+    ``dev``, from a seeded generator: ``r_pre``, ``i_pre`` ~ 2 N(0, 1) and
+    ``u`` ~ N(0, 1) in bf16, channel 1 of ``r_pre`` at -120 (``r = 0``:
+    ``a = 1``, ``1 - a a`` clamped) and channel 2 of ``i_pre`` at 110 (``i
+    = 1``), ``nsp = -8 softplus(lam)`` for ``lam`` ~ U(-1, 2), ``h0`` ~ N(0,
+    1).  ``every``: ``r_pre`` runs through every bf16 bit pattern (NaNs
+    as 0) and ``i_pre`` through the same values shuffled, so that every
+    value the sigmoids' reciprocal can meet comes up; ``B S d`` = 65 536."""
+    import torch
+    from repro_torch.models.ssm import _softplus
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    draw = lambda scale: (torch.randn((B, S, d), generator=g, device=dev)
+                          * scale).to(torch.bfloat16)
+    r_pre, i_pre, u = draw(2.0), draw(2.0), draw(1.0)
+    if every:
+        bits = torch.arange(-2**15, 2**15, dtype=torch.int32, device=dev)
+        nan = ((bits & 0x7F80) == 0x7F80) & ((bits & 0x7F) != 0)
+        vals = torch.where(nan, 0, bits).to(torch.int16).view(torch.bfloat16)
+        r_pre = vals.reshape(B, S, d).clone()
+        i_pre = vals[torch.randperm(vals.numel(), generator=g,
+                                    device=dev)].reshape(B, S, d)
+    else:
+        r_pre[..., 1] = -120.0
+        i_pre[..., 2] = 110.0
+    lam = torch.rand((d,), generator=g, device=dev) * 3.0 - 1.0
+    return (r_pre, i_pre, u, -8.0 * _softplus(lam),
+            torch.randn((B, d), generator=g, device=dev))
+
+
 def plain_kernels():
     """A context in which the three model kernels' launchers run their
     plain versions on the card (the wrappers' counters still count):
@@ -2223,7 +2267,7 @@ def plain_kernels():
         saved = (fk.flash_attention, pk.decode_attention, rk.rglru_scan)
         fk.flash_attention = fr.flash_attention_ref
         pk.decode_attention = decode_plain
-        rk.rglru_scan = rr.rglru_scan_ref
+        rk.rglru_scan = rr.rglru_gated_scan_ref
         try:
             yield
         finally:
@@ -2489,29 +2533,41 @@ def phase_zoo_kernels(fk, fr, pk, pr, rk, rr, dev) -> dict:
                 print(line, flush=True)
             finally:
                 pk.plan_split = orig_plan
+    smem = rk.library().rglru_scan_smem_bytes()
+    args = rglru_case(*RG_EVERY, 499, dev, every=True)
+    hs, hn = rk.rglru_scan(*args)
+    ws, wn = rr.rglru_gated_scan_ref(*args)
+    bad = int((hs != ws).sum()) + int((hn != wn).sum())
+    print(f"  rglru_scan B{RG_EVERY[0]} S{RG_EVERY[1]} d{RG_EVERY[2]}, every "
+          f"non-NaN bf16 value as r_pre and as i_pre: {bad} elements of h "
+          f"differing from the plain version", flush=True)
+    check(bad == 0, "rglru_scan disagrees with its plain version on the "
+                    "bf16 sweep")
+    out["scan_every_bf16_mismatches"] = bad
     for i, (B, S, d) in enumerate(SCAN_RG):
-        g = torch.Generator(device=dev)
-        g.manual_seed(500 + i)
-        a = torch.rand((B, S, d), generator=g, device=dev) * 0.5 + 0.5
-        a[..., 0] = 1.0                 # 1 - a * a clamped to 1e-9
-        x = torch.randn((B, S, d), generator=g, device=dev) * 0.3
-        h0 = torch.randn((B, d), generator=g, device=dev)
-        hs, hn = rk.rglru_scan(a, x, h0)
-        plain_ms, (ws, wn) = cuda_ms(lambda: rr.rglru_scan_ref(a, x, h0),
+        args = rglru_case(B, S, d, 500 + i, dev)
+        hs, hn = rk.rglru_scan(*args)
+        plain_ms, (ws, wn) = cuda_ms(lambda: rr.rglru_gated_scan_ref(*args),
                                      torch.cuda.synchronize)
         bad = int((hs != ws).sum()) + int((hn != wn).sum())
-        ms = loop_ms(lambda: rk.rglru_scan(a, x, h0))
-        bound = 4 * (3 * B * S * d + 2 * B * d) / HBM_BYTES_PER_S * 1e3
+        ms = loop_ms(lambda: rk.rglru_scan(*args))
+        n_bytes = 10 * B * S * d + 8 * B * d + 4 * d
+        bound = n_bytes / HBM_BYTES_PER_S * 1e3
         out["scan"].append({"shape": [B, S, d], "ms": ms,
                             "plain_ms": plain_ms, "bound_ms": bound,
                             "bound_by": "bytes", "bound_share": bound / ms,
-                            "mismatches": bad})
-        print(f"  rglru_scan B{B} S{S} d{d}: {bad} elements differing from "
-              f"the plain version; kernel {ms:.4f} ms ({100 * bound / ms:.1f}"
-              f" % of its bytes bound {bound:.4f} ms), plain "
-              f"{plain_ms:.1f} ms", flush=True)
+                            "bytes": n_bytes, "mismatches": bad})
+        print(f"  rglru_scan B{B} S{S} d{d} (bf16 gate inputs, channels 1 "
+              f"and 2 saturated): {bad} elements of h_seq and h_S differing "
+              f"from the plain version; kernel {ms:.4f} ms "
+              f"({100 * bound / ms:.1f} % of its bytes bound {bound:.4f} ms, "
+              f"{n_bytes / 1e6:.1f} MB), plain {plain_ms:.1f} ms", flush=True)
         check(bad == 0, f"rglru_scan disagrees with its plain version at "
                         f"{(B, S, d)}")
+        del args, hs, hn, ws, wn
+    print(f"  rglru_scan tiles: {smem} B of shared memory a block",
+          flush=True)
+    out["scan_smem_bytes"] = smem
     regs = {}
     for lib, name in ((fk.library(), "flash"), (pk.library(), "decode"),
                       (rk.library(), "rglru")):
@@ -2677,7 +2733,8 @@ def zoo_phases(golden_mod, smi: str, device="cuda") -> dict:
         prefill_ms = start.elapsed_time(mid)
         decode_ms = mid.elapsed_time(end) / steps
         names = ("flash_attention", "paged_attention", "rglru_scan",
-                 ("gemm", "nvjet", "cutlass", "xmma"), "double")
+                 ("gemm", "nvjet", "cutlass", "xmma"), "double",
+                 "elementwise")
         p_wall, p_busy, p_k = profile_kernels(prefill, names)
         cache0 = cache
 
@@ -2699,18 +2756,25 @@ def zoo_phases(golden_mod, smi: str, device="cuda") -> dict:
               f"f64 kernels {p_k['double']:.2f} ms", flush=True)
         check(not p_k["double"], f"{label}: the prefill ran f64 kernels "
                                  f"(the plain versions' arithmetic)")
+        print(f"    profiled prefill: element-wise kernels "
+              f"{p_k['elementwise']:.2f} ms ({share(p_k['elementwise'], p_busy)}"
+              f" of busy), {p_k['n_kernels']} kernel launches", flush=True)
         print(f"    profiled decode step (cache copy included): "
               f"{d_wall:.2f} ms wall, device busy {d_busy} ms "
               f"({share(d_busy, d_wall)} of the wall); decode kernel "
               f"{d_k['paged_attention']:.3f} ms, rglru_scan "
-              f"{d_k['rglru_scan']:.3f} ms, GEMMs {d_k['gemm']:.2f} ms",
-              flush=True)
+              f"{d_k['rglru_scan']:.3f} ms, GEMMs {d_k['gemm']:.2f} ms; "
+              f"{d_k['n_kernels']} kernel launches (the cache copy's "
+              f"memcpys left out)", flush=True)
         row = {"prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
                "prefill_device_ms": p_busy, "decode_device_ms": d_busy,
                "prefill_kernel_ms": {k: p_k[k] for k in names[:3]},
                "decode_kernel_ms": {k: d_k[k] for k in names[:3]},
                "prefill_gemm_ms": p_k["gemm"], "decode_gemm_ms": d_k["gemm"],
                "prefill_f64_ms": p_k["double"],
+               "prefill_elementwise_ms": p_k["elementwise"],
+               "prefill_kernel_launches": p_k["n_kernels"],
+               "decode_kernel_launches": d_k["n_kernels"],
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                "launches": counts}
         result["runs"][label + " serving"] = row
@@ -2845,7 +2909,8 @@ def zoo_phases(golden_mod, smi: str, device="cuda") -> dict:
     result["rglru_row"] = {
         "name": "rglru_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
-        "replaces": "none: src/repro/models/rglru.py:76 is an XLA scan",
+        "replaces": "none: src/repro/models/rglru.py:38 (_gates) and :76 "
+                    "(the scan) are XLA ops",
         "launches": rg_serve["launches"]["rglru"],
         "max_abs_err": 0.0 if all(x["mismatches"] == 0
                                   for x in kern["scan"]) else None,
@@ -2853,7 +2918,7 @@ def zoo_phases(golden_mod, smi: str, device="cuda") -> dict:
         "bound_ms": scan["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "shape": scan["shape"],
         "full": kern["scan"][1:], "ptxas": kern["ptxas"].get(
-            "rglru_scan_kernel"),
+            "rglru_scan_kernel"), "smem_bytes": kern["scan_smem_bytes"],
         "prefill_kernel_ms": rg_serve["prefill_kernel_ms"]["rglru_scan"],
         "serving": rg_serve}
     result["serving"] = {"recurrentgemma-2b": rg_serve,

@@ -1,10 +1,13 @@
 """CUDA launcher of the rglru_scan kernel (``csrc/rglru_scan.cu``).
 
-Replaces no Pallas kernel: ``repro.models.rglru.rglru_block_apply``'s
-recurrence is an XLA scan.  Takes contiguous f32 ``a``, ``x`` (the gated
-input ``i * u``) ``[B, S, d]`` and ``h0`` ``[B, d]`` and returns new
-``h_seq [B, S, d]`` and ``h_S [B, d]`` tensors.  Built on first use (``repro_torch._build``), launched
-through ``ctypes`` on PyTorch's current stream.
+Replaces no Pallas kernel: ``repro.models.rglru``'s gates are XLA
+element-wise ops and its recurrence an XLA scan.  Takes the gate GEMMs'
+outputs ``r_pre``, ``i_pre`` and the conv output ``u`` (contiguous bf16
+``[B, S, d]``, 16-byte aligned, ``d % 8 == 0``: the rows the kernel's TMA
+tiles read), ``nsp`` (f32 ``[d]``) and ``h0`` (f32 ``[B, d]``) and
+returns new ``h_seq [B, S, d]`` and ``h_S [B, d]`` tensors.  Built on
+first use (``repro_torch._build``), launched through ``ctypes`` on
+PyTorch's current stream.
 """
 
 from __future__ import annotations
@@ -33,31 +36,53 @@ def library() -> ctypes.CDLL:
     lib = _build.load("rglru_scan", Path(__file__).parent / "csrc")
     lib.rglru_scan_error_string.restype = ctypes.c_char_p
     lib.rglru_scan_error_string.argtypes = [_I]
+    lib.rglru_scan_smem_bytes.restype = _I
+    lib.rglru_scan_smem_bytes.argtypes = []
     lib.rglru_scan_launch.restype = _I
-    lib.rglru_scan_launch.argtypes = [_I] * 3 + [_P] * 6
+    lib.rglru_scan_launch.argtypes = [_I] * 3 + [_P] * 8
     return lib
 
 
-def rglru_scan(a: torch.Tensor, x: torch.Tensor,
+def rglru_scan(r_pre: torch.Tensor, i_pre: torch.Tensor, u: torch.Tensor,
+               nsp: torch.Tensor,
                h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel (asynchronous on the current stream; a refused
-    launch raises); returns new ``h_seq`` and ``h_S`` tensors."""
-    dev = a.device
-    _build.require_cuda(dev, "rglru_scan")
-    B, S, d = a.shape
-    for name, t, shape in (("a", a, (B, S, d)), ("x", x, (B, S, d)),
-                           ("h0", h0, (B, d))):
-        if (t.device != dev or t.dtype != torch.float32
-                or tuple(t.shape) != shape or not t.is_contiguous()):
+    launch raises); returns new ``h_seq`` and ``h_S`` tensors.  Inputs
+    the kernel does not take raise ``ValueError`` before the device is
+    looked at: they must be on one device, contiguous, bf16 ``[B, S, d]``
+    ``r_pre`` / ``i_pre`` / ``u`` starting 16-byte aligned with ``d % 8 ==
+    0`` (a TMA tile's rows), f32 ``[d]`` ``nsp`` and ``[B, d]`` ``h0``."""
+    if r_pre.dim() != 3:
+        raise ValueError(f"rglru_scan: r_pre must be [B, S, d] (got "
+                         f"{tuple(r_pre.shape)})")
+    dev = r_pre.device
+    B, S, d = r_pre.shape
+    for name, t, shape, dtype in (
+            ("r_pre", r_pre, (B, S, d), torch.bfloat16),
+            ("i_pre", i_pre, (B, S, d), torch.bfloat16),
+            ("u", u, (B, S, d), torch.bfloat16),
+            ("nsp", nsp, (d,), torch.float32),
+            ("h0", h0, (B, d), torch.float32)):
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
             raise ValueError(
-                f"rglru_scan: {name} must be a contiguous float32 {shape} "
+                f"rglru_scan: {name} must be a contiguous {dtype} {shape} "
                 f"tensor on {dev} (got {tuple(t.shape)} {t.dtype} on "
                 f"{t.device})")
+    if d % 8:
+        raise ValueError(f"rglru_scan: d = {d} is not a multiple of 8 (a "
+                         f"TMA tile's bf16 rows start 16-byte aligned)")
+    for name, t in (("r_pre", r_pre), ("i_pre", i_pre), ("u", u)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"rglru_scan: {name} does not start 16-byte "
+                             f"aligned (TMA reads it)")
+    _build.require_cuda(dev, "rglru_scan")
     h_seq = torch.empty((B, S, d), dtype=torch.float32, device=dev)
     h_n = torch.empty((B, d), dtype=torch.float32, device=dev)
     lib = library()
-    err = _build.launch(lib.rglru_scan_launch, dev, B, S, d, a.data_ptr(),
-                        x.data_ptr(), h0.data_ptr(), h_seq.data_ptr(),
+    err = _build.launch(lib.rglru_scan_launch, dev, B, S, d,
+                        r_pre.data_ptr(), i_pre.data_ptr(), u.data_ptr(),
+                        nsp.data_ptr(), h0.data_ptr(), h_seq.data_ptr(),
                         h_n.data_ptr())
     if err != 0:
         raise RuntimeError("rglru_scan launch failed: "

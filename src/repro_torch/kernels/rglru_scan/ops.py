@@ -1,11 +1,11 @@
-"""The RG-LRU recurrence with its gate factor, dispatched by device.
+"""The RG-LRU gates and recurrence, dispatched by device.
 
-CPU tensors run the plain version (``ref.rglru_scan_ref``), CUDA tensors
-launch the CUDA kernel (``kernel.rglru_scan``), and a failed build or
-launch raises; nothing falls back from one to the other.  ``repro``
-computes this loop as an XLA scan in chunks of 256 steps, padding the
-last with ``a = 1, g = 0``, which leaves ``h`` unchanged under an FMA:
-here the whole sequence is one call.
+CPU tensors run the plain version (``ref.rglru_gated_scan_ref``), CUDA
+tensors launch the CUDA kernel (``kernel.rglru_scan``), and a failed
+build or launch raises; nothing falls back from one to the other.
+``repro`` computes the recurrence as an XLA scan in chunks of 256 steps,
+padding the last with ``a = 1, g = 0``, which leaves ``h`` unchanged
+under an FMA: here the whole sequence is one call.
 """
 
 from __future__ import annotations
@@ -20,17 +20,20 @@ __all__ = ["rglru_scan", "launches"]
 launches = 0
 
 
-def rglru_scan(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor):
-    """a, x: [B, S, d] f32; h0: [B, d] f32 -> ``(h_seq [B, S, d], h_S
-    [B, d])``, f32, ``h_t = fma(a_t, h_{t-1}, x_t * sqrt(max(fma(-a_t,
-    a_t, 1), 1e-9)))``."""
+def rglru_scan(r_pre: torch.Tensor, i_pre: torch.Tensor, u: torch.Tensor,
+               nsp: torch.Tensor, h0: torch.Tensor):
+    """r_pre, i_pre, u: [B, S, d] bf16 (the gate GEMMs' outputs and the
+    conv output); nsp: [d] f32 (``-c * softplus(Lambda)``); h0: [B, d]
+    f32 -> ``(h_seq [B, S, d], h_S [B, d])``, f32: ``a = exp(nsp *
+    sigmoid(r_pre))``, ``x = sigmoid(i_pre) * u``, ``h_t = fma(a_t,
+    h_{t-1}, x_t * sqrt(max(fma(-a_t, a_t, 1), 1e-9)))``."""
     global launches
-    dev = a.device
+    dev = r_pre.device
     if dev.type == "cpu":
-        return ref.rglru_scan_ref(a, x, h0)
+        return ref.rglru_gated_scan_ref(r_pre, i_pre, u, nsp, h0)
     if dev.type != "cuda":
         raise ValueError(f"rglru_scan runs on CPU or CUDA, not {dev}")
     from repro_torch.kernels.rglru_scan import kernel
-    out = kernel.rglru_scan(a, x, h0)
+    out = kernel.rglru_scan(r_pre, i_pre, u, nsp, h0)
     launches += 1
     return out

@@ -1,6 +1,12 @@
 """The plain version of the rglru_scan kernel: ``repro.models.rglru``'s
-gate factor and recurrence (an XLA scan, no Pallas kernel) as a loop
-over time.
+gates (``_gates``) and recurrence (an XLA scan, no Pallas kernel) as
+PyTorch ops and a loop over time.
+
+``rglru_gated_scan_ref`` is the kernel's function: the two bf16 sigmoids
+(``layers.sigmoid``, one rounded op at a time), ``a = exp(nsp * r)`` and
+``x = i * u`` in the order and dtypes ``repro`` uses, then
+``rglru_scan_ref``, the scan of ``a`` and ``x`` that is bitwise to
+``repro``'s.
 
 XLA on the CPU contracts ``1 - a * a`` and ``a * h + g`` into fused
 multiply-adds, so ``g_t = x_t * sqrt(max(1 - a_t * a_t, 1e-9))`` rounds
@@ -17,7 +23,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["fma_f32", "gated", "rglru_scan_ref"]
+from repro_torch.models.layers import sigmoid
+
+__all__ = ["fma_f32", "gated", "gate_inputs", "rglru_scan_ref",
+           "rglru_gated_scan_ref"]
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -62,3 +71,24 @@ def rglru_scan_ref(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor):
         h = fma_f32(a[:, t], h, g[:, t])
         hs.append(h)
     return torch.stack(hs, 1), h
+
+
+def gate_inputs(r_pre: torch.Tensor, i_pre: torch.Tensor, u: torch.Tensor,
+                nsp: torch.Tensor):
+    """``(a, x)`` [B, S, d] f32 of the gate GEMMs' outputs ``r_pre``,
+    ``i_pre`` and the conv output ``u`` (bf16) and ``nsp = -c *
+    softplus(Lambda)`` [d] f32: ``a = exp(nsp * sigmoid(r_pre))``, ``x =
+    sigmoid(i_pre) * u``, the sigmoids and the product in bf16."""
+    r = sigmoid(r_pre)
+    i = sigmoid(i_pre)
+    return torch.exp(nsp * r.float()), (i * u).float()
+
+
+def rglru_gated_scan_ref(r_pre: torch.Tensor, i_pre: torch.Tensor,
+                         u: torch.Tensor, nsp: torch.Tensor,
+                         h0: torch.Tensor):
+    """r_pre, i_pre, u: [B, S, d] bf16; nsp: [d] f32; h0: [B, d] f32 ->
+    ``(h_seq [B, S, d], h_S [B, d])`` f32: ``gate_inputs`` then
+    ``rglru_scan_ref``."""
+    a, x = gate_inputs(r_pre, i_pre, u, nsp)
+    return rglru_scan_ref(a, x, h0)

@@ -8,13 +8,14 @@ conv1d, and the Real-Gated Linear Recurrent Unit
     a_t = exp(-c * softplus(Lambda) * r_t)
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-The gate factor ``sqrt(max(1 - a * a, 1e-9))``, its product with ``i *
-u`` and the recurrence run through the rglru_scan kernel's dispatch
-(``repro_torch.kernels.rglru_scan.ops``: the CUDA kernel on the card,
-its plain version on the CPU), one call a layer over the whole prompt
-and one a decode step (S = 1), so that both paths round ``1 - a * a``
-and ``h`` as one FMA each, as XLA's contracted multiply-adds do in
-``repro``.
+The gates, the gate factor ``sqrt(max(1 - a * a, 1e-9))``, its product
+with ``i * u`` and the recurrence run through the rglru_scan kernel's
+dispatch (``repro_torch.kernels.rglru_scan.ops``: the CUDA kernel on the
+card, its plain version on the CPU) from the two gate GEMMs' outputs,
+the conv output and ``nsp = -c * softplus(Lambda)``: one call a layer
+over the whole prompt and one a decode step (S = 1), so that both paths
+round ``1 - a * a`` and ``h`` as one FMA each, as XLA's contracted
+multiply-adds do in ``repro``.
 
 The dtypes follow ``repro`` op for op: the projections, the conv and the
 two sigmoids in bf16 (``jax.nn.sigmoid`` rounds ``1 / (1 + exp(-x))``
@@ -31,7 +32,7 @@ import torch
 
 from repro_torch.kernels.rglru_scan import ops as scan_ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import gelu_tanh, sigmoid
+from repro_torch.models.layers import gelu_tanh
 from repro_torch.models.params import ParamDef
 from repro_torch.models.ssm import _softplus, causal_conv
 
@@ -56,13 +57,13 @@ def rglru_defs(cfg: ModelConfig):
 
 
 def _gates(p, u):
-    """``(a, i * u)`` [B, S, d] f32 of the conv output ``u`` (bf16); the
-    scan forms ``repro``'s gated input ``(i * u) * sqrt(max(1 - a * a,
-    1e-9))`` from the two (``rglru_scan.ref.gated``)."""
-    r = sigmoid(u @ p["w_r"].to(u.dtype))
-    i = sigmoid(u @ p["w_i"].to(u.dtype))
-    log_a = (-_C * _softplus(p["lam"].float())) * r.float()
-    return torch.exp(log_a), (i * u).float()
+    """``(r_pre, i_pre, nsp)`` of the conv output ``u`` (bf16): the two
+    gate GEMMs' outputs [B, S, d] (bf16) and ``nsp = -c *
+    softplus(Lambda)`` [d] f32; the scan forms ``repro``'s ``a = exp(nsp *
+    sigmoid(r_pre))`` and gated input ``(sigmoid(i_pre) * u) * sqrt(max(1
+    - a * a, 1e-9))`` from them (``rglru_scan.ref.gate_inputs``)."""
+    return (u @ p["w_r"].to(u.dtype), u @ p["w_i"].to(u.dtype),
+            -_C * _softplus(p["lam"].float()))
 
 
 def rglru_block_apply(p, x, cfg: ModelConfig, return_state: bool = False):
@@ -80,9 +81,10 @@ def rglru_block_apply(p, x, cfg: ModelConfig, return_state: bool = False):
     u_pre = x @ p["in_x"].to(x.dtype)
     gate = gelu_tanh(x @ p["in_gate"].to(x.dtype))
     u, _ = causal_conv(p, u_pre, kc)
-    a, iu = _gates(p, u)
+    r_pre, i_pre, nsp = _gates(p, u)
     h0 = torch.zeros((B, d), dtype=torch.float32, device=x.device)
-    h_seq, h_n = scan_ops.rglru_scan(a.contiguous(), iu.contiguous(), h0)
+    h_seq, h_n = scan_ops.rglru_scan(r_pre.contiguous(), i_pre.contiguous(),
+                                     u.contiguous(), nsp, h0)
     y = h_seq.to(x.dtype) * gate
     out = y @ p["out"].to(x.dtype)
     if return_state:
@@ -97,8 +99,9 @@ def rglru_decode_step(p, x, state: dict, cfg: ModelConfig):
     u = x @ p["in_x"].to(x.dtype)
     gate = gelu_tanh(x @ p["in_gate"].to(x.dtype))
     u, conv_state = causal_conv(p, u, kc, state["conv"])
-    a, iu = _gates(p, u)
-    _, h = scan_ops.rglru_scan(a.contiguous(), iu.contiguous(),
+    r_pre, i_pre, nsp = _gates(p, u)
+    _, h = scan_ops.rglru_scan(r_pre.contiguous(), i_pre.contiguous(),
+                               u.contiguous(), nsp,
                                state["h"].float().contiguous())
     y = h[:, None].to(x.dtype) * gate
     return y @ p["out"].to(x.dtype), {"conv": conv_state, "h": h}

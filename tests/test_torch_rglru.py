@@ -3,24 +3,29 @@ and local attention) against ``repro``.
 
 Small sizes on the CPU, numpy-seeded inputs through both packages:
 
-* the recurrence: the rglru_scan dispatch (its plain version on CPU
-  tensors, which forms the gated input ``g = ref.gated(a, x)`` itself)
-  bit for bit against ``repro``'s scan on the same ``a`` and ``g``,
-  through ``repro``'s own ``rglru_block_apply`` (its gates replaced by
-  the test's ``a`` and ``g``; the final ``h`` of prompts of 1 to 300
-  steps, across a padded 256-step chunk) and against XLA's ``a * h + g``
-  step; ``fma_f32`` against XLA's contracted multiply-add;
-* the block's parts (``_gates``, ``rglru_block_apply`` with its state,
-  ``rglru_decode_step``) on the same bf16 inputs and weights;
+* the recurrence: the plain scan ``ref.rglru_scan_ref`` (which forms the
+  gated input ``g = ref.gated(a, x)`` itself) bit for bit against
+  ``repro``'s scan on the same ``a`` and ``g``, through ``repro``'s own
+  ``rglru_block_apply`` (its gates replaced by the test's ``a`` and
+  ``g``; the final ``h`` of prompts of 1 to 300 steps, across a padded
+  256-step chunk) and against XLA's ``a * h + g`` step; ``fma_f32``
+  against XLA's contracted multiply-add;
+* the kernel's function, ``ref.rglru_gated_scan_ref`` (the gates from the
+  gate GEMMs' outputs, then the scan), bit for bit against the
+  composition it replaced in the block (``_gates`` returning ``a`` and
+  ``i * u``, then ``rglru_scan_ref``), saturating gates included;
+* the block's parts (``_gates`` + ``ref.gate_inputs``,
+  ``rglru_block_apply`` with its state, ``rglru_decode_step``) on the
+  same bf16 inputs and weights;
 * the reduced recurrentgemma (d 64, rec / rec / attn, hd 16, MQA, local
   window 32) through ``prefill_fn`` on a 40-token prompt (the ring
   wraps) and four ``decode_fn`` steps against ``repro`` with
   ``RunFlags(attn_impl="pallas")``, weights carried by ``convert``; the
   port's own prefill + decode against its forward; a prompt shorter than
   ``ssm_conv - 1`` refused (ROADMAP.md, Queue 3, fault 2);
-* the launcher's C signature and its refusal of CPU tensors; the CUDA
-  kernel bit for bit against its plain version (``cuda``, skips without
-  a card).
+* the launcher's C signature, its refusal of CPU tensors and of inputs
+  its TMA tiles cannot read; the CUDA kernel bit for bit against its
+  plain version (``cuda``, skips without a card).
 
 Tolerances.  The scan is exact (one rounded FMA a step in both).  The
 gates go through f32 ``exp`` and ``sqrt``, which XLA computes to within
@@ -54,6 +59,8 @@ from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import lm as t_lm  # noqa: E402
 from repro_torch.models import rglru as t_rglru  # noqa: E402
 from repro_torch.models import zoo as t_zoo  # noqa: E402
+from repro_torch.models.layers import sigmoid as t_sigmoid  # noqa: E402
+from repro_torch.models.ssm import _softplus as t_softplus  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "recurrentgemma_2b"
@@ -86,6 +93,35 @@ def _scan_inputs(B, S, d, seed=0):
     a = rng.uniform(0.5, 1.0, (B, S, d)).astype(np.float32)
     a[..., 0] = 1.0
     return a, (rng.normal(size=(B, S, d)) * 0.3).astype(np.float32)
+
+
+def _gate_case(B, S, d, seed=0):
+    """The kernel's inputs, CPU tensors: ``r_pre``, ``i_pre`` ~ 2 N(0, 1)
+    and ``u`` ~ N(0, 1) in bf16, ``nsp = -8 softplus(lam)`` for ``lam`` ~
+    U(-1, 2) (f32), ``h0`` ~ 0.5 N(0, 1); channel 1 saturates ``r`` to 0
+    (``r_pre`` = -120: ``a = 1``, ``1 - a * a`` clamped to 1e-9), channel
+    2 saturates ``i`` to 1 (``i_pre`` = 110)."""
+    rng = np.random.default_rng(seed)
+    bf = lambda x: torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+    r_pre = rng.normal(size=(B, S, d)) * 2
+    i_pre = rng.normal(size=(B, S, d)) * 2
+    r_pre[..., 1] = -120.0
+    i_pre[..., 2] = 110.0
+    lam = torch.from_numpy(rng.uniform(-1, 2, d).astype(np.float32))
+    nsp = -8.0 * t_softplus(lam)
+    h0 = torch.from_numpy((rng.normal(size=(B, d)) * 0.5).astype(np.float32))
+    return (bf(r_pre), bf(i_pre), bf(rng.normal(size=(B, S, d))), nsp,
+            h0), lam
+
+
+def _former_gates(r_pre, i_pre, u, lam):
+    """The block's gates as the port computed them before the kernel took
+    them in: ``models.rglru._gates`` after its two GEMMs, returning ``a``
+    and ``i * u`` (f32) for ``rglru_scan_ref``."""
+    r = t_sigmoid(r_pre)
+    i = t_sigmoid(i_pre)
+    log_a = (-8.0 * t_softplus(lam.float())) * r.float()
+    return torch.exp(log_a), (i * u).float()
 
 
 # ------------------------------------------------------------ the scan
@@ -148,8 +184,8 @@ def test_plain_scan_is_repros_scan_bitwise(S, monkeypatch):
     x = jnp.zeros((B, S, d), jnp.bfloat16)
     _, st = jax.jit(lambda p, x: j_rglru.rglru_block_apply(
         p, x, cfgj, return_state=True))(p, x)
-    h_seq, h_n = ro.rglru_scan(torch.from_numpy(a), torch.from_numpy(x_in),
-                               torch.zeros(B, d))
+    h_seq, h_n = rr.rglru_scan_ref(torch.from_numpy(a),
+                                   torch.from_numpy(x_in), torch.zeros(B, d))
     assert h_seq.dtype == h_n.dtype == torch.float32
     assert torch.equal(h_seq[:, -1], h_n)
     assert np.array_equal(h_n.numpy(), np.asarray(st["h"]))
@@ -166,17 +202,39 @@ def test_plain_scan_is_repros_scan_bitwise(S, monkeypatch):
 
 
 def test_scan_carries_h0():
-    a, g = _scan_inputs(1, 9, 16, seed=3)
-    at, gt = torch.from_numpy(a), torch.from_numpy(g)
-    h0 = torch.from_numpy(np.random.default_rng(4).normal(
-        size=(1, 16)).astype(np.float32))
-    full, hn = ro.rglru_scan(at, gt, h0)
-    first, h4 = ro.rglru_scan(at[:, :4].contiguous(), gt[:, :4].contiguous(),
-                              h0)
-    rest, hn2 = ro.rglru_scan(at[:, 4:].contiguous(), gt[:, 4:].contiguous(),
-                              h4)
+    """The dispatch (its plain version on CPU tensors) over 9 steps equals
+    4 steps and then 5 from their ``h_S``."""
+    (r_pre, i_pre, u, nsp, h0), _ = _gate_case(1, 9, 16, seed=3)
+    cut = lambda t, sl: t[:, sl].contiguous()
+    before = ro.launches
+    full, hn = ro.rglru_scan(r_pre, i_pre, u, nsp, h0)
+    first, h4 = ro.rglru_scan(*(cut(t, slice(0, 4)) for t in
+                                (r_pre, i_pre, u)), nsp, h0)
+    rest, hn2 = ro.rglru_scan(*(cut(t, slice(4, None)) for t in
+                                (r_pre, i_pre, u)), nsp, h4)
+    assert ro.launches == before            # the CPU runs no kernel
     assert torch.equal(torch.cat([first, rest], 1), full)
     assert torch.equal(hn, hn2)
+
+
+@pytest.mark.parametrize("S", [1, 7, 300])
+def test_gated_scan_ref_is_the_composition_it_replaces(S):
+    """``ref.rglru_gated_scan_ref`` equals the block's former path (its
+    gates before the kernel took them in, then ``rglru_scan_ref``) bit for
+    bit, from ``h0 != 0``; the saturating channels give ``a = 1`` (the
+    clamp) and ``i = 1``."""
+    (r_pre, i_pre, u, nsp, h0), lam = _gate_case(2, S, 64, seed=20 + S)
+    got_seq, got_n = rr.rglru_gated_scan_ref(r_pre, i_pre, u, nsp, h0)
+    a, x = _former_gates(r_pre, i_pre, u, lam)
+    want_seq, want_n = rr.rglru_scan_ref(a, x, h0)
+    assert got_seq.dtype == got_n.dtype == torch.float32
+    assert torch.equal(got_seq, want_seq) and torch.equal(got_n, want_n)
+    ga, gx = rr.gate_inputs(r_pre, i_pre, u, nsp)
+    assert torch.equal(ga, a) and torch.equal(gx, x)
+    assert bool((a[..., 1] == 1).all())                 # r = 0
+    assert torch.equal(rr.gated(a, x)[..., 1],
+                       x[..., 1] * np.float32(np.sqrt(np.float32(1e-9))))
+    assert torch.equal(x[..., 2], u[..., 2].float())    # i = 1
 
 
 # ----------------------------------------------------------- the block
@@ -203,12 +261,30 @@ def test_gates_match_repro(block_params):
     pj, pt = block_params
     uj, ut = _bf16_pair(np.random.default_rng(7), (2, 9, cfgj.d_model))
     aj, gj = j_rglru._gates(pj, uj)
-    at, iut = t_rglru._gates(pt, ut)
+    r_pre, i_pre, nsp = t_rglru._gates(pt, ut)
+    assert r_pre.dtype == i_pre.dtype == torch.bfloat16
+    at, iut = rr.gate_inputs(r_pre, i_pre, ut, nsp)
     gt = rr.gated(at, iut)
     assert at.dtype == iut.dtype == gt.dtype == torch.float32
     np.testing.assert_allclose(_f32(at), _f32(aj), rtol=F32_TOL, atol=0)
     np.testing.assert_allclose(_f32(gt), _f32(gj), rtol=F32_TOL,
                                atol=F32_TOL)
+
+
+def test_block_gates_feed_the_scan_as_before(block_params):
+    """The block's new gates (``_gates``: the GEMMs and ``nsp``) through
+    ``rglru_gated_scan_ref`` equal its former ``_gates`` (``a``, ``i *
+    u``) through ``rglru_scan_ref``, on the block's weights."""
+    cfgj, _ = _cfgs()
+    _, pt = block_params
+    _, ut = _bf16_pair(np.random.default_rng(12), (2, 30, cfgj.d_model))
+    h0 = torch.from_numpy(np.random.default_rng(13).normal(
+        size=(2, cfgj.d_model)).astype(np.float32))
+    r_pre, i_pre, nsp = t_rglru._gates(pt, ut)
+    got = rr.rglru_gated_scan_ref(r_pre, i_pre, ut, nsp, h0)
+    want = rr.rglru_scan_ref(*_former_gates(r_pre, i_pre, ut, pt["lam"]),
+                             h0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("S", [3, 20])
@@ -409,12 +485,45 @@ def test_launch_arguments_match_the_cuda_source(monkeypatch):
 
 
 def test_launcher_refuses_cpu_tensors_and_the_dispatch_other_devices():
-    a, g = map(torch.from_numpy, _scan_inputs(1, 4, 8))
+    args, _ = _gate_case(1, 4, 8)
     with pytest.raises(ValueError, match="CUDA"):
-        rk.rglru_scan(a, g, torch.zeros(1, 8))
+        rk.rglru_scan(*args)
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        ro.rglru_scan(a.to("meta"), g.to("meta"), torch.zeros(1, 8,
-                                                              device="meta"))
+        ro.rglru_scan(*(t.to("meta") for t in args))
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` starting 2 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("case", ["f32 r_pre", "bf16 nsp", "d 12",
+                                  "misaligned u", "strided i_pre",
+                                  "h0 shape"])
+def test_launcher_refuses_what_its_tma_tiles_cannot_read(case):
+    """The launcher refuses each input the kernel does not take, naming
+    it, before it looks at the device."""
+    d = 12 if case == "d 12" else 16
+    (r_pre, i_pre, u, nsp, h0), _ = _gate_case(2, 5, d)
+    if case == "f32 r_pre":
+        r_pre, match = r_pre.float(), "r_pre"
+    elif case == "bf16 nsp":
+        nsp, match = nsp.to(torch.bfloat16), "nsp"
+    elif case == "d 12":
+        match = "multiple of 8"
+    elif case == "misaligned u":
+        u, match = _misaligned(u), "u does not start 16-byte"
+    elif case == "strided i_pre":
+        i_pre, match = i_pre.transpose(0, 1).contiguous().transpose(0, 1), \
+            "i_pre"
+    else:
+        h0, match = h0[:1], "h0"
+    with pytest.raises(ValueError, match=match):
+        rk.rglru_scan(r_pre, i_pre, u, nsp, h0)
 
 
 # ------------------------------------------------------------ on the card
@@ -429,16 +538,36 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 300, 64), (1, 1, 2560), (2, 9, 300),
+@pytest.mark.parametrize("shape", [(2, 300, 64), (1, 1, 2560), (2, 9, 296),
                                    (3, 1000, 2560)], ids=str)
 def test_rglru_scan_kernel_matches_plain(cuda, shape):
+    """bf16 gate inputs (saturating channels included) through the kernel
+    and through its plain version on the card: ``h`` bit for bit (296
+    channels: a block past ``d``; S 9, 300, 1 000: tiles past ``S``)."""
     B, S, d = shape
-    a, g = (torch.from_numpy(x).to(cuda) for x in _scan_inputs(B, S, d, 1))
-    h0 = torch.randn(B, d, device=cuda)
+    args, _ = _gate_case(B, S, d, seed=1)
+    args = [t.to(cuda) for t in args]
     before = ro.launches
-    h_seq, h_n = ro.rglru_scan(a, g, h0)
+    h_seq, h_n = ro.rglru_scan(*args)
     assert ro.launches == before + 1
-    want_seq, want_n = rr.rglru_scan_ref(a, g, h0)
+    want_seq, want_n = rr.rglru_gated_scan_ref(*args)
+    assert torch.equal(h_seq, want_seq) and torch.equal(h_n, want_n)
+
+
+@pytest.mark.cuda
+def test_rglru_scan_kernel_covers_every_bf16_gate_input(cuda):
+    """Every non-NaN bf16 value as ``r_pre`` and, shuffled, as ``i_pre``
+    (so every value the sigmoids' reciprocal meets, inf included): ``h``
+    bit for bit against the plain version on the card."""
+    bits = torch.arange(-2**15, 2**15, dtype=torch.int32)
+    nan = ((bits & 0x7F80) == 0x7F80) & ((bits & 0x7F) != 0)
+    vals = torch.where(nan, 0, bits).to(torch.int16).view(torch.bfloat16)
+    perm = torch.from_numpy(np.random.default_rng(5).permutation(2**16))
+    (_, _, u, nsp, h0), _ = _gate_case(2, 1024, 32, seed=6)
+    args = [t.to(cuda) for t in (vals.reshape(2, 1024, 32),
+                                 vals[perm].reshape(2, 1024, 32), u, nsp, h0)]
+    h_seq, h_n = ro.rglru_scan(*args)
+    want_seq, want_n = rr.rglru_gated_scan_ref(*args)
     assert torch.equal(h_seq, want_seq) and torch.equal(h_n, want_n)
 
 
