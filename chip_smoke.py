@@ -20,15 +20,21 @@ Experiment layer drawing the thesis's five figures, the FR-FCFS
 controller study, the simulator-side studies with the ChargeCache
 example, and the rest of the model zoo: recurrentgemma-2b, the MoE
 configs, whisper-small, granite-34b, pixtral-12b and phi3-medium-14b),
+training (the flash kernel's backward entries, tinyllama-1.1b's and
+whisper-small's train steps, ``examples/train_lm_torch.py``),
 checks the results against the JAX package's recorded golden numbers
 (``src/repro_torch/data/golden_fullwidth.json``, ``golden_synth.json``,
 ``golden_serving.json``, ``golden_lm.json``, ``golden_lm_ssm.json``,
-``golden_frfcfs.json``, ``golden_drivers.json`` and
-``golden_lm_zoo.json``),
+``golden_frfcfs.json``, ``golden_drivers.json``, ``golden_lm_zoo.json``
+and ``golden_train.json``),
 and times the kernels.  It imports nothing of JAX or of the ``repro``
 package.  Phases:
 
-1. the card's name and power limit, and the kernel's build time;
+1. the card's name and power limit, and the kernel's build time; while
+   the kernels build, four worker processes make the plain runs that
+   phases 4 and 7 hold the synthesis and serving entries to
+   (``PLAIN_WORKERS``: host-bound eager loops, ~360 s one after
+   another), and the script waits for them before phase 2;
 2. kernel against plain version (both on the card) at <= 2 000
    requests: every mechanism kind x 2 geometries, open and closed
    policy, stateful and legacy refresh, the ``ramp`` thermal schedule, a
@@ -250,6 +256,28 @@ package.  Phases:
 23. granite-34b (2 layers), pixtral-12b (2 layers, 256 stub patches) and
     phi3-medium-14b (4 layers) against the record; then pixtral-12b and
     phi3-medium-14b at full depth, prefill and decode timed;
+24. training: (a) the flash kernel's training entries (the forward with
+    its log-sum-exp and its output's low halves, O + O_lo within
+    ``FLASH_O32_TOL`` of the f32 output, the backward's D, dK / dV and
+    dQ entries) against their plain version (autograd of the f32
+    reference) at
+    ``FLASH_BWD``'s shapes within ``FLASH_BWD_RTOL`` / ``ATOL``, each run
+    twice and bitwise equal, timed beside the bound, the plain version
+    and SDPA's forward + backward, their ptxas numbers, and the serving
+    instantiation's against ``SERVING_FLASH_PTXAS``; (b) one
+    ``make_train_step`` step of tinyllama-1.1b at published width (cut
+    as ``golden.TRAIN`` says) from the golden weights built on the card
+    against ``golden_train.json`` within ``golden.TRAIN_TOL``, the same
+    step on the plain versions, then the full 22 layers against their
+    plain-version step; (c) whisper-small's step (12 + 12 layers, B 2 x
+    64 tokens, 1 500 frames) against its plain-version step within
+    ``WHISPER_TRAIN_TOL`` and against the kernels' forward with the
+    plain backward within ``golden.TRAIN_TOL``; (d)
+    ``examples/train_lm_torch.py --preset 100m`` for 30 steps with a
+    checkpoint at 20, resumed to 30 (the loss falls; the resumed run's
+    last loss and parameters bitwise equal to the straight run's); (e)
+    tinyllama-1.1b's full train step at B 4 x 2 048 timed, its tokens/s
+    and share of 989 TFLOP/s;
 then the total time, one JSON line of kernel numbers, and the last line:
 ``{"ok": true, "device": {...}}``.
 
@@ -336,6 +364,17 @@ class SmokeFailure(Exception):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+#: when the script started (the phase headings' clock)
+T_START = time.time()
+
+
+def phase(title: str) -> None:
+    """Prints a phase heading with the seconds since the script
+    started."""
+    print(f"\nphase {title}  [t = {time.time() - T_START:.1f} s]",
+          flush=True)
 
 
 def cuda_ms(fn, sync):
@@ -678,8 +717,9 @@ def synth_cut_grid(sim, traces):
             for pol in ("open", "closed") for rm in ("stateful", "legacy")]
 
 
-def synth_vs_plain(sim, ops, ref, name, grid, device="cuda"):
-    """Hold the synthesis entry against the plain version on ``grid``;
+def synth_vs_plain(sim, ops, name, grid, plain, device="cuda"):
+    """Hold the synthesis entry against the plain version's ``(ms,
+    outputs)`` on ``grid`` (a worker's run, ``load_plain``);
     returns ``(mismatches, max abs err, kernel ms, plain ms, points,
     steps)`` (it raises on any mismatch)."""
     import torch
@@ -687,8 +727,7 @@ def synth_vs_plain(sim, ops, ref, name, grid, device="cuda"):
     got = ops.run_synth(*args, True, True)
     torch.cuda.synchronize()
     kernel_ms = median_ms(lambda: ops.run_synth(*args, True))
-    plain_ms, want = cuda_ms(lambda: ref.run_synth_ref(*args, True, True),
-                             torch.cuda.synchronize)
+    plain_ms, want = plain
     bad, err = compare_outputs(got[:3], want[:3])
     s_bad = compare_streams(got[3], want[3])
     # the reduced launch (no events) against the plain version's columns
@@ -697,7 +736,8 @@ def synth_vs_plain(sim, ops, ref, name, grid, device="cuda"):
     r_bad = int((torch.as_tensor(red) != want_red).sum())
     print(f"  {name}: {len(grid)} points x {args[5]} cores x {args[7]} "
           f"steps ({grid[0].workload.n_req} requests a core): kernel "
-          f"{kernel_ms:.3f} ms, plain {plain_ms:.1f} ms; mismatches: "
+          f"{kernel_ms:.3f} ms, plain {plain_ms:.1f} ms (in a worker); "
+          f"mismatches: "
           f"outputs {bad}, streams {s_bad}, reduce_keys {r_bad}",
           flush=True)
     check(bad + s_bad + r_bad == 0,
@@ -981,30 +1021,36 @@ def compare_serve(got, want) -> tuple[int, int]:
     return bad, err
 
 
-def phase_serve_vs_plain(sim, engine, ops, ref, grid, device="cuda"):
-    """The serving entry against the plain engine on ``grid``: drawn,
-    pinned and reduced launches; returns ``(mismatches, max abs err,
-    kernel ms, plain ms, steps)``."""
+def pinned_counts(shape, n_points: int, device):
+    """Phase 7's pinned arrival counts, seeded, ``[n_points, n_steps]``."""
     import numpy as np
+    import torch
+    return torch.from_numpy(np.random.default_rng(3).integers(
+        0, shape.arrivals_max + 1, (n_points, shape.n_steps)).astype(
+            np.int32)).to(device)
+
+
+def phase_serve_vs_plain(sim, engine, ops, grid, plains, device="cuda"):
+    """The serving entry against the plain engine's two runs ``plains``
+    (workers' runs, ``load_plain``: arrivals drawn, then pinned) on
+    ``grid``: drawn, pinned and reduced launches; returns ``(mismatches,
+    max abs err, kernel ms, plain ms, steps)``."""
     import torch
     dev = torch.device(device)
     shape, params, warm = engine.stage_serving(grid, None, True, dev)
     n = shape.n_steps
-    counts = torch.from_numpy(np.random.default_rng(3).integers(
-        0, shape.arrivals_max + 1, (len(grid), n)).astype(np.int32)).to(dev)
+    counts = pinned_counts(shape, len(grid), dev)
     bad = err = 0
     plain_ms = None
-    for name, c in (("drawn", None), ("pinned", counts)):
+    for (name, c), (t_ms, want) in zip((("drawn", None), ("pinned", counts)),
+                                       plains):
         got = ops.run_serve(shape, params, warm, c)
         torch.cuda.synchronize()
-        t_ms, want = cuda_ms(lambda: ref.run_serve_ref(shape, params, warm,
-                                                       c),
-                             torch.cuda.synchronize)
         plain_ms = plain_ms or t_ms
         b, e = compare_serve(got, want)
         bad, err = bad + b, max(err, e)
         print(f"  {name} arrivals: {len(grid)} points x {n} steps, "
-              f"mismatches {b} (plain {t_ms:.0f} ms; arrived "
+              f"mismatches {b} (plain {t_ms:.0f} ms in a worker; arrived "
               f"{int(want[1]['arrived'].sum())}, preempted "
               f"{int(want[1]['preempted'].sum())}, dropped "
               f"{int(want[1]['dropped'].sum())})", flush=True)
@@ -1075,12 +1121,12 @@ def check_drawn(label, res: dict, gold: dict, n_reqs: int,
     return diff, 0
 
 
-def serving_phases(sim, timing, golden_mod, regs: dict,
-                   device="cuda") -> tuple:
+def serving_phases(sim, timing, traces, golden_mod, regs: dict,
+                   plain_dir: str, device="cuda") -> tuple:
     """Phases 6-8 (the probe kernel, the serving entry, the serving path
     at full size) on ``device``; returns the kernel line's entries for
     ``hcrac_lookup`` and ``sim_step_serve`` (``regs``: ptxas's report of
-    the sim_step library)."""
+    the sim_step library; ``plain_dir``: the plain workers' runs)."""
     import numpy as np
     import torch
     from repro_torch.core import hcrac as hcl
@@ -1093,8 +1139,7 @@ def serving_phases(sim, timing, golden_mod, regs: dict,
     from repro_torch.workloads.arrivals import ArrivalConfig
 
     # --- phase 6: the probe kernel against its plain version -------------
-    print("\nphase 6: HCRAC probe kernel vs plain version (on the card)",
-          flush=True)
+    phase("6: HCRAC probe kernel vs plain version (on the card)")
     host_spec = ServingSpec(
         policy="fifo", arrival=ArrivalConfig(
             rate=1.5, burstiness=1.0, prompt_pages_min=1, prompt_pages_max=2,
@@ -1105,28 +1150,31 @@ def serving_phases(sim, timing, golden_mod, regs: dict,
     probe = phase_probe(hcl, hk, hops, href, host_spec.hot_cfg(), device)
 
     # --- phase 7: the serving entry against the plain engine -------------
-    print("\nphase 7: sim_step serving entry vs plain serving engine (on "
-          "the card)", flush=True)
+    phase("7: sim_step serving entry vs plain serving engine (on "
+          "the card)")
+    # the grid, the scale streams' geometry and 48 slots, against the
+    # plain runs the workers made during the build
+    grids7 = [plain_grid(name, sim, traces, golden_mod, timing)
+              for name in ("grid", "scale", "wide")]
+    plains = [load_plain(plain_dir, f"serve:{name}:{mode}")
+              for name in ("grid", "scale", "wide")
+              for mode in ("drawn", "pinned")]
     (v_bad, v_err, v_cut_ms, v_plain_ms, v_cut_steps) = phase_serve_vs_plain(
-        sim, engine, ops, ref,
-        serving_grid(sim, golden_mod, timing, n_steps=SERVE_CUT_STEPS),
-        device)
+        sim, engine, ops, grids7[0], plains[0:2], device)
     print("  the scale streams' geometry, every policy x mechanism:",
           flush=True)
-    sc_bad, sc_err, *_ = phase_serve_vs_plain(
-        sim, engine, ops, ref,
-        scale_grid(sim, golden_mod, timing, n_steps=SCALE_CUT_STEPS), device)
+    sc_bad, sc_err, *_ = phase_serve_vs_plain(sim, engine, ops, grids7[1],
+                                              plains[2:4], device)
     v_bad, v_err = v_bad + sc_bad, max(v_err, sc_err)
     print("  48 slots, a 200-entry queue, 48 arrivals a step, every policy "
           "x mechanism:", flush=True)
-    wide_bad, wide_err, *_ = phase_serve_vs_plain(
-        sim, engine, ops, ref,
-        scale_grid(sim, golden_mod, timing, n_steps=SCALE_CUT_STEPS,
-                   max_batch=WIDE_BATCH, queue_cap=WIDE_QUEUE), device)
+    wide_bad, wide_err, *_ = phase_serve_vs_plain(sim, engine, ops, grids7[2],
+                                                  plains[4:6], device)
     v_bad, v_err = v_bad + wide_bad, max(v_err, wide_err)
+    del plains
 
     # --- phase 8: the serving path at full size ---------------------------
-    print("\nphase 8: serving path at full size", flush=True)
+    phase("8: serving path at full size")
     gold_v = golden_mod.load_serving()
     hops.launches = ops.serve_launches = 0
     # (a) host parity on a pinned schedule (benchmarks/serving_trace.py)
@@ -1517,7 +1565,8 @@ def phase_flash(fk, fr, dev) -> dict:
     import torch
     import torch.nn.functional as F
     hmma = {int(re.search(r"ILi(\d+)E", fn).group(1)): n for fn, n in
-            hmma_counts(fk.library()._name, fk.MMA_ENTRY).items()}
+            hmma_counts(fk.library()._name, fk.MMA_ENTRY).items()
+            if "Lb1E" not in fn}  # the serving instantiations
     print(f"  HMMA instructions of the bf16 entry {fk.MMA_ENTRY} by head "
           f"dim tile: {dict(sorted(hmma.items()))}", flush=True)
     check(sorted(hmma) == list(range(16, fk.MAX_HD + 1, 16))
@@ -1716,16 +1765,14 @@ def lm_phases(golden_mod, sim, device="cuda") -> list:
     from repro_torch.models import lm, zoo
     dev = torch.device(device)
 
-    print("\nphase 9: flash-attention kernel vs plain version (on the card)",
-          flush=True)
+    phase("9: flash-attention kernel vs plain version (on the card)")
     flash = phase_flash(fk, fr, dev)
-    print("\nphase 10: decode-attention kernel vs plain version (on the "
-          "card)", flush=True)
+    phase("10: decode-attention kernel vs plain version (on the "
+          "card)")
     dec = phase_decode(pk, pr, dev)
 
     # --- phase 11: tinyllama-1.1b at full width against repro -----------
-    print("\nphase 11: tinyllama-1.1b at full width vs golden_lm.json",
-          flush=True)
+    phase("11: tinyllama-1.1b at full width vs golden_lm.json")
     L = golden_mod.LM
     gold = golden_mod.load_lm()
     cfg = get(L["config"])
@@ -1799,8 +1846,8 @@ def lm_phases(golden_mod, sim, device="cuda") -> list:
           f"{share(d_busy, d_wall)} of the wall busy)", flush=True)
 
     # --- phase 12: examples/serve_lm_torch.py at full width -------------
-    print("\nphase 12: examples/serve_lm_torch.py (tinyllama-1.1b, "
-          "full width)", flush=True)
+    phase("12: examples/serve_lm_torch.py (tinyllama-1.1b, "
+          "full width)")
     n_new, batch = 8, 4
     serve_lm = load_example("serve_lm_torch")
     fa.launches = pa.launches = hops.launches = sops.launches = 0
@@ -1966,13 +2013,11 @@ def ssm_phases(golden_mod, smi: str, device="cuda") -> dict:
     dev = torch.device(device)
     torch.cuda.empty_cache()
 
-    print("\nphase 13: ssm_scan kernel vs plain version (on the card)",
-          flush=True)
+    phase("13: ssm_scan kernel vs plain version (on the card)")
     scan = phase_scan(sk, sr, dev)
 
     # --- phase 14: falcon-mamba-7b at full width against repro ----------
-    print("\nphase 14: falcon-mamba-7b at full width vs golden_lm_ssm.json",
-          flush=True)
+    phase("14: falcon-mamba-7b at full width vs golden_lm_ssm.json")
     L = golden_mod.LM_SSM
     gold = golden_mod.load_lm(golden_mod.LM_SSM_PATH)
     cfg = get(L["config"])
@@ -2037,9 +2082,9 @@ def ssm_phases(golden_mod, smi: str, device="cuda") -> dict:
 
     # --- phase 15: the serving path timed --------------------------------
     S = SSM_SERVE
-    print(f"\nphase 15: falcon-mamba-7b serving path: prefill_fn B "
+    phase(f"15: falcon-mamba-7b serving path: prefill_fn B "
           f"{S['batch']} x {S['prompt']}, then {S['steps']} make_serve_step "
-          f"steps", flush=True)
+          f"steps")
     tokens = torch.from_numpy(np.random.default_rng(15).integers(
         0, cfg.vocab_size, (S["batch"], S["prompt"]))).to(dev)
     max_len = S["prompt"] + S["steps"]
@@ -2607,8 +2652,8 @@ def zoo_phases(golden_mod, smi: str, device="cuda") -> dict:
                                  if part is not None and whole
                                  else "not measured")
 
-    print("\nphase 19: flash and decode kernels at the zoo's shapes, "
-          "rglru_scan (on the card)", flush=True)
+    phase("19: flash and decode kernels at the zoo's shapes, "
+          "rglru_scan (on the card)")
     kern = phase_zoo_kernels(fk, fr, pk, pr, rk, rr, dev)
     result = {"kernels": kern, "runs": {}}
 
@@ -2796,7 +2841,7 @@ def zoo_phases(golden_mod, smi: str, device="cuda") -> dict:
         return batch, dec
 
     # --- phase 20: recurrentgemma-2b -------------------------------------
-    print("\nphase 20: recurrentgemma-2b at published widths", flush=True)
+    phase("20: recurrentgemma-2b at published widths")
     model, c, counts = golden_run("recurrentgemma-2b")
     n_attn = lm.layer_types(c).count("attn")
     n_rec = c.n_layers - n_attn
@@ -2835,7 +2880,7 @@ def zoo_phases(golden_mod, smi: str, device="cuda") -> dict:
     torch.cuda.empty_cache()
 
     # --- phase 21: the MoE family ----------------------------------------
-    print("\nphase 21: the MoE family at published widths", flush=True)
+    phase("21: the MoE family at published widths")
     model, c, counts = golden_run("phi3.5-moe-42b-a6.6b")
     spec = gold["phi3.5-moe-42b-a6.6b"]["spec"]
     check(counts["flash"] == c.n_layers
@@ -2861,7 +2906,7 @@ def zoo_phases(golden_mod, smi: str, device="cuda") -> dict:
     torch.cuda.empty_cache()
 
     # --- phase 22: whisper-small -----------------------------------------
-    print("\nphase 22: whisper-small at full depth", flush=True)
+    phase("22: whisper-small at full depth")
     model, c, counts = golden_run("whisper-small")
     spec = gold["whisper-small"]["spec"]
     check(counts["flash"] == c.n_enc_layers + 2 * c.n_layers
@@ -2873,8 +2918,7 @@ def zoo_phases(golden_mod, smi: str, device="cuda") -> dict:
     del model
 
     # --- phase 23: the dense gaps ----------------------------------------
-    print("\nphase 23: granite-34b, pixtral-12b and phi3-medium-14b",
-          flush=True)
+    phase("23: granite-34b, pixtral-12b and phi3-medium-14b")
     for name in ("granite-34b", "pixtral-12b", "phi3-medium-14b"):
         model, c, counts = golden_run(name)
         spec = gold[name]["spec"]
@@ -2925,6 +2969,628 @@ def zoo_phases(golden_mod, smi: str, device="cuda") -> dict:
                          "phi3.5-moe-42b-a6.6b": moe_serve,
                          "whisper-small": wh_serve, **dense_serve}
     return result
+
+
+# --------------------------------------------------------------------------
+# phase 24: training on the card (tinyllama-1.1b, whisper-small, the 100m
+# example) and the flash kernel's backward entries
+# --------------------------------------------------------------------------
+
+#: phase 24 (a)'s backward shapes (B, S, Skv, H, K, hd, causal, window):
+#: tinyllama-1.1b's train step at S 2 048, phi4-mini's widths, a sliding
+#: window, whisper-small's encoder and its cross-attention (64 queries over
+#: 1 500 frames, no mask), and the 15m preset's hd 32 microbatch
+FLASH_BWD = [(2, 2048, 2048, 32, 4, 64, True, 0),
+             (1, 2048, 2048, 24, 8, 128, True, 0),
+             (2, 1024, 1024, 8, 2, 64, True, 256),
+             (2, 1500, 1500, 12, 12, 64, False, 0),
+             (2, 64, 1500, 12, 12, 64, False, 0),
+             (4, 256, 256, 8, 4, 32, True, 0)]
+#: the backward entries' gradients against their plain version (autograd
+#: of the f32 reference), element by element: |kernel - plain| <=
+#: FLASH_BWD_RTOL * |plain| + FLASH_BWD_ATOL * max |plain| (of the
+#: tensor).  Written before the first card run.  The kernel rounds each
+#: gradient once to bf16 (at most 2^-9 of |plain|: the relative part, with
+#: 4x margin), and rounds the second product's operands P, dS (and O,
+#: which enters D) to bf16, which moves each term of a sum by at most 2^-9
+#: of it: the sum moves by at most 2^-9 of the sum of its terms'
+#: magnitudes, which cancellation can make larger than the sum itself but,
+#: for these random inputs, not than the tensor's largest gradient (the
+#: absolute part, 2x margin)
+FLASH_BWD_RTOL, FLASH_BWD_ATOL = 2.0 ** -7, 2.0 ** -8
+#: the LSE forward's output plus its low halves against the f32 output of
+#: the plain version, max |d| / max |O|: 8x under a bf16 output's own
+#: rounding (2^-9 of each element), so that the low halves are shown to
+#: carry the f32 output into D (the kernel's P V keeps 2^-16 of p)
+FLASH_O32_TOL = 2.0 ** -12
+#: ptxas registers and spill stores / loads (bytes) of the serving entry
+#: flash_attention_mma_kernel<HDP> as it was built before the training
+#: flag (NVIDIA H100 80GB HBM3, nvcc 12.8): the flag must leave them as
+#: they were
+SERVING_FLASH_PTXAS = {
+    16: (80, 8, 8), 32: (113, 0, 0), 48: (143, 0, 0), 64: (180, 0, 0),
+    80: (175, 0, 0), 96: (239, 0, 0), 112: (255, 24, 8),
+    128: (255, 52, 52), 144: (255, 0, 0), 160: (255, 12, 12),
+    176: (255, 36, 36), 192: (255, 76, 76), 208: (255, 176, 176),
+    224: (255, 192, 192), 240: (255, 260, 264), 256: (255, 272, 276)}
+
+
+def flash_bwd_bound(B, S, Skv, H, K, hd, causal, window) -> tuple:
+    """``(bound ms, 'bytes' | 'operations')`` of one backward pass: q, o,
+    dO, dQ (bf16 [B, S, H, hd]), k, v, dK, dV ([B, Skv, K, hd]) and the
+    f32 LSE moved once, against 10 * hd operations a valid (query, key)
+    pair (five products: S, dP, dV, dK, dQ) at the bf16 tensor-core
+    rate."""
+    import torch
+    q = torch.arange(S)[:, None]
+    k = torch.arange(Skv)[None, :]
+    ok = torch.ones(S, Skv, dtype=torch.bool)
+    if causal:
+        ok &= q >= k
+    if window:
+        ok &= (q - k) < window
+    pairs = int(ok.sum()) * B * H
+    nbytes = 2 * hd * (4 * B * S * H + 4 * B * Skv * K) + 4 * B * H * S
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = 10 * hd * pairs / PEAK_OPS["bf16"] * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def bwd_diff(got, want) -> tuple[float, float, float]:
+    """``(max |got - want|, max |want|, worst share of the limit)`` under
+    ``FLASH_BWD_RTOL`` / ``FLASH_BWD_ATOL``."""
+    w = want.float()
+    d = (got.float() - w).abs()
+    top = float(w.abs().max())
+    lim = FLASH_BWD_RTOL * w.abs() + FLASH_BWD_ATOL * top
+    return float(d.max()), top, float((d / lim).max())
+
+
+def flash_ptxas(fk) -> dict:
+    """``{entry name: {"registers", "spill_stores", "spill_loads"}}`` of
+    the flash library's bf16 entries, keyed ``<kernel>:<HDP>`` (the
+    training instantiation of ``flash_attention_mma_kernel``, its LSE
+    flag set, as ``flash_attention_mma_kernel_lse``)."""
+    import re
+    log = Path(fk.library()._name).with_suffix(".log")
+    text = log.read_text() if log.exists() else ""
+    regs = ptxas_report(text, r"((?:flash_attention_mma|flash_bwd_(?:dkdv|"
+                              r"dq))_kernelILi\d+E(?:Lb[01]E)?)")
+    out = {}
+    for name, r in regs.items():
+        m = re.match(r"(\w+?)ILi(\d+)E(Lb1E)?", name)
+        kern = m.group(1) + ("_lse" if m.group(3) else "")
+        out[f"{kern}:{m.group(2)}"] = r
+    return out
+
+
+def phase_flash_bwd(fk, fr, fops, dev) -> dict:
+    """Phase 24 (a): the training forward's LSE and the three backward
+    entries against their plain versions at ``FLASH_BWD``'s shapes (bf16
+    inputs from a seeded ``torch.Generator``), each shape run twice and
+    required bitwise equal; timings beside the bound, the plain version
+    and SDPA's forward + backward; the serving entry's ptxas numbers
+    against ``SERVING_FLASH_PTXAS``."""
+    import torch
+    import torch.nn.functional as F
+    regs = flash_ptxas(fk)
+    moved = {}
+    for hdp, want in SERVING_FLASH_PTXAS.items():
+        r = regs.get(f"flash_attention_mma_kernel:{hdp}")
+        got = None if r is None else (r["registers"], r["spill_stores"],
+                                      r["spill_loads"])
+        if got != want:
+            moved[hdp] = (got, want)
+    training = {k: v for k, v in regs.items()
+                if k.split(":")[0] != "flash_attention_mma_kernel"}
+    for name, r in sorted(training.items()):
+        print(f"  ptxas {name}: {r['registers']} registers, spill stores "
+              f"{r['spill_stores']} B, loads {r['spill_loads']} B",
+              flush=True)
+    print(f"  serving entry flash_attention_mma_kernel, 16 head-dim tiles: "
+          f"ptxas registers and spills as before the training flag: "
+          f"{not moved} {moved or ''}", flush=True)
+    check(not moved, f"the training flag moved the serving entry's "
+                     f"registers or spills: {moved}")
+    gen = torch.Generator(device=dev)
+    out = {"max_abs_err": 0.0, "worst_share": 0.0, "rows": [],
+           "ptxas": training,
+           "serving_ptxas_moved": moved}
+    for i, (B, S, Skv, H, K, hd, causal, window) in enumerate(FLASH_BWD):
+        gen.manual_seed(2400 + i)
+        draw = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                          dtype=torch.float32).to(
+                                              torch.bfloat16)
+        q, k, v = draw(B, S, H, hd), draw(B, Skv, K, hd), draw(B, Skv, K, hd)
+        do = draw(B, S, H, hd)
+        o, lse, o_lo = fk.flash_attention_lse(q, k, v, causal=causal,
+                                              window=window)
+        o_serve = fk.flash_attention(q, k, v, causal=causal, window=window)
+        lse_want = fr.flash_attention_lse_ref(q, k, v, causal=causal,
+                                              window=window)
+        lse_err = float((lse[..., :S] - lse_want).abs().max())
+        same_o = bool(torch.equal(o, o_serve))
+        o_want = fr.flash_attention_ref(q.float(), k.float(), v.float(),
+                                        causal=causal, window=window)
+        o32_err = float((o.float() + o_lo.float() - o_want).abs().max()
+                        / o_want.abs().max())
+        del o_want
+
+        def bwd():
+            dlt = fk.flash_attention_bwd_dot(o, o_lo, do, lse.shape[-1])
+            dk, dv = fk.flash_attention_bwd_dkdv(q, k, v, do, lse, dlt,
+                                                 causal=causal,
+                                                 window=window)
+            dq = fk.flash_attention_bwd_dq(q, k, v, do, lse, dlt,
+                                           causal=causal, window=window)
+            return dq, dk, dv
+        got = bwd()
+        again = bwd()
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        plain_ms, want = cuda_ms(lambda: fr.flash_attention_bwd_ref(
+            q, k, v, do, causal=causal, window=window),
+            torch.cuda.synchronize)
+        diffs = [bwd_diff(g, w) for g, w in zip(got, want)]
+        err = max(d[0] for d in diffs)
+        share = max(d[2] for d in diffs)
+        del want, again
+        # times: the three entries one by one and the whole backward
+        # (device, a CUDA graph of 20 calls), the LSE forward, SDPA's
+        # forward + backward as the library yardstick
+        dlt = fk.flash_attention_bwd_dot(o, o_lo, do, lse.shape[-1])
+        t_dot = graph_ms(lambda: fk.flash_attention_bwd_dot(
+            o, o_lo, do, lse.shape[-1]))
+        t_dkdv = graph_ms(lambda: fk.flash_attention_bwd_dkdv(
+            q, k, v, do, lse, dlt, causal=causal, window=window))
+        t_dq = graph_ms(lambda: fk.flash_attention_bwd_dq(
+            q, k, v, do, lse, dlt, causal=causal, window=window))
+        t_bwd = graph_ms(bwd)
+        t_fwd = graph_ms(lambda: fk.flash_attention_lse(
+            q, k, v, causal=causal, window=window))
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        mask = None
+        if window:
+            qp = torch.arange(S, device=dev)[:, None]
+            kp = torch.arange(Skv, device=dev)[None, :]
+            mask = (qp >= kp) & ((qp - kp) < window)
+
+        def sdpa():
+            y = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
+                enable_gqa=True)
+            return torch.autograd.grad(y, (qt, kt, vt), do.transpose(1, 2))
+        lib_ms = loop_ms(sdpa)
+
+        def ours():
+            o2, lse2, lo2 = fk.flash_attention_lse(q, k, v, causal=causal,
+                                                   window=window)
+            d2 = fk.flash_attention_bwd_dot(o2, lo2, do, lse2.shape[-1])
+            fk.flash_attention_bwd_dkdv(q, k, v, do, lse2, d2,
+                                        causal=causal, window=window)
+            fk.flash_attention_bwd_dq(q, k, v, do, lse2, d2, causal=causal,
+                                      window=window)
+        ours_ms = loop_ms(ours)
+        bound, by = flash_bwd_bound(B, S, Skv, H, K, hd, causal, window)
+        row = {"shape": [B, S, Skv, H, K, hd, causal, window],
+               "max_abs_err": err, "worst_share": share, "lse_err": lse_err,
+               "o_f32_err": o32_err,
+               "bitwise_twice": bitwise, "o_equals_serving": same_o,
+               "dot_ms": t_dot, "dkdv_ms": t_dkdv, "dq_ms": t_dq,
+               "bwd_ms": t_bwd, "fwd_lse_ms": t_fwd, "plain_ms": plain_ms,
+               "fwd_bwd_events_ms": ours_ms,
+               "library_fwd_bwd_ms": lib_ms, "bound_ms": bound,
+               "bound_by": by, "bound_share": bound / t_bwd,
+               "rel_err": [d[0] / max(d[1], 1e-30) for d in diffs]}
+        out["rows"].append(row)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["worst_share"] = max(out["worst_share"], share)
+        print(f"  B{B} S{S} Skv{Skv} H{H} K{K} hd{hd} causal={causal} "
+              f"window={window}: dq / dk / dv max |kernel - plain| / max "
+              f"|plain| {', '.join(f'{d[0]:.3g}/{d[1]:.3g}' for d in diffs)}"
+              f", worst share of the limit {share:.3g}; LSE max |d| "
+              f"{lse_err:.3g}; O + O_lo against the f32 output, max |d| / "
+              f"max |O| {o32_err:.3g} (limit {FLASH_O32_TOL:.3g}); bitwise "
+              f"twice {bitwise}; O equals the serving entry's {same_o}",
+              flush=True)
+        print(f"    device ms: D {t_dot:.4f}, dK/dV {t_dkdv:.4f}, dQ "
+              f"{t_dq:.4f}, backward {t_bwd:.4f} ({100 * bound / t_bwd:.1f} "
+              f"% of its {by} bound {bound:.4f} ms); LSE forward "
+              f"{t_fwd:.4f}; plain backward {plain_ms:.2f} ms; events: "
+              f"the kernels' forward + backward {ours_ms:.4f} ms, SDPA's "
+              f"{lib_ms:.4f} ms", flush=True)
+        check(share <= 1.0 and bitwise and lse_err <= 1e-3
+              and o32_err <= FLASH_O32_TOL,
+              f"the flash backward disagrees with its plain version, or is "
+              f"not deterministic, at {FLASH_BWD[i]}")
+        del q, k, v, do, o, lse, o_lo, got, dlt, qt, kt, vt
+        torch.cuda.empty_cache()
+    return out
+
+
+#: phase 24 (c): whisper-small's train step at published width (12 + 12
+#: layers), B 2 x 64 tokens over 1 500 stub frames, counter-based inputs
+WHISPER_TRAIN = {"batch": 2, "seq": 64, "frames": 1500, "seed": 26}
+#: phase 24 (c)'s end-to-end limits for whisper-small's step against its
+#: plain-version step (relative, as ``golden.TRAIN_TOL``).  The plain step
+#: split into two microbatches moves a leaf's gradient norm by 4.31e-3
+#: (``['dec_layers'][5]['attn']['wk']``, two card runs alike), above
+#: ``TRAIN_TOL``'s 2^-8: a bf16 rounding anywhere in the forward moves the
+#: step that far (the kernels' forward rounds O where the plain version
+#: rounds the f32 output; SDPA's step lies 1.9e-2 away).  So the leaves
+#: take 4x that floor, rounded down to a power of two, 2^-6; the loss,
+#: grad_norm and lr keep ``TRAIN_TOL``.  The backward entries themselves
+#: are held to ``TRAIN_TOL`` in the same step against the kernels'
+#: forward with the plain backward (``plain_backward``): there the
+#: forward is bitwise shared, and D taken from the bf16 output (the
+#: backward's first design) lies 1.3e-2 away
+#: (``tests/_torch_whisper_bwd.py``).
+WHISPER_TRAIN_TOL = {"loss": 2.0 ** -12, "grad_norm": 2.0 ** -10,
+                     "leaf_grad_norms": 2.0 ** -6, "lr": 1e-6}
+#: phase 24 (d): the 100m example, a checkpoint at step 20, resumed to 30
+EXAMPLE_TRAIN = {"preset": "100m", "steps": 30, "ckpt_every": 20}
+#: phase 24 (e): tinyllama-1.1b's full train step timed (B 4 x S 2 048,
+#: ``microbatches_for``' count for that shape), ``reps`` steps after one
+#: warm-up step
+TRAIN_TIMED = {"batch": 4, "seq": 2048, "reps": 3}
+
+
+def train_counts(fops) -> dict:
+    return {"flash": fops.launches, "bwd_dot": fops.bwd_dot_launches,
+            "bwd_dkdv": fops.bwd_dkdv_launches,
+            "bwd_dq": fops.bwd_dq_launches}
+
+
+def zero_train_counts(fops) -> None:
+    fops.launches = fops.bwd_dot_launches = 0
+    fops.bwd_dkdv_launches = fops.bwd_dq_launches = 0
+
+
+def attention_as(attn):
+    """A context in which the model's attention runs ``attn`` in place of
+    ``ops.flash_attention``."""
+    import contextlib
+
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = fops.flash_attention
+        fops.flash_attention = attn
+        try:
+            yield
+        finally:
+            fops.flash_attention = saved
+    return ctx()
+
+
+def plain_attention():
+    """A context in which the model's attention runs the flash kernel's
+    plain version on the card, differentiated by autograd (the reference
+    a training step through the kernels is held to)."""
+    from repro_torch.kernels.flash_attention import ref as fr
+
+    def plain(q, k, v, *, causal=True, window=0):
+        return fr.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return attention_as(plain)
+
+
+def plain_backward():
+    """A context in which the model's attention runs the flash kernel's
+    forward (so that every activation is bitwise the kernels' step's) and
+    the plain backward (``ref.flash_attention_bwd_ref`` on the call's
+    inputs): the reference that isolates the backward entries inside a
+    train step."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fr
+
+    class KernelForwardPlainBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, window):
+            ctx.save_for_backward(q, k, v)
+            ctx.mask = (causal, window)
+            return fk.flash_attention(q, k, v, causal=causal, window=window)
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v = ctx.saved_tensors
+            causal, window = ctx.mask
+            g = fr.flash_attention_bwd_ref(q, k, v, do, causal=causal,
+                                           window=window)
+            return (g[0].to(q.dtype), g[1].to(k.dtype), g[2].to(v.dtype),
+                    None, None)
+
+    def attn(q, k, v, *, causal=True, window=0):
+        return KernelForwardPlainBackward.apply(q, k, v, causal, window)
+    return attention_as(attn)
+
+
+def train_step_record(golden_mod, steps, adamw, model, cfg, batch,
+                      microbatches: int) -> dict:
+    """One ``make_train_step`` step from fresh AdamW state: ``{"loss",
+    "grad_norm", "lr", "leaf_grad_norms"}`` (``golden.leaf_grad_norms``
+    from the new first moment)."""
+    opt_cfg = adamw.AdamWConfig()
+    step = steps.make_train_step(cfg, opt_cfg, microbatches=microbatches)
+    opt, out = step(model, adamw.init(model.tree()), batch)
+    gn = float(out["grad_norm"])
+    scale = min(1.0, opt_cfg.clip_norm / max(gn, 1e-9))
+    return {"loss": float(out["loss"]), "grad_norm": gn,
+            "lr": float(out["lr"]),
+            "leaf_grad_norms": golden_mod.leaf_grad_norms(
+                opt.m, opt_cfg.b1, scale)}
+
+
+def golden_train_model(golden_mod, lm, cfg, seed: int, dev):
+    """The golden weights of ``cfg`` built on the card; returns ``(model,
+    weights digest)``."""
+    import torch
+    tree = golden_mod.golden_weights(lm.lm_defs(cfg), seed, dev)
+    torch.cuda.synchronize()
+    return lm.LM(cfg, tree), golden_mod.weights_digest(tree)
+
+
+def train_flops(cfg, B: int, S: int) -> float:
+    """Operations of one train step of a dense decoder at B x S: 6 N
+    tokens (N the parameters of its products: all but the embedding),
+    the remat forward of the layers and of the chunked cross entropy's
+    head (2 N tokens again), and attention, 4 hd a valid causal pair
+    forward, again in the remat forward, and 10 hd backward."""
+    from repro_torch.models.params import count_params
+    from repro_torch.models import lm
+    defs = lm.lm_defs(cfg)
+    n = count_params(defs) - count_params(defs["embed"])
+    tokens = B * S
+    pairs = S * (S + 1) // 2 * cfg.n_heads * B * cfg.n_layers
+    return 8.0 * n * tokens + 18.0 * cfg.hd * pairs
+
+
+def train_phase(golden_mod, smi: str, device="cuda") -> dict:
+    """Phase 24 on ``device``: (a) the backward entries against their
+    plain version, (b) tinyllama-1.1b's train step against
+    ``golden_train.json`` and its plain-version step, (c) whisper-small's
+    step against its plain-version step, (d) the 100m example's run and
+    resume, (e) the timed full train step; returns the kernel line's
+    ``flash_attention_bwd`` row."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fr
+    from repro_torch.launch import steps
+    from repro_torch.models import lm, zoo
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+    dev = torch.device(device)
+    t_phase = time.time()
+
+    phase("24: training on the card")
+    print("  (a) the flash kernel's backward entries vs their plain version",
+          flush=True)
+    bwd = phase_flash_bwd(fk, fr, fops, dev)
+    tol = golden_mod.TRAIN_TOL
+
+    # (b) tinyllama-1.1b: the golden step, then full depth
+    rec = golden_mod.load_train()
+    T = rec["train"]
+    cfg = golden_mod.zoo_config(get(T["config"]), T)
+    model, digest = golden_train_model(golden_mod, lm, cfg, T["seed"], dev)
+    check(digest == rec["weights_digest"], "the golden training weights "
+          "built on the card differ from repro's")
+    batch = golden_mod.train_tokens(cfg.vocab_size, dev)
+    check(golden_mod.tokens_digest(batch["tokens"], batch["targets"])
+          == rec["tokens_digest"], "the golden training tokens differ")
+    zero_train_counts(fops)
+    got = train_step_record(golden_mod, steps, adamw, model, cfg, batch,
+                            T["microbatches"])
+    torch.cuda.synchronize()
+    launches = train_counts(fops)
+    model, _ = golden_train_model(golden_mod, lm, cfg, T["seed"], dev)
+    with plain_attention():
+        plain = train_step_record(golden_mod, steps, adamw, model, cfg,
+                                  batch, T["microbatches"])
+    dist = golden_mod.train_record_distance(got, rec["blocked"])
+    dist_plain = golden_mod.train_record_distance(plain, rec["blocked"])
+    print(f"  (b) tinyllama-1.1b ({cfg.n_layers} layers, published widths, "
+          f"B{T['batch']} x {T['seq']}, {T['microbatches']} microbatches): "
+          f"loss {got['loss']:.6f} (repro {rec['blocked']['loss']:.6f}), "
+          f"grad_norm {got['grad_norm']:.6f} "
+          f"({rec['blocked']['grad_norm']:.6f}); relative distance from "
+          f"golden_train.json {dist} (limits {tol}); the plain versions' "
+          f"step on the card {dist_plain}; launches {launches}", flush=True)
+    check(all(dist[k] <= tol[k] for k in tol),
+          "tinyllama-1.1b's train step disagrees with golden_train.json")
+    check(all(dist_plain[k] <= tol[k] for k in tol),
+          "the plain versions' train step disagrees with golden_train.json")
+    check(all(n > 0 for n in launches.values()),
+          f"the train step launched a flash entry no time: {launches}")
+    del model
+    full = get(T["config"])
+    model, _ = golden_train_model(golden_mod, lm, full, T["seed"], dev)
+    fk_full = train_step_record(golden_mod, steps, adamw, model, full, batch,
+                                T["microbatches"])
+    del model
+    torch.cuda.empty_cache()
+    model, _ = golden_train_model(golden_mod, lm, full, T["seed"], dev)
+    with plain_attention():
+        pl_full = train_step_record(golden_mod, steps, adamw, model, full,
+                                    batch, T["microbatches"])
+    del model
+    torch.cuda.empty_cache()
+    dist_full = golden_mod.train_record_distance(fk_full, pl_full)
+    print(f"  (b) tinyllama-1.1b full depth ({full.n_layers} layers), same "
+          f"batch: loss {fk_full['loss']:.6f}, grad_norm "
+          f"{fk_full['grad_norm']:.6f}; relative distance from the plain "
+          f"versions' step on the card {dist_full}", flush=True)
+    check(all(dist_full[k] <= tol[k] for k in tol),
+          "tinyllama-1.1b's full-depth step disagrees with its plain step")
+
+    # (c) whisper-small: the kernels' step against the plain versions'
+    # (WHISPER_TRAIN_TOL) and against the kernels' forward with the plain
+    # backward (TRAIN_TOL); beside them, for the record, the plain step's
+    # own distance from itself split into two microbatches
+    W = WHISPER_TRAIN
+    wcfg = get("whisper-small")
+    recs = {}
+    for name in ("kernel", "plain", "plain_mb2", "plain_backward"):
+        tree = golden_mod.golden_weights(zoo.model_defs(wcfg), W["seed"], dev)
+        wmodel = lm.LM(wcfg, tree)
+        wbatch = golden_mod.train_tokens(wcfg.vocab_size, dev,
+                                         {"batch": W["batch"],
+                                          "seq": W["seq"],
+                                          "seed": W["seed"]})
+        wbatch["frames"] = golden_mod._embeds(
+            W["seed"], golden_mod._LANE_FRAMES,
+            (W["batch"], W["frames"], wcfg.d_model), dev)
+        zero_train_counts(fops)
+        if name == "kernel":
+            recs[name] = train_step_record(golden_mod, steps, adamw, wmodel,
+                                           wcfg, wbatch, 1)
+            w_launches = train_counts(fops)
+        else:
+            with (plain_backward() if name == "plain_backward"
+                  else plain_attention()):
+                recs[name] = train_step_record(
+                    golden_mod, steps, adamw, wmodel, wcfg, wbatch,
+                    2 if name == "plain_mb2" else 1)
+        del wmodel, tree
+        torch.cuda.empty_cache()
+    wdist = golden_mod.train_record_distance(recs["kernel"], recs["plain"])
+    wbwd = golden_mod.train_record_distance(recs["kernel"],
+                                            recs["plain_backward"])
+    wfloor = golden_mod.train_record_distance(recs["plain_mb2"],
+                                              recs["plain"])
+    print(f"  (c) whisper-small (12 + 12 layers, B{W['batch']} x "
+          f"{W['seq']} tokens, {W['frames']} frames): loss "
+          f"{recs['kernel']['loss']:.6f}, grad_norm "
+          f"{recs['kernel']['grad_norm']:.6f}; relative distance from the "
+          f"plain versions' step {wdist} (limits {WHISPER_TRAIN_TOL}); "
+          f"from the kernels' forward with the plain backward {wbwd} "
+          f"(limits {tol}); the plain step's microbatch split {wfloor}; "
+          f"launches {w_launches}", flush=True)
+    check(all(wdist[k] <= WHISPER_TRAIN_TOL[k] for k in tol),
+          "whisper-small's train step disagrees with its plain step")
+    check(all(wbwd[k] <= tol[k] for k in tol),
+          "whisper-small's train step disagrees with the same step on the "
+          "plain backward")
+    check(all(n > 0 for n in w_launches.values()),
+          f"whisper's train step launched a flash entry no time: "
+          f"{w_launches}")
+
+    # (d) the 100m example: a straight run with a checkpoint at step 20,
+    # then a resume from it to the same last step
+    E = EXAMPLE_TRAIN
+    ex = load_example("train_lm_torch")
+    ckpt_dir = tempfile.mkdtemp(dir=ROOT / "build")
+    try:
+        argv = ["--preset", E["preset"], "--steps", str(E["steps"]),
+                "--ckpt-every", str(E["ckpt_every"]), "--ckpt-dir",
+                ckpt_dir, "--device", device]
+        t0 = time.time()
+        straight = ex.main(argv)
+        ex_s = time.time() - t0
+        resumed = ex.main(argv + ["--resume"])
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    last = E["steps"] - 1
+    a, b = straight["losses"], resumed["losses"]
+    bitwise = a[last] == b[last] and all(
+        torch.equal(x, y) for x, y in zip(straight["model"].parameters(),
+                                          resumed["model"].parameters()))
+    print(f"  (d) examples/train_lm_torch.py --preset {E['preset']}: loss "
+          f"{a[0]:.4f} at step 0, {a[last]:.4f} at step {last} "
+          f"({ex_s:.1f} s with its checkpoint); resumed from step "
+          f"{resumed['start']}: {b[last]:.4f}; last loss and parameters "
+          f"bitwise equal: {bitwise}", flush=True)
+    check(a[last] < a[0] and resumed["start"] == E["ckpt_every"],
+          "the example's loss did not fall, or it did not resume")
+    check(bitwise, "the resumed run's last loss or parameters differ from "
+                   "the straight run's")
+    del straight, resumed
+    torch.cuda.empty_cache()
+
+    # (e) the full train step timed
+    TT = TRAIN_TIMED
+    shape = ShapeConfig("train", TT["seq"], TT["batch"], "train")
+    mb = steps.microbatches_for(full, shape)
+    model, _ = golden_train_model(golden_mod, lm, full, T["seed"], dev)
+    tbatch = golden_mod.train_tokens(full.vocab_size, dev, {
+        "batch": TT["batch"], "seq": TT["seq"], "seed": T["seed"] + 1})
+    step = steps.make_train_step(full, adamw.AdamWConfig(), microbatches=mb)
+    opt = adamw.init(model.tree())
+    torch.cuda.reset_peak_memory_stats()
+    opt, out = step(model, opt, tbatch)
+    torch.cuda.synchronize()
+    walls = []
+    zero_train_counts(fops)
+    for _ in range(TT["reps"]):
+        t0 = time.perf_counter()
+        opt, out = step(model, opt, tbatch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    step_launches = {k: v // TT["reps"] for k, v in
+                     train_counts(fops).items()}
+    wall = statistics.median(walls)
+    flops = train_flops(full, TT["batch"], TT["seq"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _, busy, by_name = profile_kernels(lambda: step(model, opt, tbatch), (
+        ("flash_attention_mma_kernel",), ("flash_bwd_dkdv_kernel",),
+        ("flash_bwd_dq_kernel",), ("flash_bwd_dot_kernel",),
+        ("gemm", "Gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")))
+    tok_s = TT["batch"] * TT["seq"] / wall
+    print(f"  (e) tinyllama-1.1b full train step B{TT['batch']} x "
+          f"{TT['seq']} ({mb} microbatch): {wall * 1e3:.1f} ms (median of "
+          f"{TT['reps']}: {', '.join(f'{w * 1e3:.1f}' for w in walls)}), "
+          f"{tok_s:,.0f} tokens/s, {flops:.3g} operations: "
+          f"{100 * flops / wall / PEAK_OPS['bf16']:.1f} % of 989 TFLOP/s; "
+          f"peak device memory {peak:.1f} GiB; launches a step "
+          f"{step_launches}; loss {float(out['loss']):.4f}", flush=True)
+    if busy is not None:
+        print(f"    profiled step: device busy {busy:.1f} ms; "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in by_name.items()
+                          if k != "n_kernels")
+              + f"; {by_name['n_kernels']} kernels", flush=True)
+    del model, opt
+    torch.cuda.empty_cache()
+    print(f"  phase 24 {time.time() - t_phase:.1f} s; card: {smi}",
+          flush=True)
+
+    tiny = bwd["rows"][0]
+    return {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "none: XLA's differentiation of src/repro/models/"
+                    "layers.py:113 blocked_attention (repro's training "
+                    "path; no Pallas kernel has a backward)",
+        "launches": launches["bwd_dkdv"], "launches_golden_step": launches,
+        "launches_whisper_step": w_launches,
+        "launches_full_step": step_launches,
+        "max_abs_err": bwd["max_abs_err"], "worst_share": bwd["worst_share"],
+        "ms": tiny["bwd_ms"], "plain_ms": tiny["plain_ms"],
+        "bound_ms": tiny["bound_ms"], "bound_by": tiny["bound_by"],
+        "library_ms": tiny["library_fwd_bwd_ms"],
+        "library": "SDPA forward + backward (enable_gqa), events; beside "
+                   "it the kernels' forward + backward, events: "
+                   f"{tiny['fwd_bwd_events_ms']:.4f} ms",
+        "shapes": bwd["rows"], "ptxas": bwd["ptxas"],
+        "golden_distance": dist, "plain_golden_distance": dist_plain,
+        "full_depth_distance": dist_full, "whisper_distance": wdist,
+        "whisper_backward_distance": wbwd, "whisper_floor": wfloor,
+        "example": {"first_loss": a[0], "last_loss": a[last],
+                    "resumed_last_loss": b[last], "bitwise": bitwise,
+                    "seconds": ex_s},
+        "train_step": {"ms": wall * 1e3, "tokens_per_s": tok_s,
+                       "flops": flops,
+                       "peak_share": flops / wall / PEAK_OPS["bf16"],
+                       "peak_gib": peak, "busy_ms": busy,
+                       "by_name": by_name, "microbatches": mb},
+        "phase_s": time.time() - t_phase}
 
 
 # --------------------------------------------------------------------------
@@ -3779,6 +4445,111 @@ def add_zoo_rows(lm_rows: list, zoo_rows: dict) -> None:
     flash["zoo_runs"] = zoo_rows["runs"]
 
 
+# --------------------------------------------------------------------------
+# the plain runs of phases 4 and 7, made by worker processes during the build
+# --------------------------------------------------------------------------
+
+#: the plain versions' runs that phases 4 and 7 hold the synthesis and
+#: serving entries to, by worker process.  They are host-bound eager loops
+#: (~360 s one after another on the H100's host); four workers make them
+#: while the kernels build (the card then times nothing), balanced by
+#: their times there: ``synth:<grid>``, ``serve:<grid>:<drawn|pinned>``
+PLAIN_WORKERS = (
+    ("synth:full",),
+    ("synth:matrix", "serve:scale:pinned"),
+    ("serve:wide:pinned", "serve:grid:drawn"),
+    ("serve:wide:drawn", "serve:scale:drawn", "serve:grid:pinned",
+     "synth:pressure"))
+#: the worker processes and their output directories, stopped and removed
+#: on the way out (``stop_plain_workers``)
+_WORKERS: list = []
+_PLAIN_DIRS: list = []
+
+
+def plain_grid(name: str, sim, traces, golden_mod, timing) -> list:
+    """The grid of a plain run (``PLAIN_WORKERS``), as the worker and the
+    phase that holds the kernel to it both build it."""
+    if name == "matrix":
+        return synth_cut_grid(sim, traces)
+    if name == "full":
+        return synth_full_grid(sim, golden_mod, timing, n_req=SYNTH_CUT_REQ)
+    if name == "pressure":
+        return pressure_synth_grid(sim, traces)
+    if name == "grid":
+        return serving_grid(sim, golden_mod, timing, n_steps=SERVE_CUT_STEPS)
+    if name == "scale":
+        return scale_grid(sim, golden_mod, timing, n_steps=SCALE_CUT_STEPS)
+    return scale_grid(sim, golden_mod, timing, n_steps=SCALE_CUT_STEPS,
+                      max_batch=WIDE_BATCH, queue_cap=WIDE_QUEUE)
+
+
+def plain_worker(jobs, out_dir: str) -> None:
+    """A worker process: each plain run of ``jobs`` on the card, its
+    ``(ms, outputs)`` saved as ``<out_dir>/<job>.pt`` (CUDA events around
+    the run, taken beside the other workers and the build)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch import golden as golden_mod
+    from repro_torch.core import simulator as sim, timing, traces
+    from repro_torch.kernels.sim_step import ref
+    from repro_torch.serving.loop import engine
+    dev = torch.device("cuda")
+    for job in jobs:
+        kind, name, *mode = job.split(":")
+        grid = plain_grid(name, sim, traces, golden_mod, timing)
+        if kind == "synth":
+            args = sim._stage_synth(grid, None, dev)
+            fn = lambda: ref.run_synth_ref(*args, True, True)
+        else:
+            staged = engine.stage_serving(grid, None, True, dev)
+            counts = (pinned_counts(staged[0], len(grid), dev)
+                      if mode == ["pinned"] else None)
+            fn = lambda: ref.run_serve_ref(*staged, counts)
+        torch.cuda.synchronize()
+        torch.save(cuda_ms(fn, torch.cuda.synchronize),
+                   Path(out_dir) / f"{job.replace(':', '-')}.pt")
+
+
+def start_plain_workers() -> str:
+    """Starts ``PLAIN_WORKERS``; returns the directory they write to."""
+    import multiprocessing
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    out_dir = tempfile.mkdtemp(dir=ROOT / "build")
+    _PLAIN_DIRS.append(out_dir)
+    ctx = multiprocessing.get_context("spawn")
+    for jobs in PLAIN_WORKERS:
+        w = ctx.Process(target=plain_worker, args=(jobs, out_dir))
+        w.start()
+        _WORKERS.append(w)
+    return out_dir
+
+
+def wait_plain_workers() -> None:
+    for w in _WORKERS:
+        w.join()
+    check(all(w.exitcode == 0 for w in _WORKERS),
+          f"a plain worker failed: exit codes "
+          f"{[w.exitcode for w in _WORKERS]}")
+
+
+def stop_plain_workers() -> None:
+    import shutil
+    for w in _WORKERS:
+        if w.is_alive():
+            w.terminate()
+        w.join()
+    for d in _PLAIN_DIRS:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def load_plain(out_dir: str, job: str) -> tuple:
+    """A worker's ``(ms, outputs)`` of ``job``, on the card."""
+    import torch
+    return torch.load(Path(out_dir) / f"{job.replace(':', '-')}.pt",
+                      map_location="cuda", weights_only=False)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3789,6 +4560,8 @@ def main() -> int:
               "script (run it from the root of a checkout)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # the plain runs of phases 4 and 7 start now, in worker processes
+    plain_dir = start_plain_workers()
     from repro_torch.core import aldram, mechanisms, simulator as sim
     from repro_torch.core import timing, traces
     from repro_torch import golden as golden_mod
@@ -3821,6 +4594,11 @@ def main() -> int:
     print(f"sim_step + hcrac + flash_attention + paged_attention + ssm_scan "
           f"+ rglru_scan build+load: {time.time() - t0:.1f} s "
           f"({', '.join(b._name for b in libs)})")
+    t0 = time.time()
+    wait_plain_workers()
+    print(f"the plain runs of phases 4 and 7 in {len(PLAIN_WORKERS)} worker "
+          f"processes: {time.time() - t_start:.1f} s from the start, "
+          f"{time.time() - t0:.1f} s waited after the build", flush=True)
     sim_log = Path(libs[0]._name).with_suffix(".log")
     regs = ptxas_report(sim_log.read_text() if sim_log.exists() else "")
     for built in libs:
@@ -3832,8 +4610,7 @@ def main() -> int:
                     print(f"  ptxas: {line.strip()}")
 
     # --- phase 2: kernel against plain version --------------------------
-    print("\nphase 2: sim_step kernel vs plain version (on the card)",
-          flush=True)
+    phase("2: sim_step kernel vs plain version (on the card)")
     max_err = phase_kernel_vs_plain(sim, traces, aldram, ops, ref)
 
     golden = load()
@@ -3869,7 +4646,7 @@ def main() -> int:
     check(cut_bad == 0, "kernel disagrees with plain version at full size")
 
     # --- phase 3: the main path at full size -----------------------------
-    print("\nphase 3: main path at full size", flush=True)
+    phase("3: main path at full size")
     ops.launches = ops.synth_launches = 0
     t0 = time.time()
     res8 = sim.sweep(batch8, grid38, rltl=True)
@@ -3947,23 +4724,30 @@ def main() -> int:
               for r in regs.values()), "a scan entry spills registers")
 
     # --- phase 4: the synthesis entry against its plain version ---------
-    print("\nphase 4: sim_step synthesis entry vs plain version (on the "
-          "card)", flush=True)
-    m_bad, m_err = synth_vs_plain(sim, ops, ref, "matrix",
-                                  synth_cut_grid(sim, traces))[:2]
-    # the full-size grid's points (8 cores, 1 024 HCRAC entries) cut
+    phase("4: sim_step synthesis entry vs plain version (on the "
+          "card)")
+    # the matrix, the full-size grid's points (8 cores, 1 024 HCRAC
+    # entries) cut, 4x refresh pressure, against the plain runs the
+    # workers made during the build
+    m_bad, m_err = synth_vs_plain(
+        sim, ops, "matrix", plain_grid("matrix", sim, traces, golden_mod,
+                                       timing),
+        load_plain(plain_dir, "synth:matrix"))[:2]
     (s_bad, s_err, s_cut_ms, s_plain_ms, s_cut_points,
      s_cut_steps) = synth_vs_plain(
-        sim, ops, ref, "full-size grid cut",
-        synth_full_grid(sim, golden_mod, timing, n_req=SYNTH_CUT_REQ))
-    p_bad, p_err = synth_vs_plain(sim, ops, ref, "4x refresh pressure",
-                                  pressure_synth_grid(sim, traces))[:2]
+        sim, ops, "full-size grid cut",
+        plain_grid("full", sim, traces, golden_mod, timing),
+        load_plain(plain_dir, "synth:full"))
+    p_bad, p_err = synth_vs_plain(
+        sim, ops, "4x refresh pressure",
+        plain_grid("pressure", sim, traces, golden_mod, timing),
+        load_plain(plain_dir, "synth:pressure"))[:2]
     s_bad += m_bad + p_bad
     s_err = max(s_err, m_err, p_err)
     max_err = max(max_err, s_err)
 
     # --- phase 5: the synthesis path at full size -------------------------
-    print("\nphase 5: synthesis path at full size", flush=True)
+    phase("5: synthesis path at full size")
     gold = golden_mod.load_synth()
     points = golden_mod.synth_points()
     grid32 = synth_full_grid(sim, golden_mod, timing)
@@ -4037,13 +4821,14 @@ def main() -> int:
             synth_cut_grid(sim, traces), None, torch.device("cuda")))])
     check(div_bad == 0, "the device divider disagrees with floor division")
 
-    serve_rows = serving_phases(sim, timing, golden_mod, regs)
+    serve_rows = serving_phases(sim, timing, traces, golden_mod, regs,
+                                plain_dir)
     max_err = max(max_err, serve_rows[1]["max_abs_err"])
     lm_rows = lm_phases(golden_mod, sim)
     ssm_row = ssm_phases(golden_mod, smi)
 
     # --- phase 16: the Experiment layer and the five figures -------------
-    print("\nphase 16: the Experiment layer and the five figures", flush=True)
+    phase("16: the Experiment layer and the five figures")
     from repro_torch.experiment import Experiment
     exp_bad = experiment_vs_plain(sim, traces, mechanisms, Experiment)
     gold_bad = golden_through_experiment(sim, traces, golden_mod, Experiment)
@@ -4051,14 +4836,12 @@ def main() -> int:
     serve_rows[0]["launches_policy_study"] = fig["main"]["hcrac"]
 
     # --- phase 17: the FR-FCFS controller tier ----------------------------
-    print("\nphase 17: the FR-FCFS controller tier (the sim_window entry)",
-          flush=True)
+    phase("17: the FR-FCFS controller tier (the sim_window entry)")
     window_row = window_phase(sim, traces, golden_mod, kernel, ops, ref,
                               regs)
 
     # --- phase 18: the simulator-side studies and the examples -----------
-    print("\nphase 18: the simulator-side studies and the examples",
-          flush=True)
+    phase("18: the simulator-side studies and the examples")
     drv = driver_phase(sim, traces, golden_mod, kernel)
     p18 = dict(drv["main"])
     p18["sim_step"] += drv["megasweep_launches"]
@@ -4067,6 +4850,7 @@ def main() -> int:
         row["launches_phase18"] = p18[key]
     zoo_rows = zoo_phases(golden_mod, smi)
     add_zoo_rows(lm_rows, zoo_rows)
+    train_row = train_phase(golden_mod, smi)
     print(f"\nchip_smoke total: {time.time() - t_start:.1f} s")
     print(smi)
 
@@ -4120,7 +4904,7 @@ def main() -> int:
                            for k in ("spill_stores", "spill_loads")),
         "bound_ms": bound32, "bound_by": "bytes", "library_ms": None},
         *serve_rows, *lm_rows, ssm_row, window_row,
-        zoo_rows["rglru_row"]]}))
+        zoo_rows["rglru_row"], train_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -4133,3 +4917,5 @@ if __name__ == "__main__":
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         sys.exit(1)
+    finally:
+        stop_plain_workers()

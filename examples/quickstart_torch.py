@@ -1,14 +1,14 @@
-"""Quickstart on the PyTorch/CUDA port: simulate a DDR3 system with and
-without ChargeCache (the port of ``quickstart.py``'s
-``chargecache_demo``).
+"""Quickstart on the PyTorch/CUDA port, the port of ``quickstart.py``:
+
+1. The paper: simulate a DDR3 system with and without ChargeCache.
+2. The framework: one training step of the reduced tinyllama.
 
 Run:  PYTHONPATH=src python examples/quickstart_torch.py [--device cpu]
-
-``quickstart.py``'s second half, one training step, waits for the port's
-optimizer and train step (ROADMAP.md, Queue 1 item 3).
 """
 
 import argparse
+
+import torch
 
 from repro_torch.core.traces import single_core_batch
 from repro_torch.experiment import Experiment
@@ -32,11 +32,42 @@ def chargecache_demo(device=None) -> dict:
     return {"base": base, "chargecache": cc}
 
 
+def train_step_demo(device=None, model=None, batch=None) -> dict:
+    """One train step (two microbatches, AdamW) of the reduced tinyllama
+    on ``device`` (the card unless ``cpu``); returns its metrics as
+    floats.  ``model`` / ``batch``: weights and inputs to use in place of
+    the port's own random ones (``zoo.init_model`` / ``zoo.make_batch``,
+    other draws than ``repro``'s)."""
+    print("== One train step of reduced tinyllama ==")
+    from repro_torch.configs import get
+    from repro_torch.launch import steps
+    from repro_torch.models import zoo
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+
+    cfg = get("tinyllama-1.1b").reduced()
+    if model is None:
+        model = zoo.init_model(cfg, seed=0, device=device)
+    if batch is None:
+        batch = zoo.make_batch(cfg, ShapeConfig("demo", 64, 4, "train"),
+                               device=device)
+    opt = adamw.init(model.tree())
+    step = steps.make_train_step(cfg, adamw.AdamWConfig(), microbatches=2)
+    opt, out = step(model, opt, batch)
+    out = {k: float(v) for k, v in out.items()}
+    print(f"  loss={out['loss']:.3f} grad_norm={out['grad_norm']:.3f}")
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None,
-                    help="'cpu' for the plain engine (default: the card)")
-    return chargecache_demo(ap.parse_args(argv).device)
+                    help="'cpu' for the plain engine and kernels (default: "
+                         "the card)")
+    device = ap.parse_args(argv).device
+    cells = chargecache_demo(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return {"chargecache": cells, "train": train_step_demo(device)}
 
 
 if __name__ == "__main__":

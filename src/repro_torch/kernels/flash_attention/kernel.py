@@ -11,6 +11,15 @@ bf16 runs on the tensor cores (``mma.sync``) and needs 16-byte rows
 the CUDA cores.  The library
 is built on first use (``repro_torch._build``) and launched through
 ``ctypes`` on PyTorch's current stream.
+
+Training (bf16, ``hd <= BWD_MAX_HD``): ``flash_attention_lse`` runs the
+same forward and also writes each query row's log-sum-exp and the
+output's low halves (the f32 output less its bf16 rounding, in bf16);
+``flash_attention_bwd_dot``, ``flash_attention_bwd_dkdv`` and
+``flash_attention_bwd_dq`` launch the backward's three entries
+(FlashAttention-2's, no atomics: deterministic).  No Pallas kernel of
+``repro`` has a backward; these stand in for XLA's differentiation of
+``repro``'s ``layers.blocked_attention``.
 """
 
 from __future__ import annotations
@@ -24,16 +33,20 @@ import torch
 
 from repro_torch import _build
 
-__all__ = ["DTYPES", "MAX_HD", "MMA_ENTRY", "library", "rows_aligned",
-           "flash_attention"]
+__all__ = ["DTYPES", "MAX_HD", "BWD_MAX_HD", "MMA_ENTRY", "library", "rows_aligned", "flash_attention", "lse_rows",
+           "flash_attention_lse", "flash_attention_bwd_dot",
+           "flash_attention_bwd_dkdv", "flash_attention_bwd_dq"]
 
 #: input dtypes the kernel takes, and their codes in the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: largest head dim
 MAX_HD = 256
 #: the name of the bf16 (tensor-core) kernel, as it appears in the built
-#: library's symbols and in a profiler's kernel names
+#: library's symbols and in a profiler's kernel names (template arguments
+#: ``<HDP, LSE>``: ``LSE`` false for serving, true for training)
 MMA_ENTRY = "flash_attention_mma_kernel"
+#: largest head dim of the training entries (LSE forward and backward)
+BWD_MAX_HD = 128
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +62,21 @@ def library() -> ctypes.CDLL:
     lib.flash_attention_launch.restype = _I
     lib.flash_attention_launch.argtypes = (
         [_I] * 7 + [_P, _L, _L, _L] * 4 + [_I, _I, ctypes.c_float, _P])
+    lib.flash_attention_lse_launch.restype = _I
+    lib.flash_attention_lse_launch.argtypes = (
+        [_I] * 6 + [_P, _L, _L, _L] * 4 + [_I, _I, ctypes.c_float, _P, _L,
+                                           _P, _P])
+    lib.flash_bwd_dot_launch.restype = _I
+    lib.flash_bwd_dot_launch.argtypes = (
+        [_I] * 4 + [_P, _L, _L, _L] * 3 + [_P, _L, _P])
+    lib.flash_bwd_dkdv_launch.restype = _I
+    lib.flash_bwd_dkdv_launch.argtypes = (
+        [_I] * 6 + [_P, _L, _L, _L] * 4 + [_P, _P, _L]
+        + [_P, _L, _L, _L] * 2 + [_I, _I, ctypes.c_float, _P])
+    lib.flash_bwd_dq_launch.restype = _I
+    lib.flash_bwd_dq_launch.argtypes = (
+        [_I] * 6 + [_P, _L, _L, _L] * 4 + [_P, _P, _L]
+        + [_P, _L, _L, _L] + [_I, _I, ctypes.c_float, _P])
     return lib
 
 
@@ -108,3 +136,137 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError("flash_attention launch failed: "
                            + lib.flash_attention_error_string(err).decode())
     return o
+
+
+def lse_rows(S: int) -> int:
+    """The row stride of the LSE and D buffers: ``S`` rounded up to 64
+    (the backward reads a tile's rows in 16-byte groups)."""
+    return -(-S // 64) * 64
+
+
+def _check_train(what: str, q, k, v) -> tuple:
+    """The training entries' input checks; returns ``(B, S, Skv, H, K,
+    hd)``."""
+    dev = q.device
+    _build.require_cuda(dev, what)
+    check_inputs(what, dev, ("q", q, 4), ("k", k, 4), ("v", v, 4))
+    B, S, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"{what}: the training entries take bf16 (got "
+                         f"{q.dtype})")
+    if hd > BWD_MAX_HD:
+        raise ValueError(f"{what}: head dim {hd} is above the backward "
+                         f"kernel's limit of {BWD_MAX_HD}")
+    if (k.shape[0] != B or k.shape[3] != hd or v.shape != k.shape or H % K
+            or not all(map(rows_aligned, (q, k, v)))):
+        raise ValueError(f"{what}: q {tuple(q.shape)} and k / v "
+                         f"{tuple(k.shape)} / {tuple(v.shape)} do not fit "
+                         "(H a multiple of K, 16-byte bf16 rows)")
+    return B, S, Skv, H, K, hd
+
+
+def _raise(lib, what: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.flash_attention_error_string(err).decode())
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool, window: int):
+    """The bf16 forward of ``flash_attention`` (hd <= ``BWD_MAX_HD``),
+    also writing each query row's log-sum-exp of its scaled, masked
+    scores and the output's low halves: returns ``(o [B, S, H, hd], lse
+    [B, H, lse_rows(S)] f32, o_lo [B, S, H, hd] bf16)``, ``lse[..., :S]``
+    written (natural log), ``o + o_lo`` the f32 output to 2^-17 of it.
+    ``lse`` and ``o_lo`` are views of one buffer (the kernel writes the
+    low halves after the LSE rows)."""
+    B, S, Skv, H, K, hd = _check_train("flash_attention_lse", q, k, v)
+    dev = q.device
+    o = torch.empty((B, S, H, hd), dtype=q.dtype, device=dev)
+    rows = lse_rows(S)
+    n_lse = B * H * rows
+    buf = torch.empty(n_lse + B * S * H * hd // 2, dtype=torch.float32,
+                      device=dev)
+    lse = buf[:n_lse].view(B, H, rows)
+    o_lo = buf[n_lse:].view(torch.bfloat16).view(B, S, H, hd)
+    lib = library()
+    err = _build.launch(
+        lib.flash_attention_lse_launch, dev, B, S, Skv, H, K, hd,
+        q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
+        v.data_ptr(), *v.stride()[:3], o.data_ptr(), *o.stride()[:3],
+        int(causal), int(window), 1.0 / math.sqrt(hd), lse.data_ptr(), rows,
+        o_lo.data_ptr())
+    _raise(lib, "flash_attention_lse", err)
+    return o, lse, o_lo
+
+
+def flash_attention_bwd_dot(o: torch.Tensor, o_lo: torch.Tensor,
+                            do: torch.Tensor, rows: int) -> torch.Tensor:
+    """``D = rowsum(do * (o + o_lo))`` of the LSE forward's bf16 output
+    ``o``, its low halves ``o_lo`` and the output's gradient ``do`` [B,
+    S, H, hd], f32 ``[B, H, rows]`` (``[..., :S]`` written)."""
+    dev = o.device
+    _build.require_cuda(dev, "flash_attention_bwd_dot")
+    check_inputs("flash_attention_bwd_dot", dev, ("o", o, 4),
+                 ("o_lo", o_lo, 4), ("do", do, 4))
+    B, S, H, hd = o.shape
+    if (do.shape != o.shape or o_lo.shape != o.shape
+            or not all(t.dtype == torch.bfloat16 for t in (o, o_lo, do))
+            or not all(map(rows_aligned, (o, o_lo, do)))):
+        raise ValueError("flash_attention_bwd_dot: o, o_lo and do must be "
+                         "bf16 of one shape with 16-byte rows")
+    dlt = torch.empty((B, H, rows), dtype=torch.float32, device=dev)
+    lib = library()
+    err = _build.launch(lib.flash_bwd_dot_launch, dev, B, S, H, hd,
+                        o.data_ptr(), *o.stride()[:3], o_lo.data_ptr(),
+                        *o_lo.stride()[:3], do.data_ptr(),
+                        *do.stride()[:3], dlt.data_ptr(), rows)
+    _raise(lib, "flash_attention_bwd_dot", err)
+    return dlt
+
+
+def _bwd_args(q, k, v, do, lse, dlt):
+    if (do.shape != q.shape or do.dtype != q.dtype or not rows_aligned(do)
+            or lse.shape != dlt.shape or lse.dtype != torch.float32
+            or dlt.dtype != torch.float32 or not lse.is_contiguous()
+            or not dlt.is_contiguous() or lse.shape[-1] % 64
+            or lse.shape[:2] != (q.shape[0], q.shape[2])):
+        raise ValueError("flash attention backward: do must match q; lse "
+                         "and D f32 [B, H, rows], rows a multiple of 64")
+    return (q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
+            v.data_ptr(), *v.stride()[:3], do.data_ptr(), *do.stride()[:3],
+            lse.data_ptr(), dlt.data_ptr(), lse.shape[-1])
+
+
+def flash_attention_bwd_dkdv(q, k, v, do, lse, dlt, *, causal: bool,
+                             window: int):
+    """``(dk, dv)`` [B, Skv, K, hd] bf16: the dK / dV entry, a block per
+    (batch, KV head, 64 keys) over its group's query heads."""
+    B, S, Skv, H, K, hd = _check_train("flash_attention_bwd_dkdv", q, k, v)
+    args = _bwd_args(q, k, v, do, lse, dlt)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    lib = library()
+    err = _build.launch(
+        lib.flash_bwd_dkdv_launch, q.device, B, S, Skv, H, K, hd, *args,
+        dk.data_ptr(), *dk.stride()[:3], dv.data_ptr(), *dv.stride()[:3],
+        int(causal), int(window), 1.0 / math.sqrt(hd))
+    _raise(lib, "flash_attention_bwd_dkdv", err)
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, dlt, *, causal: bool,
+                           window: int) -> torch.Tensor:
+    """``dq`` [B, S, H, hd] bf16: the dQ entry, a block per (batch, head,
+    64 query rows) over the key tiles."""
+    B, S, Skv, H, K, hd = _check_train("flash_attention_bwd_dq", q, k, v)
+    args = _bwd_args(q, k, v, do, lse, dlt)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lib = library()
+    err = _build.launch(
+        lib.flash_bwd_dq_launch, q.device, B, S, Skv, H, K, hd, *args,
+        dq.data_ptr(), *dq.stride()[:3], int(causal), int(window),
+        1.0 / math.sqrt(hd))
+    _raise(lib, "flash_attention_bwd_dq", err)
+    return dq

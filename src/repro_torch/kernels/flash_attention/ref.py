@@ -2,6 +2,9 @@
 ``repro.kernels.flash_attention.ref``): f32 math, the kernel's own iota
 positions, the same masks and the same finite mask value.
 
+``flash_attention_bwd_ref`` is the plain version of the kernel's
+backward entries: autograd of ``flash_attention_ref`` in f32.
+
 ``flash_attention_tiled`` is a test helper: a plain, tile-ordered
 emulation of the CUDA kernel's bf16 (tensor-core) path, so that the CPU
 tests hold its numerics; the main path never calls it."""
@@ -13,6 +16,7 @@ import math
 import torch
 
 __all__ = ["NEG_INF", "BQ", "BKV", "attention_ref", "flash_attention_ref",
+           "flash_attention_lse_ref", "flash_attention_bwd_ref",
            "flash_attention_tiled"]
 
 NEG_INF = -1e30
@@ -52,6 +56,36 @@ def flash_attention_ref(q, k, v, *, causal: bool, window: int):
     out = attention_ref(q5, k.transpose(1, 2), v.transpose(1, 2),
                         causal=causal, window=window)
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+
+
+def flash_attention_lse_ref(q, k, v, *, causal: bool, window: int):
+    """The log-sum-exp of each query row's scaled, masked scores, [B, H,
+    S] f32 (natural log): what the forward kernel's LSE output holds."""
+    B, S, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    dev = q.device
+    qf = q.float().reshape(B, S, K, H // K, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.float()) / math.sqrt(hd)
+    qp = torch.arange(S, device=dev)[:, None]
+    kp = torch.arange(Skv, device=dev)[None, :]
+    ok = torch.ones((S, Skv), dtype=torch.bool, device=dev)
+    if causal:
+        ok &= qp >= kp
+    if window:
+        ok &= (qp - kp) < window
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    return torch.logsumexp(s, -1).reshape(B, H, S)
+
+
+def flash_attention_bwd_ref(q, k, v, do, *, causal: bool, window: int):
+    """``(dq, dk, dv)`` f32: the gradients of ``flash_attention_ref``'s
+    f32 output (before its cast) with respect to f32 copies of q, k, v,
+    for the output gradient ``do`` [B, S, H, hd] (autograd in f32; GQA's
+    sum over a group's heads included)."""
+    qf, kf, vf = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+    with torch.enable_grad():
+        out = flash_attention_ref(qf, kf, vf, causal=causal, window=window)
+        return torch.autograd.grad(out, (qf, kf, vf), do.float())
 
 
 def flash_attention_tiled(q, k, v, *, causal: bool, window: int):

@@ -2,7 +2,11 @@
 
 CPU tensors run the plain version (``ref.rglru_gated_scan_ref``), CUDA
 tensors launch the CUDA kernel (``kernel.rglru_scan``), and a failed
-build or launch raises; nothing falls back from one to the other.
+build or launch raises; nothing falls back from one to the other.  On CUDA
+tensors a call that would need a gradient (grad mode on, an input that
+requires grad) raises ``NotImplementedError``: the kernel has no
+backward yet, and its output would carry none; on the CPU autograd
+differentiates the plain version.
 ``repro`` computes the recurrence as an XLA scan in chunks of 256 steps,
 padding the last with ``a = 1, g = 0``, which leaves ``h`` unchanged
 under an FMA: here the whole sequence is one call.
@@ -33,6 +37,13 @@ def rglru_scan(r_pre: torch.Tensor, i_pre: torch.Tensor, u: torch.Tensor,
         return ref.rglru_gated_scan_ref(r_pre, i_pre, u, nsp, h0)
     if dev.type != "cuda":
         raise ValueError(f"rglru_scan runs on CPU or CUDA, not {dev}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r_pre, i_pre, u, nsp, h0)):
+        raise NotImplementedError(
+            "rglru_scan: the CUDA kernel has no backward kernel yet "
+            "(ROADMAP.md, Queue 1 item 3b: backward kernels for ssm_scan "
+            "and rglru_scan); a gradient through it cannot be taken on "
+            "the card")
     from repro_torch.kernels.rglru_scan import kernel
     out = kernel.rglru_scan(r_pre, i_pre, u, nsp, h0)
     launches += 1

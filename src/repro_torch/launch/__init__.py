@@ -1,1 +1,2 @@
-"""Step assembly (``repro.launch``): the serving steps."""
+"""Step assembly (``repro.launch``): the train step and the serving
+steps."""

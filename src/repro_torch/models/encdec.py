@@ -23,7 +23,11 @@ port follows the blocked path.
 The decoder's self-cache holds ``max_len`` slots written at slot ``pos``
 (not a ring; past ``max_len`` the write lands on the last slot, as
 ``dynamic_update_slice`` clamps it); decode writes it IN PLACE.
-``decode_train`` and ``loss_fn`` (training) come with a later slice.
+Training: ``loss_fn`` encodes the frames and runs ``decode_train`` (the
+teacher-forced decoder: causal self-attention and cross-attention
+through the flash kernel, whose backward entries run on the card), then
+``lm.chunked_ce``; every encoder and decoder layer is recomputed in the
+backward pass (``lm.remat_layer``), as ``repro`` checkpoints both scans.
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef, resolve_device
 
-__all__ = ["encdec_defs", "encode", "init_cache", "prefill", "decode_step"]
+__all__ = ["encdec_defs", "encode", "decode_train", "loss_fn", "init_cache",
+           "prefill", "decode_step"]
 
 
 def _sinusoid(S: int, d: int, dtype, device) -> torch.Tensor:
@@ -80,16 +85,53 @@ def _mlp_block(lp, x, cfg: ModelConfig):
     return x + L.mlp_apply(lp["mlp"], L.norm_apply(lp["norm2"], x, cfg), cfg)
 
 
-def encode(model: lm.LM, frames, cfg: ModelConfig) -> torch.Tensor:
-    """frames: [B, F, d] stub embeddings -> encoder states [B, F, d]."""
+def encode(model: lm.LM, frames, cfg: ModelConfig,
+           remat: bool = False) -> torch.Tensor:
+    """frames: [B, F, d] stub embeddings -> encoder states [B, F, d].
+    ``remat``: each layer recomputed in the backward pass."""
     x = frames.to(torch.bfloat16)
     x = x + _sinusoid(x.shape[1], x.shape[2], x.dtype, x.device)[None]
     for lp in model.enc_layers:
-        y, _ = L.attention_apply(lp["attn"], L.norm_apply(lp["norm1"], x,
-                                                          cfg), cfg,
-                                 causal=False)
-        x = _mlp_block(lp, x + y, cfg)
+        def body(x, lp=lp):
+            y, _ = L.attention_apply(lp["attn"], L.norm_apply(
+                lp["norm1"], x, cfg), cfg, causal=False)
+            return _mlp_block(lp, x + y, cfg)
+        x = lm.remat_layer(body, x) if remat else body(x)
     return L.norm_apply(model.enc_norm, x, cfg)
+
+
+def decode_train(model: lm.LM, enc_out, tokens, cfg: ModelConfig,
+                 remat: bool = True) -> torch.Tensor:
+    """Teacher-forced decoder forward over ``tokens`` [B, S] against the
+    encoder states ``enc_out`` [B, F, d]: hidden states [B, S, d] after
+    the final norm.  ``remat``: each layer recomputed in the backward
+    pass."""
+    x = F.embedding(tokens, model.embed).to(torch.bfloat16)
+    x = x + _sinusoid(x.shape[1], x.shape[2], x.dtype, x.device)[None]
+    for lp in model.dec_layers:
+        def body(x, lp=lp):
+            y, _ = L.attention_apply(lp["attn"], L.norm_apply(
+                lp["norm1"], x, cfg), cfg, causal=True)
+            x = x + y
+            y, _ = L.attention_apply(lp["xattn"], L.norm_apply(
+                lp["normx"], x, cfg), cfg, causal=False, cross_x=enc_out)
+            return _mlp_block(lp, x + y, cfg)
+        x = lm.remat_layer(body, x) if remat else body(x)
+    return L.norm_apply(model.final_norm, x, cfg)
+
+
+def loss_fn(model: lm.LM, batch: dict, cfg: ModelConfig,
+            remat: bool = True):
+    """batch: ``frames`` [B, F, d], ``tokens`` [B, S], ``targets`` [B, S]
+    -> ``(loss, {"nll", "aux"})``, aux 0."""
+    enc = encode(model, batch["frames"], cfg, remat=remat)
+    x = decode_train(model, enc, batch["tokens"], cfg, remat=remat)
+    mask = torch.ones(batch["targets"].shape, dtype=torch.float32,
+                      device=x.device)
+    loss = lm.chunked_ce(model, x, batch["targets"], mask, cfg)
+    return loss, {"nll": loss,
+                  "aux": torch.zeros((), dtype=torch.float32,
+                                     device=x.device)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

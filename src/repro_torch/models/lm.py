@@ -30,8 +30,16 @@ same ``LM`` container).
   (``repro``'s ``RunFlags(attn_impl="pallas", ssm_impl="pallas")``);
   there is no ``RunFlags``.  The activations are bf16 whatever the
   parameter dtype, as in ``repro``.
-* ``loss_fn``, ``chunked_ce`` and ``grad_cast_bf16`` (training) come with
-  a later slice of the port.
+* Training: ``loss_fn`` (causal-LM cross entropy plus 0.01 times the
+  MoE aux loss) over ``forward(..., remat=True)``, each layer under
+  ``torch.utils.checkpoint`` (``repro``'s ``RunFlags(remat="layer")``:
+  a layer's activations are recomputed in the backward pass), and
+  ``chunked_ce``, whose 1 024-position chunks of logits are recomputed
+  in backward too.  The parameters carry ``requires_grad=False``; the
+  train step (``launch/steps.py``) turns it on for its backward pass.
+  On the card attention's backward runs the flash kernel's backward
+  entries; ``ssm_scan`` and ``rglru_scan`` have no backward kernel yet
+  and refuse a gradient there.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.models import layers as L
@@ -50,7 +59,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef, resolve_device
 
 __all__ = ["LM", "layer_types", "attn_window", "lm_defs", "forward",
-           "logits_fn", "init_cache", "prefill", "decode_step", "tree_of"]
+           "logits_fn", "grad_cast_bf16", "chunked_ce", "loss_fn",
+           "init_cache", "prefill", "decode_step", "tree_of"]
 
 
 def layer_types(cfg: ModelConfig) -> tuple:
@@ -105,11 +115,12 @@ def _module(tree: dict) -> nn.Module:
     return nn.ModuleDict({k: _module(t) for k, t in tree.items()})
 
 
-def tree_of(m) -> dict:
-    """The nested dict of tensors a ``_module`` holds."""
+def tree_of(m, data: bool = True) -> dict:
+    """The nested dict of tensors a ``_module`` holds (the parameters'
+    ``data``, or with ``data=False`` the ``nn.Parameter`` objects)."""
     if isinstance(m, nn.ParameterDict):
-        return {k: t.data for k, t in m.items()}
-    return {k: tree_of(t) for k, t in m.items()}
+        return {k: (t.data if data else t) for k, t in m.items()}
+    return {k: tree_of(t, data) for k, t in m.items()}
 
 
 class LM(nn.Module):
@@ -133,17 +144,19 @@ class LM(nn.Module):
         if "head" not in tree:
             self.head = None
 
-    def tree(self) -> dict:
-        """The parameters as the ParamDef tree's tree of tensors."""
+    def tree(self, data: bool = True) -> dict:
+        """The parameters as the ParamDef tree's tree of tensors (with
+        ``data=False`` the ``nn.Parameter`` objects themselves, which the
+        train step differentiates and updates in place)."""
         out = {}
         for key in self._keys:
             m = getattr(self, key)
             if isinstance(m, nn.Parameter):
-                out[key] = m.data
+                out[key] = m.data if data else m
             elif isinstance(m, nn.ModuleList):
-                out[key] = [tree_of(x) for x in m]
+                out[key] = [tree_of(x, data) for x in m]
             else:
-                out[key] = tree_of(m)
+                out[key] = tree_of(m, data)
         return out
 
 
@@ -164,25 +177,43 @@ def _ffn_block(lp, x, cfg: ModelConfig):
     return x + L.mlp_apply(lp["mlp"], h, cfg), None
 
 
-def forward(model: LM, tokens, cfg: ModelConfig, prefix_embeds=None):
+def _layer(lp, kind: str, x, cfg: ModelConfig):
+    """One layer of the trunk: ``(x, the MoE aux loss or None)``."""
+    h = L.norm_apply(lp["norm1"], x, cfg)
+    if kind == "ssm":
+        return x + SSM.ssm_block_apply(lp["ssm"], h, cfg), None
+    if kind == "rec":
+        y = R.rglru_block_apply(lp["rec"], h, cfg)
+    else:
+        y, _ = L.attention_apply(lp["attn"], h, cfg, causal=True,
+                                 window=attn_window(cfg))
+    return _ffn_block(lp, x + y, cfg)
+
+
+def remat_layer(fn, x):
+    """``fn(x)`` with its activations recomputed in the backward pass
+    (``repro``'s ``jax.checkpoint`` of a layer)."""
+    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
+
+
+def forward(model: LM, tokens, cfg: ModelConfig, prefix_embeds=None,
+            remat: bool = False):
     """Trunk forward.  tokens: [B, S_tok]; prefix_embeds: [B, P, d] stub
     frontend output, prepended to the token embeddings.  Returns hidden
     states [B, S, d] and the aux-loss scalar (the MoE layers' sum; 0 for
-    the other families)."""
+    the other families).  ``remat``: each layer under
+    ``torch.utils.checkpoint``."""
     x = _embed(model, tokens, prefix_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, kind in zip(model.layers, layer_types(cfg)):
-        h = L.norm_apply(lp["norm1"], x, cfg)
-        if kind == "ssm":
-            x = x + SSM.ssm_block_apply(lp["ssm"], h, cfg)
-            continue
-        if kind == "rec":
-            y = R.rglru_block_apply(lp["rec"], h, cfg)
+        if remat:
+            def body(x, lp=lp, kind=kind):
+                y, a = _layer(lp, kind, x, cfg)
+                return y, (a if a is not None else torch.zeros_like(aux))
+            x, a = remat_layer(body, x)
         else:
-            y, _ = L.attention_apply(lp["attn"], h, cfg, causal=True,
-                                     window=attn_window(cfg))
-        x, a = _ffn_block(lp, x + y, cfg)
-        if a is not None:
+            x, a = _layer(lp, kind, x, cfg)
+        if a is not None and cfg.family == "moe":
             aux = aux + a
     x = L.norm_apply(model.final_norm, x, cfg)
     return x, aux
@@ -195,6 +226,74 @@ def logits_fn(model: LM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab_size
         logits = logits + torch.where(pad, -1e30, 0.0).to(logits.dtype)
     return logits
+
+
+class _GradCastBF16(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype)
+
+
+def grad_cast_bf16(x: torch.Tensor) -> torch.Tensor:
+    """Identity whose cotangent is cast to bf16 and back (``repro``'s
+    ``custom_vjp``): the f32 cross entropy's cotangents enter the trunk's
+    backward pass at bf16 precision."""
+    return _GradCastBF16.apply(x)
+
+
+def _chunk_nll(model: LM, cfg: ModelConfig, xc, tc, mc):
+    """The masked f32 NLL sum of one chunk: logits from the head, f32
+    ``logsumexp`` minus the gold logit."""
+    logits = logits_fn(model, xc, cfg).float()
+    logz = torch.logsumexp(logits, -1)
+    gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
+    return torch.sum((logz - gold) * mc)
+
+
+def chunked_ce(model: LM, x, targets, mask, cfg: ModelConfig,
+               chunk: int = 1024):
+    """Mean masked cross entropy over sequence chunks of ``chunk``
+    positions: each chunk's ``[B, chunk, vocab]`` logits live only while
+    its sum is taken and are recomputed in backward
+    (``torch.utils.checkpoint``), so the full logits tensor never exists.
+    The chunk sums and token counts add up in f32 in chunk order.
+    ``repro`` pads the last chunk with masked zero rows; here it is
+    short (the padding adds zeros)."""
+    S = x.shape[1]
+    x = grad_cast_bf16(x)
+    mask = mask.to(torch.float32)
+    nll = n_tok = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        part = checkpoint(_chunk_nll, model, cfg, x[:, sl], targets[:, sl],
+                          mask[:, sl], use_reentrant=False,
+                          preserve_rng_state=False)
+        nll = nll + part
+        n_tok = n_tok + torch.sum(mask[:, sl])
+    return nll / torch.clamp(n_tok, min=1.0)
+
+
+def loss_fn(model: LM, batch: dict, cfg: ModelConfig, remat: bool = True):
+    """Causal-LM cross entropy plus ``0.01 *`` the MoE aux loss; batch
+    keys: ``tokens``, ``targets``, (``mask``), (``prefix_embeds``, whose
+    positions are sliced off before the loss).  Returns ``(loss, {"nll",
+    "aux"})``."""
+    prefix = batch.get("prefix_embeds")
+    x, aux = forward(model, batch["tokens"], cfg, prefix_embeds=prefix,
+                     remat=remat)
+    if prefix is not None:
+        x = x[:, prefix.shape[1]:]
+    targets = batch["targets"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+    loss = chunked_ce(model, x, targets, mask, cfg)
+    return loss + 0.01 * aux, {"nll": loss, "aux": aux}
 
 
 # ------------------------------------------------------------------ serving

@@ -10,8 +10,8 @@ family, on the device the model lives on (the encdec family through
 shape cell's model inputs as meta-device tensors (no memory, no
 shardings) and ``make_batch`` draws them.  ``repro``'s ``cache_specs``
 and ``abstract_model`` carry shardings and serve only its dry run; they
-come with the port's meta-device dry run (ROADMAP.md, Queue 1 item 4),
-as does ``loss_fn`` with training.
+come with the port's meta-device dry run (ROADMAP.md, Queue 1 item 4).
+``loss_fn`` is the training loss of every family.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from repro_torch.models import encdec, lm
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.params import init_params, resolve_device
 
-__all__ = ["model_defs", "init_model", "init_cache", "prefill_fn",
+__all__ = ["model_defs", "init_model", "init_cache", "loss_fn", "prefill_fn",
            "decode_fn", "batch_specs", "make_batch"]
 
 
@@ -46,6 +46,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     if cfg.family == "encdec":
         return encdec.init_cache(cfg, batch, max_len, device)
     return lm.init_cache(cfg, batch, max_len, device)
+
+
+def loss_fn(model: lm.LM, batch: dict, cfg: ModelConfig,
+            remat: bool = True):
+    """The training loss of ``cfg``'s family (``encdec.loss_fn`` /
+    ``lm.loss_fn``) -> ``(loss, {"nll", "aux"})``; ``remat``: layers
+    recomputed in the backward pass (``repro``'s default)."""
+    if cfg.family == "encdec":
+        return encdec.loss_fn(model, batch, cfg, remat)
+    return lm.loss_fn(model, batch, cfg, remat)
 
 
 def prefill_fn(model: lm.LM, batch: dict, cfg: ModelConfig, max_len: int):

@@ -647,6 +647,87 @@ def compute_lm_zoo(names=None) -> dict:
     return out, runs
 
 
+def compute_train(port: bool = False) -> dict:
+    """``repro``'s train step of ``golden.TRAIN`` on the golden weights and
+    tokens: the recorded run (``make_train_step(cfg, AdamWConfig(),
+    microbatches=2)``, default ``RunFlags``), the same step with
+    ``attn_impl="naive"`` and with one microbatch (the noise floors), and
+    with ``port`` the port's own step on the CPU beside them."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+    from repro.configs import get
+    from repro.launch import steps
+    from repro.models import lm as jlm
+    from repro.optim import adamw
+    from repro_torch import golden
+    from repro_torch.configs import get as t_get
+    from repro_torch.launch import steps as t_steps
+    from repro_torch.models import convert, lm
+    from repro_torch.optim import adamw as t_adamw
+
+    T = golden.TRAIN
+    cfg = golden.zoo_config(get(T["config"]), T)
+    t_cfg = golden.zoo_config(t_get(T["config"]), T)
+    t0 = time.time()
+    tree = golden.golden_weights(lm.lm_defs(t_cfg), T["seed"])
+    model = lm.LM(t_cfg, tree)
+    params = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16),
+                                    convert.to_repro(model))
+    tokens = golden.train_tokens(cfg.vocab_size)
+    batch = {k: jnp.asarray(v.numpy(), jnp.int32) for k, v in tokens.items()}
+    opt_cfg = adamw.AdamWConfig()
+    print(f"weights and tokens: {time.time() - t0:.0f} s", flush=True)
+
+    def record(out, m_port):
+        gn = float(out["grad_norm"])
+        scale = min(1.0, opt_cfg.clip_norm / max(gn, 1e-9))
+        return {"loss": float(out["loss"]), "grad_norm": gn,
+                "lr": float(out["lr"]),
+                "leaf_grad_norms": golden.leaf_grad_norms(m_port, opt_cfg.b1,
+                                                          scale)}
+
+    def run(attn_impl, mb):
+        t1 = time.time()
+        step = jax.jit(steps.make_train_step(
+            cfg, opt_cfg, flags=jlm.RunFlags(attn_impl=attn_impl),
+            microbatches=mb))
+        _, opt, out = step(params, adamw.init(params), batch)
+        m = convert.tree_from_repro(
+            jax.tree_util.tree_map(np.asarray, opt.m), "cpu", torch.float32)
+        rec = record(out, m)
+        print(f"repro {attn_impl} microbatches={mb}: loss {rec['loss']:.6f} "
+              f"grad_norm {rec['grad_norm']:.6f} lr {rec['lr']:.3e} "
+              f"({time.time() - t1:.0f} s, peak RSS {peak_rss_gib():.1f} "
+              f"GiB)", flush=True)
+        return rec
+
+    rec = {"train": T, "weights_digest": golden.weights_digest(tree),
+           "tokens_digest": golden.tokens_digest(tokens["tokens"],
+                                                 tokens["targets"]),
+           "blocked": run("blocked", T["microbatches"]),
+           "naive": run("naive", T["microbatches"]),
+           "blocked_mb1": run("blocked", 1)}
+    for key in ("naive", "blocked_mb1"):
+        print(f"distance of repro's {key} run from the recorded one: "
+              f"{golden.train_record_distance(rec[key], rec['blocked'])}",
+              flush=True)
+    if port:
+        t1 = time.time()
+        step = t_steps.make_train_step(t_cfg, t_adamw.AdamWConfig(),
+                                       microbatches=T["microbatches"])
+        opt, out = step(model, t_adamw.init(model.tree()), tokens)
+        got = record(out, opt.m)
+        print(f"port (CPU, plain kernels): loss {got['loss']:.6f} grad_norm "
+              f"{got['grad_norm']:.6f} ({time.time() - t1:.0f} s): distance "
+              f"{golden.train_record_distance(got, rec['blocked'])}; "
+              f"peak RSS {peak_rss_gib():.1f} GiB", flush=True)
+    return rec
+
+
 def peak_rss_gib() -> float:
     """This process's peak resident set size (Linux: ``ru_maxrss`` in
     KiB)."""
@@ -751,6 +832,11 @@ def main(argv) -> int:
         for t, r in enumerate(data["steps"]):
             print(t, r["argmax"], [round(x[0], 4) for x in r["top_logits"]])
         port_vs_repro(run, golden.LM, golden.LM["max_len"])
+    if what == "train":
+        data = compute_train(port="--port" in argv)
+        with open(golden.TRAIN_PATH, "w") as f:
+            json.dump(data, f, indent=None, separators=(",", ":"))
+            f.write("\n")
     if what == "lm_zoo":
         import os
         os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_"

@@ -1,0 +1,215 @@
+"""The flash kernel's training entries (the LSE forward and the three
+backward entries) and the scan kernels' refusal of a gradient.
+
+On the CPU: the launchers' ctypes signatures against the C source, the
+dispatch (autograd differentiates the plain version on CPU tensors; the
+training launchers refuse them).  On the card (marked ``cuda``, skipped
+here inside a fixture; run with ``python -m pytest -m cuda
+tests/test_torch_train_cuda.py``): the backward entries against
+``ref.flash_attention_bwd_ref`` within chip_smoke's limit (2^-7 of
+|plain| + 2^-8 of the tensor's largest |plain|), bitwise equal when run
+twice, the refusals (hd 256, f32, and ``ssm_scan`` / ``rglru_scan``
+under grad), and a reduced train step through the kernels against the
+same step through the plain versions.  No JAX here."""
+
+import ctypes
+import re
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.flash_attention import kernel as fk  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fr  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = (ROOT / "src" / "repro_torch" / "kernels" / "flash_attention" / "csrc"
+       / "flash_attention.cu")
+RTOL, ATOL = 2.0 ** -7, 2.0 ** -8
+
+
+def _c_params(fn: str) -> list[str]:
+    sig = re.search(rf"int {fn}\(([^)]*)\)", SRC.read_text()).group(1)
+    return [" ".join(p.split()[:-1]) for p in sig.split(",")]
+
+
+def _kind(ctype) -> str:
+    return {ctypes.c_int: "int", ctypes.c_longlong: "long long",
+            ctypes.c_float: "float"}.get(ctype, "pointer")
+
+
+@pytest.mark.parametrize("fn", ["flash_attention_lse_launch",
+                                "flash_bwd_dot_launch",
+                                "flash_bwd_dkdv_launch",
+                                "flash_bwd_dq_launch"])
+def test_training_launch_arguments_match_the_cuda_source(fn, monkeypatch):
+    from repro_torch import _build
+
+    class Fake:
+        def __getattr__(self, name):
+            f = type("F", (), {})()
+            setattr(self, name, f)
+            return f
+
+    fake = Fake()
+    monkeypatch.setattr(_build, "load", lambda name, csrc: fake)
+    fk.library.cache_clear()
+    try:
+        fk.library()
+        argtypes = getattr(fake, fn).argtypes
+    finally:
+        fk.library.cache_clear()
+    want = ["pointer" if "*" in p else p.replace("const ", "")
+            for p in _c_params(fn)]
+    assert [_kind(a) for a in argtypes] == want
+
+
+def _inputs(B, S, Skv, H, K, hd, seed, device="cpu", dtype=torch.bfloat16):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    draw = lambda *s: torch.randn(s, generator=gen, device=device).to(dtype)
+    return (draw(B, S, H, hd), draw(B, Skv, K, hd), draw(B, Skv, K, hd),
+            draw(B, S, H, hd))
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 8),
+                                           (False, 0)])
+def test_cpu_autograd_of_the_plain_version_is_the_plain_backward(causal,
+                                                                 window):
+    q, k, v, do = _inputs(1, 24, 24, 4, 2, 16, 0, dtype=torch.float32)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fops.flash_attention(*leaves, causal=causal, window=window)
+    got = torch.autograd.grad(out, leaves, do)
+    want = fr.flash_attention_bwd_ref(q, k, v, do, causal=causal,
+                                      window=window)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
+def test_training_launchers_refuse_cpu_tensors():
+    q, k, v, do = _inputs(1, 8, 8, 2, 1, 16, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        fk.flash_attention_lse(q, k, v, causal=True, window=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        fk.flash_attention_bwd_dot(q, q, do, 64)
+    assert fk.lse_rows(1) == 64 and fk.lse_rows(1500) == 1536
+
+
+# ----------------------------------------------------------- on the card
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: python -m pytest "
+                    "-m cuda tests/test_torch_train_cuda.py)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _bwd(q, k, v, do, causal, window):
+    o, lse, o_lo = fk.flash_attention_lse(q, k, v, causal=causal,
+                                          window=window)
+    dlt = fk.flash_attention_bwd_dot(o, o_lo, do, lse.shape[-1])
+    dk, dv = fk.flash_attention_bwd_dkdv(q, k, v, do, lse, dlt,
+                                         causal=causal, window=window)
+    dq = fk.flash_attention_bwd_dq(q, k, v, do, lse, dlt, causal=causal,
+                                   window=window)
+    return dq, dk, dv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (2, 128, 128, 4, 2, 64, True, 0), (1, 200, 200, 6, 2, 128, True, 0),
+    (2, 96, 96, 4, 4, 32, True, 40), (1, 100, 300, 4, 4, 64, False, 0),
+    (3, 70, 70, 8, 1, 40, False, 0)])
+def test_backward_kernel_matches_plain_and_is_deterministic(cuda, case):
+    B, S, Skv, H, K, hd, causal, window = case
+    q, k, v, do = _inputs(B, S, Skv, H, K, hd, 7, device=cuda)
+    got = _bwd(q, k, v, do, causal, window)
+    again = _bwd(q, k, v, do, causal, window)
+    want = fr.flash_attention_bwd_ref(q, k, v, do, causal=causal,
+                                      window=window)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        lim = RTOL * w.abs() + ATOL * w.abs().max()
+        assert ((g.float() - w).abs() <= lim).all()
+
+
+@pytest.mark.cuda
+def test_autograd_through_the_kernels_counts_launches(cuda):
+    q, k, v, do = _inputs(1, 64, 64, 4, 2, 64, 3, device=cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (fops.launches, fops.bwd_dot_launches, fops.bwd_dkdv_launches,
+              fops.bwd_dq_launches)
+    out = fops.flash_attention(*leaves, causal=True, window=0)
+    got = torch.autograd.grad(out, leaves, do)
+    after = (fops.launches, fops.bwd_dot_launches, fops.bwd_dkdv_launches,
+             fops.bwd_dq_launches)
+    assert [b - a for a, b in zip(before, after)] == [1, 1, 1, 1]
+    for g, w in zip(got, _bwd(q, k, v, do, True, 0)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_training_entries_refuse_what_they_do_not_take(cuda):
+    q, k, v, do = _inputs(1, 16, 16, 2, 1, 256, 0, device=cuda)
+    with pytest.raises(ValueError, match="limit of 128"):
+        fops.flash_attention(q.requires_grad_(True), k, v, causal=True)
+    q, k, v, do = _inputs(1, 16, 16, 2, 1, 64, 0, device=cuda,
+                          dtype=torch.float32)
+    with pytest.raises(ValueError, match="bf16"):
+        fops.flash_attention(q.requires_grad_(True), k, v, causal=True)
+
+
+@pytest.mark.cuda
+def test_scan_kernels_refuse_a_gradient_on_the_card(cuda):
+    from repro_torch.kernels.rglru_scan import ops as rops
+    from repro_torch.kernels.ssm_scan import ops as sops
+    B, T, D, N = 1, 8, 16, 4
+    decay = torch.rand(B, T, D, N, device=cuda, requires_grad=True)
+    dbu = torch.randn(B, T, D, N, device=cuda)
+    c = torch.randn(B, T, N, device=cuda)
+    h0 = torch.zeros(B, D, N, device=cuda)
+    with pytest.raises(NotImplementedError, match="ssm_scan.*ROADMAP"):
+        sops.ssm_scan(decay, dbu, c, h0)
+    with torch.no_grad():
+        sops.ssm_scan(decay, dbu, c, h0)
+    x = torch.randn(B, T, 16, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    nsp = torch.full((16,), -1.0, device=cuda)
+    with pytest.raises(NotImplementedError, match="rglru_scan.*ROADMAP"):
+        rops.rglru_scan(x, x, x, nsp, torch.zeros(B, 16, device=cuda))
+
+
+@pytest.mark.cuda
+def test_reduced_train_step_through_the_kernels_matches_plain(cuda):
+    """One step of the reduced tinyllama (hd 16 pads to the kernels' 32)
+    through the flash kernels and through the plain version on the card:
+    the same metrics within the training tolerances."""
+    from repro_torch.configs import get
+    from repro_torch.launch import steps
+    from repro_torch.models import zoo
+    from repro_torch.optim import adamw
+    cfg = get("tinyllama-1.1b").reduced()
+    batch = zoo.make_batch(cfg, zoo.ShapeConfig("t", 64, 4, "train"),
+                           seed=1, device=cuda)
+    out = {}
+    for name in ("kernel", "plain"):
+        model = zoo.init_model(cfg, seed=0, device=cuda)
+        step = steps.make_train_step(cfg, adamw.AdamWConfig(),
+                                     microbatches=2)
+        orig = fops.flash_attention
+        if name == "plain":
+            fops.flash_attention = (lambda q, k, v, *, causal=True,
+                                    window=0: fr.flash_attention_ref(
+                                        q, k, v, causal=causal,
+                                        window=window))
+        try:
+            _, out[name] = step(model, adamw.init(model.tree()), batch)
+        finally:
+            fops.flash_attention = orig
+    for key, tol in (("loss", 2.0 ** -12), ("grad_norm", 2.0 ** -8)):
+        a, b = float(out["kernel"][key]), float(out["plain"][key])
+        assert abs(a - b) <= tol * abs(b), (key, a, b)
