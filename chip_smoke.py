@@ -258,13 +258,15 @@ package.  Phases:
     phi3-medium-14b at full depth, prefill and decode timed;
 24. training: (a) the flash kernel's training entries (the forward with
     its log-sum-exp and its output's low halves, O + O_lo within
-    ``FLASH_O32_TOL`` of the f32 output, the backward's D, dK / dV and
-    dQ entries) against their plain version (autograd of the f32
-    reference) at
+    ``FLASH_O32_TOL`` of the f32 output, the backward's D, dK / dV (on
+    wgmma), group-sum and dQ (on wgmma) entries) against their plain
+    version (autograd of the f32 reference) at
     ``FLASH_BWD``'s shapes within ``FLASH_BWD_RTOL`` / ``ATOL``, each run
-    twice and bitwise equal, timed beside the bound, the plain version
-    and SDPA's forward + backward, their ptxas numbers, and the serving
-    instantiation's against ``SERVING_FLASH_PTXAS``; (b) one
+    twice and bitwise equal, each entry timed beside its bound, the whole
+    backward beside its bound, the plain version, SDPA's backward alone
+    (device, ``torch.profiler``) and SDPA's forward + backward (events),
+    their ptxas numbers and the wgmma entries' SASS census (HGMMA), and
+    the serving instantiation's against ``SERVING_FLASH_PTXAS``; (b) one
     ``make_train_step`` step of tinyllama-1.1b at published width (cut
     as ``golden.TRAIN`` says) from the golden weights built on the card
     against ``golden_train.json`` within ``golden.TRAIN_TOL``, the same
@@ -272,7 +274,8 @@ package.  Phases:
     plain-version step; (c) whisper-small's step (12 + 12 layers, B 2 x
     64 tokens, 1 500 frames) against its plain-version step within
     ``WHISPER_TRAIN_TOL`` and against the kernels' forward with the
-    plain backward within ``golden.TRAIN_TOL``; (d)
+    plain backward within ``golden.TRAIN_TOL``, its decoder
+    self-attention's dQ held in place to phase (a)'s limit; (d)
     ``examples/train_lm_torch.py --preset 100m`` for 30 steps with a
     checkpoint at 20, resumed to 30 (the loss falls; the resumed run's
     last loss and parameters bitwise equal to the straight run's); (e)
@@ -1483,10 +1486,11 @@ def graph_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def hmma_counts(lib_path: str, entry: str) -> dict:
-    """``{function: HMMA instructions}`` of the built library's functions
-    whose (mangled) name holds ``entry``, from ``cuobjdump -sass`` of the
-    CUDA toolkit that built it."""
+def sass_census(lib_path: str, entries, ops) -> dict:
+    """``{function: {op: instructions}}`` (HMMA: mma.sync; HGMMA: wgmma)
+    of the built library's functions whose (mangled) name holds one of
+    ``entries``, from one ``cuobjdump -sass`` of the CUDA toolkit that
+    built it."""
     from repro_torch import _build
     tool = Path(_build.find_nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", lib_path],
@@ -1496,11 +1500,19 @@ def hmma_counts(lib_path: str, entry: str) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            if entry in fn:
-                counts[fn] = 0
-        elif fn in counts and "HMMA" in line:
-            counts[fn] += 1
+            if any(e in fn for e in entries):
+                counts[fn] = dict.fromkeys(ops, 0)
+        elif fn in counts:
+            for op in ops:
+                counts[fn][op] += f" {op}." in line
     return counts
+
+
+def hmma_counts(lib_path: str, entry: str) -> dict:
+    """``{function: HMMA instructions}`` of the functions whose name holds
+    ``entry``."""
+    return {fn: c["HMMA"] for fn, c in
+            sass_census(lib_path, (entry,), ("HMMA",)).items()}
 
 
 def seeded(shape, seed: int, dtype, device):
@@ -3015,12 +3027,9 @@ SERVING_FLASH_PTXAS = {
     224: (255, 192, 192), 240: (255, 260, 264), 256: (255, 272, 276)}
 
 
-def flash_bwd_bound(B, S, Skv, H, K, hd, causal, window) -> tuple:
-    """``(bound ms, 'bytes' | 'operations')`` of one backward pass: q, o,
-    dO, dQ (bf16 [B, S, H, hd]), k, v, dK, dV ([B, Skv, K, hd]) and the
-    f32 LSE moved once, against 10 * hd operations a valid (query, key)
-    pair (five products: S, dP, dV, dK, dQ) at the bf16 tensor-core
-    rate."""
+def valid_pairs(S, Skv, causal, window) -> int:
+    """The (query, key) pairs a head's mask keeps (query i and key j at
+    positions i and j)."""
     import torch
     q = torch.arange(S)[:, None]
     k = torch.arange(Skv)[None, :]
@@ -3029,11 +3038,45 @@ def flash_bwd_bound(B, S, Skv, H, K, hd, causal, window) -> tuple:
         ok &= q >= k
     if window:
         ok &= (q - k) < window
-    pairs = int(ok.sum()) * B * H
-    nbytes = 2 * hd * (4 * B * S * H + 4 * B * Skv * K) + 4 * B * H * S
+    return int(ok.sum())
+
+
+def bound_of(nbytes: float, ops: float) -> tuple:
+    """``(bound ms, 'bytes' | 'operations')``: the larger of ``nbytes``
+    at the HBM rate and ``ops`` at the bf16 tensor-core rate."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = 10 * hd * pairs / PEAK_OPS["bf16"] * 1e3
+    t_o = ops / PEAK_OPS["bf16"] * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def flash_bwd_bound(B, S, Skv, H, K, hd, causal, window) -> tuple:
+    """``(bound ms, 'bytes' | 'operations')`` of one backward pass: q, o,
+    dO, dQ (bf16 [B, S, H, hd]), k, v, dK, dV ([B, Skv, K, hd]) and the
+    f32 LSE moved once, against 10 * hd operations a valid (query, key)
+    pair (five products: S, dP, dV, dK, dQ) at the bf16 tensor-core
+    rate."""
+    pairs = valid_pairs(S, Skv, causal, window) * B * H
+    nbytes = 2 * hd * (4 * B * S * H + 4 * B * Skv * K) + 4 * B * H * S
+    return bound_of(nbytes, 10 * hd * pairs)
+
+
+def bwd_entry_bounds(B, S, Skv, H, K, hd, causal, window) -> dict:
+    """Each backward entry's own ``(bound ms, by)``, the function it
+    computes from its inputs: D (o, o_lo, dO read, D written); dK / dV
+    (q, dO, k, v, LSE and D read, dK and dV written; S, dP, dV, dK: 8 hd
+    operations a valid pair); dQ (the same inputs, dQ written; S, dP, dQ:
+    6 hd); the group sum (f32 partials [B, Skv, H, hd] x 2 read, dK and
+    dV written)."""
+    pairs = valid_pairs(S, Skv, causal, window) * B * H
+    q_bytes, kv_bytes = 2 * hd * B * S * H, 2 * hd * B * Skv * K
+    rows = 4 * B * H * S
+    return {
+        "dot": bound_of(3 * q_bytes + rows, 0),
+        "dkdv": bound_of(2 * q_bytes + 4 * kv_bytes + 2 * rows,
+                         8 * hd * pairs),
+        "dq": bound_of(3 * q_bytes + 2 * kv_bytes + 2 * rows,
+                       6 * hd * pairs),
+        "sum": bound_of(2 * 4 * hd * B * Skv * H + 2 * kv_bytes, 0)}
 
 
 def bwd_diff(got, want) -> tuple[float, float, float]:
@@ -3055,7 +3098,7 @@ def flash_ptxas(fk) -> dict:
     log = Path(fk.library()._name).with_suffix(".log")
     text = log.read_text() if log.exists() else ""
     regs = ptxas_report(text, r"((?:flash_attention_mma|flash_bwd_(?:dkdv|"
-                              r"dq))_kernelILi\d+E(?:Lb[01]E)?)")
+                              r"dq)_wgmma)_kernelILi\d+E(?:Lb[01]E)?)")
     out = {}
     for name, r in regs.items():
         m = re.match(r"(\w+?)ILi(\d+)E(Lb1E)?", name)
@@ -3064,13 +3107,108 @@ def flash_ptxas(fk) -> dict:
     return out
 
 
+def flash_bwd(fk, q, k, v, o, o_lo, do, lse, causal, window):
+    """The backward entries in the order ``FlashAttentionFn`` launches
+    them (D, dK / dV, the group sum where a KV head serves several query
+    heads, dQ): ``(dq, dk, dv)``."""
+    import torch
+    dlt = fk.flash_attention_bwd_dot(o, o_lo, do, lse.shape[-1])
+    dk, dv = fk.flash_attention_bwd_dkdv(q, k, v, do, lse, dlt,
+                                         causal=causal, window=window)
+    if dk.dtype == torch.float32:
+        dk, dv = fk.flash_attention_bwd_sum(dk, dv, k.shape[2])
+    dq = fk.flash_attention_bwd_dq(q, k, v, do, lse, dlt, causal=causal,
+                                   window=window)
+    return dq, dk, dv
+
+
+def sdpa_bwd_ms(q, k, v, do, causal, window, reps: int = 5) -> tuple:
+    """SDPA's backward alone (``enable_gqa``; a boolean mask for a
+    window): one forward, then ``reps`` backward passes of it under
+    ``torch.profiler``, the device time of the kernels they launch over
+    ``reps``; where the profiler sees no device activity, CUDA events
+    around the ``reps`` passes instead.  Returns ``(ms, 'profiler' |
+    'events')``."""
+    import torch
+    import torch.nn.functional as F
+    S, Skv = q.shape[1], k.shape[1]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    mask = None
+    if window:
+        qp = torch.arange(S, device=q.device)[:, None]
+        kp = torch.arange(Skv, device=q.device)[None, :]
+        mask = (qp >= kp) & ((qp - kp) < window)
+    y = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
+        enable_gqa=True)
+    dot = do.transpose(1, 2)
+
+    def grads():
+        for _ in range(reps):
+            torch.autograd.grad(y, (qt, kt, vt), dot, retain_graph=True)
+    grads()
+    _, busy, _ = profile_kernels(grads, ())
+    if busy is not None:
+        return busy / reps, "profiler"
+    return loop_ms(grads, 1) / reps, "events"
+
+
+def sdpa_bwd_worker() -> None:
+    """Prints, as one JSON line, ``sdpa_bwd_ms`` at each of
+    ``FLASH_BWD``'s shapes (inputs drawn as phase 24 (a) draws them); run
+    in a fresh process by ``sdpa_bwd_times``."""
+    import torch
+    dev = torch.device("cuda")
+    out = []
+    for i, (B, S, Skv, H, K, hd, causal, window) in enumerate(FLASH_BWD):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(2400 + i)
+        draw = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                          dtype=torch.float32).to(
+                                              torch.bfloat16)
+        q, k, v = draw(B, S, H, hd), draw(B, Skv, K, hd), draw(B, Skv, K, hd)
+        out.append(sdpa_bwd_ms(q, k, v, draw(B, S, H, hd), causal, window))
+    print(json.dumps(out), flush=True)
+
+
+def sdpa_bwd_times() -> list:
+    """``sdpa_bwd_ms`` at ``FLASH_BWD``'s shapes, measured in a fresh
+    process: inside this long run the profiler has seen no device activity
+    of SDPA's backward, where a fresh process sees it."""
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            "import chip_smoke; chip_smoke.sdpa_bwd_worker()")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, f"SDPA's backward timing failed: "
+                               f"{res.stderr[-2000:]}")
+    return [tuple(t) for t in json.loads(res.stdout.strip().splitlines()[-1])]
+
+
+def flash_build_report(fk) -> dict:
+    """The wgmma backward entries' SASS census (HGMMA: wgmma; HMMA:
+    mma.sync) and ptxas' warnings of lost performance (``wgmma``
+    serialised, ``setmaxnreg`` ignored) from the flash library's build
+    log."""
+    lib = fk.library()._name
+    census = sass_census(lib, ("flash_bwd_dkdv_wgmma_kernel",
+                               "flash_bwd_dq_wgmma_kernel"),
+                         ("HGMMA", "HMMA"))
+    log = Path(lib).with_suffix(".log")
+    text = log.read_text() if log.exists() else ""
+    warns = [ln.strip() for ln in text.splitlines()
+             if "setmaxnreg" in ln or "Performance Loss" in ln]
+    return {"sass": census, "warnings": warns}
+
+
 def phase_flash_bwd(fk, fr, fops, dev) -> dict:
-    """Phase 24 (a): the training forward's LSE and the three backward
-    entries against their plain versions at ``FLASH_BWD``'s shapes (bf16
-    inputs from a seeded ``torch.Generator``), each shape run twice and
-    required bitwise equal; timings beside the bound, the plain version
-    and SDPA's forward + backward; the serving entry's ptxas numbers
-    against ``SERVING_FLASH_PTXAS``."""
+    """Phase 24 (a): the training forward's LSE and the backward entries
+    against their plain versions at ``FLASH_BWD``'s shapes (bf16 inputs
+    from a seeded ``torch.Generator``), each shape run twice and required
+    bitwise equal; timings beside the bounds, the plain version, SDPA's
+    backward alone (device) and its forward + backward (events); the new
+    entries' wgmma census; the serving entry's ptxas numbers against
+    ``SERVING_FLASH_PTXAS``."""
     import torch
     import torch.nn.functional as F
     regs = flash_ptxas(fk)
@@ -3090,12 +3228,22 @@ def phase_flash_bwd(fk, fr, fops, dev) -> dict:
     print(f"  serving entry flash_attention_mma_kernel, 16 head-dim tiles: "
           f"ptxas registers and spills as before the training flag: "
           f"{not moved} {moved or ''}", flush=True)
+    build = flash_build_report(fk)
+    for fn, c in sorted(build["sass"].items()):
+        print(f"  SASS {fn}: {c}", flush=True)
+    for w in build["warnings"]:
+        print(f"  ptxas: {w}", flush=True)
     check(not moved, f"the training flag moved the serving entry's "
                      f"registers or spills: {moved}")
+    check(len(build["sass"]) == 4 and all(
+        c.get("HGMMA", 0) > 0 for c in build["sass"].values())
+        and not build["warnings"],
+        f"a backward entry issues no wgmma, or ptxas serialised its "
+        f"products: {build['sass']} {build['warnings']}")
     gen = torch.Generator(device=dev)
     out = {"max_abs_err": 0.0, "worst_share": 0.0, "rows": [],
-           "ptxas": training,
-           "serving_ptxas_moved": moved}
+           "ptxas": training, "build": build,
+           "serving_ptxas_moved": moved, "ds_split": fk.DS_SPLIT}
     for i, (B, S, Skv, H, K, hd, causal, window) in enumerate(FLASH_BWD):
         gen.manual_seed(2400 + i)
         draw = lambda *shape: torch.randn(shape, generator=gen, device=dev,
@@ -3114,16 +3262,16 @@ def phase_flash_bwd(fk, fr, fops, dev) -> dict:
                                         causal=causal, window=window)
         o32_err = float((o.float() + o_lo.float() - o_want).abs().max()
                         / o_want.abs().max())
-        del o_want
+        d_want = (do.float() * o_want).sum(-1).transpose(1, 2)
+        dlt = fk.flash_attention_bwd_dot(o, o_lo, do, lse.shape[-1])
+        dot_plain_ms, _ = cuda_ms(lambda: (do.float() * (
+            o.float() + o_lo.float())).sum(-1), torch.cuda.synchronize)
+        dot_err = float((dlt[..., :S] - d_want).abs().max())
+        dot_top = float(d_want.abs().max())
+        del o_want, d_want
 
         def bwd():
-            dlt = fk.flash_attention_bwd_dot(o, o_lo, do, lse.shape[-1])
-            dk, dv = fk.flash_attention_bwd_dkdv(q, k, v, do, lse, dlt,
-                                                 causal=causal,
-                                                 window=window)
-            dq = fk.flash_attention_bwd_dq(q, k, v, do, lse, dlt,
-                                           causal=causal, window=window)
-            return dq, dk, dv
+            return flash_bwd(fk, q, k, v, o, o_lo, do, lse, causal, window)
         got = bwd()
         again = bwd()
         torch.cuda.synchronize()
@@ -3135,14 +3283,23 @@ def phase_flash_bwd(fk, fr, fops, dev) -> dict:
         err = max(d[0] for d in diffs)
         share = max(d[2] for d in diffs)
         del want, again
-        # times: the three entries one by one and the whole backward
-        # (device, a CUDA graph of 20 calls), the LSE forward, SDPA's
-        # forward + backward as the library yardstick
-        dlt = fk.flash_attention_bwd_dot(o, o_lo, do, lse.shape[-1])
+        # times: each entry and the whole backward (device, a CUDA graph of
+        # 20 calls), the LSE forward; SDPA's backward alone (device) and
+        # its forward + backward against the kernels' (events, with the
+        # host)
         t_dot = graph_ms(lambda: fk.flash_attention_bwd_dot(
             o, o_lo, do, lse.shape[-1]))
         t_dkdv = graph_ms(lambda: fk.flash_attention_bwd_dkdv(
             q, k, v, do, lse, dlt, causal=causal, window=window))
+        t_sum = sum_plain_ms = None
+        if H != K:
+            parts = fk.flash_attention_bwd_dkdv(q, k, v, do, lse, dlt,
+                                                causal=causal, window=window)
+            t_sum = graph_ms(lambda: fk.flash_attention_bwd_sum(*parts, K))
+            sum_plain_ms, _ = cuda_ms(lambda: [
+                p.view(B, Skv, K, H // K, hd).sum(3).to(torch.bfloat16)
+                for p in parts], torch.cuda.synchronize)
+            del parts
         t_dq = graph_ms(lambda: fk.flash_attention_bwd_dq(
             q, k, v, do, lse, dlt, causal=causal, window=window))
         t_bwd = graph_ms(bwd)
@@ -3166,22 +3323,25 @@ def phase_flash_bwd(fk, fr, fops, dev) -> dict:
         def ours():
             o2, lse2, lo2 = fk.flash_attention_lse(q, k, v, causal=causal,
                                                    window=window)
-            d2 = fk.flash_attention_bwd_dot(o2, lo2, do, lse2.shape[-1])
-            fk.flash_attention_bwd_dkdv(q, k, v, do, lse2, d2,
-                                        causal=causal, window=window)
-            fk.flash_attention_bwd_dq(q, k, v, do, lse2, d2, causal=causal,
-                                      window=window)
+            flash_bwd(fk, q, k, v, o2, lo2, do, lse2, causal, window)
         ours_ms = loop_ms(ours)
         bound, by = flash_bwd_bound(B, S, Skv, H, K, hd, causal, window)
+        entry_bounds = bwd_entry_bounds(B, S, Skv, H, K, hd, causal, window)
         row = {"shape": [B, S, Skv, H, K, hd, causal, window],
                "max_abs_err": err, "worst_share": share, "lse_err": lse_err,
-               "o_f32_err": o32_err,
+               "o_f32_err": o32_err, "dot_err": dot_err,
+               "dot_rel_err": dot_err / max(dot_top, 1e-30),
                "bitwise_twice": bitwise, "o_equals_serving": same_o,
-               "dot_ms": t_dot, "dkdv_ms": t_dkdv, "dq_ms": t_dq,
-               "bwd_ms": t_bwd, "fwd_lse_ms": t_fwd, "plain_ms": plain_ms,
-               "fwd_bwd_events_ms": ours_ms,
+               "dot_ms": t_dot, "dkdv_ms": t_dkdv, "sum_ms": t_sum,
+               "dot_plain_ms": dot_plain_ms, "sum_plain_ms": sum_plain_ms,
+               "dq_ms": t_dq, "bwd_ms": t_bwd, "fwd_lse_ms": t_fwd,
+               "plain_ms": plain_ms, "fwd_bwd_events_ms": ours_ms,
                "library_fwd_bwd_ms": lib_ms, "bound_ms": bound,
                "bound_by": by, "bound_share": bound / t_bwd,
+               "entry_bounds": entry_bounds,
+               "errs": {n: {"max_abs_err": d[0], "max_plain": d[1],
+                            "worst_share": d[2]}
+                        for n, d in zip(("dq", "dk", "dv"), diffs)},
                "rel_err": [d[0] / max(d[1], 1e-30) for d in diffs]}
         out["rows"].append(row)
         out["max_abs_err"] = max(out["max_abs_err"], err)
@@ -3189,23 +3349,30 @@ def phase_flash_bwd(fk, fr, fops, dev) -> dict:
         print(f"  B{B} S{S} Skv{Skv} H{H} K{K} hd{hd} causal={causal} "
               f"window={window}: dq / dk / dv max |kernel - plain| / max "
               f"|plain| {', '.join(f'{d[0]:.3g}/{d[1]:.3g}' for d in diffs)}"
-              f", worst share of the limit {share:.3g}; LSE max |d| "
-              f"{lse_err:.3g}; O + O_lo against the f32 output, max |d| / "
-              f"max |O| {o32_err:.3g} (limit {FLASH_O32_TOL:.3g}); bitwise "
-              f"twice {bitwise}; O equals the serving entry's {same_o}",
+              f", worst share of the limit {share:.3g}; D max |d| "
+              f"{dot_err:.3g} of {dot_top:.3g}; LSE max |d| {lse_err:.3g}; "
+              f"O + O_lo against the f32 output, max |d| / max |O| "
+              f"{o32_err:.3g} (limit {FLASH_O32_TOL:.3g}); bitwise twice "
+              f"{bitwise}; O equals the serving entry's {same_o}",
               flush=True)
-        print(f"    device ms: D {t_dot:.4f}, dK/dV {t_dkdv:.4f}, dQ "
-              f"{t_dq:.4f}, backward {t_bwd:.4f} ({100 * bound / t_bwd:.1f} "
-              f"% of its {by} bound {bound:.4f} ms); LSE forward "
-              f"{t_fwd:.4f}; plain backward {plain_ms:.2f} ms; events: "
-              f"the kernels' forward + backward {ours_ms:.4f} ms, SDPA's "
-              f"{lib_ms:.4f} ms", flush=True)
+        sum_txt = "" if t_sum is None else f", sum {t_sum:.4f}"
+        print(f"    device ms: D {t_dot:.4f}, dK/dV {t_dkdv:.4f}{sum_txt}, "
+              f"dQ {t_dq:.4f}, backward {t_bwd:.4f} ({100 * bound / t_bwd:.1f}"
+              f" % of its {by} bound {bound:.4f} ms); LSE forward {t_fwd:.4f}; plain backward {plain_ms:.2f} ms; "
+              f"events: the kernels' forward + backward {ours_ms:.4f} ms, "
+              f"SDPA's {lib_ms:.4f} ms; entry bounds "
+              + ", ".join(f"{n} {b[0]:.4f} ({b[1]})"
+                          for n, b in entry_bounds.items()), flush=True)
         check(share <= 1.0 and bitwise and lse_err <= 1e-3
               and o32_err <= FLASH_O32_TOL,
               f"the flash backward disagrees with its plain version, or is "
               f"not deterministic, at {FLASH_BWD[i]}")
         del q, k, v, do, o, lse, o_lo, got, dlt, qt, kt, vt
         torch.cuda.empty_cache()
+    for row, (ms, by) in zip(out["rows"], sdpa_bwd_times()):
+        row["library_bwd_ms"], row["library_bwd_by"] = ms, by
+        print(f"  {row['shape']}: SDPA's backward alone {ms:.4f} ms ({by}) "
+              f"against the kernels' {row['bwd_ms']:.4f}", flush=True)
     return out
 
 
@@ -3239,12 +3406,39 @@ TRAIN_TIMED = {"batch": 4, "seq": 2048, "reps": 3}
 def train_counts(fops) -> dict:
     return {"flash": fops.launches, "bwd_dot": fops.bwd_dot_launches,
             "bwd_dkdv": fops.bwd_dkdv_launches,
+            "bwd_sum": fops.bwd_sum_launches,
             "bwd_dq": fops.bwd_dq_launches}
 
 
 def zero_train_counts(fops) -> None:
-    fops.launches = fops.bwd_dot_launches = 0
+    fops.launches = fops.bwd_dot_launches = fops.bwd_sum_launches = 0
     fops.bwd_dkdv_launches = fops.bwd_dq_launches = 0
+
+
+def dq_in_place(fk, fr):
+    """A context in which every causal call of the dQ entry (in whisper-
+    small: the decoder's self-attention) is also held, in place, to the
+    plain backward of the same inputs: yields the list of its dQ's worst
+    shares of phase 24 (a)'s limit."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        shares, launch = [], fk.flash_attention_bwd_dq
+
+        def held(q, k, v, do, lse, dlt, *, causal, window):
+            dq = launch(q, k, v, do, lse, dlt, causal=causal, window=window)
+            if causal:
+                want = fr.flash_attention_bwd_ref(q, k, v, do, causal=True,
+                                                  window=window)[0]
+                shares.append(bwd_diff(dq, want)[2])
+            return dq
+        fk.flash_attention_bwd_dq = held
+        try:
+            yield shares
+        finally:
+            fk.flash_attention_bwd_dq = launch
+    return ctx()
 
 
 def attention_as(attn):
@@ -3347,13 +3541,13 @@ def train_flops(cfg, B: int, S: int) -> float:
     return 8.0 * n * tokens + 18.0 * cfg.hd * pairs
 
 
-def train_phase(golden_mod, smi: str, device="cuda") -> dict:
+def train_phase(golden_mod, smi: str, device="cuda") -> list:
     """Phase 24 on ``device``: (a) the backward entries against their
     plain version, (b) tinyllama-1.1b's train step against
     ``golden_train.json`` and its plain-version step, (c) whisper-small's
     step against its plain-version step, (d) the 100m example's run and
     resume, (e) the timed full train step; returns the kernel line's
-    ``flash_attention_bwd`` row."""
+    rows: the whole backward (``flash_attention_bwd``), then each entry."""
     import shutil
     import tempfile
 
@@ -3407,8 +3601,10 @@ def train_phase(golden_mod, smi: str, device="cuda") -> dict:
           "tinyllama-1.1b's train step disagrees with golden_train.json")
     check(all(dist_plain[k] <= tol[k] for k in tol),
           "the plain versions' train step disagrees with golden_train.json")
-    check(all(n > 0 for n in launches.values()),
-          f"the train step launched a flash entry no time: {launches}")
+    check(all(n > 0 for n in launches.values())
+          and launches["bwd_sum"] == launches["bwd_dkdv"],
+          f"the train step launched a flash entry no time, or summed fewer "
+          f"groups than it has layers: {launches}")
     del model
     full = get(T["config"])
     model, _ = golden_train_model(golden_mod, lm, full, T["seed"], dev)
@@ -3449,8 +3645,9 @@ def train_phase(golden_mod, smi: str, device="cuda") -> dict:
             (W["batch"], W["frames"], wcfg.d_model), dev)
         zero_train_counts(fops)
         if name == "kernel":
-            recs[name] = train_step_record(golden_mod, steps, adamw, wmodel,
-                                           wcfg, wbatch, 1)
+            with dq_in_place(fk, fr) as dq_shares:
+                recs[name] = train_step_record(golden_mod, steps, adamw,
+                                               wmodel, wcfg, wbatch, 1)
             w_launches = train_counts(fops)
         else:
             with (plain_backward() if name == "plain_backward"
@@ -3472,15 +3669,21 @@ def train_phase(golden_mod, smi: str, device="cuda") -> dict:
           f"plain versions' step {wdist} (limits {WHISPER_TRAIN_TOL}); "
           f"from the kernels' forward with the plain backward {wbwd} "
           f"(limits {tol}); the plain step's microbatch split {wfloor}; "
-          f"launches {w_launches}", flush=True)
+          f"launches {w_launches}; in place, the decoder self-attention's "
+          f"dQ at {len(dq_shares)} calls, worst share of phase 24 (a)'s "
+          f"limit {max(dq_shares):.3f} (dS split {fk.DS_SPLIT})", flush=True)
+    check(len(dq_shares) == wcfg.n_layers and max(dq_shares) <= 1.0,
+          f"whisper's decoder self-attention dQ leaves phase 24 (a)'s limit "
+          f"in place: {dq_shares}")
     check(all(wdist[k] <= WHISPER_TRAIN_TOL[k] for k in tol),
           "whisper-small's train step disagrees with its plain step")
     check(all(wbwd[k] <= tol[k] for k in tol),
           "whisper-small's train step disagrees with the same step on the "
           "plain backward")
-    check(all(n > 0 for n in w_launches.values()),
-          f"whisper's train step launched a flash entry no time: "
-          f"{w_launches}")
+    check(all(n > 0 for k, n in w_launches.items() if k != "bwd_sum")
+          and w_launches["bwd_sum"] == 0,
+          f"whisper's train step launched a flash entry no time, or summed "
+          f"partials of one-head groups: {w_launches}")
 
     # (d) the 100m example: a straight run with a checkpoint at step 20,
     # then a resume from it to the same last step
@@ -3539,8 +3742,9 @@ def train_phase(golden_mod, smi: str, device="cuda") -> dict:
     flops = train_flops(full, TT["batch"], TT["seq"])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     _, busy, by_name = profile_kernels(lambda: step(model, opt, tbatch), (
-        ("flash_attention_mma_kernel",), ("flash_bwd_dkdv_kernel",),
-        ("flash_bwd_dq_kernel",), ("flash_bwd_dot_kernel",),
+        ("flash_attention_mma_kernel",), ("flash_bwd_dkdv_wgmma_kernel",),
+        ("flash_bwd_dq_wgmma_kernel",), ("flash_bwd_dot_kernel",),
+        ("flash_bwd_sum_kernel",),
         ("gemm", "Gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")))
     tok_s = TT["batch"] * TT["seq"] / wall
     print(f"  (e) tinyllama-1.1b full train step B{TT['batch']} x "
@@ -3561,27 +3765,33 @@ def train_phase(golden_mod, smi: str, device="cuda") -> dict:
           flush=True)
 
     tiny = bwd["rows"][0]
-    return {
-        "name": "flash_attention_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
-        "replaces": "none: XLA's differentiation of src/repro/models/"
-                    "layers.py:113 blocked_attention (repro's training "
-                    "path; no Pallas kernel has a backward)",
+    src = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+    replaces = ("none: XLA's differentiation of src/repro/models/layers.py:"
+                "113 blocked_attention (repro's training path; no Pallas "
+                "kernel has a backward)")
+    rows = [{
+        "name": "flash_attention_bwd", "route": "cuda", "source": src,
+        "replaces": replaces,
         "launches": launches["bwd_dkdv"], "launches_golden_step": launches,
         "launches_whisper_step": w_launches,
         "launches_full_step": step_launches,
         "max_abs_err": bwd["max_abs_err"], "worst_share": bwd["worst_share"],
         "ms": tiny["bwd_ms"], "plain_ms": tiny["plain_ms"],
         "bound_ms": tiny["bound_ms"], "bound_by": tiny["bound_by"],
-        "library_ms": tiny["library_fwd_bwd_ms"],
-        "library": "SDPA forward + backward (enable_gqa), events; beside "
-                   "it the kernels' forward + backward, events: "
-                   f"{tiny['fwd_bwd_events_ms']:.4f} ms",
-        "shapes": bwd["rows"], "ptxas": bwd["ptxas"],
+        "library_ms": tiny["library_bwd_ms"],
+        "library": "SDPA's backward alone (enable_gqa), device time by "
+                   f"{tiny['library_bwd_by']} (CUDA events where the "
+                   "profiler saw no device activity); its forward + "
+                   "backward by events "
+                   f"{tiny['library_fwd_bwd_ms']:.4f} ms against the "
+                   f"kernels' {tiny['fwd_bwd_events_ms']:.4f} ms",
+        "entries": "D + dK/dV (+ the group sum) + dQ, a CUDA graph of 20",
+        "ds_split": bwd["ds_split"],
+        "shapes": bwd["rows"], "ptxas": bwd["ptxas"], "build": bwd["build"],
         "golden_distance": dist, "plain_golden_distance": dist_plain,
         "full_depth_distance": dist_full, "whisper_distance": wdist,
         "whisper_backward_distance": wbwd, "whisper_floor": wfloor,
+        "whisper_dq_in_place_shares": dq_shares,
         "example": {"first_loss": a[0], "last_loss": a[last],
                     "resumed_last_loss": b[last], "bitwise": bitwise,
                     "seconds": ex_s},
@@ -3590,7 +3800,33 @@ def train_phase(golden_mod, smi: str, device="cuda") -> dict:
                        "peak_share": flops / wall / PEAK_OPS["bf16"],
                        "peak_gib": peak, "busy_ms": busy,
                        "by_name": by_name, "microbatches": mb},
-        "phase_s": time.time() - t_phase}
+        "phase_s": time.time() - t_phase}]
+    # each entry on its own, at the tinyllama shape (the sum's plain version
+    # and error at the first shape with a group; the dK / dV and dQ
+    # entries' plain version is the whole plain backward)
+    errs = lambda *names: max(r["errs"][n]["max_abs_err"]
+                              for r in bwd["rows"] for n in names)
+    plain_all = ("autograd of the f32 reference, all three gradients at "
+                 "once")
+    for name, key, count, err, plain, note in (
+            ("flash_bwd_dot", "dot", "bwd_dot",
+             max(r["dot_err"] for r in bwd["rows"]), tiny["dot_plain_ms"],
+             "rowsum(dO (O + O_lo)) in f32"),
+            ("flash_bwd_dkdv_wgmma", "dkdv", "bwd_dkdv", errs("dk", "dv"),
+             tiny["plain_ms"], plain_all),
+            ("flash_bwd_sum", "sum", "bwd_sum", errs("dk", "dv"),
+             tiny["sum_plain_ms"], "the partials' sum over the group (torch "
+             "sum, one bf16 cast)"),
+            ("flash_bwd_dq_wgmma", "dq", "bwd_dq", errs("dq"),
+             tiny["plain_ms"], plain_all)):
+        b_ms, b_by = tiny["entry_bounds"][key]
+        rows.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[count],
+            "max_abs_err": err, "ms": tiny[f"{key}_ms"], "plain_ms": plain,
+            "plain": note, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "shape": tiny["shape"]})
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -4850,7 +5086,7 @@ def main() -> int:
         row["launches_phase18"] = p18[key]
     zoo_rows = zoo_phases(golden_mod, smi)
     add_zoo_rows(lm_rows, zoo_rows)
-    train_row = train_phase(golden_mod, smi)
+    train_rows = train_phase(golden_mod, smi)
     print(f"\nchip_smoke total: {time.time() - t_start:.1f} s")
     print(smi)
 
@@ -4904,7 +5140,7 @@ def main() -> int:
                            for k in ("spill_stores", "spill_loads")),
         "bound_ms": bound32, "bound_by": "bytes", "library_ms": None},
         *serve_rows, *lm_rows, ssm_row, window_row,
-        zoo_rows["rglru_row"], train_row]}))
+        zoo_rows["rglru_row"], *train_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

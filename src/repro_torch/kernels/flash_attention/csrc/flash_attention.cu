@@ -56,11 +56,11 @@
 // then the tile max, the correction and the p * V update, with the same
 // tile skipping.
 //
-// Training (flash_attention_lse_launch and the three flash_bwd_* entries
-// below): the bf16 forward also writes each row's log-sum-exp, and a
-// FlashAttention-2 backward recomputes P from it; no Pallas kernel has a
-// backward, these stand in for XLA's differentiation of repro's
-// layers.blocked_attention (repro's training path).
+// Training (flash_attention_lse_launch and the flash_bwd_* entries below):
+// the bf16 forward also writes each row's log-sum-exp, and a
+// FlashAttention-2 backward on wgmma and TMA recomputes P from it; no
+// Pallas kernel has a backward, these stand in for XLA's differentiation
+// of repro's layers.blocked_attention (repro's training path).
 //
 // Built by repro_torch/_build.py with nvcc for sm_90a, bound with ctypes.
 
@@ -69,6 +69,7 @@
 #include <stdint.h>
 
 #include "mma_tile.cuh"
+#include "wgmma_tma.cuh"
 
 namespace {
 
@@ -507,9 +508,10 @@ int launch_mma_lse(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// The backward pass, FlashAttention-2's shape on the same mma.sync tile,
-// bf16 in, f32 sums, no atomics: every gradient element is written by one
-// block, its sum taken in a fixed order, so two runs give the same bits.
+// The backward pass, bf16 in, f32 sums, no atomics: every gradient element
+// is written by one thread, its sums taken in a fixed order (a group's
+// heads summed in head order by flash_bwd_sum_kernel), so two runs give the
+// same bits.
 //
 //   D    = rowsum(dO o O)                       (flash_bwd_dot_kernel)
 //          O the f32 output as the LSE forward's bf16 output plus its
@@ -520,94 +522,142 @@ int launch_mma_lse(const void* q, const void* k, const void* v, void* o,
 //          attention) moved by over 1 %
 //   P    = exp(S - LSE), S = Q K^T / sqrt(hd)   (recomputed, both below)
 //   dV   = P^T dO,  dS = P o (dO V^T - D)
-//   dK   = dS^T Q / sqrt(hd)                    (flash_bwd_dkdv_kernel)
-//   dQ   = dS K / sqrt(hd)                      (flash_bwd_dq_kernel)
+//   dK   = dS^T Q / sqrt(hd)                    (flash_bwd_dkdv_wgmma_kernel)
+//   dQ   = dS K / sqrt(hd)                      (flash_bwd_dq_wgmma_kernel)
 //
-// The dK / dV entry: a block per (batch, KV head, 64 keys), a warp per 16
-// keys; K and V stay in shared memory, and the block walks the query
-// tiles of all G = H / K query heads of its group (so GQA's sum over the
-// group's heads stays in the block's registers), Q, dO and their rows'
-// LSE and D in a two-stage cp.async ring.  The dQ entry: a block per
-// (batch, head, 64 query rows), a warp per 16 rows, Q and dO in shared
-// memory, walking the key tiles (K and V in a two-stage ring).  P^T and
-// dS^T (dK / dV) and dS (dQ) are rounded to bf16 as the A operand of the
-// second product.  A step takes 64 rows of the walked operand at hd <= 64;
-// at hd 128 16 query rows (dK / dV) and 32 keys (dQ), so that the f32
-// accumulators (dK and dV: 2 x hd / 2 a thread) stay in registers.  Rows past S or Skv load as zeros and are
-// masked; masked pairs (causal, window) contribute P = dS = 0.  Bound:
-// 10 hd operations a valid (query, key) pair (five products: 2.5x the
-// forward's).
+// Bound: 10 hd operations a valid (query, key) pair (five products: 2.5x
+// the forward's).  The dQ entry makes S and dP again (no atomics), 14 hd
+// in all: the ceiling is 5 / 7 of the bound.
+//
+// Design for Hopper (wgmma_tma.cuh).  A block is two consumer
+// warpgroups.  Each owns 64 rows of the block's fixed tiles and runs its
+// products on wgmma (m64n64k16, f32 accumulators): the first two with both
+// operands in shared memory, each in its own commit group, so that the
+// second runs on while P is formed from the first; then the products that
+// take P^T or dS (dS^T) from registers as bf16 A operands, converted from
+// the first products' accumulators, the first of them running on while dS
+// is formed.  Thread 0 is also the producer: it issues the TMA loads of
+// the fixed tiles and, at the top of each tile (no product in flight),
+// keeps the ring BWD_AHEAD tiles ahead in BWD_STAGES stages, each guarded
+// by a full and an empty mbarrier; warp 0 waits for it, so its lanes stay
+// converged for wgmma, and with two stages of slack a warpgroup one tile
+// behind the other does not hold it up.  No warp is a producer alone:
+// with setmaxnreg (a third warpgroup giving up its registers to two
+// consumers of 240) ptxas still held every thread to the launch's 168
+// registers (three warps on each of the SM's four register files), spilled
+// 2 956 bytes at hd 128 and serialised the wgmma products; a producer warp
+// beside 256 threads costs the same.  Two warpgroups have 255 registers a
+// thread.  Every stage is computed, masked pairs as zeros: a branch around
+// the products, or producer work while products are in flight, made
+// ptxas serialise them.  The element-wise passes come in two forms: tiles
+// that meet a mask's edge (or the ends of S and Skv) test every pair, the
+// others none (the mask's integer work was most of their cost).  Rows past
+// S or Skv and dims past hd load as zeros (TMA's bounds).
+//
+// dK / dV (flash_bwd_dkdv_wgmma_kernel): a block per (batch, query head,
+// 128 keys), K and V fixed, walking the 64-row Q / dO tiles (and their
+// LSE and D rows) that see its keys; per tile a consumer makes S^T = K Q^T,
+// dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q.  A group of G > 1
+// query heads shares its KV head's dK / dV: each block writes its head's
+// f32 sums as partials and flash_bwd_sum_kernel adds a group's G partials
+// in head order 0 .. G - 1 and rounds once to bf16 (G = 1 writes bf16
+// directly).  The grid's slow dim is the key block, so under a causal mask
+// the heaviest blocks (the first keys: every query tile) start first.
+// dQ (flash_bwd_dq_wgmma_kernel): a block per (batch, head, 128 query
+// rows), Q and dO fixed, walking the 64-key K / V tiles; per tile S = Q
+// K^T, dP = dO V^T, dQ += dS K; the last query rows (the most keys) first.
+// dS as the A operand is bf16(dS), or with the split flag (bit 0 the dQ
+// product, bit 1 the dK product) dS = hi + lo, hi = bf16(dS), lo =
+// bf16(dS - hi), both multiplied (one more product each), as the forward
+// splits P.  At hd 128 a thread holds 64 + 64 accumulators of dK and dV
+// and 32 + 32 of S^T and dP^T, so the query step stays at 64 rows; a head
+// dim is HDP / 64 subtiles of 64 dims, so a wider head (hd 256 as two
+// halves, mma_tile.cuh's out_split) adds subtiles, not new descriptors.
 
-// rows of the walked operand a step: 64 up to HDP 64; at HDP 128, 16
-// query rows (dK / dV, whose two accumulators take 128 registers) and 32
-// keys (dQ)
-template <int HDP>
-__host__ __device__ constexpr int dkdv_tile() {
-  return HDP > 64 ? 16 : 64;
-}
-template <int HDP>
-__host__ __device__ constexpr int dq_tile() {
-  return HDP > 64 ? 32 : 64;
-}
+constexpr int BWD_WG = 128;              // threads of a warpgroup
+constexpr int BWD_THREADS = 2 * BWD_WG;  // two consumer warpgroups
+constexpr int BWD_ROWS = 64;             // a consumer's rows; a tile's
+constexpr int BWD_BLOCK = 2 * BWD_ROWS;  // a block's fixed rows
+constexpr int BWD_STAGES = 4;
+constexpr int BWD_AHEAD = 2;  // tiles the producer keeps ahead
 
-// acc = A (16 rows of HDP dims) x T^T, T an NR-row padded tile in shared
-// memory (the n dim is T's rows)
-template <int HDP, int NR, class A>
-__device__ __forceinline__ void mma_abt(float (&acc)[NR / 8][4], const A& a,
-                                        const bf16* tile, int lane) {
+// Shared memory of a backward block (bytes from a 1024-aligned base): the
+// two fixed tiles (K and V, or Q and dO), each two halves of HDP / 64
+// subtiles; the ring's stages (two tiles of 64 rows each); the stages' LSE
+// and D rows (dK / dV); the barriers (fixed, full[s], empty[s]).
+template <int HDP>
+struct BwdSmem {
+  static constexpr int CB = HDP / 64;
+  static constexpr int SUB = hopper::SUBTILE;
+  static constexpr int FIXED = 4 * CB * SUB;
+  static constexpr int STAGE = 2 * CB * SUB;
+  static constexpr int ROWS = FIXED + BWD_STAGES * STAGE;
+  static constexpr int BARS = ROWS + BWD_STAGES * 2 * BWD_ROWS * 4;
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * BWD_STAGES) + 1024;
+};
+
+// the CB subtiles of one 64-row tile of a [B, S, H, hd] tensor map (rows
+// row0.., head h, batch b) into shared memory at dst
+template <int CB>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int h, int row0,
+                                         int b) {
 #pragma unroll
-  for (int n = 0; n < NR / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] =
-      acc[n][3] = 0.f;
+  for (int c = 0; c < CB; ++c)
+    hopper::tma_load_4d(dst + c * hopper::SUBTILE, map, bar, 64 * c, h, row0,
+                        b);
+}
+
+// the warpgroup's 128 threads meet (named barrier 1 + warpgroup)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(BWD_WG) : "memory");
+}
+
+// acc (+)= A B^T over the k dim HDP: A and B 64-row K-major tiles of HDP / 64
+// subtiles at shared addresses a and b
+template <int HDP>
+__device__ __forceinline__ void mma_rows(float (&acc)[32], uint32_t a,
+                                         uint32_t b) {
 #pragma unroll
   for (int s = 0; s < HDP / 16; ++s) {
-    uint32_t af[4];
-    a.get(s, af, lane);
+    const uint32_t off = (s / 4) * hopper::SUBTILE + (s % 4) * 32;
+    hopper::mma_ss(acc, hopper::desc_sw128(a + off),
+                   hopper::desc_sw128(b + off), s);
+  }
+}
+
+// out[c] += X T over 64 rows of T (its k dim, 4 k-steps): X's bf16 A
+// fragments (hi, and lo when split), T a 64-row tile of HDP / 64 subtiles
+// at shared address t, read MN-major; out[c] its dims 64 c .. 64 c + 63
+template <int HDP>
+__device__ __forceinline__ void mma_cols(float (&out)[HDP / 64][32],
+                                         const uint32_t (&hi)[4][4],
+                                         const uint32_t (&lo)[4][4],
+                                         bool split, uint32_t t) {
 #pragma unroll
-    for (int np = 0; np < NR / 16; ++np) {
-      uint32_t bt[4];
-      const int row = 16 * np + (lane & 7) + 8 * (lane >> 4);
-      const int d = 16 * s + 8 * ((lane >> 3) & 1);
-      mma_tile::ldmatrix_x4(bt, mma_tile::smem_u32(tile + row * (HDP + 8) +
-                                                   d));
-      mma_tile::mma_bf16(acc[2 * np], af, bt[0], bt[1]);
-      mma_tile::mma_bf16(acc[2 * np + 1], af, bt[2], bt[3]);
+  for (int s = 0; s < 4; ++s) {
+#pragma unroll
+    for (int c = 0; c < HDP / 64; ++c) {
+      const uint64_t d =
+          hopper::desc_sw128(t + c * hopper::SUBTILE + s * 2048);
+      hopper::mma_rs(out[c], hi[s], d);
+      if (split) hopper::mma_rs(out[c], lo[s], d);
     }
   }
 }
 
-// out (16 rows x HDP) += bf16(X) T, X the f32 accumulators of a 16 x NR
-// product (its n dim becomes the k dim), T an NR-row padded tile
-template <int HDP, int NR>
-__device__ __forceinline__ void mma_xt(float (&out)[HDP / 8][4],
-                                       const float (&x)[NR / 8][4],
-                                       const bf16* tile, int lane) {
+// the bf16 A fragments of a 64 x 64 product's accumulators (4 k-steps),
+// with their low halves when split
+__device__ __forceinline__ void to_a(const float (&x)[32], bool split,
+                                     uint32_t (&hi)[4][4],
+                                     uint32_t (&lo)[4][4]) {
 #pragma unroll
-  for (int kk = 0; kk < NR / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = mma_tile::bits(__floats2bfloat162_rn(x[2 * kk][0], x[2 * kk][1]));
-    a[1] = mma_tile::bits(__floats2bfloat162_rn(x[2 * kk][2], x[2 * kk][3]));
-    a[2] = mma_tile::bits(
-        __floats2bfloat162_rn(x[2 * kk + 1][0], x[2 * kk + 1][1]));
-    a[3] = mma_tile::bits(
-        __floats2bfloat162_rn(x[2 * kk + 1][2], x[2 * kk + 1][3]));
-#pragma unroll
-    for (int dp = 0; dp < HDP / 16; ++dp) {
-      uint32_t bt[4];
-      const int row = 16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1);
-      const int d = 16 * dp + 8 * (lane >> 4);
-      mma_tile::ldmatrix_x4_trans(
-          bt, mma_tile::smem_u32(tile + row * (HDP + 8) + d));
-      mma_tile::mma_bf16(out[2 * dp], a, bt[0], bt[1]);
-      mma_tile::mma_bf16(out[2 * dp + 1], a, bt[2], bt[3]);
-    }
+  for (int s = 0; s < 4; ++s) {
+    if (split)
+      hopper::acc_to_a_split(x, s, hi[s], lo[s]);
+    else
+      hopper::acc_to_a(x, s, hi[s]);
   }
-}
-
-// group c (0 <= c < n4) of 4 f32 values as a 16-byte cp.async copy
-__device__ __forceinline__ void load_f32_rows(float* dst, const float* src,
-                                              int n4, int c) {
-  if (c >= 0 && c < n4)
-    mma_tile::cp_async16(mma_tile::smem_u32(dst + 4 * c), src + 4 * c, 16);
 }
 
 __global__ void __launch_bounds__(MMA_THREADS)
@@ -642,270 +692,439 @@ __global__ void __launch_bounds__(MMA_THREADS)
   if (lane == 0) dlt[bh * lse_row + s] = acc;
 }
 
-// bytes of one stage of the dK / dV entry's ring: the Q and dO tiles
-// (dkdv_tile rows each) and their rows' LSE and D
-template <int HDP>
-__host__ __device__ constexpr int dkdv_stage_bytes() {
-  return 2 * dkdv_tile<HDP>() * (HDP + 8) * (int)sizeof(bf16) +
-         2 * dkdv_tile<HDP>() * (int)sizeof(float);
+// Which (query, key) pairs a tile keeps: query i and key j at positions i
+// and j, both in range, j <= i under a causal mask, i - j < window.
+struct PairMask {
+  int S, Skv, causal, window;
+  __device__ __forceinline__ bool kept(int query, int key) const {
+    bool ok = query < S && key < Skv;
+    if (causal) ok = ok && query >= key;
+    if (window) ok = ok && query - key < window;
+    return ok;
+  }
+};
+
+// P^T in place of a dK / dV tile's S^T accumulators (rows: keys key0 and
+// key1 = key0 + 8, columns: queries q0 + 8 n + 2 t + {0, 1}), exp2 of the
+// scaled score less the query's LSE (rows of shared memory); with MASK, 0
+// where the pair is masked.  Then dS^T in place of dP^T: P (dP - D).
+template <bool MASK>
+__device__ __forceinline__ void p_cols(float (&sc)[32], const float* ls,
+                                       float scale_log2, int q0, int key0,
+                                       int t, const PairMask& m) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int col = 8 * n + 2 * t;
+    const float2 l = *reinterpret_cast<const float2*>(ls + col);
+    const float lo[2] = {l.x * mma_tile::LOG2E, l.y * mma_tile::LOG2E};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * n + e;
+      const float p = mma_tile::fast_exp2(sc[i] * scale_log2 - lo[e & 1]);
+      sc[i] = !MASK || m.kept(q0 + col + (e & 1), key0 + 8 * (e >> 1))
+                  ? p : 0.f;
+    }
+  }
 }
-template <int HDP>
-constexpr int dkdv_smem_bytes() {
-  return 2 * mma_tile::tile_elems<HDP>() * (int)sizeof(bf16) +
-         2 * dkdv_stage_bytes<HDP>();
+template <bool MASK>
+__device__ __forceinline__ void ds_cols(float (&dp)[32], const float (&p)[32],
+                                        const float* dd, int q0, int key0,
+                                        int t, const PairMask& m) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int col = 8 * n + 2 * t;
+    const float2 d = *reinterpret_cast<const float2*>(dd + col);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * n + e;
+      const float ds = p[i] * (dp[i] - ((e & 1) ? d.y : d.x));
+      dp[i] = !MASK || m.kept(q0 + col + (e & 1), key0 + 8 * (e >> 1))
+                  ? ds : 0.f;
+    }
+  }
+}
+
+// P in place of a dQ tile's S accumulators (rows r0, r0 + 8 with their
+// LSE in log2 units lse[2] and D d[2], columns: keys t0 + 8 n + 2 t +
+// {0, 1}), then dS in place of dP
+template <bool MASK>
+__device__ __forceinline__ void p_rows(float (&sc)[32], float scale_log2,
+                                       const float (&lse)[2], int r0, int t0,
+                                       int t, const PairMask& m) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float p = mma_tile::fast_exp2(sc[i] * scale_log2 - lse[(i >> 1) & 1]);
+    sc[i] = !MASK || m.kept(r0 + 8 * ((i >> 1) & 1),
+                            t0 + 8 * (i >> 2) + 2 * t + (i & 1))
+                ? p : 0.f;
+  }
+}
+template <bool MASK>
+__device__ __forceinline__ void ds_rows(float (&dp)[32], const float (&p)[32],
+                                        const float (&d)[2], int r0, int t0,
+                                        int t, const PairMask& m) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float ds = p[i] * (dp[i] - d[(i >> 1) & 1]);
+    dp[i] = !MASK || m.kept(r0 + 8 * ((i >> 1) & 1),
+                            t0 + 8 * (i >> 2) + 2 * t + (i & 1))
+                ? ds : 0.f;
+  }
 }
 
 template <int HDP>
-__global__ void __launch_bounds__(MMA_THREADS)
-    flash_bwd_dkdv_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const bf16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ dlt,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv,
-                          int S, int Skv, int H, int K, int hd, Strides qs,
-                          Strides ks, Strides vs, Strides ds, Strides dks,
-                          Strides dvs, long long lse_row, int causal,
-                          int window, float scale_log2, float scale) {
-  constexpr int BQ = dkdv_tile<HDP>(), LD = HDP + 8, TILE =
-      mma_tile::tile_elems<HDP>();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* kt = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vt = kt + TILE;
-  unsigned char* ring = reinterpret_cast<unsigned char*>(vt + TILE);
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+    flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                                const __grid_constant__ CUtensorMap map_k,
+                                const __grid_constant__ CUtensorMap map_v,
+                                const __grid_constant__ CUtensorMap map_do,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ dlt,
+                                bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                float* __restrict__ dk_part,
+                                float* __restrict__ dv_part, int S, int Skv,
+                                int H, int K, int hd, Strides dks,
+                                Strides dvs, long long lse_row, int causal,
+                                int window, float scale_log2, float scale,
+                                int split) {
+  using L = BwdSmem<HDP>;
+  constexpr int CB = L::CB, SUB = L::SUB;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t fixed = base + L::BARS;
+  const auto full = [&](int s) { return base + L::BARS + 8 * (1 + s); };
+  const auto empty = [&](int s) {
+    return base + L::BARS + 8 * (1 + BWD_STAGES + s);
+  };
+  const PairMask mask{S, Skv, causal, window};
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int k0 = blockIdx.x * MMA_BKV;
-  const int b = blockIdx.y / K, kh = blockIdx.y % K, G = H / K;
-  const int key0 = k0 + warp * 16 + g, key1 = key0 + 8;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, G = H / K, kh = h / G;
+  const int k0 = blockIdx.y * BWD_BLOCK;
+  // the query tiles that see a key of this block
+  const int q_begin = causal ? k0 : 0;
+  const int q_end = window ? min(S, k0 + BWD_BLOCK - 1 + window) : S;
+  const int n_qt =
+      q_end > q_begin ? (q_end - q_begin + BWD_ROWS - 1) / BWD_ROWS : 0;
 
-  mma_tile::load_tile<HDP, MMA_THREADS>(
-      kt, k + b * ks.b + kh * ks.h + (long long)k0 * ks.s, ks.s, Skv - k0,
-      hd, tid);
-  mma_tile::load_tile<HDP, MMA_THREADS>(
-      vt, v + b * vs.b + kh * vs.h + (long long)k0 * vs.s, vs.s, Skv - k0,
-      hd, tid);
-  mma_tile::cp_async_commit();
-
-  // the query rows that see a key of this tile
-  const int q_begin = (causal ? k0 : 0) / BQ * BQ;
-  const int q_end = window ? min(S, k0 + MMA_BKV - 1 + window) : S;
-  const int n_qt = q_end > q_begin ? (q_end - q_begin + BQ - 1) / BQ : 0;
-  const int n_it = G * n_qt;
-
-  // a stage: Q tile, dO tile, LSE, D of query tile `it`
-  const auto issue = [&](int it) {
-    const int h = kh * G + it / n_qt, q0 = q_begin + (it % n_qt) * BQ;
-    unsigned char* st = ring + (it & 1) * dkdv_stage_bytes<HDP>();
-    bf16* qt = reinterpret_cast<bf16*>(st);
-    bf16* dt = qt + BQ * LD;
-    float* ls = reinterpret_cast<float*>(dt + BQ * LD);
-    mma_tile::load_tile<HDP, MMA_THREADS, BQ>(
-        qt, q + b * qs.b + h * qs.h + (long long)q0 * qs.s, qs.s, S - q0,
-        hd, tid);
-    mma_tile::load_tile<HDP, MMA_THREADS, BQ>(
-        dt, dout + b * ds.b + h * ds.h + (long long)q0 * ds.s, ds.s,
-        S - q0, hd, tid);
+  // the producer (thread 0): Q, dO, LSE and D of query tile j into stage
+  // j % BWD_STAGES once both consumers have released its last tile
+  const auto produce = [&](int j) {
+    const int s = j % BWD_STAGES, q0 = q_begin + j * BWD_ROWS;
+    hopper::mbar_wait(empty(s), ((j / BWD_STAGES) & 1) ^ 1);
+    hopper::mbar_expect_tx(full(s), L::STAGE + 2 * BWD_ROWS * 4);
+    const uint32_t st = base + L::FIXED + s * L::STAGE;
+    tma_tile<CB>(st, &map_q, full(s), h, q0, b);
+    tma_tile<CB>(st + CB * SUB, &map_do, full(s), h, q0, b);
     const long long r = ((long long)b * H + h) * lse_row + q0;
-    load_f32_rows(ls, lse + r, BQ / 4, tid);
-    load_f32_rows(ls + BQ, dlt + r, BQ / 4, tid - BQ / 4);
-    mma_tile::cp_async_commit();
+    const uint32_t rows = base + L::ROWS + s * 2 * BWD_ROWS * 4;
+    hopper::bulk_load(rows, lse + r, BWD_ROWS * 4, full(s));
+    hopper::bulk_load(rows + BWD_ROWS * 4, dlt + r, BWD_ROWS * 4, full(s));
   };
-
-  float dka[HDP / 8][4], dva[HDP / 8][4];
-#pragma unroll
-  for (int n = 0; n < HDP / 8; ++n) {
-    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
-    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(fixed, 1);
+    for (int s = 0; s < BWD_STAGES; ++s) {
+      hopper::mbar_init(full(s), 1);
+      hopper::mbar_init(empty(s), 2);
+    }
+    hopper::mbar_fence_init();
+    hopper::mbar_expect_tx(fixed, L::FIXED);
+    for (int w = 0; w < 2; ++w) {
+      tma_tile<CB>(base + w * CB * SUB, &map_k, fixed, kh, k0 + w * BWD_ROWS,
+                   b);
+      tma_tile<CB>(base + (2 + w) * CB * SUB, &map_v, fixed, kh,
+                   k0 + w * BWD_ROWS, b);
+    }
+    for (int j = 0; j < BWD_AHEAD && j < n_qt; ++j) produce(j);
   }
-  const mma_tile::QSmem<HDP> ka{kt + warp * 16 * LD};
-  const mma_tile::QSmem<HDP> va{vt + warp * 16 * LD};
+  __syncthreads();
 
-  if (n_it > 0) issue(0);
-  for (int it = 0; it < n_it; ++it) {
-    const int q0 = q_begin + (it % n_qt) * BQ;
-    if (it + 1 < n_it) {  // the next tile's copy runs under this one
-      issue(it + 1);
-      mma_tile::cp_async_wait<1>();
-    } else {
-      mma_tile::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const unsigned char* st = ring + (it & 1) * dkdv_stage_bytes<HDP>();
-    const bf16* qt = reinterpret_cast<const bf16*>(st);
-    const bf16* dt = qt + BQ * LD;
-    const float* ls = reinterpret_cast<const float*>(dt + BQ * LD);
-    const float* dd = ls + BQ;
-
-    float sc[BQ / 8][4], dp[BQ / 8][4];
-    mma_abt<HDP, BQ>(sc, ka, qt, lane);  // S^T: keys x queries
-    mma_abt<HDP, BQ>(dp, va, dt, lane);  // dP^T = V dO^T
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * n + 2 * t + (e & 1);
-        const int query = q0 + col, key = e < 2 ? key0 : key1;
-        bool ok = query < S && key < Skv;
-        if (causal) ok = ok && query >= key;
-        if (window) ok = ok && query - key < window;
-        const float p =
-            ok ? mma_tile::fast_exp2(sc[n][e] * scale_log2 -
-                                     ls[col] * mma_tile::LOG2E)
-               : 0.f;
-        dp[n][e] = ok ? p * (dp[n][e] - dd[col]) : 0.f;
-        sc[n][e] = p;
-      }
-    }
-    mma_xt<HDP, BQ>(dva, sc, dt, lane);  // dV += P^T dO
-    mma_xt<HDP, BQ>(dka, dp, qt, lane);  // dK += dS^T Q
-    __syncthreads();  // the stage is refilled at the next iteration
-  }
-  mma_tile::cp_async_wait<0>();
-
-  bf16* dkb = dk + b * dks.b + kh * dks.h;
-  bf16* dvb = dv + b * dvs.b + kh * dvs.h;
-#pragma unroll
-  for (int n = 0; n < HDP / 8; ++n) {
-    const int d = 8 * n + 2 * t;
-    if (d >= hd) continue;
-    if (key0 < Skv) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + key0 * dks.s + d) =
-          __floats2bfloat162_rn(dka[n][0] * scale, dka[n][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + key0 * dvs.s + d) =
-          __floats2bfloat162_rn(dva[n][0], dva[n][1]);
-    }
-    if (key1 < Skv) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + key1 * dks.s + d) =
-          __floats2bfloat162_rn(dka[n][2] * scale, dka[n][3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + key1 * dvs.s + d) =
-          __floats2bfloat162_rn(dva[n][2], dva[n][3]);
-    }
-  }
-}
-
-// bf16 elements of one stage of the dQ entry's ring: a K and a V tile of
-// dq_tile keys
-template <int HDP>
-__host__ __device__ constexpr int dq_stage_elems() {
-  return 2 * dq_tile<HDP>() * (HDP + 8);
-}
-template <int HDP>
-constexpr int dq_smem_bytes() {
-  return (2 * MMA_BQ * (HDP + 8) + 2 * dq_stage_elems<HDP>()) *
-         (int)sizeof(bf16);
-}
-
-template <int HDP>
-__global__ void __launch_bounds__(MMA_THREADS)
-    flash_bwd_dq_kernel(const bf16* __restrict__ q,
-                        const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ dlt, bf16* __restrict__ dq,
-                        int S, int Skv, int H, int K, int hd, Strides qs,
-                        Strides ks, Strides vs, Strides ds, Strides dqs,
-                        long long lse_row, int causal, int window,
-                        float scale_log2, float scale) {
-  constexpr int TK = dq_tile<HDP>(), LD = HDP + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qt = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dt = qt + MMA_BQ * LD;
-  bf16* ring = dt + MMA_BQ * LD;  // [2][K tile, V tile]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // ---- the two consumer warpgroups: 64 keys each
+  const int wg = threadIdx.x / BWD_WG;
+  const int tid = threadIdx.x % BWD_WG, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * MMA_BQ;
-  const int b = blockIdx.y / H, h = blockIdx.y % H, kh = h / (H / K);
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this lane's two rows
+  const int wk0 = k0 + wg * BWD_ROWS;
+  const int key0 = wk0 + warp * 16 + g, key1 = key0 + 8;  // a thread's rows
+  const uint32_t kt = base + wg * CB * SUB;
+  const uint32_t vt = base + (2 + wg) * CB * SUB;
+  const bool split_dk = split & 2;
 
-  mma_tile::load_tile<HDP, MMA_THREADS>(
-      qt, q + b * qs.b + h * qs.h + (long long)q0 * qs.s, qs.s, S - q0, hd,
-      tid);
-  mma_tile::load_tile<HDP, MMA_THREADS>(
-      dt, dout + b * ds.b + h * ds.h + (long long)q0 * ds.s, ds.s, S - q0,
-      hd, tid);
-  mma_tile::cp_async_commit();
-
-  const int kv_end = causal ? min(Skv, q0 + MMA_BQ) : Skv;
-  const int kv_start = window ? (max(0, q0 - window + 1) / TK) * TK : 0;
-  const int n_tiles = (kv_end - kv_start + TK - 1) / TK;
-  const bf16* kb = k + b * ks.b + kh * ks.h;
-  const bf16* vb = v + b * vs.b + kh * vs.h;
-  const auto issue = [&](int it) {
-    const int t0 = kv_start + it * TK;
-    bf16* st = ring + (it & 1) * dq_stage_elems<HDP>();
-    mma_tile::load_tile<HDP, MMA_THREADS, TK>(st, kb + t0 * ks.s, ks.s,
-                                              Skv - t0, hd, tid);
-    mma_tile::load_tile<HDP, MMA_THREADS, TK>(st + TK * LD, vb + t0 * vs.s,
-                                              vs.s, Skv - t0, hd, tid);
-    mma_tile::cp_async_commit();
-  };
-
-  const float* lb = lse + blockIdx.y * lse_row;
-  const float* db = dlt + blockIdx.y * lse_row;
-  const float lse0 = r0 < S ? lb[r0] * mma_tile::LOG2E : 0.f;
-  const float lse1 = r1 < S ? lb[r1] * mma_tile::LOG2E : 0.f;
-  const float d0 = r0 < S ? db[r0] : 0.f, d1 = r1 < S ? db[r1] : 0.f;
-
-  float dqa[HDP / 8][4];
+  float dka[CB][32], dva[CB][32];
 #pragma unroll
-  for (int n = 0; n < HDP / 8; ++n)
-    dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
-  const mma_tile::QSmem<HDP> qa{qt + warp * 16 * LD};
-  const mma_tile::QSmem<HDP> da{dt + warp * 16 * LD};
-
-  if (n_tiles > 0) issue(0);
-  for (int it = 0; it < n_tiles; ++it) {
-    const int t0 = kv_start + it * TK;
-    if (it + 1 < n_tiles) {
-      issue(it + 1);
-      mma_tile::cp_async_wait<1>();
-    } else {
-      mma_tile::cp_async_wait<0>();
+  for (int c = 0; c < CB; ++c) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[c][i] = dva[c][i] = 0.f;
+  }
+  hopper::mbar_wait(fixed, 0);
+  for (int it = 0; it < n_qt; ++it) {
+    // no product in flight: warp 0 (its lane 0) keeps the ring BWD_AHEAD
+    // tiles ahead, and stays converged for the products
+    if (threadIdx.x < 32) {
+      if (threadIdx.x == 0 && it + BWD_AHEAD < n_qt)
+        produce(it + BWD_AHEAD);
+      __syncwarp();
     }
-    __syncthreads();
-    const bf16* kt = ring + (it & 1) * dq_stage_elems<HDP>();
-    const bf16* vt = kt + TK * LD;
+    const int s = it % BWD_STAGES, q0 = q_begin + it * BWD_ROWS;
+    hopper::mbar_wait(full(s), (it / BWD_STAGES) & 1);
+    const uint32_t qt = base + L::FIXED + s * L::STAGE;
+    const uint32_t dt = qt + CB * SUB;
+    const float* ls = reinterpret_cast<const float*>(
+        smem + L::ROWS + s * 2 * BWD_ROWS * 4);
+    const bool edge = (causal && q0 < wk0 + BWD_ROWS - 1) ||
+                      (window && q0 + BWD_ROWS - 1 - wk0 >= window) ||
+                      q0 + BWD_ROWS > S || wk0 + BWD_ROWS > Skv;
+    float sc[32], dp[32];
+    hopper::wg_fence();
+    mma_rows<HDP>(sc, kt, qt);  // S^T: keys x queries
+    hopper::wg_commit();
+    mma_rows<HDP>(dp, vt, dt);  // dP^T = V dO^T
+    hopper::wg_commit();
+    hopper::wg_wait<1>();  // S^T is in; dP^T runs on under P
+    hopper::fence_regs(sc);
+    if (edge)
+      p_cols<true>(sc, ls, scale_log2, q0, key0, t, mask);
+    else
+      p_cols<false>(sc, ls, scale_log2, q0, key0, t, mask);
+    uint32_t pa[4][4], pl[4][4], da[4][4], dl[4][4];
+    to_a(sc, false, pa, pl);
+    hopper::wg_fence();
+    mma_cols<HDP>(dva, pa, pl, false, dt);  // dV += P^T dO
+    hopper::wg_commit();
+    hopper::wg_wait<1>();  // dP^T is in; dV runs on under dS
+    hopper::fence_regs(dp);
+    if (edge)
+      ds_cols<true>(dp, sc, ls + BWD_ROWS, q0, key0, t, mask);
+    else
+      ds_cols<false>(dp, sc, ls + BWD_ROWS, q0, key0, t, mask);
+    to_a(dp, split_dk, da, dl);
+    hopper::wg_fence();
+    mma_cols<HDP>(dka, da, dl, split_dk, qt);  // dK += dS^T Q
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+#pragma unroll
+    for (int c = 0; c < CB; ++c) {
+      hopper::fence_regs(dka[c]);
+      hopper::fence_regs(dva[c]);
+    }
+    wg_sync(wg);  // every warp is past this stage's wait and reads
+    if (tid == 0) hopper::mbar_arrive(empty(s));
+  }
 
-    float sc[TK / 8][4], dp[TK / 8][4];
-    mma_abt<HDP, TK>(sc, qa, kt, lane);  // S = Q K^T
-    mma_abt<HDP, TK>(dp, da, vt, lane);  // dP = dO V^T
+  // bf16 dK (scaled) and dV where the group is one head, else this head's
+  // f32 partials
 #pragma unroll
-    for (int n = 0; n < TK / 8; ++n) {
+  for (int c = 0; c < CB; ++c) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? r0 : r1;
-        const int key = t0 + 8 * n + 2 * t + (e & 1);
-        bool ok = key < Skv && row < S;
-        if (causal) ok = ok && row >= key;
-        if (window) ok = ok && row - key < window;
-        const float p = ok ? mma_tile::fast_exp2(sc[n][e] * scale_log2 -
-                                                 (e < 2 ? lse0 : lse1))
-                           : 0.f;
-        dp[n][e] = ok ? p * (dp[n][e] - (e < 2 ? d0 : d1)) : 0.f;
+    for (int n = 0; n < 8; ++n) {
+      const int d = 64 * c + 8 * n + 2 * t;
+      if (d >= hd) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int key = half ? key1 : key0;
+        if (key >= Skv) continue;
+        const float* x = dka[c] + 4 * n + 2 * half;
+        const float* y = dva[c] + 4 * n + 2 * half;
+        if (G == 1) {
+          *reinterpret_cast<__nv_bfloat162*>(
+              dk + b * dks.b + key * dks.s + kh * dks.h + d) =
+              __floats2bfloat162_rn(x[0] * scale, x[1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(
+              dv + b * dvs.b + key * dvs.s + kh * dvs.h + d) =
+              __floats2bfloat162_rn(y[0], y[1]);
+        } else {
+          const long long o = (((long long)b * Skv + key) * H + h) * hd + d;
+          *reinterpret_cast<float2*>(dk_part + o) = make_float2(x[0], x[1]);
+          *reinterpret_cast<float2*>(dv_part + o) = make_float2(y[0], y[1]);
+        }
       }
     }
-    mma_xt<HDP, TK>(dqa, dp, kt, lane);  // dQ += dS K
-    __syncthreads();  // the stage is refilled at the next iteration
   }
-  mma_tile::cp_async_wait<0>();
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v,
+                              const __grid_constant__ CUtensorMap map_do,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ dlt,
+                              bf16* __restrict__ dq, int S, int Skv, int H,
+                              int K, int hd, Strides dqs, long long lse_row,
+                              int causal, int window, float scale_log2,
+                              float scale, int split) {
+  using L = BwdSmem<HDP>;
+  constexpr int CB = L::CB, SUB = L::SUB;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t fixed = base + L::BARS;
+  const auto full = [&](int s) { return base + L::BARS + 8 * (1 + s); };
+  const auto empty = [&](int s) {
+    return base + L::BARS + 8 * (1 + BWD_STAGES + s);
+  };
+  const PairMask mask{S, Skv, causal, window};
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H, kh = h / (H / K);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BWD_BLOCK;
+  // keys past the block's last row are all masked (causal), keys at or
+  // before its first row minus the window too
+  const int kv_end = causal ? min(Skv, q0 + BWD_BLOCK) : Skv;
+  const int kv_start =
+      window ? max(0, q0 - window + 1) / BWD_ROWS * BWD_ROWS : 0;
+  const int n_kt =
+      kv_end > kv_start ? (kv_end - kv_start + BWD_ROWS - 1) / BWD_ROWS : 0;
+
+  // the producer (thread 0): K and V of key tile j into stage
+  // j % BWD_STAGES once both consumers have released its last tile
+  const auto produce = [&](int j) {
+    const int s = j % BWD_STAGES, t0 = kv_start + j * BWD_ROWS;
+    hopper::mbar_wait(empty(s), ((j / BWD_STAGES) & 1) ^ 1);
+    hopper::mbar_expect_tx(full(s), L::STAGE);
+    const uint32_t st = base + L::FIXED + s * L::STAGE;
+    tma_tile<CB>(st, &map_k, full(s), kh, t0, b);
+    tma_tile<CB>(st + CB * SUB, &map_v, full(s), kh, t0, b);
+  };
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(fixed, 1);
+    for (int s = 0; s < BWD_STAGES; ++s) {
+      hopper::mbar_init(full(s), 1);
+      hopper::mbar_init(empty(s), 2);
+    }
+    hopper::mbar_fence_init();
+    hopper::mbar_expect_tx(fixed, L::FIXED);
+    for (int w = 0; w < 2; ++w) {
+      tma_tile<CB>(base + w * CB * SUB, &map_q, fixed, h, q0 + w * BWD_ROWS,
+                   b);
+      tma_tile<CB>(base + (2 + w) * CB * SUB, &map_do, fixed, h,
+                   q0 + w * BWD_ROWS, b);
+    }
+    for (int j = 0; j < BWD_AHEAD && j < n_kt; ++j) produce(j);
+  }
+  __syncthreads();
+
+  // ---- the two consumer warpgroups: 64 query rows each
+  const int wg = threadIdx.x / BWD_WG;
+  const int tid = threadIdx.x % BWD_WG, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wq0 = q0 + wg * BWD_ROWS;
+  const int r0 = wq0 + warp * 16 + g, r1 = r0 + 8;  // a thread's rows
+  const uint32_t qt = base + wg * CB * SUB;
+  const uint32_t dt = base + (2 + wg) * CB * SUB;
+  const bool split_dq = split & 1;
+  const float* lb = lse + ((long long)b * H + h) * lse_row;
+  const float* db = dlt + ((long long)b * H + h) * lse_row;
+  const float lr[2] = {r0 < S ? lb[r0] * mma_tile::LOG2E : 0.f,
+                       r1 < S ? lb[r1] * mma_tile::LOG2E : 0.f};
+  const float dr[2] = {r0 < S ? db[r0] : 0.f, r1 < S ? db[r1] : 0.f};
+
+  float dqa[CB][32];
+#pragma unroll
+  for (int c = 0; c < CB; ++c) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dqa[c][i] = 0.f;
+  }
+  hopper::mbar_wait(fixed, 0);
+  for (int it = 0; it < n_kt; ++it) {
+    // no product in flight: warp 0 (its lane 0) keeps the ring BWD_AHEAD
+    // tiles ahead, and stays converged for the products
+    if (threadIdx.x < 32) {
+      if (threadIdx.x == 0 && it + BWD_AHEAD < n_kt)
+        produce(it + BWD_AHEAD);
+      __syncwarp();
+    }
+    const int s = it % BWD_STAGES, t0 = kv_start + it * BWD_ROWS;
+    hopper::mbar_wait(full(s), (it / BWD_STAGES) & 1);
+    const uint32_t kst = base + L::FIXED + s * L::STAGE;
+    const uint32_t vst = kst + CB * SUB;
+    const bool edge = (causal && t0 + BWD_ROWS - 1 > wq0) ||
+                      (window && wq0 + BWD_ROWS - 1 - t0 >= window) ||
+                      wq0 + BWD_ROWS > S || t0 + BWD_ROWS > Skv;
+    float sc[32], dp[32];
+    hopper::wg_fence();
+    mma_rows<HDP>(sc, qt, kst);  // S = Q K^T
+    hopper::wg_commit();
+    mma_rows<HDP>(dp, dt, vst);  // dP = dO V^T
+    hopper::wg_commit();
+    hopper::wg_wait<1>();  // S is in; dP runs on under P
+    hopper::fence_regs(sc);
+    if (edge)
+      p_rows<true>(sc, scale_log2, lr, r0, t0, t, mask);
+    else
+      p_rows<false>(sc, scale_log2, lr, r0, t0, t, mask);
+    hopper::wg_wait<0>();
+    hopper::fence_regs(dp);
+    if (edge)
+      ds_rows<true>(dp, sc, dr, r0, t0, t, mask);
+    else
+      ds_rows<false>(dp, sc, dr, r0, t0, t, mask);
+    uint32_t da[4][4], dl[4][4];
+    to_a(dp, split_dq, da, dl);
+    hopper::wg_fence();
+    mma_cols<HDP>(dqa, da, dl, split_dq, kst);  // dQ += dS K
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+#pragma unroll
+    for (int c = 0; c < CB; ++c) hopper::fence_regs(dqa[c]);
+    wg_sync(wg);  // every warp is past this stage's wait
+    if (tid == 0) hopper::mbar_arrive(empty(s));
+  }
 
   bf16* qb = dq + b * dqs.b + h * dqs.h;
 #pragma unroll
-  for (int n = 0; n < HDP / 8; ++n) {
-    const int d = 8 * n + 2 * t;
-    if (d >= hd) continue;
-    if (r0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(qb + r0 * dqs.s + d) =
-          __floats2bfloat162_rn(dqa[n][0] * scale, dqa[n][1] * scale);
-    if (r1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(qb + r1 * dqs.s + d) =
-          __floats2bfloat162_rn(dqa[n][2] * scale, dqa[n][3] * scale);
+  for (int c = 0; c < CB; ++c) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int d = 64 * c + 8 * n + 2 * t;
+      if (d >= hd) continue;
+      if (r0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(qb + r0 * dqs.s + d) =
+            __floats2bfloat162_rn(dqa[c][4 * n] * scale,
+                                  dqa[c][4 * n + 1] * scale);
+      if (r1 < S)
+        *reinterpret_cast<__nv_bfloat162*>(qb + r1 * dqs.s + d) =
+            __floats2bfloat162_rn(dqa[c][4 * n + 2] * scale,
+                                  dqa[c][4 * n + 3] * scale);
+    }
   }
+}
+
+// dK, dV of every KV head from its group's f32 partials dk_part / dv_part
+// ([B, Skv, H, hd] contiguous, H = K G): a thread sums 4 dims over heads
+// k G + 0 .. k G + G - 1 in that order, scales dK, rounds once to bf16.
+// Bound: bytes (the partials read once, dK and dV written once).
+__global__ void __launch_bounds__(256)
+    flash_bwd_sum_kernel(const float* __restrict__ dk_part,
+                         const float* __restrict__ dv_part,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         int Skv, int K, int G, int hd, Strides dks,
+                         Strides dvs, float scale, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int n4 = hd / 4;
+  const long long row = i / n4;  // (b, key, kh)
+  const int d = 4 * (int)(i % n4);
+  const int kh = (int)(row % K);
+  const long long bs = row / K;  // b Skv + key
+  const int key = (int)(bs % Skv), b = (int)(bs / Skv);
+  const long long src = (bs * K * G + (long long)kh * G) * hd + d;
+  float4 x = *reinterpret_cast<const float4*>(dk_part + src);
+  float4 y = *reinterpret_cast<const float4*>(dv_part + src);
+  for (int gi = 1; gi < G; ++gi) {
+    const float4 a = *reinterpret_cast<const float4*>(dk_part + src + gi * hd);
+    const float4 c = *reinterpret_cast<const float4*>(dv_part + src + gi * hd);
+    x.x += a.x; x.y += a.y; x.z += a.z; x.w += a.w;
+    y.x += c.x; y.y += c.y; y.z += c.z; y.w += c.w;
+  }
+  __nv_bfloat162* ko = reinterpret_cast<__nv_bfloat162*>(
+      dk + b * dks.b + key * dks.s + kh * dks.h + d);
+  __nv_bfloat162* vo = reinterpret_cast<__nv_bfloat162*>(
+      dv + b * dvs.b + key * dvs.s + kh * dvs.h + d);
+  ko[0] = __floats2bfloat162_rn(x.x * scale, x.y * scale);
+  ko[1] = __floats2bfloat162_rn(x.z * scale, x.w * scale);
+  vo[0] = __floats2bfloat162_rn(y.x, y.y);
+  vo[1] = __floats2bfloat162_rn(y.z, y.w);
 }
 
 template <class Kernel>
@@ -915,49 +1134,65 @@ int allow_smem(Kernel kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
+// the tensor maps of q, k, v, dout (in that order); false if one fails
+bool bwd_maps(CUtensorMap (&maps)[4], int B, int S, int Skv, int H, int K,
+              int hd, const void* q, Strides qs, const void* k, Strides ks,
+              const void* v, Strides vs, const void* dout, Strides ds) {
+  const hopper::EncodeTiled fn = hopper::encode_tiled();
+  return fn != nullptr &&
+         hopper::encode_rows(fn, &maps[0], q, B, S, H, hd, qs.b, qs.s,
+                             qs.h) &&
+         hopper::encode_rows(fn, &maps[1], k, B, Skv, K, hd, ks.b, ks.s,
+                             ks.h) &&
+         hopper::encode_rows(fn, &maps[2], v, B, Skv, K, hd, vs.b, vs.s,
+                             vs.h) &&
+         hopper::encode_rows(fn, &maps[3], dout, B, S, H, hd, ds.b, ds.s,
+                             ds.h);
+}
+
 template <int HDP>
-int launch_dkdv(const void* q, const void* k, const void* v,
-                const void* dout, const float* lse, const float* dlt,
-                void* dk, void* dv, int B, int S, int Skv, int H, int K,
-                int hd, Strides qs, Strides ks, Strides vs, Strides ds,
+int launch_dkdv(const CUtensorMap (&m)[4], const float* lse,
+                const float* dlt, void* dk, void* dv, float* dk_part,
+                float* dv_part, int B, int S, int Skv, int H, int K, int hd,
                 Strides dks, Strides dvs, long long lse_row, int causal,
-                int window, float scale, cudaStream_t stream) {
-  constexpr int smem = dkdv_smem_bytes<HDP>();
-  const int e = allow_smem(flash_bwd_dkdv_kernel<HDP>, smem);
+                int window, float scale, int split, cudaStream_t stream) {
+  constexpr int smem = BwdSmem<HDP>::BYTES;
+  const int e = allow_smem(flash_bwd_dkdv_wgmma_kernel<HDP>, smem);
   if (e) return e;
-  const dim3 grid((Skv + MMA_BKV - 1) / MMA_BKV, B * K);
-  flash_bwd_dkdv_kernel<HDP><<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, dlt,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Skv, H, K, hd, qs,
-      ks, vs, ds, dks, dvs, lse_row, causal, window,
-      scale * mma_tile::LOG2E, scale);
+  const dim3 grid(B * H, (Skv + BWD_BLOCK - 1) / BWD_BLOCK);
+  flash_bwd_dkdv_wgmma_kernel<HDP><<<grid, BWD_THREADS, smem, stream>>>(
+      m[0], m[1], m[2], m[3], lse, dlt, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), dk_part, dv_part, S, Skv, H, K, hd, dks, dvs,
+      lse_row, causal, window, scale * mma_tile::LOG2E, scale, split);
   return (int)cudaGetLastError();
 }
 
 template <int HDP>
-int launch_dq(const void* q, const void* k, const void* v,
-              const void* dout, const float* lse, const float* dlt, void* dq,
-              int B, int S, int Skv, int H, int K, int hd, Strides qs,
-              Strides ks, Strides vs, Strides ds, Strides dqs,
-              long long lse_row, int causal, int window, float scale,
-              cudaStream_t stream) {
-  constexpr int smem = dq_smem_bytes<HDP>();
-  const int e = allow_smem(flash_bwd_dq_kernel<HDP>, smem);
+int launch_dq(const CUtensorMap (&m)[4], const float* lse, const float* dlt,
+              void* dq, int B, int S, int Skv, int H, int K, int hd,
+              Strides dqs, long long lse_row, int causal, int window,
+              float scale, int split, cudaStream_t stream) {
+  constexpr int smem = BwdSmem<HDP>::BYTES;
+  const int e = allow_smem(flash_bwd_dq_wgmma_kernel<HDP>, smem);
   if (e) return e;
-  const dim3 grid((S + MMA_BQ - 1) / MMA_BQ, B * H);
-  flash_bwd_dq_kernel<HDP><<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, dlt,
-      static_cast<bf16*>(dq), S, Skv, H, K, hd, qs, ks, vs, ds, dqs,
-      lse_row, causal, window, scale * mma_tile::LOG2E, scale);
+  const dim3 grid(B * H, (S + BWD_BLOCK - 1) / BWD_BLOCK);
+  flash_bwd_dq_wgmma_kernel<HDP><<<grid, BWD_THREADS, smem, stream>>>(
+      m[0], m[1], m[2], m[3], lse, dlt, static_cast<bf16*>(dq), S, Skv, H,
+      K, hd, dqs, lse_row, causal, window, scale * mma_tile::LOG2E, scale,
+      split);
   return (int)cudaGetLastError();
 }
 
-// the backward's head dims, rounded up: 32, 64 or 128 (0: refused)
+// the training entries' head dims, rounded up: 32, 64 or 128 for the LSE
+// forward (0: refused)
 int bwd_hdp(int hd) {
   return hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 0;
 }
+
+// the backward entries' head dims, rounded up to whole 64-dim subtiles: 64
+// or 128 (0: refused)
+int wgmma_hdp(int hd) { return hd <= 64 ? 64 : hd <= 128 ? 128 : 0; }
+
 
 // 16-byte rows: the pointer and every stride a multiple of 8 elements
 bool rows_aligned(const void* p, long long sb, long long ss, long long sh) {
@@ -1073,7 +1308,11 @@ int flash_bwd_dot_launch(int B, int S, int H, int hd, const void* o,
 
 // dK, dV [B, Skv, K, hd] bf16 from q [B, S, H, hd], k / v [B, Skv, K, hd],
 // dout [B, S, H, hd] (bf16, 16-byte rows, hd <= 128) and the forward's
-// LSE and D rows (f32, row stride lse_row, a multiple of 64 >= S).
+// LSE and D rows (f32, row stride lse_row, a multiple of 64 >= S).  Where
+// H > K the entry writes each query head's f32 sums (dK unscaled) into
+// dk_part / dv_part ([B, Skv, H, hd] contiguous, 16-byte aligned) instead,
+// for flash_bwd_sum_launch; dk / dv are then not touched.  split: bit 1
+// splits dS into bf16 hi + lo in the dK product.
 int flash_bwd_dkdv_launch(int B, int S, int Skv, int H, int K, int hd,
                           const void* q, long long qsb, long long qss,
                           long long qsh, const void* k, long long ksb,
@@ -1084,39 +1323,64 @@ int flash_bwd_dkdv_launch(int B, int S, int Skv, int H, int K, int hd,
                           long long lse_row, void* dk, long long dksb,
                           long long dkss, long long dksh, void* dv,
                           long long dvsb, long long dvss, long long dvsh,
-                          int causal, int window, float scale,
-                          void* stream) {
+                          void* dk_part, void* dv_part, int causal,
+                          int window, float scale, int split, void* stream) {
+  const bool parts = H != K;
   if (B <= 0 || S <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || hd <= 0 ||
-      hd % 8 != 0 || bwd_hdp(hd) == 0 || B * K > 65535 || lse_row < S ||
+      hd % 8 != 0 || wgmma_hdp(hd) == 0 || (long long)B * H > 2147483647LL ||
+      (Skv + BWD_BLOCK - 1) / BWD_BLOCK > 65535 || lse_row < S ||
       lse_row % 64 != 0 || !rows_aligned(q, qsb, qss, qsh) ||
       !rows_aligned(k, ksb, kss, ksh) || !rows_aligned(v, vsb, vss, vsh) ||
       !rows_aligned(dout, dsb, dss, dsh) ||
       !rows_aligned(dk, dksb, dkss, dksh) ||
       !rows_aligned(dv, dvsb, dvss, dvsh) || (uintptr_t)lse % 16 != 0 ||
-      (uintptr_t)dlt % 16 != 0)
+      (uintptr_t)dlt % 16 != 0 ||
+      (parts && (dk_part == nullptr || dv_part == nullptr ||
+                 (uintptr_t)dk_part % 16 != 0 ||
+                 (uintptr_t)dv_part % 16 != 0)))
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
       ds{dsb, dss, dsh}, dks{dksb, dkss, dksh}, dvs{dvsb, dvss, dvsh};
+  CUtensorMap m[4];
+  if (!bwd_maps(m, B, S, Skv, H, K, hd, q, qs, k, ks, v, vs, dout, ds))
+    return (int)cudaErrorInvalidValue;
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(dlt);
+  float* pk = static_cast<float*>(dk_part);
+  float* pv = static_cast<float*>(dv_part);
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (bwd_hdp(hd)) {
-    case 32:
-      return launch_dkdv<32>(q, k, v, dout, l, d, dk, dv, B, S, Skv, H, K,
-                             hd, qs, ks, vs, ds, dks, dvs, lse_row, causal,
-                             window, scale, st);
-    case 64:
-      return launch_dkdv<64>(q, k, v, dout, l, d, dk, dv, B, S, Skv, H, K,
-                             hd, qs, ks, vs, ds, dks, dvs, lse_row, causal,
-                             window, scale, st);
-    default:
-      return launch_dkdv<128>(q, k, v, dout, l, d, dk, dv, B, S, Skv, H, K,
-                              hd, qs, ks, vs, ds, dks, dvs, lse_row, causal,
-                              window, scale, st);
-  }
+  if (wgmma_hdp(hd) == 64)
+    return launch_dkdv<64>(m, l, d, dk, dv, pk, pv, B, S, Skv, H, K, hd, dks,
+                           dvs, lse_row, causal, window, scale, split, st);
+  return launch_dkdv<128>(m, l, d, dk, dv, pk, pv, B, S, Skv, H, K, hd, dks,
+                          dvs, lse_row, causal, window, scale, split, st);
+}
+
+// dK, dV [B, Skv, K, hd] bf16 (16-byte rows) from flash_bwd_dkdv_launch's
+// partials ([B, Skv, H, hd] f32, contiguous, 16-byte aligned): the sum
+// over each group's H / K heads in head order, dK times scale.
+int flash_bwd_sum_launch(int B, int Skv, int H, int K, int hd,
+                         const void* dk_part, const void* dv_part, void* dk,
+                         long long dksb, long long dkss, long long dksh,
+                         void* dv, long long dvsb, long long dvss,
+                         long long dvsh, float scale, void* stream) {
+  if (B <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || hd <= 0 ||
+      hd % 8 != 0 || (uintptr_t)dk_part % 16 != 0 ||
+      (uintptr_t)dv_part % 16 != 0 || !rows_aligned(dk, dksb, dkss, dksh) ||
+      !rows_aligned(dv, dvsb, dvss, dvsh))
+    return (int)cudaErrorInvalidValue;
+  const long long n = (long long)B * Skv * K * (hd / 4);
+  const long long blocks = (n + 255) / 256;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  flash_bwd_sum_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+      static_cast<const float*>(dk_part), static_cast<const float*>(dv_part),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Skv, K, H / K, hd,
+      Strides{dksb, dkss, dksh}, Strides{dvsb, dvss, dvsh}, scale, n);
+  return (int)cudaGetLastError();
 }
 
 // dQ [B, S, H, hd] bf16, from the same inputs as flash_bwd_dkdv_launch.
+// split: bit 0 splits dS into bf16 hi + lo in the dQ product.
 int flash_bwd_dq_launch(int B, int S, int Skv, int H, int K, int hd,
                         const void* q, long long qsb, long long qss,
                         long long qsh, const void* k, long long ksb,
@@ -1126,9 +1390,10 @@ int flash_bwd_dq_launch(int B, int S, int Skv, int H, int K, int hd,
                         long long dsh, const void* lse, const void* dlt,
                         long long lse_row, void* dq, long long dqsb,
                         long long dqss, long long dqsh, int causal,
-                        int window, float scale, void* stream) {
+                        int window, float scale, int split, void* stream) {
   if (B <= 0 || S <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || hd <= 0 ||
-      hd % 8 != 0 || bwd_hdp(hd) == 0 || B * H > 65535 || lse_row < S ||
+      hd % 8 != 0 || wgmma_hdp(hd) == 0 || (long long)B * H > 2147483647LL ||
+      (S + BWD_BLOCK - 1) / BWD_BLOCK > 65535 || lse_row < S ||
       !rows_aligned(q, qsb, qss, qsh) || !rows_aligned(k, ksb, kss, ksh) ||
       !rows_aligned(v, vsb, vss, vsh) ||
       !rows_aligned(dout, dsb, dss, dsh) ||
@@ -1136,23 +1401,17 @@ int flash_bwd_dq_launch(int B, int S, int Skv, int H, int K, int hd,
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
       ds{dsb, dss, dsh}, dqs{dqsb, dqss, dqsh};
+  CUtensorMap m[4];
+  if (!bwd_maps(m, B, S, Skv, H, K, hd, q, qs, k, ks, v, vs, dout, ds))
+    return (int)cudaErrorInvalidValue;
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(dlt);
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (bwd_hdp(hd)) {
-    case 32:
-      return launch_dq<32>(q, k, v, dout, l, d, dq, B, S, Skv, H, K, hd, qs,
-                           ks, vs, ds, dqs, lse_row, causal, window, scale,
-                           st);
-    case 64:
-      return launch_dq<64>(q, k, v, dout, l, d, dq, B, S, Skv, H, K, hd, qs,
-                           ks, vs, ds, dqs, lse_row, causal, window, scale,
-                           st);
-    default:
-      return launch_dq<128>(q, k, v, dout, l, d, dq, B, S, Skv, H, K, hd,
-                            qs, ks, vs, ds, dqs, lse_row, causal, window,
-                            scale, st);
-  }
+  if (wgmma_hdp(hd) == 64)
+    return launch_dq<64>(m, l, d, dq, B, S, Skv, H, K, hd, dqs, lse_row,
+                         causal, window, scale, split, st);
+  return launch_dq<128>(m, l, d, dq, B, S, Skv, H, K, hd, dqs, lse_row,
+                        causal, window, scale, split, st);
 }
 
 }  // extern "C"

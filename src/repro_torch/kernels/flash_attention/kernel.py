@@ -16,8 +16,12 @@ Training (bf16, ``hd <= BWD_MAX_HD``): ``flash_attention_lse`` runs the
 same forward and also writes each query row's log-sum-exp and the
 output's low halves (the f32 output less its bf16 rounding, in bf16);
 ``flash_attention_bwd_dot``, ``flash_attention_bwd_dkdv`` and
-``flash_attention_bwd_dq`` launch the backward's three entries
-(FlashAttention-2's, no atomics: deterministic).  No Pallas kernel of
+``flash_attention_bwd_dq`` launch the backward's three entries, and
+``flash_attention_bwd_sum`` adds a query-head group's dK / dV partials
+(no atomics, every sum in a fixed order: deterministic).  The dK / dV and
+dQ entries run on Hopper's ``wgmma`` fed by TMA (``kernels/include/
+wgmma_tma.cuh``); ``DS_SPLIT`` says in which of their products dS enters
+as two bf16 operands (hi + lo) rather than one.  No Pallas kernel of
 ``repro`` has a backward; these stand in for XLA's differentiation of
 ``repro``'s ``layers.blocked_attention``.
 """
@@ -33,9 +37,11 @@ import torch
 
 from repro_torch import _build
 
-__all__ = ["DTYPES", "MAX_HD", "BWD_MAX_HD", "MMA_ENTRY", "library", "rows_aligned", "flash_attention", "lse_rows",
-           "flash_attention_lse", "flash_attention_bwd_dot",
-           "flash_attention_bwd_dkdv", "flash_attention_bwd_dq"]
+__all__ = ["DTYPES", "MAX_HD", "BWD_MAX_HD", "MMA_ENTRY", "SPLIT_DQ",
+           "SPLIT_DK", "DS_SPLIT", "library", "rows_aligned",
+           "flash_attention", "lse_rows", "flash_attention_lse",
+           "flash_attention_bwd_dot", "flash_attention_bwd_dkdv",
+           "flash_attention_bwd_sum", "flash_attention_bwd_dq"]
 
 #: input dtypes the kernel takes, and their codes in the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -47,6 +53,14 @@ MAX_HD = 256
 MMA_ENTRY = "flash_attention_mma_kernel"
 #: largest head dim of the training entries (LSE forward and backward)
 BWD_MAX_HD = 128
+#: flags of the backward's dS split: dS enters the dQ product (``SPLIT_DQ``)
+#: or the dK product (``SPLIT_DK``) as hi + lo, two bf16 operands
+SPLIT_DQ, SPLIT_DK = 1, 2
+#: the products the backward entries split dS in (read at each launch):
+#: the dQ product, where bf16 dS times keys with a common offset (whisper-
+#: small's decoder self-attention) left phase 24 (a)'s limit; in the dK
+#: product the split moved whisper's step further from its plain step
+DS_SPLIT = SPLIT_DQ
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,11 +86,14 @@ def library() -> ctypes.CDLL:
     lib.flash_bwd_dkdv_launch.restype = _I
     lib.flash_bwd_dkdv_launch.argtypes = (
         [_I] * 6 + [_P, _L, _L, _L] * 4 + [_P, _P, _L]
-        + [_P, _L, _L, _L] * 2 + [_I, _I, ctypes.c_float, _P])
+        + [_P, _L, _L, _L] * 2 + [_P, _P, _I, _I, ctypes.c_float, _I, _P])
+    lib.flash_bwd_sum_launch.restype = _I
+    lib.flash_bwd_sum_launch.argtypes = (
+        [_I] * 5 + [_P, _P] + [_P, _L, _L, _L] * 2 + [ctypes.c_float, _P])
     lib.flash_bwd_dq_launch.restype = _I
     lib.flash_bwd_dq_launch.argtypes = (
         [_I] * 6 + [_P, _L, _L, _L] * 4 + [_P, _P, _L]
-        + [_P, _L, _L, _L] + [_I, _I, ctypes.c_float, _P])
+        + [_P, _L, _L, _L] + [_I, _I, ctypes.c_float, _I, _P])
     return lib
 
 
@@ -241,25 +258,62 @@ def _bwd_args(q, k, v, do, lse, dlt):
 
 def flash_attention_bwd_dkdv(q, k, v, do, lse, dlt, *, causal: bool,
                              window: int):
-    """``(dk, dv)`` [B, Skv, K, hd] bf16: the dK / dV entry, a block per
-    (batch, KV head, 64 keys) over its group's query heads."""
+    """The dK / dV entry, a block per (batch, query head, 128 keys).
+    Where each KV head serves one query head (H == K): ``(dk, dv)`` [B,
+    Skv, K, hd] bf16.  Else each query head's f32 sums, ``(dk_part,
+    dv_part)`` [B, Skv, H, hd] (dK not yet scaled by 1/sqrt(hd)), which
+    ``flash_attention_bwd_sum`` adds up by group."""
     B, S, Skv, H, K, hd = _check_train("flash_attention_bwd_dkdv", q, k, v)
     args = _bwd_args(q, k, v, do, lse, dlt)
-    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
-    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    if H == K:
+        dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+        dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+        outs = (dk.data_ptr(), *dk.stride()[:3], dv.data_ptr(),
+                *dv.stride()[:3], None, None)
+    else:
+        dk = torch.empty((B, Skv, H, hd), dtype=torch.float32,
+                         device=q.device)
+        dv = torch.empty_like(dk)
+        outs = (None, 0, 0, 0, None, 0, 0, 0, dk.data_ptr(), dv.data_ptr())
     lib = library()
     err = _build.launch(
         lib.flash_bwd_dkdv_launch, q.device, B, S, Skv, H, K, hd, *args,
-        dk.data_ptr(), *dk.stride()[:3], dv.data_ptr(), *dv.stride()[:3],
-        int(causal), int(window), 1.0 / math.sqrt(hd))
+        *outs, int(causal), int(window), 1.0 / math.sqrt(hd),
+        DS_SPLIT & SPLIT_DK)
     _raise(lib, "flash_attention_bwd_dkdv", err)
+    return dk, dv
+
+
+def flash_attention_bwd_sum(dk_part: torch.Tensor, dv_part: torch.Tensor,
+                            n_kv_heads: int):
+    """``(dk, dv)`` [B, Skv, K, hd] bf16 from ``flash_attention_bwd_dkdv``'s
+    partials (``K = n_kv_heads``): each group's H / K heads summed in head
+    order, dK scaled by 1/sqrt(hd), each rounded once."""
+    dev = dk_part.device
+    _build.require_cuda(dev, "flash_attention_bwd_sum")
+    B, Skv, H, hd = dk_part.shape
+    K = n_kv_heads
+    if (dv_part.shape != dk_part.shape or H % K
+            or not all(t.dtype == torch.float32 and t.is_contiguous()
+                       and t.device == dev for t in (dk_part, dv_part))):
+        raise ValueError("flash_attention_bwd_sum: dk_part and dv_part must "
+                         "be contiguous f32 [B, Skv, H, hd] on one device, "
+                         "H a multiple of n_kv_heads")
+    dk = torch.empty((B, Skv, K, hd), dtype=torch.bfloat16, device=dev)
+    dv = torch.empty_like(dk)
+    lib = library()
+    err = _build.launch(
+        lib.flash_bwd_sum_launch, dev, B, Skv, H, K, hd, dk_part.data_ptr(),
+        dv_part.data_ptr(), dk.data_ptr(), *dk.stride()[:3], dv.data_ptr(),
+        *dv.stride()[:3], 1.0 / math.sqrt(hd))
+    _raise(lib, "flash_attention_bwd_sum", err)
     return dk, dv
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, dlt, *, causal: bool,
                            window: int) -> torch.Tensor:
     """``dq`` [B, S, H, hd] bf16: the dQ entry, a block per (batch, head,
-    64 query rows) over the key tiles."""
+    128 query rows) over the key tiles."""
     B, S, Skv, H, K, hd = _check_train("flash_attention_bwd_dq", q, k, v)
     args = _bwd_args(q, k, v, do, lse, dlt)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -267,6 +321,6 @@ def flash_attention_bwd_dq(q, k, v, do, lse, dlt, *, causal: bool,
     err = _build.launch(
         lib.flash_bwd_dq_launch, q.device, B, S, Skv, H, K, hd, *args,
         dq.data_ptr(), *dq.stride()[:3], int(causal), int(window),
-        1.0 / math.sqrt(hd))
+        1.0 / math.sqrt(hd), DS_SPLIT & SPLIT_DQ)
     _raise(lib, "flash_attention_bwd_dq", err)
     return dq

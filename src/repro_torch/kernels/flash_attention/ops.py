@@ -13,11 +13,13 @@ On CUDA tensors, when grad mode is on and an input requires grad, the
 call goes through ``FlashAttentionFn``: its forward launches the
 forward kernel's LSE entry (``kernel.flash_attention_lse``, which also
 writes the output's low halves, so that the backward's D comes from the
-f32 output) and its backward the three backward entries (bf16, hd <=
-128; anything else raises rather than dropping the gradient).
-Otherwise the serving forward launches as before.  Counters: ``launches`` (forward, either
-entry; a remat recomputation counts again), ``bwd_dot_launches``,
-``bwd_dkdv_launches``, ``bwd_dq_launches``.
+f32 output) and its backward the three backward entries, and where a
+KV head serves several query heads the sum of their partials (bf16, hd
+<= 128; anything else raises rather than dropping the gradient).
+Otherwise the serving forward launches as before.  Counters:
+``launches`` (forward, either entry; a remat recomputation counts
+again), ``bwd_dot_launches``, ``bwd_dkdv_launches``, ``bwd_sum_launches``,
+``bwd_dq_launches``.
 """
 
 from __future__ import annotations
@@ -27,14 +29,16 @@ import torch
 from repro_torch.kernels.flash_attention import ref
 
 __all__ = ["flash_attention", "FlashAttentionFn", "launches",
-           "bwd_dot_launches", "bwd_dkdv_launches", "bwd_dq_launches"]
+           "bwd_dot_launches", "bwd_dkdv_launches", "bwd_sum_launches",
+           "bwd_dq_launches"]
 
 #: CUDA launches of the flash-attention kernel made through
 #: ``flash_attention`` (the serving entry or the training entry)
 launches = 0
-#: CUDA launches of the backward's three entries
+#: CUDA launches of the backward's three entries and of the group sum
 bwd_dot_launches = 0
 bwd_dkdv_launches = 0
+bwd_sum_launches = 0
 bwd_dq_launches = 0
 
 
@@ -54,7 +58,8 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        global bwd_dot_launches, bwd_dkdv_launches, bwd_dq_launches
+        global bwd_dot_launches, bwd_dkdv_launches, bwd_sum_launches
+        global bwd_dq_launches
         from repro_torch.kernels.flash_attention import kernel
         q, k, v, o, lse, o_lo = ctx.saved_tensors
         causal, window = ctx.mask
@@ -64,6 +69,9 @@ class FlashAttentionFn(torch.autograd.Function):
         dk, dv = kernel.flash_attention_bwd_dkdv(q, k, v, do, lse, dlt,
                                                  causal=causal, window=window)
         bwd_dkdv_launches += 1
+        if dk.dtype == torch.float32:  # a group's per-head partials
+            dk, dv = kernel.flash_attention_bwd_sum(dk, dv, k.shape[2])
+            bwd_sum_launches += 1
         dq = kernel.flash_attention_bwd_dq(q, k, v, do, lse, dlt,
                                            causal=causal, window=window)
         bwd_dq_launches += 1

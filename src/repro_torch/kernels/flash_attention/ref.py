@@ -5,9 +5,10 @@ positions, the same masks and the same finite mask value.
 ``flash_attention_bwd_ref`` is the plain version of the kernel's
 backward entries: autograd of ``flash_attention_ref`` in f32.
 
-``flash_attention_tiled`` is a test helper: a plain, tile-ordered
-emulation of the CUDA kernel's bf16 (tensor-core) path, so that the CPU
-tests hold its numerics; the main path never calls it."""
+``flash_attention_tiled`` and ``flash_attention_bwd_tiled`` are test
+helpers: plain, tile-ordered emulations of the CUDA kernels' bf16
+(tensor-core) forward and backward, so that the CPU tests hold their
+numerics; the main path never calls them."""
 
 from __future__ import annotations
 
@@ -15,13 +16,19 @@ import math
 
 import torch
 
-__all__ = ["NEG_INF", "BQ", "BKV", "attention_ref", "flash_attention_ref",
-           "flash_attention_lse_ref", "flash_attention_bwd_ref",
-           "flash_attention_tiled"]
+__all__ = ["NEG_INF", "BQ", "BKV", "BWD_ROWS", "SPLIT_DQ", "SPLIT_DK",
+           "attention_ref", "flash_attention_ref", "flash_attention_lse_ref",
+           "flash_attention_bwd_ref", "flash_attention_tiled",
+           "flash_attention_bwd_tiled"]
 
 NEG_INF = -1e30
 #: query rows a block and keys a tile of the kernel's bf16 path
 BQ, BKV = 64, 64
+#: rows of the backward entries' walked tiles (a block's fixed rows are
+#: two such halves)
+BWD_ROWS = 64
+#: the backward's dS split flags, as ``kernel.SPLIT_DQ`` / ``SPLIT_DK``
+SPLIT_DQ, SPLIT_DK = 1, 2
 
 
 def attention_ref(q5, k4, v4, *, causal: bool, window: int, kv_len=None):
@@ -141,3 +148,85 @@ def flash_attention_tiled(q, k, v, *, causal: bool, window: int):
             m = m_new
         out[..., q0:q0 + BQ, :] = acc / torch.clamp_min(l, 1e-30)
     return out.to(q.dtype).permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+
+
+def flash_attention_bwd_tiled(q, k, v, do, *, causal: bool, window: int,
+                              ds_split: int = 0):
+    """The backward entries' bf16 path, tile by tile, in the model's layout
+    (q, do [B,S,H,hd]; k, v [B,Skv,K,hd], bf16) -> ``(dq, dk, dv)`` bf16:
+    LSE and D from the plain forward in f32 (the kernels take D from the
+    LSE forward's f32 output, O + O_lo); S and dP as f32 sums of 16-wide
+    k-steps of exact bf16 products; P = exp2(S log2(e) / sqrt(hd) - LSE
+    log2(e)), 0 where masked; dS = P (dP - D); P and dS rounded to bf16 as
+    the second products' A operands, or, with a flag of ``ds_split``
+    (``SPLIT_DQ``: the dQ product, ``SPLIT_DK``: the dK product), dS as hi
+    + lo = bf16(dS) + bf16(dS - bf16(dS)), both products summed.  dK and
+    dV are summed in f32 per query head over the ``BWD_ROWS``-row query
+    tiles in order, then over a group's heads in head order 0 .. G - 1,
+    dK scaled by 1/sqrt(hd), each rounded once to bf16; dQ in f32 over the
+    ``BWD_ROWS``-key tiles in order, scaled, rounded.  The kernels walk
+    only the tiles a mask leaves some pair in; every other tile adds
+    exact zeros here."""
+    if q.dtype != torch.bfloat16:
+        raise ValueError("flash_attention_bwd_tiled emulates the bf16 path")
+    B, S, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    T = BWD_ROWS
+    Sp, Skp = -(-S // T) * T, -(-Skv // T) * T
+    bf = lambda x: x.to(torch.bfloat16).float()
+    # [B, H, rows, hd], zero rows past S / Skv, KV heads repeated per group
+    heads = lambda x, n, rep: torch.nn.functional.pad(
+        x.float().transpose(1, 2).repeat_interleave(rep, 1),
+        (0, 0, 0, n - x.shape[1]))
+    qf, dof = heads(q, Sp, 1), heads(do, Sp, 1)
+    kf, vf = heads(k, Skp, G), heads(v, Skp, G)
+    lse = flash_attention_lse_ref(q, k, v, causal=causal, window=window)
+    o = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                            window=window)
+    dlt = (do.float() * o).sum(-1).transpose(1, 2)  # [B, H, S]
+    pad_rows = lambda x: torch.nn.functional.pad(x, (0, Sp - S))[..., None]
+    lse, dlt = pad_rows(lse), pad_rows(dlt)
+
+    def steps(a, b):  # a b^T as f32 sums of 16-wide k-steps
+        return sum(a[..., d:d + 16] @ b[..., d:d + 16].transpose(-1, -2)
+                   for d in range(0, hd, 16))
+    rows = torch.arange(Sp)[:, None]
+    keys = torch.arange(Skp)[None, :]
+    ok = (rows < S) & (keys < Skv)
+    if causal:
+        ok = ok & (rows >= keys)
+    if window:
+        ok = ok & (rows - keys < window)
+    sc = steps(qf, kf) * (math.log2(math.e) / math.sqrt(hd))
+    p = torch.where(ok, torch.exp2(sc - lse * math.log2(math.e)),
+                    torch.zeros(()))
+    ds = torch.where(ok, p * (steps(dof, vf) - dlt), torch.zeros(()))
+    p_b, ds_hi = bf(p), bf(ds)
+    ds_lo = bf(ds - ds_hi)
+
+    dv = torch.zeros(B, H, Skp, hd)
+    dk = torch.zeros_like(dv)
+    for q0 in range(0, Sp, T):  # the dK / dV entry's query tiles
+        t = slice(q0, q0 + T)
+        dv = dv + p_b[..., t, :].transpose(-1, -2) @ dof[..., t, :]
+        dk = dk + ds_hi[..., t, :].transpose(-1, -2) @ qf[..., t, :]
+        if ds_split & SPLIT_DK:
+            dk = dk + ds_lo[..., t, :].transpose(-1, -2) @ qf[..., t, :]
+    dq = torch.zeros(B, H, Sp, hd)
+    for t0 in range(0, Skp, T):  # the dQ entry's key tiles
+        t = slice(t0, t0 + T)
+        dq = dq + ds_hi[..., t] @ kf[..., t, :]
+        if ds_split & SPLIT_DQ:
+            dq = dq + ds_lo[..., t] @ kf[..., t, :]
+
+    def group_sum(x):  # [B, H, Skp, hd] -> [B, K, Skp, hd], head order
+        x = x.view(B, K, G, Skp, hd)
+        acc = x[:, :, 0]
+        for g in range(1, G):
+            acc = acc + x[:, :, g]
+        return acc
+    scale = 1.0 / math.sqrt(hd)
+    out = lambda x, n: bf(x[:, :, :n]).transpose(1, 2).to(torch.bfloat16)
+    return (out(dq * scale, S), out(group_sum(dk) * scale, Skv),
+            out(group_sum(dv), Skv))

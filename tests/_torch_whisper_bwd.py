@@ -15,7 +15,11 @@ per-leaf gradient norms held against the plain versions' step
   round dS and P to bf16 before the second products (the mma A
   operands); ``emul all`` rounds the three, ``emul dS, P`` the last two
   (what the kernel rounds once D is taken from its f32 output);
-* ``kernel``: the port's ``FlashAttentionFn`` (the kernels);
+* ``kernel``: the port's ``FlashAttentionFn`` (the kernels) with
+  ``kernel.DS_SPLIT`` as it stands, and ``kernel dS none`` / ``dQ`` /
+  ``dK`` / ``both``: the same with dS split into bf16 hi + lo in no
+  product, the dQ product, the dK product or both
+  (``kernel.SPLIT_DQ`` / ``SPLIT_DK``);
 * ``sdpa``: PyTorch's ``scaled_dot_product_attention`` forward and
   backward, as a yardstick only.
 
@@ -23,7 +27,8 @@ Then, in place: every attention call of the kernel step's backward is
 captured (q, k, v, O and its low halves, LSE and the incoming dO); for
 each, the kernel entries' dQ, dK, dV against the plain version's under
 chip_smoke's ``FLASH_BWD_RTOL`` / ``FLASH_BWD_ATOL`` (worst share of the
-limit), and the relative error of the sum of dQ over the call's tokens
+limit; for each dS split), and the relative error of the sum of dQ
+over the call's tokens
 (what a bias before the query projection gathers, up to that
 projection), the same for the emulated roundings, beside the keys'
 common offset: |mean over keys of k| against the rms of k about it, per
@@ -32,7 +37,9 @@ is magnified in dQ = dS K.
 
 Run from the root of a checkout on a machine with the card:
 
-    python tests/_torch_whisper_bwd.py [json=PATH]
+    python tests/_torch_whisper_bwd.py [json=PATH] [modes=a,b,...]
+
+(``modes`` picks steps by name; the per-call report always runs.)
 """
 
 from __future__ import annotations
@@ -134,6 +141,23 @@ def plain(q, k, v, *, causal=True, window=0):
     return fr.flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
+SPLITS = {"none": 0, "dQ": fk.SPLIT_DQ, "dK": fk.SPLIT_DK,
+          "both": fk.SPLIT_DQ | fk.SPLIT_DK}
+
+
+def with_split(split: int):
+    """The kernels' step (``attn`` None) with ``kernel.DS_SPLIT`` set to
+    ``split`` while it runs."""
+    def run():
+        saved = fk.DS_SPLIT
+        fk.DS_SPLIT = split
+        try:
+            return whisper_step(None)
+        finally:
+            fk.DS_SPLIT = saved
+    return run
+
+
 def whisper_step(attn, microbatches=1, dev="cuda"):
     W = cs.WHISPER_TRAIN
     wcfg = get("whisper-small")
@@ -187,17 +211,25 @@ def capture_calls():
 def call_report(c) -> dict:
     q, k, v, o, lse, do = c["q"], c["k"], c["v"], c["o"], c["lse"], c["do"]
     causal, window = c["mask"]
-    dlt = fk.flash_attention_bwd_dot(o, c["o_lo"], do, lse.shape[-1])
-    dk, dv = fk.flash_attention_bwd_dkdv(q, k, v, do, lse, dlt,
-                                         causal=causal, window=window)
-    dq = fk.flash_attention_bwd_dq(q, k, v, do, lse, dlt, causal=causal,
-                                   window=window)
     want = fr.flash_attention_bwd_ref(q, k, v, do, causal=causal,
                                       window=window)
+    saved = fk.DS_SPLIT
+    split_shares = {}
+    try:
+        for name, split in SPLITS.items():
+            fk.DS_SPLIT = split
+            got = cs.flash_bwd(fk, q, k, v, o, c["o_lo"], do, lse, causal,
+                               window)
+            split_shares[name] = {n: cs.bwd_diff(g, w)[2] for n, g, w in
+                                  zip(("dq", "dk", "dv"), got, want)}
+    finally:
+        fk.DS_SPLIT = saved
+    dq, dk, dv = cs.flash_bwd(fk, q, k, v, o, c["o_lo"], do, lse, causal,
+                              window)
     shares = {n: cs.bwd_diff(g, w)[2]
               for n, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
     out = {"S": q.shape[1], "Skv": k.shape[1], "causal": causal,
-           "shares": shares}
+           "shares": shares, "split_shares": split_shares}
     # the sum of dQ over tokens, per head, and its error
     sq_w = want[0].float().sum(1)
     sq_err = (dq.float() - want[0].float()).sum(1)
@@ -225,21 +257,25 @@ def main(argv) -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     fk.library()
+    step = lambda attn, mb=1: (lambda: whisper_step(attn, mb))
+    emul = lambda **fl: step(emul_fn(**fl))
     modes = {
-        "plain": plain,
-        "emul none": emul_fn(d_bf16_o=False, round_ds=False, round_p=False),
-        "emul D(bf16 O)": emul_fn(d_bf16_o=True, round_ds=False,
-                                  round_p=False),
-        "emul bf16 dS": emul_fn(d_bf16_o=False, round_ds=True,
-                                round_p=False),
-        "emul bf16 P": emul_fn(d_bf16_o=False, round_ds=False, round_p=True),
-        "emul all": emul_fn(d_bf16_o=True, round_ds=True, round_p=True),
-        "emul dS, P": emul_fn(d_bf16_o=False, round_ds=True, round_p=True),
-        "kernel": None,
-        "sdpa": sdpa,
+        "plain": step(plain),
+        "emul none": emul(d_bf16_o=False, round_ds=False, round_p=False),
+        "emul D(bf16 O)": emul(d_bf16_o=True, round_ds=False, round_p=False),
+        "emul bf16 dS": emul(d_bf16_o=False, round_ds=True, round_p=False),
+        "emul bf16 P": emul(d_bf16_o=False, round_ds=False, round_p=True),
+        "emul all": emul(d_bf16_o=True, round_ds=True, round_p=True),
+        "emul dS, P": emul(d_bf16_o=False, round_ds=True, round_p=True),
+        "kernel": step(None),
+        **{f"kernel dS {n}": with_split(v) for n, v in SPLITS.items()},
+        "sdpa": step(sdpa),
+        "plain_mb2": step(plain, 2),
     }
-    recs = {m: whisper_step(a) for m, a in modes.items()}
-    recs["plain_mb2"] = whisper_step(plain, 2)
+    if "modes" in args:
+        pick = ["plain", *args["modes"].split(",")]
+        modes = {m: modes[m] for m in dict.fromkeys(pick)}
+    recs = {m: run() for m, run in modes.items()}
     ref_rec = recs["plain"]
     import subprocess
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -277,7 +313,10 @@ def main(argv) -> int:
               + ", ".join(f"{n.split(' ', 1)[1]} {r[n]:.3e}" for n in r
                           if n.startswith("dq_sum_rel_err_emul"))
               + f"), |sum dQ| / sum |dQ| {r['dq_sum_cancel']:.3e}, key "
-              f"offset {r['key_offset']:.2f}", flush=True)
+              f"offset {r['key_offset']:.2f}; dQ / dK shares by dS split "
+              + ", ".join(f"{n} {v['dq']:.3f} / {v['dk']:.3f}"
+                          for n, v in r["split_shares"].items()),
+              flush=True)
         del c
     report["calls"] = rows
     if "json" in args:

@@ -334,16 +334,24 @@ def test_launchers_refuse_cpu_tensors():
 
 def test_library_key_covers_the_shared_headers(monkeypatch, tmp_path):
     """A kernel library is keyed by its sources and the shared headers
-    (``kernels/include``), so an edited header rebuilds both kernels."""
+    (``kernels/include``), so an edited header rebuilds both kernels: the
+    tensor-core tile and the backward entries' wgmma / TMA header."""
+    import shutil
+
     from repro_torch import _build
     src = ROOT / "src" / "repro_torch" / "kernels" / "flash_attention" / \
         "csrc" / "flash_attention.cu"
-    assert '#include "mma_tile.cuh"' in src.read_text()
-    assert (_build.INCLUDE_DIR / "mma_tile.cuh").is_file()
     before = _build.library_path("flash_attention", [src])
-    (tmp_path / "mma_tile.cuh").write_text("// edited\n")
-    monkeypatch.setattr(_build, "INCLUDE_DIR", tmp_path)
-    assert _build.library_path("flash_attention", [src]) != before
+    for header in ("mma_tile.cuh", "wgmma_tma.cuh"):
+        assert f'#include "{header}"' in src.read_text()
+        assert (_build.INCLUDE_DIR / header).is_file()
+        edited = tmp_path / header.split(".")[0]
+        shutil.copytree(_build.INCLUDE_DIR, edited)
+        monkeypatch.setattr(_build, "INCLUDE_DIR", edited)
+        assert _build.library_path("flash_attention", [src]) == before
+        (edited / header).write_text("// edited\n")
+        assert _build.library_path("flash_attention", [src]) != before
+        monkeypatch.undo()
 
 
 def _c_params(rel: str, fn: str) -> list[str]:

@@ -1,5 +1,6 @@
-"""The flash kernel's training entries (the LSE forward and the three
-backward entries) and the scan kernels' refusal of a gradient.
+"""The flash kernel's training entries (the LSE forward, the three
+backward entries and the group sum) and the scan kernels' refusal of a
+gradient.
 
 On the CPU: the launchers' ctypes signatures against the C source, the
 dispatch (autograd differentiates the plain version on CPU tensors; the
@@ -8,7 +9,8 @@ here inside a fixture; run with ``python -m pytest -m cuda
 tests/test_torch_train_cuda.py``): the backward entries against
 ``ref.flash_attention_bwd_ref`` within chip_smoke's limit (2^-7 of
 |plain| + 2^-8 of the tensor's largest |plain|), bitwise equal when run
-twice, the refusals (hd 256, f32, and ``ssm_scan`` / ``rglru_scan``
+twice (also with dS split into hi + lo in both products), the refusals
+(hd 256, f32, and ``ssm_scan`` / ``rglru_scan``
 under grad), and a reduced train step through the kernels against the
 same step through the plain versions.  No JAX here."""
 
@@ -43,6 +45,7 @@ def _kind(ctype) -> str:
 @pytest.mark.parametrize("fn", ["flash_attention_lse_launch",
                                 "flash_bwd_dot_launch",
                                 "flash_bwd_dkdv_launch",
+                                "flash_bwd_sum_launch",
                                 "flash_bwd_dq_launch"])
 def test_training_launch_arguments_match_the_cuda_source(fn, monkeypatch):
     from repro_torch import _build
@@ -114,6 +117,8 @@ def _bwd(q, k, v, do, causal, window):
     dlt = fk.flash_attention_bwd_dot(o, o_lo, do, lse.shape[-1])
     dk, dv = fk.flash_attention_bwd_dkdv(q, k, v, do, lse, dlt,
                                          causal=causal, window=window)
+    if dk.dtype == torch.float32:  # a group's per-head partials
+        dk, dv = fk.flash_attention_bwd_sum(dk, dv, k.shape[2])
     dq = fk.flash_attention_bwd_dq(q, k, v, do, lse, dlt, causal=causal,
                                    window=window)
     return dq, dk, dv
@@ -138,16 +143,30 @@ def test_backward_kernel_matches_plain_and_is_deterministic(cuda, case):
 
 
 @pytest.mark.cuda
+def test_backward_kernel_with_the_ds_split_matches_plain(cuda, monkeypatch):
+    monkeypatch.setattr(fk, "DS_SPLIT", fk.SPLIT_DQ | fk.SPLIT_DK)
+    q, k, v, do = _inputs(2, 160, 160, 6, 2, 128, 9, device=cuda)
+    got = _bwd(q, k, v, do, True, 0)
+    again = _bwd(q, k, v, do, True, 0)
+    want = fr.flash_attention_bwd_ref(q, k, v, do, causal=True, window=0)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        lim = RTOL * w.abs() + ATOL * w.abs().max()
+        assert ((g.float() - w).abs() <= lim).all()
+
+
+@pytest.mark.cuda
 def test_autograd_through_the_kernels_counts_launches(cuda):
     q, k, v, do = _inputs(1, 64, 64, 4, 2, 64, 3, device=cuda)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    before = (fops.launches, fops.bwd_dot_launches, fops.bwd_dkdv_launches,
-              fops.bwd_dq_launches)
+    counts = lambda: (fops.launches, fops.bwd_dot_launches,
+                      fops.bwd_dkdv_launches, fops.bwd_sum_launches,
+                      fops.bwd_dq_launches)
+    before = counts()
     out = fops.flash_attention(*leaves, causal=True, window=0)
     got = torch.autograd.grad(out, leaves, do)
-    after = (fops.launches, fops.bwd_dot_launches, fops.bwd_dkdv_launches,
-             fops.bwd_dq_launches)
-    assert [b - a for a, b in zip(before, after)] == [1, 1, 1, 1]
+    after = counts()
+    assert [b - a for a, b in zip(before, after)] == [1, 1, 1, 1, 1]
     for g, w in zip(got, _bwd(q, k, v, do, True, 0)):
         assert torch.equal(g, w)
 
