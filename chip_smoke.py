@@ -3015,6 +3015,11 @@ FLASH_BWD_RTOL, FLASH_BWD_ATOL = 2.0 ** -7, 2.0 ** -8
 #: rounding (2^-9 of each element), so that the low halves are shown to
 #: carry the f32 output into D (the kernel's P V keeps 2^-16 of p)
 FLASH_O32_TOL = 2.0 ** -12
+#: the group sum against its plain version on the same partials, element
+#: by element: the two f32 sums differ in order only, so their bf16
+#: roundings differ by at most one bf16 step, 2^-7 of the element (plus
+#: 2^-24 of the largest, for elements near 0)
+SUM_RTOL = 2.0 ** -7
 #: ptxas registers and spill stores / loads (bytes) of the serving entry
 #: flash_attention_mma_kernel<HDP> as it was built before the training
 #: flag (NVIDIA H100 80GB HBM3, nvcc 12.8): the flag must leave them as
@@ -3111,12 +3116,9 @@ def flash_bwd(fk, q, k, v, o, o_lo, do, lse, causal, window):
     """The backward entries in the order ``FlashAttentionFn`` launches
     them (D, dK / dV, the group sum where a KV head serves several query
     heads, dQ): ``(dq, dk, dv)``."""
-    import torch
     dlt = fk.flash_attention_bwd_dot(o, o_lo, do, lse.shape[-1])
-    dk, dv = fk.flash_attention_bwd_dkdv(q, k, v, do, lse, dlt,
-                                         causal=causal, window=window)
-    if dk.dtype == torch.float32:
-        dk, dv = fk.flash_attention_bwd_sum(dk, dv, k.shape[2])
+    dk, dv, _ = fk.flash_attention_bwd_dkdv(q, k, v, do, lse, dlt,
+                                            causal=causal, window=window)
     dq = fk.flash_attention_bwd_dq(q, k, v, do, lse, dlt, causal=causal,
                                    window=window)
     return dq, dk, dv
@@ -3209,6 +3211,8 @@ def phase_flash_bwd(fk, fr, fops, dev) -> dict:
     backward alone (device) and its forward + backward (events); the new
     entries' wgmma census; the serving entry's ptxas numbers against
     ``SERVING_FLASH_PTXAS``."""
+    import math
+
     import torch
     import torch.nn.functional as F
     regs = flash_ptxas(fk)
@@ -3243,7 +3247,7 @@ def phase_flash_bwd(fk, fr, fops, dev) -> dict:
     gen = torch.Generator(device=dev)
     out = {"max_abs_err": 0.0, "worst_share": 0.0, "rows": [],
            "ptxas": training, "build": build,
-           "serving_ptxas_moved": moved, "ds_split": fk.DS_SPLIT}
+           "serving_ptxas_moved": moved, "sum_err": 0.0}
     for i, (B, S, Skv, H, K, hd, causal, window) in enumerate(FLASH_BWD):
         gen.manual_seed(2400 + i)
         draw = lambda *shape: torch.randn(shape, generator=gen, device=dev,
@@ -3289,17 +3293,30 @@ def phase_flash_bwd(fk, fr, fops, dev) -> dict:
         # host)
         t_dot = graph_ms(lambda: fk.flash_attention_bwd_dot(
             o, o_lo, do, lse.shape[-1]))
-        t_dkdv = graph_ms(lambda: fk.flash_attention_bwd_dkdv(
+        t_dkdv = graph_ms(lambda: fk.flash_attention_bwd_dkdv_entry(
             q, k, v, do, lse, dlt, causal=causal, window=window))
-        t_sum = sum_plain_ms = None
+        t_sum = sum_plain_ms = sum_err = None
         if H != K:
-            parts = fk.flash_attention_bwd_dkdv(q, k, v, do, lse, dlt,
-                                                causal=causal, window=window)
+            # the group sum against its plain version on the same partials
+            parts = fk.flash_attention_bwd_dkdv_entry(
+                q, k, v, do, lse, dlt, causal=causal, window=window)
             t_sum = graph_ms(lambda: fk.flash_attention_bwd_sum(*parts, K))
-            sum_plain_ms, _ = cuda_ms(lambda: [
-                p.view(B, Skv, K, H // K, hd).sum(3).to(torch.bfloat16)
-                for p in parts], torch.cuda.synchronize)
-            del parts
+            sum_plain_ms, sums = cuda_ms(lambda: [
+                (p.view(B, Skv, K, H // K, hd).sum(3) * c).to(torch.bfloat16)
+                for p, c in zip(parts, (1.0 / math.sqrt(hd), 1.0))],
+                torch.cuda.synchronize)
+            d_w = [((g.float() - w.float()).abs(), w.float().abs())
+                   for g, w in zip(fk.flash_attention_bwd_sum(*parts, K),
+                                   sums)]
+            sum_err = max(float(d.max()) for d, _ in d_w)
+            sum_share = max(float((d / (SUM_RTOL * w + 2.0 ** -24 * w.max()))
+                                  .max()) for d, w in d_w)
+            out["sum_err"] = max(out["sum_err"], sum_err)
+            check(sum_share <= 1.0,
+                  f"the group sum disagrees with its plain version at "
+                  f"{FLASH_BWD[i]}: worst share {sum_share:.3g} of one bf16 "
+                  f"rounding")
+            del parts, sums, d_w
         t_dq = graph_ms(lambda: fk.flash_attention_bwd_dq(
             q, k, v, do, lse, dlt, causal=causal, window=window))
         t_bwd = graph_ms(bwd)
@@ -3331,6 +3348,7 @@ def phase_flash_bwd(fk, fr, fops, dev) -> dict:
                "max_abs_err": err, "worst_share": share, "lse_err": lse_err,
                "o_f32_err": o32_err, "dot_err": dot_err,
                "dot_rel_err": dot_err / max(dot_top, 1e-30),
+               "sum_err": sum_err,
                "bitwise_twice": bitwise, "o_equals_serving": same_o,
                "dot_ms": t_dot, "dkdv_ms": t_dkdv, "sum_ms": t_sum,
                "dot_plain_ms": dot_plain_ms, "sum_plain_ms": sum_plain_ms,
@@ -3355,7 +3373,9 @@ def phase_flash_bwd(fk, fr, fops, dev) -> dict:
               f"{o32_err:.3g} (limit {FLASH_O32_TOL:.3g}); bitwise twice "
               f"{bitwise}; O equals the serving entry's {same_o}",
               flush=True)
-        sum_txt = "" if t_sum is None else f", sum {t_sum:.4f}"
+        sum_txt = ("" if t_sum is None else
+                   f", sum {t_sum:.4f} (max |d| from its plain version "
+                   f"{sum_err:.3g})")
         print(f"    device ms: D {t_dot:.4f}, dK/dV {t_dkdv:.4f}{sum_txt}, "
               f"dQ {t_dq:.4f}, backward {t_bwd:.4f} ({100 * bound / t_bwd:.1f}"
               f" % of its {by} bound {bound:.4f} ms); LSE forward {t_fwd:.4f}; plain backward {plain_ms:.2f} ms; "
@@ -3364,9 +3384,11 @@ def phase_flash_bwd(fk, fr, fops, dev) -> dict:
               + ", ".join(f"{n} {b[0]:.4f} ({b[1]})"
                           for n, b in entry_bounds.items()), flush=True)
         check(share <= 1.0 and bitwise and lse_err <= 1e-3
-              and o32_err <= FLASH_O32_TOL,
+              and o32_err <= FLASH_O32_TOL
+              and dot_err <= FLASH_O32_TOL * dot_top,
               f"the flash backward disagrees with its plain version, or is "
-              f"not deterministic, at {FLASH_BWD[i]}")
+              f"not deterministic, at {FLASH_BWD[i]} (D: max |d| {dot_err:.3g}"
+              f" of {dot_top:.3g}, limit {FLASH_O32_TOL:.3g} of the largest)")
         del q, k, v, do, o, lse, o_lo, got, dlt, qt, kt, vt
         torch.cuda.empty_cache()
     for row, (ms, by) in zip(out["rows"], sdpa_bwd_times()):
@@ -3671,7 +3693,7 @@ def train_phase(golden_mod, smi: str, device="cuda") -> list:
           f"(limits {tol}); the plain step's microbatch split {wfloor}; "
           f"launches {w_launches}; in place, the decoder self-attention's "
           f"dQ at {len(dq_shares)} calls, worst share of phase 24 (a)'s "
-          f"limit {max(dq_shares):.3f} (dS split {fk.DS_SPLIT})", flush=True)
+          f"limit {max(dq_shares):.3f}", flush=True)
     check(len(dq_shares) == wcfg.n_layers and max(dq_shares) <= 1.0,
           f"whisper's decoder self-attention dQ leaves phase 24 (a)'s limit "
           f"in place: {dq_shares}")
@@ -3786,7 +3808,6 @@ def train_phase(golden_mod, smi: str, device="cuda") -> list:
                    f"{tiny['library_fwd_bwd_ms']:.4f} ms against the "
                    f"kernels' {tiny['fwd_bwd_events_ms']:.4f} ms",
         "entries": "D + dK/dV (+ the group sum) + dQ, a CUDA graph of 20",
-        "ds_split": bwd["ds_split"],
         "shapes": bwd["rows"], "ptxas": bwd["ptxas"], "build": bwd["build"],
         "golden_distance": dist, "plain_golden_distance": dist_plain,
         "full_depth_distance": dist_full, "whisper_distance": wdist,
@@ -3801,9 +3822,10 @@ def train_phase(golden_mod, smi: str, device="cuda") -> list:
                        "peak_gib": peak, "busy_ms": busy,
                        "by_name": by_name, "microbatches": mb},
         "phase_s": time.time() - t_phase}]
-    # each entry on its own, at the tinyllama shape (the sum's plain version
-    # and error at the first shape with a group; the dK / dV and dQ
-    # entries' plain version is the whole plain backward)
+    # each entry on its own, at the tinyllama shape (the sum's error against
+    # its plain version on the same partials, worst over the shapes with a
+    # group; the dK / dV and dQ entries' plain version is the whole plain
+    # backward)
     errs = lambda *names: max(r["errs"][n]["max_abs_err"]
                               for r in bwd["rows"] for n in names)
     plain_all = ("autograd of the f32 reference, all three gradients at "
@@ -3814,7 +3836,7 @@ def train_phase(golden_mod, smi: str, device="cuda") -> list:
              "rowsum(dO (O + O_lo)) in f32"),
             ("flash_bwd_dkdv_wgmma", "dkdv", "bwd_dkdv", errs("dk", "dv"),
              tiny["plain_ms"], plain_all),
-            ("flash_bwd_sum", "sum", "bwd_sum", errs("dk", "dv"),
+            ("flash_bwd_sum", "sum", "bwd_sum", bwd["sum_err"],
              tiny["sum_plain_ms"], "the partials' sum over the group (torch "
              "sum, one bf16 cast)"),
             ("flash_bwd_dq_wgmma", "dq", "bwd_dq", errs("dq"),

@@ -566,13 +566,16 @@ int launch_mma_lse(const void* q, const void* k, const void* v, void* o,
 // dQ (flash_bwd_dq_wgmma_kernel): a block per (batch, head, 128 query
 // rows), Q and dO fixed, walking the 64-key K / V tiles; per tile S = Q
 // K^T, dP = dO V^T, dQ += dS K; the last query rows (the most keys) first.
-// dS as the A operand is bf16(dS), or with the split flag (bit 0 the dQ
-// product, bit 1 the dK product) dS = hi + lo, hi = bf16(dS), lo =
-// bf16(dS - hi), both multiplied (one more product each), as the forward
-// splits P.  At hd 128 a thread holds 64 + 64 accumulators of dK and dV
-// and 32 + 32 of S^T and dP^T, so the query step stays at 64 rows; a head
-// dim is HDP / 64 subtiles of 64 dims, so a wider head (hd 256 as two
-// halves, mma_tile.cuh's out_split) adds subtiles, not new descriptors.
+// P and dS enter the second products as bf16 A operands; in the dQ
+// product dS enters as two, hi = bf16(dS) and lo = bf16(dS - hi), both
+// multiplied (one more product a k-step), as the forward splits P: keys
+// with a common offset (whisper-small's decoder self-attention) magnify
+// bf16 dS's rounding in dQ = dS K.  In the dK product the split moved
+// whisper's train step further from its plain step, so dK takes bf16 dS.
+// At hd 128 a thread holds 64 + 64 accumulators of dK and dV and 32 + 32
+// of S^T and dP^T, so the query step stays at 64 rows; a head dim is
+// HDP / 64 subtiles of 64 dims, so a wider head (hd 256 as two halves,
+// mma_tile.cuh's out_split) adds subtiles, not new descriptors.
 
 constexpr int BWD_WG = 128;              // threads of a warpgroup
 constexpr int BWD_THREADS = 2 * BWD_WG;  // two consumer warpgroups
@@ -626,37 +629,38 @@ __device__ __forceinline__ void mma_rows(float (&acc)[32], uint32_t a,
   }
 }
 
-// out[c] += X T over 64 rows of T (its k dim, 4 k-steps): X's bf16 A
-// fragments (hi, and lo when split), T a 64-row tile of HDP / 64 subtiles
-// at shared address t, read MN-major; out[c] its dims 64 c .. 64 c + 63
-template <int HDP>
+// out[c] += X T over 64 rows of T (its k dim, 4 k-steps): X as the sum of
+// N bf16 A operands a[0] (+ a[1]), each k-step's in that order; T a
+// 64-row tile of HDP / 64 subtiles at shared address t, read MN-major;
+// out[c] its dims 64 c .. 64 c + 63
+template <int HDP, int N>
 __device__ __forceinline__ void mma_cols(float (&out)[HDP / 64][32],
-                                         const uint32_t (&hi)[4][4],
-                                         const uint32_t (&lo)[4][4],
-                                         bool split, uint32_t t) {
+                                         const uint32_t (&a)[N][4][4],
+                                         uint32_t t) {
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
 #pragma unroll
     for (int c = 0; c < HDP / 64; ++c) {
       const uint64_t d =
           hopper::desc_sw128(t + c * hopper::SUBTILE + s * 2048);
-      hopper::mma_rs(out[c], hi[s], d);
-      if (split) hopper::mma_rs(out[c], lo[s], d);
+#pragma unroll
+      for (int n = 0; n < N; ++n) hopper::mma_rs(out[c], a[n][s], d);
     }
   }
 }
 
-// the bf16 A fragments of a 64 x 64 product's accumulators (4 k-steps),
-// with their low halves when split
-__device__ __forceinline__ void to_a(const float (&x)[32], bool split,
-                                     uint32_t (&hi)[4][4],
-                                     uint32_t (&lo)[4][4]) {
+// a 64 x 64 product's accumulators x (4 k-steps) as N bf16 A operands:
+// bf16(x), or (N 2) hi = bf16(x) and lo = bf16(x - hi)
+template <int N>
+__device__ __forceinline__ void to_a(const float (&x)[32],
+                                     uint32_t (&a)[N][4][4]) {
+  static_assert(N == 1 || N == 2, "one operand, or hi and lo");
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
-    if (split)
-      hopper::acc_to_a_split(x, s, hi[s], lo[s]);
+    if constexpr (N == 2)
+      hopper::acc_to_a_split(x, s, a[0][s], a[1][s]);
     else
-      hopper::acc_to_a(x, s, hi[s]);
+      hopper::acc_to_a(x, s, a[0][s]);
   }
 }
 
@@ -785,8 +789,8 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
                                 float* __restrict__ dv_part, int S, int Skv,
                                 int H, int K, int hd, Strides dks,
                                 Strides dvs, long long lse_row, int causal,
-                                int window, float scale_log2, float scale,
-                                int split) {
+                                int window, float scale_log2,
+                                float scale) {
   using L = BwdSmem<HDP>;
   constexpr int CB = L::CB, SUB = L::SUB;
   extern __shared__ unsigned char smem_raw[];
@@ -848,7 +852,6 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   const int key0 = wk0 + warp * 16 + g, key1 = key0 + 8;  // a thread's rows
   const uint32_t kt = base + wg * CB * SUB;
   const uint32_t vt = base + (2 + wg) * CB * SUB;
-  const bool split_dk = split & 2;
 
   float dka[CB][32], dva[CB][32];
 #pragma unroll
@@ -886,10 +889,10 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
       p_cols<true>(sc, ls, scale_log2, q0, key0, t, mask);
     else
       p_cols<false>(sc, ls, scale_log2, q0, key0, t, mask);
-    uint32_t pa[4][4], pl[4][4], da[4][4], dl[4][4];
-    to_a(sc, false, pa, pl);
+    uint32_t pa[1][4][4], da[1][4][4];
+    to_a(sc, pa);
     hopper::wg_fence();
-    mma_cols<HDP>(dva, pa, pl, false, dt);  // dV += P^T dO
+    mma_cols<HDP>(dva, pa, dt);  // dV += P^T dO
     hopper::wg_commit();
     hopper::wg_wait<1>();  // dP^T is in; dV runs on under dS
     hopper::fence_regs(dp);
@@ -897,9 +900,9 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
       ds_cols<true>(dp, sc, ls + BWD_ROWS, q0, key0, t, mask);
     else
       ds_cols<false>(dp, sc, ls + BWD_ROWS, q0, key0, t, mask);
-    to_a(dp, split_dk, da, dl);
+    to_a(dp, da);
     hopper::wg_fence();
-    mma_cols<HDP>(dka, da, dl, split_dk, qt);  // dK += dS^T Q
+    mma_cols<HDP>(dka, da, qt);  // dK += dS^T Q
     hopper::wg_commit();
     hopper::wg_wait<0>();
 #pragma unroll
@@ -953,7 +956,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
                               bf16* __restrict__ dq, int S, int Skv, int H,
                               int K, int hd, Strides dqs, long long lse_row,
                               int causal, int window, float scale_log2,
-                              float scale, int split) {
+                              float scale) {
   using L = BwdSmem<HDP>;
   constexpr int CB = L::CB, SUB = L::SUB;
   extern __shared__ unsigned char smem_raw[];
@@ -1012,7 +1015,6 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   const int r0 = wq0 + warp * 16 + g, r1 = r0 + 8;  // a thread's rows
   const uint32_t qt = base + wg * CB * SUB;
   const uint32_t dt = base + (2 + wg) * CB * SUB;
-  const bool split_dq = split & 1;
   const float* lb = lse + ((long long)b * H + h) * lse_row;
   const float* db = dlt + ((long long)b * H + h) * lse_row;
   const float lr[2] = {r0 < S ? lb[r0] * mma_tile::LOG2E : 0.f,
@@ -1059,10 +1061,10 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
       ds_rows<true>(dp, sc, dr, r0, t0, t, mask);
     else
       ds_rows<false>(dp, sc, dr, r0, t0, t, mask);
-    uint32_t da[4][4], dl[4][4];
-    to_a(dp, split_dq, da, dl);
+    uint32_t da[2][4][4];  // dS as hi + lo
+    to_a(dp, da);
     hopper::wg_fence();
-    mma_cols<HDP>(dqa, da, dl, split_dq, kst);  // dQ += dS K
+    mma_cols<HDP>(dqa, da, kst);  // dQ += dS K
     hopper::wg_commit();
     hopper::wg_wait<0>();
 #pragma unroll
@@ -1155,7 +1157,7 @@ int launch_dkdv(const CUtensorMap (&m)[4], const float* lse,
                 const float* dlt, void* dk, void* dv, float* dk_part,
                 float* dv_part, int B, int S, int Skv, int H, int K, int hd,
                 Strides dks, Strides dvs, long long lse_row, int causal,
-                int window, float scale, int split, cudaStream_t stream) {
+                int window, float scale, cudaStream_t stream) {
   constexpr int smem = BwdSmem<HDP>::BYTES;
   const int e = allow_smem(flash_bwd_dkdv_wgmma_kernel<HDP>, smem);
   if (e) return e;
@@ -1163,7 +1165,7 @@ int launch_dkdv(const CUtensorMap (&m)[4], const float* lse,
   flash_bwd_dkdv_wgmma_kernel<HDP><<<grid, BWD_THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], lse, dlt, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), dk_part, dv_part, S, Skv, H, K, hd, dks, dvs,
-      lse_row, causal, window, scale * mma_tile::LOG2E, scale, split);
+      lse_row, causal, window, scale * mma_tile::LOG2E, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1171,15 +1173,14 @@ template <int HDP>
 int launch_dq(const CUtensorMap (&m)[4], const float* lse, const float* dlt,
               void* dq, int B, int S, int Skv, int H, int K, int hd,
               Strides dqs, long long lse_row, int causal, int window,
-              float scale, int split, cudaStream_t stream) {
+              float scale, cudaStream_t stream) {
   constexpr int smem = BwdSmem<HDP>::BYTES;
   const int e = allow_smem(flash_bwd_dq_wgmma_kernel<HDP>, smem);
   if (e) return e;
   const dim3 grid(B * H, (S + BWD_BLOCK - 1) / BWD_BLOCK);
   flash_bwd_dq_wgmma_kernel<HDP><<<grid, BWD_THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], lse, dlt, static_cast<bf16*>(dq), S, Skv, H,
-      K, hd, dqs, lse_row, causal, window, scale * mma_tile::LOG2E, scale,
-      split);
+      K, hd, dqs, lse_row, causal, window, scale * mma_tile::LOG2E, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1311,8 +1312,7 @@ int flash_bwd_dot_launch(int B, int S, int H, int hd, const void* o,
 // LSE and D rows (f32, row stride lse_row, a multiple of 64 >= S).  Where
 // H > K the entry writes each query head's f32 sums (dK unscaled) into
 // dk_part / dv_part ([B, Skv, H, hd] contiguous, 16-byte aligned) instead,
-// for flash_bwd_sum_launch; dk / dv are then not touched.  split: bit 1
-// splits dS into bf16 hi + lo in the dK product.
+// for flash_bwd_sum_launch; dk / dv are then not touched.
 int flash_bwd_dkdv_launch(int B, int S, int Skv, int H, int K, int hd,
                           const void* q, long long qsb, long long qss,
                           long long qsh, const void* k, long long ksb,
@@ -1324,7 +1324,7 @@ int flash_bwd_dkdv_launch(int B, int S, int Skv, int H, int K, int hd,
                           long long dkss, long long dksh, void* dv,
                           long long dvsb, long long dvss, long long dvsh,
                           void* dk_part, void* dv_part, int causal,
-                          int window, float scale, int split, void* stream) {
+                          int window, float scale, void* stream) {
   const bool parts = H != K;
   if (B <= 0 || S <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || hd <= 0 ||
       hd % 8 != 0 || wgmma_hdp(hd) == 0 || (long long)B * H > 2147483647LL ||
@@ -1351,9 +1351,9 @@ int flash_bwd_dkdv_launch(int B, int S, int Skv, int H, int K, int hd,
   const cudaStream_t st = (cudaStream_t)stream;
   if (wgmma_hdp(hd) == 64)
     return launch_dkdv<64>(m, l, d, dk, dv, pk, pv, B, S, Skv, H, K, hd, dks,
-                           dvs, lse_row, causal, window, scale, split, st);
+                           dvs, lse_row, causal, window, scale, st);
   return launch_dkdv<128>(m, l, d, dk, dv, pk, pv, B, S, Skv, H, K, hd, dks,
-                          dvs, lse_row, causal, window, scale, split, st);
+                          dvs, lse_row, causal, window, scale, st);
 }
 
 // dK, dV [B, Skv, K, hd] bf16 (16-byte rows) from flash_bwd_dkdv_launch's
@@ -1379,8 +1379,8 @@ int flash_bwd_sum_launch(int B, int Skv, int H, int K, int hd,
   return (int)cudaGetLastError();
 }
 
-// dQ [B, S, H, hd] bf16, from the same inputs as flash_bwd_dkdv_launch.
-// split: bit 0 splits dS into bf16 hi + lo in the dQ product.
+// dQ [B, S, H, hd] bf16, from the same inputs as flash_bwd_dkdv_launch
+// (dS enters the dQ product as bf16 hi + lo).
 int flash_bwd_dq_launch(int B, int S, int Skv, int H, int K, int hd,
                         const void* q, long long qsb, long long qss,
                         long long qsh, const void* k, long long ksb,
@@ -1390,7 +1390,7 @@ int flash_bwd_dq_launch(int B, int S, int Skv, int H, int K, int hd,
                         long long dsh, const void* lse, const void* dlt,
                         long long lse_row, void* dq, long long dqsb,
                         long long dqss, long long dqsh, int causal,
-                        int window, float scale, int split, void* stream) {
+                        int window, float scale, void* stream) {
   if (B <= 0 || S <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || hd <= 0 ||
       hd % 8 != 0 || wgmma_hdp(hd) == 0 || (long long)B * H > 2147483647LL ||
       (S + BWD_BLOCK - 1) / BWD_BLOCK > 65535 || lse_row < S ||
@@ -1409,9 +1409,9 @@ int flash_bwd_dq_launch(int B, int S, int Skv, int H, int K, int hd,
   const cudaStream_t st = (cudaStream_t)stream;
   if (wgmma_hdp(hd) == 64)
     return launch_dq<64>(m, l, d, dq, B, S, Skv, H, K, hd, dqs, lse_row,
-                         causal, window, scale, split, st);
+                         causal, window, scale, st);
   return launch_dq<128>(m, l, d, dq, B, S, Skv, H, K, hd, dqs, lse_row,
-                        causal, window, scale, split, st);
+                        causal, window, scale, st);
 }
 
 }  // extern "C"

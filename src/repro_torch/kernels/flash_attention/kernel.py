@@ -16,12 +16,13 @@ Training (bf16, ``hd <= BWD_MAX_HD``): ``flash_attention_lse`` runs the
 same forward and also writes each query row's log-sum-exp and the
 output's low halves (the f32 output less its bf16 rounding, in bf16);
 ``flash_attention_bwd_dot``, ``flash_attention_bwd_dkdv`` and
-``flash_attention_bwd_dq`` launch the backward's three entries, and
-``flash_attention_bwd_sum`` adds a query-head group's dK / dV partials
-(no atomics, every sum in a fixed order: deterministic).  The dK / dV and
-dQ entries run on Hopper's ``wgmma`` fed by TMA (``kernels/include/
-wgmma_tma.cuh``); ``DS_SPLIT`` says in which of their products dS enters
-as two bf16 operands (hi + lo) rather than one.  No Pallas kernel of
+``flash_attention_bwd_dq`` launch the backward's three entries; where a
+KV head serves several query heads, ``flash_attention_bwd_dkdv`` also
+launches ``flash_attention_bwd_sum``, which adds the group's per-head
+dK / dV partials (no atomics, every sum in a fixed order:
+deterministic).  The dK / dV and dQ entries run on Hopper's ``wgmma``
+fed by TMA (``kernels/include/wgmma_tma.cuh``); dS enters the dQ
+product as two bf16 operands (hi + lo).  No Pallas kernel of
 ``repro`` has a backward; these stand in for XLA's differentiation of
 ``repro``'s ``layers.blocked_attention``.
 """
@@ -37,10 +38,10 @@ import torch
 
 from repro_torch import _build
 
-__all__ = ["DTYPES", "MAX_HD", "BWD_MAX_HD", "MMA_ENTRY", "SPLIT_DQ",
-           "SPLIT_DK", "DS_SPLIT", "library", "rows_aligned",
-           "flash_attention", "lse_rows", "flash_attention_lse",
-           "flash_attention_bwd_dot", "flash_attention_bwd_dkdv",
+__all__ = ["DTYPES", "MAX_HD", "BWD_MAX_HD", "MMA_ENTRY", "library",
+           "rows_aligned", "flash_attention", "lse_rows",
+           "flash_attention_lse", "flash_attention_bwd_dot",
+           "flash_attention_bwd_dkdv", "flash_attention_bwd_dkdv_entry",
            "flash_attention_bwd_sum", "flash_attention_bwd_dq"]
 
 #: input dtypes the kernel takes, and their codes in the C interface
@@ -53,14 +54,6 @@ MAX_HD = 256
 MMA_ENTRY = "flash_attention_mma_kernel"
 #: largest head dim of the training entries (LSE forward and backward)
 BWD_MAX_HD = 128
-#: flags of the backward's dS split: dS enters the dQ product (``SPLIT_DQ``)
-#: or the dK product (``SPLIT_DK``) as hi + lo, two bf16 operands
-SPLIT_DQ, SPLIT_DK = 1, 2
-#: the products the backward entries split dS in (read at each launch):
-#: the dQ product, where bf16 dS times keys with a common offset (whisper-
-#: small's decoder self-attention) left phase 24 (a)'s limit; in the dK
-#: product the split moved whisper's step further from its plain step
-DS_SPLIT = SPLIT_DQ
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -86,14 +79,14 @@ def library() -> ctypes.CDLL:
     lib.flash_bwd_dkdv_launch.restype = _I
     lib.flash_bwd_dkdv_launch.argtypes = (
         [_I] * 6 + [_P, _L, _L, _L] * 4 + [_P, _P, _L]
-        + [_P, _L, _L, _L] * 2 + [_P, _P, _I, _I, ctypes.c_float, _I, _P])
+        + [_P, _L, _L, _L] * 2 + [_P, _P, _I, _I, ctypes.c_float, _P])
     lib.flash_bwd_sum_launch.restype = _I
     lib.flash_bwd_sum_launch.argtypes = (
         [_I] * 5 + [_P, _P] + [_P, _L, _L, _L] * 2 + [ctypes.c_float, _P])
     lib.flash_bwd_dq_launch.restype = _I
     lib.flash_bwd_dq_launch.argtypes = (
         [_I] * 6 + [_P, _L, _L, _L] * 4 + [_P, _P, _L]
-        + [_P, _L, _L, _L] + [_I, _I, ctypes.c_float, _I, _P])
+        + [_P, _L, _L, _L] + [_I, _I, ctypes.c_float, _P])
     return lib
 
 
@@ -258,11 +251,24 @@ def _bwd_args(q, k, v, do, lse, dlt):
 
 def flash_attention_bwd_dkdv(q, k, v, do, lse, dlt, *, causal: bool,
                              window: int):
-    """The dK / dV entry, a block per (batch, query head, 128 keys).
-    Where each KV head serves one query head (H == K): ``(dk, dv)`` [B,
-    Skv, K, hd] bf16.  Else each query head's f32 sums, ``(dk_part,
-    dv_part)`` [B, Skv, H, hd] (dK not yet scaled by 1/sqrt(hd)), which
-    ``flash_attention_bwd_sum`` adds up by group."""
+    """``(dk, dv, summed)``: dK and dV [B, Skv, K, hd] bf16 from the dK /
+    dV entry, a block per (batch, query head, 128 keys).  Where a KV head
+    serves several query heads (H > K) the entry writes each head's f32
+    partials and ``flash_attention_bwd_sum`` adds them up by group;
+    ``summed`` says whether that second launch was made."""
+    parts = flash_attention_bwd_dkdv_entry(q, k, v, do, lse, dlt,
+                                           causal=causal, window=window)
+    if q.shape[2] == k.shape[2]:
+        return (*parts, False)
+    return (*flash_attention_bwd_sum(*parts, k.shape[2]), True)
+
+
+def flash_attention_bwd_dkdv_entry(q, k, v, do, lse, dlt, *,
+                                   causal: bool, window: int):
+    """The dK / dV entry's launch alone (``flash_attention_bwd_dkdv``
+    less the group sum, for timing it): where H == K ``(dk, dv)`` [B,
+    Skv, K, hd] bf16, else each query head's f32 sums ``(dk_part,
+    dv_part)`` [B, Skv, H, hd], dK not yet scaled by 1/sqrt(hd)."""
     B, S, Skv, H, K, hd = _check_train("flash_attention_bwd_dkdv", q, k, v)
     args = _bwd_args(q, k, v, do, lse, dlt)
     if H == K:
@@ -278,17 +284,17 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, dlt, *, causal: bool,
     lib = library()
     err = _build.launch(
         lib.flash_bwd_dkdv_launch, q.device, B, S, Skv, H, K, hd, *args,
-        *outs, int(causal), int(window), 1.0 / math.sqrt(hd),
-        DS_SPLIT & SPLIT_DK)
+        *outs, int(causal), int(window), 1.0 / math.sqrt(hd))
     _raise(lib, "flash_attention_bwd_dkdv", err)
     return dk, dv
 
 
 def flash_attention_bwd_sum(dk_part: torch.Tensor, dv_part: torch.Tensor,
                             n_kv_heads: int):
-    """``(dk, dv)`` [B, Skv, K, hd] bf16 from ``flash_attention_bwd_dkdv``'s
-    partials (``K = n_kv_heads``): each group's H / K heads summed in head
-    order, dK scaled by 1/sqrt(hd), each rounded once."""
+    """``(dk, dv)`` [B, Skv, K, hd] bf16 from the partials of
+    ``flash_attention_bwd_dkdv_entry`` (``K = n_kv_heads``): each group's
+    H / K heads summed in head order, dK scaled by 1/sqrt(hd), each
+    rounded once."""
     dev = dk_part.device
     _build.require_cuda(dev, "flash_attention_bwd_sum")
     B, Skv, H, hd = dk_part.shape
@@ -313,7 +319,8 @@ def flash_attention_bwd_sum(dk_part: torch.Tensor, dv_part: torch.Tensor,
 def flash_attention_bwd_dq(q, k, v, do, lse, dlt, *, causal: bool,
                            window: int) -> torch.Tensor:
     """``dq`` [B, S, H, hd] bf16: the dQ entry, a block per (batch, head,
-    128 query rows) over the key tiles."""
+    128 query rows) over the key tiles, dS entering ``dQ += dS K`` as
+    bf16 hi + lo."""
     B, S, Skv, H, K, hd = _check_train("flash_attention_bwd_dq", q, k, v)
     args = _bwd_args(q, k, v, do, lse, dlt)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -321,6 +328,6 @@ def flash_attention_bwd_dq(q, k, v, do, lse, dlt, *, causal: bool,
     err = _build.launch(
         lib.flash_bwd_dq_launch, q.device, B, S, Skv, H, K, hd, *args,
         dq.data_ptr(), *dq.stride()[:3], int(causal), int(window),
-        1.0 / math.sqrt(hd), DS_SPLIT & SPLIT_DQ)
+        1.0 / math.sqrt(hd))
     _raise(lib, "flash_attention_bwd_dq", err)
     return dq

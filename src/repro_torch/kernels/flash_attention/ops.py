@@ -66,12 +66,10 @@ class FlashAttentionFn(torch.autograd.Function):
         do = do.contiguous()
         dlt = kernel.flash_attention_bwd_dot(o, o_lo, do, lse.shape[-1])
         bwd_dot_launches += 1
-        dk, dv = kernel.flash_attention_bwd_dkdv(q, k, v, do, lse, dlt,
-                                                 causal=causal, window=window)
+        dk, dv, summed = kernel.flash_attention_bwd_dkdv(
+            q, k, v, do, lse, dlt, causal=causal, window=window)
         bwd_dkdv_launches += 1
-        if dk.dtype == torch.float32:  # a group's per-head partials
-            dk, dv = kernel.flash_attention_bwd_sum(dk, dv, k.shape[2])
-            bwd_sum_launches += 1
+        bwd_sum_launches += summed
         dq = kernel.flash_attention_bwd_dq(q, k, v, do, lse, dlt,
                                            causal=causal, window=window)
         bwd_dq_launches += 1

@@ -16,8 +16,7 @@ import math
 
 import torch
 
-__all__ = ["NEG_INF", "BQ", "BKV", "BWD_ROWS", "SPLIT_DQ", "SPLIT_DK",
-           "attention_ref", "flash_attention_ref", "flash_attention_lse_ref",
+__all__ = ["NEG_INF", "BQ", "BKV", "BWD_ROWS", "attention_ref", "flash_attention_ref", "flash_attention_lse_ref",
            "flash_attention_bwd_ref", "flash_attention_tiled",
            "flash_attention_bwd_tiled"]
 
@@ -27,8 +26,6 @@ BQ, BKV = 64, 64
 #: rows of the backward entries' walked tiles (a block's fixed rows are
 #: two such halves)
 BWD_ROWS = 64
-#: the backward's dS split flags, as ``kernel.SPLIT_DQ`` / ``SPLIT_DK``
-SPLIT_DQ, SPLIT_DK = 1, 2
 
 
 def attention_ref(q5, k4, v4, *, causal: bool, window: int, kv_len=None):
@@ -151,16 +148,16 @@ def flash_attention_tiled(q, k, v, *, causal: bool, window: int):
 
 
 def flash_attention_bwd_tiled(q, k, v, do, *, causal: bool, window: int,
-                              ds_split: int = 0):
+                              split_dq: bool = True):
     """The backward entries' bf16 path, tile by tile, in the model's layout
     (q, do [B,S,H,hd]; k, v [B,Skv,K,hd], bf16) -> ``(dq, dk, dv)`` bf16:
     LSE and D from the plain forward in f32 (the kernels take D from the
     LSE forward's f32 output, O + O_lo); S and dP as f32 sums of 16-wide
     k-steps of exact bf16 products; P = exp2(S log2(e) / sqrt(hd) - LSE
     log2(e)), 0 where masked; dS = P (dP - D); P and dS rounded to bf16 as
-    the second products' A operands, or, with a flag of ``ds_split``
-    (``SPLIT_DQ``: the dQ product, ``SPLIT_DK``: the dK product), dS as hi
-    + lo = bf16(dS) + bf16(dS - bf16(dS)), both products summed.  dK and
+    the A operands of dV += P^T dO and dK += dS^T Q, and dS as hi + lo =
+    bf16(dS) + bf16(dS - bf16(dS)) in dQ += dS K, both products summed
+    (``split_dq`` False: bf16 dS alone there, the unsplit baseline).  dK and
     dV are summed in f32 per query head over the ``BWD_ROWS``-row query
     tiles in order, then over a group's heads in head order 0 .. G - 1,
     dK scaled by 1/sqrt(hd), each rounded once to bf16; dQ in f32 over the
@@ -211,13 +208,11 @@ def flash_attention_bwd_tiled(q, k, v, do, *, causal: bool, window: int,
         t = slice(q0, q0 + T)
         dv = dv + p_b[..., t, :].transpose(-1, -2) @ dof[..., t, :]
         dk = dk + ds_hi[..., t, :].transpose(-1, -2) @ qf[..., t, :]
-        if ds_split & SPLIT_DK:
-            dk = dk + ds_lo[..., t, :].transpose(-1, -2) @ qf[..., t, :]
     dq = torch.zeros(B, H, Sp, hd)
     for t0 in range(0, Skp, T):  # the dQ entry's key tiles
         t = slice(t0, t0 + T)
         dq = dq + ds_hi[..., t] @ kf[..., t, :]
-        if ds_split & SPLIT_DQ:
+        if split_dq:
             dq = dq + ds_lo[..., t] @ kf[..., t, :]
 
     def group_sum(x):  # [B, H, Skp, hd] -> [B, K, Skp, hd], head order

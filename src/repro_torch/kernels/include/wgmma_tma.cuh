@@ -1,6 +1,7 @@
 // wgmma_tma.cuh — Hopper's warpgroup matrix multiply (wgmma) fed by the
 // tensor memory accelerator (TMA): the building blocks of
-// flash_attention.cu's backward entries (sm_90a).
+// flash_attention.cu's backward entries, and the mbarrier protocol and
+// tensor-map lookup that rglru_scan.cu's TMA ring uses too (sm_90a).
 //
 // Tiles.  Every bf16 tile lives in shared memory as TMA writes it with
 // CU_TENSOR_MAP_SWIZZLE_128B: subtiles of 64 rows x 64 elements (8 KB,

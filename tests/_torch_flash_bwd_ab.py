@@ -3,7 +3,7 @@
 
 Builds the parent source given on the command line (its backward entries
 with the ``mma.sync`` signatures: ``flash_bwd_dkdv_launch`` /
-``flash_bwd_dq_launch`` without partials or dS split) beside the tree's
+``flash_bwd_dq_launch`` without partials) beside the tree's
 library and, at chip_smoke's ``FLASH_BWD`` shapes, times the whole
 backward of each (D + dK/dV (+ the group sum) + dQ, a CUDA graph of 20
 calls, ``chip_smoke.graph_ms``) in the order parent, tree, tree, parent,
@@ -136,7 +136,7 @@ def main(argv) -> int:
     if "json" in args:
         Path(args["json"]).parent.mkdir(parents=True, exist_ok=True)
         Path(args["json"]).write_text(json.dumps(
-            {"card": card, "ds_split": fk.DS_SPLIT, "rows": rows}, indent=1))
+            {"card": card, "rows": rows}, indent=1))
     return 0
 
 

@@ -15,11 +15,8 @@ per-leaf gradient norms held against the plain versions' step
   round dS and P to bf16 before the second products (the mma A
   operands); ``emul all`` rounds the three, ``emul dS, P`` the last two
   (what the kernel rounds once D is taken from its f32 output);
-* ``kernel``: the port's ``FlashAttentionFn`` (the kernels) with
-  ``kernel.DS_SPLIT`` as it stands, and ``kernel dS none`` / ``dQ`` /
-  ``dK`` / ``both``: the same with dS split into bf16 hi + lo in no
-  product, the dQ product, the dK product or both
-  (``kernel.SPLIT_DQ`` / ``SPLIT_DK``);
+* ``kernel``: the port's ``FlashAttentionFn`` (the kernels; dS enters
+  the dQ product as bf16 hi + lo, the dK product as bf16);
 * ``sdpa``: PyTorch's ``scaled_dot_product_attention`` forward and
   backward, as a yardstick only.
 
@@ -27,7 +24,7 @@ Then, in place: every attention call of the kernel step's backward is
 captured (q, k, v, O and its low halves, LSE and the incoming dO); for
 each, the kernel entries' dQ, dK, dV against the plain version's under
 chip_smoke's ``FLASH_BWD_RTOL`` / ``FLASH_BWD_ATOL`` (worst share of the
-limit; for each dS split), and the relative error of the sum of dQ
+limit), and the relative error of the sum of dQ
 over the call's tokens
 (what a bias before the query projection gathers, up to that
 projection), the same for the emulated roundings, beside the keys'
@@ -141,23 +138,6 @@ def plain(q, k, v, *, causal=True, window=0):
     return fr.flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
-SPLITS = {"none": 0, "dQ": fk.SPLIT_DQ, "dK": fk.SPLIT_DK,
-          "both": fk.SPLIT_DQ | fk.SPLIT_DK}
-
-
-def with_split(split: int):
-    """The kernels' step (``attn`` None) with ``kernel.DS_SPLIT`` set to
-    ``split`` while it runs."""
-    def run():
-        saved = fk.DS_SPLIT
-        fk.DS_SPLIT = split
-        try:
-            return whisper_step(None)
-        finally:
-            fk.DS_SPLIT = saved
-    return run
-
-
 def whisper_step(attn, microbatches=1, dev="cuda"):
     W = cs.WHISPER_TRAIN
     wcfg = get("whisper-small")
@@ -213,23 +193,12 @@ def call_report(c) -> dict:
     causal, window = c["mask"]
     want = fr.flash_attention_bwd_ref(q, k, v, do, causal=causal,
                                       window=window)
-    saved = fk.DS_SPLIT
-    split_shares = {}
-    try:
-        for name, split in SPLITS.items():
-            fk.DS_SPLIT = split
-            got = cs.flash_bwd(fk, q, k, v, o, c["o_lo"], do, lse, causal,
-                               window)
-            split_shares[name] = {n: cs.bwd_diff(g, w)[2] for n, g, w in
-                                  zip(("dq", "dk", "dv"), got, want)}
-    finally:
-        fk.DS_SPLIT = saved
     dq, dk, dv = cs.flash_bwd(fk, q, k, v, o, c["o_lo"], do, lse, causal,
                               window)
     shares = {n: cs.bwd_diff(g, w)[2]
               for n, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
     out = {"S": q.shape[1], "Skv": k.shape[1], "causal": causal,
-           "shares": shares, "split_shares": split_shares}
+           "shares": shares}
     # the sum of dQ over tokens, per head, and its error
     sq_w = want[0].float().sum(1)
     sq_err = (dq.float() - want[0].float()).sum(1)
@@ -268,7 +237,6 @@ def main(argv) -> int:
         "emul all": emul(d_bf16_o=True, round_ds=True, round_p=True),
         "emul dS, P": emul(d_bf16_o=False, round_ds=True, round_p=True),
         "kernel": step(None),
-        **{f"kernel dS {n}": with_split(v) for n, v in SPLITS.items()},
         "sdpa": step(sdpa),
         "plain_mb2": step(plain, 2),
     }
@@ -313,10 +281,7 @@ def main(argv) -> int:
               + ", ".join(f"{n.split(' ', 1)[1]} {r[n]:.3e}" for n in r
                           if n.startswith("dq_sum_rel_err_emul"))
               + f"), |sum dQ| / sum |dQ| {r['dq_sum_cancel']:.3e}, key "
-              f"offset {r['key_offset']:.2f}; dQ / dK shares by dS split "
-              + ", ".join(f"{n} {v['dq']:.3f} / {v['dk']:.3f}"
-                          for n, v in r["split_shares"].items()),
-              flush=True)
+              f"offset {r['key_offset']:.2f}", flush=True)
         del c
     report["calls"] = rows
     if "json" in args:

@@ -1,7 +1,8 @@
 """The flash kernel's backward entries as the CPU can hold them: their
 plain emulation ``ref.flash_attention_bwd_tiled`` (the wgmma entries'
-arithmetic: the tile order, bf16 P and dS with the optional hi / lo split
-of dS, f32 per-head partials summed in head order, ``exp2``) against
+arithmetic: the tile order, bf16 P and dS, dS split into bf16 hi + lo in
+the dQ product, f32 per-head partials summed in head order, ``exp2``)
+against
 
 * ``ref.flash_attention_bwd_ref`` (autograd of the f32 reference), and
 * ``jax.grad`` of ``repro.models.layers.blocked_attention`` in f32 (the
@@ -15,8 +16,10 @@ mask and cross attention (S != Skv) (``repro`` on a cover of those:
 every head dim with every mask).  Then the case fault 7 rests on:
 keys with a common offset (whisper-small's decoder self-attention), where
 bf16 dS's rounding is magnified in dQ = dS K, and the split lowers dQ's
-error.  The CUDA entries themselves run on the card
-(``tests/test_torch_train_cuda.py``, chip_smoke phase 24)."""
+error.  The CUDA entries themselves run on the card, where
+``tests/test_torch_train_cuda.py`` also holds them to this emulation
+(and chip_smoke phase 24 to the plain backward); here their launchers
+refuse CPU tensors."""
 
 import jax
 import jax.numpy as jnp
@@ -98,8 +101,7 @@ def test_emulation_matches_repro_grad(hd, G, mask):
     S, Skv, causal, window = MASKS[mask]
     q, k, v, do = _inputs(S, Skv, 2 * G, 2, hd, 10 * hd + G + 1)
     got = fr.flash_attention_bwd_tiled(q, k, v, do, causal=causal,
-                                       window=window,
-                                       ds_split=fr.SPLIT_DQ | fr.SPLIT_DK)
+                                       window=window)
     want = _repro_grads(q, k, v, do, causal, window)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert _share(g, w) <= 1.0, name
@@ -114,20 +116,24 @@ def test_ds_split_lowers_dq_error_under_a_common_key_offset():
     q, k, v, do = _inputs(128, 128, 4, 4, 64, 7, offset=16.0 * 8)
     want = fr.flash_attention_bwd_ref(q, k, v, do, causal=True, window=0)[0]
     err, share = {}, {}
-    for split in (0, fr.SPLIT_DQ):
+    for split in (False, True):
         dq = fr.flash_attention_bwd_tiled(q, k, v, do, causal=True,
-                                          window=0, ds_split=split)[0]
+                                          window=0, split_dq=split)[0]
         err[split] = float((dq.float() - want).sum(1).norm()
                            / want.sum(1).norm())
         share[split] = _share(dq, want)
-    assert err[fr.SPLIT_DQ] < 0.5 * err[0], err
-    assert share[fr.SPLIT_DQ] <= 1.0 < share[0], share
+    assert err[True] < 0.5 * err[False], err
+    assert share[True] <= 1.0 < share[False], share
 
 
-def test_split_flags_match_the_kernel_module():
-    assert (fk.SPLIT_DQ, fk.SPLIT_DK) == (fr.SPLIT_DQ, fr.SPLIT_DK)
-    assert fk.DS_SPLIT in (0, fk.SPLIT_DQ, fk.SPLIT_DK,
-                           fk.SPLIT_DQ | fk.SPLIT_DK)
+@pytest.mark.parametrize("entry", ["flash_attention_bwd_dkdv",
+                                   "flash_attention_bwd_dkdv_entry",
+                                   "flash_attention_bwd_dq"])
+def test_backward_entries_refuse_cpu_tensors(entry):
+    q, k, v, do = _inputs(64, 64, 4, 2, 32, 0)
+    rows = torch.zeros(2, 4, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(fk, entry)(q, k, v, do, rows, rows, causal=True, window=0)
 
 
 def test_group_sum_refuses_cpu_tensors():
