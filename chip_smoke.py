@@ -2991,13 +2991,25 @@ def zoo_phases(golden_mod, smi: str, device="cuda") -> dict:
 #: phase 24 (a)'s backward shapes (B, S, Skv, H, K, hd, causal, window):
 #: tinyllama-1.1b's train step at S 2 048, phi4-mini's widths, a sliding
 #: window, whisper-small's encoder and its cross-attention (64 queries over
-#: 1 500 frames, no mask), and the 15m preset's hd 32 microbatch
+#: 1 500 frames, no mask), the 15m preset's hd 32 microbatch, and
+#: recurrentgemma-2b's attention (hd 256, H 10 over K 1, window 2 048) at
+#: B 1 x 2 100 and B 2 x 2 048
 FLASH_BWD = [(2, 2048, 2048, 32, 4, 64, True, 0),
              (1, 2048, 2048, 24, 8, 128, True, 0),
              (2, 1024, 1024, 8, 2, 64, True, 256),
              (2, 1500, 1500, 12, 12, 64, False, 0),
              (2, 64, 1500, 12, 12, 64, False, 0),
-             (4, 256, 256, 8, 4, 32, True, 0)]
+             (4, 256, 256, 8, 4, 32, True, 0),
+             (1, 2100, 2100, 10, 1, 256, True, 2048),
+             (2, 2048, 2048, 10, 1, 256, True, 2048)]
+#: ptxas registers of the wgmma entries at HDP 64 / 128 as they were built
+#: before the HDP 256 instantiations (NVIDIA H100 80GB HBM3, nvcc 12.8):
+#: their code paths are unchanged, so they stay within BWD_PTXAS_SLACK
+BWD_PTXAS_BEFORE = {"flash_bwd_dkdv_wgmma_kernel:64": 184,
+                    "flash_bwd_dkdv_wgmma_kernel:128": 250,
+                    "flash_bwd_dq_wgmma_kernel:64": 139,
+                    "flash_bwd_dq_wgmma_kernel:128": 155}
+BWD_PTXAS_SLACK = 8
 #: the backward entries' gradients against their plain version (autograd
 #: of the f32 reference), element by element: |kernel - plain| <=
 #: FLASH_BWD_RTOL * |plain| + FLASH_BWD_ATOL * max |plain| (of the
@@ -3124,26 +3136,36 @@ def flash_bwd(fk, q, k, v, o, o_lo, do, lse, causal, window):
     return dq, dk, dv
 
 
+def sdpa_mask(S, Skv, causal, window, dev) -> tuple:
+    """``(attn_mask, is_causal)`` that give SDPA the attention of ``(causal,
+    window)``: a boolean mask only where the window masks a pair that
+    causality keeps (``window <= S - 1``); else no mask and
+    ``is_causal``, so that SDPA may take its flash backend."""
+    import torch
+    if window and window < S:
+        qp = torch.arange(S, device=dev)[:, None]
+        kp = torch.arange(Skv, device=dev)[None, :]
+        return (qp >= kp) & ((qp - kp) < window), False
+    return None, bool(causal or window)
+
+
 def sdpa_bwd_ms(q, k, v, do, causal, window, reps: int = 5) -> tuple:
-    """SDPA's backward alone (``enable_gqa``; a boolean mask for a
-    window): one forward, then ``reps`` backward passes of it under
-    ``torch.profiler``, the device time of the kernels they launch over
-    ``reps``; where the profiler sees no device activity, CUDA events
-    around the ``reps`` passes instead.  Returns ``(ms, 'profiler' |
-    'events')``."""
+    """SDPA's backward alone (``enable_gqa``; ``sdpa_mask``'s form): one
+    forward, then ``reps`` backward passes of it under ``torch.profiler``,
+    the device time of the kernels they launch over ``reps``; where the
+    profiler sees no device activity, CUDA events around the ``reps``
+    passes instead.  Returns ``(ms, 'profiler' | 'events', 'mask' |
+    'is_causal' | 'none')``."""
     import torch
     import torch.nn.functional as F
     S, Skv = q.shape[1], k.shape[1]
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
-    mask = None
-    if window:
-        qp = torch.arange(S, device=q.device)[:, None]
-        kp = torch.arange(Skv, device=q.device)[None, :]
-        mask = (qp >= kp) & ((qp - kp) < window)
+    mask, is_causal = sdpa_mask(S, Skv, causal, window, q.device)
+    form = "mask" if mask is not None else (
+        "is_causal" if is_causal else "none")
     y = F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
-        enable_gqa=True)
+        qt, kt, vt, attn_mask=mask, is_causal=is_causal, enable_gqa=True)
     dot = do.transpose(1, 2)
 
     def grads():
@@ -3152,8 +3174,8 @@ def sdpa_bwd_ms(q, k, v, do, causal, window, reps: int = 5) -> tuple:
     grads()
     _, busy, _ = profile_kernels(grads, ())
     if busy is not None:
-        return busy / reps, "profiler"
-    return loop_ms(grads, 1) / reps, "events"
+        return busy / reps, "profiler", form
+    return loop_ms(grads, 1) / reps, "events", form
 
 
 def sdpa_bwd_worker() -> None:
@@ -3239,7 +3261,16 @@ def phase_flash_bwd(fk, fr, fops, dev) -> dict:
         print(f"  ptxas: {w}", flush=True)
     check(not moved, f"the training flag moved the serving entry's "
                      f"registers or spills: {moved}")
-    check(len(build["sass"]) == 4 and all(
+    drift = {k: (regs.get(k, {}).get("registers"), v)
+             for k, v in BWD_PTXAS_BEFORE.items()
+             if regs.get(k) is None
+             or abs(regs[k]["registers"] - v) > BWD_PTXAS_SLACK}
+    print(f"  wgmma entries at HDP 64 / 128 within {BWD_PTXAS_SLACK} "
+          f"registers of before the HDP 256 instantiations: {not drift} "
+          f"{drift or ''}", flush=True)
+    check(not drift, f"the HDP 64 / 128 wgmma entries' registers moved: "
+                     f"{drift}")
+    check(len(build["sass"]) == 6 and all(
         c.get("HGMMA", 0) > 0 for c in build["sass"].values())
         and not build["warnings"],
         f"a backward entry issues no wgmma, or ptxas serialised its "
@@ -3324,15 +3355,11 @@ def phase_flash_bwd(fk, fr, fops, dev) -> dict:
             q, k, v, causal=causal, window=window))
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                       for x in (q, k, v))
-        mask = None
-        if window:
-            qp = torch.arange(S, device=dev)[:, None]
-            kp = torch.arange(Skv, device=dev)[None, :]
-            mask = (qp >= kp) & ((qp - kp) < window)
+        mask, is_causal = sdpa_mask(S, Skv, causal, window, dev)
 
         def sdpa():
             y = F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
+                qt, kt, vt, attn_mask=mask, is_causal=is_causal,
                 enable_gqa=True)
             return torch.autograd.grad(y, (qt, kt, vt), do.transpose(1, 2))
         lib_ms = loop_ms(sdpa)
@@ -3391,10 +3418,12 @@ def phase_flash_bwd(fk, fr, fops, dev) -> dict:
               f" of {dot_top:.3g}, limit {FLASH_O32_TOL:.3g} of the largest)")
         del q, k, v, do, o, lse, o_lo, got, dlt, qt, kt, vt
         torch.cuda.empty_cache()
-    for row, (ms, by) in zip(out["rows"], sdpa_bwd_times()):
+    for row, (ms, by, form) in zip(out["rows"], sdpa_bwd_times()):
         row["library_bwd_ms"], row["library_bwd_by"] = ms, by
-        print(f"  {row['shape']}: SDPA's backward alone {ms:.4f} ms ({by}) "
-              f"against the kernels' {row['bwd_ms']:.4f}", flush=True)
+        row["library_bwd_form"] = form
+        print(f"  {row['shape']}: SDPA's backward alone {ms:.4f} ms ({by}, "
+              f"{form}) against the kernels' {row['bwd_ms']:.4f}",
+              flush=True)
     return out
 
 
@@ -3463,21 +3492,28 @@ def dq_in_place(fk, fr):
     return ctx()
 
 
-def attention_as(attn):
-    """A context in which the model's attention runs ``attn`` in place of
-    ``ops.flash_attention``."""
+def ops_as(**fns):
+    """A context in which the dispatchers named in ``fns`` (``attn``,
+    ``ssm``, ``rglru``) run the given functions in place of
+    ``ops.flash_attention``, ``ops.ssm_scan`` and ``ops.rglru_scan``."""
     import contextlib
 
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rglru_scan import ops as ro
+    from repro_torch.kernels.ssm_scan import ops as so
+    where = {"attn": (fops, "flash_attention"), "ssm": (so, "ssm_scan"),
+             "rglru": (ro, "rglru_scan")}
 
     @contextlib.contextmanager
     def ctx():
-        saved = fops.flash_attention
-        fops.flash_attention = attn
+        saved = {k: getattr(*where[k]) for k in fns}
+        for k, fn in fns.items():
+            setattr(*where[k], fn)
         try:
             yield
         finally:
-            fops.flash_attention = saved
+            for k, fn in saved.items():
+                setattr(*where[k], fn)
     return ctx()
 
 
@@ -3489,7 +3525,7 @@ def plain_attention():
 
     def plain(q, k, v, *, causal=True, window=0):
         return fr.flash_attention_ref(q, k, v, causal=causal, window=window)
-    return attention_as(plain)
+    return ops_as(attn=plain)
 
 
 def plain_backward():
@@ -3520,7 +3556,7 @@ def plain_backward():
 
     def attn(q, k, v, *, causal=True, window=0):
         return KernelForwardPlainBackward.apply(q, k, v, causal, window)
-    return attention_as(attn)
+    return ops_as(attn=attn)
 
 
 def train_step_record(golden_mod, steps, adamw, model, cfg, batch,
@@ -3563,13 +3599,321 @@ def train_flops(cfg, B: int, S: int) -> float:
     return 8.0 * n * tokens + 18.0 * cfg.hd * pairs
 
 
+#: phase 24 (f): each scan backward kernel at full width against its plain
+#: version, run twice: falcon-mamba-7b's chunk (B, T, D, N) with a nonzero
+#: dh_T, and recurrentgemma-2b's rec layer (B, S, d)
+SSM_BWD_FULL = (2, 256, 8192, 16)
+RGLRU_BWD_FULL = (2, 2048, 2560)
+
+
+def ssm_bwd_bound(B, T, D, N) -> tuple:
+    """``(bound ms, 'bytes')`` of the ssm_scan backward kernel: decay and
+    h_seq read and d decay, d dbu written ([B, T, D, N] f32 each), c, dy,
+    h0, dh_T read, dh0 and dc's block partials (16 channels a block at N
+    16) written."""
+    nblk = -(-D // (256 // (1 << (N - 1).bit_length())))
+    nbytes = 4 * (4 * B * T * D * N + B * T * N + B * T * D + 3 * B * D * N
+                  + B * nblk * T * N)
+    return bound_of(nbytes, 0)
+
+
+def rglru_bwd_bound(B, S, d) -> tuple:
+    """``(bound ms, 'bytes')`` of the rglru_scan backward kernel: r_pre,
+    i_pre, u (bf16) and h_seq, dh_seq (f32) read, dr_pre, di_pre, du
+    (bf16) written, 20 bytes a channel-step, plus h0, dh_S, dh0 [B, d] and
+    nsp, dnsp [d] (f32)."""
+    return bound_of(20 * B * S * d + 4 * (3 * B * d + 2 * d), 0)
+
+
+def phase_scan_bwd(dev) -> dict:
+    """Phase 24 (f): the ssm_scan backward (its dc sum too) and the
+    rglru_scan backward against their plain versions on the card at
+    ``SSM_BWD_FULL`` / ``RGLRU_BWD_FULL``: every output bitwise but the
+    sums dc and dnsp, held to their sum-order limits (``ref.dc_limit``,
+    ``ref.dnsp_limit``), and bitwise when run twice; device times (a CUDA
+    graph of 20) beside the bounds and the plain versions' times."""
+    import torch
+    from repro_torch.kernels.rglru_scan import kernel as rk
+    from repro_torch.kernels.rglru_scan import ref as rr
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan import ref as sr
+    out = {}
+    # falcon-mamba-7b's chunk
+    B, T, D, N = SSM_BWD_FULL
+    decay, dbu, c, h0 = scan_case(B, T, D, N, 2470, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(2471)
+    dy = torch.randn((B, T, D), generator=g, device=dev)
+    dh_t = torch.randn((B, D, N), generator=g, device=dev)
+    h_out, y, h_seq = sk.ssm_scan_train(decay, dbu, c, h0)
+    h_want, y_want = sr.ssm_scan_ref(decay, dbu, c, h0)
+    train_err = max(float((h_out - h_want).abs().max()),
+                    float((y - y_want).abs().max()))
+    train_ok = (torch.equal(h_out, h_want)
+                and torch.equal(h_seq[:, -1], h_out)
+                and bool(((y - y_want).abs()
+                          <= sr.y_limit(decay, dbu, c, h0)).all()))
+    del h_out, y, h_want, y_want
+
+    def bwd():
+        d_decay, d_dbu, dh0, part = sk.ssm_scan_bwd(decay, h_seq, h0, c, dy,
+                                                    dh_t)
+        return d_decay, d_dbu, sk.ssm_scan_dc_sum(part), dh0
+    got, again = bwd(), bwd()
+    train_plain_ms, _ = cuda_ms(lambda: sr.ssm_scan_ref(decay, dbu, c, h0),
+                                torch.cuda.synchronize)
+    plain_ms, want = cuda_ms(lambda: sr.ssm_scan_bwd_ref(
+        decay, dbu, c, h0, dy, dh_t), torch.cuda.synchronize)
+    twice = all(torch.equal(a, b) for a, b in zip(got, again))
+    differ = [int((got[i] != want[i]).sum()) for i in (0, 1, 3)]
+    lim = sr.dc_limit(decay, dbu, h0, dy)
+    dc_share = float(((got[2] - want[2]).abs() / lim).max())
+    err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    part = sk.ssm_scan_bwd(decay, h_seq, h0, c, dy, dh_t)[3]
+    ms = graph_ms(lambda: sk.ssm_scan_bwd(decay, h_seq, h0, c, dy, dh_t))
+    sum_ms = graph_ms(lambda: sk.ssm_scan_dc_sum(part))
+    sum_plain_ms, _ = cuda_ms(lambda: part.sum(1), torch.cuda.synchronize)
+    train_ms = graph_ms(lambda: sk.ssm_scan_train(decay, dbu, c, h0))
+    serve_ms = graph_ms(lambda: sk.ssm_scan(decay, dbu, c, h0))
+    bound, by = ssm_bwd_bound(B, T, D, N)
+    sum_bound, _ = bound_of(4 * (part.numel() + B * T * N), 0)
+    train_bound, _ = bound_of(4 * (3 * B * T * D * N + B * T * N
+                                   + 2 * B * D * N + B * T * D), 0)
+    print(f"  (f) ssm_scan backward B{B} T{T} D{D} N{N}, dh_T nonzero: "
+          f"the training forward's h_out bitwise, y within its limit and "
+          f"h_seq's last step h_out: {train_ok}; "
+          f"d decay / d dbu / dh0 elements differing from the plain "
+          f"version {differ}; dc worst share of its sum-order limit "
+          f"{dc_share:.3g}; bitwise twice {twice}; device ms: backward "
+          f"{ms:.4f} ({100 * bound / ms:.1f} % of its {by} bound "
+          f"{bound:.4f}), dc sum {sum_ms:.4f} (bound {sum_bound:.4f}), "
+          f"training forward {train_ms:.4f} (bound {train_bound:.4f}; "
+          f"serving {serve_ms:.4f}); plain backward {plain_ms:.2f} ms",
+          flush=True)
+    check(train_ok and twice and differ == [0, 0, 0] and dc_share <= 1.0,
+          "the ssm_scan backward disagrees with its plain version, or is "
+          "not deterministic")
+    out["ssm"] = {"shape": [B, T, D, N], "max_abs_err": err,
+                  "dc_share": dc_share, "bitwise_twice": twice, "ms": ms,
+                  "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                  "sum_ms": sum_ms, "sum_plain_ms": sum_plain_ms,
+                  "sum_bound_ms": sum_bound, "train_ms": train_ms,
+                  "serve_ms": serve_ms, "train_bound_ms": train_bound,
+                  "train_err": train_err, "train_plain_ms": train_plain_ms}
+    del decay, dbu, c, h0, dy, dh_t, h_seq, got, again, want, lim, part
+    torch.cuda.empty_cache()
+    # recurrentgemma-2b's rec layer
+    B, S, d = RGLRU_BWD_FULL
+    r_pre, i_pre, u, nsp, h0 = rglru_case(B, S, d, 2472, dev)
+    g.manual_seed(2473)
+    dh_seq = torch.randn((B, S, d), generator=g, device=dev)
+    dh_s = torch.randn((B, d), generator=g, device=dev)
+    h_seq, _ = rk.rglru_scan(r_pre, i_pre, u, nsp, h0)
+    args = (r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s)
+    got, again = rk.rglru_scan_bwd(*args), rk.rglru_scan_bwd(*args)
+    plain_ms, want = cuda_ms(lambda: rr.rglru_gated_scan_bwd_ref(*args),
+                             torch.cuda.synchronize)
+    twice = all(torch.equal(a, b) for a, b in zip(got, again))
+    differ = [int((got[i] != want[i]).sum()) for i in (0, 1, 2, 4)]
+    finite = all(bool(x.isfinite().all()) for x in got)
+    low = [float(got[i][..., 1].abs().max()) for i in (0, 1)]
+    nsp_share = float(((got[3] - want[3]).abs()
+                       / rr.dnsp_limit(*args)).max())
+    err = max(float((a.float() - w.float()).abs().max())
+              for a, w in zip(got, want))
+    ms = graph_ms(lambda: rk.rglru_scan_bwd(*args))
+    bound, by = rglru_bwd_bound(B, S, d)
+    print(f"  (f) rglru_scan backward B{B} S{S} d{d}: dr_pre / di_pre / du "
+          f"/ dh0 elements differing from the plain version {differ}; "
+          f"every gradient finite {finite} (channel 1, r_pre -120 where "
+          f"the sigmoid's bf16 exp overflows: max |dr_pre|, |di_pre| "
+          f"{low}); "
+          f"dnsp worst share of its sum-order limit {nsp_share:.3g}; "
+          f"bitwise twice {twice}; device ms {ms:.4f} "
+          f"({100 * bound / ms:.1f} % of its {by} bound {bound:.4f}); plain "
+          f"backward {plain_ms:.2f} ms", flush=True)
+    check(twice and finite and differ == [0, 0, 0, 0] and nsp_share <= 1.0,
+          "the rglru_scan backward disagrees with its plain version, is "
+          "not finite, or is not deterministic")
+    out["rglru"] = {"shape": [B, S, d], "max_abs_err": err,
+                    "dnsp_share": nsp_share, "bitwise_twice": twice,
+                    "finite": finite,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": by}
+    del args, got, again, want, r_pre, i_pre, u, h_seq, dh_seq
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_kernel_counts() -> dict:
+    """The launch counts of every kernel a train step may run."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rglru_scan import ops as ro
+    from repro_torch.kernels.ssm_scan import ops as so
+    return {**train_counts(fops), "ssm_scan": so.launches,
+            "ssm_scan_train": so.train_launches, "ssm_bwd": so.bwd_launches,
+            "ssm_bwd_sum": so.bwd_sum_launches, "rglru_scan": ro.launches,
+            "rglru_bwd": ro.bwd_launches}
+
+
+def zero_train_kernel_counts() -> None:
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rglru_scan import ops as ro
+    from repro_torch.kernels.ssm_scan import ops as so
+    zero_train_counts(fops)
+    so.launches = so.train_launches = so.bwd_launches = 0
+    so.bwd_sum_launches = ro.launches = ro.bwd_launches = 0
+
+
+def plain_train():
+    """A context in which the model's attention and both scans run their
+    plain versions on the card, differentiated by autograd: the
+    reference the recurrent and MoE train steps are held to."""
+    from repro_torch.kernels.flash_attention import ref as fr
+    from repro_torch.kernels.rglru_scan import ref as rr
+    from repro_torch.kernels.ssm_scan import ref as sr
+
+    def attn(q, k, v, *, causal=True, window=0):
+        return fr.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return ops_as(attn=attn, ssm=sr.ssm_scan_ref,
+                  rglru=rr.rglru_gated_scan_ref)
+
+
+def scans_plain_backward():
+    """A context in which both scans run their kernels forward and their
+    plain backward (``ssm_scan_bwd_ref``, ``rglru_gated_scan_bwd_ref``):
+    with ``plain_backward``, the reference that isolates the backward
+    kernels inside a train step."""
+    import torch
+    from repro_torch.kernels.rglru_scan import kernel as rk
+    from repro_torch.kernels.rglru_scan import ref as rr
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan import ref as sr
+
+    class Ssm(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, decay, dbu, c, h0):
+            ctx.save_for_backward(decay, dbu, c, h0)
+            return sk.ssm_scan(decay, dbu, c, h0)
+
+        @staticmethod
+        def backward(ctx, dh, dy):
+            d_decay, d_dbu, dc, dh0 = sr.ssm_scan_bwd_ref(
+                *ctx.saved_tensors, dy, dh)
+            return d_decay, d_dbu, dc, dh0
+
+    class Rglru(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, r_pre, i_pre, u, nsp, h0):
+            h_seq, h_s = rk.rglru_scan(r_pre, i_pre, u, nsp, h0)
+            ctx.save_for_backward(r_pre, i_pre, u, nsp, h0, h_seq)
+            return h_seq, h_s
+
+        @staticmethod
+        def backward(ctx, dh_seq, dh_s):
+            return rr.rglru_gated_scan_bwd_ref(*ctx.saved_tensors,
+                                               dh_seq.float(), dh_s.float())
+    return ops_as(ssm=lambda *a: Ssm.apply(*a),
+                  rglru=lambda *a: Rglru.apply(*a))
+
+
+def zoo_train_steps(golden_mod, dev) -> dict:
+    """Phase 24 (g): ``golden.TRAIN_ZOO``'s train steps on the card.  For
+    each: the plain-version step (``plain_train``) and the same step in
+    two microbatches, whose distance sets the step's limits
+    (``golden.train_limits``) before any kernel step runs; then the
+    kernels' step, counted by the wrappers' counters (zeroed just before
+    it), held to the plain step within those limits; then the kernels'
+    forward with the plain backward (``plain_backward`` and
+    ``scans_plain_backward``), held to the kernels' step within
+    ``TRAIN_TOL``."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    tol = golden_mod.TRAIN_TOL
+    out = {}
+    for name, spec in golden_mod.TRAIN_ZOO.items():
+        cfg = golden_mod.zoo_config(get(spec["config"]), spec)
+        batch = golden_mod.train_tokens(cfg.vocab_size, dev, spec)
+        recs, walls = {}, {}
+        for run in ("plain", "plain_mb2", "kernel", "plain_backward"):
+            model, _ = golden_train_model(golden_mod, lm, cfg, spec["seed"],
+                                          dev)
+            mb = 2 if run == "plain_mb2" else 1
+            if run == "plain_backward":
+                with plain_backward(), scans_plain_backward():
+                    recs[run] = train_step_record(golden_mod, steps, adamw,
+                                                  model, cfg, batch, mb)
+            elif run == "kernel":
+                limits = golden_mod.train_limits(floor)
+                torch.cuda.synchronize()
+                zero_train_kernel_counts()
+                t0 = time.perf_counter()
+                recs[run] = train_step_record(golden_mod, steps, adamw,
+                                              model, cfg, batch, mb)
+                torch.cuda.synchronize()
+                walls[run] = time.perf_counter() - t0
+                counts = train_kernel_counts()
+            else:
+                with plain_train():
+                    t0 = time.perf_counter()
+                    recs[run] = train_step_record(golden_mod, steps, adamw,
+                                                  model, cfg, batch, mb)
+                    torch.cuda.synchronize()
+                    walls[run] = time.perf_counter() - t0
+                if run == "plain_mb2":
+                    floor = golden_mod.train_record_distance(
+                        recs["plain_mb2"], recs["plain"])
+            del model
+            torch.cuda.empty_cache()
+        dist = golden_mod.train_record_distance(recs["kernel"],
+                                                recs["plain"])
+        bwd = golden_mod.train_record_distance(recs["kernel"],
+                                               recs["plain_backward"])
+        kinds = {"falcon-mamba-7b": ("ssm_scan_train", "ssm_bwd",
+                                     "ssm_bwd_sum"),
+                 "recurrentgemma-2b": ("rglru_scan", "rglru_bwd", "flash",
+                                       "bwd_dot", "bwd_dkdv", "bwd_dq",
+                                       "bwd_sum"),
+                 "phi3.5-moe-42b-a6.6b": ("flash", "bwd_dot", "bwd_dkdv",
+                                          "bwd_dq", "bwd_sum")}[name]
+        print(f"  (g) {name} ({cfg.n_layers} layers, published widths, "
+              f"B{spec['batch']} x {spec['seq']}): loss "
+              f"{recs['kernel']['loss']:.6f}, grad_norm "
+              f"{recs['kernel']['grad_norm']:.6f}; the plain step's "
+              f"microbatch split {floor}, so limits {limits}; relative "
+              f"distance from the plain versions' step {dist}; from the "
+              f"kernels' forward with the plain backward {bwd} (limits "
+              f"{tol}); launches {counts}; step wall {walls['kernel']:.2f} s"
+              f" (plain {walls['plain']:.2f} s)", flush=True)
+        check(all(dist[k] <= limits[k] for k in tol),
+              f"{name}'s train step disagrees with its plain step")
+        check(all(bwd[k] <= tol[k] for k in tol),
+              f"{name}'s train step disagrees with the same step on the "
+              f"plain backward")
+        check(all(counts[k] > 0 for k in kinds),
+              f"{name}'s train step launched one of its kernels no time: "
+              f"{counts}")
+        out[name] = {"distance": dist, "backward_distance": bwd,
+                     "floor": floor, "limits": limits, "launches": counts,
+                     "wall_s": walls["kernel"], "plain_wall_s": walls["plain"],
+                     "loss": recs["kernel"]["loss"]}
+    return out
+
+
 def train_phase(golden_mod, smi: str, device="cuda") -> list:
     """Phase 24 on ``device``: (a) the backward entries against their
     plain version, (b) tinyllama-1.1b's train step against
     ``golden_train.json`` and its plain-version step, (c) whisper-small's
     step against its plain-version step, (d) the 100m example's run and
-    resume, (e) the timed full train step; returns the kernel line's
-    rows: the whole backward (``flash_attention_bwd``), then each entry."""
+    resume, (e) the timed full train step, (f) the scan backward kernels
+    against their plain versions, (g) falcon-mamba-7b's, recurrentgemma-
+    2b's and phi3.5-moe's train steps against their plain-version steps;
+    returns the kernel line's rows: the whole backward
+    (``flash_attention_bwd``), the hd 256 entries, the scans' backward
+    kernels, then each flash entry."""
     import shutil
     import tempfile
 
@@ -3783,6 +4127,11 @@ def train_phase(golden_mod, smi: str, device="cuda") -> list:
               + f"; {by_name['n_kernels']} kernels", flush=True)
     del model, opt
     torch.cuda.empty_cache()
+
+    # (f) the scan backward kernels at full width; (g) the recurrent and
+    # MoE families' train steps
+    scan_bwd = phase_scan_bwd(dev)
+    zoo_steps = zoo_train_steps(golden_mod, dev)
     print(f"  phase 24 {time.time() - t_phase:.1f} s; card: {smi}",
           flush=True)
 
@@ -3830,6 +4179,85 @@ def train_phase(golden_mod, smi: str, device="cuda") -> list:
                               for r in bwd["rows"] for n in names)
     plain_all = ("autograd of the f32 reference, all three gradients at "
                  "once")
+    # the hd 256 entries at recurrentgemma-2b's B 2 x 2 048, launched by
+    # its train step
+    rg_row = next(r for r in bwd["rows"] if r["shape"][5] == 256
+                  and r["shape"][0] == 2)
+    # B 1 x 2 100, where the window masks pairs: SDPA takes it as a mask
+    win_row = next(r for r in bwd["rows"] if r["shape"][5] == 256
+                   and r["shape"][0] == 1)
+    rg = zoo_steps["recurrentgemma-2b"]["launches"]
+    errs256 = lambda *names: max(r["errs"][n]["max_abs_err"]
+                                 for r in bwd["rows"] if r["shape"][5] == 256
+                                 for n in names)
+    for name, key, count, err in (
+            ("flash_bwd_dkdv_wgmma_hd256", "dkdv", "bwd_dkdv",
+             errs256("dk", "dv")),
+            ("flash_bwd_dq_wgmma_hd256", "dq", "bwd_dq", errs256("dq"))):
+        b_ms, b_by = rg_row["entry_bounds"][key]
+        rows.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": rg[count],
+            "max_abs_err": err, "ms": rg_row[f"{key}_ms"],
+            "plain_ms": rg_row["plain_ms"], "plain": plain_all,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": rg_row["library_bwd_ms"],
+            "library": "SDPA's backward alone (the whole backward), "
+                       "is_causal: the 2 048 window masks no pair at S "
+                       "2 048",
+            "library_window_mask_ms": win_row["library_bwd_ms"],
+            "library_window_mask_shape": win_row["shape"],
+            "shape": rg_row["shape"], "launches_step": rg,
+            "ptxas": {k: v for k, v in bwd["ptxas"].items()
+                      if k.endswith(":256")}})
+    ss, rs = scan_bwd["ssm"], scan_bwd["rglru"]
+    fm = zoo_steps["falcon-mamba-7b"]["launches"]
+    none_lib = "none: no PyTorch call computes this loop"
+    rows += [{
+        "name": "ssm_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+        "replaces": "none: XLA differentiates src/repro/models/ssm.py:130 "
+                    "(the jax.checkpoint-ed chunk body under lax.scan)",
+        "launches": fm["ssm_bwd"], "max_abs_err": ss["max_abs_err"],
+        "dc_share": ss["dc_share"], "ms": ss["ms"],
+        "plain_ms": ss["plain_ms"], "bound_ms": ss["bound_ms"],
+        "bound_by": ss["bound_by"], "library_ms": None,
+        "library": none_lib, "shape": ss["shape"],
+        "train_forward_ms": ss["train_ms"],
+        "serve_forward_ms": ss["serve_ms"],
+        "train_forward_bound_ms": ss["train_bound_ms"],
+        "launches_step": fm, "step": zoo_steps["falcon-mamba-7b"]}, {
+        "name": "ssm_scan_dc_sum", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+        "replaces": "none: XLA's sum over channels in the same "
+                    "differentiation",
+        "launches": fm["ssm_bwd_sum"], "max_abs_err": ss["max_abs_err"],
+        "ms": ss["sum_ms"], "plain_ms": ss["sum_plain_ms"],
+        "plain": "torch sum of the same partials over the blocks",
+        "bound_ms": ss["sum_bound_ms"], "bound_by": "bytes",
+        "library_ms": ss["sum_plain_ms"],
+        "library": "torch.sum over the blocks' dim (one call)",
+        "shape": ss["shape"]}, {
+        "name": "ssm_scan_train", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:43 (the training "
+                    "instantiation also writes every h_t)",
+        "launches": fm["ssm_scan_train"], "max_abs_err": ss["train_err"],
+        "ms": ss["train_ms"], "plain_ms": ss["train_plain_ms"],
+        "plain": "ref.ssm_scan_ref (its h_t are the loop's)",
+        "bound_ms": ss["train_bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "library": none_lib, "shape": ss["shape"]}, {
+        "name": "rglru_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+        "replaces": "none: XLA differentiates src/repro/models/rglru.py:"
+                    "38-47 (_gates) and :76-91 (the scan)",
+        "launches": rg["rglru_bwd"], "max_abs_err": rs["max_abs_err"],
+        "dnsp_share": rs["dnsp_share"], "ms": rs["ms"],
+        "plain_ms": rs["plain_ms"], "bound_ms": rs["bound_ms"],
+        "bound_by": rs["bound_by"], "library_ms": None,
+        "library": none_lib, "shape": rs["shape"], "launches_step": rg,
+        "step": zoo_steps["recurrentgemma-2b"],
+        "moe_step": zoo_steps["phi3.5-moe-42b-a6.6b"]}]
     for name, key, count, err, plain, note in (
             ("flash_bwd_dot", "dot", "bwd_dot",
              max(r["dot_err"] for r in bwd["rows"]), tiny["dot_plain_ms"],

@@ -658,6 +658,46 @@ TRAIN_TOL = {"loss": 2.0 ** -12, "grad_norm": 2.0 ** -10,
              "leaf_grad_norms": 2.0 ** -8, "lr": 1e-6}
 
 
+#: train steps of the recurrent and MoE families on the card, each held
+#: to the same step through the plain versions (no ``repro`` record):
+#: published widths, cut in depth as ``LM_ZOO`` cuts them, weights from
+#: ``golden_weights`` and ``train_tokens``' counter-based tokens.
+#: falcon-mamba-7b's 600 tokens are three scan chunks of 256, the last
+#: padded, so gradients cross two chunk boundaries; recurrentgemma-2b's
+#: rec, rec, attn period at 2 100 tokens, past its 2 048-token window;
+#: phi3.5-moe cut to 1 layer (no kernel of its own: its attention's).  A
+#: parameter holds 16 bytes before the update (bf16 weight and gradient,
+#: f32 master, m and v) and 14 more while the pure ``adamw.update`` builds
+#: the new master, m, v and bf16 weight beside the old: 30 bytes.  The
+#: 2-layer cut's 2.86 G parameters need 42.7 GiB, then 80.0 GiB, above
+#: the 79.2 GiB an H100 80GB HBM3 offers; its step ran out of memory with
+#: 73.9 GiB allocated (``tests/_torch_train_peak.py``).  1 layer: 1.56 G
+#: parameters, 43.7 GiB of state at the update, 52.4 GiB peak
+TRAIN_ZOO = {
+    "falcon-mamba-7b": {"config": "falcon-mamba-7b", "cut_layers": 2,
+                        "batch": 2, "seq": 600, "seed": 27},
+    "recurrentgemma-2b": {"config": "recurrentgemma-2b", "cut_layers": 3,
+                          "batch": 2, "seq": 2100, "seed": 28},
+    "phi3.5-moe-42b-a6.6b": {"config": "phi3.5-moe-42b-a6.6b",
+                             "cut_layers": 1, "batch": 2, "seq": 300,
+                             "seed": 29},
+}
+
+
+def train_limits(floor: dict) -> dict:
+    """The limits of a kernels' train step against its plain-version step,
+    from the plain step's own distance from itself split into two
+    microbatches (``floor``, a ``train_record_distance``): the leaves take
+    the larger of ``TRAIN_TOL``'s and 4x the floor rounded down to a power
+    of two (the rule that set whisper-small's), the loss, grad_norm and lr
+    keep ``TRAIN_TOL``."""
+    import math
+    four = 4 * floor["leaf_grad_norms"]
+    leaf = 2.0 ** math.floor(math.log2(four)) if four > 0 else 0.0
+    return {**TRAIN_TOL,
+            "leaf_grad_norms": max(TRAIN_TOL["leaf_grad_norms"], leaf)}
+
+
 def train_record_distance(got: dict, want: dict) -> dict:
     """The largest relative distances of a train-step record from
     another: ``loss``, ``grad_norm``, ``lr`` and the per-leaf gradient

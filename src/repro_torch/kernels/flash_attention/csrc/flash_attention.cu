@@ -485,7 +485,10 @@ int launch_mma_hd(int hd, const void* q, const void* k, const void* v,
 
 // ----------------------------------- training: LSE forward and backward
 
-// the LSE forward at HDP 32, 64 or 128 (the backward's head dims)
+// the LSE forward at HDP 32, 64, 128 or 256 (the backward's head dims;
+// above 128 the output dims split over the grid's z as in serving: both
+// blocks make the same LSE, block z 0 writes it, and each block the low
+// halves of its own dims)
 template <int HDP>
 int launch_mma_lse(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int Skv, int H, int K, int hd, Strides qs,
@@ -499,7 +502,8 @@ int launch_mma_lse(const void* q, const void* k, const void* v, void* o,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((S + MMA_BQ - 1) / MMA_BQ, B * H, 1);
+  const dim3 grid((S + MMA_BQ - 1) / MMA_BQ, B * H,
+                  mma_tile::out_split<HDP>());
   flash_attention_mma_kernel<HDP, true><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), S, Skv, H, K, hd,
@@ -574,8 +578,10 @@ int launch_mma_lse(const void* q, const void* k, const void* v, void* o,
 // whisper's train step further from its plain step, so dK takes bf16 dS.
 // At hd 128 a thread holds 64 + 64 accumulators of dK and dV and 32 + 32
 // of S^T and dP^T, so the query step stays at 64 rows; a head dim is
-// HDP / 64 subtiles of 64 dims, so a wider head (hd 256 as two halves,
-// mma_tile.cuh's out_split) adds subtiles, not new descriptors.
+// HDP / 64 subtiles of 64 dims, so hd 256 adds subtiles, not new
+// descriptors: there the two warpgroups share a block's 64 fixed rows and
+// split the output dims (BwdSmem's SPLIT), each making the whole first
+// products, in a ring of two stages.
 
 constexpr int BWD_WG = 128;              // threads of a warpgroup
 constexpr int BWD_THREADS = 2 * BWD_WG;  // two consumer warpgroups
@@ -584,19 +590,37 @@ constexpr int BWD_BLOCK = 2 * BWD_ROWS;  // a block's fixed rows
 constexpr int BWD_STAGES = 4;
 constexpr int BWD_AHEAD = 2;  // tiles the producer keeps ahead
 
-// Shared memory of a backward block (bytes from a 1024-aligned base): the
-// two fixed tiles (K and V, or Q and dO), each two halves of HDP / 64
-// subtiles; the ring's stages (two tiles of 64 rows each); the stages' LSE
-// and D rows (dK / dV); the barriers (fixed, full[s], empty[s]).
+// The shape of a backward block and its shared memory (bytes from a
+// 1024-aligned base): the two fixed tensors (K and V, or Q and dO), each NB
+// tiles of 64 rows of HDP / 64 subtiles; the ring's stages (two tiles of 64
+// rows each); the stages' LSE and D rows (dK / dV); the barriers (fixed,
+// full[s], empty[s]).  Up to HDP 128 a block's fixed rows are 128, 64 a
+// warpgroup, each warpgroup making every output dim of its rows, with a
+// 4-stage ring two tiles ahead.  At HDP 256 (SPLIT) the two warpgroups
+// share one tile of 64 fixed rows and split the output dims, OC = 2
+// subtiles each: both make the same first products S (S^T) and dP (dP^T)
+// over all 256 dims, then each its 128 dims of the second products, so a
+// thread holds 2 x 64 accumulators of dK and dV (or 64 of dQ) as at HDP
+// 128.  The fixed tiles take 64 KB and a stage 64 KB, so the ring has two
+// stages, one tile ahead: 194 KB of the SM's 227 KB.
 template <int HDP>
 struct BwdSmem {
+  static constexpr bool SPLIT = HDP > 128;
   static constexpr int CB = HDP / 64;
+  static constexpr int OC = SPLIT ? CB / 2 : CB;  // a warpgroup's out dims
+  static constexpr int BLOCK = SPLIT ? BWD_ROWS : BWD_BLOCK;  // fixed rows
+  static constexpr int NB = BLOCK / BWD_ROWS;  // fixed tiles a tensor
+  static constexpr int STAGES = SPLIT ? 2 : BWD_STAGES;
+  static constexpr int AHEAD = SPLIT ? 1 : BWD_AHEAD;
   static constexpr int SUB = hopper::SUBTILE;
-  static constexpr int FIXED = 4 * CB * SUB;
+  static constexpr int FIXED = 2 * NB * CB * SUB;
   static constexpr int STAGE = 2 * CB * SUB;
-  static constexpr int ROWS = FIXED + BWD_STAGES * STAGE;
-  static constexpr int BARS = ROWS + BWD_STAGES * 2 * BWD_ROWS * 4;
-  static constexpr int BYTES = BARS + 8 * (1 + 2 * BWD_STAGES) + 1024;
+  static constexpr int ROWS = FIXED + STAGES * STAGE;
+  static constexpr int BARS = ROWS + STAGES * 2 * BWD_ROWS * 4;
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;
+  // a warpgroup's fixed tile and first output subtile
+  __device__ static constexpr int tile(int wg) { return SPLIT ? 0 : wg; }
+  __device__ static constexpr int out0(int wg) { return SPLIT ? wg * OC : 0; }
 };
 
 // the CB subtiles of one 64-row tile of a [B, S, H, hd] tensor map (rows
@@ -664,6 +688,15 @@ __device__ __forceinline__ void to_a(const float (&x)[32],
   }
 }
 
+// D of one query row is a sum over hd dims: LP lanes share a row (hd / 8
+// rounded up to a power of two), each loading 16 bytes (8 bf16) of O, O_lo
+// and dO, so a warp takes 32 / LP rows (256 / hd at a power-of-two hd);
+// lanes past hd / 8 load nothing and add 0.  A lane sums its 8 products
+// (O + O_lo) dO in dim order; the row's LP lanes then add their sums by a
+// fixed butterfly of shuffles, offsets LP / 2, LP / 4, .., 1 (lane j adds
+// lane j ^ off's sum at each), so two runs give the same bits.  Bound:
+// bytes (three bf16 rows read, one f32 written).
+template <int LP>
 __global__ void __launch_bounds__(MMA_THREADS)
     flash_bwd_dot_kernel(const bf16* __restrict__ o,
                          const bf16* __restrict__ o_lo,
@@ -671,29 +704,36 @@ __global__ void __launch_bounds__(MMA_THREADS)
                          float* __restrict__ dlt, int S, int H, int hd,
                          Strides os, Strides ls, Strides ds,
                          long long lse_row, long long rows) {
-  const long long row = (long long)blockIdx.x * MMA_WARPS + threadIdx.x / 32;
-  if (row >= rows) return;
-  const int lane = threadIdx.x % 32;
+  constexpr int RPW = 32 / LP;  // rows a warp
+  const int lane = threadIdx.x % 32, j = lane % LP;
+  const long long row =
+      ((long long)blockIdx.x * MMA_WARPS + threadIdx.x / 32) * RPW + lane / LP;
   const int s = (int)(row % S);
   const long long bh = row / S;
-  const int b = (int)(bh / H), h = (int)(bh % H);
-  const bf16* op = o + b * os.b + s * os.s + h * os.h;
-  const bf16* lp = o_lo + b * ls.b + s * ls.s + h * ls.h;
-  const bf16* dp = dout + b * ds.b + s * ds.s + h * ds.h;
   float acc = 0.f;
-  for (int d = 2 * lane; d < hd; d += 64) {
-    const float2 a =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(op + d));
-    const float2 l =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(lp + d));
-    const float2 c =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dp + d));
-    acc += (a.x + l.x) * c.x + (a.y + l.y) * c.y;
+  if (row < rows && 8 * j < hd) {
+    const int b = (int)(bh / H), h = (int)(bh % H);
+    const uint4 a = *reinterpret_cast<const uint4*>(
+        o + b * os.b + s * os.s + h * os.h + 8 * j);
+    const uint4 l = *reinterpret_cast<const uint4*>(
+        o_lo + b * ls.b + s * ls.s + h * ls.h + 8 * j);
+    const uint4 c = *reinterpret_cast<const uint4*>(
+        dout + b * ds.b + s * ds.s + h * ds.h + 8 * j);
+    const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* pl = reinterpret_cast<const __nv_bfloat162*>(&l);
+    const __nv_bfloat162* pc = reinterpret_cast<const __nv_bfloat162*>(&c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 x = __bfloat1622float2(pa[e]);
+      const float2 y = __bfloat1622float2(pl[e]);
+      const float2 z = __bfloat1622float2(pc[e]);
+      acc += (x.x + y.x) * z.x + (x.y + y.y) * z.y;
+    }
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+  for (int off = LP / 2; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) dlt[bh * lse_row + s] = acc;
+  if (j == 0 && row < rows) dlt[bh * lse_row + s] = acc;
 }
 
 // Which (query, key) pairs a tile keeps: query i and key j at positions i
@@ -792,7 +832,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
                                 int window, float scale_log2,
                                 float scale) {
   using L = BwdSmem<HDP>;
-  constexpr int CB = L::CB, SUB = L::SUB;
+  constexpr int CB = L::CB, SUB = L::SUB, OC = L::OC, STAGES = L::STAGES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -800,23 +840,23 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   const uint32_t fixed = base + L::BARS;
   const auto full = [&](int s) { return base + L::BARS + 8 * (1 + s); };
   const auto empty = [&](int s) {
-    return base + L::BARS + 8 * (1 + BWD_STAGES + s);
+    return base + L::BARS + 8 * (1 + STAGES + s);
   };
   const PairMask mask{S, Skv, causal, window};
 
   const int b = blockIdx.x / H, h = blockIdx.x % H, G = H / K, kh = h / G;
-  const int k0 = blockIdx.y * BWD_BLOCK;
+  const int k0 = blockIdx.y * L::BLOCK;
   // the query tiles that see a key of this block
   const int q_begin = causal ? k0 : 0;
-  const int q_end = window ? min(S, k0 + BWD_BLOCK - 1 + window) : S;
+  const int q_end = window ? min(S, k0 + L::BLOCK - 1 + window) : S;
   const int n_qt =
       q_end > q_begin ? (q_end - q_begin + BWD_ROWS - 1) / BWD_ROWS : 0;
 
   // the producer (thread 0): Q, dO, LSE and D of query tile j into stage
-  // j % BWD_STAGES once both consumers have released its last tile
+  // j % STAGES once both consumers have released its last tile
   const auto produce = [&](int j) {
-    const int s = j % BWD_STAGES, q0 = q_begin + j * BWD_ROWS;
-    hopper::mbar_wait(empty(s), ((j / BWD_STAGES) & 1) ^ 1);
+    const int s = j % STAGES, q0 = q_begin + j * BWD_ROWS;
+    hopper::mbar_wait(empty(s), ((j / STAGES) & 1) ^ 1);
     hopper::mbar_expect_tx(full(s), L::STAGE + 2 * BWD_ROWS * 4);
     const uint32_t st = base + L::FIXED + s * L::STAGE;
     tma_tile<CB>(st, &map_q, full(s), h, q0, b);
@@ -828,34 +868,36 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   };
   if (threadIdx.x == 0) {
     hopper::mbar_init(fixed, 1);
-    for (int s = 0; s < BWD_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       hopper::mbar_init(full(s), 1);
       hopper::mbar_init(empty(s), 2);
     }
     hopper::mbar_fence_init();
     hopper::mbar_expect_tx(fixed, L::FIXED);
-    for (int w = 0; w < 2; ++w) {
+    for (int w = 0; w < L::NB; ++w) {
       tma_tile<CB>(base + w * CB * SUB, &map_k, fixed, kh, k0 + w * BWD_ROWS,
                    b);
-      tma_tile<CB>(base + (2 + w) * CB * SUB, &map_v, fixed, kh,
+      tma_tile<CB>(base + (L::NB + w) * CB * SUB, &map_v, fixed, kh,
                    k0 + w * BWD_ROWS, b);
     }
-    for (int j = 0; j < BWD_AHEAD && j < n_qt; ++j) produce(j);
+    for (int j = 0; j < L::AHEAD && j < n_qt; ++j) produce(j);
   }
   __syncthreads();
 
-  // ---- the two consumer warpgroups: 64 keys each
+  // ---- the two consumer warpgroups: 64 keys each (SPLIT: the same 64
+  // keys, the output dims split)
   const int wg = threadIdx.x / BWD_WG;
   const int tid = threadIdx.x % BWD_WG, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int wk0 = k0 + wg * BWD_ROWS;
+  const int wk0 = k0 + L::tile(wg) * BWD_ROWS;
   const int key0 = wk0 + warp * 16 + g, key1 = key0 + 8;  // a thread's rows
-  const uint32_t kt = base + wg * CB * SUB;
-  const uint32_t vt = base + (2 + wg) * CB * SUB;
+  const uint32_t kt = base + L::tile(wg) * CB * SUB;
+  const uint32_t vt = base + (L::NB + L::tile(wg)) * CB * SUB;
+  const int c0 = L::out0(wg);  // this warpgroup's first output subtile
 
-  float dka[CB][32], dva[CB][32];
+  float dka[OC][32], dva[OC][32];
 #pragma unroll
-  for (int c = 0; c < CB; ++c) {
+  for (int c = 0; c < OC; ++c) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) dka[c][i] = dva[c][i] = 0.f;
   }
@@ -864,12 +906,12 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
     // no product in flight: warp 0 (its lane 0) keeps the ring BWD_AHEAD
     // tiles ahead, and stays converged for the products
     if (threadIdx.x < 32) {
-      if (threadIdx.x == 0 && it + BWD_AHEAD < n_qt)
-        produce(it + BWD_AHEAD);
+      if (threadIdx.x == 0 && it + L::AHEAD < n_qt)
+        produce(it + L::AHEAD);
       __syncwarp();
     }
-    const int s = it % BWD_STAGES, q0 = q_begin + it * BWD_ROWS;
-    hopper::mbar_wait(full(s), (it / BWD_STAGES) & 1);
+    const int s = it % STAGES, q0 = q_begin + it * BWD_ROWS;
+    hopper::mbar_wait(full(s), (it / STAGES) & 1);
     const uint32_t qt = base + L::FIXED + s * L::STAGE;
     const uint32_t dt = qt + CB * SUB;
     const float* ls = reinterpret_cast<const float*>(
@@ -892,7 +934,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
     uint32_t pa[1][4][4], da[1][4][4];
     to_a(sc, pa);
     hopper::wg_fence();
-    mma_cols<HDP>(dva, pa, dt);  // dV += P^T dO
+    mma_cols<64 * OC>(dva, pa, dt + c0 * SUB);  // dV += P^T dO
     hopper::wg_commit();
     hopper::wg_wait<1>();  // dP^T is in; dV runs on under dS
     hopper::fence_regs(dp);
@@ -902,11 +944,11 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
       ds_cols<false>(dp, sc, ls + BWD_ROWS, q0, key0, t, mask);
     to_a(dp, da);
     hopper::wg_fence();
-    mma_cols<HDP>(dka, da, qt);  // dK += dS^T Q
+    mma_cols<64 * OC>(dka, da, qt + c0 * SUB);  // dK += dS^T Q
     hopper::wg_commit();
     hopper::wg_wait<0>();
 #pragma unroll
-    for (int c = 0; c < CB; ++c) {
+    for (int c = 0; c < OC; ++c) {
       hopper::fence_regs(dka[c]);
       hopper::fence_regs(dva[c]);
     }
@@ -917,10 +959,10 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   // bf16 dK (scaled) and dV where the group is one head, else this head's
   // f32 partials
 #pragma unroll
-  for (int c = 0; c < CB; ++c) {
+  for (int c = 0; c < OC; ++c) {
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      const int d = 64 * c + 8 * n + 2 * t;
+      const int d = 64 * (c0 + c) + 8 * n + 2 * t;
       if (d >= hd) continue;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
@@ -958,32 +1000,32 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
                               int causal, int window, float scale_log2,
                               float scale) {
   using L = BwdSmem<HDP>;
-  constexpr int CB = L::CB, SUB = L::SUB;
+  constexpr int CB = L::CB, SUB = L::SUB, OC = L::OC, STAGES = L::STAGES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   const uint32_t fixed = base + L::BARS;
   const auto full = [&](int s) { return base + L::BARS + 8 * (1 + s); };
   const auto empty = [&](int s) {
-    return base + L::BARS + 8 * (1 + BWD_STAGES + s);
+    return base + L::BARS + 8 * (1 + STAGES + s);
   };
   const PairMask mask{S, Skv, causal, window};
 
   const int b = blockIdx.x / H, h = blockIdx.x % H, kh = h / (H / K);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BWD_BLOCK;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * L::BLOCK;
   // keys past the block's last row are all masked (causal), keys at or
   // before its first row minus the window too
-  const int kv_end = causal ? min(Skv, q0 + BWD_BLOCK) : Skv;
+  const int kv_end = causal ? min(Skv, q0 + L::BLOCK) : Skv;
   const int kv_start =
       window ? max(0, q0 - window + 1) / BWD_ROWS * BWD_ROWS : 0;
   const int n_kt =
       kv_end > kv_start ? (kv_end - kv_start + BWD_ROWS - 1) / BWD_ROWS : 0;
 
   // the producer (thread 0): K and V of key tile j into stage
-  // j % BWD_STAGES once both consumers have released its last tile
+  // j % STAGES once both consumers have released its last tile
   const auto produce = [&](int j) {
-    const int s = j % BWD_STAGES, t0 = kv_start + j * BWD_ROWS;
-    hopper::mbar_wait(empty(s), ((j / BWD_STAGES) & 1) ^ 1);
+    const int s = j % STAGES, t0 = kv_start + j * BWD_ROWS;
+    hopper::mbar_wait(empty(s), ((j / STAGES) & 1) ^ 1);
     hopper::mbar_expect_tx(full(s), L::STAGE);
     const uint32_t st = base + L::FIXED + s * L::STAGE;
     tma_tile<CB>(st, &map_k, full(s), kh, t0, b);
@@ -991,39 +1033,41 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   };
   if (threadIdx.x == 0) {
     hopper::mbar_init(fixed, 1);
-    for (int s = 0; s < BWD_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       hopper::mbar_init(full(s), 1);
       hopper::mbar_init(empty(s), 2);
     }
     hopper::mbar_fence_init();
     hopper::mbar_expect_tx(fixed, L::FIXED);
-    for (int w = 0; w < 2; ++w) {
+    for (int w = 0; w < L::NB; ++w) {
       tma_tile<CB>(base + w * CB * SUB, &map_q, fixed, h, q0 + w * BWD_ROWS,
                    b);
-      tma_tile<CB>(base + (2 + w) * CB * SUB, &map_do, fixed, h,
+      tma_tile<CB>(base + (L::NB + w) * CB * SUB, &map_do, fixed, h,
                    q0 + w * BWD_ROWS, b);
     }
-    for (int j = 0; j < BWD_AHEAD && j < n_kt; ++j) produce(j);
+    for (int j = 0; j < L::AHEAD && j < n_kt; ++j) produce(j);
   }
   __syncthreads();
 
-  // ---- the two consumer warpgroups: 64 query rows each
+  // ---- the two consumer warpgroups: 64 query rows each (SPLIT: the same
+  // 64 rows, the output dims split)
   const int wg = threadIdx.x / BWD_WG;
   const int tid = threadIdx.x % BWD_WG, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int wq0 = q0 + wg * BWD_ROWS;
+  const int wq0 = q0 + L::tile(wg) * BWD_ROWS;
   const int r0 = wq0 + warp * 16 + g, r1 = r0 + 8;  // a thread's rows
-  const uint32_t qt = base + wg * CB * SUB;
-  const uint32_t dt = base + (2 + wg) * CB * SUB;
+  const uint32_t qt = base + L::tile(wg) * CB * SUB;
+  const uint32_t dt = base + (L::NB + L::tile(wg)) * CB * SUB;
+  const int c0 = L::out0(wg);  // this warpgroup's first output subtile
   const float* lb = lse + ((long long)b * H + h) * lse_row;
   const float* db = dlt + ((long long)b * H + h) * lse_row;
   const float lr[2] = {r0 < S ? lb[r0] * mma_tile::LOG2E : 0.f,
                        r1 < S ? lb[r1] * mma_tile::LOG2E : 0.f};
   const float dr[2] = {r0 < S ? db[r0] : 0.f, r1 < S ? db[r1] : 0.f};
 
-  float dqa[CB][32];
+  float dqa[OC][32];
 #pragma unroll
-  for (int c = 0; c < CB; ++c) {
+  for (int c = 0; c < OC; ++c) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) dqa[c][i] = 0.f;
   }
@@ -1032,12 +1076,12 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
     // no product in flight: warp 0 (its lane 0) keeps the ring BWD_AHEAD
     // tiles ahead, and stays converged for the products
     if (threadIdx.x < 32) {
-      if (threadIdx.x == 0 && it + BWD_AHEAD < n_kt)
-        produce(it + BWD_AHEAD);
+      if (threadIdx.x == 0 && it + L::AHEAD < n_kt)
+        produce(it + L::AHEAD);
       __syncwarp();
     }
-    const int s = it % BWD_STAGES, t0 = kv_start + it * BWD_ROWS;
-    hopper::mbar_wait(full(s), (it / BWD_STAGES) & 1);
+    const int s = it % STAGES, t0 = kv_start + it * BWD_ROWS;
+    hopper::mbar_wait(full(s), (it / STAGES) & 1);
     const uint32_t kst = base + L::FIXED + s * L::STAGE;
     const uint32_t vst = kst + CB * SUB;
     const bool edge = (causal && t0 + BWD_ROWS - 1 > wq0) ||
@@ -1064,21 +1108,21 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
     uint32_t da[2][4][4];  // dS as hi + lo
     to_a(dp, da);
     hopper::wg_fence();
-    mma_cols<HDP>(dqa, da, kst);  // dQ += dS K
+    mma_cols<64 * OC>(dqa, da, kst + c0 * SUB);  // dQ += dS K
     hopper::wg_commit();
     hopper::wg_wait<0>();
 #pragma unroll
-    for (int c = 0; c < CB; ++c) hopper::fence_regs(dqa[c]);
+    for (int c = 0; c < OC; ++c) hopper::fence_regs(dqa[c]);
     wg_sync(wg);  // every warp is past this stage's wait
     if (tid == 0) hopper::mbar_arrive(empty(s));
   }
 
   bf16* qb = dq + b * dqs.b + h * dqs.h;
 #pragma unroll
-  for (int c = 0; c < CB; ++c) {
+  for (int c = 0; c < OC; ++c) {
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      const int d = 64 * c + 8 * n + 2 * t;
+      const int d = 64 * (c0 + c) + 8 * n + 2 * t;
       if (d >= hd) continue;
       if (r0 < S)
         *reinterpret_cast<__nv_bfloat162*>(qb + r0 * dqs.s + d) =
@@ -1161,7 +1205,8 @@ int launch_dkdv(const CUtensorMap (&m)[4], const float* lse,
   constexpr int smem = BwdSmem<HDP>::BYTES;
   const int e = allow_smem(flash_bwd_dkdv_wgmma_kernel<HDP>, smem);
   if (e) return e;
-  const dim3 grid(B * H, (Skv + BWD_BLOCK - 1) / BWD_BLOCK);
+  constexpr int rows = BwdSmem<HDP>::BLOCK;
+  const dim3 grid(B * H, (Skv + rows - 1) / rows);
   flash_bwd_dkdv_wgmma_kernel<HDP><<<grid, BWD_THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], lse, dlt, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), dk_part, dv_part, S, Skv, H, K, hd, dks, dvs,
@@ -1177,22 +1222,26 @@ int launch_dq(const CUtensorMap (&m)[4], const float* lse, const float* dlt,
   constexpr int smem = BwdSmem<HDP>::BYTES;
   const int e = allow_smem(flash_bwd_dq_wgmma_kernel<HDP>, smem);
   if (e) return e;
-  const dim3 grid(B * H, (S + BWD_BLOCK - 1) / BWD_BLOCK);
+  constexpr int rows = BwdSmem<HDP>::BLOCK;
+  const dim3 grid(B * H, (S + rows - 1) / rows);
   flash_bwd_dq_wgmma_kernel<HDP><<<grid, BWD_THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], lse, dlt, static_cast<bf16*>(dq), S, Skv, H,
       K, hd, dqs, lse_row, causal, window, scale * mma_tile::LOG2E, scale);
   return (int)cudaGetLastError();
 }
 
-// the training entries' head dims, rounded up: 32, 64 or 128 for the LSE
-// forward (0: refused)
+// the training entries' head dims, rounded up: 32, 64, 128 or 256 for the
+// LSE forward (0: refused)
 int bwd_hdp(int hd) {
-  return hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 0;
+  return hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : hd <= 256 ? 256
+                                                                      : 0;
 }
 
-// the backward entries' head dims, rounded up to whole 64-dim subtiles: 64
-// or 128 (0: refused)
-int wgmma_hdp(int hd) { return hd <= 64 ? 64 : hd <= 128 ? 128 : 0; }
+// the backward entries' head dims, rounded up to whole 64-dim subtiles: 64,
+// 128 or 256 (0: refused)
+int wgmma_hdp(int hd) {
+  return hd <= 64 ? 64 : hd <= 128 ? 128 : hd <= 256 ? 256 : 0;
+}
 
 
 // 16-byte rows: the pointer and every stride a multiple of 8 elements
@@ -1243,7 +1292,7 @@ int flash_attention_launch(int dtype, int B, int S, int Skv, int H, int K,
 }
 
 
-// The training forward: flash_attention_launch's bf16 path (hd <= 128),
+// The training forward: flash_attention_launch's bf16 path (hd <= 256),
 // also writing each query row's log-sum-exp, f32, at lse[(b * H + h) *
 // lse_row + row] (lse_row >= S, a multiple of 4: the backward reads the
 // rows in 16-byte groups), and the output's low halves o_lo, bf16 [B, S,
@@ -1276,39 +1325,63 @@ int flash_attention_lse_launch(int B, int S, int Skv, int H, int K, int hd,
     case 64:
       return launch_mma_lse<64>(q, k, v, o, B, S, Skv, H, K, hd, qs, ks, vs,
                                 os, causal, window, scale, l, lse_row, st);
-    default:
+    case 128:
       return launch_mma_lse<128>(q, k, v, o, B, S, Skv, H, K, hd, qs, ks,
+                                 vs, os, causal, window, scale, l, lse_row,
+                                 st);
+    default:
+      return launch_mma_lse<256>(q, k, v, o, B, S, Skv, H, K, hd, qs, ks,
                                  vs, os, causal, window, scale, l, lse_row,
                                  st);
   }
 }
 
 // D = rowsum(dO o (O + O_lo)), f32, at dlt[(b * H + h) * lse_row + s];
-// o, its low halves o_lo and dout [B, S, H, hd] bf16 with 16-byte rows.
+// o, its low halves o_lo and dout [B, S, H, hd] bf16 with 16-byte rows,
+// hd a multiple of 8 up to 256.
 int flash_bwd_dot_launch(int B, int S, int H, int hd, const void* o,
                          long long osb, long long oss, long long osh,
                          const void* o_lo, long long lsb, long long lss,
                          long long lsh, const void* dout, long long dsb,
                          long long dss, long long dsh, void* dlt,
                          long long lse_row, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || hd <= 0 || hd % 8 != 0 || lse_row < S ||
-      !rows_aligned(o, osb, oss, osh) || !rows_aligned(o_lo, lsb, lss, lsh) ||
-      !rows_aligned(dout, dsb, dss, dsh))
+  if (B <= 0 || S <= 0 || H <= 0 || hd <= 0 || hd % 8 != 0 || hd > 256 ||
+      lse_row < S || !rows_aligned(o, osb, oss, osh) ||
+      !rows_aligned(o_lo, lsb, lss, lsh) || !rows_aligned(dout, dsb, dss, dsh))
     return (int)cudaErrorInvalidValue;
   const long long rows = (long long)B * H * S;
-  const long long blocks = (rows + MMA_WARPS - 1) / MMA_WARPS;
+  const int lanes = hd / 8;  // lanes a row, rounded up to a power of two
+  const int lp = lanes <= 1 ? 1 : lanes <= 2 ? 2 : lanes <= 4 ? 4
+               : lanes <= 8 ? 8 : lanes <= 16 ? 16 : lanes <= 32 ? 32 : 0;
+  if (lp == 0) return (int)cudaErrorInvalidValue;
+  const long long per_block = (long long)MMA_WARPS * (32 / lp);
+  const long long blocks = (rows + per_block - 1) / per_block;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  flash_bwd_dot_kernel<<<(unsigned)blocks, MMA_THREADS, 0,
-                         (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(o_lo),
-      static_cast<const bf16*>(dout), static_cast<float*>(dlt), S, H, hd,
-      Strides{osb, oss, osh}, Strides{lsb, lss, lsh}, Strides{dsb, dss, dsh},
-      lse_row, rows);
+  const bf16* op = static_cast<const bf16*>(o);
+  const bf16* lo = static_cast<const bf16*>(o_lo);
+  const bf16* dp = static_cast<const bf16*>(dout);
+  float* dl = static_cast<float*>(dlt);
+  const Strides os{osb, oss, osh}, ls{lsb, lss, lsh}, ds{dsb, dss, dsh};
+  const cudaStream_t st = (cudaStream_t)stream;
+#define FLASH_DOT_CASE(n)                                                    \
+  case n:                                                                    \
+    flash_bwd_dot_kernel<n><<<(unsigned)blocks, MMA_THREADS, 0, st>>>(       \
+        op, lo, dp, dl, S, H, hd, os, ls, ds, lse_row, rows);                \
+    break;
+  switch (lp) {
+    FLASH_DOT_CASE(1)
+    FLASH_DOT_CASE(2)
+    FLASH_DOT_CASE(4)
+    FLASH_DOT_CASE(8)
+    FLASH_DOT_CASE(16)
+    FLASH_DOT_CASE(32)
+  }
+#undef FLASH_DOT_CASE
   return (int)cudaGetLastError();
 }
 
 // dK, dV [B, Skv, K, hd] bf16 from q [B, S, H, hd], k / v [B, Skv, K, hd],
-// dout [B, S, H, hd] (bf16, 16-byte rows, hd <= 128) and the forward's
+// dout [B, S, H, hd] (bf16, 16-byte rows, hd <= 256) and the forward's
 // LSE and D rows (f32, row stride lse_row, a multiple of 64 >= S).  Where
 // H > K the entry writes each query head's f32 sums (dK unscaled) into
 // dk_part / dv_part ([B, Skv, H, hd] contiguous, 16-byte aligned) instead,
@@ -1328,7 +1401,7 @@ int flash_bwd_dkdv_launch(int B, int S, int Skv, int H, int K, int hd,
   const bool parts = H != K;
   if (B <= 0 || S <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || hd <= 0 ||
       hd % 8 != 0 || wgmma_hdp(hd) == 0 || (long long)B * H > 2147483647LL ||
-      (Skv + BWD_BLOCK - 1) / BWD_BLOCK > 65535 || lse_row < S ||
+      (Skv + BWD_ROWS - 1) / BWD_ROWS > 65535 || lse_row < S ||
       lse_row % 64 != 0 || !rows_aligned(q, qsb, qss, qsh) ||
       !rows_aligned(k, ksb, kss, ksh) || !rows_aligned(v, vsb, vss, vsh) ||
       !rows_aligned(dout, dsb, dss, dsh) ||
@@ -1352,7 +1425,10 @@ int flash_bwd_dkdv_launch(int B, int S, int Skv, int H, int K, int hd,
   if (wgmma_hdp(hd) == 64)
     return launch_dkdv<64>(m, l, d, dk, dv, pk, pv, B, S, Skv, H, K, hd, dks,
                            dvs, lse_row, causal, window, scale, st);
-  return launch_dkdv<128>(m, l, d, dk, dv, pk, pv, B, S, Skv, H, K, hd, dks,
+  if (wgmma_hdp(hd) == 128)
+    return launch_dkdv<128>(m, l, d, dk, dv, pk, pv, B, S, Skv, H, K, hd,
+                            dks, dvs, lse_row, causal, window, scale, st);
+  return launch_dkdv<256>(m, l, d, dk, dv, pk, pv, B, S, Skv, H, K, hd, dks,
                           dvs, lse_row, causal, window, scale, st);
 }
 
@@ -1393,7 +1469,7 @@ int flash_bwd_dq_launch(int B, int S, int Skv, int H, int K, int hd,
                         int window, float scale, void* stream) {
   if (B <= 0 || S <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || hd <= 0 ||
       hd % 8 != 0 || wgmma_hdp(hd) == 0 || (long long)B * H > 2147483647LL ||
-      (S + BWD_BLOCK - 1) / BWD_BLOCK > 65535 || lse_row < S ||
+      (S + BWD_ROWS - 1) / BWD_ROWS > 65535 || lse_row < S ||
       !rows_aligned(q, qsb, qss, qsh) || !rows_aligned(k, ksb, kss, ksh) ||
       !rows_aligned(v, vsb, vss, vsh) ||
       !rows_aligned(dout, dsb, dss, dsh) ||
@@ -1410,7 +1486,10 @@ int flash_bwd_dq_launch(int B, int S, int Skv, int H, int K, int hd,
   if (wgmma_hdp(hd) == 64)
     return launch_dq<64>(m, l, d, dq, B, S, Skv, H, K, hd, dqs, lse_row,
                          causal, window, scale, st);
-  return launch_dq<128>(m, l, d, dq, B, S, Skv, H, K, hd, dqs, lse_row,
+  if (wgmma_hdp(hd) == 128)
+    return launch_dq<128>(m, l, d, dq, B, S, Skv, H, K, hd, dqs, lse_row,
+                          causal, window, scale, st);
+  return launch_dq<256>(m, l, d, dq, B, S, Skv, H, K, hd, dqs, lse_row,
                         causal, window, scale, st);
 }
 

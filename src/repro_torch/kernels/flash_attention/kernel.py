@@ -22,7 +22,8 @@ launches ``flash_attention_bwd_sum``, which adds the group's per-head
 dK / dV partials (no atomics, every sum in a fixed order:
 deterministic).  The dK / dV and dQ entries run on Hopper's ``wgmma``
 fed by TMA (``kernels/include/wgmma_tma.cuh``); dS enters the dQ
-product as two bf16 operands (hi + lo).  No Pallas kernel of
+product as two bf16 operands (hi + lo).  D's entry gives each query row
+``hd / 8`` lanes (16-byte loads) and sums them by a fixed butterfly.  No Pallas kernel of
 ``repro`` has a backward; these stand in for XLA's differentiation of
 ``repro``'s ``layers.blocked_attention``.
 """
@@ -52,8 +53,10 @@ MAX_HD = 256
 #: library's symbols and in a profiler's kernel names (template arguments
 #: ``<HDP, LSE>``: ``LSE`` false for serving, true for training)
 MMA_ENTRY = "flash_attention_mma_kernel"
-#: largest head dim of the training entries (LSE forward and backward)
-BWD_MAX_HD = 128
+#: largest head dim of the training entries (LSE forward and backward;
+#: above 128 the dK / dV and dQ entries' two warpgroups split the output
+#: dims of one 64-row tile, and the LSE forward the grid's z as serving)
+BWD_MAX_HD = 256
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -252,9 +255,9 @@ def _bwd_args(q, k, v, do, lse, dlt):
 def flash_attention_bwd_dkdv(q, k, v, do, lse, dlt, *, causal: bool,
                              window: int):
     """``(dk, dv, summed)``: dK and dV [B, Skv, K, hd] bf16 from the dK /
-    dV entry, a block per (batch, query head, 128 keys).  Where a KV head
-    serves several query heads (H > K) the entry writes each head's f32
-    partials and ``flash_attention_bwd_sum`` adds them up by group;
+    dV entry, a block per (batch, query head, 128 keys; 64 above hd 128).
+    Where a KV head serves several query heads (H > K) the entry writes
+    each head's f32 partials and ``flash_attention_bwd_sum`` adds them up by group;
     ``summed`` says whether that second launch was made."""
     parts = flash_attention_bwd_dkdv_entry(q, k, v, do, lse, dlt,
                                            causal=causal, window=window)
@@ -319,8 +322,8 @@ def flash_attention_bwd_sum(dk_part: torch.Tensor, dv_part: torch.Tensor,
 def flash_attention_bwd_dq(q, k, v, do, lse, dlt, *, causal: bool,
                            window: int) -> torch.Tensor:
     """``dq`` [B, S, H, hd] bf16: the dQ entry, a block per (batch, head,
-    128 query rows) over the key tiles, dS entering ``dQ += dS K`` as
-    bf16 hi + lo."""
+    128 query rows; 64 above hd 128) over the key tiles, dS entering ``dQ
+    += dS K`` as bf16 hi + lo."""
     B, S, Skv, H, K, hd = _check_train("flash_attention_bwd_dq", q, k, v)
     args = _bwd_args(q, k, v, do, lse, dlt)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)

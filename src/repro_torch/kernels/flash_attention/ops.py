@@ -15,7 +15,7 @@ forward kernel's LSE entry (``kernel.flash_attention_lse``, which also
 writes the output's low halves, so that the backward's D comes from the
 f32 output) and its backward the three backward entries, and where a
 KV head serves several query heads the sum of their partials (bf16, hd
-<= 128; anything else raises rather than dropping the gradient).
+<= 256; anything else raises rather than dropping the gradient).
 Otherwise the serving forward launches as before.  Counters:
 ``launches`` (forward, either entry; a remat recomputation counts
 again), ``bwd_dot_launches``, ``bwd_dkdv_launches``, ``bwd_sum_launches``,

@@ -8,6 +8,12 @@ tiles read), ``nsp`` (f32 ``[d]``) and ``h0`` (f32 ``[B, d]``) and
 returns new ``h_seq [B, S, d]`` and ``h_S [B, d]`` tensors.  Built on
 first use (``repro_torch._build``), launched through ``ctypes`` on
 PyTorch's current stream.
+
+Training: ``rglru_scan_bwd`` launches the backward from the forward's
+saved ``h_seq``: the reverse recurrence (``rglru_scan_bwd_chain_kernel``,
+the forward's block and TMA ring walked from the last step back), the
+fused gates' gradients (``rglru_scan_bwd_gates_kernel``) and the
+fixed-order sum of ``dnsp``'s block partials.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ import torch
 
 from repro_torch import _build
 
-__all__ = ["ENTRY", "library", "rglru_scan"]
+__all__ = ["ENTRY", "library", "rglru_scan", "rglru_scan_bwd"]
 
 #: the kernel's name, as it appears in the built library's symbols and in
 #: a profiler's kernel names
@@ -40,6 +46,10 @@ def library() -> ctypes.CDLL:
     lib.rglru_scan_smem_bytes.argtypes = []
     lib.rglru_scan_launch.restype = _I
     lib.rglru_scan_launch.argtypes = [_I] * 3 + [_P] * 8
+    lib.rglru_scan_bwd_scratch.restype = ctypes.c_longlong
+    lib.rglru_scan_bwd_scratch.argtypes = [_I] * 3
+    lib.rglru_scan_bwd_launch.restype = _I
+    lib.rglru_scan_bwd_launch.argtypes = [_I] * 3 + [_P] * 15
     return lib
 
 
@@ -88,3 +98,58 @@ def rglru_scan(r_pre: torch.Tensor, i_pre: torch.Tensor, u: torch.Tensor,
         raise RuntimeError("rglru_scan launch failed: "
                            + lib.rglru_scan_error_string(err).decode())
     return h_seq, h_n
+
+
+def rglru_scan_bwd(r_pre: torch.Tensor, i_pre: torch.Tensor,
+                   u: torch.Tensor, nsp: torch.Tensor, h0: torch.Tensor,
+                   h_seq: torch.Tensor, dh_seq: torch.Tensor,
+                   dh_s: torch.Tensor):
+    """Launch the backward's three kernels (asynchronous; a refused launch
+    raises): ``rglru_scan``'s inputs, its ``h_seq`` and the cotangents
+    ``dh_seq`` [B, S, d], ``dh_s`` [B, d] (contiguous f32) -> ``(dr_pre,
+    di_pre, du [B, S, d] bf16, dnsp [d], dh0 [B, d] f32)``."""
+    if r_pre.dim() != 3:
+        raise ValueError(f"rglru_scan_bwd: r_pre must be [B, S, d] (got "
+                         f"{tuple(r_pre.shape)})")
+    dev = r_pre.device
+    B, S, d = r_pre.shape
+    f32, bf = torch.float32, torch.bfloat16
+    for name, t, shape, dtype in (
+            ("r_pre", r_pre, (B, S, d), bf), ("i_pre", i_pre, (B, S, d), bf),
+            ("u", u, (B, S, d), bf), ("nsp", nsp, (d,), f32),
+            ("h0", h0, (B, d), f32), ("h_seq", h_seq, (B, S, d), f32),
+            ("dh_seq", dh_seq, (B, S, d), f32), ("dh_s", dh_s, (B, d), f32)):
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"rglru_scan_bwd: {name} must be a contiguous {dtype} "
+                f"{shape} tensor on {dev} (got {tuple(t.shape)} {t.dtype} "
+                f"on {t.device})")
+    if d % 8:
+        raise ValueError(f"rglru_scan_bwd: d = {d} is not a multiple of 8 "
+                         f"(TMA reads r_pre and dh_seq)")
+    for name, t in (("r_pre", r_pre), ("dh_seq", dh_seq)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"rglru_scan_bwd: {name} does not start "
+                             f"16-byte aligned (TMA reads it)")
+    _build.require_cuda(dev, "rglru_scan_bwd")
+    dr = torch.empty((B, S, d), dtype=bf, device=dev)
+    di = torch.empty_like(dr)
+    du = torch.empty_like(dr)
+    dnsp = torch.empty((d,), dtype=f32, device=dev)
+    dh0 = torch.empty((B, d), dtype=f32, device=dev)
+    lib = library()
+    scratch = torch.empty((lib.rglru_scan_bwd_scratch(B, S, d),), dtype=f32,
+                          device=dev)
+    err = _build.launch(lib.rglru_scan_bwd_launch, dev, B, S, d,
+                        r_pre.data_ptr(), i_pre.data_ptr(), u.data_ptr(),
+                        nsp.data_ptr(), h0.data_ptr(), h_seq.data_ptr(),
+                        dh_seq.data_ptr(), dh_s.data_ptr(),
+                        scratch.data_ptr(),
+                        dr.data_ptr(),
+                        di.data_ptr(), du.data_ptr(), dnsp.data_ptr(),
+                        dh0.data_ptr())
+    if err != 0:
+        raise RuntimeError("rglru_scan_bwd launch failed: "
+                           + lib.rglru_scan_error_string(err).decode())
+    return dr, di, du, dnsp, dh0

@@ -3,13 +3,14 @@
 CPU tensors run the plain version (``ref.rglru_gated_scan_ref``), CUDA
 tensors launch the CUDA kernel (``kernel.rglru_scan``), and a failed
 build or launch raises; nothing falls back from one to the other.  On CUDA
-tensors a call that would need a gradient (grad mode on, an input that
-requires grad) raises ``NotImplementedError``: the kernel has no
-backward yet, and its output would carry none; on the CPU autograd
-differentiates the plain version.
+tensors a call that needs a gradient (grad mode on, an input that
+requires grad) goes through ``RglruScanFn``, whose backward launches the
+backward kernel (``kernel.rglru_scan_bwd``) on the forward's saved
+``h_seq``; on the CPU autograd differentiates the plain version.
 ``repro`` computes the recurrence as an XLA scan in chunks of 256 steps,
 padding the last with ``a = 1, g = 0``, which leaves ``h`` unchanged
-under an FMA: here the whole sequence is one call.
+under an FMA: here the whole sequence is one call.  Counters:
+``launches`` (the forward) and ``bwd_launches``.
 """
 
 from __future__ import annotations
@@ -18,10 +19,35 @@ import torch
 
 from repro_torch.kernels.rglru_scan import ref
 
-__all__ = ["rglru_scan", "launches"]
+__all__ = ["rglru_scan", "RglruScanFn", "launches", "bwd_launches"]
 
 #: CUDA launches of the rglru_scan kernel made through ``rglru_scan``
 launches = 0
+#: CUDA launches of the backward kernel
+bwd_launches = 0
+
+
+class RglruScanFn(torch.autograd.Function):
+    """The scan kernel with its backward kernel, on CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, r_pre, i_pre, u, nsp, h0):
+        global launches
+        from repro_torch.kernels.rglru_scan import kernel
+        h_seq, h_n = kernel.rglru_scan(r_pre, i_pre, u, nsp, h0)
+        launches += 1
+        ctx.save_for_backward(r_pre, i_pre, u, nsp, h0, h_seq)
+        return h_seq, h_n
+
+    @staticmethod
+    def backward(ctx, dh_seq, dh_n):
+        global bwd_launches
+        from repro_torch.kernels.rglru_scan import kernel
+        r_pre, i_pre, u, nsp, h0, h_seq = ctx.saved_tensors
+        out = kernel.rglru_scan_bwd(r_pre, i_pre, u, nsp, h0, h_seq,
+                                    dh_seq.contiguous(), dh_n.contiguous())
+        bwd_launches += 1
+        return out
 
 
 def rglru_scan(r_pre: torch.Tensor, i_pre: torch.Tensor, u: torch.Tensor,
@@ -39,11 +65,7 @@ def rglru_scan(r_pre: torch.Tensor, i_pre: torch.Tensor, u: torch.Tensor,
         raise ValueError(f"rglru_scan runs on CPU or CUDA, not {dev}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (r_pre, i_pre, u, nsp, h0)):
-        raise NotImplementedError(
-            "rglru_scan: the CUDA kernel has no backward kernel yet "
-            "(ROADMAP.md, Queue 1 item 3b: backward kernels for ssm_scan "
-            "and rglru_scan); a gradient through it cannot be taken on "
-            "the card")
+        return RglruScanFn.apply(r_pre, i_pre, u, nsp, h0)
     from repro_torch.kernels.rglru_scan import kernel
     out = kernel.rglru_scan(r_pre, i_pre, u, nsp, h0)
     launches += 1

@@ -16,7 +16,9 @@ f32 FMA on the CPU; ``fma_f32`` computes the correctly rounded result
 from f64 parts: the product of two f32 values is exact in f64, the sum
 is split into its f64 rounding ``s`` and the exact error ``e`` (Knuth's
 two-sum), and ``s`` rounds to f32 once, except where ``s`` lies exactly
-halfway between two f32 values and ``e`` decides the side.
+halfway between two f32 values and ``e`` decides the side.  Autograd
+differentiates it through the f64 parts (the fix-up of a halfway case,
+``nextafter``, carries no derivative).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 from repro_torch.models.layers import sigmoid
 
 __all__ = ["fma_f32", "gated", "gate_inputs", "rglru_scan_ref",
-           "rglru_gated_scan_ref"]
+           "rglru_gated_scan_ref", "rglru_gated_scan_bwd_ref", "dnsp_limit"]
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -39,14 +41,20 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     bb = s - p
     e = (p - (s - bb)) + (cd - bb)              # p + c == s + e exactly
     r = s.float()
-    rd = r.double()
-    above = rd > s
-    lo = torch.where(above, torch.nextafter(r, torch.full_like(r, -torch.inf)),
-                     r)
-    hi = torch.where(above, r,
-                     torch.nextafter(r, torch.full_like(r, torch.inf)))
-    tie = (lo.double() + hi.double()) * 0.5 == s
-    return torch.where(tie & (e != 0), torch.where(e > 0, hi, lo), r)
+    with torch.no_grad():  # the halfway fix-up has no derivative of its own
+        rd = r.double()
+        above = rd > s
+        lo = torch.where(above,
+                         torch.nextafter(r, torch.full_like(r, -torch.inf)),
+                         r)
+        hi = torch.where(above, r,
+                         torch.nextafter(r, torch.full_like(r, torch.inf)))
+        tie = (lo.double() + hi.double()) * 0.5 == s
+        fix = tie & (e != 0)
+        side = torch.where(e > 0, hi, lo)
+    # the gradient passes through r everywhere: a * b + c's derivative does
+    # not depend on how it rounds (``r - r.detach()`` adds an exact 0)
+    return torch.where(fix, side + (r - r.detach()), r)
 
 
 def gated(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -92,3 +100,73 @@ def rglru_gated_scan_ref(r_pre: torch.Tensor, i_pre: torch.Tensor,
     ``rglru_scan_ref``."""
     a, x = gate_inputs(r_pre, i_pre, u, nsp)
     return rglru_scan_ref(a, x, h0)
+
+
+def _chain(r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s):
+    """``(r, i, dq, dx, dh0)`` of ``rglru_gated_scan_bwd_ref``: the bf16
+    sigmoids, the f32 gradient ``dq`` of ``nsp r`` and ``dx`` of the gated
+    input [B, S, d], and ``dh0``."""
+    r = sigmoid(r_pre)
+    i = sigmoid(i_pre)
+    a = torch.exp(nsp * r.float())
+    x = (i * u).float()
+    one = torch.ones((), dtype=torch.float32, device=a.device)
+    m = fma_f32(-a, a, one)
+    v = torch.clamp_min(m, 1e-9)
+    fd = torch.sqrt(v.double())
+    f = fd.float()
+    h_prev = torch.cat([h0.float()[:, None], h_seq[:, :-1]], 1)
+
+    lam = torch.empty_like(h_seq)
+    carry = dh_s.float()
+    for t in range(h_seq.shape[1] - 1, -1, -1):
+        lam[:, t] = dh_seq[:, t] + carry
+        carry = lam[:, t] * a[:, t]
+    dah = lam * h_prev
+    dx = lam * f
+    df = lam * x
+    dm = torch.where(m >= 1e-9, df.double() / (2 * fd),
+                     torch.zeros((), dtype=torch.float64)).float()
+    dam = -(dm * a)
+    da = (dah + dam) + dam
+    return r, i, da * a, dx, carry
+
+
+def rglru_gated_scan_bwd_ref(r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s):
+    """The backward of ``rglru_gated_scan_ref`` as an explicit reverse
+    loop, in the order and dtypes autograd uses when it differentiates
+    it: from the inputs, the forward's ``h_seq`` [B, S, d] and the
+    cotangents ``dh_seq`` [B, S, d] and ``dh_s`` [B, d] (f32) ->
+    ``(dr_pre, di_pre, du)`` [B, S, d] bf16, ``dnsp`` [d] and ``dh0`` [B,
+    d] f32 (``du`` the gate's share of u's gradient alone).  Backwards in
+    time, ``lam_t = dh_seq_t + a_{t+1} lam_{t+1}`` (``lam_{S-1} =
+    dh_seq_{S-1} + dh_s``), each product rounded once; then, element-wise,
+    through the gate factor ``f = sqrt(max(1 - a a, 1e-9))`` (its root and
+    derivative in f64, as ``gated`` takes them; the derivative passes where
+    ``1 - a a >= 1e-9``, PyTorch's ``clamp_min`` convention: JAX's
+    ``maximum`` gives half at an exact tie), ``a = exp(nsp r)`` and the two
+    bf16 sigmoids (``layers.sigmoid``'s backward ``g (y (1 - y))``, each
+    op rounded to bf16).  ``da`` adds the recurrence's ``lam_t h_{t-1}``
+    and the two equal terms of ``1 - a a``'s factors in autograd's order;
+    ``dnsp`` sums ``dq r`` over batch rows and time as autograd's
+    broadcast reduction does."""
+    bf = torch.bfloat16
+    r, i, dq, dx, dh0 = _chain(r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s)
+    dnsp = (dq * r.float()).sum_to_size(nsp.shape)
+    dr = (dq * nsp).to(bf)
+    dxb = dx.to(bf)
+    di = dxb * u
+    du = dxb * i
+    return (dr * (r * (1 - r)), di * (i * (1 - i)), du, dnsp, dh0)
+
+
+def dnsp_limit(r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s):
+    """The limit [d] of ``|dnsp - dnsp_plain|`` for a ``dnsp`` whose sum
+    over the ``B S`` terms ``dq r`` of a channel is taken in another
+    order: two f32 sums of n terms each lie within ``n 2^-24 sum |term|``
+    of the exact sum, so within twice that of each other (plus the
+    smallest normal f32)."""
+    r, _, dq, _, _ = _chain(r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s)
+    t = dq * r.float()
+    n = t.shape[0] * t.shape[1]
+    return t.abs().sum((0, 1)) * (2 * n * 2.0 ** -24) + 2.0 ** -126

@@ -34,6 +34,44 @@
 // write nothing but take part in the shuffles.  Blocks are independent:
 // grid (ceil(D / (256 / NP)), B).
 //
+// Training.  ssm_scan_launch given hseq runs the same kernel and writes
+// every h_t ([B, T, D, N] f32, 4 B T D N more bytes), so that the backward
+// reads h_{t-1} instead of recomputing it: of the two ways, writing h costs
+// one [B, T, D, N] array more in the forward and none in the backward,
+// where recomputing it from the chunk's h0 (every U-th h kept in
+// registers, each segment replayed before it is reversed) reads decay and
+// dbu a second time, two arrays more.  Autograd keeps h for the backward
+// in place of dbu (the backward needs no dbu), so the peak memory is that
+// of the plain version's saved decay and dbu.
+//
+// The backward (ssm_scan_bwd_kernel), for one chunk, from the cotangents
+// dy [B, T, D] and dh_T [B, D, N], backwards in time:
+//
+//     lam_{T-1} = c_{T-1}[n] dy_{T-1}[d] + dh_T
+//     lam_t     = c_t[n] dy_t[d] + decay_{t+1} lam_{t+1}
+//     d dbu_t   = lam_t         d decay_t = lam_t h_{t-1}   (h_{-1} = h0)
+//     dh0       = decay_0 lam_0
+//     dc_t[n]   = sum_d dy_t[d] h_t[d, n]
+//
+// each product and sum one _rn operation, as autograd rounds them when it
+// differentiates the plain version (every sum there has two terms, so its
+// order does not matter): d decay, d dbu and dh0 equal the plain
+// version's bit for bit.  dc sums over all D channels, across blocks: a
+// block sums its CH channels for each (t, n) in a fixed order (the xor
+// butterfly over the channels of a warp, offsets NP, 2 NP, .., 16, then
+// the warps 0 .. 7 in turn) and writes the partial dc_part[b, block, t, n];
+// ssm_scan_dc_sum_kernel adds the blocks' partials in block order.  No
+// atomics: two runs give the same bits.  dc is held to the plain version
+// within 2 D 2^-24 sum_d |dy_t[d] h_t[d, n]| (ref.py::dc_limit), the
+// bound of two f32 sums of D terms taken in different orders.
+//
+// Its layout is the forward's (a thread per (b, d, n), the next U steps'
+// loads in flight), walking t from T - 1 down.  Bound: bytes.  It reads
+// decay and h_seq and writes d decay and d dbu, 4 B T D N f32, plus c, dy
+// and the partials: 4 (4 B T D N + B T N + B T D + 3 B D N + B T N D / CH)
+// bytes, 1.09 GB for falcon-mamba-7b's chunk B 2 x T 256 x D 8 192 x N 16,
+// 0.33 ms at 3.35 TB/s.
+//
 // Built by repro_torch/_build.py with nvcc for sm_90a, bound with ctypes.
 
 #include <cuda_runtime.h>
@@ -44,13 +82,15 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int U = 8;  // steps loaded ahead
 
-template <int NP>
+// SAVE: also write every h_t at hseq (training)
+template <int NP, bool SAVE>
 __global__ void __launch_bounds__(THREADS)
     ssm_scan_kernel(const float* __restrict__ decay,
                     const float* __restrict__ dbu,
                     const float* __restrict__ c,
                     const float* __restrict__ h0, float* __restrict__ hout,
-                    float* __restrict__ y, int T, int D, int N) {
+                    float* __restrict__ y, float* __restrict__ hseq, int T,
+                    int D, int N) {
   constexpr int CH = THREADS / NP;  // channels a block
   const int n = threadIdx.x % NP;
   const int d = blockIdx.x * CH + threadIdx.x / NP;
@@ -89,6 +129,9 @@ __global__ void __launch_bounds__(THREADS)
       const int t = t0 + u;
       if (t < T) {  // the same t on every lane: the shuffles stay whole
         h = __fadd_rn(__fmul_rn(dc[u], h), bc[u]);
+        if constexpr (SAVE) {
+          if (live) hseq[base + t * step] = h;
+        }
         float p = __fmul_rn(cc[u], h);
 #pragma unroll
         for (int off = NP / 2; off > 0; off >>= 1)
@@ -108,13 +151,151 @@ __global__ void __launch_bounds__(THREADS)
 
 template <int NP>
 int launch(const float* decay, const float* dbu, const float* c,
-           const float* h0, float* hout, float* y, int B, int T, int D, int N,
-           cudaStream_t stream) {
+           const float* h0, float* hout, float* y, float* hseq, int B, int T,
+           int D, int N, cudaStream_t stream) {
   constexpr int CH = THREADS / NP;
   const dim3 grid((D + CH - 1) / CH, B);
-  ssm_scan_kernel<NP><<<grid, THREADS, 0, stream>>>(decay, dbu, c, h0, hout,
-                                                    y, T, D, N);
+  if (hseq != nullptr)
+    ssm_scan_kernel<NP, true><<<grid, THREADS, 0, stream>>>(
+        decay, dbu, c, h0, hout, y, hseq, T, D, N);
+  else
+    ssm_scan_kernel<NP, false><<<grid, THREADS, 0, stream>>>(
+        decay, dbu, c, h0, hout, y, nullptr, T, D, N);
   return (int)cudaGetLastError();
+}
+
+int launch_np(const float* decay, const float* dbu, const float* c,
+              const float* h0, float* hout, float* y, float* hseq, int B,
+              int T, int D, int N, cudaStream_t st) {
+#define SSM_FWD_CASE(np)                                                    \
+  if (N <= np)                                                              \
+    return launch<np>(decay, dbu, c, h0, hout, y, hseq, B, T, D, N, st);
+  SSM_FWD_CASE(1)
+  SSM_FWD_CASE(2)
+  SSM_FWD_CASE(4)
+  SSM_FWD_CASE(8)
+  SSM_FWD_CASE(16)
+  SSM_FWD_CASE(32)
+#undef SSM_FWD_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward of one chunk (see the note at the top): a thread per
+// (b, d, n), t from T - 1 down, the next U steps' loads (decay_t, h_{t-1},
+// c_t[n], dy_t[d]) issued before the current U steps' arithmetic; dc's
+// block partials through shared memory once every U steps.
+template <int NP>
+__global__ void __launch_bounds__(THREADS)
+    ssm_scan_bwd_kernel(const float* __restrict__ decay,
+                        const float* __restrict__ hseq,
+                        const float* __restrict__ h0,
+                        const float* __restrict__ c,
+                        const float* __restrict__ dy,
+                        const float* __restrict__ dht,
+                        float* __restrict__ ddecay, float* __restrict__ ddbu,
+                        float* __restrict__ dh0,
+                        float* __restrict__ dc_part, int T, int D, int N) {
+  constexpr int CH = THREADS / NP;  // channels a block
+  constexpr int WARPS = THREADS / 32;
+  __shared__ float red[U][WARPS][NP];  // a group's warp sums of dc
+  const int n = threadIdx.x % NP, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int d = blockIdx.x * CH + threadIdx.x / NP;
+  const int b = blockIdx.y;
+  const bool live = d < D && n < N;
+
+  const long long step = (long long)D * N;
+  const long long base = (long long)b * T * step + (long long)d * N + n;
+  const float* cb = c + (long long)b * T * N + n;
+  const float* yb = dy + (long long)b * T * D + d;
+  const long long hidx = ((long long)b * D + d) * N + n;
+  float* part = dc_part + ((long long)b * gridDim.x + blockIdx.x) * T * N;
+
+  // step t's loads: decay_t, h_{t-1} (h0 at t = 0), c_t[n], dy_t[d]
+  float dc[U], hp[U], cc[U], gy[U];
+  const auto load = [&](int t, float& a, float& h, float& e, float& g) {
+    const bool in = live && t >= 0;
+    a = in ? decay[base + t * step] : 0.f;
+    h = in ? (t > 0 ? hseq[base + (t - 1) * step] : h0[hidx]) : 0.f;
+    e = in ? cb[(long long)t * N] : 0.f;
+    g = in ? yb[(long long)t * D] : 0.f;
+  };
+#pragma unroll
+  for (int u = 0; u < U; ++u) load(T - 1 - u, dc[u], hp[u], cc[u], gy[u]);
+  float carry = live ? dht[hidx] : 0.f;  // decay_{t+1} lam_{t+1}, dh_T
+  float ht = live ? hseq[base + (T - 1) * step] : 0.f;  // h_t
+  for (int t0 = T - 1; t0 >= 0; t0 -= U) {
+    float dn[U], hn[U], cn[U], gn[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) load(t0 - U - u, dn[u], hn[u], cn[u], gn[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = t0 - u;
+      if (t >= 0) {  // the same t on every lane: the shuffles stay whole
+        const float lam = __fadd_rn(__fmul_rn(cc[u], gy[u]), carry);
+        if (live) {
+          ddbu[base + t * step] = lam;
+          ddecay[base + t * step] = __fmul_rn(lam, hp[u]);
+        }
+        carry = __fmul_rn(dc[u], lam);
+        float p = __fmul_rn(gy[u], ht);
+#pragma unroll
+        for (int off = NP; off < 32; off <<= 1)
+          p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, off));
+        if (lane < NP) red[u][warp][lane] = p;
+        ht = hp[u];
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < U * NP) {
+      const int u = threadIdx.x / NP, m = threadIdx.x % NP, t = t0 - u;
+      if (t >= 0 && m < N) {
+        float sum = red[u][0][m];
+#pragma unroll
+        for (int w = 1; w < WARPS; ++w) sum = __fadd_rn(sum, red[u][w][m]);
+        part[(long long)t * N + m] = sum;
+      }
+    }
+    __syncthreads();  // red is rewritten by the next group
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      dc[u] = dn[u];
+      hp[u] = hn[u];
+      cc[u] = cn[u];
+      gy[u] = gn[u];
+    }
+  }
+  if (live) dh0[hidx] = carry;
+}
+
+// dc[b, t, n] = sum over the nblk blocks' partials, in block order
+__global__ void __launch_bounds__(THREADS)
+    ssm_scan_dc_sum_kernel(const float* __restrict__ dc_part,
+                           float* __restrict__ dc, int nblk, int TN,
+                           long long n_out) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n_out) return;
+  const long long b = i / TN, tn = i % TN;
+  const float* p = dc_part + b * nblk * (long long)TN + tn;
+  float sum = p[0];
+  for (int k = 1; k < nblk; ++k) sum = __fadd_rn(sum, p[(long long)k * TN]);
+  dc[i] = sum;
+}
+
+template <int NP>
+int launch_bwd(const float* decay, const float* hseq, const float* h0,
+               const float* c, const float* dy, const float* dht,
+               float* ddecay, float* ddbu, float* dh0, float* dc_part, int B,
+               int T, int D, int N, cudaStream_t stream) {
+  constexpr int CH = THREADS / NP;
+  const dim3 grid((D + CH - 1) / CH, B);
+  ssm_scan_bwd_kernel<NP><<<grid, THREADS, 0, stream>>>(
+      decay, hseq, h0, c, dy, dht, ddecay, ddbu, dh0, dc_part, T, D, N);
+  return (int)cudaGetLastError();
+}
+
+bool shape_ok(int B, int T, int D, int N) {
+  return B > 0 && B <= 65535 && T > 0 && D > 0 && N > 0 && N <= 32;
 }
 
 }  // namespace
@@ -126,26 +307,79 @@ const char* ssm_scan_error_string(int err) {
 }
 
 // decay / dbu [B, T, D, N], c [B, T, N], h0 / hout [B, D, N], y [B, T, D],
-// all contiguous float32; 1 <= N <= 32.  Returns the launch's CUDA error
-// code.
+// all contiguous float32; 1 <= N <= 32.  hseq: null to serve, or [B, T, D,
+// N] f32 where the training forward writes every h_t.  Returns the
+// launch's CUDA error code.
 int ssm_scan_launch(int B, int T, int D, int N, const void* decay,
                     const void* dbu, const void* c, const void* h0,
-                    void* hout, void* y, void* stream) {
-  if (B <= 0 || B > 65535 || T <= 0 || D <= 0 || N <= 0 || N > 32)
-    return (int)cudaErrorInvalidValue;
-  const float* dp = static_cast<const float*>(decay);
-  const float* bp = static_cast<const float*>(dbu);
+                    void* hout, void* y, void* hseq, void* stream) {
+  if (!shape_ok(B, T, D, N)) return (int)cudaErrorInvalidValue;
+  return launch_np(static_cast<const float*>(decay),
+                   static_cast<const float*>(dbu),
+                   static_cast<const float*>(c),
+                   static_cast<const float*>(h0), static_cast<float*>(hout),
+                   static_cast<float*>(y), static_cast<float*>(hseq), B, T, D,
+                   N, (cudaStream_t)stream);
+}
+
+// The number of blocks along D of the backward (the partials' second dim).
+int ssm_scan_bwd_blocks(int D, int N) {
+  if (D <= 0 || N <= 0 || N > 32) return 0;
+  int np = 1;
+  while (np < N) np *= 2;
+  const int ch = THREADS / np;
+  return (D + ch - 1) / ch;
+}
+
+// The backward of one chunk: decay, hseq (the training forward's h) [B, T,
+// D, N], h0 [B, D, N], c [B, T, N], dy [B, T, D], dht [B, D, N] ->
+// ddecay, ddbu [B, T, D, N], dh0 [B, D, N] and dc_part [B, nblk, T, N]
+// (nblk = ssm_scan_bwd_blocks(D, N)), all contiguous f32.
+int ssm_scan_bwd_launch(int B, int T, int D, int N, const void* decay,
+                        const void* hseq, const void* h0, const void* c,
+                        const void* dy, const void* dht, void* ddecay,
+                        void* ddbu, void* dh0, void* dc_part, void* stream) {
+  if (!shape_ok(B, T, D, N)) return (int)cudaErrorInvalidValue;
+  const float* a = static_cast<const float*>(decay);
+  const float* hs = static_cast<const float*>(hseq);
+  const float* hi = static_cast<const float*>(h0);
   const float* cp = static_cast<const float*>(c);
-  const float* hp = static_cast<const float*>(h0);
-  float* ho = static_cast<float*>(hout);
-  float* yo = static_cast<float*>(y);
+  const float* gp = static_cast<const float*>(dy);
+  const float* dt = static_cast<const float*>(dht);
+  float* o1 = static_cast<float*>(ddecay);
+  float* o2 = static_cast<float*>(ddbu);
+  float* o3 = static_cast<float*>(dh0);
+  float* o4 = static_cast<float*>(dc_part);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (N <= 1) return launch<1>(dp, bp, cp, hp, ho, yo, B, T, D, N, st);
-  if (N <= 2) return launch<2>(dp, bp, cp, hp, ho, yo, B, T, D, N, st);
-  if (N <= 4) return launch<4>(dp, bp, cp, hp, ho, yo, B, T, D, N, st);
-  if (N <= 8) return launch<8>(dp, bp, cp, hp, ho, yo, B, T, D, N, st);
-  if (N <= 16) return launch<16>(dp, bp, cp, hp, ho, yo, B, T, D, N, st);
-  return launch<32>(dp, bp, cp, hp, ho, yo, B, T, D, N, st);
+#define SSM_BWD_CASE(np)                                                    \
+  if (N <= np)                                                              \
+    return launch_bwd<np>(a, hs, hi, cp, gp, dt, o1, o2, o3, o4, B, T, D, N, \
+                          st);
+  SSM_BWD_CASE(1)
+  SSM_BWD_CASE(2)
+  SSM_BWD_CASE(4)
+  SSM_BWD_CASE(8)
+  SSM_BWD_CASE(16)
+  SSM_BWD_CASE(32)
+#undef SSM_BWD_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// dc [B, T, N] = the sum of dc_part [B, nblk, T, N] over its blocks, in
+// block order (contiguous f32).
+int ssm_scan_dc_sum_launch(int B, int T, int N, int nblk,
+                           const void* dc_part, void* dc, void* stream) {
+  if (B <= 0 || T <= 0 || N <= 0 || nblk <= 0)
+    return (int)cudaErrorInvalidValue;
+  const long long n_out = (long long)B * T * N;
+  const long long blocks = (n_out + THREADS - 1) / THREADS;
+  if (blocks > 2147483647LL || (long long)T * N > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  ssm_scan_dc_sum_kernel<<<(unsigned)blocks, THREADS, 0,
+                           (cudaStream_t)stream>>>(
+      static_cast<const float*>(dc_part), static_cast<float*>(dc), nblk,
+      T * N, n_out);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

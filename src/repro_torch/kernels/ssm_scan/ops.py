@@ -4,11 +4,14 @@
 CPU tensors run the plain version (``ref.ssm_scan_ref``), CUDA tensors
 launch the CUDA kernel (``kernel.ssm_scan``), and a failed build or
 launch raises; nothing falls back from one to the other.  On CUDA
-tensors a call that would need a gradient (grad mode on, an input that
-requires grad) raises ``NotImplementedError``: the kernel has no
-backward yet, and its output would carry none; on the CPU autograd
-differentiates the plain version.  Unlike the
-Pallas wrapper, nothing pads D: the kernel masks the ragged edge.
+tensors a call that needs a gradient (grad mode on, an input that
+requires grad) goes through ``SsmScanFn``: its forward launches the
+training instantiation, which also writes every ``h_t``, and its
+backward the backward kernel and the sum of ``dc``'s block partials; on
+the CPU autograd differentiates the plain version.  Unlike the Pallas
+wrapper, nothing pads D: the kernel masks the ragged edge.  Counters:
+``launches`` (the serving forward), ``train_launches`` (the training
+forward), ``bwd_launches`` and ``bwd_sum_launches``.
 """
 
 from __future__ import annotations
@@ -17,10 +20,43 @@ import torch
 
 from repro_torch.kernels.ssm_scan import ref
 
-__all__ = ["ssm_scan", "launches"]
+__all__ = ["ssm_scan", "SsmScanFn", "launches", "train_launches",
+           "bwd_launches", "bwd_sum_launches"]
 
 #: CUDA launches of the ssm_scan kernel made through ``ssm_scan``
 launches = 0
+#: CUDA launches of its training instantiation (which also writes h)
+train_launches = 0
+#: CUDA launches of the backward kernel and of dc's partial sum
+bwd_launches = 0
+bwd_sum_launches = 0
+
+
+class SsmScanFn(torch.autograd.Function):
+    """The scan kernel with its backward kernel, on CUDA tensors: a chunk
+    is one call, and one chunk's ``dh0`` reaches the chunk before it as
+    the cotangent of its ``h_out``."""
+
+    @staticmethod
+    def forward(ctx, decay, dbu, c, h0):
+        global train_launches
+        from repro_torch.kernels.ssm_scan import kernel
+        h_out, y, h_seq = kernel.ssm_scan_train(decay, dbu, c, h0)
+        train_launches += 1
+        ctx.save_for_backward(decay, h_seq, h0, c)
+        return h_out, y
+
+    @staticmethod
+    def backward(ctx, dh_out, dy):
+        global bwd_launches, bwd_sum_launches
+        from repro_torch.kernels.ssm_scan import kernel
+        decay, h_seq, h0, c = ctx.saved_tensors
+        d_decay, d_dbu, dh0, part = kernel.ssm_scan_bwd(
+            decay, h_seq, h0, c, dy.contiguous(), dh_out.contiguous())
+        bwd_launches += 1
+        dc = kernel.ssm_scan_dc_sum(part)
+        bwd_sum_launches += 1
+        return d_decay, d_dbu, dc, dh0
 
 
 def ssm_scan(decay: torch.Tensor, dbu: torch.Tensor, c: torch.Tensor,
@@ -35,11 +71,7 @@ def ssm_scan(decay: torch.Tensor, dbu: torch.Tensor, c: torch.Tensor,
         raise ValueError(f"ssm_scan runs on CPU or CUDA, not {dev}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (decay, dbu, c, h0)):
-        raise NotImplementedError(
-            "ssm_scan: the CUDA kernel has no backward kernel yet "
-            "(ROADMAP.md, Queue 1 item 3b: backward kernels for ssm_scan "
-            "and rglru_scan); a gradient through it cannot be taken on "
-            "the card")
+        return SsmScanFn.apply(decay, dbu, c, h0)
     from repro_torch.kernels.ssm_scan import kernel
     out = kernel.ssm_scan(decay, dbu, c, h0)
     launches += 1

@@ -146,9 +146,28 @@ def attention_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
 # of bf16 values.  These compose them as ``jax.nn`` does, each op rounded
 # in x's dtype (its Python constants are weakly typed: x's dtype too).
 
+class _Sigmoid(torch.autograd.Function):
+    """``1 / (1 + exp(-x))`` op by op, differentiated as ``lax.logistic``
+    is: ``g (y (1 - y))``, each op rounded in x's dtype.  Autograd of the
+    ops themselves would give ``0 * inf = NaN`` where ``exp(-x)``
+    overflows (bf16 x <= -89), where JAX gives 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return g * (y * (1 - y))
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.sigmoid``: ``1 / (1 + exp(-x))``."""
-    return 1 / (1 + torch.exp(-x))
+    """``jax.nn.sigmoid``: ``1 / (1 + exp(-x))``, its gradient ``g y (1 -
+    y)``."""
+    return _Sigmoid.apply(x)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

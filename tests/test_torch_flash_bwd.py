@@ -107,6 +107,22 @@ def test_emulation_matches_repro_grad(hd, G, mask):
         assert _share(g, w) <= 1.0, name
 
 
+@pytest.mark.parametrize("reference", ["plain", "repro"])
+def test_emulation_at_hd_256(reference):
+    """recurrentgemma-2b's attention: hd 256, two query heads over one KV
+    head, a sliding window (S 48, window 32), against the plain backward
+    and ``repro``'s ``jax.grad``."""
+    q, k, v, do = _inputs(48, 48, 2, 1, 256, 2560)
+    got = fr.flash_attention_bwd_tiled(q, k, v, do, causal=True, window=32)
+    if reference == "plain":
+        want = fr.flash_attention_bwd_ref(q, k, v, do, causal=True,
+                                          window=32)
+    else:
+        want = _repro_grads(q, k, v, do, True, 32)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and _share(g, w) <= 1.0, name
+
+
 def test_ds_split_lowers_dq_error_under_a_common_key_offset():
     """Keys 16 rms units off the origin along one direction: dQ = dS K
     carries (sum_j dS_ij) times the offset, exactly 0 in f32 but not once

@@ -1,6 +1,5 @@
 """The flash kernel's training entries (the LSE forward, the three
-backward entries and the group sum) and the scan kernels' refusal of a
-gradient.
+backward entries and the group sum) and the scan kernels' backward.
 
 On the CPU: the launchers' ctypes signatures against the C source, the
 dispatch (autograd differentiates the plain version on CPU tensors; the
@@ -12,9 +11,14 @@ tests/test_torch_train_cuda.py``): the backward entries against
 twice, and against their emulation ``ref.flash_attention_bwd_tiled``
 (which the CPU tests hold to autograd and to ``repro``'s ``jax.grad``)
 within one bf16 rounding step and a far smaller absolute term, the refusals
-(hd 256, f32, and ``ssm_scan`` / ``rglru_scan``
-under grad), and a reduced train step through the kernels against the
-same step through the plain versions.  No JAX here."""
+(hd above 256, f32), and a reduced train step through the kernels against
+the same step through the plain versions.  And the scan kernels'
+backward on the card: each against its plain version
+(``ssm_scan_bwd_ref``, ``rglru_gated_scan_bwd_ref``, which
+``tests/test_torch_scan_bwd.py`` holds to autograd and to ``repro``),
+bitwise but for the sums dC and dnsp (held to ``ref.dc_limit`` /
+``ref.dnsp_limit``: two orders of an f32 sum), bitwise when run twice, and
+autograd through the dispatch launching them.  No JAX here."""
 
 import ctypes
 import re
@@ -24,9 +28,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_scan_cases as C  # noqa: E402
+
 from repro_torch.kernels.flash_attention import kernel as fk  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fr  # noqa: E402
+from repro_torch.kernels.rglru_scan import kernel as rk  # noqa: E402
+from repro_torch.kernels.rglru_scan import ops as ro  # noqa: E402
+from repro_torch.kernels.rglru_scan import ref as rr  # noqa: E402
+from repro_torch.kernels.ssm_scan import kernel as sk  # noqa: E402
+from repro_torch.kernels.ssm_scan import ops as so  # noqa: E402
+from repro_torch.kernels.ssm_scan import ref as sr  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = (ROOT / "src" / "repro_torch" / "kernels" / "flash_attention" / "csrc"
@@ -128,7 +140,8 @@ def _bwd(q, k, v, do, causal, window):
 @pytest.mark.parametrize("case", [
     (2, 128, 128, 4, 2, 64, True, 0), (1, 200, 200, 6, 2, 128, True, 0),
     (2, 96, 96, 4, 4, 32, True, 40), (1, 100, 300, 4, 4, 64, False, 0),
-    (3, 70, 70, 8, 1, 40, False, 0)])
+    (3, 70, 70, 8, 1, 40, False, 0), (1, 130, 130, 10, 1, 256, True, 64),
+    (2, 100, 100, 4, 2, 192, False, 0)])
 def test_backward_kernel_matches_plain_and_is_deterministic(cuda, case):
     B, S, Skv, H, K, hd, causal, window = case
     q, k, v, do = _inputs(B, S, Skv, H, K, hd, 7, device=cuda)
@@ -199,33 +212,13 @@ def test_autograd_through_the_kernels_counts_launches(cuda):
 
 @pytest.mark.cuda
 def test_training_entries_refuse_what_they_do_not_take(cuda):
-    q, k, v, do = _inputs(1, 16, 16, 2, 1, 256, 0, device=cuda)
-    with pytest.raises(ValueError, match="limit of 128"):
+    q, k, v, do = _inputs(1, 16, 16, 2, 1, 264, 0, device=cuda)
+    with pytest.raises(ValueError, match="limit of 256"):
         fops.flash_attention(q.requires_grad_(True), k, v, causal=True)
     q, k, v, do = _inputs(1, 16, 16, 2, 1, 64, 0, device=cuda,
                           dtype=torch.float32)
     with pytest.raises(ValueError, match="bf16"):
         fops.flash_attention(q.requires_grad_(True), k, v, causal=True)
-
-
-@pytest.mark.cuda
-def test_scan_kernels_refuse_a_gradient_on_the_card(cuda):
-    from repro_torch.kernels.rglru_scan import ops as rops
-    from repro_torch.kernels.ssm_scan import ops as sops
-    B, T, D, N = 1, 8, 16, 4
-    decay = torch.rand(B, T, D, N, device=cuda, requires_grad=True)
-    dbu = torch.randn(B, T, D, N, device=cuda)
-    c = torch.randn(B, T, N, device=cuda)
-    h0 = torch.zeros(B, D, N, device=cuda)
-    with pytest.raises(NotImplementedError, match="ssm_scan.*ROADMAP"):
-        sops.ssm_scan(decay, dbu, c, h0)
-    with torch.no_grad():
-        sops.ssm_scan(decay, dbu, c, h0)
-    x = torch.randn(B, T, 16, device=cuda, dtype=torch.bfloat16,
-                    requires_grad=True)
-    nsp = torch.full((16,), -1.0, device=cuda)
-    with pytest.raises(NotImplementedError, match="rglru_scan.*ROADMAP"):
-        rops.rglru_scan(x, x, x, nsp, torch.zeros(B, 16, device=cuda))
 
 
 @pytest.mark.cuda
@@ -258,3 +251,79 @@ def test_reduced_train_step_through_the_kernels_matches_plain(cuda):
     for key, tol in (("loss", 2.0 ** -12), ("grad_norm", 2.0 ** -8)):
         a, b = float(out["kernel"][key]), float(out["plain"][key])
         assert abs(a - b) <= tol * abs(b), (key, a, b)
+
+
+# ------------------------------------------- the scan kernels' backward
+
+def _on(dev, *xs):
+    return [x.to(dev) for x in xs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 12, 16, 4, 3), (1, 37, 100, 5, 0),
+                                  (2, 256, 512, 16, 44)])
+def test_ssm_bwd_kernel_matches_plain_and_is_deterministic(cuda, case):
+    B, T_, D, N, tail = case
+    decay, dbu, c, h0, dy, dh_t = _on(cuda, *C.ssm_case(B, T_, D, N, tail, 2))
+    h_out, y, h_seq = sk.ssm_scan_train(decay, dbu, c, h0)
+    assert all(torch.equal(a, b) for a, b in zip(
+        (h_out, y), sk.ssm_scan(decay, dbu, c, h0)))
+
+    def bwd():
+        d_decay, d_dbu, dh0, part = sk.ssm_scan_bwd(decay, h_seq, h0, c, dy,
+                                                    dh_t)
+        return d_decay, d_dbu, sk.ssm_scan_dc_sum(part), dh0
+    got, again = bwd(), bwd()
+    want = sr.ssm_scan_bwd_ref(decay, dbu, c, h0, dy, dh_t)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for i in (0, 1, 3):
+        assert torch.equal(got[i], want[i]), i
+    assert ((got[2] - want[2]).abs()
+            <= sr.dc_limit(decay, dbu, h0, dy)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 40, 24), (3, 100, 64), (1, 1, 32)])
+def test_rglru_bwd_kernel_matches_plain_and_is_deterministic(cuda, case):
+    B, S, d = case
+    r_pre, i_pre, u, nsp, h0, dh_seq, dh_s = _on(
+        cuda, *C.rglru_case(B, S, d, seed=3))
+    # a channel each where the sigmoid's bf16 exp(-x) overflows
+    r_pre[..., -1] = -120.0
+    i_pre[..., 0] = -120.0
+    h_seq, _ = rk.rglru_scan(r_pre, i_pre, u, nsp, h0)
+    got = rk.rglru_scan_bwd(r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s)
+    again = rk.rglru_scan_bwd(r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s)
+    want = rr.rglru_gated_scan_bwd_ref(r_pre, i_pre, u, nsp, h0, h_seq,
+                                       dh_seq, dh_s)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(x.isfinite().all() for x in got)
+    for i in (0, 1, 2, 4):
+        assert torch.equal(got[i], want[i]), i
+    assert ((got[3] - want[3]).abs() <= rr.dnsp_limit(
+        r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s)).all()
+
+
+@pytest.mark.cuda
+def test_autograd_through_the_scan_kernels_counts_launches(cuda):
+    decay, dbu, c, h0, dy, dh_t = _on(cuda, *C.ssm_case(seed=4))
+    leaves = [x.clone().requires_grad_(True) for x in (decay, dbu, c, h0)]
+    count = lambda: (so.train_launches, so.bwd_launches, so.bwd_sum_launches)
+    before = count()
+    h, y = so.ssm_scan(*leaves)
+    got = torch.autograd.grad((h, y), leaves, (dh_t, dy))
+    after = count()
+    assert [b - a for a, b in zip(before, after)] == [1, 1, 1]
+    want = sr.ssm_scan_bwd_ref(decay, dbu, c, h0, dy, dh_t)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
+    r_pre, i_pre, u, nsp, h0, dh_seq, dh_s = _on(cuda, *C.rglru_case(seed=5))
+    leaves = [x.clone().requires_grad_(True)
+              for x in (r_pre, i_pre, u, nsp, h0)]
+    before = (ro.launches, ro.bwd_launches)
+    h_seq, h_s = ro.rglru_scan(*leaves)
+    got = torch.autograd.grad((h_seq, h_s), leaves, (dh_seq, dh_s))
+    assert [b - a for a, b in zip(before, (ro.launches, ro.bwd_launches))] \
+        == [1, 1]
+    want = rr.rglru_gated_scan_bwd_ref(r_pre, i_pre, u, nsp, h0,
+                                       h_seq.detach(), dh_seq, dh_s)
+    assert all(torch.equal(g, w) for g, w in zip(got[:3], want[:3]))
