@@ -452,10 +452,10 @@ def serve_chain_bound(n_acc: int, n_steps: int, admitted: int,
 
 
 def ptxas_report(log: str, entry_re: str = r"(sim_[a-z]+_kernel)") -> dict:
-    """``{entry: {"registers", "spill_stores", "spill_loads"}}`` of the
-    entries whose mangled name matches ``entry_re`` (its first group
-    names them; default: the ``sim_*_kernel`` entries) in a library's
-    ``-Xptxas -v`` log."""
+    """``{entry: {"registers", "spill_stores", "spill_loads",
+    "static_smem_bytes"}}`` of the entries whose mangled name matches
+    ``entry_re`` (its first group names them; default: the
+    ``sim_*_kernel`` entries) in a library's ``-Xptxas -v`` log."""
     import re
     out, entry = {}, None
     for line in log.splitlines():
@@ -475,6 +475,9 @@ def ptxas_report(log: str, entry_re: str = r"(sim_[a-z]+_kernel)") -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[entry]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                out[entry]["static_smem_bytes"] = int(m.group(1))
             entry = None
     return out
 
@@ -3625,19 +3628,40 @@ def rglru_bwd_bound(B, S, d) -> tuple:
     return bound_of(20 * B * S * d + 4 * (3 * B * d + 2 * d), 0)
 
 
+def scan_bwd_ptxas(sk, rk) -> dict:
+    """``ptxas_report`` of the rglru_scan backward kernel and of the dC
+    sum's two instantiations (16-byte and scalar loads), from the two
+    libraries' build logs."""
+    regs = {}
+    for lib in (sk.library(), rk.library()):
+        log = Path(lib._name).with_suffix(".log")
+        regs.update(ptxas_report(
+            log.read_text() if log.exists() else "",
+            r"(rglru_scan_bwd_kernel|ssm_scan_dc_sum_kernelILi\d+E)"))
+    return regs
+
+
 def phase_scan_bwd(dev) -> dict:
     """Phase 24 (f): the ssm_scan backward (its dc sum too) and the
     rglru_scan backward against their plain versions on the card at
     ``SSM_BWD_FULL`` / ``RGLRU_BWD_FULL``: every output bitwise but the
     sums dc and dnsp, held to their sum-order limits (``ref.dc_limit``,
-    ``ref.dnsp_limit``), and bitwise when run twice; device times (a CUDA
-    graph of 20) beside the bounds and the plain versions' times."""
+    ``ref.dnsp_limit``), the rglru_scan backward also bitwise to its tiled
+    walk (``ref.rglru_gated_scan_bwd_tiled``, dnsp in the kernel's order),
+    and bitwise when run twice; device times (a CUDA graph of 20) beside
+    the bounds and the plain versions' times; the dC sum's and the
+    rglru_scan backward's registers, spills and shared memory."""
     import torch
     from repro_torch.kernels.rglru_scan import kernel as rk
     from repro_torch.kernels.rglru_scan import ref as rr
     from repro_torch.kernels.ssm_scan import kernel as sk
     from repro_torch.kernels.ssm_scan import ref as sr
-    out = {}
+    out = {"ptxas": scan_bwd_ptxas(sk, rk)}
+    for entry, r in out["ptxas"].items():
+        print(f"  (f) ptxas {entry}: {r['registers']} registers, spill "
+              f"stores {r['spill_stores']} B, spill loads "
+              f"{r['spill_loads']} B, static shared memory "
+              f"{r.get('static_smem_bytes', 0)} B", flush=True)
     # falcon-mamba-7b's chunk
     B, T, D, N = SSM_BWD_FULL
     decay, dbu, c, h0 = scan_case(B, T, D, N, 2470, dev)
@@ -3686,7 +3710,8 @@ def phase_scan_bwd(dev) -> dict:
           f"version {differ}; dc worst share of its sum-order limit "
           f"{dc_share:.3g}; bitwise twice {twice}; device ms: backward "
           f"{ms:.4f} ({100 * bound / ms:.1f} % of its {by} bound "
-          f"{bound:.4f}), dc sum {sum_ms:.4f} (bound {sum_bound:.4f}), "
+          f"{bound:.4f}), dc sum {sum_ms:.4f} ({100 * sum_bound / sum_ms:.1f}"
+          f" % of its bytes bound {sum_bound:.4f}), "
           f"training forward {train_ms:.4f} (bound {train_bound:.4f}; "
           f"serving {serve_ms:.4f}); plain backward {plain_ms:.2f} ms",
           flush=True)
@@ -3713,6 +3738,8 @@ def phase_scan_bwd(dev) -> dict:
     got, again = rk.rglru_scan_bwd(*args), rk.rglru_scan_bwd(*args)
     plain_ms, want = cuda_ms(lambda: rr.rglru_gated_scan_bwd_ref(*args),
                              torch.cuda.synchronize)
+    tiled = all(torch.equal(g, w) for g, w in zip(
+        got, rr.rglru_gated_scan_bwd_tiled(*args)))
     twice = all(torch.equal(a, b) for a, b in zip(got, again))
     differ = [int((got[i] != want[i]).sum()) for i in (0, 1, 2, 4)]
     finite = all(bool(x.isfinite().all()) for x in got)
@@ -3723,21 +3750,26 @@ def phase_scan_bwd(dev) -> dict:
               for a, w in zip(got, want))
     ms = graph_ms(lambda: rk.rglru_scan_bwd(*args))
     bound, by = rglru_bwd_bound(B, S, d)
+    smem = rk.library().rglru_scan_bwd_smem_bytes()
     print(f"  (f) rglru_scan backward B{B} S{S} d{d}: dr_pre / di_pre / du "
           f"/ dh0 elements differing from the plain version {differ}; "
           f"every gradient finite {finite} (channel 1, r_pre -120 where "
           f"the sigmoid's bf16 exp overflows: max |dr_pre|, |di_pre| "
           f"{low}); "
           f"dnsp worst share of its sum-order limit {nsp_share:.3g}; "
+          f"every output equal to the tiled walk's {tiled}; "
           f"bitwise twice {twice}; device ms {ms:.4f} "
-          f"({100 * bound / ms:.1f} % of its {by} bound {bound:.4f}); plain "
-          f"backward {plain_ms:.2f} ms", flush=True)
-    check(twice and finite and differ == [0, 0, 0, 0] and nsp_share <= 1.0,
-          "the rglru_scan backward disagrees with its plain version, is "
-          "not finite, or is not deterministic")
+          f"({100 * bound / ms:.1f} % of its {by} bound {bound:.4f}); "
+          f"{smem} B of dynamic shared memory a block; plain backward "
+          f"{plain_ms:.2f} ms", flush=True)
+    check(twice and finite and tiled and differ == [0, 0, 0, 0]
+          and nsp_share <= 1.0,
+          "the rglru_scan backward disagrees with its plain version or its "
+          "tiled walk, is not finite, or is not deterministic")
     out["rglru"] = {"shape": [B, S, d], "max_abs_err": err,
                     "dnsp_share": nsp_share, "bitwise_twice": twice,
-                    "finite": finite,
+                    "finite": finite, "tiled_equal": tiled,
+                    "smem_bytes": smem,
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                     "bound_by": by}
     del args, got, again, want, r_pre, i_pre, u, h_seq, dh_seq
@@ -3753,7 +3785,8 @@ def train_kernel_counts() -> dict:
     return {**train_counts(fops), "ssm_scan": so.launches,
             "ssm_scan_train": so.train_launches, "ssm_bwd": so.bwd_launches,
             "ssm_bwd_sum": so.bwd_sum_launches, "rglru_scan": ro.launches,
-            "rglru_bwd": ro.bwd_launches}
+            "rglru_bwd": ro.bwd_launches,
+            "rglru_bwd_nsp": ro.bwd_nsp_launches}
 
 
 def zero_train_kernel_counts() -> None:
@@ -3763,6 +3796,7 @@ def zero_train_kernel_counts() -> None:
     zero_train_counts(fops)
     so.launches = so.train_launches = so.bwd_launches = 0
     so.bwd_sum_launches = ro.launches = ro.bwd_launches = 0
+    ro.bwd_nsp_launches = 0
 
 
 def plain_train():
@@ -4237,7 +4271,9 @@ def train_phase(golden_mod, smi: str, device="cuda") -> list:
         "bound_ms": ss["sum_bound_ms"], "bound_by": "bytes",
         "library_ms": ss["sum_plain_ms"],
         "library": "torch.sum over the blocks' dim (one call)",
-        "shape": ss["shape"]}, {
+        "shape": ss["shape"],
+        "ptxas": {k: v for k, v in scan_bwd["ptxas"].items()
+                  if k.startswith("ssm_scan_dc_sum")}}, {
         "name": "ssm_scan_train", "route": "cuda",
         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:43 (the training "
@@ -4256,6 +4292,8 @@ def train_phase(golden_mod, smi: str, device="cuda") -> list:
         "plain_ms": rs["plain_ms"], "bound_ms": rs["bound_ms"],
         "bound_by": rs["bound_by"], "library_ms": None,
         "library": none_lib, "shape": rs["shape"], "launches_step": rg,
+        "ptxas": scan_bwd["ptxas"].get("rglru_scan_bwd_kernel"),
+        "smem_bytes": rs["smem_bytes"], "tiled_equal": rs["tiled_equal"],
         "step": zoo_steps["recurrentgemma-2b"],
         "moe_step": zoo_steps["phi3.5-moe-42b-a6.6b"]}]
     for name, key, count, err, plain, note in (

@@ -10,10 +10,12 @@ first use (``repro_torch._build``), launched through ``ctypes`` on
 PyTorch's current stream.
 
 Training: ``rglru_scan_bwd`` launches the backward from the forward's
-saved ``h_seq``: the reverse recurrence (``rglru_scan_bwd_chain_kernel``,
-the forward's block and TMA ring walked from the last step back), the
-fused gates' gradients (``rglru_scan_bwd_gates_kernel``) and the
-fixed-order sum of ``dnsp``'s block partials.
+saved ``h_seq``: one kernel (``rglru_scan_bwd_kernel``, the forward's
+block walked from the last tile back, the reverse recurrence and the
+gates' gradients one tile behind it in the same block, ``dnsp`` summed
+in a fixed order across a cluster of batch rows), and for a batch of
+more rows than a cluster holds (B > ``ref.CLUSTER_MAX``) a second launch,
+the fixed-order sum of the clusters' partials.
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ def library() -> ctypes.CDLL:
     lib.rglru_scan_smem_bytes.argtypes = []
     lib.rglru_scan_launch.restype = _I
     lib.rglru_scan_launch.argtypes = [_I] * 3 + [_P] * 8
+    lib.rglru_scan_bwd_smem_bytes.restype = _I
+    lib.rglru_scan_bwd_smem_bytes.argtypes = []
     lib.rglru_scan_bwd_scratch.restype = ctypes.c_longlong
     lib.rglru_scan_bwd_scratch.argtypes = [_I] * 3
     lib.rglru_scan_bwd_launch.restype = _I
@@ -104,10 +108,11 @@ def rglru_scan_bwd(r_pre: torch.Tensor, i_pre: torch.Tensor,
                    u: torch.Tensor, nsp: torch.Tensor, h0: torch.Tensor,
                    h_seq: torch.Tensor, dh_seq: torch.Tensor,
                    dh_s: torch.Tensor):
-    """Launch the backward's three kernels (asynchronous; a refused launch
-    raises): ``rglru_scan``'s inputs, its ``h_seq`` and the cotangents
-    ``dh_seq`` [B, S, d], ``dh_s`` [B, d] (contiguous f32) -> ``(dr_pre,
-    di_pre, du [B, S, d] bf16, dnsp [d], dh0 [B, d] f32)``."""
+    """Launch the backward (asynchronous; a refused launch raises):
+    ``rglru_scan``'s inputs, its ``h_seq`` and the cotangents ``dh_seq``
+    [B, S, d], ``dh_s`` [B, d] (contiguous f32; the [B, S, d] tensors
+    16-byte aligned, TMA reads them) -> ``(dr_pre, di_pre, du [B, S, d]
+    bf16, dnsp [d], dh0 [B, d] f32)``."""
     if r_pre.dim() != 3:
         raise ValueError(f"rglru_scan_bwd: r_pre must be [B, S, d] (got "
                          f"{tuple(r_pre.shape)})")
@@ -127,8 +132,9 @@ def rglru_scan_bwd(r_pre: torch.Tensor, i_pre: torch.Tensor,
                 f"on {t.device})")
     if d % 8:
         raise ValueError(f"rglru_scan_bwd: d = {d} is not a multiple of 8 "
-                         f"(TMA reads r_pre and dh_seq)")
-    for name, t in (("r_pre", r_pre), ("dh_seq", dh_seq)):
+                         f"(a TMA tile's bf16 rows start 16-byte aligned)")
+    for name, t in (("r_pre", r_pre), ("i_pre", i_pre), ("u", u),
+                    ("h_seq", h_seq), ("dh_seq", dh_seq)):
         if t.data_ptr() % 16:
             raise ValueError(f"rglru_scan_bwd: {name} does not start "
                              f"16-byte aligned (TMA reads it)")
@@ -145,10 +151,8 @@ def rglru_scan_bwd(r_pre: torch.Tensor, i_pre: torch.Tensor,
                         r_pre.data_ptr(), i_pre.data_ptr(), u.data_ptr(),
                         nsp.data_ptr(), h0.data_ptr(), h_seq.data_ptr(),
                         dh_seq.data_ptr(), dh_s.data_ptr(),
-                        scratch.data_ptr(),
-                        dr.data_ptr(),
-                        di.data_ptr(), du.data_ptr(), dnsp.data_ptr(),
-                        dh0.data_ptr())
+                        scratch.data_ptr(), dr.data_ptr(), di.data_ptr(),
+                        du.data_ptr(), dnsp.data_ptr(), dh0.data_ptr())
     if err != 0:
         raise RuntimeError("rglru_scan_bwd launch failed: "
                            + lib.rglru_scan_error_string(err).decode())

@@ -10,7 +10,9 @@ backward kernel (``kernel.rglru_scan_bwd``) on the forward's saved
 ``repro`` computes the recurrence as an XLA scan in chunks of 256 steps,
 padding the last with ``a = 1, g = 0``, which leaves ``h`` unchanged
 under an FMA: here the whole sequence is one call.  Counters:
-``launches`` (the forward) and ``bwd_launches``.
+``launches`` (the forward), ``bwd_launches`` and ``bwd_nsp_launches``
+(the backward's second launch, made only where a batch has more rows than
+one cluster adds up: at B > ``ref.CLUSTER_MAX``).
 """
 
 from __future__ import annotations
@@ -19,12 +21,15 @@ import torch
 
 from repro_torch.kernels.rglru_scan import ref
 
-__all__ = ["rglru_scan", "RglruScanFn", "launches", "bwd_launches"]
+__all__ = ["rglru_scan", "RglruScanFn", "launches", "bwd_launches",
+           "bwd_nsp_launches"]
 
 #: CUDA launches of the rglru_scan kernel made through ``rglru_scan``
 launches = 0
-#: CUDA launches of the backward kernel
+#: CUDA launches of the backward kernel and of its sum of the clusters'
+#: dnsp partials
 bwd_launches = 0
+bwd_nsp_launches = 0
 
 
 class RglruScanFn(torch.autograd.Function):
@@ -41,12 +46,15 @@ class RglruScanFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dh_seq, dh_n):
-        global bwd_launches
+        global bwd_launches, bwd_nsp_launches
         from repro_torch.kernels.rglru_scan import kernel
         r_pre, i_pre, u, nsp, h0, h_seq = ctx.saved_tensors
         out = kernel.rglru_scan_bwd(r_pre, i_pre, u, nsp, h0, h_seq,
                                     dh_seq.contiguous(), dh_n.contiguous())
         bwd_launches += 1
+        B = r_pre.shape[0]
+        if ref.cluster_rows(B) < B:
+            bwd_nsp_launches += 1
         return out
 
 

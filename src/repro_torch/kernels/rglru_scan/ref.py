@@ -28,7 +28,8 @@ import torch
 from repro_torch.models.layers import sigmoid
 
 __all__ = ["fma_f32", "gated", "gate_inputs", "rglru_scan_ref",
-           "rglru_gated_scan_ref", "rglru_gated_scan_bwd_ref", "dnsp_limit"]
+           "rglru_gated_scan_ref", "rglru_gated_scan_bwd_ref",
+           "rglru_gated_scan_bwd_tiled", "cluster_rows", "dnsp_limit"]
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -102,34 +103,43 @@ def rglru_gated_scan_ref(r_pre: torch.Tensor, i_pre: torch.Tensor,
     return rglru_scan_ref(a, x, h0)
 
 
-def _chain(r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s):
-    """``(r, i, dq, dx, dh0)`` of ``rglru_gated_scan_bwd_ref``: the bf16
-    sigmoids, the f32 gradient ``dq`` of ``nsp r`` and ``dx`` of the gated
-    input [B, S, d], and ``dh0``."""
+def _gates(r_pre, i_pre, nsp):
+    """``(r, i, a)``: the bf16 sigmoids and ``a = exp(nsp r)`` (f32)."""
     r = sigmoid(r_pre)
-    i = sigmoid(i_pre)
-    a = torch.exp(nsp * r.float())
+    return r, sigmoid(i_pre), torch.exp(nsp * r.float())
+
+
+def _local(r, i, u, nsp, a, lam, h_prev):
+    """The element-wise part of the backward given ``lam``: ``(dr_pre,
+    di_pre, du)`` bf16 and dnsp's terms ``dq r`` (f32), in the order and
+    dtypes of ``rglru_gated_scan_bwd_ref``."""
     x = (i * u).float()
     one = torch.ones((), dtype=torch.float32, device=a.device)
     m = fma_f32(-a, a, one)
-    v = torch.clamp_min(m, 1e-9)
-    fd = torch.sqrt(v.double())
-    f = fd.float()
-    h_prev = torch.cat([h0.float()[:, None], h_seq[:, :-1]], 1)
+    fd = torch.sqrt(torch.clamp_min(m, 1e-9).double())
+    dx = lam * fd.float()
+    df = lam * x
+    dm = torch.where(m >= 1e-9, df.double() / (2 * fd),
+                     torch.zeros((), dtype=torch.float64)).float()
+    dam = -(dm * a)
+    dq = ((lam * h_prev + dam) + dam) * a
+    dr = (dq * nsp).to(torch.bfloat16)
+    dxb = dx.to(torch.bfloat16)
+    return (dr * (r * (1 - r)), (dxb * u) * (i * (1 - i)), dxb * i,
+            dq * r.float())
 
+
+def _backward(r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s):
+    """``(dr_pre, di_pre, du, terms, dh0)`` of ``rglru_gated_scan_bwd_ref``,
+    ``terms`` [B, S, d] the f32 terms ``dq r`` that dnsp sums."""
+    r, i, a = _gates(r_pre, i_pre, nsp)
+    h_prev = torch.cat([h0.float()[:, None], h_seq[:, :-1]], 1)
     lam = torch.empty_like(h_seq)
     carry = dh_s.float()
     for t in range(h_seq.shape[1] - 1, -1, -1):
         lam[:, t] = dh_seq[:, t] + carry
         carry = lam[:, t] * a[:, t]
-    dah = lam * h_prev
-    dx = lam * f
-    df = lam * x
-    dm = torch.where(m >= 1e-9, df.double() / (2 * fd),
-                     torch.zeros((), dtype=torch.float64)).float()
-    dam = -(dm * a)
-    da = (dah + dam) + dam
-    return r, i, da * a, dx, carry
+    return (*_local(r, i, u, nsp, a, lam, h_prev), carry)
 
 
 def rglru_gated_scan_bwd_ref(r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s):
@@ -150,14 +160,75 @@ def rglru_gated_scan_bwd_ref(r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s):
     and the two equal terms of ``1 - a a``'s factors in autograd's order;
     ``dnsp`` sums ``dq r`` over batch rows and time as autograd's
     broadcast reduction does."""
-    bf = torch.bfloat16
-    r, i, dq, dx, dh0 = _chain(r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s)
-    dnsp = (dq * r.float()).sum_to_size(nsp.shape)
-    dr = (dq * nsp).to(bf)
-    dxb = dx.to(bf)
-    di = dxb * u
-    du = dxb * i
-    return (dr * (r * (1 - r)), di * (i * (1 - i)), du, dnsp, dh0)
+    dr, di, du, terms, dh0 = _backward(r_pre, i_pre, u, nsp, h0, h_seq,
+                                       dh_seq, dh_s)
+    return dr, di, du, terms.sum_to_size(nsp.shape), dh0
+
+
+#: the backward kernel's tile (steps) and its threads of a channel: one
+#: per row group g, each adding row g of every tile (rows g, g +
+#: ROW_GROUPS, .. where a tile has more rows than row groups)
+TILE = 32
+ROW_GROUPS = 32
+#: the most batch rows one cluster of the backward kernel adds up
+CLUSTER_MAX = 8
+
+
+def cluster_rows(B: int) -> int:
+    """The batch rows whose dnsp sums one cluster of the backward kernel
+    adds, in order: the largest divisor of ``B`` up to ``CLUSTER_MAX``."""
+    return max(g for g in range(1, min(B, CLUSTER_MAX) + 1) if B % g == 0)
+
+
+def rglru_gated_scan_bwd_tiled(r_pre, i_pre, u, nsp, h0, h_seq, dh_seq,
+                               dh_s):
+    """``rglru_gated_scan_bwd_ref`` as the backward kernel walks it: tiles
+    of ``TILE`` steps from the last back, the chain down a tile's rows
+    (the first tile walked partial where ``S % TILE`` is not 0), then the
+    tile's element-wise gradients; and dnsp summed in the kernel's order:
+    each (batch row, row group g, channel) adds its terms as the tiles
+    come, row g of each (rows past S skipped), a
+    batch row adds its row groups 0, 1, .. in turn, a cluster of
+    ``cluster_rows(B)`` batch rows its rows in order, and the clusters'
+    sums are added in order.  Same arguments and results."""
+    B, S, d = r_pre.shape
+    r, i, a = _gates(r_pre, i_pre, nsp)
+    h_prev = torch.cat([h0.float()[:, None], h_seq[:, :-1]], 1)
+    dr, di, du = (torch.empty_like(r_pre) for _ in range(3))
+    f32 = dict(dtype=torch.float32, device=h_seq.device)
+    part = torch.zeros((B, ROW_GROUPS, d), **f32)
+    carry = dh_s.float()
+    n_tiles = -(-S // TILE)
+    for k in range(n_tiles):
+        t0 = (n_tiles - 1 - k) * TILE
+        n = min(S, t0 + TILE) - t0
+        lam = torch.empty((B, n, d), **f32)
+        for j in range(n - 1, -1, -1):
+            lam[:, j] = dh_seq[:, t0 + j] + carry
+            carry = lam[:, j] * a[:, t0 + j]
+        rows = slice(t0, t0 + n)
+        dr[:, rows], di[:, rows], du[:, rows], terms = _local(
+            r[:, rows], i[:, rows], u[:, rows], nsp, a[:, rows], lam,
+            h_prev[:, rows])
+        w = torch.zeros((B, TILE, d), **f32)
+        w[:, :n] = terms
+        for p in range(TILE // ROW_GROUPS):
+            g = torch.arange(p * ROW_GROUPS, (p + 1) * ROW_GROUPS,
+                             device=h_seq.device)
+            part = torch.where((g < n)[None, :, None],
+                               part + w[:, p * ROW_GROUPS:(p + 1)
+                                        * ROW_GROUPS], part)
+    row_sum = part[:, 0]
+    for g in range(1, ROW_GROUPS):
+        row_sum = row_sum + part[:, g]
+    cs = cluster_rows(B)
+    dnsp = None
+    for b0 in range(0, B, cs):
+        acc = row_sum[b0]
+        for b in range(b0 + 1, b0 + cs):
+            acc = acc + row_sum[b]
+        dnsp = acc if dnsp is None else dnsp + acc
+    return dr, di, du, dnsp, carry
 
 
 def dnsp_limit(r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s):
@@ -166,7 +237,6 @@ def dnsp_limit(r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s):
     order: two f32 sums of n terms each lie within ``n 2^-24 sum |term|``
     of the exact sum, so within twice that of each other (plus the
     smallest normal f32)."""
-    r, _, dq, _, _ = _chain(r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s)
-    t = dq * r.float()
+    t = _backward(r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s)[3]
     n = t.shape[0] * t.shape[1]
     return t.abs().sum((0, 1)) * (2 * n * 2.0 ** -24) + 2.0 ** -126

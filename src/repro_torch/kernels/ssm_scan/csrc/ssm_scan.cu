@@ -60,7 +60,8 @@
 // block sums its CH channels for each (t, n) in a fixed order (the xor
 // butterfly over the channels of a warp, offsets NP, 2 NP, .., 16, then
 // the warps 0 .. 7 in turn) and writes the partial dc_part[b, block, t, n];
-// ssm_scan_dc_sum_kernel adds the blocks' partials in block order.  No
+// ssm_scan_dc_sum_kernel adds the blocks' partials in a fixed order
+// (contiguous segments of blocks in block order, then the segments).  No
 // atomics: two runs give the same bits.  dc is held to the plain version
 // within 2 D 2^-24 sum_d |dy_t[d] h_t[d, n]| (ref.py::dc_limit), the
 // bound of two f32 sums of D terms taken in different orders.
@@ -268,18 +269,76 @@ __global__ void __launch_bounds__(THREADS)
   if (live) dh0[hidx] = carry;
 }
 
-// dc[b, t, n] = sum over the nblk blocks' partials, in block order
+// dc[b, t, n] = the sum over the nblk blocks' partials, spread over the
+// card: a block takes DC_COLS vectors of V consecutive outputs (16-byte
+// loads along t n at V = 4) and splits each output's partials into DC_SEG
+// contiguous segments of blocks, a thread a (segment, vector).  A thread
+// adds its segment in block order; then a thread an output adds the
+// non-empty segments' sums in segment order through shared memory.  No
+// atomics: the order is fixed.  At falcon-mamba-7b's chunk (B 2 x T 256 x
+// N 16, 512 partials) that is 256 blocks for 132 SMs, 16 loads a thread;
+// one thread an output adding all 512 in turn made 32 blocks.
+constexpr int DC_SEG = 32;
+constexpr int DC_COLS = THREADS / DC_SEG;
+
+template <int V>
+struct Vec;
+template <>
+struct Vec<1> {
+  float v[1];
+  __device__ __forceinline__ static Vec load(const float* p) {
+    return Vec{{*p}};
+  }
+};
+template <>
+struct Vec<4> {
+  float v[4];
+  __device__ __forceinline__ static Vec load(const float* p) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    return Vec{{f.x, f.y, f.z, f.w}};
+  }
+};
+
+template <int V>
 __global__ void __launch_bounds__(THREADS)
     ssm_scan_dc_sum_kernel(const float* __restrict__ dc_part,
                            float* __restrict__ dc, int nblk, int TN,
-                           long long n_out) {
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n_out) return;
-  const long long b = i / TN, tn = i % TN;
-  const float* p = dc_part + b * nblk * (long long)TN + tn;
-  float sum = p[0];
-  for (int k = 1; k < nblk; ++k) sum = __fadd_rn(sum, p[(long long)k * TN]);
-  dc[i] = sum;
+                           long long n_vec) {
+  __shared__ float red[DC_SEG][DC_COLS * V];
+  const int col = threadIdx.x % DC_COLS, seg = threadIdx.x / DC_COLS;
+  // segment seg: blocks k0 .. k1 - 1 (empty where nblk < DC_SEG)
+  const auto first = [&](int s) {
+    return (int)((long long)s * nblk / DC_SEG);
+  };
+  const long long iv = (long long)blockIdx.x * DC_COLS + col;
+  const int k0 = first(seg), k1 = first(seg + 1);
+  if (iv < n_vec && k1 > k0) {
+    const long long i = iv * V;
+    const float* p = dc_part + (i / TN * nblk + k0) * TN + i % TN;
+    Vec<V> sum = Vec<V>::load(p);
+#pragma unroll 8
+    for (int k = 1; k < k1 - k0; ++k) {
+      const Vec<V> x = Vec<V>::load(p + (long long)k * TN);
+#pragma unroll
+      for (int e = 0; e < V; ++e) sum.v[e] = __fadd_rn(sum.v[e], x.v[e]);
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) red[seg][col * V + e] = sum.v[e];
+  }
+  __syncthreads();
+  if (threadIdx.x < DC_COLS * V) {
+    const long long o = (long long)blockIdx.x * DC_COLS * V + threadIdx.x;
+    if (o < n_vec * V) {
+      float sum = 0.f;
+      bool any = false;
+      for (int s = 0; s < DC_SEG; ++s) {
+        if (first(s + 1) == first(s)) continue;
+        sum = any ? __fadd_rn(sum, red[s][threadIdx.x]) : red[s][threadIdx.x];
+        any = true;
+      }
+      dc[o] = sum;
+    }
+  }
 }
 
 template <int NP>
@@ -365,20 +424,30 @@ int ssm_scan_bwd_launch(int B, int T, int D, int N, const void* decay,
   return (int)cudaErrorInvalidValue;
 }
 
-// dc [B, T, N] = the sum of dc_part [B, nblk, T, N] over its blocks, in
-// block order (contiguous f32).
+// dc [B, T, N] = the sum of dc_part [B, nblk, T, N] over its blocks
+// (contiguous f32): each output's blocks in DC_SEG contiguous segments,
+// each in block order, the segments in order.
 int ssm_scan_dc_sum_launch(int B, int T, int N, int nblk,
                            const void* dc_part, void* dc, void* stream) {
   if (B <= 0 || T <= 0 || N <= 0 || nblk <= 0)
     return (int)cudaErrorInvalidValue;
-  const long long n_out = (long long)B * T * N;
-  const long long blocks = (n_out + THREADS - 1) / THREADS;
-  if (blocks > 2147483647LL || (long long)T * N > 2147483647LL)
-    return (int)cudaErrorInvalidValue;
-  ssm_scan_dc_sum_kernel<<<(unsigned)blocks, THREADS, 0,
-                           (cudaStream_t)stream>>>(
-      static_cast<const float*>(dc_part), static_cast<float*>(dc), nblk,
-      T * N, n_out);
+  const long long tn = (long long)T * N;
+  if (tn > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const bool wide =
+      tn % 4 == 0 && reinterpret_cast<uintptr_t>(dc_part) % 16 == 0;
+  const int V = wide ? 4 : 1;
+  const long long n_vec = (long long)B * tn / V;
+  const long long blocks = (n_vec + DC_COLS - 1) / DC_COLS;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const float* part = static_cast<const float*>(dc_part);
+  float* out = static_cast<float*>(dc);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (wide)
+    ssm_scan_dc_sum_kernel<4><<<(unsigned)blocks, THREADS, 0, st>>>(
+        part, out, nblk, (int)tn, n_vec);
+  else
+    ssm_scan_dc_sum_kernel<1><<<(unsigned)blocks, THREADS, 0, st>>>(
+        part, out, nblk, (int)tn, n_vec);
   return (int)cudaGetLastError();
 }
 

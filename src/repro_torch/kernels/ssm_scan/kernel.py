@@ -10,7 +10,9 @@ on PyTorch's current stream.
 Training: ``ssm_scan_train`` also returns every ``h_t`` (``h_seq [B, T,
 D, N]``); ``ssm_scan_bwd`` launches the chunk's backward, which gives
 ``d decay``, ``d dbu``, ``dh0`` and ``dc``'s per-block partials, and
-``ssm_scan_dc_sum`` adds the partials up in block order (no atomics).
+``ssm_scan_dc_sum`` adds the partials up in a fixed order (contiguous
+segments of blocks across the card's threads, each in block order, then
+the segments in order; no atomics).
 """
 
 from __future__ import annotations
@@ -137,7 +139,8 @@ def ssm_scan_bwd(decay: torch.Tensor, h_seq: torch.Tensor,
 
 def ssm_scan_dc_sum(dc_part: torch.Tensor) -> torch.Tensor:
     """``dc`` [B, T, N]: ``ssm_scan_bwd``'s partials [B, nblk, T, N]
-    summed over the blocks in block order (f32)."""
+    summed over the blocks in a fixed order (f32): contiguous segments of
+    blocks, each in block order, then the segments in order."""
     dev = dc_part.device
     _build.require_cuda(dev, "ssm_scan_dc_sum")
     if (dc_part.dim() != 4 or dc_part.dtype != torch.float32

@@ -19,10 +19,18 @@ On the CPU, on numpy-seeded inputs:
   ``repro.models.rglru.rglru_block_apply``, within the training tests'
   leaf limits (``tests/_torch_train.py``: 2^-3 of the largest element,
   2^-4 of the norm); finite where bf16 ``exp(-x)`` overflows.
+* ``rglru_scan.ref.rglru_gated_scan_bwd_tiled`` (the backward kernel's
+  walk: tiles of 32 steps from the last back, dnsp summed in the kernel's
+  order) against ``rglru_gated_scan_bwd_ref``: ``dr_pre``, ``di_pre``,
+  ``du`` and ``dh0`` bit for bit, ``dnsp`` within ``ref.dnsp_limit``, at
+  sequence lengths around a tile, with a channel where the sigmoid
+  overflows and a batch that needs two clusters; ``ref.cluster_rows``.
 * ``layers.sigmoid``'s gradient against ``jax.vjp`` of ``jax.nn.sigmoid``,
   bit for bit.
 * The backward launchers' ``ctypes`` signatures against the C sources,
-  and their refusal of CPU tensors.
+  and their refusal of CPU tensors; the RG-LRU backward's tile, row groups
+  and cluster size in ``rglru_scan.cu`` against the tiled walk's, and each
+  RG-LRU launcher's grid against its kernel's channels a block.
 
 The kernels themselves run on the card, in ``tests/test_torch_train_cuda.py``
 (no JAX there), on the same inputs (``tests/_torch_scan_cases.py``)."""
@@ -129,6 +137,77 @@ def test_rglru_bwd_ref_is_finite_where_the_sigmoid_overflows():
     assert not got[0][..., 1].any() and not got[1][..., 2].any()
 
 
+@pytest.mark.parametrize("B,S,d", [(2, S, d) for S in (1, 31, 32, 33, 100)
+                                   for d in (24, 64)] + [(12, 33, 24)])
+def test_rglru_bwd_tiled_is_the_plain_backward(B, S, d):
+    """The kernel's walk in tiles (the first walked partial unless S is a
+    multiple of 32; S 1 a single row) gives the plain backward's bits but
+    for dnsp, whose sum order is the kernel's (B 12: two clusters of 6
+    batch rows); channel 1 of r_pre at -120."""
+    r_pre, i_pre, u, nsp, h0, dh_seq, dh_s = C.rglru_case(B, S, d,
+                                                          seed=20 + S)
+    r_pre[..., 1] = -120.0
+    h_seq, _ = rr.rglru_gated_scan_ref(r_pre, i_pre, u, nsp, h0)
+    args = (r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s)
+    got = rr.rglru_gated_scan_bwd_tiled(*args)
+    want = rr.rglru_gated_scan_bwd_ref(*args)
+    for k, name in ((0, "dr_pre"), (1, "di_pre"), (2, "du"), (4, "dh0")):
+        assert got[k].dtype == want[k].dtype, name
+        assert torch.equal(got[k], want[k]), name
+    assert all(bool(x.isfinite().all()) for x in got)
+    assert ((got[3] - want[3]).abs() <= rr.dnsp_limit(*args)).all()
+
+
+def test_cluster_rows_is_the_largest_divisor_up_to_eight():
+    assert [rr.cluster_rows(B) for B in range(1, 18)] == [
+        1, 2, 3, 4, 5, 6, 7, 8, 3, 5, 1, 6, 1, 7, 5, 8, 1]
+
+
+RGLRU_CU = KERNELS / "rglru_scan" / "csrc" / "rglru_scan.cu"
+
+
+def _cu_constants(src: Path) -> dict:
+    """The source's ``constexpr int`` constants, evaluated in order."""
+    consts = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);",
+                                 src.read_text()):
+        consts[name] = eval(expr.replace("/", "//"), {}, dict(consts))
+    return consts
+
+
+def _cu_body(text: str, start: int) -> str:
+    """The text of the function defined from ``start`` on, up to its
+    closing brace at the start of a line."""
+    return text[start:text.index("\n}\n", start)]
+
+
+def test_rglru_bwd_tiled_walk_uses_the_kernels_constants():
+    """``ref.rglru_gated_scan_bwd_tiled`` sums dnsp in the order the
+    backward kernel's tile, row groups and cluster size give it."""
+    k = _cu_constants(RGLRU_CU)
+    assert (k["TT"], k["BW_ROWS"], k["CLUSTER_MAX"]) == (
+        rr.TILE, rr.ROW_GROUPS, rr.CLUSTER_MAX)
+
+
+@pytest.mark.parametrize("launcher,kernel", [
+    ("int rglru_scan_launch(", "rglru_scan_kernel("),
+    ("int rglru_scan_bwd_launch(", "rglru_scan_bwd_kernel(")])
+def test_rglru_launchers_size_grids_by_their_kernels_tiles(launcher,
+                                                           kernel):
+    """Each launcher's tensor maps, grid and kernel take the same channels
+    a block: one constant, so no launcher starts blocks past D."""
+    text = RGLRU_CU.read_text()
+    body = _cu_body(text, text.index(launcher))
+    boxes = set(re.findall(r"encode\([^;]*?, (\w+)\)", body))
+    grids = re.findall(r"\(D \+ (\w+) - 1\) / (\w+)", body)
+    k_body = _cu_body(text, re.search(
+        r"__global__[^{]*?\b" + re.escape(kernel), text).start())
+    c0 = re.findall(r"c0 = blockIdx\.x \* (\w+);", k_body)
+    assert len(boxes) == 1 and len(grids) == 1 and len(c0) == 1
+    (box,) = boxes
+    assert grids[0] == (box, box) and c0[0] == box
+
+
 @pytest.mark.parametrize("points", ["named", "drawn"])
 def test_sigmoid_grad_matches_jax_logistic(points):
     """``layers.sigmoid``'s gradient in bf16 against ``jax.vjp`` of
@@ -201,7 +280,7 @@ def _c_params(src: Path, fn: str) -> list[str]:
     sig = re.search(rf"{fn}\(([^)]*)\)", src.read_text()).group(1)
     return ["pointer" if "*" in p else
             " ".join(p.split()[:-1]).replace("const ", "")
-            for p in sig.split(",")]
+            for p in sig.split(",") if p.strip()]
 
 
 def _kind(ctype) -> str:
@@ -214,6 +293,7 @@ def _kind(ctype) -> str:
     (sk, "ssm_scan/csrc/ssm_scan.cu", "ssm_scan_bwd_blocks"),
     (sk, "ssm_scan/csrc/ssm_scan.cu", "ssm_scan_bwd_launch"),
     (sk, "ssm_scan/csrc/ssm_scan.cu", "ssm_scan_dc_sum_launch"),
+    (rk, "rglru_scan/csrc/rglru_scan.cu", "rglru_scan_bwd_smem_bytes"),
     (rk, "rglru_scan/csrc/rglru_scan.cu", "rglru_scan_bwd_scratch"),
     (rk, "rglru_scan/csrc/rglru_scan.cu", "rglru_scan_bwd_launch")])
 def test_backward_launch_arguments_match_the_cuda_source(mod, src, fn,

@@ -17,8 +17,9 @@ backward on the card: each against its plain version
 (``ssm_scan_bwd_ref``, ``rglru_gated_scan_bwd_ref``, which
 ``tests/test_torch_scan_bwd.py`` holds to autograd and to ``repro``),
 bitwise but for the sums dC and dnsp (held to ``ref.dc_limit`` /
-``ref.dnsp_limit``: two orders of an f32 sum), bitwise when run twice, and
-autograd through the dispatch launching them.  No JAX here."""
+``ref.dnsp_limit``: two orders of an f32 sum), the RG-LRU's also against
+``ref.rglru_gated_scan_bwd_tiled`` (bitwise, dnsp too), bitwise when run
+twice, and autograd through the dispatch launching them.  No JAX here."""
 
 import ctypes
 import re
@@ -261,8 +262,12 @@ def _on(dev, *xs):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [(2, 12, 16, 4, 3), (1, 37, 100, 5, 0),
-                                  (2, 256, 512, 16, 44)])
+                                  (2, 256, 512, 16, 44),
+                                  (1, 64, 600, 16, 0)])
 def test_ssm_bwd_kernel_matches_plain_and_is_deterministic(cuda, case):
+    """The last case's 38 block partials of dC are not a multiple of the
+    sum kernel's 32 segments; the second's T N = 185 takes its scalar
+    loads."""
     B, T_, D, N, tail = case
     decay, dbu, c, h0, dy, dh_t = _on(cuda, *C.ssm_case(B, T_, D, N, tail, 2))
     h_out, y, h_seq = sk.ssm_scan_train(decay, dbu, c, h0)
@@ -282,26 +287,50 @@ def test_ssm_bwd_kernel_matches_plain_and_is_deterministic(cuda, case):
             <= sr.dc_limit(decay, dbu, h0, dy)).all()
 
 
+def _every_bf16(B, S, d):
+    """``r_pre`` through every bf16 bit pattern (NaNs as 0) and ``i_pre``
+    through the same values shuffled (``B S d`` = 65 536), on the CPU."""
+    import numpy as np
+    bits = torch.arange(-2**15, 2**15, dtype=torch.int32)
+    nan = ((bits & 0x7F80) == 0x7F80) & ((bits & 0x7F) != 0)
+    vals = torch.where(nan, 0, bits).to(torch.int16).view(torch.bfloat16)
+    perm = torch.from_numpy(np.random.default_rng(5).permutation(2**16))
+    return vals.reshape(B, S, d).clone(), vals[perm].reshape(B, S, d)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [(2, 40, 24), (3, 100, 64), (1, 1, 32)])
+@pytest.mark.parametrize("case", [(2, 40, 24, False), (3, 100, 64, False),
+                                  (1, 1, 32, False), (2, 2100, 64, False),
+                                  (12, 33, 24, False), (2, 1024, 32, True)])
 def test_rglru_bwd_kernel_matches_plain_and_is_deterministic(cuda, case):
-    B, S, d = case
+    """Against the plain backward (bitwise but dnsp) and its tiled walk
+    (bitwise, dnsp too: the kernel's sum order): S 2 100 ends in a
+    partial tile, B 3 is one cluster of 3 batch rows, B 12 two of 6 (and
+    the sum of their partials); the last case puts every bf16 value into
+    r_pre and i_pre."""
+    B, S, d, every = case
+    r_pre, i_pre, u, nsp, h0, dh_seq, dh_s = C.rglru_case(B, S, d, seed=3)
+    if every:
+        r_pre, i_pre = _every_bf16(B, S, d)
+    else:
+        # a channel each where the sigmoid's bf16 exp(-x) overflows
+        r_pre[..., -1] = -120.0
+        i_pre[..., 0] = -120.0
     r_pre, i_pre, u, nsp, h0, dh_seq, dh_s = _on(
-        cuda, *C.rglru_case(B, S, d, seed=3))
-    # a channel each where the sigmoid's bf16 exp(-x) overflows
-    r_pre[..., -1] = -120.0
-    i_pre[..., 0] = -120.0
+        cuda, r_pre, i_pre, u, nsp, h0, dh_seq, dh_s)
     h_seq, _ = rk.rglru_scan(r_pre, i_pre, u, nsp, h0)
-    got = rk.rglru_scan_bwd(r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s)
-    again = rk.rglru_scan_bwd(r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s)
-    want = rr.rglru_gated_scan_bwd_ref(r_pre, i_pre, u, nsp, h0, h_seq,
-                                       dh_seq, dh_s)
+    args = (r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s)
+    got = rk.rglru_scan_bwd(*args)
+    again = rk.rglru_scan_bwd(*args)
+    want = rr.rglru_gated_scan_bwd_ref(*args)
+    tiled = rr.rglru_gated_scan_bwd_tiled(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert all(x.isfinite().all() for x in got)
     for i in (0, 1, 2, 4):
         assert torch.equal(got[i], want[i]), i
-    assert ((got[3] - want[3]).abs() <= rr.dnsp_limit(
-        r_pre, i_pre, u, nsp, h0, h_seq, dh_seq, dh_s)).all()
+    for i in range(5):
+        assert torch.equal(got[i], tiled[i]), i
+    assert ((got[3] - want[3]).abs() <= rr.dnsp_limit(*args)).all()
 
 
 @pytest.mark.cuda
@@ -319,11 +348,32 @@ def test_autograd_through_the_scan_kernels_counts_launches(cuda):
     r_pre, i_pre, u, nsp, h0, dh_seq, dh_s = _on(cuda, *C.rglru_case(seed=5))
     leaves = [x.clone().requires_grad_(True)
               for x in (r_pre, i_pre, u, nsp, h0)]
-    before = (ro.launches, ro.bwd_launches)
+    count = lambda: (ro.launches, ro.bwd_launches, ro.bwd_nsp_launches)
+    before = count()
     h_seq, h_s = ro.rglru_scan(*leaves)
     got = torch.autograd.grad((h_seq, h_s), leaves, (dh_seq, dh_s))
-    assert [b - a for a, b in zip(before, (ro.launches, ro.bwd_launches))] \
-        == [1, 1]
+    assert [b - a for a, b in zip(before, count())] == [1, 1, 0]
     want = rr.rglru_gated_scan_bwd_ref(r_pre, i_pre, u, nsp, h0,
                                        h_seq.detach(), dh_seq, dh_s)
     assert all(torch.equal(g, w) for g, w in zip(got[:3], want[:3]))
+
+
+@pytest.mark.cuda
+def test_rglru_bwd_second_launch_follows_cluster_rows(cuda):
+    """The backward adds dnsp's cluster partials in a second launch, with
+    a scratch of those partials, exactly where ``ref.cluster_rows`` leaves
+    more than one cluster (B > 8), and counts that launch."""
+    lib = rk.library()
+    for B in range(1, 41):
+        groups = B // rr.cluster_rows(B)
+        assert lib.rglru_scan_bwd_scratch(B, 1, 8) == (
+            8 * groups if groups > 1 else 0), B
+    r_pre, i_pre, u, nsp, h0, dh_seq, dh_s = _on(
+        cuda, *C.rglru_case(B=12, S=33, seed=6))
+    leaves = [x.clone().requires_grad_(True)
+              for x in (r_pre, i_pre, u, nsp, h0)]
+    before = (ro.bwd_launches, ro.bwd_nsp_launches)
+    h_seq, h_s = ro.rglru_scan(*leaves)
+    torch.autograd.grad((h_seq, h_s), leaves, (dh_seq, dh_s))
+    count = (ro.bwd_launches, ro.bwd_nsp_launches)
+    assert [b - a for a, b in zip(before, count)] == [1, 1]
