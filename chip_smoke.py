@@ -21,12 +21,13 @@ controller study, the simulator-side studies with the ChargeCache
 example, and the rest of the model zoo: recurrentgemma-2b, the MoE
 configs, whisper-small, granite-34b, pixtral-12b and phi3-medium-14b),
 training (the flash kernel's backward entries, tinyllama-1.1b's and
-whisper-small's train steps, ``examples/train_lm_torch.py``),
-checks the results against the JAX package's recorded golden numbers
+whisper-small's train steps, ``examples/train_lm_torch.py``) and
+fault-tolerant training (``examples/fault_tolerance_torch.py``'s drill,
+the two XLA attention strategies, a one-rank mesh), checks the results against the JAX package's recorded golden numbers
 (``src/repro_torch/data/golden_fullwidth.json``, ``golden_synth.json``,
 ``golden_serving.json``, ``golden_lm.json``, ``golden_lm_ssm.json``,
-``golden_frfcfs.json``, ``golden_drivers.json``, ``golden_lm_zoo.json``
-and ``golden_train.json``),
+``golden_frfcfs.json``, ``golden_drivers.json``, ``golden_lm_zoo.json``,
+``golden_train.json`` and ``golden_ft.json``),
 and times the kernels.  It imports nothing of JAX or of the ``repro``
 package.  Phases:
 
@@ -281,6 +282,24 @@ package.  Phases:
     last loss and parameters bitwise equal to the straight run's); (e)
     tinyllama-1.1b's full train step at B 4 x 2 048 timed, its tokens/s
     and share of 989 TFLOP/s;
+25. fault-tolerant training: (a) ``examples/fault_tolerance_torch.py``'s
+    drill (``golden.FT``: tinyllama-1.1b at published widths cut to 2
+    layers, B 8 x 256; 40 steps, host 3 fails at 25, host 5 straggles
+    from 12, a checkpoint every 10: 48 steps, four saves, one restore)
+    with its report and printed lines equal to ``golden_ft.json``,
+    finite falling losses, the flash training entries launched the
+    straight run's count a step times 48, and its final parameters and
+    AdamW state bitwise equal to a straight 40-step run (two straight
+    runs are compared first; were they to differ, the drill would be
+    held to 4x their distance, measured before it runs); step ms, save
+    and restore s, checkpoint GB; (b) ``layers.blocked_attention``
+    against the flash kernel (B 4 x S 500, phi4-mini B 1 x S 2 048) and
+    ``layers.split_kv_decode_attention`` against the decode kernel (W
+    520, granite's W 4 100) within ``tests/test_kernels.py``'s limits;
+    (c) a one-rank ``nccl`` group over a ``FileStore``, ``launch.mesh.
+    make_host_mesh()``, and the drill's last checkpoint restored into
+    DTensor leaves placed by ``params.shard_params``: each
+    ``full_tensor()`` bitwise equal to the plain restore;
 then the total time, one JSON line of kernel numbers, and the last line:
 ``{"ok": true, "device": {...}}``.
 
@@ -292,6 +311,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -4318,6 +4338,243 @@ def train_phase(golden_mod, smi: str, device="cuda") -> list:
 
 
 # --------------------------------------------------------------------------
+# phase 25: fault-tolerant training, the attention strategies, a mesh
+# --------------------------------------------------------------------------
+
+#: phase 25 (b): ``blocked_attention`` against the flash kernel at these
+#: (B, S, H, K, hd, causal, window) and ``split_kv_decode_attention``
+#: against the decode kernel at these ``DECODE_FULL`` rings (B, H, K, hd,
+#: W, window, filled slots) with the splits asked for (W 4 100 is no
+#: multiple of 8: one split)
+STRATEGY_FLASH = [(4, 500, 32, 4, 64, True, 0),
+                  (1, 2048, 24, 8, 128, True, 0)]
+STRATEGY_DECODE = [((4, 32, 4, 64, 520, 0, 516), 8),
+                   ((4, 48, 1, 128, 4100, 0, 5001), 4),
+                   ((4, 48, 1, 128, 4100, 0, 5001), 8)]
+
+
+def state_distance(ex, a: dict, b: dict) -> float:
+    """The largest relative distance ``|x - y|_2 / |y|_2`` over the two
+    runs' leaves (the drill example ``ex``'s ``state_leaves``; 0.0 when
+    every leaf is bitwise equal)."""
+    import torch
+    worst = 0.0
+    for x, y in zip(ex.state_leaves(a), ex.state_leaves(b), strict=True):
+        if torch.equal(x, y):
+            continue
+        d = float((x.double() - y.double()).norm())
+        worst = max(worst, d / max(float(y.double().norm()), 1e-30))
+    return worst
+
+
+def close_share(got, want, tol: float) -> tuple[float, float]:
+    """``(max |got - want|, worst share of tol + tol |want|)``: numpy's
+    ``assert_allclose`` rule with ``tests/test_kernels.py``'s limit."""
+    w = want.float()
+    d = (got.float() - w).abs()
+    return float(d.max()), float((d / (tol + tol * w.abs())).max())
+
+
+def strategy_phase(fk, pk, dev) -> dict:
+    """Phase 25 (b): ``repro``'s two XLA strategies (the port's plain
+    PyTorch) against the kernels that stand in for them on the card."""
+    import torch
+    from repro_torch.models import layers
+    out = {"flash": [], "decode": []}
+    for i, case in enumerate(STRATEGY_FLASH):
+        B, S, H, K, hd, causal, window = case
+        q, k, v = (seeded(shape, 500 + 10 * i + j, torch.bfloat16, dev)
+                   for j, shape in enumerate(((B, S, H, hd), (B, S, K, hd),
+                                              (B, S, K, hd))))
+        pos = torch.arange(S, dtype=torch.int32, device=dev)
+        got = fk.flash_attention(q, k, v, causal=causal, window=window)
+        want = layers.blocked_attention(q, k, v, pos, pos, causal, window)
+        err, share = close_share(got, want, FLASH_TOL["bf16"])
+        out["flash"].append({"shape": list(case), "max_abs_err": err,
+                             "share": share})
+        print(f"  (b) blocked_attention vs the flash kernel, B{B} S{S} H{H} "
+              f"K{K} hd{hd} bf16: max |d| {err:.3g}, worst share of "
+              f"{FLASH_TOL['bf16']} + {FLASH_TOL['bf16']} |plain| "
+              f"{share:.3g}", flush=True)
+        check(share <= 1.0, f"blocked_attention disagrees with the flash "
+                            f"kernel at {case}")
+    for i, (case, n_splits) in enumerate(STRATEGY_DECODE):
+        B, H, K, hd, W, window, fill = case
+        q, kc, vc, kv_pos, q_pos = decode_case(case, 600 + 10 * i, dev)
+        got = pk.decode_attention(q, kc, vc, kv_pos, q_pos, window=window)
+        want = layers.split_kv_decode_attention(
+            q[:, None], kc, vc, kv_pos, q_pos, window, n_splits)[:, 0]
+        err, share = close_share(got, want, DECODE_TOL)
+        ns = n_splits if W % n_splits == 0 else 1
+        out["decode"].append({"shape": list(case), "n_splits": ns,
+                              "max_abs_err": err, "share": share})
+        print(f"  (b) split_kv_decode_attention ({ns} split{'s' * (ns > 1)}) "
+              f"vs the decode kernel, B{B} H{H} K{K} hd{hd} W{W}: max |d| "
+              f"{err:.3g}, "
+              f"worst share of {DECODE_TOL} + {DECODE_TOL} |plain| "
+              f"{share:.3g}", flush=True)
+        check(share <= 1.0, f"split_kv_decode_attention disagrees with the "
+                            f"decode kernel at {case}, {ns} splits")
+    return out
+
+
+def mesh_restore(ckpt_dir: str, run: dict, defs, dev) -> dict:
+    """Phase 25 (c): a one-rank ``nccl`` group, the host mesh, and the
+    checkpoint restored into DTensor leaves against the plain restore."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.params import shard_params
+    opt = run["opt"]
+    template = {"params": run["model"].tree(), "opt": opt}
+    store = tempfile.mkdtemp(dir=ROOT / "build")
+    torch.cuda.set_device(0 if dev.index is None else dev.index)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(store, "store"), 1),
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_host_mesh()
+        target = {"params": shard_params(template["params"], defs, mesh),
+                  "opt": opt._replace(m=shard_params(opt.m, defs, mesh),
+                                      v=shard_params(opt.v, defs, mesh),
+                                      master=shard_params(opt.master, defs,
+                                                          mesh))}
+        t0 = time.perf_counter()
+        dtree, step, _ = ckpt.restore(ckpt_dir, target)
+        torch.cuda.synchronize()
+        d_s = time.perf_counter() - t0
+        plain, step_p, _ = ckpt.restore(ckpt_dir, template)
+        named, plain_named = ckpt._flatten(dtree), dict(ckpt._flatten(plain))
+        n_dt = equal = 0
+        places = set()
+        for name, v in named:
+            if hasattr(v, "full_tensor"):
+                n_dt += 1
+                places.add(tuple(repr(p) for p in v.placements))
+                v = v.full_tensor()
+            equal += bool(v.dtype == plain_named[name].dtype
+                          and torch.equal(v, plain_named[name]))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    print(f"  (c) a one-rank nccl group, make_host_mesh() "
+          f"{tuple(mesh.shape)} {mesh.mesh_dim_names}: step {step} restored "
+          f"into {n_dt} DTensor leaves (placements {sorted(places)}) in "
+          f"{d_s:.2f} s; {equal} of {len(named)} leaves bitwise equal to "
+          f"the plain restore", flush=True)
+    check(step == step_p and n_dt > 0 and equal == len(named),
+          "the DTensor restore differs from the plain restore")
+    return {"leaves": len(named), "dtensor_leaves": n_dt,
+            "placements": sorted(places), "restore_s": d_s}
+
+
+def ft_phase(golden_mod, smi: str, device="cuda") -> dict:
+    """Phase 25; returns the drill's flash launches and its numbers."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.models import zoo
+    dev = torch.device(device)
+    t_phase = time.time()
+    phase("25: fault-tolerant training (the drill), the attention "
+          "strategies, a one-rank mesh")
+    F, rec = golden_mod.FT, golden_mod.load_ft()
+    ex = load_example("fault_tolerance_torch")
+    argv = ["--full-width", "--layers", str(F["layers"]), "--seq",
+            str(F["seq"]), "--batch", str(F["batch"]), "--device", device]
+    cfg = ex.model_config(True, F["layers"])
+
+    # (a) two straight runs: the step's own determinism, measured before
+    # the drill, sets its limit
+    zero_train_counts(fops)
+    first = ex.straight(argv)
+    torch.cuda.synchronize()
+    per40 = train_counts(fops)
+    second = ex.straight(argv)
+    floor = state_distance(ex, second, first)
+    limit = 4 * floor
+    del second
+    torch.cuda.empty_cache()
+    per_step = {k: v // 40 for k, v in per40.items()}
+    print(f"  (a) two straight 40-step runs: relative distance {floor:g} "
+          f"(0 = bitwise); the drill's limit {limit:g}; flash launches a "
+          f"step {per_step}", flush=True)
+    check(all(v % 40 == 0 and v > 0 for v in per40.values())
+          and per_step["bwd_dkdv"] == per_step["bwd_dq"] == cfg.n_layers,
+          f"a straight run's flash launches are not a fixed count a step "
+          f"over its {cfg.n_layers} layers: {per40}")
+    ckpt_dir = tempfile.mkdtemp(dir=ROOT / "build")
+    try:
+        zero_train_counts(fops)
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            drill = ex.main(argv + ["--ckpt-dir", ckpt_dir])
+        torch.cuda.synchronize()
+        drill_s = time.time() - t0
+        launches = train_counts(fops)
+        rep = drill["report"]
+        lines = out.getvalue().splitlines()
+        losses = [v for _, v in drill["losses"]]
+        dist = state_distance(ex, drill, first)
+        last = os.path.join(ckpt_dir, "step_00000040")
+        gb = sum(f.stat().st_size for f in Path(last).iterdir()) / 1e9
+        step_ms = statistics.median(drill["step_s"]) * 1e3
+        print(f"  (a) the drill: tinyllama-1.1b {cfg.n_layers} layers "
+              f"(published widths, {cfg.n_params() / 1e6:.0f} M parameters), "
+              f"B{F['batch']} x {F['seq']}, {len(losses)} steps in "
+              f"{drill_s:.1f} s: step {step_ms:.2f} ms (median), saves "
+              f"{', '.join(f'{x:.2f}' for x in drill['save_s'])} s, restore "
+              f"{drill['restore_s'][0]:.2f} s, checkpoint {gb:.3f} GB; "
+              f"report {rep}; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+              f"flash launches {launches}; relative distance from the "
+              f"straight run {dist:g}", flush=True)
+        for ln in lines:
+            print(f"      | {ln}")
+        want = rec["report"]
+        check(lines == rec["lines"] and rep.steps_done == want["steps_done"]
+              and rep.failures == want["failures"]
+              and rep.redispatches == want["redispatches"]
+              and [list(r) for r in rep.remeshes] == want["remeshes"]
+              and rep.restored_from == want["restored_from"],
+              "the drill's report or lines differ from golden_ft.json")
+        check(len(losses) == 48 and all(map(math.isfinite, losses))
+              and losses[-1] < losses[0],
+              "the drill's losses are not finite or did not fall")
+        check(launches == {k: v * 48 for k, v in per_step.items()},
+              f"the drill's flash launches {launches} are not 48 steps' "
+              f"{per_step}")
+        check(dist <= limit, f"the drill ends {dist:g} from the straight "
+                             f"run (limit {limit:g})")
+        nums = {"step_ms": step_ms, "save_s": drill["save_s"],
+                "restore_s": drill["restore_s"][0], "checkpoint_gb": gb,
+                "drill_s": drill_s, "distance": dist, "floor": floor,
+                "first_loss": losses[0], "last_loss": losses[-1]}
+        del first
+        strat = strategy_phase(fk, pk, dev)
+        mesh = mesh_restore(ckpt_dir, drill, zoo.model_defs(cfg), dev)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del drill
+    torch.cuda.empty_cache()
+    wall = time.time() - t_phase
+    print(f"  phase 25 {wall:.1f} s; card: {smi}", flush=True)
+    return {"launches": launches, "per_step": per_step, **nums,
+            "strategies": strat, "mesh": mesh, "phase_s": wall}
+
+
+# --------------------------------------------------------------------------
 # phase 16: the Experiment layer and the five figures
 # --------------------------------------------------------------------------
 
@@ -5148,6 +5405,25 @@ def driver_phase(sim, traces, golden_mod, kernel, device="cuda") -> dict:
                           for n, a in outs["megasweep"]["arms"].items()}}
 
 
+def add_ft_rows(lm_rows: list, train_rows: list, ft: dict) -> None:
+    """Phase 25's drill launches into the flash rows (forward: the LSE
+    instantiation; the backward's entries) as ``launches_phase25``, added
+    to ``launches``; (b)'s comparisons into the flash and decode rows."""
+    counts = {"flash_attention": "flash", "flash_attention_bwd": "bwd_dkdv",
+              "flash_bwd_dot": "bwd_dot", "flash_bwd_dkdv_wgmma": "bwd_dkdv",
+              "flash_bwd_sum": "bwd_sum", "flash_bwd_dq_wgmma": "bwd_dq"}
+    for row in lm_rows + train_rows:
+        if row["name"] in counts:
+            n = ft["launches"][counts[row["name"]]]
+            row["launches_phase25"] = n
+            row["launches"] += n
+    flash, dec = lm_rows
+    flash["strategy_blocked_attention"] = ft["strategies"]["flash"]
+    dec["strategy_split_kv_decode"] = ft["strategies"]["decode"]
+    train_rows[0]["fault_tolerance_drill"] = {
+        k: v for k, v in ft.items() if k != "strategies"}
+
+
 def add_zoo_rows(lm_rows: list, zoo_rows: dict) -> None:
     """Phases 19-23's numbers into the flash and decode rows of the kernel
     line (``zoo``: their phase-19 shapes; ``launches_zoo``: the serving
@@ -5575,6 +5851,8 @@ def main() -> int:
     zoo_rows = zoo_phases(golden_mod, smi)
     add_zoo_rows(lm_rows, zoo_rows)
     train_rows = train_phase(golden_mod, smi)
+    ft = ft_phase(golden_mod, smi)
+    add_ft_rows(lm_rows, train_rows, ft)
     print(f"\nchip_smoke total: {time.time() - t_start:.1f} s")
     print(smi)
 

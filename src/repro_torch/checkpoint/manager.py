@@ -24,9 +24,22 @@ wrote::
 * **dtypes**: bf16 is stored as its uint16 bits with dtype name
   ``"bfloat16"`` (npz has no bf16), read back through a torch ``view``.
 
-Leaves may be torch tensors, numpy arrays or Python scalars; ``restore``
-gives torch tensors, each on the device of its target leaf (the CPU
-where the target leaf is no tensor).
+* **Elastic**: leaves are stored whole.  A DTensor leaf is gathered
+  with ``full_tensor()`` -- a collective, so every rank of its mesh
+  calls ``save`` (or ``save_async``) and the gathers run in leaf order
+  on all of them; rank 0 of the process group writes and renames, and a
+  barrier follows (in ``AsyncCheckpointer.wait`` for an async save).
+  ``restore`` reads the file on every rank and places each leaf whose
+  target is a DTensor on the target's mesh with its placements
+  (``distribute_tensor``, every rank keeping its own shard), so a
+  checkpoint saved under one mesh restores under another -- the smaller
+  mesh of the survivors after ``runtime.fault_tolerance.
+  elastic_mesh_shape``.
+
+Leaves may be torch tensors, DTensors, numpy arrays or Python scalars;
+``restore`` gives torch tensors, each on the device of its target leaf
+(the CPU where the target leaf is no tensor), or DTensors where the
+target leaf is one.
 """
 
 from __future__ import annotations
@@ -76,6 +89,28 @@ def _rebuild(tree, values: dict, prefix: str = ""):
     return values[prefix]
 
 
+def _is_dtensor(v) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(v, DTensor)
+
+
+def _gather(named: list) -> tuple[list, bool]:
+    """``named`` with every DTensor leaf gathered whole (in leaf order,
+    a collective on its mesh), and whether any leaf was one."""
+    out, dist = [], False
+    for name, v in named:
+        if _is_dtensor(v):
+            v, dist = v.full_tensor(), True
+        out.append((name, v))
+    return out, dist
+
+
+def _writer() -> bool:
+    """Whether this process writes a distributed save: rank 0 of the
+    process group."""
+    return torch.distributed.get_rank() == 0
+
+
 def _host(v) -> np.ndarray:
     """A leaf as a host numpy array; bf16 as its uint16 bits (dtype name
     returned beside it by ``_stored``)."""
@@ -100,14 +135,30 @@ def _stored(v) -> tuple[np.ndarray, str]:
 def save(ckpt_dir: str, step: int, tree: Any,
          extra: Optional[dict] = None) -> str:
     """Synchronous save of ``tree`` as step ``step`` with an atomic
-    rename; returns the step's directory."""
+    rename; returns the step's directory.  With DTensor leaves every rank
+    calls it (module docstring)."""
+    named, dist = _gather(_flatten(tree))
+    final = _final(ckpt_dir, step)
+    if not dist or _writer():
+        _write(ckpt_dir, step, named, extra)
+    if dist:
+        torch.distributed.barrier()
+    return final
+
+
+def _final(ckpt_dir: str, step: int) -> str:
+    return os.path.join(ckpt_dir, f"step_{step:08d}")
+
+
+def _write(ckpt_dir: str, step: int, named: list,
+           extra: Optional[dict]) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
-    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    final = _final(ckpt_dir, step)
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
     arrays = {}
     manifest = {"step": step, "leaves": [], "extra": extra or {}}
-    for i, (name, v) in enumerate(_flatten(tree)):
+    for i, (name, v) in enumerate(named):
         arr, dtype_name = _stored(v)
         key = f"a{i}"
         arrays[key] = arr
@@ -125,32 +176,35 @@ def save(ckpt_dir: str, step: int, tree: Any,
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
-    return final
 
 
 class AsyncCheckpointer:
     """Overlaps checkpoint I/O with training (one save in flight at a
     time).  ``wait`` raises the background save's error, if any, and
-    ``TimeoutError`` when the save outlasts ``timeout`` seconds."""
+    ``TimeoutError`` when the save outlasts ``timeout`` seconds; after a
+    save of DTensor leaves every rank calls it, and it ends in a
+    barrier."""
 
     def __init__(self, ckpt_dir: str, timeout: float = 600.0):
         self.ckpt_dir = ckpt_dir
         self.timeout = timeout
         self._thread: Optional[threading.Thread] = None
         self._err: Optional[BaseException] = None
+        self._dist = False
 
     def save_async(self, step: int, tree: Any,
                    extra: Optional[dict] = None):
         self.wait()
-        names = _flatten(tree)
-        host = {name: (v.detach().to("cpu", copy=True)
-                       if isinstance(v, torch.Tensor) else np.array(v))
-                for name, v in names}
-        host_tree = _rebuild(tree, host)
+        named, self._dist = _gather(_flatten(tree))
+        if self._dist and not _writer():
+            return
+        named = [(name, v.detach().to("cpu", copy=True)
+                  if isinstance(v, torch.Tensor) else np.array(v))
+                 for name, v in named]
 
         def work():
             try:
-                save(self.ckpt_dir, step, host_tree, extra)
+                _write(self.ckpt_dir, step, named, extra)
             except BaseException as e:  # surfaced on the next wait()
                 self._err = e
 
@@ -164,6 +218,9 @@ class AsyncCheckpointer:
                 raise TimeoutError(f"checkpoint save still running after "
                                    f"{self.timeout} s")
             self._thread = None
+        if self._dist:
+            self._dist = False
+            torch.distributed.barrier()
         if self._err is not None:
             err, self._err = self._err, None
             raise err
@@ -188,13 +245,14 @@ def _tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 def restore(ckpt_dir: str, target_tree: Any, step: Optional[int] = None):
     """Restore into the structure of ``target_tree`` (its leaves name the
-    devices); returns ``(tree, step, extra)``.  A leaf the checkpoint
-    lacks raises ``KeyError``."""
+    devices; a DTensor leaf the mesh and placements the stored leaf is
+    re-sharded to); returns ``(tree, step, extra)``.  A leaf the
+    checkpoint lacks raises ``KeyError``."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
-    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    d = _final(ckpt_dir, step)
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     by_name = {}
@@ -207,7 +265,12 @@ def restore(ckpt_dir: str, target_tree: Any, step: Optional[int] = None):
         if name not in by_name:
             raise KeyError(f"checkpoint missing leaf {name}")
         t = by_name[name]
-        if isinstance(tgt, torch.Tensor):
+        if _is_dtensor(tgt):
+            from torch.distributed.tensor import distribute_tensor
+            mesh = tgt.device_mesh
+            t = distribute_tensor(t.to(mesh.device_type), mesh,
+                                  tgt.placements, src_data_rank=None)
+        elif isinstance(tgt, torch.Tensor):
             t = t.to(tgt.device)
         values[name] = t
     return (_rebuild(target_tree, values), manifest["step"],

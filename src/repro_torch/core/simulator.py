@@ -955,6 +955,57 @@ def _run_scan(controller: str, window: int, shape: SimShape, stacked,
     return sim_step_ops.run_sweep(shape, stacked, *rest)
 
 
+def _grid_devices(device: torch.device) -> list:
+    """The devices a launch on ``device`` spreads its grid over: every
+    CUDA device (``torch.cuda.device_count()``), or the CPU alone."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def _cat_out(outs: list, n: int, device):
+    """The chunks' outputs (trees of ``[chunk, ...]`` tensors) joined
+    along the grid axis on ``device``, the first ``n`` points kept."""
+    o = outs[0]
+    if o is None:
+        return None
+    if isinstance(o, torch.Tensor):
+        return torch.cat([x.to(device) for x in outs])[:n]
+    if isinstance(o, dict):
+        return {k: _cat_out([x[k] for x in outs], n, device) for k in o}
+    parts = [_cat_out(list(xs), n, device) for xs in zip(*outs)]
+    return type(o)(*parts) if hasattr(o, "_fields") else tuple(parts)
+
+
+def _shard_grid(run, sharded: tuple, n_grid: int, device,
+                replicated: tuple = ()):
+    """``run(*sharded, *replicated)`` with the stacked grid axis of
+    ``sharded`` (trees of ``[n_grid, ...]`` tensors) laid out across
+    ``_grid_devices(device)``: the axis padded to a multiple of the
+    device count by repeating the last point, one chunk a device (its
+    CUDA inputs moved there; host-staged inputs stay on the host, and
+    ``run`` gets the chunk's device as ``device=``), the outputs joined
+    on ``device`` without the padding.  A no-op on one device."""
+    devs = _grid_devices(device)
+    if len(devs) <= 1:
+        return run(*sharded, *replicated, device=device)
+    pad = (-n_grid) % len(devs)
+    if pad:
+        sharded = tuple(_tree_map(lambda x: torch.cat(
+            [x, x[-1:].expand((pad,) + tuple(x.shape[1:]))]), t)
+            for t in sharded)
+    per = (n_grid + pad) // len(devs)
+    outs = []
+    for i, dev in enumerate(devs):
+        place = lambda x, dev=dev: x.to(dev) if x.is_cuda else x
+        chunk = tuple(_tree_map(lambda x: place(x[i * per:(i + 1) * per]),
+                                t) for t in sharded)
+        rep = tuple(_tree_map(place, t) for t in replicated)
+        outs.append(run(*chunk, *rep, device=dev))
+    return _cat_out(outs, n_grid, device)
+
+
 def _launch_batch(staged: tuple, collect_events: bool = True,
                   reduce_keys: tuple | None = None,
                   controller: str = "inorder", window: int = 1):
@@ -964,8 +1015,13 @@ def _launch_batch(staged: tuple, collect_events: bool = True,
     ``reduce_keys`` the int32 ``[G, n_deps]`` reduction (no events).
     Nothing here synchronises with the device or copies to the host when
     the params are staged on the host."""
-    out = _run_scan(controller, window, *staged,
-                    collect_events and reduce_keys is None)
+    shape, stacked, trace, ns, ns_idx, warmup, n_steps = staged
+    collect = collect_events and reduce_keys is None
+    out = _shard_grid(
+        lambda st, idx, tr, nsx, device: _run_scan(
+            controller, window, shape, st, tr, nsx, idx, warmup, n_steps,
+            collect), (stacked, ns_idx), ns_idx.shape[0], trace["gap"].device,
+        replicated=(trace, ns))
     if reduce_keys is None:
         return out
     return _reduce_device(out[0], out[1], reduce_keys)
@@ -1013,9 +1069,13 @@ def _launch_grid(shape: SimShape, stacked: MechParams, ns_idx,
                            dtype=_I32).repeat_interleave(G)
     stacked_bg = _tree_map(
         lambda a: a.repeat((B,) + (1,) * (a.dim() - 1)), stacked)
-    stats, core_end, events = _run_scan(
-        controller, window, shape, stacked_bg, trace, ns, ns_bg, warmups,
-        n_steps.pop(), collect_events and reduce_keys is None)
+    n_steps = n_steps.pop()
+    collect = collect_events and reduce_keys is None
+    stats, core_end, events = _shard_grid(
+        lambda st, tr, idx, wu, nsx, device: _run_scan(
+            controller, window, shape, st, tr, nsx, idx, wu, n_steps,
+            collect), (stacked_bg, trace, ns_bg, warmups), B * G,
+        ns.device, replicated=(ns,))
     if reduce_keys is not None:
         red = _reduce_device(stats, core_end, reduce_keys)
         return [red[b * G:(b + 1) * G] for b in range(B)]
@@ -1237,11 +1297,21 @@ def _launch_synth(staged: tuple, collect_events: bool = True,
     with ``reduce_keys`` the int32 ``[G, n_deps]`` reduction."""
     from repro_torch.kernels.sim_step import ops as sim_step_ops
     collect = collect_events and reduce_keys is None
-    if controller == "frfcfs":
-        out = sim_step_ops.run_window_synth(staged[0], window, *staged[1:],
-                                            collect, device=device)
-    else:
-        out = sim_step_ops.run_synth(*staged, collect, device=device)
+    shape, stacked, wstack, ilstack, warmups, n_cores, max_len, n_steps = \
+        staged
+
+    def run(st, ws, il, wu, device):
+        if controller == "frfcfs":
+            return sim_step_ops.run_window_synth(
+                shape, window, st, ws, il, wu, n_cores, max_len, n_steps,
+                collect, device=device)
+        return sim_step_ops.run_synth(shape, st, ws, il, wu, n_cores,
+                                      max_len, n_steps, collect,
+                                      device=device)
+    out = _shard_grid(run, (stacked, wstack, ilstack, warmups),
+                      warmups.shape[0],
+                      warmups.device if device is None
+                      else torch.device(device))
     if reduce_keys is None:
         return out
     return _reduce_device(out[0], out[1], reduce_keys)

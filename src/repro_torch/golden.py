@@ -716,3 +716,20 @@ def train_record_distance(got: dict, want: dict) -> dict:
 def load_train() -> dict:
     with open(TRAIN_PATH) as f:
         return json.load(f)
+
+
+FT_PATH = DATA / "golden_ft.json"
+
+#: the fault-tolerance drill (``examples/fault_tolerance.py``'s schedule:
+#: 40 steps, host 3 fails at 25, host 5 straggles from 12, a checkpoint
+#: every 10): ``repro``'s example's report and printed lines, recorded on
+#: the CPU by ``tests/_torch_golden.py ft``.  They depend on the schedule
+#: alone, not on the weights, so the port's drill at any model size must
+#: print the same.  On the card the drill runs tinyllama-1.1b at its
+#: published widths cut to ``layers`` layers, B ``batch`` x ``seq``.
+FT = {"layers": 2, "batch": 8, "seq": 256}
+
+
+def load_ft() -> dict:
+    with open(FT_PATH) as f:
+        return json.load(f)

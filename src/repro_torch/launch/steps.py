@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.models import zoo
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.optim import adamw
@@ -128,12 +129,14 @@ def accum_dtype_for(cfg: ModelConfig) -> torch.dtype:
 
 def dp_degree(mesh=None) -> int:
     """Product of the batch-carrying mesh axes' sizes (``pod`` x
-    ``data``); 1 without a mesh.  ``mesh`` is anything with a ``shape``
-    mapping of axis names to sizes (the port has no global mesh yet:
-    ROADMAP.md, Queue 1 item 4)."""
+    ``data``) of ``mesh`` (default: the active mesh,
+    ``sharding.get_mesh``); 1 without a mesh.  ``mesh`` is a
+    ``DeviceMesh`` or anything with a ``shape`` mapping of axis names to
+    sizes."""
+    mesh = shd.get_mesh() if mesh is None else mesh
     if mesh is None:
         return 1
-    shape = dict(mesh.shape)
+    shape = shd.axis_sizes(mesh)
     return int(shape.get("pod", 1) * shape.get("data", 1))
 
 

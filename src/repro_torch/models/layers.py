@@ -8,8 +8,12 @@ Attention goes through the flash-attention kernel's dispatch
 (``repro_torch.kernels.flash_attention.ops``): the CUDA kernel on the
 card, its plain version on the CPU, the counterpart of ``repro``'s
 ``attn_impl="pallas"``.  ``naive_attention`` is the reference for
-arbitrary positions.  ``repro``'s XLA strategies ``blocked_attention``
-and ``split_kv_decode_attention`` come with the sharding slice.
+arbitrary positions.  ``blocked_attention`` (online softmax over q and
+kv blocks) and ``split_kv_decode_attention`` (flash-decoding: a partial
+softmax a cache split, then a log-sum-exp combine) are ``repro``'s XLA
+strategies as plain PyTorch; on the card the flash and decode kernels
+stand in for them, and ``attention_apply`` and the decode path keep
+their kernels.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef
 
 __all__ = ["NEG_INF", "norm_defs", "norm_apply", "rope", "attention_defs",
-           "naive_attention", "attention_apply", "sigmoid", "silu", "gelu_tanh",
+           "naive_attention", "blocked_attention",
+           "split_kv_decode_attention", "attention_apply", "sigmoid", "silu", "gelu_tanh",
            "mlp_defs", "mlp_apply", "moe_defs", "top_k_first", "moe_capacity",
            "moe_route", "moe_apply"]
 
@@ -114,6 +119,97 @@ def naive_attention(q, k, v, q_pos, kv_pos, causal, window, kv_valid=None):
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())
     return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def blocked_attention(q, k, v, q_pos, kv_pos, causal, window,
+                      kv_valid=None, block_kv: int = 1024,
+                      block_q: int = 1024):
+    """Online-softmax attention tiled over q and kv blocks (``repro``'s
+    default XLA path): O(block_q * block_kv) scores at a time.  Padded
+    query and key positions are ``2**30`` and padded keys invalid; with
+    ``Skv <= block_kv`` it is ``naive_attention``."""
+    B, Sq, H, hd = q.shape
+    if Sq > block_q:
+        nq = -(-Sq // block_q)
+        pad = nq * block_q - Sq
+        if pad:
+            q = F.pad(q, (0, 0, 0, 0, 0, pad))
+            q_pos = F.pad(q_pos, (0, pad), value=2**30)
+        out = torch.cat([
+            blocked_attention(q[:, i * block_q:(i + 1) * block_q], k, v,
+                              q_pos[i * block_q:(i + 1) * block_q], kv_pos,
+                              causal, window, kv_valid, block_kv=block_kv,
+                              block_q=block_q)
+            for i in range(nq)], dim=1)
+        return out[:, :Sq]
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    if Skv <= block_kv:
+        return naive_attention(q, k, v, q_pos, kv_pos, causal, window,
+                               kv_valid)
+    nblk = -(-Skv // block_kv)
+    pad = nblk * block_kv - Skv
+    if kv_valid is None:
+        kv_valid = torch.ones((Skv,), dtype=torch.bool, device=k.device)
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = F.pad(kv_pos, (0, pad), value=2**30)
+        kv_valid = F.pad(kv_valid, (0, pad), value=False)
+    qg = q.reshape(B, Sq, K, G, hd).float()
+    scale = 1.0 / math.sqrt(hd)
+    m = torch.full((B, K, G, Sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, K, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, K, G, Sq, hd), dtype=torch.float32,
+                      device=q.device)
+    for j in range(nblk):
+        blk = slice(j * block_kv, (j + 1) * block_kv)
+        s = torch.einsum("bqkgh,bskh->bkgqs", qg, k[:, blk].float())
+        s = s * scale + _mask_bias(q_pos, kv_pos[blk], causal, window,
+                                   kv_valid[blk])
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqs,bskh->bkgqh", p, v[:, blk].float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+    return out.to(q.dtype)
+
+
+def split_kv_decode_attention(q, ck, cv, cpos, q_pos, window,
+                              n_splits: int):
+    """Flash-decoding: a partial softmax a KV-cache split, then a
+    log-sum-exp combine (``repro``'s split-KV decode).  q: [B, 1, H, hd]
+    (rotated); ck / cv: [B, W, K, hd]; cpos: [W] (a slot is valid when
+    ``0 <= cpos <= q_pos[0]`` and inside the window).  ``W`` not a
+    multiple of ``n_splits`` runs as one split."""
+    B, W, K, hd = ck.shape
+    H = q.shape[2]
+    G = H // K
+    ns = n_splits if W % n_splits == 0 else 1
+    qg = q.reshape(B, K, G, hd).float()
+    cks = ck.reshape(B, ns, W // ns, K, hd)
+    cvs = cv.reshape(B, ns, W // ns, K, hd)
+    ps = cpos.reshape(ns, W // ns)
+    s = torch.einsum("bkgh,bnwkh->bnkgw", qg, cks.float()) / math.sqrt(hd)
+    ok = (ps >= 0) & (ps <= q_pos[0])
+    if window:
+        ok &= (q_pos[0] - ps) < window
+    s = torch.where(ok[None, :, None, None, :], s,
+                    torch.full_like(s, NEG_INF))
+    m = s.amax(-1)                                       # [B, ns, K, G]
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    acc = torch.einsum("bnkgw,bnwkh->bnkgh", p, cvs.float())
+    M = m.amax(1, keepdim=True)
+    w = torch.exp(m - M)
+    y = (acc * w[..., None]).sum(1) / torch.clamp(
+        (l * w).sum(1), min=1e-30)[..., None]
+    return y.reshape(B, 1, H, hd).to(q.dtype)
 
 
 def attention_apply(p, x: torch.Tensor, cfg: ModelConfig, *,

@@ -3,9 +3,11 @@
 A model is declared as a tree (nested dicts and lists) of ``ParamDef``s:
 shape, logical axes and initialiser in one place.  ``init_params``
 materialises it on a device (CUDA unless the caller names another,
-``resolve_device``); ``count_params`` counts it.  The sharding
-views of the tree (``abstract_params``, ``param_shardings``,
-``param_specs``) come with the sharding slice of the port.
+``resolve_device``); ``count_params`` counts it.  ``param_specs`` and
+``param_shardings`` are the tree's sharding views under a mesh
+(``repro_torch.sharding``), and ``shard_params`` lays a tree of tensors
+out as DTensors by its defs' logical axes.  ``abstract_params`` comes
+with the dry run.
 """
 
 from __future__ import annotations
@@ -15,8 +17,11 @@ from typing import Iterator, NamedTuple
 
 import torch
 
+from repro_torch import sharding as shd
+
 __all__ = ["ParamDef", "is_def", "leaf_paths", "map_defs", "init_params",
-           "count_params", "resolve_device"]
+           "count_params", "resolve_device", "param_specs",
+           "param_shardings", "shard_params"]
 
 
 class ParamDef(NamedTuple):
@@ -101,6 +106,46 @@ def init_params(defs, seed: int = 0, dtype=torch.float32, device=None):
         return (x * d.std).to(dtype)
 
     return map_defs(init_one, defs)
+
+
+def param_shardings(defs, mesh=None):
+    """The tree of ``sharding.named_sharding``s (a mesh and its
+    placements a leaf; None entries without a mesh)."""
+    return map_defs(lambda _, d: shd.named_sharding(d.axes, d.shape, mesh),
+                    defs)
+
+
+def param_specs(defs, mesh=None):
+    """The tree of canonical specs (``sharding.spec_for``)."""
+    return map_defs(lambda _, d: shd.spec_for(d.axes, d.shape, mesh), defs)
+
+
+def _zip_map(fn, tree, defs):
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, defs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_zip_map(fn, t, d) for t, d in zip(tree, defs, strict=True)]
+    return fn(tree, defs)
+
+
+def shard_params(tree, defs, mesh=None):
+    """``tree`` (tensors shaped as ``defs``' leaves: a model's
+    ``LM.tree()``, or AdamW's moments and master copy) as DTensors on
+    ``mesh`` (default: the active mesh), each placed by its def's logical
+    axes.  Every rank holds the whole tensor and keeps its own shard of
+    it (no communication)."""
+    from torch.distributed.tensor import distribute_tensor
+    mesh = shd.get_mesh() if mesh is None else mesh
+    if mesh is None:
+        raise ValueError("shard_params needs a mesh")
+
+    def one(t, d: ParamDef):
+        if tuple(t.shape) != tuple(d.shape):
+            raise ValueError(f"shape {tuple(t.shape)} vs def {d.shape}")
+        ns = shd.named_sharding(d.axes, d.shape, mesh)
+        return distribute_tensor(t.to(mesh.device_type), mesh,
+                                 ns.placements, src_data_rank=None)
+    return _zip_map(one, tree, defs)
 
 
 def count_params(defs) -> int:

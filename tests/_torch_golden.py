@@ -80,10 +80,16 @@ entry on eight cores (printed after each entry).
 
 Run from the repo root (a few minutes on two CPU cores; ``lm`` about
 five minutes on eight); the argument ``synth``, ``traces``, ``serving``,
-``frfcfs``, ``drivers``, ``lm``, ``lm_ssm`` or ``lm_zoo`` writes only
-that part:
+``frfcfs``, ``drivers``, ``lm``, ``lm_ssm``, ``lm_zoo``, ``train`` or
+``ft`` writes only that part:
 
     JAX_PLATFORMS=cpu PYTHONPATH=src:tests python tests/_torch_golden.py
+
+For the fault-tolerance drill (``repro_torch.golden.FT``) it runs
+``examples/fault_tolerance.py`` (reduced tinyllama) and records its
+``RunReport`` and its printed lines in ``golden_ft.json`` (argument
+``ft``, ~15 s): they depend on the schedule alone, so the port's drill
+at full width must give the same.
 
 The argument ``streams`` writes nothing: it generates each distinct
 stream of the synthetic grid with the port on the CPU and prints, per
@@ -728,6 +734,47 @@ def compute_train(port: bool = False) -> dict:
     return rec
 
 
+def compute_ft() -> dict:
+    """``repro``'s fault-tolerance example: its report and its printed
+    lines (checkpoints in a temporary directory, removed)."""
+    import contextlib
+    import importlib.util
+    import io
+    import shutil
+    import tempfile
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "examples" / \
+        "fault_tolerance.py"
+    spec = importlib.util.spec_from_file_location("repro_ft_example", path)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    import types
+    tmp = tempfile.mkdtemp()
+    ex.tempfile = types.SimpleNamespace(
+        mkdtemp=lambda prefix="": tempfile.mkdtemp(prefix=prefix, dir=tmp))
+    reports = []
+    run = ex.ft.fault_tolerant_run
+
+    def recorded(*a, **k):
+        reports.append(run(*a, **k))
+        return reports[-1]
+    out = io.StringIO()
+    ex.ft.fault_tolerant_run = recorded
+    try:
+        with contextlib.redirect_stdout(out):
+            ex.main()
+    finally:
+        ex.ft.fault_tolerant_run = run
+        shutil.rmtree(tmp, ignore_errors=True)
+    rep = reports[0]
+    return {"report": {"steps_done": rep.steps_done,
+                       "failures": list(rep.failures),
+                       "redispatches": rep.redispatches,
+                       "remeshes": [list(r) for r in rep.remeshes],
+                       "restored_from": list(rep.restored_from)},
+            "lines": out.getvalue().splitlines()}
+
+
 def peak_rss_gib() -> float:
     """This process's peak resident set size (Linux: ``ru_maxrss`` in
     KiB)."""
@@ -832,6 +879,12 @@ def main(argv) -> int:
         for t, r in enumerate(data["steps"]):
             print(t, r["argmax"], [round(x[0], 4) for x in r["top_logits"]])
         port_vs_repro(run, golden.LM, golden.LM["max_len"])
+    if what in ("all", "ft"):
+        data = compute_ft()
+        with open(golden.FT_PATH, "w") as f:
+            json.dump(data, f, indent=1)
+            f.write("\n")
+        print(data["report"])
     if what == "train":
         data = compute_train(port="--port" in argv)
         with open(golden.TRAIN_PATH, "w") as f:

@@ -19,7 +19,10 @@ backward on the card: each against its plain version
 bitwise but for the sums dC and dnsp (held to ``ref.dc_limit`` /
 ``ref.dnsp_limit``: two orders of an f32 sum), the RG-LRU's also against
 ``ref.rglru_gated_scan_bwd_tiled`` (bitwise, dnsp too), bitwise when run
-twice, and autograd through the dispatch launching them.  No JAX here."""
+twice, and autograd through the dispatch launching them.  And
+``examples/fault_tolerance_torch.py``'s drill at its reduced size, run
+twice on the card: the same report, lines and losses, and the same final
+parameters and AdamW state bit for bit.  No JAX here."""
 
 import ctypes
 import re
@@ -377,3 +380,27 @@ def test_rglru_bwd_second_launch_follows_cluster_rows(cuda):
     torch.autograd.grad((h_seq, h_s), leaves, (dh_seq, dh_s))
     count = (ro.bwd_launches, ro.bwd_nsp_launches)
     assert [b - a for a, b in zip(before, count)] == [1, 1]
+
+
+@pytest.mark.cuda
+def test_fault_tolerance_drill_twice_on_the_card(cuda, tmp_path):
+    """``examples/fault_tolerance_torch.py`` at its reduced size on the
+    card, twice: the same report and lines both times, finite losses,
+    and the same final parameters and AdamW state, bit for bit."""
+    import contextlib
+    import importlib.util
+    import io
+    spec = importlib.util.spec_from_file_location(
+        "_example_ft", ROOT / "examples" / "fault_tolerance_torch.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    runs = []
+    for i in range(2):
+        with contextlib.redirect_stdout(io.StringIO()):
+            runs.append(ex.main(["--ckpt-dir", str(tmp_path / str(i))]))
+    a, b = runs
+    assert a["lines"] == b["lines"] and a["losses"] == b["losses"]
+    assert a["report"] == b["report"] and a["report"].restored_from == [20]
+    assert all(torch.isfinite(torch.tensor(v)) for _, v in a["losses"])
+    assert all(torch.equal(x, y) for x, y in zip(
+        ex.state_leaves(a), ex.state_leaves(b), strict=True))
