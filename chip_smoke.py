@@ -300,6 +300,17 @@ package.  Phases:
     make_host_mesh()``, and the drill's last checkpoint restored into
     DTensor leaves placed by ``params.shard_params``: each
     ``full_tensor()`` bitwise equal to the plain restore;
+26. the dry run (``launch/dryrun.py``), counted on the host: (a) the op
+    counter over tinyllama-1.1b's full train step at phase 24 (e)'s B 4
+    x 2 048 on meta tensors (no mesh): its FLOPs equal to
+    ``train_flops`` less the terms no product of the step makes
+    (``dryrun_flops``), its kernel calls equal to the launches phase 24
+    (e) counted a step, and its per-device memory (arguments + peak of
+    temporaries) held to phase 24 (e)'s ``max_memory_allocated`` within
+    ``DRYRUN_MEM_RATIO``; (b) in a subprocess, away from phase 25's
+    ``nccl`` group, ``run_cell`` on a ``fake`` group: tinyllama-1.1b
+    ``train_4k`` on 16 x 16 and ``decode_32k`` on 2 x 16 x 16, both
+    ``ok``;
 then the total time, one JSON line of kernel numbers, and the last line:
 ``{"ok": true, "device": {...}}``.
 
@@ -321,9 +332,16 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-#: H100 SXM device-memory rate (NVIDIA data sheet), for the bytes bound
-HBM_BYTES_PER_S = 3.35e12
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    # the H100's data-sheet rates (HBM_BYTES_PER_S, PEAK_OPS) and the
+    # kernels' work formulas behind every bound printed here
+    from repro_torch.analysis.roofline import (
+        HBM_BYTES_PER_S, PEAK_OPS, bound_of, bwd_entry_bounds, decode_bound,
+        flash_bound, flash_bwd_bound, rglru_bwd_bound, rglru_work,
+        scan_bound_ms, scan_work, ssm_bwd_bound, train_flops)
+except ImportError:     # run alone, without the package: main() says so
+    pass
 #: the scan's dependent chain a request (PERF.md section 6, PR 17): the
 #: instruction classes on a ChargeCache point's loop-carried path with no
 #: division and no global load left, their counts and their latency in
@@ -1379,10 +1397,6 @@ def serving_phases(sim, timing, traces, golden_mod, regs: dict,
 # phases 9-12: dense-LM serving (tinyllama-1.1b at full width)
 # --------------------------------------------------------------------------
 
-#: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet), for the
-#: operations bound of a bf16 kernel; f32 inputs take the 67 TFLOP/s of
-#: the CUDA cores
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 #: tests/test_kernels.py's flash matrix (B, S, H, K, hd, causal, window),
 #: then the full-width prefill shapes (tinyllama-1.1b: H 32, K 4, hd 64)
 #: of phase 11, a longer prompt, and phase 12's
@@ -1545,38 +1559,6 @@ def seeded(shape, seed: int, dtype, device):
     import torch
     a = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
     return torch.from_numpy(a).to(device=device, dtype=dtype)
-
-
-def flash_bound(B, S, H, K, hd, causal, window, dtype, Skv=None) -> tuple:
-    """``(bound ms, 'bytes' | 'operations')``: q, k, v read once and the
-    output written once, against 4 * hd operations per valid (query, key)
-    pair; ``Skv`` keys (default ``S``)."""
-    import torch
-    Skv = S if Skv is None else Skv
-    q = torch.arange(S)[:, None]
-    k = torch.arange(Skv)[None, :]
-    ok = torch.ones(S, Skv, dtype=torch.bool)
-    if causal:
-        ok &= q >= k
-    if window:
-        ok &= (q - k) < window
-    pairs = int(ok.sum()) * B * H
-    size = 2 if dtype == "bf16" else 4
-    nbytes = size * hd * (2 * B * S * H + 2 * B * Skv * K)
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = 4 * hd * pairs / PEAK_OPS[dtype] * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
-
-def decode_bound(B, H, K, hd, valid: int, W: int, dtype) -> tuple:
-    """``(bound ms, 'bytes' | 'operations')``: the valid slots' keys and
-    values, the queries and ``kv_pos`` read once, the output written once,
-    against 4 * hd operations per query row and valid slot."""
-    size = 2 if dtype == "bf16" else 4
-    nbytes = size * hd * (2 * B * H + 2 * B * K * valid) + 4 * W
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = 4 * hd * B * H * valid / PEAK_OPS[dtype] * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
 def kernel_diff(got, want, dn: str) -> tuple[float, float, float]:
@@ -1961,14 +1943,6 @@ LM_SSM_CUT_TOL = 0.125
 #: phase 15: prefill of B 4 x 2 048 tokens (8 scan chunks a layer), then
 #: greedy decode steps
 SSM_SERVE = {"batch": 4, "prompt": 2048, "steps": 8}
-
-
-def scan_bound_ms(B, T, D, N) -> float:
-    """decay, dbu, c and h0 read once, h_out and y written once, f32,
-    over the card's memory rate (2 operations a state element a step for
-    h and 2 for y: ~1 operation a byte, far below the f32 rate)."""
-    nbytes = 4 * (2 * B * T * D * N + B * T * N + 2 * B * D * N + B * T * D)
-    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def scan_case(B, T, D, N, seed: int, dev, real=None):
@@ -2631,7 +2605,7 @@ def phase_zoo_kernels(fk, fr, pk, pr, rk, rr, dev) -> dict:
                                      torch.cuda.synchronize)
         bad = int((hs != ws).sum()) + int((hn != wn).sum())
         ms = loop_ms(lambda: rk.rglru_scan(*args))
-        n_bytes = 10 * B * S * d + 8 * B * d + 4 * d
+        n_bytes = rglru_work(B, S, d)[1]
         bound = n_bytes / HBM_BYTES_PER_S * 1e3
         out["scan"].append({"shape": [B, S, d], "ms": ms,
                             "plain_ms": plain_ms, "bound_ms": bound,
@@ -3065,58 +3039,6 @@ SERVING_FLASH_PTXAS = {
     128: (255, 52, 52), 144: (255, 0, 0), 160: (255, 12, 12),
     176: (255, 36, 36), 192: (255, 76, 76), 208: (255, 176, 176),
     224: (255, 192, 192), 240: (255, 260, 264), 256: (255, 272, 276)}
-
-
-def valid_pairs(S, Skv, causal, window) -> int:
-    """The (query, key) pairs a head's mask keeps (query i and key j at
-    positions i and j)."""
-    import torch
-    q = torch.arange(S)[:, None]
-    k = torch.arange(Skv)[None, :]
-    ok = torch.ones(S, Skv, dtype=torch.bool)
-    if causal:
-        ok &= q >= k
-    if window:
-        ok &= (q - k) < window
-    return int(ok.sum())
-
-
-def bound_of(nbytes: float, ops: float) -> tuple:
-    """``(bound ms, 'bytes' | 'operations')``: the larger of ``nbytes``
-    at the HBM rate and ``ops`` at the bf16 tensor-core rate."""
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = ops / PEAK_OPS["bf16"] * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
-
-def flash_bwd_bound(B, S, Skv, H, K, hd, causal, window) -> tuple:
-    """``(bound ms, 'bytes' | 'operations')`` of one backward pass: q, o,
-    dO, dQ (bf16 [B, S, H, hd]), k, v, dK, dV ([B, Skv, K, hd]) and the
-    f32 LSE moved once, against 10 * hd operations a valid (query, key)
-    pair (five products: S, dP, dV, dK, dQ) at the bf16 tensor-core
-    rate."""
-    pairs = valid_pairs(S, Skv, causal, window) * B * H
-    nbytes = 2 * hd * (4 * B * S * H + 4 * B * Skv * K) + 4 * B * H * S
-    return bound_of(nbytes, 10 * hd * pairs)
-
-
-def bwd_entry_bounds(B, S, Skv, H, K, hd, causal, window) -> dict:
-    """Each backward entry's own ``(bound ms, by)``, the function it
-    computes from its inputs: D (o, o_lo, dO read, D written); dK / dV
-    (q, dO, k, v, LSE and D read, dK and dV written; S, dP, dV, dK: 8 hd
-    operations a valid pair); dQ (the same inputs, dQ written; S, dP, dQ:
-    6 hd); the group sum (f32 partials [B, Skv, H, hd] x 2 read, dK and
-    dV written)."""
-    pairs = valid_pairs(S, Skv, causal, window) * B * H
-    q_bytes, kv_bytes = 2 * hd * B * S * H, 2 * hd * B * Skv * K
-    rows = 4 * B * H * S
-    return {
-        "dot": bound_of(3 * q_bytes + rows, 0),
-        "dkdv": bound_of(2 * q_bytes + 4 * kv_bytes + 2 * rows,
-                         8 * hd * pairs),
-        "dq": bound_of(3 * q_bytes + 2 * kv_bytes + 2 * rows,
-                       6 * hd * pairs),
-        "sum": bound_of(2 * 4 * hd * B * Skv * H + 2 * kv_bytes, 0)}
 
 
 def bwd_diff(got, want) -> tuple[float, float, float]:
@@ -3607,45 +3529,11 @@ def golden_train_model(golden_mod, lm, cfg, seed: int, dev):
     return lm.LM(cfg, tree), golden_mod.weights_digest(tree)
 
 
-def train_flops(cfg, B: int, S: int) -> float:
-    """Operations of one train step of a dense decoder at B x S: 6 N
-    tokens (N the parameters of its products: all but the embedding),
-    the remat forward of the layers and of the chunked cross entropy's
-    head (2 N tokens again), and attention, 4 hd a valid causal pair
-    forward, again in the remat forward, and 10 hd backward."""
-    from repro_torch.models.params import count_params
-    from repro_torch.models import lm
-    defs = lm.lm_defs(cfg)
-    n = count_params(defs) - count_params(defs["embed"])
-    tokens = B * S
-    pairs = S * (S + 1) // 2 * cfg.n_heads * B * cfg.n_layers
-    return 8.0 * n * tokens + 18.0 * cfg.hd * pairs
-
-
 #: phase 24 (f): each scan backward kernel at full width against its plain
 #: version, run twice: falcon-mamba-7b's chunk (B, T, D, N) with a nonzero
 #: dh_T, and recurrentgemma-2b's rec layer (B, S, d)
 SSM_BWD_FULL = (2, 256, 8192, 16)
 RGLRU_BWD_FULL = (2, 2048, 2560)
-
-
-def ssm_bwd_bound(B, T, D, N) -> tuple:
-    """``(bound ms, 'bytes')`` of the ssm_scan backward kernel: decay and
-    h_seq read and d decay, d dbu written ([B, T, D, N] f32 each), c, dy,
-    h0, dh_T read, dh0 and dc's block partials (16 channels a block at N
-    16) written."""
-    nblk = -(-D // (256 // (1 << (N - 1).bit_length())))
-    nbytes = 4 * (4 * B * T * D * N + B * T * N + B * T * D + 3 * B * D * N
-                  + B * nblk * T * N)
-    return bound_of(nbytes, 0)
-
-
-def rglru_bwd_bound(B, S, d) -> tuple:
-    """``(bound ms, 'bytes')`` of the rglru_scan backward kernel: r_pre,
-    i_pre, u (bf16) and h_seq, dh_seq (f32) read, dr_pre, di_pre, du
-    (bf16) written, 20 bytes a channel-step, plus h0, dh_S, dh0 [B, d] and
-    nsp, dnsp [d] (f32)."""
-    return bound_of(20 * B * S * d + 4 * (3 * B * d + 2 * d), 0)
 
 
 def scan_bwd_ptxas(sk, rk) -> dict:
@@ -3721,8 +3609,7 @@ def phase_scan_bwd(dev) -> dict:
     serve_ms = graph_ms(lambda: sk.ssm_scan(decay, dbu, c, h0))
     bound, by = ssm_bwd_bound(B, T, D, N)
     sum_bound, _ = bound_of(4 * (part.numel() + B * T * N), 0)
-    train_bound, _ = bound_of(4 * (3 * B * T * D * N + B * T * N
-                                   + 2 * B * D * N + B * T * D), 0)
+    train_bound, _ = bound_of(scan_work(B, T, D, N, train=True)[1], 0)
     print(f"  (f) ssm_scan backward B{B} T{T} D{D} N{N}, dh_T nonzero: "
           f"the training forward's h_out bitwise, y within its limit and "
           f"h_seq's last step h_out: {train_ok}; "
@@ -3880,7 +3767,24 @@ def zoo_train_steps(golden_mod, dev) -> dict:
     it), held to the plain step within those limits; then the kernels'
     forward with the plain backward (``plain_backward`` and
     ``scans_plain_backward``), held to the kernels' step within
-    ``TRAIN_TOL``."""
+    ``TRAIN_TOL``.  phi3.5-moe's 1-layer step peaks near the card's 80 GB
+    and has run out of memory there on an H100 80GB from fragmentation
+    alone (3.12 GiB refused with 7.33 GiB reserved but free), so these
+    steps grow expandable segments (the caching allocator's setting,
+    restored after)."""
+    import torch
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        return _zoo_train_steps(golden_mod, dev)
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
+def _zoo_train_steps(golden_mod, dev) -> dict:
+    import gc
+
     import torch
     from repro_torch.configs import get
     from repro_torch.launch import steps
@@ -3893,6 +3797,9 @@ def zoo_train_steps(golden_mod, dev) -> dict:
         batch = golden_mod.train_tokens(cfg.vocab_size, dev, spec)
         recs, walls = {}, {}
         for run in ("plain", "plain_mb2", "kernel", "plain_backward"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated() / 2 ** 30
             model, _ = golden_train_model(golden_mod, lm, cfg, spec["seed"],
                                           dev)
             mb = 2 if run == "plain_mb2" else 1
@@ -3941,7 +3848,8 @@ def zoo_train_steps(golden_mod, dev) -> dict:
               f"distance from the plain versions' step {dist}; from the "
               f"kernels' forward with the plain backward {bwd} (limits "
               f"{tol}); launches {counts}; step wall {walls['kernel']:.2f} s"
-              f" (plain {walls['plain']:.2f} s)", flush=True)
+              f" (plain {walls['plain']:.2f} s); {held:.2f} GiB allocated "
+              f"before the last step's model", flush=True)
         check(all(dist[k] <= limits[k] for k in tol),
               f"{name}'s train step disagrees with its plain step")
         check(all(bwd[k] <= tol[k] for k in tol),
@@ -4572,6 +4480,112 @@ def ft_phase(golden_mod, smi: str, device="cuda") -> dict:
     print(f"  phase 25 {wall:.1f} s; card: {smi}", flush=True)
     return {"launches": launches, "per_step": per_step, **nums,
             "strategies": strat, "mesh": mesh, "phase_s": wall}
+
+
+# --------------------------------------------------------------------------
+# phase 26: the dry run
+# --------------------------------------------------------------------------
+
+#: phase 26 (a): measured peak over counted memory, allowed range (the
+#: count is the tensors the step holds; what earlier phases left
+#: allocated, the caching allocator's rounding and the libraries'
+#: workspaces come on top: PERF.md section 6)
+DRYRUN_MEM_RATIO = (1.0, 1.25)
+#: phase 26 (b): the cells run through ``run_cell`` (arch, shape, 2 pods)
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", False),
+                ("tinyllama-1.1b", "decode_32k", True))
+
+
+def dryrun_flops(cfg, B: int, S: int) -> float:
+    """``train_flops`` less what no product of the port's step does: the
+    remat's recomputation stops at the last saved tensor, so each layer's
+    last product (the MLP's down projection, 2 d_ff d a token) runs once,
+    not twice; and the norm scales, counted among the parameters, feed
+    no product (8 a parameter a token)."""
+    n_norm = cfg.d_model * (2 * cfg.n_layers + 1)
+    return (train_flops(cfg, B, S)
+            - 2.0 * cfg.d_ff * cfg.d_model * B * S * cfg.n_layers
+            - 8.0 * n_norm * B * S)
+
+
+def dryrun_cells() -> list:
+    """``run_cell`` over ``DRYRUN_CELLS`` in a fresh process (a ``fake``
+    process group of 256 / 512 ranks in it), each record with its wall
+    seconds."""
+    code = (f"import json, sys, time; sys.path.insert(0, "
+            f"{str(ROOT / 'src')!r}); "
+            "from repro_torch.launch import dryrun; out = []\n"
+            f"for a, s, mp in {DRYRUN_CELLS!r}:\n"
+            "    t0 = time.time(); r = dryrun.run_cell(a, s, mp)\n"
+            "    r['wall_s'] = time.time() - t0; r.pop('traceback', None)\n"
+            "    out.append(r)\n"
+            "print(json.dumps({'cells': out, "
+            "'rss_gib': dryrun.peak_rss_gib()}))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, f"the dry run's subprocess failed: "
+                               f"{res.stderr[-2000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def dryrun_phase(smi: str, peak_gib: float, step_launches: dict) -> dict:
+    """Phase 26; ``peak_gib`` and ``step_launches``: phase 24 (e)'s
+    ``max_memory_allocated`` and flash launches a step."""
+    from repro_torch.configs import get
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeConfig
+    t_phase = time.time()
+    phase("26: the dry run (the op counter on meta tensors, meta DTensors "
+          "over a fake group)")
+    TT = TRAIN_TIMED
+    full = get("tinyllama-1.1b")
+    t0 = time.time()
+    per, arg_b, mb = dryrun.analyze_step(
+        full, ShapeConfig("train", TT["seq"], TT["batch"], "train"))
+    count_s = time.time() - t0
+    want = dryrun_flops(full, TT["batch"], TT["seq"])
+    pred_gib = (arg_b + per["peak_temp_bytes"]) / 2 ** 30
+    ratio = peak_gib / pred_gib
+    calls = {k: v["calls"] for k, v in per["kernels"].items()}
+    print(f"  (a) tinyllama-1.1b full train step B{TT['batch']} x "
+          f"{TT['seq']} ({mb} microbatch) counted on meta tensors in "
+          f"{count_s:.1f} s: {per['flops']:.6g} FLOPs (train_flops less "
+          f"the remat's early stop and the norms: {want:.6g}; "
+          f"train_flops {train_flops(full, TT['batch'], TT['seq']):.6g}); "
+          f"kernel calls {calls} (phase 24 (e) launches a step "
+          f"{step_launches}); memory counted {pred_gib:.2f} GiB "
+          f"(arguments {arg_b / 2 ** 30:.2f}, peak temporaries "
+          f"{per['peak_temp_bytes'] / 2 ** 30:.2f}) against {peak_gib:.2f} "
+          f"GiB measured in phase 24 (e): {ratio:.3f}x (limit "
+          f"{DRYRUN_MEM_RATIO[0]}-{DRYRUN_MEM_RATIO[1]}x)", flush=True)
+    check(abs(per["flops"] - want) <= 1e-9 * want,
+          f"the counted FLOPs {per['flops']} differ from {want}")
+    check(calls.get("flash_attention") == step_launches["flash"]
+          and calls.get("flash_attention_bwd") == step_launches["bwd_dkdv"],
+          f"the counted kernel calls {calls} differ from the launches "
+          f"{step_launches}")
+    check(DRYRUN_MEM_RATIO[0] <= ratio <= DRYRUN_MEM_RATIO[1],
+          f"measured peak over counted memory {ratio:.3f} outside "
+          f"{DRYRUN_MEM_RATIO}")
+    sub = dryrun_cells()
+    for r in sub["cells"]:
+        print(f"  (b) run_cell {r['arch']} {r['shape']} {r['mesh']}: "
+              f"{r['status']} in {r['wall_s']:.1f} s"
+              + (f" (trace {r['trace_s']} s): {r['hlo_flops_per_dev']:.4g} "
+                 f"FLOPs, {r['hlo_bytes_per_dev']:.4g} bytes, "
+                 f"{r['coll_bytes_per_dev']:.4g} collective bytes a device, "
+                 f"{r['hbm_gb_per_device']} GiB, {r['bound']}-bound "
+                 f"(counted against H100 data-sheet rates)"
+                 if r["status"] == "ok" else f": {r.get('error')}"),
+              flush=True)
+    print(f"  (b) subprocess peak RSS {sub['rss_gib']:.2f} GiB", flush=True)
+    check(all(r["status"] == "ok" for r in sub["cells"]),
+          "a dry-run cell is not ok")
+    wall = time.time() - t_phase
+    print(f"  phase 26 {wall:.1f} s; card: {smi}", flush=True)
+    return {"flops": per["flops"], "flops_want": want, "pred_gib": pred_gib,
+            "peak_gib": peak_gib, "calls": calls, "cells": sub["cells"],
+            "phase_s": wall}
 
 
 # --------------------------------------------------------------------------
@@ -5853,6 +5867,8 @@ def main() -> int:
     train_rows = train_phase(golden_mod, smi)
     ft = ft_phase(golden_mod, smi)
     add_ft_rows(lm_rows, train_rows, ft)
+    dryrun_phase(smi, train_rows[0]["train_step"]["peak_gib"],
+                 train_rows[0]["launches_full_step"])
     print(f"\nchip_smoke total: {time.time() - t_start:.1f} s")
     print(smi)
 

@@ -20,6 +20,14 @@ Otherwise the serving forward launches as before.  Counters:
 ``launches`` (forward, either entry; a remat recomputation counts
 again), ``bwd_dot_launches``, ``bwd_dkdv_launches``, ``bwd_sum_launches``,
 ``bwd_dq_launches``.
+
+Meta tensors (the dry run, ``launch/dryrun.py``) launch nothing: the
+call returns an empty output of the kernel's shape and dtype and adds
+the kernel's work (``analysis.roofline.flash_work``, and
+``flash_bwd_work`` in its backward) to the active op counter, on each
+rank's shards where the inputs are DTensors over meta shards
+(``sharding.local_call``: batch and head splits kept, anything
+else gathered first).
 """
 
 from __future__ import annotations
@@ -76,6 +84,56 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+class _MetaFlashFn(torch.autograd.Function):
+    """The kernel on meta tensors: its shapes and its counted work
+    (forward, and the backward's), no launch.  ``G`` is the query heads
+    a KV head serves: where only some query heads are here (a rank's
+    split of them), the call reads the KV heads they need.  Saves what
+    ``FlashAttentionFn`` saves (q, k, v, o and the training entry's one
+    f32 buffer of the LSE and the output's low halves) so that a memory
+    count sees it."""
+
+    @staticmethod
+    def _shape(q, k, G: int) -> tuple:
+        B, S, H, hd = q.shape
+        return B, S, k.shape[1], H, min(k.shape[2], -(-H // G)), hd
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, G: int):
+        from repro_torch.analysis import opcount, roofline
+        B, S, Skv, H, K, hd = _MetaFlashFn._shape(q, k, G)
+        dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
+        opcount.add_kernel("flash_attention", *roofline.flash_work(
+            B, S, H, K, hd, causal, window, dt, Skv))
+        o = torch.empty_like(q)
+        if any(ctx.needs_input_grad[:3]):
+            from repro_torch.kernels.flash_attention.kernel import lse_rows
+            buf = q.new_empty((B * H * lse_rows(S) + B * S * H * hd // 2,),
+                              dtype=torch.float32)
+            ctx.save_for_backward(q, k, v, o, buf)
+        ctx.mask = (causal, window, G)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from repro_torch.analysis import opcount, roofline
+        q, k, v, _, _ = ctx.saved_tensors
+        causal, window, G = ctx.mask
+        B, S, Skv, H, K, hd = _MetaFlashFn._shape(q, k, G)
+        opcount.add_kernel("flash_attention_bwd", *roofline.flash_bwd_work(
+            B, S, Skv, H, K, hd, causal, window))
+        return (torch.empty_like(q), torch.empty_like(k),
+                torch.empty_like(v), None, None, None)
+
+
+def _meta(q, k, v, causal: bool, window: int):
+    from repro_torch.sharding import local_call
+    G = q.shape[2] // k.shape[2]
+    return local_call(
+        lambda q, k, v: _MetaFlashFn.apply(q, k, v, causal, window, G),
+        (q, k, v), ((0, 2),) * 3, ((0, 2),))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: [B,S,H,hd]; k, v: [B,Skv,K,hd] -> [B,S,H,hd] in q's dtype.
@@ -91,6 +149,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dev = q.device
     if dev.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    if dev.type == "meta":
+        return _meta(q, k, v, causal, window)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on CPU or CUDA, not {dev}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

@@ -2,10 +2,14 @@
 ``repro.kernels.paged_attention.ops``).
 
 Rotates the query (RoPE at ``q_pos``, as the Pallas wrapper does), then:
-CPU tensors run the
-plain version (``ref.decode_ref``), CUDA tensors launch the CUDA kernel
-(``kernel.decode_attention``) on the cache as it lies, and a failed build
-or launch raises; nothing falls back from one to the other.
+CPU tensors run the plain version (``ref.decode_ref``), CUDA tensors
+launch the CUDA kernel (``kernel.decode_attention``) on the cache as it
+lies, and a failed build or launch raises; nothing falls back from one
+to the other.  Meta tensors (the dry run) launch nothing: an empty
+output of the kernel's shape, and the kernel's work
+(``analysis.roofline.decode_work``, every slot of the ring counted as
+valid: a full cache) added to the active op counter, on each rank's
+shards where the inputs are DTensors (``sharding.local_call``).
 """
 
 from __future__ import annotations
@@ -20,6 +24,21 @@ __all__ = ["decode_attention", "launches"]
 #: CUDA launches of the decode-attention kernel made through
 #: ``decode_attention``
 launches = 0
+
+
+def _meta_local(q, k_cache, v_cache, kv_pos, q_pos, G: int):
+    """The kernel on meta tensors: an empty output and the counted work
+    of the KV heads the query heads here need (``G`` query heads a KV
+    head); where the cache is split along its ring, over this rank's
+    slots, the output a partial sum of the ranks' (flash-decoding)."""
+    from repro_torch.analysis import opcount, roofline
+    B, H, hd = q.shape
+    W = k_cache.shape[1]
+    K = min(k_cache.shape[2], -(-H // G))
+    dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    opcount.add_kernel("decode_attention",
+                       *roofline.decode_work(B, H, K, hd, W, W, dt))
+    return torch.empty_like(q)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -45,6 +64,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         out = kernel.decode_attention(q, k_cache, v_cache, kv_pos,
                                       q_pos.contiguous(), window=window)
         launches += 1
+    elif dev.type == "meta":
+        from repro_torch.sharding import local_call
+        G = H // k_cache.shape[2]
+        out = local_call(
+            lambda *a: _meta_local(*a, G),
+            (q, k_cache, v_cache, kv_pos, q_pos),
+            ((0, 1), (0, 2, 1), (0, 2, 1), (None, None, 0), (None, None)),
+            ((0, 1),))
     else:
         raise ValueError(f"decode_attention runs on CPU or CUDA, not {dev}")
     return out.reshape(B, 1, H, hd)

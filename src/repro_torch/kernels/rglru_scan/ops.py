@@ -13,6 +13,12 @@ under an FMA: here the whole sequence is one call.  Counters:
 ``launches`` (the forward), ``bwd_launches`` and ``bwd_nsp_launches``
 (the backward's second launch, made only where a batch has more rows than
 one cluster adds up: at B > ``ref.CLUSTER_MAX``).
+
+Meta tensors (the dry run) launch nothing: empty outputs of the kernel's
+shapes, and its work (``analysis.roofline.rglru_work``; in the backward
+``rglru_bwd_work``) added to the active op counter, on each rank's shards
+where the inputs are DTensors (batch and channel splits kept:
+``sharding.local_call``).
 """
 
 from __future__ import annotations
@@ -58,6 +64,30 @@ class RglruScanFn(torch.autograd.Function):
         return out
 
 
+class _MetaRglruFn(torch.autograd.Function):
+    """The kernel on meta tensors: its shapes and its counted work
+    (forward, and the backward's), no launch; saves what
+    ``RglruScanFn`` saves."""
+
+    @staticmethod
+    def forward(ctx, r_pre, i_pre, u, nsp, h0):
+        from repro_torch.analysis import opcount, roofline
+        B, S, d = r_pre.shape
+        opcount.add_kernel("rglru_scan", *roofline.rglru_work(B, S, d))
+        h_seq = h0.new_empty((B, S, d))
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(r_pre, i_pre, u, nsp, h0, h_seq)
+        return h_seq, h0.new_empty((B, d))
+
+    @staticmethod
+    def backward(ctx, dh_seq, dh_n):
+        from repro_torch.analysis import opcount, roofline
+        r_pre, i_pre, u, nsp, h0, _ = ctx.saved_tensors
+        B, S, d = r_pre.shape
+        opcount.add_kernel("rglru_scan_bwd", *roofline.rglru_bwd_work(B, S, d))
+        return tuple(torch.empty_like(t) for t in (r_pre, i_pre, u, nsp, h0))
+
+
 def rglru_scan(r_pre: torch.Tensor, i_pre: torch.Tensor, u: torch.Tensor,
                nsp: torch.Tensor, h0: torch.Tensor):
     """r_pre, i_pre, u: [B, S, d] bf16 (the gate GEMMs' outputs and the
@@ -69,6 +99,11 @@ def rglru_scan(r_pre: torch.Tensor, i_pre: torch.Tensor, u: torch.Tensor,
     dev = r_pre.device
     if dev.type == "cpu":
         return ref.rglru_gated_scan_ref(r_pre, i_pre, u, nsp, h0)
+    if dev.type == "meta":
+        from repro_torch.sharding import local_call
+        return local_call(_MetaRglruFn.apply, (r_pre, i_pre, u, nsp, h0),
+                          ((0, 2), (0, 2), (0, 2), (None, 0), (0, 1)),
+                          ((0, 2), (0, 1)))
     if dev.type != "cuda":
         raise ValueError(f"rglru_scan runs on CPU or CUDA, not {dev}")
     if torch.is_grad_enabled() and any(

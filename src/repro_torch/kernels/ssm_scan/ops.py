@@ -12,6 +12,12 @@ the CPU autograd differentiates the plain version.  Unlike the Pallas
 wrapper, nothing pads D: the kernel masks the ragged edge.  Counters:
 ``launches`` (the serving forward), ``train_launches`` (the training
 forward), ``bwd_launches`` and ``bwd_sum_launches``.
+
+Meta tensors (the dry run) launch nothing: empty outputs of the kernel's
+shapes, and its work (``analysis.roofline.scan_work``; in the backward
+``ssm_bwd_work`` and ``ssm_dc_sum_work``) added to the active op
+counter, on each rank's shards where the inputs are DTensors (batch and
+state-channel splits kept: ``sharding.local_call``).
 """
 
 from __future__ import annotations
@@ -59,6 +65,35 @@ class SsmScanFn(torch.autograd.Function):
         return d_decay, d_dbu, dc, dh0
 
 
+class _MetaScanFn(torch.autograd.Function):
+    """The kernel on meta tensors: its shapes and its counted work, no
+    launch; with a gradient to come, the training instantiation (which
+    writes h_seq, saved as ``SsmScanFn`` saves it) and the backward's two
+    kernels."""
+
+    @staticmethod
+    def forward(ctx, decay, dbu, c, h0):
+        from repro_torch.analysis import opcount, roofline
+        B, T, D, N = decay.shape
+        train = any(ctx.needs_input_grad)
+        opcount.add_kernel("ssm_scan_train" if train else "ssm_scan",
+                           *roofline.scan_work(B, T, D, N, train))
+        if train:
+            ctx.save_for_backward(decay, torch.empty_like(decay), h0, c)
+        return h0.new_empty((B, D, N)), h0.new_empty((B, T, D))
+
+    @staticmethod
+    def backward(ctx, dh_out, dy):
+        from repro_torch.analysis import opcount, roofline
+        decay, _, h0, c = ctx.saved_tensors
+        B, T, D, N = decay.shape
+        opcount.add_kernel("ssm_scan_bwd", *roofline.ssm_bwd_work(B, T, D, N))
+        opcount.add_kernel("ssm_scan_dc_sum",
+                           *roofline.ssm_dc_sum_work(B, T, D, N))
+        return (torch.empty_like(decay), torch.empty_like(decay),
+                torch.empty_like(c), torch.empty_like(h0))
+
+
 def ssm_scan(decay: torch.Tensor, dbu: torch.Tensor, c: torch.Tensor,
              h0: torch.Tensor):
     """decay / dbu: [B,T,D,N]; c: [B,T,N]; h0: [B,D,N], f32 ->
@@ -67,6 +102,11 @@ def ssm_scan(decay: torch.Tensor, dbu: torch.Tensor, c: torch.Tensor,
     dev = decay.device
     if dev.type == "cpu":
         return ref.ssm_scan_ref(decay, dbu, c, h0)
+    if dev.type == "meta":
+        from repro_torch.sharding import local_call
+        return local_call(_MetaScanFn.apply, (decay, dbu, c, h0),
+                          ((0, 2), (0, 2), (0, None), (0, 1)),
+                          ((0, 1), (0, 2)))
     if dev.type != "cuda":
         raise ValueError(f"ssm_scan runs on CPU or CUDA, not {dev}")
     if torch.is_grad_enabled() and any(

@@ -59,11 +59,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         if microbatches == 1:
             loss, grads = _grads(model, batch, cfg, params)
         else:
-            mbs = {k: v.reshape((microbatches, v.shape[0] // microbatches)
-                                + tuple(v.shape[1:]))
+            mbs = {k: shd.split_leading(v, microbatches)
                    for k, v in batch.items()}
-            g_acc = [torch.zeros(p.shape, dtype=grad_accum_dtype,
-                                 device=p.device) for p in params]
+            g_acc = [torch.zeros_like(p, dtype=grad_accum_dtype)
+                     for p in params]
             l_acc = torch.zeros((), dtype=torch.float32,
                                 device=params[0].device)
             for i in range(microbatches):
@@ -95,6 +94,9 @@ def make_serve_step(cfg: ModelConfig):
     first index) -> the cache, updated in place."""
     def serve_step(model, cache, tokens):
         logits, new_cache = zoo.decode_fn(model, cache, tokens, cfg)
+        # the vocab split gathered first (a no-op off a mesh): DTensor's
+        # argmax over a split dim fails on a one-row batch
+        logits = shd.shard(logits, "batch", None)
         return torch.argmax(logits, -1).to(torch.int32), new_cache
     return serve_step
 

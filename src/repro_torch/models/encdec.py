@@ -35,8 +35,8 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.models import layers as L
 from repro_torch.models import lm
@@ -91,6 +91,7 @@ def encode(model: lm.LM, frames, cfg: ModelConfig,
     ``remat``: each layer recomputed in the backward pass."""
     x = frames.to(torch.bfloat16)
     x = x + _sinusoid(x.shape[1], x.shape[2], x.dtype, x.device)[None]
+    x = shd.shard(x, "batch", "seq", None)
     for lp in model.enc_layers:
         def body(x, lp=lp):
             y, _ = L.attention_apply(lp["attn"], L.norm_apply(
@@ -106,8 +107,9 @@ def decode_train(model: lm.LM, enc_out, tokens, cfg: ModelConfig,
     encoder states ``enc_out`` [B, F, d]: hidden states [B, S, d] after
     the final norm.  ``remat``: each layer recomputed in the backward
     pass."""
-    x = F.embedding(tokens, model.embed).to(torch.bfloat16)
+    x = lm.lookup(model, tokens)
     x = x + _sinusoid(x.shape[1], x.shape[2], x.dtype, x.device)[None]
+    x = shd.shard(x, "batch", "seq", None)
     for lp in model.dec_layers:
         def body(x, lp=lp):
             y, _ = L.attention_apply(lp["attn"], L.norm_apply(
@@ -126,8 +128,7 @@ def loss_fn(model: lm.LM, batch: dict, cfg: ModelConfig,
     -> ``(loss, {"nll", "aux"})``, aux 0."""
     enc = encode(model, batch["frames"], cfg, remat=remat)
     x = decode_train(model, enc, batch["tokens"], cfg, remat=remat)
-    mask = torch.ones(batch["targets"].shape, dtype=torch.float32,
-                      device=x.device)
+    mask = torch.ones_like(batch["targets"], dtype=torch.float32)
     loss = lm.chunked_ce(model, x, batch["targets"], mask, cfg)
     return loss, {"nll": loss,
                   "aux": torch.zeros((), dtype=torch.float32,
@@ -139,16 +140,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """A zero decode cache on ``device`` (CUDA unless named): the decoder's
     self-attention ``k`` / ``v`` [nl, B, max_len, K, hd] bf16 and
     ``kv_pos`` [nl, max_len] (-1 = empty), the cross-attention keys and
-    values ``xk`` / ``xv`` [nl, B, enc_seq, K, hd] bf16 and ``pos``."""
-    device = resolve_device(device)
+    values ``xk`` / ``xv`` [nl, B, enc_seq, K, hd] bf16 and ``pos``; on
+    the meta device under a mesh DTensors (``lm.cache_leaf``)."""
+    leaf = lm.cache_leaf(resolve_device(device))
     nl, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
-    kv = lambda n: torch.zeros((nl, batch, n, K, hd), dtype=torch.bfloat16,
-                               device=device)
-    return {"k": kv(max_len), "v": kv(max_len),
-            "kv_pos": torch.full((nl, max_len), -1, dtype=torch.int32,
-                                 device=device),
-            "xk": kv(cfg.enc_seq), "xv": kv(cfg.enc_seq),
-            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+    kv = lambda name, n: leaf((name,), (nl, batch, n, K, hd),
+                              torch.bfloat16, 0)
+    return {"k": kv("k", max_len), "v": kv("v", max_len),
+            "kv_pos": leaf(("kv_pos",), (nl, max_len), torch.int32, -1),
+            "xk": kv("xk", cfg.enc_seq), "xv": kv("xv", cfg.enc_seq),
+            "pos": leaf(("pos",), (), torch.int32, 0)}
 
 
 def prefill(model: lm.LM, frames, tokens, cfg: ModelConfig, max_len: int):
@@ -164,7 +165,7 @@ def prefill(model: lm.LM, frames, tokens, cfg: ModelConfig, max_len: int):
                          f"a cache of max_len {max_len}")
     cache: dict[str, Any] = init_cache(cfg, B, max_len, device=dev)
     xks, xvs = [], []
-    x = F.embedding(tokens, model.embed).to(torch.bfloat16)
+    x = lm.lookup(model, tokens)
     x = x + _sinusoid(S, cfg.d_model, x.dtype, dev)[None]
     for i, lp in enumerate(model.dec_layers):
         y, (k, v) = L.attention_apply(
@@ -195,7 +196,7 @@ def decode_step(model: lm.LM, cache: dict, tokens, cfg: ModelConfig):
     pos = cache["pos"]
     W, F_ = cache["k"].shape[2], cache["xk"].shape[2]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    x = F.embedding(tokens, model.embed).to(torch.bfloat16)[:, None]
+    x = lm.lookup(model, tokens)[:, None]
     x = x + _sinusoid_at(pos, cfg.d_model, x.dtype)
     slot = torch.clamp(pos, max=W - 1).reshape(1).long()
     # cross-attention: every cached frame counts (0 <= kv_pos <= q_pos)
@@ -205,22 +206,28 @@ def decode_step(model: lm.LM, cache: dict, tokens, cfg: ModelConfig):
         p = lp["attn"]
         h = L.norm_apply(lp["norm1"], x, cfg)
         ck, cv, cpos = cache["k"][i], cache["v"][i], cache["kv_pos"][i]
-        ck.index_copy_(1, slot, (h @ p["wk"].to(h.dtype)).reshape(B, 1, K,
-                                                                  hd))
-        cv.index_copy_(1, slot, (h @ p["wv"].to(h.dtype)).reshape(B, 1, K,
-                                                                  hd))
-        cpos.index_copy_(0, slot, pos.reshape(1))
-        q = (h @ p["wq"].to(h.dtype)).reshape(B, 1, H, hd)
+        shd.index_copy_(ck, 1, slot, shd.split_last(
+            h @ p["wk"].to(h.dtype), (B, 1, K, hd), "batch", None,
+            "kv_heads", None))
+        shd.index_copy_(cv, 1, slot, shd.split_last(
+            h @ p["wv"].to(h.dtype), (B, 1, K, hd), "batch", None,
+            "kv_heads", None))
+        shd.index_copy_(cpos, 0, slot, pos.reshape(1))
+        q = shd.split_last(h @ p["wq"].to(h.dtype), (B, 1, H, hd), "batch",
+                           None, "heads", None)
         out = pa_ops.decode_attention(q, ck, cv, q_pos=pos.reshape(1),
                                       kv_pos=cpos, window=0, rope_theta=0.0)
-        x = x + out.reshape(B, 1, H * hd) @ p["wo"].to(h.dtype)
+        x = x + shd.merge_last(out, "batch", None, "heads", None) @ p[
+            "wo"].to(h.dtype)
         p = lp["xattn"]
         h = L.norm_apply(lp["normx"], x, cfg)
-        q = (h @ p["wq"].to(h.dtype)).reshape(B, 1, H, hd)
+        q = shd.split_last(h @ p["wq"].to(h.dtype), (B, 1, H, hd), "batch",
+                           None, "heads", None)
         out = pa_ops.decode_attention(q, cache["xk"][i], cache["xv"][i],
                                       q_pos=q_all, kv_pos=epos, window=0,
                                       rope_theta=0.0)
-        x = x + out.reshape(B, 1, H * hd) @ p["wo"].to(h.dtype)
+        x = x + shd.merge_last(out, "batch", None, "heads", None) @ p[
+            "wo"].to(h.dtype)
         x = _mlp_block(lp, x, cfg)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1

@@ -23,6 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef
@@ -30,7 +31,8 @@ from repro_torch.models.params import ParamDef
 __all__ = ["NEG_INF", "norm_defs", "norm_apply", "rope", "attention_defs",
            "naive_attention", "blocked_attention",
            "split_kv_decode_attention", "attention_apply", "sigmoid", "silu", "gelu_tanh",
-           "mlp_defs", "mlp_apply", "moe_defs", "top_k_first", "moe_capacity",
+           "column_halves", "mlp_defs", "mlp_apply", "moe_defs",
+           "top_k_first", "moe_capacity",
            "moe_route", "moe_apply"]
 
 NEG_INF = -1e30
@@ -222,17 +224,27 @@ def attention_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
     (and rotated) keys and values for the cache."""
     B = x.shape[0]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    src = x if cross_x is None else cross_x
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, -1, H, hd)
-    k = (src @ p["wk"].to(x.dtype)).reshape(B, -1, K, hd)
-    v = (src @ p["wv"].to(x.dtype)).reshape(B, -1, K, hd)
+    # the split products' input: its gradient's partial sums meet here
+    x = shd.shard(x, "batch", "seq", None)
+    src = x if cross_x is None else shd.shard(cross_x, "batch", "seq", None)
+    q = shd.split_last(x @ p["wq"].to(x.dtype), (B, -1, H, hd),
+                       "batch", None, "heads", None)
+    k = shd.split_last(src @ p["wk"].to(x.dtype), (B, -1, K, hd),
+                       "batch", None, "kv_heads", None)
+    v = shd.split_last(src @ p["wv"].to(x.dtype), (B, -1, K, hd),
+                       "batch", None, "kv_heads", None)
     if cross_x is None:
         pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         k = rope(k, pos[None], cfg.rope_theta)
         q = rope(q, pos[None], cfg.rope_theta)
+    q = shd.shard(q, "batch", None, "heads", None)
+    k = shd.shard(k, "batch", None, "kv_heads", None)
+    v = shd.shard(v, "batch", None, "kv_heads", None)
     out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
-    y = out.reshape(B, -1, H * hd) @ p["wo"].to(x.dtype)
-    return y, (k, v)
+    y = shd.merge_last(out, "batch", None, "heads", None) @ p["wo"].to(
+        x.dtype)
+    # the row-split product's partial sums meet here (a no-op off a mesh)
+    return shd.shard(y, "batch", "seq", None), (k, v)
 
 
 # ----------------------------------------------------------------------- MLP
@@ -289,15 +301,28 @@ def mlp_defs(cfg: ModelConfig):
             "wo": ParamDef((f, d), ("hidden", "embed"))}
 
 
+def column_halves(x, wi):
+    """``(x @ wi).chunk(2, -1)`` (SwiGLU's gate and up halves, the mamba
+    block's ``u`` and ``z``).  Under a mesh, ``wi``'s split hidden dim
+    would hold the two halves on different ranks: each half is then its
+    own product, its weight laid out as ``hidden`` again."""
+    if not shd.is_dtensor(wi):
+        return (x @ wi).chunk(2, dim=-1)
+    f = wi.shape[1] // 2
+    return tuple(x @ shd.shard(w, "embed", "hidden")
+                 for w in (wi[:, :f], wi[:, f:]))
+
+
 def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = x @ p["wi"].to(x.dtype)
+    x = shd.shard(x, "batch", "seq", None)
     if cfg.act == "silu":
-        g, u = h.chunk(2, dim=-1)
+        g, u = column_halves(x, p["wi"].to(x.dtype))
         h = silu(g) * u
     else:
         # jax.nn.gelu's default is the tanh approximation
-        h = gelu_tanh(h)
-    return h @ p["wo"].to(x.dtype)
+        h = gelu_tanh(x @ p["wi"].to(x.dtype))
+    h = shd.shard(h, "batch", None, "hidden")
+    return shd.shard(h @ p["wo"].to(x.dtype), "batch", None, None)
 
 
 # ----------------------------------------------------------------------- MoE
@@ -343,6 +368,54 @@ def moe_route(p, x: torch.Tensor, cfg: ModelConfig):
     return probs, gate, eidx, pos
 
 
+def _dispatch(x, dest, rows: int, k: int):
+    """``[B, rows, d]`` zeros with each token's ``k`` copies scattered to
+    their rows ``dest`` [B, S * k, 1] (row-local)."""
+    B, S, d = x.shape
+    src = x[:, :, None, :].expand(B, S, k, d).reshape(B, S * k, d)
+    return x.new_zeros((B, rows, d)).scatter_(1, dest.expand(B, S * k, d),
+                                              src)
+
+
+def _combine(out, slot):
+    """``out[b, slot[b]]``: each token's ``k`` expert outputs
+    (row-local)."""
+    rows = torch.arange(out.shape[0], device=out.device)[:, None, None]
+    return out[rows, slot]
+
+
+def _expert_product(eq: str, a, w, a_split, w_split: int, out_split):
+    """``torch.einsum(eq, a, w)`` of the expert buffers ``a`` (rows first)
+    and an expert weight ``w``.  Under a mesh each rank multiplies its
+    rows of ``a`` by its part of ``w``'s expert-hidden dim ``w_split``
+    (``a`` split alike along ``a_split``, if it holds that dim); the
+    output takes the split at ``out_split``, or holds partial sums where
+    the split dim is contracted.  DTensor's own einsum would merge the
+    rows into a dim split over several mesh axes (a strided split whose
+    bookkeeping costs minutes a call)."""
+    if not shd.is_dtensor(a):
+        return torch.einsum(eq, a, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    a_pl, w_pl, o_pl = [], [], []
+    for pa, pw in zip(a.placements, w.placements):
+        if pa == Shard(0):
+            a_pl.append(pa)
+            w_pl.append(Replicate())
+            o_pl.append(Shard(0))
+        elif pw == Shard(w_split):
+            a_pl.append(Replicate() if a_split is None else Shard(a_split))
+            w_pl.append(pw)
+            o_pl.append(Partial() if out_split is None else Shard(out_split))
+        else:
+            a_pl.append(Replicate())
+            w_pl.append(Replicate())
+            o_pl.append(Replicate())
+    return local_map(lambda x, y: torch.einsum(eq, x, y),
+                     out_placements=o_pl, in_placements=(a_pl, w_pl),
+                     device_mesh=a.device_mesh, redistribute_inputs=True)(a, w)
+
+
 def moe_apply(p, x: torch.Tensor, cfg: ModelConfig):
     """Token-choice top-k MoE, capacity-bounded, dispatched per batch row
     (``repro``'s ``moe_apply``): each row's slots go to ``[E, cap]``
@@ -353,30 +426,45 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig):
     the load-balancing aux loss, f32 scalar)``."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
+    x = shd.shard(x, "batch", "seq", None)
     probs, gate, eidx, pos = moe_route(p, x, cfg)
     cap = moe_capacity(cfg, S)
     keep = pos < cap
     slot = eidx * cap + torch.where(keep, pos, 0)      # [B, S, k]
-    rows = torch.arange(B, device=x.device)[:, None, None]
-    # dispatch: every kept slot owns its buffer row; dropped ones write
-    # nothing (repro adds them into a column that is sliced away)
-    buf = x.new_zeros((B, E * cap, d))
-    src = x[:, :, None, :].expand(B, S, k, d)
-    buf[rows.expand(B, S, k)[keep], slot[keep]] = src[keep]
-    buf = buf.reshape(B, E, cap, d)
-    wi = p["wi"].to(x.dtype)
-    wo = p["wo"].to(x.dtype)
-    h = torch.einsum("becd,edf->becf", buf, wi)
-    g, u = h.chunk(2, dim=-1)
-    out = torch.einsum("becf,efd->becd", silu(g) * u, wo)
+    # dispatch: every kept slot owns its buffer row; a dropped one writes
+    # into a spare row that is sliced away (repro's spare column), so no
+    # index depends on how many were kept
+    dest = torch.where(keep, slot, E * cap).reshape(B, S * k, 1)
+    # row-wise: under a mesh on each rank's rows (``sharding.local_call``)
+    buf = shd.local_call(lambda x, dest: _dispatch(x, dest, E * cap + 1, k),
+                         (x, dest), ((0, None), (0, None)), ((0, None),))
+    buf = shd.shard(buf[:, :E * cap].reshape(B, E, cap, d), "batch",
+                    "experts", None, None)
+    # the experts' weights regathered from their FSDP split before use,
+    # the expert-hidden split kept (repro's layout at use)
+    wi = shd.shard(p["wi"].to(x.dtype), None, None, "expert_hidden")
+    wo = shd.shard(p["wo"].to(x.dtype), None, "expert_hidden", None)
+    if shd.is_dtensor(wi):
+        # each half its own product (``column_halves``), on each rank's
+        # rows and expert-hidden split
+        f = wi.shape[-1] // 2
+        g, u = (_expert_product("becd,edf->becf", buf, shd.shard(
+            w, None, None, "expert_hidden"), None, 2, 3)
+            for w in (wi[..., :f], wi[..., f:]))
+    else:
+        g, u = torch.einsum("becd,edf->becf", buf, wi).chunk(2, dim=-1)
+    h = shd.shard(silu(g) * u, "batch", "experts", None, "expert_hidden")
+    out = _expert_product("becf,efd->becd", h, wo, 3, 1, None)
     # combine: each slot's output times its gate in bf16, the k of a token
     # added in bf16 (into zeros, so their order does not matter)
-    got = out.reshape(B, E * cap, d)[rows, slot]        # [B, S, k, d]
+    got = shd.local_call(_combine, (out.reshape(B, E * cap, d), slot),
+                         ((0, None), (0, None)), ((0, None),))  # [B,S,k,d]
     w = (gate * keep).to(x.dtype)[..., None]
     contrib = torch.where(keep[..., None], got * w, torch.zeros_like(got))
     y = contrib[:, :, 0]
     for j in range(1, k):
         y = y + contrib[:, :, j]
+    y = shd.shard(y, "batch", "seq", None)
     return y, _aux_loss(probs.reshape(-1, E), eidx.reshape(-1, k), E)
 
 

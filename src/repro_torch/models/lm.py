@@ -51,16 +51,18 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding as shd
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import ParamDef, resolve_device
+from repro_torch.models.params import ParamDef, abstract_tensor, resolve_device
 
-__all__ = ["LM", "layer_types", "attn_window", "lm_defs", "forward",
-           "logits_fn", "grad_cast_bf16", "chunked_ce", "loss_fn",
-           "init_cache", "prefill", "decode_step", "tree_of"]
+__all__ = ["LM", "layer_types", "attn_window", "lm_defs", "lookup",
+           "forward", "logits_fn", "grad_cast_bf16", "chunked_ce", "loss_fn",
+           "init_cache", "CACHE_AXES", "cache_leaf", "prefill",
+           "decode_step", "tree_of"]
 
 
 def layer_types(cfg: ModelConfig) -> tuple:
@@ -160,8 +162,18 @@ class LM(nn.Module):
         return out
 
 
+def lookup(model: LM, tokens) -> torch.Tensor:
+    """The bf16 embeddings of ``tokens``.  Under a mesh the table is
+    looked up whole along its vocab and split along its width over the
+    ``hidden`` axis (a lookup into a vocab-split table leaves partial
+    sums whose backward DTensor cannot take, and a width split over the
+    batch's axis would gather the batch)."""
+    table = shd.shard(model.embed, None, "hidden")
+    return F.embedding(tokens, table).to(torch.bfloat16)
+
+
 def _embed(model: LM, tokens, prefix_embeds=None) -> torch.Tensor:
-    x = F.embedding(tokens, model.embed).to(torch.bfloat16)
+    x = lookup(model, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     return x
@@ -203,7 +215,7 @@ def forward(model: LM, tokens, cfg: ModelConfig, prefix_embeds=None,
     states [B, S, d] and the aux-loss scalar (the MoE layers' sum; 0 for
     the other families).  ``remat``: each layer under
     ``torch.utils.checkpoint``."""
-    x = _embed(model, tokens, prefix_embeds)
+    x = shd.shard(_embed(model, tokens, prefix_embeds), "batch", "seq", None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, kind in zip(model.layers, layer_types(cfg)):
         if remat:
@@ -213,6 +225,7 @@ def forward(model: LM, tokens, cfg: ModelConfig, prefix_embeds=None,
             x, a = remat_layer(body, x)
         else:
             x, a = _layer(lp, kind, x, cfg)
+        x = shd.shard(x, "batch", "seq", None)
         if a is not None and cfg.family == "moe":
             aux = aux + a
     x = L.norm_apply(model.final_norm, x, cfg)
@@ -225,7 +238,7 @@ def logits_fn(model: LM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.vocab_padded != cfg.vocab_size:
         pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab_size
         logits = logits + torch.where(pad, -1e30, 0.0).to(logits.dtype)
-    return logits
+    return shd.shard(logits, "batch", "seq", "vocab")
 
 
 class _GradCastBF16(torch.autograd.Function):
@@ -249,8 +262,8 @@ def _chunk_nll(model: LM, cfg: ModelConfig, xc, tc, mc):
     """The masked f32 NLL sum of one chunk: logits from the head, f32
     ``logsumexp`` minus the gold logit."""
     logits = logits_fn(model, xc, cfg).float()
-    logz = torch.logsumexp(logits, -1)
-    gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
+    logz = shd.logsumexp_last(logits)
+    gold = shd.pick_last(logits, tc)
     return torch.sum((logz - gold) * mc)
 
 
@@ -290,16 +303,43 @@ def loss_fn(model: LM, batch: dict, cfg: ModelConfig, remat: bool = True):
     targets = batch["targets"]
     mask = batch.get("mask")
     if mask is None:
-        mask = torch.ones(targets.shape, dtype=torch.float32,
-                          device=targets.device)
+        mask = torch.ones_like(targets, dtype=torch.float32)
     loss = chunked_ce(model, x, targets, mask, cfg)
     return loss + 0.01 * aux, {"nll": loss, "aux": aux}
 
 
 # ------------------------------------------------------------------ serving
 
-def _stacked(st: dict, nl: int) -> dict:
-    return {k: v[None].repeat(nl, *(1,) * v.dim()) for k, v in st.items()}
+#: logical axes of each decode-cache leaf, a nested leaf by its key path
+#: (``repro``'s ``zoo._CACHE_AXES``; the encdec cache's too)
+CACHE_AXES = {
+    "k": ("layers", "batch", "kv_seq", "kv_heads", None),
+    "v": ("layers", "batch", "kv_seq", "kv_heads", None),
+    "kv_pos": ("layers", "kv_seq"),
+    "xk": ("layers", "batch", "seq", "kv_heads", None),
+    "xv": ("layers", "batch", "seq", "kv_heads", None),
+    "pos": (),
+    ("rec", "conv"): ("layers", "batch", None, "hidden"),
+    ("rec", "h"): ("layers", "batch", "hidden"),
+    ("ssm", "conv"): ("layers", "batch", None, "hidden"),
+    ("ssm", "ssm"): ("layers", "batch", "hidden", "state"),
+}
+
+
+def cache_leaf(device):
+    """``leaf(path, shape, dtype, fill)``: a cache leaf filled with
+    ``fill`` on ``device``; on the meta device with a mesh active (the
+    dry run) a DTensor over meta shards placed by ``CACHE_AXES[path]``
+    (``params.abstract_tensor``), so that no global cache is made."""
+    placed = device.type == "meta" and shd.get_mesh() is not None
+
+    def leaf(path: tuple, shape: tuple, dtype, fill):
+        if placed:
+            axes = CACHE_AXES[path if len(path) > 1 else path[0]]
+            return abstract_tensor(shape, dtype, axes)
+        return torch.full(shape, fill, dtype=dtype, device=device)
+
+    return leaf
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -310,26 +350,42 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     ``kv_pos`` [nl, W] (-1 = empty); ssm, ``{"ssm": {"conv": [nl, B,
     kc-1, di] bf16, "ssm": [nl, B, di, N] f32}}`` (no ring); hybrid, the
     ring and ``{"rec": {"conv": [nl, B, kc-1, d] bf16, "h": [nl, B, d]
-    f32}}``, both for every layer."""
+    f32}}``, both for every layer.  On the meta device under a mesh the
+    leaves are DTensors (``cache_leaf``)."""
     device = resolve_device(device)
+    leaf = cache_leaf(device)
     nl = cfg.n_layers
     types = set(layer_types(cfg))
-    cache: dict[str, Any] = {
-        "pos": torch.zeros((), dtype=torch.int32, device=device)}
+    cache: dict[str, Any] = {"pos": leaf(("pos",), (), torch.int32, 0)}
     if "attn" in types:
         K, hd = cfg.n_kv_heads, cfg.hd
         window = attn_window(cfg)
         W = min(max_len, window) if window else max_len
-        cache["k"] = torch.zeros((nl, batch, W, K, hd), dtype=torch.bfloat16,
-                                 device=device)
-        cache["v"] = torch.zeros_like(cache["k"])
-        cache["kv_pos"] = torch.full((nl, W), -1, dtype=torch.int32,
-                                     device=device)
-    if "rec" in types:
-        cache["rec"] = _stacked(R.rglru_init_state(cfg, batch, device), nl)
-    if "ssm" in types:
-        cache["ssm"] = _stacked(SSM.ssm_init_state(cfg, batch, device), nl)
+        for name in ("k", "v"):
+            cache[name] = leaf((name,), (nl, batch, W, K, hd),
+                               torch.bfloat16, 0)
+        cache["kv_pos"] = leaf(("kv_pos",), (nl, W), torch.int32, -1)
+    # the recurrent states start at zero: each layer's, stacked
+    for kind, init in (("rec", R.rglru_init_state),
+                       ("ssm", SSM.ssm_init_state)):
+        if kind in types:
+            cache[kind] = {k: leaf((kind, k), (nl,) + tuple(v.shape),
+                                   v.dtype, 0)
+                           for k, v in init(cfg, batch, "meta").items()}
     return cache
+
+
+def _ring_write(dst, src, shift: int, dim: int) -> None:
+    """Write ``src`` into the ring ``dst`` along ``dim``: element ``j`` to
+    slot ``(j + shift) mod W`` (a full ring: ``src`` rolled, one copy; a
+    shorter ``src`` starts at slot 0, ``shift`` 0).  Copies, not an
+    indexed scatter, so that a cache split along its slots (the dry run's
+    DTensors) takes the write too."""
+    n = src.shape[dim]
+    if n == dst.shape[dim]:
+        dst.copy_(torch.roll(src, shift, dim) if shift else src)
+    else:
+        dst.narrow(dim, 0, n).copy_(src)
 
 
 def prefill(model: LM, tokens, cfg: ModelConfig, max_len: int,
@@ -339,24 +395,25 @@ def prefill(model: LM, tokens, cfg: ModelConfig, max_len: int,
     each recurrent layer's exact conv state and ``h`` after the last
     token (ssm and rec layers; the prompt needs ``ssm_conv - 1`` tokens or
     more).  Returns ``(logits of the last position [B, V], cache)``."""
-    x = _embed(model, tokens, prefix_embeds)
+    x = shd.shard(_embed(model, tokens, prefix_embeds), "batch", "seq", None)
     B, Sq = x.shape[0], x.shape[1]
     dev = x.device
     cache = init_cache(cfg, B, max_len, device=dev)
     cache["pos"] = torch.tensor(Sq, dtype=torch.int32, device=dev)
     if "k" in cache:
-        q_pos = torch.arange(Sq, dtype=torch.int32, device=dev)
         W = cache["k"].shape[2]
         take = min(W, Sq)
-        pos = q_pos[Sq - take:]
-        slots = torch.remainder(pos, W).long()
+        pos = torch.arange(Sq - take, Sq, dtype=torch.int32, device=dev)
+        # position p goes to slot p mod W: the kept run, rolled by the
+        # slot of its first position
+        shift = (Sq - take) % W
     for i, (lp, kind) in enumerate(zip(model.layers, layer_types(cfg))):
         h = L.norm_apply(lp["norm1"], x, cfg)
         if kind == "ssm":
             y, st = SSM.ssm_block_apply(lp["ssm"], h, cfg, return_state=True)
             cache["ssm"]["conv"][i] = st["conv"]
             cache["ssm"]["ssm"][i] = st["ssm"]
-            x = x + y
+            x = shd.shard(x + y, "batch", "seq", None)
             continue
         if kind == "rec":
             y, st = R.rglru_block_apply(lp["rec"], h, cfg, return_state=True)
@@ -365,10 +422,10 @@ def prefill(model: LM, tokens, cfg: ModelConfig, max_len: int,
         else:
             y, (k, v) = L.attention_apply(lp["attn"], h, cfg, causal=True,
                                           window=attn_window(cfg))
-            cache["k"][i][:, slots] = k[:, Sq - take:]
-            cache["v"][i][:, slots] = v[:, Sq - take:]
-            cache["kv_pos"][i][slots] = pos
-        x = _ffn_block(lp, x + y, cfg)[0]
+            _ring_write(cache["k"][i], k[:, Sq - take:], shift, 1)
+            _ring_write(cache["v"][i], v[:, Sq - take:], shift, 1)
+            _ring_write(cache["kv_pos"][i], pos, shift, 0)
+        x = shd.shard(_ffn_block(lp, x + y, cfg)[0], "batch", "seq", None)
     x = L.norm_apply(model.final_norm, x, cfg)
     return logits_fn(model, x[:, -1:], cfg)[:, 0], cache
 
@@ -384,7 +441,8 @@ def decode_step(model: LM, cache: dict, tokens, cfg: ModelConfig):
     where ``repro`` returns an updated one).  The returned dict shares
     those tensors and holds a new ``pos``.  A caller that needs the old
     cache again clones it first."""
-    x = _embed(model, tokens)[:, None, :]                   # [B, 1, d]
+    x = shd.shard(_embed(model, tokens)[:, None, :],       # [B, 1, d]
+                  "batch", None, None)
     pos = cache["pos"]
     for i, (lp, kind) in enumerate(zip(model.layers, layer_types(cfg))):
         h = L.norm_apply(lp["norm1"], x, cfg)
@@ -420,15 +478,20 @@ def _cached_attention(p, h, cache: dict, i: int, cfg: ModelConfig, pos):
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     ck, cv, cpos = cache["k"][i], cache["v"][i], cache["kv_pos"][i]
     W = ck.shape[1]
-    kq = (h @ p["wk"].to(h.dtype)).reshape(B, 1, K, hd)
-    vq = (h @ p["wv"].to(h.dtype)).reshape(B, 1, K, hd)
+    kq = shd.split_last(h @ p["wk"].to(h.dtype), (B, 1, K, hd),
+                        "batch", None, "kv_heads", None)
+    vq = shd.split_last(h @ p["wv"].to(h.dtype), (B, 1, K, hd),
+                        "batch", None, "kv_heads", None)
     kq = L.rope(kq, pos[None, None], cfg.rope_theta)
     slot = torch.remainder(pos, W).reshape(1).long()
-    ck.index_copy_(1, slot, kq.to(ck.dtype))
-    cv.index_copy_(1, slot, vq.to(cv.dtype))
-    cpos.index_copy_(0, slot, pos.reshape(1))
-    q = (h @ p["wq"].to(h.dtype)).reshape(B, 1, H, hd)
+    shd.index_copy_(ck, 1, slot, kq.to(ck.dtype))
+    shd.index_copy_(cv, 1, slot, vq.to(cv.dtype))
+    shd.index_copy_(cpos, 0, slot, pos.reshape(1))
+    q = shd.split_last(h @ p["wq"].to(h.dtype), (B, 1, H, hd),
+                       "batch", None, "heads", None)
     out = pa_ops.decode_attention(q, ck, cv, q_pos=pos.reshape(1),
                                   kv_pos=cpos, window=attn_window(cfg),
                                   rope_theta=cfg.rope_theta)
-    return out.reshape(B, 1, H * hd) @ p["wo"].to(h.dtype)
+    y = shd.merge_last(out, "batch", None, "heads", None) @ p["wo"].to(
+        h.dtype)
+    return shd.shard(y, "batch", None, None)

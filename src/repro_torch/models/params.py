@@ -6,8 +6,9 @@ materialises it on a device (CUDA unless the caller names another,
 ``resolve_device``); ``count_params`` counts it.  ``param_specs`` and
 ``param_shardings`` are the tree's sharding views under a mesh
 (``repro_torch.sharding``), and ``shard_params`` lays a tree of tensors
-out as DTensors by its defs' logical axes.  ``abstract_params`` comes
-with the dry run.
+out as DTensors by its defs' logical axes.  ``abstract_params`` is the
+dry run's tree: meta tensors, or DTensors over meta shards under a mesh
+(``abstract_tensor``), so a full-size model is never allocated.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from repro_torch import sharding as shd
 
 __all__ = ["ParamDef", "is_def", "leaf_paths", "map_defs", "init_params",
            "count_params", "resolve_device", "param_specs",
-           "param_shardings", "shard_params"]
+           "param_shardings", "shard_params", "local_shape",
+           "contiguous_strides", "abstract_tensor", "abstract_params"]
 
 
 class ParamDef(NamedTuple):
@@ -146,6 +148,59 @@ def shard_params(tree, defs, mesh=None):
         return distribute_tensor(t.to(mesh.device_type), mesh,
                                  ns.placements, src_data_rank=None)
     return _zip_map(one, tree, defs)
+
+
+def local_shape(shape: tuple, mesh, placements) -> tuple:
+    """The shard of a ``shape`` tensor that this rank holds under
+    ``placements``: each ``Shard(d)`` cuts dim ``d`` as ``torch.chunk``
+    does (ceil-sized pieces, the last ones short or empty), in mesh-dim
+    order, so that the first mesh axis of a dim is the major one (JAX's
+    order)."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    out = list(shape)
+    for m, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n, c = mesh.size(m), coord[m]
+            piece = -(-out[p.dim] // n)
+            out[p.dim] = max(0, min(piece, out[p.dim] - c * piece))
+    return tuple(out)
+
+
+def contiguous_strides(shape: tuple) -> tuple:
+    """The strides of a contiguous tensor of ``shape`` (computed: a meta
+    tensor made to read them would count as memory under the op
+    counter)."""
+    out, step = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(step)
+        step *= max(n, 1)
+    return tuple(reversed(out))
+
+
+def abstract_tensor(shape: tuple, dtype, axes=None):
+    """A meta tensor of ``shape``; with a mesh active and logical
+    ``axes`` given, a DTensor placed by them whose local shard is a meta
+    tensor (``local_shape``): no memory either way."""
+    shape = tuple(shape)
+    ns = shd.named_sharding(tuple(axes), shape) if axes is not None else None
+    if ns is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    from torch.distributed.tensor import DTensor
+    local = torch.empty(local_shape(shape, ns.mesh, ns.placements),
+                        dtype=dtype, device="meta")
+    return DTensor.from_local(local, ns.mesh, ns.placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_strides(shape))
+
+
+def abstract_params(defs, dtype=torch.float32):
+    """The tree of ``defs`` as meta tensors, or under a mesh
+    (``sharding.set_mesh``) as DTensors over meta shards placed by each
+    def's logical axes (``abstract_tensor``): the dry run's parameters,
+    never allocated."""
+    return map_defs(lambda _, d: abstract_tensor(d.shape, dtype, d.axes),
+                    defs)
 
 
 def count_params(defs) -> int:

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.kernels.rglru_scan import ops as scan_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import gelu_tanh
@@ -62,8 +63,10 @@ def _gates(p, u):
     softplus(Lambda)`` [d] f32; the scan forms ``repro``'s ``a = exp(nsp *
     sigmoid(r_pre))`` and gated input ``(sigmoid(i_pre) * u) * sqrt(max(1
     - a * a, 1e-9))`` from them (``rglru_scan.ref.gate_inputs``)."""
-    return (u @ p["w_r"].to(u.dtype), u @ p["w_i"].to(u.dtype),
-            -_C * _softplus(p["lam"].float()))
+    # the row-split products' partial sums meet here (no-op off a mesh)
+    gate = lambda w: shd.shard(u @ p[w].to(u.dtype), "batch", "seq",
+                               "hidden")
+    return gate("w_r"), gate("w_i"), -_C * _softplus(p["lam"].float())
 
 
 def rglru_block_apply(p, x, cfg: ModelConfig, return_state: bool = False):
@@ -78,6 +81,8 @@ def rglru_block_apply(p, x, cfg: ModelConfig, return_state: bool = False):
         raise ValueError(f"{cfg.name}: a prompt of {S} tokens is shorter "
                          f"than the conv state's ssm_conv - 1 = {kc - 1} "
                          f"rows; prefill needs at least {kc - 1} tokens")
+    # the split products' input and output (no-ops off a mesh)
+    x = shd.shard(x, "batch", "seq", None)
     u_pre = x @ p["in_x"].to(x.dtype)
     gate = gelu_tanh(x @ p["in_gate"].to(x.dtype))
     u, _ = causal_conv(p, u_pre, kc)
@@ -86,7 +91,7 @@ def rglru_block_apply(p, x, cfg: ModelConfig, return_state: bool = False):
     h_seq, h_n = scan_ops.rglru_scan(r_pre.contiguous(), i_pre.contiguous(),
                                      u.contiguous(), nsp, h0)
     y = h_seq.to(x.dtype) * gate
-    out = y @ p["out"].to(x.dtype)
+    out = shd.shard(y @ p["out"].to(x.dtype), "batch", "seq", None)
     if return_state:
         return out, {"conv": u_pre[:, S - (kc - 1):], "h": h_n}
     return out
@@ -96,6 +101,7 @@ def rglru_decode_step(p, x, state: dict, cfg: ModelConfig):
     """x: [B, 1, d]; state: ``{"conv": [B, kc-1, d], "h": [B, d] f32}``
     -> ``(y [B, 1, d], new state)`` (new tensors)."""
     kc = cfg.ssm_conv or 4
+    x = shd.shard(x, "batch", "seq", None)
     u = x @ p["in_x"].to(x.dtype)
     gate = gelu_tanh(x @ p["in_gate"].to(x.dtype))
     u, conv_state = causal_conv(p, u, kc, state["conv"])
@@ -104,7 +110,8 @@ def rglru_decode_step(p, x, state: dict, cfg: ModelConfig):
                                u.contiguous(), nsp,
                                state["h"].float().contiguous())
     y = h[:, None].to(x.dtype) * gate
-    return y @ p["out"].to(x.dtype), {"conv": conv_state, "h": h}
+    return (shd.shard(y @ p["out"].to(x.dtype), "batch", "seq", None),
+            {"conv": conv_state, "h": h})
 
 
 def rglru_init_state(cfg: ModelConfig, batch: int, device) -> dict:

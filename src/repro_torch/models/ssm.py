@@ -28,9 +28,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import silu
+from repro_torch.models.layers import column_halves, silu
 from repro_torch.models.params import ParamDef
 
 __all__ = ["CHUNK", "ssm_defs", "causal_conv", "ssm_block_apply",
@@ -65,15 +66,15 @@ def _softplus(x):
 def _ssm_inputs(p, x, cfg: ModelConfig):
     """The input projection split into the conv input ``u`` and the gate
     ``z``, each [B, S, di] in x's dtype."""
-    xz = x @ p["in_proj"].to(x.dtype)
-    return xz.split(cfg.d_inner, dim=-1)
+    return column_halves(x, p["in_proj"].to(x.dtype))
 
 
 def _selective(p, u_conv, cfg: ModelConfig):
     """``(dt, B, C)``: softplus(dt) [B,S,di] and the selective B, C
     [B,S,N], in u's dtype."""
     N, dtr = cfg.ssm_state, cfg.dt_rank
-    proj = u_conv @ p["x_proj"].to(u_conv.dtype)       # [B,S,dtr+2N]
+    proj = shd.shard(u_conv @ p["x_proj"].to(u_conv.dtype),  # [B,S,dtr+2N]
+                     "batch", "seq", None)
     dt_in, Bmat, Cmat = proj.split([dtr, N, N], dim=-1)
     dt = _softplus(dt_in @ p["dt_proj"].to(u_conv.dtype)
                    + p["dt_bias"].to(u_conv.dtype))
@@ -133,6 +134,8 @@ def ssm_block_apply(p, x, cfg: ModelConfig, chunk: int = CHUNK,
         raise ValueError(f"{cfg.name}: a prompt of {S} tokens is shorter "
                          f"than the conv state's ssm_conv - 1 = {kc - 1} "
                          f"rows; prefill needs at least {kc - 1} tokens")
+    # the split products' input and output (no-ops off a mesh)
+    x = shd.shard(x, "batch", "seq", None)
     u_pre, z = _ssm_inputs(p, x, cfg)
     u, _ = _causal_conv(p, u_pre, cfg)
     dt, Bm, Cm = _selective(p, u, cfg)
@@ -156,7 +159,7 @@ def ssm_block_apply(p, x, cfg: ModelConfig, chunk: int = CHUNK,
     y = torch.cat(ys, dim=1)[:, :S]
     y = y + u.float() * p["D"].float()
     y = y.to(x.dtype) * silu(z)
-    out = y @ p["out_proj"].to(x.dtype)
+    out = shd.shard(y @ p["out_proj"].to(x.dtype), "batch", "seq", None)
     if return_state:
         return out, {"conv": u_pre[:, S - (kc - 1):], "ssm": h}
     return out
@@ -166,7 +169,7 @@ def ssm_decode_step(p, x, state: dict, cfg: ModelConfig):
     """One-token decode.  x: [B, 1, d]; state: ``{"conv": [B, kc-1, di],
     "ssm": [B, di, N] f32}`` -> ``(y [B, 1, d], new state)`` (new
     tensors; the caller decides where they go)."""
-    u, z = _ssm_inputs(p, x, cfg)
+    u, z = _ssm_inputs(p, shd.shard(x, "batch", "seq", None), cfg)
     u, conv_state = _causal_conv(p, u, cfg, conv_state=state["conv"])
     dt, Bm, Cm = _selective(p, u, cfg)
     A = -torch.exp(p["A_log"].float())
@@ -175,7 +178,8 @@ def ssm_decode_step(p, x, state: dict, cfg: ModelConfig):
     y = torch.einsum("bdn,bn->bd", h, Cm[:, 0].float())
     y = y + u[:, 0].float() * p["D"].float()
     y = y[:, None].to(x.dtype) * silu(z)
-    return y @ p["out_proj"].to(x.dtype), {"conv": conv_state, "ssm": h}
+    return (shd.shard(y @ p["out_proj"].to(x.dtype), "batch", "seq", None),
+            {"conv": conv_state, "ssm": h})
 
 
 def ssm_init_state(cfg: ModelConfig, batch: int, device) -> dict:

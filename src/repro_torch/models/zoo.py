@@ -7,11 +7,12 @@ unless the caller names another; no fallback to the CPU);
 family, on the device the model lives on (the encdec family through
 ``models/encdec.py``, the others through ``models/lm.py``);
 ``init_cache`` is the matching zero cache.  ``batch_specs`` gives a
-shape cell's model inputs as meta-device tensors (no memory, no
-shardings) and ``make_batch`` draws them.  ``repro``'s ``cache_specs``
-and ``abstract_model`` carry shardings and serve only its dry run; they
-come with the port's meta-device dry run (ROADMAP.md, Queue 1 item 4).
-``loss_fn`` is the training loss of every family.
+shape cell's model inputs as meta-device tensors (no memory) and
+``make_batch`` draws them.  ``abstract_model`` and ``cache_specs`` are
+the dry run's model and decode cache (``launch/dryrun.py``).  Under a
+mesh the three give DTensors over meta shards, placed by their logical
+axes (``params.abstract_tensor``).  ``loss_fn`` is the training loss of
+every family.
 """
 
 from __future__ import annotations
@@ -20,10 +21,12 @@ import torch
 
 from repro_torch.models import encdec, lm
 from repro_torch.models.config import ModelConfig, ShapeConfig
-from repro_torch.models.params import init_params, resolve_device
+from repro_torch.models.params import (abstract_params, abstract_tensor,
+                                      init_params, resolve_device)
 
-__all__ = ["model_defs", "init_model", "init_cache", "loss_fn", "prefill_fn",
-           "decode_fn", "batch_specs", "make_batch"]
+__all__ = ["model_defs", "init_model", "abstract_model", "init_cache",
+           "cache_specs", "loss_fn", "prefill_fn", "decode_fn",
+           "batch_specs", "make_batch"]
 
 
 def model_defs(cfg: ModelConfig):
@@ -37,6 +40,13 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> lm.LM:
     (``params.init_params``)."""
     return lm.LM(cfg, init_params(model_defs(cfg), seed, torch.bfloat16,
                                   device))
+
+
+def abstract_model(cfg: ModelConfig, dtype=torch.bfloat16) -> lm.LM:
+    """The model over ``params.abstract_params`` (meta tensors, or
+    DTensors over meta shards under a mesh): the dry run's model, never
+    allocated."""
+    return lm.LM(cfg, abstract_params(model_defs(cfg), dtype))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -79,35 +89,44 @@ def decode_fn(model: lm.LM, cache: dict, tokens, cfg: ModelConfig):
 
 # ------------------------------------------------------------- input specs
 
-def _spec(shape, dtype) -> torch.Tensor:
-    return torch.empty(shape, dtype=dtype, device="meta")
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The decode cache of one shape cell on the meta device
+    (``init_cache`` at its batch and ``seq_len``): ``repro``'s
+    ``cache_specs`` (its keys, shapes and dtypes; the encdec cache's
+    ``k`` / ``v`` / ``kv_pos`` hold ``seq_len`` slots and ``xk`` / ``xv``
+    ``enc_seq``), under a mesh DTensors placed by ``lm.CACHE_AXES``
+    (``repro``'s ``_CACHE_AXES``, ``lm.cache_leaf``)."""
+    return init_cache(cfg, shape.global_batch, shape.seq_len, "meta")
 
 
 def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     """The model-input batch of one shape cell as meta-device tensors
-    (shapes and dtypes of ``repro``'s ``batch_specs``, without
-    shardings): int32 tokens (and targets for training), bf16
-    ``frames`` [B, enc_seq, d] (encdec) or ``prefix_embeds`` [B,
-    n_patches, d] (vision, whose patches count against ``seq_len``);
-    decode: one token a row."""
+    (``repro``'s ``batch_specs``: its shapes, dtypes and logical axes;
+    under a mesh DTensors over meta shards, ``params.abstract_tensor``):
+    int32 tokens (and targets for training), bf16 ``frames`` [B,
+    enc_seq, d] (encdec) or ``prefix_embeds`` [B, n_patches, d] (vision,
+    whose patches count against ``seq_len``); decode: one token a row."""
     B, S = shape.global_batch, shape.seq_len
     bf16, i32 = torch.bfloat16, torch.int32
+    tok, emb = ("batch", "seq"), ("batch", "seq", None)
     if shape.kind == "decode":
-        return {"tokens": _spec((B,), i32)}
+        return {"tokens": abstract_tensor((B,), i32, ("batch",))}
     out = {}
     if cfg.family == "encdec":
-        out["frames"] = _spec((B, cfg.enc_seq, cfg.d_model), bf16)
+        out["frames"] = abstract_tensor((B, cfg.enc_seq, cfg.d_model), bf16,
+                                        emb)
     n_text = S
     if cfg.frontend == "vision":
-        out["prefix_embeds"] = _spec((B, cfg.n_patches, cfg.d_model), bf16)
+        out["prefix_embeds"] = abstract_tensor((B, cfg.n_patches,
+                                                cfg.d_model), bf16, emb)
         n_text = S - cfg.n_patches
     if shape.kind == "train":
         if cfg.family == "encdec":
             n_text = S
-        out["tokens"] = _spec((B, n_text), i32)
-        out["targets"] = _spec((B, n_text), i32)
+        out["tokens"] = abstract_tensor((B, n_text), i32, tok)
+        out["targets"] = abstract_tensor((B, n_text), i32, tok)
     else:
-        out["tokens"] = _spec((B, n_text), i32)
+        out["tokens"] = abstract_tensor((B, n_text), i32, tok)
     return out
 
 

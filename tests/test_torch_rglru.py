@@ -488,8 +488,15 @@ def test_launcher_refuses_cpu_tensors_and_the_dispatch_other_devices():
     args, _ = _gate_case(1, 4, 8)
     with pytest.raises(ValueError, match="CUDA"):
         rk.rglru_scan(*args)
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        ro.rglru_scan(*(t.to("meta") for t in args))
+    # meta tensors (the dry run) take the meta path: the kernel's shapes,
+    # no launch (tests/test_torch_dryrun.py holds its counts)
+    before = ro.launches
+    h_seq, h_n = ro.rglru_scan(*(t.to("meta") for t in args))
+    want = rr.rglru_gated_scan_ref(*args)
+    assert ro.launches == before
+    for got, w in zip((h_seq, h_n), want):
+        assert got.device.type == "meta"
+        assert (got.shape, got.dtype) == (w.shape, w.dtype)
 
 
 def _misaligned(t):
