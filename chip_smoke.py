@@ -112,8 +112,9 @@ package.  Phases:
    read during the run; every page access counted by a launch without
    warm-up), its registers and spills;
 9. the flash-attention kernel against its plain version (both on the
-   card): the count of tensor-core ``HMMA`` instructions in each bf16
-   entry of the built library (``cuobjdump -sass``; none fails), then
+   card): the SASS census of each bf16 forward instantiation of the
+   built library (``cuobjdump -sass``: ``HGMMA``, wgmma, in every one,
+   no ``HMMA``, mma.sync, and no ptxas warning of serialised wgmma), then
    ``tests/test_kernels.py``'s matrix (5 shapes x bf16 / f32: hd
    32-128, S not a block multiple, MQA, non-causal, a sliding window)
    and the full-width prefill shapes B 4 x S 500, B 1 x S 4 096 and
@@ -267,7 +268,8 @@ package.  Phases:
     backward beside its bound, the plain version, SDPA's backward alone
     (device, ``torch.profiler``) and SDPA's forward + backward (events),
     their ptxas numbers and the wgmma entries' SASS census (HGMMA), and
-    the serving instantiation's against ``SERVING_FLASH_PTXAS``; (b) one
+    the bf16 forward's serving instantiations' against
+    ``SERVING_FLASH_PTXAS`` (no spill at HDP 64 and 128); (b) one
     ``make_train_step`` step of tinyllama-1.1b at published width (cut
     as ``golden.TRAIN`` says) from the golden weights built on the card
     against ``golden_train.json`` within ``golden.TRAIN_TOL``, the same
@@ -1552,6 +1554,34 @@ def hmma_counts(lib_path: str, entry: str) -> dict:
             sass_census(lib_path, (entry,), ("HMMA",)).items()}
 
 
+#: the bf16 forward's instantiations ``HDP:chunks`` (64-key chunks a key
+#: tile), serving and ``:lse`` training: every head dim up to 256 in
+#: whole 64-dim subtiles, two chunks at HDP 128, one above, and at HDP 64
+#: one (a short prompt, or two blocks an SM) or two
+FWD_INSTANCES = [f"{hdp}:{nk}{lse}" for hdp, nk in
+                 ((64, 1), (64, 2), (128, 2), (192, 1), (256, 1))
+                 for lse in ("", ":lse")]
+
+
+def flash_fwd_census(fk) -> dict:
+    """The flash library's bf16 forward instantiations' SASS census
+    (``{"HDP:chunks(:lse)": {"HGMMA": n, "HMMA": n}}``) and ptxas'
+    warnings of lost performance (``wgmma`` serialised) in its build
+    log."""
+    import re
+    lib = fk.library()._name
+    sass = {}
+    for fn, c in sass_census(lib, (fk.MMA_ENTRY,), ("HGMMA", "HMMA")).items():
+        m = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", fn)
+        sass[f"{m.group(1)}:{m.group(2)}" + (":lse" if m.group(3) == "1"
+                                             else "")] = c
+    log = Path(lib).with_suffix(".log")
+    text = log.read_text() if log.exists() else ""
+    warns = [ln.strip() for ln in text.splitlines()
+             if "Performance Loss" in ln]
+    return {"sass": sass, "warnings": warns}
+
+
 def seeded(shape, seed: int, dtype, device):
     """Standard normal values from numpy's generator (seeded), as
     ``dtype`` on ``device``."""
@@ -1576,22 +1606,23 @@ def kernel_diff(got, want, dn: str) -> tuple[float, float, float]:
 def phase_flash(fk, fr, dev) -> dict:
     """Flash kernel against its plain version (both on the card) over
     ``FLASH_MATRIX`` x {bf16, f32} and ``FLASH_FULL`` (bf16), after the
-    HMMA count of its bf16 entries; times the full-width shapes beside
-    the plain version and SDPA."""
-    import re
+    SASS census of its bf16 forward instantiations (``flash_fwd_census``);
+    times the full-width shapes beside the plain version and SDPA."""
     import torch
     import torch.nn.functional as F
-    hmma = {int(re.search(r"ILi(\d+)E", fn).group(1)): n for fn, n in
-            hmma_counts(fk.library()._name, fk.MMA_ENTRY).items()
-            if "Lb1E" not in fn}  # the serving instantiations
-    print(f"  HMMA instructions of the bf16 entry {fk.MMA_ENTRY} by head "
-          f"dim tile: {dict(sorted(hmma.items()))}", flush=True)
-    check(sorted(hmma) == list(range(16, fk.MAX_HD + 1, 16))
-          and min(hmma.values()) > 0,
-          f"the bf16 flash entries do not all run on the tensor cores: "
-          f"{hmma}")
+    census = flash_fwd_census(fk)
+    print(f"  SASS of the bf16 forward {fk.MMA_ENTRY} by HDP:chunks(:lse): "
+          f"{census['sass']}", flush=True)
+    for w in census["warnings"]:
+        print(f"  ptxas: {w}", flush=True)
+    check(sorted(census["sass"]) == sorted(FWD_INSTANCES)
+          and all(c["HGMMA"] > 0 and c["HMMA"] == 0
+                  for c in census["sass"].values())
+          and not census["warnings"],
+          f"a bf16 flash forward instantiation is missing, issues no wgmma "
+          f"or an mma.sync, or ptxas serialised its products: {census}")
     dts = {"bf16": torch.bfloat16, "f32": torch.float32}
-    out = {"max_abs_err": 0.0, "full": [], "hmma": hmma}
+    out = {"max_abs_err": 0.0, "full": [], "census": census["sass"]}
     cases = ([(c, d) for c in FLASH_MATRIX for d in dts]
              + [(c, "bf16") for c in FLASH_FULL])
     for i, (case, dn) in enumerate(cases):
@@ -1845,7 +1876,9 @@ def lm_phases(golden_mod, sim, device="cuda") -> list:
         for t in range(L["steps"]):
             c = zoo.decode_fn(model, c, dec_in[t], cfg)[1]
     decode_ms = cuda_ms(decode_all, torch.cuda.synchronize)[0] / L["steps"]
-    names = ("flash_attention", "paged_attention")
+    # the flash kernels: the f32 entry's name and the bf16 forward's
+    names = (("flash_attention", "flash_fwd_wgmma_kernel"),
+             "paged_attention")
     p_wall, p_busy, p_k = profile_kernels(prefill, names)
     run_cache = {k: v.clone() for k, v in cache0.items()}
     d_wall, d_busy, d_k = profile_kernels(decode_all, names)
@@ -1855,8 +1888,9 @@ def lm_phases(golden_mod, sim, device="cuda") -> list:
     print(f"  prefill {prefill_ms:.2f} ms; decode {decode_ms:.3f} ms a "
           f"step (CUDA events)", flush=True)
     print(f"  profiled prefill: {p_wall:.2f} ms wall, device busy "
-          f"{p_busy} ms, flash kernel {p_k[names[0]]:.3f} ms "
-          f"({share(p_k[names[0]], p_busy)} of the busy time)", flush=True)
+          f"{p_busy} ms, flash kernel {p_k['flash_attention']:.3f} ms "
+          f"({share(p_k['flash_attention'], p_busy)} of the busy time)",
+          flush=True)
     print(f"  profiled {L['steps']} decode steps: {d_wall:.2f} ms wall, "
           f"device busy {d_busy} ms, decode kernel {d_k[names[1]]:.3f} ms "
           f"({share(d_k[names[1]], d_busy)} of the busy time, "
@@ -1908,8 +1942,8 @@ def lm_phases(golden_mod, sim, device="cuda") -> list:
             **res["full"][0], "max_abs_err": res["max_abs_err"],
             "launches_golden_run": n_c, "full": res["full"][1:]})
     rows[0].update({"prefill_ms": prefill_ms, "prefill_device_ms": p_busy,
-                    "prefill_kernel_ms": p_k[names[0]],
-                    "hmma": flash["hmma"]})
+                    "prefill_kernel_ms": p_k['flash_attention'],
+                    "census": flash["census"]})
     rows[1].update({"hmma": dec["hmma"], "kernel_launches": k_serve,
                     "kernel_launches_golden_run": k_dec,
                     "decode_step_ms": decode_ms, "decode_device_ms":
@@ -2628,8 +2662,8 @@ def phase_zoo_kernels(fk, fr, pk, pr, rk, rr, dev) -> dict:
         log = Path(lib._name).with_suffix(".log")
         text = log.read_text() if log.exists() else ""
         regs.update(ptxas_report(
-            text, r"((?:flash|paged)_attention_mma_kernelILi256E|"
-                  r"rglru_scan_kernel)"))
+            text, r"(flash_fwd_wgmma_kernelILi256ELi1ELb0E|"
+                  r"paged_attention_mma_kernelILi256E|rglru_scan_kernel)"))
     for entry, r in regs.items():
         print(f"  ptxas {entry}: {r['registers']} registers, spill stores "
               f"{r['spill_stores']} B, spill loads {r['spill_loads']} B",
@@ -2786,9 +2820,11 @@ def zoo_phases(golden_mod, smi: str, device="cuda") -> dict:
         counts = kernel_counts(fa, pa, ro, pk)
         prefill_ms = start.elapsed_time(mid)
         decode_ms = mid.elapsed_time(end) / steps
-        names = ("flash_attention", "paged_attention", "rglru_scan",
+        names = (("flash_attention", "flash_fwd_wgmma_kernel"),
+                 "paged_attention", "rglru_scan",
                  ("gemm", "nvjet", "cutlass", "xmma"), "double",
                  "elementwise")
+        kernel_keys = ("flash_attention", "paged_attention", "rglru_scan")
         p_wall, p_busy, p_k = profile_kernels(prefill, names)
         cache0 = cache
 
@@ -2822,8 +2858,8 @@ def zoo_phases(golden_mod, smi: str, device="cuda") -> dict:
               f"memcpys left out)", flush=True)
         row = {"prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
                "prefill_device_ms": p_busy, "decode_device_ms": d_busy,
-               "prefill_kernel_ms": {k: p_k[k] for k in names[:3]},
-               "decode_kernel_ms": {k: d_k[k] for k in names[:3]},
+               "prefill_kernel_ms": {k: p_k[k] for k in kernel_keys},
+               "decode_kernel_ms": {k: d_k[k] for k in kernel_keys},
                "prefill_gemm_ms": p_k["gemm"], "decode_gemm_ms": d_k["gemm"],
                "prefill_f64_ms": p_k["double"],
                "prefill_elementwise_ms": p_k["elementwise"],
@@ -3029,16 +3065,15 @@ FLASH_O32_TOL = 2.0 ** -12
 #: roundings differ by at most one bf16 step, 2^-7 of the element (plus
 #: 2^-24 of the largest, for elements near 0)
 SUM_RTOL = 2.0 ** -7
-#: ptxas registers and spill stores / loads (bytes) of the serving entry
-#: flash_attention_mma_kernel<HDP> as it was built before the training
-#: flag (NVIDIA H100 80GB HBM3, nvcc 12.8): the flag must leave them as
-#: they were
+#: ptxas registers and spill stores / loads (bytes) of the bf16 forward's
+#: serving instantiations flash_fwd_wgmma_kernel<HDP, chunks, false>,
+#: keyed "HDP:chunks", as the wgmma design built them (NVIDIA H100 80GB
+#: HBM3, nvcc 12.9): the LSE flag's instantiations share their body and
+#: must leave them as they were.  No spill at any; at HDP 64 with one
+#: chunk at most 128 registers (two blocks an SM)
 SERVING_FLASH_PTXAS = {
-    16: (80, 8, 8), 32: (113, 0, 0), 48: (143, 0, 0), 64: (180, 0, 0),
-    80: (175, 0, 0), 96: (239, 0, 0), 112: (255, 24, 8),
-    128: (255, 52, 52), 144: (255, 0, 0), 160: (255, 12, 12),
-    176: (255, 36, 36), 192: (255, 76, 76), 208: (255, 176, 176),
-    224: (255, 192, 192), 240: (255, 260, 264), 256: (255, 272, 276)}
+    "64:1": (121, 0, 0), "64:2": (171, 0, 0), "128:2": (199, 0, 0),
+    "192:1": (183, 0, 0), "256:1": (214, 0, 0)}
 
 
 def bwd_diff(got, want) -> tuple[float, float, float]:
@@ -3053,19 +3088,21 @@ def bwd_diff(got, want) -> tuple[float, float, float]:
 
 def flash_ptxas(fk) -> dict:
     """``{entry name: {"registers", "spill_stores", "spill_loads"}}`` of
-    the flash library's bf16 entries, keyed ``<kernel>:<HDP>`` (the
-    training instantiation of ``flash_attention_mma_kernel``, its LSE
-    flag set, as ``flash_attention_mma_kernel_lse``)."""
+    the flash library's bf16 wgmma entries, keyed ``<kernel>:<HDP>`` and,
+    for the forward, ``:<chunks>`` (the training instantiation of
+    ``flash_fwd_wgmma_kernel``, its LSE flag set, as
+    ``flash_fwd_wgmma_kernel_lse``)."""
     import re
     log = Path(fk.library()._name).with_suffix(".log")
     text = log.read_text() if log.exists() else ""
-    regs = ptxas_report(text, r"((?:flash_attention_mma|flash_bwd_(?:dkdv|"
-                              r"dq)_wgmma)_kernelILi\d+E(?:Lb[01]E)?)")
+    regs = ptxas_report(text, r"((?:flash_fwd|flash_bwd_(?:dkdv|dq))_wgmma"
+                              r"_kernelILi\d+E(?:Li\d+E)?(?:Lb[01]E)?)")
     out = {}
     for name, r in regs.items():
-        m = re.match(r"(\w+?)ILi(\d+)E(Lb1E)?", name)
-        kern = m.group(1) + ("_lse" if m.group(3) else "")
-        out[f"{kern}:{m.group(2)}"] = r
+        m = re.match(r"(\w+?)ILi(\d+)E(?:Li(\d+)E)?(Lb1E)?", name)
+        kern = m.group(1) + ("_lse" if m.group(4) else "")
+        chunks = f":{m.group(3)}" if m.group(3) else ""
+        out[f"{kern}:{m.group(2)}{chunks}"] = r
     return out
 
 
@@ -3183,22 +3220,27 @@ def phase_flash_bwd(fk, fr, fops, dev) -> dict:
     import torch
     import torch.nn.functional as F
     regs = flash_ptxas(fk)
-    moved = {}
-    for hdp, want in SERVING_FLASH_PTXAS.items():
-        r = regs.get(f"flash_attention_mma_kernel:{hdp}")
-        got = None if r is None else (r["registers"], r["spill_stores"],
-                                      r["spill_loads"])
-        if got != want:
-            moved[hdp] = (got, want)
+    serving = {k.split(":", 1)[1]: (r["registers"], r["spill_stores"],
+                                    r["spill_loads"])
+               for k, r in regs.items() if k.split(":")[0] == fk.MMA_ENTRY}
+    moved = {k: (serving.get(k), want)
+             for k, want in SERVING_FLASH_PTXAS.items()
+             if serving.get(k) != want}
+    spilled = {k: (r["spill_stores"], r["spill_loads"])
+               for k, r in regs.items()
+               if k.split(":")[0] in (fk.MMA_ENTRY, fk.MMA_ENTRY + "_lse")
+               and k.split(":")[1] in ("64", "128")
+               and (r["spill_stores"] or r["spill_loads"])}
     training = {k: v for k, v in regs.items()
-                if k.split(":")[0] != "flash_attention_mma_kernel"}
+                if k.split(":")[0] != fk.MMA_ENTRY}
     for name, r in sorted(training.items()):
         print(f"  ptxas {name}: {r['registers']} registers, spill stores "
               f"{r['spill_stores']} B, loads {r['spill_loads']} B",
               flush=True)
-    print(f"  serving entry flash_attention_mma_kernel, 16 head-dim tiles: "
-          f"ptxas registers and spills as before the training flag: "
-          f"{not moved} {moved or ''}", flush=True)
+    print(f"  serving entry {fk.MMA_ENTRY}, {len(SERVING_FLASH_PTXAS)} "
+          f"instantiations: ptxas registers and spills as recorded: "
+          f"{not moved} {moved or ''}; spills at HDP 64 / 128: "
+          f"{spilled or 'none'}", flush=True)
     build = flash_build_report(fk)
     for fn, c in sorted(build["sass"].items()):
         print(f"  SASS {fn}: {c}", flush=True)
@@ -3206,6 +3248,8 @@ def phase_flash_bwd(fk, fr, fops, dev) -> dict:
         print(f"  ptxas: {w}", flush=True)
     check(not moved, f"the training flag moved the serving entry's "
                      f"registers or spills: {moved}")
+    check(not spilled, f"the bf16 forward spills at HDP 64 / 128: "
+                       f"{spilled}")
     drift = {k: (regs.get(k, {}).get("registers"), v)
              for k, v in BWD_PTXAS_BEFORE.items()
              if regs.get(k) is None
@@ -4070,7 +4114,7 @@ def train_phase(golden_mod, smi: str, device="cuda") -> list:
     flops = train_flops(full, TT["batch"], TT["seq"])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     _, busy, by_name = profile_kernels(lambda: step(model, opt, tbatch), (
-        ("flash_attention_mma_kernel",), ("flash_bwd_dkdv_wgmma_kernel",),
+        (fk.MMA_ENTRY,), ("flash_bwd_dkdv_wgmma_kernel",),
         ("flash_bwd_dq_wgmma_kernel",), ("flash_bwd_dot_kernel",),
         ("flash_bwd_sum_kernel",),
         ("gemm", "Gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")))
@@ -4171,7 +4215,7 @@ def train_phase(golden_mod, smi: str, device="cuda") -> list:
             "library_window_mask_shape": win_row["shape"],
             "shape": rg_row["shape"], "launches_step": rg,
             "ptxas": {k: v for k, v in bwd["ptxas"].items()
-                      if k.endswith(":256")}})
+                      if k.split(":")[1] == "256"}})
     ss, rs = scan_bwd["ssm"], scan_bwd["rglru"]
     fm = zoo_steps["falcon-mamba-7b"]["launches"]
     none_lib = "none: no PyTorch call computes this loop"

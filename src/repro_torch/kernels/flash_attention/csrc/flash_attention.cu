@@ -13,36 +13,55 @@
 // At hd 64 a B 1 x S 4 096 causal prefill is bound by operations (68.7
 // GFLOP, 0.069 ms at the 989 TFLOP/s of the bf16 tensor cores), a B 4 x
 // S 500 one by bytes (18.4 MB, 0.0055 ms at 3.35 TB/s): short prompts are
-// launch- and latency-bound, long ones need the tensor cores.
+// launch- and latency-bound, long ones need the tensor cores.  The Pallas
+// kernel keeps p in f32, and the f32 limits against the plain version
+// hold only if P V does too: P enters the product as two bf16 operands,
+// p_hi = bf16(p) and p_lo = bf16(p - p_hi) (|p - p_hi - p_lo| <= 2^-16
+// |p|), so the kernel makes 6 hd operations a valid pair and two thirds
+// of the bound is its ceiling.  Beside the products each pair costs an
+// exp2 on the SFU and about seven other operations (the scale, the max,
+// the sum, the split): at hd 64 these take about as long as the
+// products.
 //
-// bf16 inputs: the FlashAttention-2 shape on mma.sync
-// (flash_attention_mma_kernel).  A block of 4 warps owns 64 query rows (16
-// a warp) of one (batch, head); the grid is (ceil(S / 64), B * H), the last
-// query tiles (the most keys under a causal mask) scheduled first.  Each
-// warp keeps its 16 rows of Q in registers as mma A fragments, read once
-// from device memory.  K and V tiles of 64 keys stay bf16 in shared
-// memory, in a two-stage ring filled by 16-byte cp.async copies (the next
-// tile's copy runs under this tile's arithmetic).  Per tile, mma_tile.cuh
-// (shared with the decode kernel) forms S = Q K^T on the tensor cores,
-// this kernel masks it, and mma_tile.cuh runs the online softmax and P V
-// with p = p_hi + p_lo, both summed in f32, so that the f32 limits against
-// the plain version hold unchanged.  Tiles that every row of the block
+// bf16 inputs: FlashAttention-3's shape on Hopper's wgmma fed by TMA
+// (flash_fwd_wgmma_kernel<HDP, NK, LSE>, parts in wgmma_tma.cuh, shared
+// with the backward entries below).  A block owns 128 query rows of one
+// (batch, head); the grid is (ceil(S / 128), B * H), the last query
+// tiles (the most keys under a causal mask) scheduled first.  Two
+// consumer warpgroups own 64 rows each; thread 0 also issues the TMA
+// loads: Q once (128-byte swizzle, HDP / 64 subtiles of 64 dims, HDP = hd
+// rounded up to 64), then K and V tiles of NK chunks of 64 keys into a
+// ring of mbarrier-guarded stages kept ahead of the consumers.  Rows past
+// S or Skv and dims past hd arrive as zeros.  Per tile a warpgroup makes
+// S = Q K^T (wgmma, both operands in shared memory, K K-major; one
+// m64n128k16 a k-step over a two-chunk tile) into f32 accumulators, then
+// takes one chunk at a time as the mma.sync kernel this one replaced took
+// a tile of 64 keys: the scale to log2 units, the masks where the tile
+// meets a mask's edge or the ragged end of Skv (two compares a pair
+// against its row's key limits; tiles inside the masks test none), the
+// online softmax in registers (a quad of lanes shares a row), O's
+// correction, and O += P V, P's hi and lo halves taken from the S
+// accumulators as register A operands, V read MN-major from the same
+// stage.  The second chunk's softmax runs under the first's P V.  Every
+// sum is taken in that kernel's order (k-steps of 16, chunks of 64 keys,
+// p added to l two at a time), and wgmma rounds as mma.sync does, so the
+// outputs are that kernel's, bit for bit, and everything downstream (the
+// LM and training gates) is unmoved.  Tiles that every row of the block
 // masks (above the causal diagonal, before the window) are skipped: for a
 // row with a valid key the Pallas kernel's result does not depend on them
 // (their p is 0, or is cleared by the correction exp(-1e30 - m) = 0 once
-// a valid tile arrives); only tiles on a mask's edge evaluate the mask.
-// hd is any multiple of 8 up to 256: the kernel is built for hd rounded up
-// to 16 (HDP) and loads zeros past hd.  Above 128 the output's dims are
-// split over the grid's z (mma_tile::out_split): each of NZ blocks of a
-// query tile forms the whole S = Q K^T and the same online softmax, and
-// keeps P V for its own DV <= 128 output dims only, so a thread holds
-// HDP / 4 Q registers and DV / 2 accumulators (64 + 64 at hd 256) where
-// one block owning all dims would need 64 + 128.  The QK^T products are
-// made twice; the blocks share nothing, so nothing waits.  A stage of the
-// ring holds the K tile at HDP dims and the V tile at DV dims (100 KB of
-// dynamic shared memory at hd 256).  The model's [B, S, H, hd] layout is
-// read through strides (rows 16-byte aligned).  wgmma and TMA
-// (FlashAttention-3's shape) are the next step.
+// a valid chunk arrives), and the chunks a 128-row block visits beyond a
+// 64-row block's change no bit.  A warpgroup whose rows all lie past S
+// does nothing.  The host picks NK (fwd_chunks): 2 at HDP 128, 1 above
+// (a thread's 96 or 128 O accumulators; hd 256 runs in one block a query
+// tile, so Q K^T is made once).  At hd 64, where the softmax costs about
+// what the products do, NK is 1 where Skv fits a chunk, and a grid of
+// more blocks than SMs also takes NK 1 at 121 registers, so that two
+// blocks share an SM, one's softmax under the other's products.  The LSE instantiation
+// is the same body with two more writes at the end, so its O is the
+// serving instantiation's, bit for bit.  The model's [B, S, H, hd] layout
+// is read through strides (rows 16-byte aligned) by the tensor maps,
+// encoded on the host at every launch.
 //
 // f32 inputs keep the CUDA-core kernel (flash_attention_kernel): R = HDP
 // / 32 threads share one query row (HDP = hd rounded up to 32, 64, 128 or
@@ -257,260 +276,13 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 }
 
 
-// ------------------------------------------- bf16 path on the tensor cores
+// ------------------------------------------------ shared by the bf16 entries
 
 using mma_tile::bf16;
 
-constexpr int MMA_WARPS = 4;
-constexpr int MMA_THREADS = 32 * MMA_WARPS;
-constexpr int MMA_BQ = 16 * MMA_WARPS;  // query rows a block
-constexpr int MMA_BKV = mma_tile::TILE_KEYS;
+constexpr int DOT_WARPS = 4;  // warps a block of the D entry
+constexpr int DOT_THREADS = 32 * DOT_WARPS;
 constexpr float LN2 = 0.6931471805599453f;
-
-// bf16 elements of one stage of the K / V ring: the K tile at HDP dims,
-// the V tile at the block's DV output dims
-template <int HDP>
-__host__ __device__ constexpr int stage_elems() {
-  return mma_tile::tile_elems<HDP>() +
-         mma_tile::tile_elems<mma_tile::out_dims<HDP>()>();
-}
-
-// shared memory of the two-stage K / V ring, in bytes
-template <int HDP>
-constexpr int mma_smem_bytes() {
-  return 2 * stage_elems<HDP>() * (int)sizeof(bf16);
-}
-
-// one 64-key tile of K (all dims) and of V (the DV dims from d0) into a
-// stage of the ring (keys past Skv zero-filled) as one cp.async group
-template <int HDP>
-__device__ __forceinline__ void load_kv(bf16* stage, const bf16* kb,
-                                        const bf16* vb, long long kss,
-                                        long long vss, int t0, int Skv,
-                                        int hd, int d0, int tid) {
-  constexpr int DV = mma_tile::out_dims<HDP>();
-  mma_tile::load_tile<HDP, MMA_THREADS>(stage, kb + t0 * kss, kss,
-                                        Skv - t0, hd, tid);
-  mma_tile::load_tile<DV, MMA_THREADS>(
-      stage + mma_tile::tile_elems<HDP>(), vb + t0 * vss + d0, vss,
-      Skv - t0, hd - d0, tid);
-  mma_tile::cp_async_commit();
-}
-
-// LSE: also write each query row's log-sum-exp (natural log, f32) at
-// lse[(b * H + h) * lse_row + row], and after those B H lse_row floats the
-// output's low halves, bf16(x - bf16(x)) of each f32 output x, [B, S, H,
-// hd] contiguous, for the backward entries (D from the f32 output: the
-// dot entry).  The low halves ride in the LSE buffer so that the entry's
-// parameters, and with them the serving instantiation, stay as they were.
-template <int HDP, bool LSE>
-__global__ void __launch_bounds__(MMA_THREADS)
-    flash_attention_mma_kernel(const bf16* __restrict__ q,
-                               const bf16* __restrict__ k,
-                               const bf16* __restrict__ v,
-                               bf16* __restrict__ o, int S, int Skv, int H,
-                               int K, int hd, Strides qs, Strides ks,
-                               Strides vs, Strides os, int causal,
-                               int window, float scale_log2,
-                               float* __restrict__ lse, long long lse_row) {
-  constexpr int TILE = mma_tile::tile_elems<HDP>();
-  constexpr int STAGE = stage_elems<HDP>();
-  constexpr int DV = mma_tile::out_dims<HDP>();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [2][K tile, V tile]
-  const int d0 = blockIdx.z * DV;  // this block's output dims d0 + [0, DV)
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * MMA_BQ;
-  const int b = blockIdx.y / H, h = blockIdx.y % H, kh = h / (H / K);
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this lane's two rows
-
-  const mma_tile::QRegs<HDP> qa(
-      q + b * qs.b + h * qs.h + (long long)q0 * qs.s, qs.s, warp * 16 + g,
-      S - q0, hd, t);
-  float oacc[DV / 8][4];
-#pragma unroll
-  for (int n = 0; n < DV / 8; ++n)
-    oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-  // running max (log2 units) and this lane's part of the sum, rows r0, r1
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
-
-  // keys past the block's last query row are all masked (causal), keys
-  // at or before its first row minus the window too
-  const int kv_end = causal ? min(Skv, q0 + MMA_BQ) : Skv;
-  const int kv_start =
-      window ? (max(0, q0 - window + 1) / MMA_BKV) * MMA_BKV : 0;
-  const int n_tiles = (kv_end - kv_start + MMA_BKV - 1) / MMA_BKV;
-  const bf16* kb = k + b * ks.b + kh * ks.h;
-  const bf16* vb = v + b * vs.b + kh * vs.h;
-
-  load_kv<HDP>(ring, kb, vb, ks.s, vs.s, kv_start, Skv, hd, d0, tid);
-  for (int it = 0; it < n_tiles; ++it) {
-    const int t0 = kv_start + it * MMA_BKV;
-    const bf16* kt = ring + (it & 1) * STAGE;
-    if (it + 1 < n_tiles) {  // the next tile's copy runs under this one
-      load_kv<HDP>(ring + ((it + 1) & 1) * STAGE, kb, vb, ks.s, vs.s,
-                   t0 + MMA_BKV, Skv, hd, d0, tid);
-      mma_tile::cp_async_wait<1>();
-    } else {
-      mma_tile::cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    float sc[8][4];
-    mma_tile::qk_tile<HDP>(sc, qa, kt, lane);
-    // scale, and mask where the tile meets a mask's edge
-    const bool edge = (causal && t0 + MMA_BKV - 1 > q0) ||
-                      (window && t0 < q0 + MMA_BQ - window) ||
-                      t0 + MMA_BKV > Skv;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = sc[n][e] * scale_log2;
-        if (edge) {
-          const int row = e < 2 ? r0 : r1;
-          const int key = t0 + 8 * n + 2 * t + (e & 1);
-          bool ok = key < Skv;
-          if (causal) ok = ok && row >= key;
-          if (window) ok = ok && row - key < window;
-          x = ok ? x : NEG_INF;
-        }
-        sc[n][e] = x;
-      }
-    }
-    mma_tile::softmax_pv_tile<DV>(sc, m0, m1, l0, l1, oacc, kt + TILE,
-                                  lane);
-    __syncthreads();  // the stage is refilled at the next iteration
-  }
-
-  const float l0s = mma_tile::quad_sum(l0), l1s = mma_tile::quad_sum(l1);
-  const float inv0 = 1.f / fmaxf(l0s, 1e-30f);
-  const float inv1 = 1.f / fmaxf(l1s, 1e-30f);
-  if constexpr (LSE) {
-    // ln sum exp = ln 2 * (m + log2 l), m in log2 units
-    if (t == 0 && blockIdx.z == 0) {
-      float* lb = lse + blockIdx.y * lse_row;
-      if (r0 < S) lb[r0] = (m0 + log2f(l0s)) * LN2;
-      if (r1 < S) lb[r1] = (m1 + log2f(l1s)) * LN2;
-    }
-  }
-  bf16* ob = o + b * os.b + h * os.h;
-#pragma unroll
-  for (int n = 0; n < DV / 8; ++n) {
-    const int d = d0 + 8 * n + 2 * t;
-    if (d >= hd) continue;
-    if (r0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + r0 * os.s + d) =
-          __floats2bfloat162_rn(oacc[n][0] * inv0, oacc[n][1] * inv0);
-    if (r1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + r1 * os.s + d) =
-          __floats2bfloat162_rn(oacc[n][2] * inv1, oacc[n][3] * inv1);
-  }
-  if constexpr (LSE) {
-    bf16* lo = reinterpret_cast<bf16*>(lse + gridDim.y * lse_row) +
-               ((long long)b * S * H + h) * hd;
-    const long long rs = (long long)H * hd;  // a row of the low halves
-#pragma unroll
-    for (int n = 0; n < DV / 8; ++n) {
-      const int d = d0 + 8 * n + 2 * t;
-      if (d >= hd) continue;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = half ? r1 : r0;
-        if (r >= S) continue;
-        const float inv = half ? inv1 : inv0;
-        const float x0 = oacc[n][2 * half] * inv;
-        const float x1 = oacc[n][2 * half + 1] * inv;
-        const float2 hi =
-            __bfloat1622float2(__floats2bfloat162_rn(x0, x1));
-        *reinterpret_cast<__nv_bfloat162*>(lo + r * rs + d) =
-            __floats2bfloat162_rn(x0 - hi.x, x1 - hi.y);
-      }
-    }
-  }
-}
-
-template <int HDP>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int Skv, int H, int K, int hd, Strides qs, Strides ks,
-               Strides vs, Strides os, int causal, int window, float scale,
-               cudaStream_t stream) {
-  constexpr int smem = mma_smem_bytes<HDP>();
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_mma_kernel<HDP, false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((S + MMA_BQ - 1) / MMA_BQ, B * H,
-                  mma_tile::out_split<HDP>());
-  flash_attention_mma_kernel<HDP, false><<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, Skv, H, K, hd,
-      qs, ks, vs, os, causal, window, scale * mma_tile::LOG2E, nullptr, 0);
-  return (int)cudaGetLastError();
-}
-
-int launch_mma_hd(int hd, const void* q, const void* k, const void* v,
-                  void* o, int B, int S, int Skv, int H, int K, Strides qs,
-                  Strides ks, Strides vs, Strides os, int causal, int window,
-                  float scale, cudaStream_t st) {
-#define FLASH_MMA_CASE(n)                                                  \
-  case n:                                                                  \
-    return launch_mma<16 * n>(q, k, v, o, B, S, Skv, H, K, hd, qs, ks, vs, \
-                              os, causal, window, scale, st);
-  switch ((hd + 15) / 16) {
-    FLASH_MMA_CASE(1)
-    FLASH_MMA_CASE(2)
-    FLASH_MMA_CASE(3)
-    FLASH_MMA_CASE(4)
-    FLASH_MMA_CASE(5)
-    FLASH_MMA_CASE(6)
-    FLASH_MMA_CASE(7)
-    FLASH_MMA_CASE(8)
-    FLASH_MMA_CASE(9)
-    FLASH_MMA_CASE(10)
-    FLASH_MMA_CASE(11)
-    FLASH_MMA_CASE(12)
-    FLASH_MMA_CASE(13)
-    FLASH_MMA_CASE(14)
-    FLASH_MMA_CASE(15)
-    FLASH_MMA_CASE(16)
-  }
-#undef FLASH_MMA_CASE
-  return (int)cudaErrorInvalidValue;
-}
-
-// ----------------------------------- training: LSE forward and backward
-
-// the LSE forward at HDP 32, 64, 128 or 256 (the backward's head dims;
-// above 128 the output dims split over the grid's z as in serving: both
-// blocks make the same LSE, block z 0 writes it, and each block the low
-// halves of its own dims)
-template <int HDP>
-int launch_mma_lse(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int Skv, int H, int K, int hd, Strides qs,
-                   Strides ks, Strides vs, Strides os, int causal,
-                   int window, float scale, float* lse, long long lse_row,
-                   cudaStream_t stream) {
-  constexpr int smem = mma_smem_bytes<HDP>();
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_mma_kernel<HDP, true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((S + MMA_BQ - 1) / MMA_BQ, B * H,
-                  mma_tile::out_split<HDP>());
-  flash_attention_mma_kernel<HDP, true><<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, Skv, H, K, hd,
-      qs, ks, vs, os, causal, window, scale * mma_tile::LOG2E, lse,
-      lse_row);
-  return (int)cudaGetLastError();
-}
 
 // The backward pass, bf16 in, f32 sums, no atomics: every gradient element
 // is written by one thread, its sums taken in a fixed order (a group's
@@ -697,7 +469,7 @@ __device__ __forceinline__ void to_a(const float (&x)[32],
 // lane j ^ off's sum at each), so two runs give the same bits.  Bound:
 // bytes (three bf16 rows read, one f32 written).
 template <int LP>
-__global__ void __launch_bounds__(MMA_THREADS)
+__global__ void __launch_bounds__(DOT_THREADS)
     flash_bwd_dot_kernel(const bf16* __restrict__ o,
                          const bf16* __restrict__ o_lo,
                          const bf16* __restrict__ dout,
@@ -707,7 +479,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
   constexpr int RPW = 32 / LP;  // rows a warp
   const int lane = threadIdx.x % 32, j = lane % LP;
   const long long row =
-      ((long long)blockIdx.x * MMA_WARPS + threadIdx.x / 32) * RPW + lane / LP;
+      ((long long)blockIdx.x * DOT_WARPS + threadIdx.x / 32) * RPW + lane / LP;
   const int s = (int)(row % S);
   const long long bh = row / S;
   float acc = 0.f;
@@ -1173,6 +945,307 @@ __global__ void __launch_bounds__(256)
   vo[1] = __floats2bfloat162_rn(y.z, y.w);
 }
 
+// ------------------------------- the bf16 forward on wgmma (see the top)
+
+constexpr int FWD_ROWS = 64;             // a consumer warpgroup's query rows
+constexpr int FWD_BQ = 128;              // a block's query rows
+constexpr int FWD_THREADS = 2 * BWD_WG;  // two consumer warpgroups
+// dynamic shared memory a block may use (227 KB)
+constexpr int SMEM_LIMIT = 232448;
+
+// blocks of the forward an SM holds: two at HDP 64 with 64-key tiles (at
+// most 128 registers a thread, 81 KB of shared memory each), so that one
+// block's softmax runs under the other's products; else one
+__host__ __device__ constexpr int fwd_blocks(int HDP, int NK) {
+  return HDP == 64 && NK == 1 ? 2 : 1;
+}
+
+// The shape of a forward block and its shared memory (bytes from a
+// 1024-aligned base): Q, 128 rows of CB = HDP / 64 subtiles (warpgroup
+// w's 64 rows at subtile w CB); the ring's stages, each a K tile and a V
+// tile of BKV = 64 NK keys in subtiles of 64 keys x 64 dims, K's dims
+// subtile c of chunk n at c NK + n (a dims subtile's 128 keys one after
+// the other, as one m64n128k16 reads them), V's at n CB + c; the
+// barriers (Q, full[s], empty[s]).  As many stages as fit, at most 4: 4
+// at HDP 64, 3 at 128 and at 192, 2 at 256.  The producer keeps the ring
+// AHEAD tiles ahead, so that one warpgroup may fall STAGES - AHEAD tiles
+// behind the other before it holds the producer up.
+template <int HDP, int NK>
+struct FwdSmem {
+  static constexpr int CB = HDP / 64;
+  static constexpr int BKV = 64 * NK;  // keys a tile
+  static constexpr int SUB = hopper::SUBTILE;
+  static constexpr int Q = 2 * CB * SUB;
+  static constexpr int KV = NK * CB * SUB;  // one of a stage's two tiles
+  static constexpr int STAGE = 2 * KV;
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - 8 * 9 - Q) / STAGE;
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr int AHEAD = STAGES > 2 ? STAGES - 2 : 1;
+  static constexpr int BARS = Q + STAGES * STAGE;
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;
+  static_assert(STAGES >= 2 && BYTES <= SMEM_LIMIT, "two stages fit");
+};
+
+// One 64-key chunk's scores in place, scaled to log2 units, and with
+// MASK NEG_INF where the pair is masked (rows r0 and r0 + 8; keys k0 + 8
+// (i >> 2) + (i & 1), k0 this thread's first): row r keeps the keys from
+// r - window + 1 (a window) to min(r, Skv - 1) (causal) or Skv - 1, two
+// compares a pair against the row's limits (rows past S, never written,
+// keep theirs)
+template <bool MASK>
+__device__ __forceinline__ void scale_scores(float (&sc)[32],
+                                             float scale_log2, int r0,
+                                             int k0, const PairMask& m) {
+  int lo[2], hi[2];  // the kept keys' offsets from k0, per row
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    hi[r] = (m.causal ? min(row, m.Skv - 1) : m.Skv - 1) - k0;
+    lo[r] = m.window ? row - m.window + 1 - k0 : -(1 << 30);
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1, off = 8 * (i >> 2) + (i & 1);
+    const float x = sc[i] * scale_log2;
+    sc[i] = MASK && (off > hi[r] || off < lo[r]) ? NEG_INF : x;
+  }
+}
+
+// The online softmax over one 64-key chunk's scaled scores for rows r0
+// (m[0] and this thread's part of l[0]) and r0 + 8 (m[1], l[1]): the
+// running max over the quad of lanes that shares the rows, the correction
+// c = exp2(m_old - m) of the earlier terms (l times c here, O by the
+// caller), and p = exp2(s - m) in place of the scores, added to l two at
+// a time: the mma.sync kernel's tile step for step, so that the outputs
+// are its own, bit for bit.
+__device__ __forceinline__ void chunk_softmax(float (&sc)[32], float (&m)[2],
+                                              float (&l)[2], float (&c)[2]) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < 32; i += 2)
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], fmaxf(sc[i], sc[i + 1]));
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    c[r] = mma_tile::fast_exp2(m[r] - mx[r]);
+    m[r] = mx[r];
+    l[r] *= c[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int r = (i >> 1) & 1;
+    const float p0 = mma_tile::fast_exp2(sc[i] - m[r]);
+    const float p1 = mma_tile::fast_exp2(sc[i + 1] - m[r]);
+    l[r] += p0 + p1;
+    sc[i] = p0;
+    sc[i + 1] = p1;
+  }
+}
+
+// O times each row's correction
+template <int CB>
+__device__ __forceinline__ void rescale(float (&o)[CB][32],
+                                        const float (&c)[2]) {
+#pragma unroll
+  for (int cb = 0; cb < CB; ++cb) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[cb][i] *= c[(i >> 1) & 1];
+  }
+}
+
+// LSE: also write each query row's log-sum-exp (natural log, f32) at
+// lse[(b * H + h) * lse_row + row], and after those B H lse_row floats the
+// output's low halves, bf16(x - bf16(x)) of each f32 output x, [B, S, H,
+// hd] contiguous, for the backward entries (D from the f32 output: the
+// dot entry).  The low halves ride in the LSE buffer so that the entry's
+// parameters stay the serving instantiation's.
+template <int HDP, int NK, bool LSE>
+__global__ void __launch_bounds__(FWD_THREADS, fwd_blocks(HDP, NK))
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           bf16* __restrict__ o, int S, int Skv, int H,
+                           int K, int hd, Strides os, int causal,
+                           int window, float scale_log2,
+                           float* __restrict__ lse, long long lse_row) {
+  using L = FwdSmem<HDP, NK>;
+  constexpr int CB = L::CB, SUB = L::SUB, BKV = L::BKV;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t qbar = base + L::BARS;
+  const auto full = [&](int s) { return base + L::BARS + 8 * (1 + s); };
+  const auto empty = [&](int s) {
+    return base + L::BARS + 8 * (1 + STAGES + s);
+  };
+  const PairMask mask{S, Skv, causal, window};
+
+  const int b = blockIdx.y / H, h = blockIdx.y % H, kh = h / (H / K);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * FWD_BQ;
+  // the warpgroups that own a row below S
+  const int n_wg = q0 + FWD_ROWS < S ? 2 : 1;
+  // keys past the block's last row are all masked (causal), keys at or
+  // before its first row minus the window too
+  const int kv_end = causal ? min(Skv, q0 + FWD_BQ) : Skv;
+  const int kv_start = window ? max(0, q0 - window + 1) / BKV * BKV : 0;
+  const int n_kt =
+      kv_end > kv_start ? (kv_end - kv_start + BKV - 1) / BKV : 0;
+
+  // the producer (thread 0): K and V of key tile j into stage j % STAGES
+  // once the consumers have released its last tile
+  const auto produce = [&](int j) {
+    const int s = j % STAGES, t0 = kv_start + j * BKV;
+    hopper::mbar_wait(empty(s), ((j / STAGES) & 1) ^ 1);
+    hopper::mbar_expect_tx(full(s), L::STAGE);
+    const uint32_t st = base + L::Q + s * L::STAGE;
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+#pragma unroll
+      for (int c = 0; c < CB; ++c)  // K: a dims subtile's chunks in turn
+        hopper::tma_load_4d(st + (c * NK + n) * SUB, &map_k, full(s),
+                            64 * c, kh, t0 + 64 * n, b);
+      tma_tile<CB>(st + L::KV + n * CB * SUB, &map_v, full(s), kh,
+                   t0 + 64 * n, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(full(s), 1);
+      hopper::mbar_init(empty(s), n_wg);
+    }
+    hopper::mbar_fence_init();
+    hopper::mbar_expect_tx(qbar, n_wg * CB * SUB);
+    for (int w = 0; w < n_wg; ++w)
+      tma_tile<CB>(base + w * CB * SUB, &map_q, qbar, h, q0 + w * FWD_ROWS,
+                   b);
+    for (int j = 0; j < L::AHEAD && j < n_kt; ++j) produce(j);
+  }
+  __syncthreads();
+
+  // ---- the consumer warpgroups: 64 query rows each
+  const int wg = threadIdx.x / BWD_WG;
+  if (wg >= n_wg) return;
+  const int tid = threadIdx.x % BWD_WG, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wq0 = q0 + wg * FWD_ROWS;
+  const int rows[2] = {wq0 + warp * 16 + g, wq0 + warp * 16 + g + 8};
+  const uint32_t qt = base + wg * CB * SUB;
+
+  float oacc[CB][32];
+#pragma unroll
+  for (int c = 0; c < CB; ++c) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oacc[c][i] = 0.f;
+  }
+  // running max (log2 units) and this thread's part of the sum, per row
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  hopper::mbar_wait(qbar, 0);
+  for (int it = 0; it < n_kt; ++it) {
+    // no product in flight: warp 0 (its lane 0) keeps the ring AHEAD
+    // tiles ahead, and stays converged for the products
+    if (threadIdx.x < 32) {
+      if (threadIdx.x == 0 && it + L::AHEAD < n_kt) produce(it + L::AHEAD);
+      __syncwarp();
+    }
+    const int s = it % STAGES, t0 = kv_start + it * BKV;
+    hopper::mbar_wait(full(s), (it / STAGES) & 1);
+    const uint32_t kst = base + L::Q + s * L::STAGE, vst = kst + L::KV;
+    const bool edge = (causal && t0 + BKV - 1 > wq0) ||
+                      (window && wq0 + FWD_ROWS - 1 - t0 >= window) ||
+                      t0 + BKV > Skv;
+    float sc[NK][32];
+    hopper::wg_fence();
+    // S = Q K^T, one product a 16-dim k-step
+#pragma unroll
+    for (int ks = 0; ks < HDP / 16; ++ks) {
+      const uint64_t a =
+          hopper::desc_sw128(qt + (ks / 4) * SUB + (ks % 4) * 32);
+      const uint64_t k =
+          hopper::desc_sw128(kst + (ks / 4) * NK * SUB + (ks % 4) * 32);
+      if constexpr (NK == 2)
+        hopper::mma_ss_n128(sc, a, k, ks);
+      else
+        hopper::mma_ss(sc[0], a, k, ks);
+    }
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+#pragma unroll
+    for (int n = 0; n < NK; ++n) hopper::fence_regs(sc[n]);
+    // each chunk of 64 keys as the mma.sync kernel's tile: its softmax, O's
+    // correction, O += P V; the second's softmax runs under the first's
+    // P V, and O is corrected once that has landed
+    const int k0 = t0 + 2 * t;  // this thread's first key
+    float c[2];
+    uint32_t pa[NK][2][4][4];  // P as hi + lo, 16 keys a k-step
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      if (edge)
+        scale_scores<true>(sc[n], scale_log2, rows[0], k0 + 64 * n, mask);
+      else
+        scale_scores<false>(sc[n], scale_log2, rows[0], k0 + 64 * n, mask);
+      chunk_softmax(sc[n], m, l, c);
+      to_a(sc[n], pa[n]);
+      if (n > 0) {
+        hopper::wg_wait<0>();
+#pragma unroll
+        for (int cb = 0; cb < CB; ++cb) hopper::fence_regs(oacc[cb]);
+      }
+      rescale(oacc, c);
+      hopper::wg_fence();
+      mma_cols<HDP>(oacc, pa[n], vst + n * CB * SUB);  // O += P V
+      hopper::wg_commit();
+    }
+    hopper::wg_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < CB; ++cb) hopper::fence_regs(oacc[cb]);
+    wg_sync(wg);  // every warp is past this stage's wait
+    if (tid == 0) hopper::mbar_arrive(empty(s));
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float sum = mma_tile::quad_sum(l[r]);
+    inv[r] = 1.f / fmaxf(sum, 1e-30f);
+    // ln sum exp = ln 2 * (m + log2 l), m in log2 units
+    if constexpr (LSE) {
+      if (t == 0 && rows[r] < S)
+        lse[blockIdx.y * lse_row + rows[r]] = (m[r] + log2f(sum)) * LN2;
+    }
+  }
+  bf16* ob = o + b * os.b + h * os.h;
+  bf16* lo = nullptr;  // LSE: the low halves, a row H hd apart
+  if constexpr (LSE)
+    lo = reinterpret_cast<bf16*>(lse + gridDim.y * lse_row) +
+         ((long long)b * S * H + h) * hd;
+#pragma unroll
+  for (int c = 0; c < CB; ++c) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int d = 64 * c + 8 * n + 2 * t;
+      if (d >= hd) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = rows[half];
+        if (r >= S) continue;
+        const float x0 = oacc[c][4 * n + 2 * half] * inv[half];
+        const float x1 = oacc[c][4 * n + 2 * half + 1] * inv[half];
+        const __nv_bfloat162 y = __floats2bfloat162_rn(x0, x1);
+        *reinterpret_cast<__nv_bfloat162*>(ob + r * os.s + d) = y;
+        if constexpr (LSE) {
+          const float2 hi = __bfloat1622float2(y);
+          *reinterpret_cast<__nv_bfloat162*>(lo + r * (long long)H * hd +
+                                             d) =
+              __floats2bfloat162_rn(x0 - hi.x, x1 - hi.y);
+        }
+      }
+    }
+  }
+}
+
 template <class Kernel>
 int allow_smem(Kernel kernel, int smem) {
   if (smem <= 48 * 1024) return 0;
@@ -1230,11 +1303,78 @@ int launch_dq(const CUtensorMap (&m)[4], const float* lse, const float* dlt,
   return (int)cudaGetLastError();
 }
 
-// the training entries' head dims, rounded up: 32, 64, 128 or 256 for the
-// LSE forward (0: refused)
-int bwd_hdp(int hd) {
-  return hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : hd <= 256 ? 256
-                                                                      : 0;
+// the forward's tensor maps of q, k, v (in that order); false if one fails
+bool fwd_maps(CUtensorMap (&maps)[3], int B, int S, int Skv, int H, int K,
+              int hd, const void* q, Strides qs, const void* k, Strides ks,
+              const void* v, Strides vs) {
+  const hopper::EncodeTiled fn = hopper::encode_tiled();
+  return fn != nullptr &&
+         hopper::encode_rows(fn, &maps[0], q, B, S, H, hd, qs.b, qs.s,
+                             qs.h) &&
+         hopper::encode_rows(fn, &maps[1], k, B, Skv, K, hd, ks.b, ks.s,
+                             ks.h) &&
+         hopper::encode_rows(fn, &maps[2], v, B, Skv, K, hd, vs.b, vs.s,
+                             vs.h);
+}
+
+// 64-key chunks a tile of the forward: 1 above HDP 128 (a thread's O, 96
+// or 128 registers, leaves no room for 64 scores), 2 at HDP 128; at HDP
+// 64, 1 where Skv fits one chunk (a short prompt: a second would hold no
+// key, and only lengthen the block) or where the grid has more blocks
+// than the card's sms SMs (two blocks of 64-key tiles then share an SM),
+// else 2 (a cross attention's few query tiles over many keys)
+int fwd_chunks(int hd, int Skv, long long blocks, int sms) {
+  if (hd > 128) return 1;
+  if (hd > 64) return 2;
+  return Skv <= 64 || blocks > sms ? 1 : 2;
+}
+
+template <int HDP, int NK, bool LSE>
+int launch_fwd(const CUtensorMap (&m)[3], void* o, int B, int S, int Skv,
+               int H, int K, int hd, Strides os, int causal, int window,
+               float scale, float* lse, long long lse_row,
+               cudaStream_t stream) {
+  constexpr int smem = FwdSmem<HDP, NK>::BYTES;
+  const int e = allow_smem(flash_fwd_wgmma_kernel<HDP, NK, LSE>, smem);
+  if (e) return e;
+  const dim3 grid((S + FWD_BQ - 1) / FWD_BQ, B * H);
+  flash_fwd_wgmma_kernel<HDP, NK, LSE><<<grid, FWD_THREADS, smem, stream>>>(
+      m[0], m[1], m[2], static_cast<bf16*>(o), S, Skv, H, K, hd, os, causal,
+      window, scale * mma_tile::LOG2E, lse, lse_row);
+  return (int)cudaGetLastError();
+}
+
+// the bf16 forward at HDP = hd rounded up to whole 64-dim subtiles (hd a
+// multiple of 8 up to 256, 16-byte rows: checked by the caller), with
+// tiles of fwd_chunks 64-key chunks
+template <bool LSE>
+int launch_fwd_hd(int B, int S, int Skv, int H, int K, int hd, const void* q,
+                  Strides qs, const void* k, Strides ks, const void* v,
+                  Strides vs, void* o, Strides os, int causal, int window,
+                  float scale, float* lse, long long lse_row,
+                  cudaStream_t st) {
+  CUtensorMap m[3];
+  if (!fwd_maps(m, B, S, Skv, H, K, hd, q, qs, k, ks, v, vs))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int nk = fwd_chunks(
+      hd, Skv, (long long)(S + FWD_BQ - 1) / FWD_BQ * B * H, sms);
+#define FLASH_FWD_CASE(n, nk_)                                              \
+  if ((hd + 63) / 64 == n && nk == nk_)                                     \
+    return launch_fwd<64 * n, nk_, LSE>(m, o, B, S, Skv, H, K, hd, os,      \
+                                       causal, window, scale, lse, lse_row, \
+                                       st);
+  FLASH_FWD_CASE(1, 1)
+  FLASH_FWD_CASE(1, 2)
+  FLASH_FWD_CASE(2, 2)
+  FLASH_FWD_CASE(3, 1)
+  FLASH_FWD_CASE(4, 1)
+#undef FLASH_FWD_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // the backward entries' head dims, rounded up to whole 64-dim subtiles: 64,
@@ -1260,8 +1400,8 @@ const char* flash_attention_error_string(int err) {
 
 // q [B, S, H, hd], k / v [B, Skv, K, hd], o [B, S, H, hd], each with the
 // given element strides of its first three dims (the last is contiguous);
-// dtype 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores: hd a
-// multiple of 8, pointers 16-byte aligned and strides multiples of 8).
+// dtype 0 = float32 (CUDA cores), 1 = bfloat16 (wgmma: hd a multiple of
+// 8, pointers 16-byte aligned and strides multiples of 8).
 // Returns the launch's CUDA error code.
 int flash_attention_launch(int dtype, int B, int S, int Skv, int H, int K,
                            int hd, const void* q, long long qsb,
@@ -1285,8 +1425,8 @@ int flash_attention_launch(int dtype, int B, int S, int Skv, int H, int K,
         !rows_aligned(k, ksb, kss, ksh) || !rows_aligned(v, vsb, vss, vsh) ||
         !rows_aligned(o, osb, oss, osh))
       return (int)cudaErrorInvalidValue;
-    return launch_mma_hd(hd, q, k, v, o, B, S, Skv, H, K, qs, ks, vs, os,
-                         causal, window, scale, st);
+    return launch_fwd_hd<false>(B, S, Skv, H, K, hd, q, qs, k, ks, v, vs, o,
+                                os, causal, window, scale, nullptr, 0, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1307,7 +1447,7 @@ int flash_attention_lse_launch(int B, int S, int Skv, int H, int K, int hd,
                                float scale, void* lse, long long lse_row,
                                void* o_lo, void* stream) {
   if (B <= 0 || S <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || hd <= 0 ||
-      hd % 8 != 0 || bwd_hdp(hd) == 0 || B * H > 65535 || lse_row < S ||
+      hd % 8 != 0 || hd > 256 || B * H > 65535 || lse_row < S ||
       lse_row % 4 != 0 ||
       o_lo != static_cast<float*>(lse) + (long long)B * H * lse_row ||
       !rows_aligned(q, qsb, qss, qsh) ||
@@ -1317,23 +1457,9 @@ int flash_attention_lse_launch(int B, int S, int Skv, int H, int K, int hd,
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
       os{osb, oss, osh};
   const cudaStream_t st = (cudaStream_t)stream;
-  float* l = static_cast<float*>(lse);
-  switch (bwd_hdp(hd)) {
-    case 32:
-      return launch_mma_lse<32>(q, k, v, o, B, S, Skv, H, K, hd, qs, ks, vs,
-                                os, causal, window, scale, l, lse_row, st);
-    case 64:
-      return launch_mma_lse<64>(q, k, v, o, B, S, Skv, H, K, hd, qs, ks, vs,
-                                os, causal, window, scale, l, lse_row, st);
-    case 128:
-      return launch_mma_lse<128>(q, k, v, o, B, S, Skv, H, K, hd, qs, ks,
-                                 vs, os, causal, window, scale, l, lse_row,
-                                 st);
-    default:
-      return launch_mma_lse<256>(q, k, v, o, B, S, Skv, H, K, hd, qs, ks,
-                                 vs, os, causal, window, scale, l, lse_row,
-                                 st);
-  }
+  return launch_fwd_hd<true>(B, S, Skv, H, K, hd, q, qs, k, ks, v, vs, o, os,
+                             causal, window, scale, static_cast<float*>(lse),
+                             lse_row, st);
 }
 
 // D = rowsum(dO o (O + O_lo)), f32, at dlt[(b * H + h) * lse_row + s];
@@ -1354,7 +1480,7 @@ int flash_bwd_dot_launch(int B, int S, int H, int hd, const void* o,
   const int lp = lanes <= 1 ? 1 : lanes <= 2 ? 2 : lanes <= 4 ? 4
                : lanes <= 8 ? 8 : lanes <= 16 ? 16 : lanes <= 32 ? 32 : 0;
   if (lp == 0) return (int)cudaErrorInvalidValue;
-  const long long per_block = (long long)MMA_WARPS * (32 / lp);
+  const long long per_block = (long long)DOT_WARPS * (32 / lp);
   const long long blocks = (rows + per_block - 1) / per_block;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   const bf16* op = static_cast<const bf16*>(o);
@@ -1365,7 +1491,7 @@ int flash_bwd_dot_launch(int B, int S, int H, int hd, const void* o,
   const cudaStream_t st = (cudaStream_t)stream;
 #define FLASH_DOT_CASE(n)                                                    \
   case n:                                                                    \
-    flash_bwd_dot_kernel<n><<<(unsigned)blocks, MMA_THREADS, 0, st>>>(       \
+    flash_bwd_dot_kernel<n><<<(unsigned)blocks, DOT_THREADS, 0, st>>>(       \
         op, lo, dp, dl, S, H, hd, os, ls, ds, lse_row, rows);                \
     break;
   switch (lp) {

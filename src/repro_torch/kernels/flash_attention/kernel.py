@@ -4,11 +4,14 @@
 Replaces ``repro/kernels/flash_attention/kernel.py::flash_attention_kernel``.
 The kernel reads the model's ``[B, S, H, hd]`` / ``[B, Skv, K, hd]``
 layout through strides (no transposed or padded copy) and writes a new
-``[B, S, H, hd]`` tensor; ``hd <= 256`` (above 128 each query tile's
-output dims are split over two blocks, ``mma_tile.cuh::out_split``).
-bf16 runs on the tensor cores (``mma.sync``) and needs 16-byte rows
-(``hd`` and every stride a multiple of 8, 16-byte aligned data), f32 on
-the CUDA cores.  The library
+``[B, S, H, hd]`` tensor; ``hd <= 256``.  bf16 runs on Hopper's
+``wgmma`` fed by TMA (``MMA_ENTRY``: a block of two warpgroups per 128
+query rows, every head dim in one block, ``kernels/include/
+wgmma_tma.cuh``) and needs 16-byte rows (``hd`` and every stride a
+multiple of 8, 16-byte aligned data), f32 on the CUDA cores.  The C
+launcher picks the key tile (64 or 128 keys, ``fwd_chunks``; mirrored by
+``ref.kv_chunks``) and encodes the tensor maps at every call; a failed
+query of the card's SM count is returned as a launch error.  The library
 is built on first use (``repro_torch._build``) and launched through
 ``ctypes`` on PyTorch's current stream.
 
@@ -39,7 +42,7 @@ import torch
 
 from repro_torch import _build
 
-__all__ = ["DTYPES", "MAX_HD", "BWD_MAX_HD", "MMA_ENTRY", "library",
+__all__ = ["DTYPES", "MAX_HD", "BWD_MAX_HD", "MMA_ENTRY", "bind", "library",
            "rows_aligned", "flash_attention", "lse_rows",
            "flash_attention_lse", "flash_attention_bwd_dot",
            "flash_attention_bwd_dkdv", "flash_attention_bwd_dkdv_entry",
@@ -49,13 +52,15 @@ __all__ = ["DTYPES", "MAX_HD", "BWD_MAX_HD", "MMA_ENTRY", "library",
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: largest head dim
 MAX_HD = 256
-#: the name of the bf16 (tensor-core) kernel, as it appears in the built
+#: the name of the bf16 forward kernel, as it appears in the built
 #: library's symbols and in a profiler's kernel names (template arguments
-#: ``<HDP, LSE>``: ``LSE`` false for serving, true for training)
-MMA_ENTRY = "flash_attention_mma_kernel"
+#: ``<HDP, NK, LSE>``: HDP the head dim rounded up to 64, 128, 192 or
+#: 256, NK the 64-key chunks of a key tile, ``LSE`` false for serving,
+#: true for training)
+MMA_ENTRY = "flash_fwd_wgmma_kernel"
 #: largest head dim of the training entries (LSE forward and backward;
 #: above 128 the dK / dV and dQ entries' two warpgroups split the output
-#: dims of one 64-row tile, and the LSE forward the grid's z as serving)
+#: dims of one 64-row tile)
 BWD_MAX_HD = 256
 
 _P = ctypes.c_void_p
@@ -66,7 +71,13 @@ _L = ctypes.c_longlong
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """Build (first use) and load the flash-attention library."""
-    lib = _build.load("flash_attention", Path(__file__).parent / "csrc")
+    return bind(_build.load("flash_attention", Path(__file__).parent / "csrc"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the C entries' result and argument types set (a build
+    of ``csrc/flash_attention.cu``, this tree's or an earlier one with
+    the same signatures)."""
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     lib.flash_attention_error_string.argtypes = [_I]
     lib.flash_attention_launch.restype = _I

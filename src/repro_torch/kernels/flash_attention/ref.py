@@ -16,13 +16,17 @@ import math
 
 import torch
 
-__all__ = ["NEG_INF", "BQ", "BKV", "BWD_ROWS", "attention_ref", "flash_attention_ref", "flash_attention_lse_ref",
-           "flash_attention_bwd_ref", "flash_attention_tiled",
-           "flash_attention_bwd_tiled"]
+__all__ = ["NEG_INF", "BQ", "SMS", "BWD_ROWS", "attention_ref",
+           "flash_attention_ref", "flash_attention_lse_ref",
+           "flash_attention_bwd_ref", "kv_chunks", "visited_tiles",
+           "flash_attention_tiled", "flash_attention_bwd_tiled"]
 
 NEG_INF = -1e30
-#: query rows a block and keys a tile of the kernel's bf16 path
-BQ, BKV = 64, 64
+#: query rows a block of the kernel's bf16 forward (two warpgroups of 64)
+BQ = 128
+#: SMs of the card (H100 SXM): the kernel's tile choice reads the card's
+#: own count
+SMS = 132
 #: rows of the backward entries' walked tiles (a block's fixed rows are
 #: two such halves)
 BWD_ROWS = 64
@@ -92,21 +96,50 @@ def flash_attention_bwd_ref(q, k, v, do, *, causal: bool, window: int):
         return torch.autograd.grad(out, (qf, kf, vf), do.float())
 
 
+def kv_chunks(hd: int, Skv: int, blocks: int) -> int:
+    """64-key chunks a key tile of the kernel's bf16 forward holds
+    (``flash_attention.cu::fwd_chunks`` on ``SMS`` SMs): 1 above head dim
+    128, 2 above 64; at head dim 64, 1 where ``Skv`` fits one chunk or the
+    grid's ``blocks`` outnumber the SMs, else 2."""
+    if hd > 128:
+        return 1
+    if hd > 64:
+        return 2
+    return 1 if Skv <= 64 or blocks > SMS else 2
+
+
+def visited_tiles(B: int, S: int, Skv: int, H: int, hd: int, *,
+                  causal: bool, window: int):
+    """``(bkv, [(q0, [t0, ...]), ...])``: the key tiles of ``bkv`` keys
+    that the kernel's block of query rows ``q0 .. q0 + BQ - 1`` visits,
+    from the window's first key rounded down to a tile to the causal end
+    (the tiles every row of the block masks are skipped)."""
+    bkv = 64 * kv_chunks(hd, Skv, -(-S // BQ) * B * H)
+    walk = []
+    for q0 in range(0, S, BQ):
+        kv_end = min(Skv, q0 + BQ) if causal else Skv
+        kv_start = max(0, q0 - window + 1) // bkv * bkv if window else 0
+        walk.append((q0, list(range(kv_start, kv_end, bkv))))
+    return bkv, walk
+
+
 def flash_attention_tiled(q, k, v, *, causal: bool, window: int):
-    """The kernel's bf16 path, tile by tile, in the model's layout (q
+    """The kernel's bf16 forward, tile by tile, in the model's layout (q
     [B,S,H,hd]; k, v [B,Skv,K,hd], bf16) -> [B,S,H,hd] bf16: per block of
-    ``BQ`` query rows, the ``BKV``-key tiles the kernel visits (skipping
-    those above the causal diagonal or before the window, zero keys past
-    Skv, masked); scores as f32 sums of 16-wide k-steps of exact bf16
-    products, scaled by ``log2(e) / sqrt(hd)``; the online softmax in f32
-    with ``exp2``; ``P V`` as ``p_hi V + p_lo V``, ``p_hi = bf16(p)``,
-    ``p_lo = bf16(p - p_hi)``, summed in f32."""
+    ``BQ`` query rows, the tiles of ``visited_tiles`` (zero keys past
+    Skv, masked), each a chunk of 64 keys at a time: scores as f32 sums of
+    16-wide k-steps of exact bf16 products, scaled by ``log2(e) /
+    sqrt(hd)``; the online softmax in f32 with ``exp2``; ``P V`` as
+    ``p_hi V + p_lo V``, ``p_hi = bf16(p)``, ``p_lo = bf16(p - p_hi)``,
+    summed in f32."""
     if q.dtype != torch.bfloat16:
         raise ValueError("flash_attention_tiled emulates the bf16 path")
     B, S, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     G = H // K
-    pad = -Skv % BKV
+    bkv, walk = visited_tiles(B, S, Skv, H, hd, causal=causal,
+                              window=window)
+    pad = -Skv % bkv
     qf = q.float().reshape(B, S, K, G, hd).permute(0, 2, 3, 1, 4)
     # [B, K, 1, Skv + pad, hd]: broadcast over the group
     kf = torch.nn.functional.pad(k.float().transpose(1, 2),
@@ -116,19 +149,17 @@ def flash_attention_tiled(q, k, v, *, causal: bool, window: int):
     scale = math.log2(math.e) / math.sqrt(hd)
     bf = lambda x: x.to(torch.bfloat16).float()
     out = torch.empty_like(qf)
-    for q0 in range(0, S, BQ):
+    for q0, tiles in walk:
         rows = torch.arange(q0, min(S, q0 + BQ))[:, None]
         qt = qf[..., q0:q0 + BQ, :]
         m = torch.full(qt.shape[:-1] + (1,), NEG_INF)
         l = torch.zeros_like(m)
         acc = torch.zeros_like(qt)
-        kv_end = min(Skv, q0 + BQ) if causal else Skv
-        kv_start = (max(0, q0 - window + 1) // BKV) * BKV if window else 0
-        for t0 in range(kv_start, kv_end, BKV):
-            kt, vt = kf[..., t0:t0 + BKV, :], vf[..., t0:t0 + BKV, :]
+        for t0 in (c for t in tiles for c in range(t, t + bkv, 64)):
+            kt, vt = kf[..., t0:t0 + 64, :], vf[..., t0:t0 + 64, :]
             s = sum(qt[..., d:d + 16] @ kt[..., d:d + 16].transpose(-1, -2)
                     for d in range(0, hd, 16)) * scale
-            keys = torch.arange(t0, t0 + BKV)[None, :]
+            keys = torch.arange(t0, t0 + 64)[None, :]
             ok = keys < Skv
             if causal:
                 ok = ok & (rows >= keys)

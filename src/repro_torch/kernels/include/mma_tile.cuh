@@ -1,5 +1,7 @@
-// mma_tile.cuh — the tensor-core tile of the port's two attention kernels
-// (flash_attention.cu's prefill, paged_attention.cu's decode).
+// mma_tile.cuh — the tensor-core tile of the decode-attention kernel
+// (paged_attention.cu), on mma.sync; flash_attention.cu takes its
+// constants and small helpers (fast_exp2, quad_sum), its bf16 forward
+// being on wgmma (wgmma_tma.cuh).
 //
 // One warp owns 16 query rows (the A operand of mma.sync.m16n8k16, bf16
 // in, f32 accumulators) and walks tiles of 64 keys that stay bf16 in
@@ -143,41 +145,9 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 }
 
 // A warp's 16 query rows as the A operand, one 16-dim k-step at a time,
-// from one of two places.  QRegs holds all of it in registers, read once
-// from device memory (HDP / 4 registers a thread: the prefill kernel's
-// choice, each fragment used by many tiles).  QSmem reads it from a padded
-// tile in shared memory by ldmatrix (matrix m at rows + 8 (m % 2), dims +
-// 8 (m / 2)) at every k-step: the decode kernel's choice, its queries
-// landing with the first tile's cp.async copies.
-template <int HDP>
-struct QRegs {
-  uint32_t a[HDP / 16][4];
-  // rows r0 = g and g + 8 of qb (row stride qs; rows >= n and dims >= hd
-  // as zeros)
-  __device__ __forceinline__ QRegs(const bf16* qb, long long qs, int r0,
-                                   int n, int hd, int t) {
-    const auto pair = [&](int row, int d) -> uint32_t {
-      return (row < n && d < hd)
-                 ? *reinterpret_cast<const uint32_t*>(qb + row * qs + d)
-                 : 0u;
-    };
-#pragma unroll
-    for (int s = 0; s < HDP / 16; ++s) {
-      const int d = 16 * s + 2 * t;
-      a[s][0] = pair(r0, d);
-      a[s][1] = pair(r0 + 8, d);
-      a[s][2] = pair(r0, d + 8);
-      a[s][3] = pair(r0 + 8, d + 8);
-    }
-  }
-  __device__ __forceinline__ void get(int s, uint32_t (&r)[4], int) const {
-    r[0] = a[s][0];
-    r[1] = a[s][1];
-    r[2] = a[s][2];
-    r[3] = a[s][3];
-  }
-};
-
+// read from a padded tile in shared memory by ldmatrix (matrix m at rows
+// + 8 (m % 2), dims + 8 (m / 2)) at every k-step: the queries land with
+// the first tile's cp.async copies.
 template <int HDP>
 struct QSmem {
   const bf16* tile;  // 16 padded rows

@@ -1,24 +1,27 @@
 // wgmma_tma.cuh — Hopper's warpgroup matrix multiply (wgmma) fed by the
 // tensor memory accelerator (TMA): the building blocks of
-// flash_attention.cu's backward entries, and the mbarrier protocol and
-// tensor-map lookup that rglru_scan.cu's TMA ring uses too (sm_90a).
+// flash_attention.cu's bf16 forward and backward entries, and the
+// mbarrier protocol and tensor-map lookup that rglru_scan.cu's TMA ring
+// uses too (sm_90a).
 //
 // Tiles.  Every bf16 tile lives in shared memory as TMA writes it with
 // CU_TENSOR_MAP_SWIZZLE_128B: subtiles of 64 rows x 64 elements (8 KB,
 // 1024-byte aligned), each row 128 bytes, each group of 8 rows 1 024 bytes
 // after the last, the 16-byte chunks of row r XOR-ed with r % 8.  A head
 // dim of 128 is two subtiles side by side (dims 0-63, 64-127): the 128-byte
-// swizzle holds 64 bf16 a row, and out_split()'s halves of mma_tile.cuh
-// (hd 256) would be two such pairs.  One descriptor format reads a subtile
-// either way (desc_sw128: 128-byte swizzle, 1 024 bytes between 8-row
-// groups):
+// swizzle holds 64 bf16 a row; hd 256 is four.  One descriptor format
+// reads a subtile either way (desc_sw128: 128-byte swizzle, 1 024 bytes
+// between 8-row groups):
 //   * K-major (the product's k dim along the row, as Q K^T reads both Q
 //     and K): k-step s of 16 elements starts 32 s bytes into the subtile
 //     (the hardware swizzles the address it forms, as TMA did);
 //   * MN-major (the k dim down the rows, as P^T dO reads dO): k-step s of
 //     16 rows starts 2 048 s bytes in (two 8-row groups), imm-trans-b 1.
 // Products are m64n64k16 (f32 accumulators, 32 a thread): wider outputs
-// are several n64 products, so no descriptor spans two subtiles.
+// are several n64 products, so no descriptor spans two subtiles; but the
+// forward's Q K^T over a 128-key tile is one m64n128k16 (mma_ss_n128),
+// its B the tile's 128 rows of one dims subtile, two 64-row subtiles one
+// after the other (16 groups of 8 rows at the same 1 024-byte stride).
 //
 // Fragments.  A warpgroup's f32 accumulators of a 64 x 64 product, thread
 // 32 w + 4 g + t (warp w, lane 4 g + t), element i: row 16 w + g + 8
@@ -162,6 +165,40 @@ __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (+)= A B^T, m64n128k16, A and B K-major in shared memory (B's 128
+// rows two 64-row subtiles one after the other: 16 groups of 8 rows 1 024
+// bytes apart); d[n] the accumulators of columns 64 n .. 64 n + 63; acc 0
+// overwrites d
+__device__ __forceinline__ void mma_ss_n128(float (&d)[2][32], uint64_t a,
+                                            uint64_t b, int acc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, "
+      "%63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[0][4]), "+f"(d[0][5]), "+f"(d[0][6]), "+f"(d[0][7]),
+        "+f"(d[0][8]), "+f"(d[0][9]), "+f"(d[0][10]), "+f"(d[0][11]),
+        "+f"(d[0][12]), "+f"(d[0][13]), "+f"(d[0][14]), "+f"(d[0][15]),
+        "+f"(d[0][16]), "+f"(d[0][17]), "+f"(d[0][18]), "+f"(d[0][19]),
+        "+f"(d[0][20]), "+f"(d[0][21]), "+f"(d[0][22]), "+f"(d[0][23]),
+        "+f"(d[0][24]), "+f"(d[0][25]), "+f"(d[0][26]), "+f"(d[0][27]),
+        "+f"(d[0][28]), "+f"(d[0][29]), "+f"(d[0][30]), "+f"(d[0][31]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[1][4]), "+f"(d[1][5]), "+f"(d[1][6]), "+f"(d[1][7]),
+        "+f"(d[1][8]), "+f"(d[1][9]), "+f"(d[1][10]), "+f"(d[1][11]),
+        "+f"(d[1][12]), "+f"(d[1][13]), "+f"(d[1][14]), "+f"(d[1][15]),
+        "+f"(d[1][16]), "+f"(d[1][17]), "+f"(d[1][18]), "+f"(d[1][19]),
+        "+f"(d[1][20]), "+f"(d[1][21]), "+f"(d[1][22]), "+f"(d[1][23]),
+        "+f"(d[1][24]), "+f"(d[1][25]), "+f"(d[1][26]), "+f"(d[1][27]),
+        "+f"(d[1][28]), "+f"(d[1][29]), "+f"(d[1][30]), "+f"(d[1][31])
       : "l"(a), "l"(b), "r"(acc));
 }
 

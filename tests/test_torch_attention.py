@@ -53,6 +53,8 @@ FLASH_CASES = [
     (1, 144, 10, 1, 256, True, 64),    # hd 256, MQA G 10, a window
                                        # (recurrentgemma's widths)
     (2, 48, 4, 4, 256, False, 0),      # hd 256, bidirectional
+    (2, 64, 4, 2, 64, False, 0, 200),  # cross attention, Skv 200: the
+                                       # last key tile ragged
 ]
 #: tests/test_kernels.py::test_paged_attention's matrix
 DECODE_CASES = [
@@ -98,12 +100,19 @@ def _f32(x):
                       else x.astype(jnp.float32), np.float32)
 
 
+def _dims(case):
+    """``(B, S, Skv, H, K, hd, causal, window)`` of a ``FLASH_CASES``
+    entry: ``Skv`` is its eighth element where it has one, else ``S``."""
+    B, S, H, K, hd, causal, window = case[:7]
+    return B, S, (case[7] if len(case) > 7 else S), H, K, hd, causal, window
+
+
 def _flash_inputs(case, dtype, seed=0):
-    B, S, H, K, hd, causal, window = case
+    B, S, Skv, H, K, hd, causal, window = _dims(case)
     rng = np.random.default_rng(seed)
     jdt, tdt, _ = DTYPES[dtype]
     return [_pair(_normal(rng, s), jdt, tdt)
-            for s in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd))]
+            for s in ((B, S, H, hd), (B, Skv, K, hd), (B, Skv, K, hd))]
 
 
 def _decode_inputs(case, seed=0):
@@ -141,7 +150,7 @@ def _within_one_ulp(got, want, dtype="bf16"):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("case", FLASH_CASES, ids=str)
 def test_flash_matches_repro(case, dtype):
-    B, S, H, K, hd, causal, window = case
+    B, S, Skv, H, K, hd, causal, window = _dims(case)
     (qj, qt), (kj, kt), (vj, vt) = _flash_inputs(case, dtype)
     want = j_fa.flash_attention(qj, kj, vj, causal=causal, window=window,
                                 block_q=64, block_kv=64)
@@ -193,7 +202,7 @@ def test_flash_plain_matches_naive_attention():
     """The plain flash version equals ``layers.naive_attention`` at its
     own positions (both f32 softmax over the same masks)."""
     case = FLASH_CASES[4]
-    B, S, H, K, hd, causal, window = case
+    B, S, Skv, H, K, hd, causal, window = _dims(case)
     (_, q), (_, k), (_, v) = _flash_inputs(case, "f32", seed=5)
     pos = torch.arange(S)
     got = fr.flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -206,10 +215,12 @@ def test_flash_plain_matches_naive_attention():
 @pytest.mark.parametrize("case", FLASH_CASES, ids=str)
 def test_flash_tiled_matches_plain(case):
     """The bf16 path's numerics (f32 sums of exact bf16 products in
-    16-wide steps, exp2, ``p_hi + p_lo``, 64-key tiles with the causal /
-    window skip) stay within one bf16 ulp of the f32 plain version, the
-    limit the kernel is held to on the card."""
-    B, S, H, K, hd, causal, window = case
+    16-wide steps, the scale to log2 units and then ``exp2``, ``p_hi +
+    p_lo``, 128-row blocks over 64- or 128-key tiles with the causal /
+    window skip) stay within one
+    bf16 ulp of the f32 plain version, the limit the kernel is held to on
+    the card."""
+    B, S, Skv, H, K, hd, causal, window = _dims(case)
     (_, q), (_, k), (_, v) = _flash_inputs(case, "bf16", seed=6)
     got = fr.flash_attention_tiled(q, k, v, causal=causal, window=window)
     assert got.dtype == torch.bfloat16 and got.shape == (B, S, H, hd)
@@ -219,13 +230,68 @@ def test_flash_tiled_matches_plain(case):
 
 @pytest.mark.parametrize("case", FLASH_CASES, ids=str)
 def test_flash_tiled_matches_repro(case):
-    B, S, H, K, hd, causal, window = case
+    B, S, Skv, H, K, hd, causal, window = _dims(case)
     (qj, qt), (kj, kt), (vj, vt) = _flash_inputs(case, "bf16", seed=7)
     want = j_fa.flash_attention(qj, kj, vj, causal=causal, window=window,
                                 block_q=64, block_kv=64)
     got = fr.flash_attention_tiled(qt, kt, vt, causal=causal, window=window)
     tol = DTYPES["bf16"][2]
     np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+
+
+#: (S, Skv, causal, window) over which the tile walk is checked: lengths
+#: around the 64-key chunk and the 128-row block, windows from 1 key to
+#: past S, and cross attention (S != Skv, no mask)
+WALK_LENGTHS = (1, 16, 63, 64, 65, 127, 128, 129, 200, 300)
+WALK_CASES = ([(S, S, c, w) for S in WALK_LENGTHS for c in (True, False)
+               for w in (0, 1, 7, 64, 65, 128, 200)]
+              + [(S, Skv, False, 0) for S in (1, 64, 129)
+                 for Skv in (1, 63, 200, 1500)])
+
+
+@pytest.mark.parametrize("hd,heads", [(64, 1), (64, 400), (128, 1),
+                                      (256, 1)])
+def test_flash_tile_walk_skips_no_valid_pair(hd, heads):
+    """Every (query, key) pair the masks keep lies in a key tile that
+    the query's 128-row block visits (``ref.visited_tiles``, the kernel's
+    walk: 128-key tiles up to hd 128, 64 above, 64 at hd 64 where Skv
+    fits 64 keys or the grid has more blocks than the card has SMs), and
+    every visited tile starts below Skv."""
+    for S, Skv, causal, window in WALK_CASES:
+        qp = torch.arange(S)[:, None]
+        kp = torch.arange(Skv)[None, :]
+        dense = torch.ones(S, Skv, dtype=torch.bool)
+        if causal:
+            dense &= qp >= kp
+        if window:
+            dense &= qp - kp < window
+        bkv, walk = fr.visited_tiles(1, S, Skv, heads, hd, causal=causal,
+                                     window=window)
+        assert bkv == (64 if hd > 128 or hd <= 64 and (
+            Skv <= 64 or heads * -(-S // 128) > fr.SMS) else 128)
+        seen = torch.zeros(S, Skv, dtype=torch.bool)
+        for q0, tiles in walk:
+            assert all(0 <= t0 < Skv for t0 in tiles)
+            for t0 in tiles:
+                seen[q0:q0 + fr.BQ, t0:t0 + bkv] = True
+        assert not bool((dense & ~seen).any()), (S, Skv, causal, window)
+
+
+def test_flash_tile_walk_follows_the_cuda_source():
+    """The emulation's block rows, tile choice and window rounding are the
+    kernel's own, read from ``flash_attention.cu``."""
+    src = (ROOT / "src" / "repro_torch" / "kernels" / "flash_attention" /
+           "csrc" / "flash_attention.cu").read_text()
+    assert re.search(r"constexpr int FWD_BQ = (\d+);", src).group(1) == \
+        str(fr.BQ)
+    rule = re.search(r"int fwd_chunks\(int hd, int Skv, long long blocks, "
+                     r"int sms\) \{(.*?)\n\}", src, re.S).group(1)
+    for line in ("if (hd > 128) return 1;", "if (hd > 64) return 2;",
+                 "return Skv <= 64 || blocks > sms ? 1 : 2;"):
+        assert line in rule
+    assert ("const int kv_start = window ? max(0, q0 - window + 1) / BKV "
+            "* BKV : 0;") in src
+    assert "static constexpr int BKV = 64 * NK;" in src
 
 
 @pytest.mark.parametrize("n_split", N_SPLITS)
@@ -414,7 +480,7 @@ def cuda():
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("case", FLASH_CASES, ids=str)
 def test_flash_kernel_matches_plain(cuda, case, dtype):
-    B, S, H, K, hd, causal, window = case
+    B, S, Skv, H, K, hd, causal, window = _dims(case)
     (_, q), (_, k), (_, v) = _flash_inputs(case, dtype, seed=1)
     q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
     before = fa.launches
